@@ -1,0 +1,507 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+holds each against its plain PyTorch version on the card, checks that the
+port's engine samples the same tokens on the card (kernels) and on the CPU
+(plain versions), and serves llama-8b at full width (random bf16 weights
+from a seed) through ``repro_torch.launch.serve``'s loop. Every phase prints
+one JSON line; any failure ends the run with a non-zero exit code. Without
+a GPU it fails at once. The last line of the output is
+``{"ok": true, "device": {...}}``; the line with the per-kernel numbers
+(``{"kernels": [...]}``) and the card's name and power limit come just
+before it.
+
+``--phases kernels,parity`` runs a subset (env and build always run); the
+final ``ok`` line is printed only when every phase ran.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_prefill import (flash_prefill,  # noqa: E402
+                                               flash_prefill_plain)
+from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
+                                                 paged_attention_plain)
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.request import make_batch, make_interactive  # noqa: E402
+
+ALL_PHASES = ("kernels", "parity", "serve")
+
+# NVIDIA H100 SXM data sheet, dense rates
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# tolerances of the reference's kernel tests; the kernels keep the softmax
+# weights in float32 where the plain versions round the output once, which
+# is far inside the bfloat16 tolerance
+TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+
+KERNEL_INFO = {
+    "paged_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:107",
+    },
+    "flash_prefill": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill.py:85",
+    },
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(message: str) -> None:
+    print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    """Max abs error; fails unless |got - want| <= tol + tol * |want|."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: kernel output is not finite")
+    err = (got - want).abs()
+    tol = TOL[dtype]
+    if not bool((err <= tol + tol * want.abs()).all()):
+        fail(f"{name}: max abs error {err.max().item():.3e} exceeds "
+             f"tolerance {tol:g} (atol and rtol)")
+    return err.max().item()
+
+
+def bound(n_bytes: float, n_flops: float, dtype):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------ phases
+def phase_env() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-2:]
+    emit("env", torch=torch.__version__, cuda_runtime=torch.version.cuda,
+         nvcc=" | ".join(nvcc), gpu=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, python=sys.version.split()[0])
+    return smi
+
+
+def phase_build() -> None:
+    t0 = time.monotonic()
+    out = _build.build_all(extra_flags=("-Xptxas=-v",))
+    # registers, shared memory and spills of the widest instantiations
+    usage = {}
+    for name, text in out.items():
+        lines = [ln.strip() for ln in text.splitlines() if "registers" in ln]
+        spills = [ln for ln in text.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        usage[name] = {"max_registers": max(
+            (int(ln.split("Used ")[1].split(" registers")[0]) for ln in lines),
+            default=None), "kernels": len(lines), "with_spills": len(spills)}
+    emit("build", seconds=round(time.monotonic() - t0, 2),
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=usage)
+
+
+def _paged_case(gen, dtype, B, n_kv, group, D, lengths, pages_per_seq, copies=1):
+    """Random q, ``copies`` pools and one shuffled block table on the card."""
+    dev = "cuda"
+    num_pages = B * pages_per_seq
+    q = torch.randn((B, n_kv, group, D), generator=gen, device=dev).to(dtype)
+    pools = [(torch.randn((num_pages, 16, n_kv, D), generator=gen, device=dev).to(dtype),
+              torch.randn((num_pages, 16, n_kv, D), generator=gen, device=dev).to(dtype))
+             for _ in range(copies)]
+    perm = torch.randperm(num_pages, generator=gen, device=dev)
+    bt = perm.reshape(B, pages_per_seq).to(torch.int32).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, pools, bt, ln
+
+
+def phase_kernels(gen) -> dict:
+    """Each kernel against its plain version; returns the per-kernel record
+    of the main path's shapes in bf16 (without the launch counts)."""
+    records = {}
+    F = torch.nn.functional
+
+    # ---- paged_attention: the serving instance's decode shapes
+    B, n_kv, group, D, pps = 8, 8, 4, 128, 64
+    lengths = [1024, 0, 1000, 517, 16, 1, 333, 768]   # 0, and not multiples of 16
+    for dtype in (torch.bfloat16, torch.float32):
+        # pools rotate so that, as between the layers of a model, a launch
+        # does not find its K/V in the 50 MB L2 from the launch before
+        q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths,
+                                       pps, copies=4)
+        out = paged_attention(q, *pools[0], bt, ln)
+        torch.cuda.synchronize()
+        want = paged_attention_plain(q, *pools[0], bt, ln)
+        err = check_close(f"paged_attention {dtype}", out, want, dtype)
+        if out[1].abs().max().item() != 0.0:
+            fail("paged_attention: a sequence of length 0 must give zeros")
+        turn = [0]
+
+        def run_kernel():
+            turn[0] = (turn[0] + 1) % len(pools)
+            paged_attention(q, *pools[turn[0]], bt, ln)
+
+        def run_plain():
+            turn[0] = (turn[0] + 1) % len(pools)
+            paged_attention_plain(q, *pools[turn[0]], bt, ln)
+
+        ms = time_ms(run_kernel)
+        plain_ms = time_ms(run_plain, iters=5, warmup=1)
+        # one library call on the same work: dense gathered K/V and a mask
+        idx = bt.long()
+        kd = pools[0][0][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
+        vd = pools[0][1][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
+        kd = kd.repeat_interleave(group, dim=1).contiguous()
+        vd = vd.repeat_interleave(group, dim=1).contiguous()
+        qd = q.reshape(B, n_kv * group, 1, D)
+        mask = (torch.arange(pps * 16, device="cuda")[None, :] < ln[:, None])
+        mask = mask[:, None, None, :]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        es = q.element_size()
+        tokens = sum(lengths)
+        n_bytes = (2 * tokens * n_kv * D + 2 * q.numel()) * es + \
+            4 * (sum(-(-n // 16) for n in lengths) + B)
+        b_ms, b_by = bound(n_bytes, 4.0 * tokens * n_kv * group * D, dtype)
+        rec = {"name": "paged_attention", **KERNEL_INFO["paged_attention"],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+        emit("kernels", kernel="paged_attention", dtype=str(dtype),
+             shape=dict(B=B, n_kv=n_kv, group=group, D=D, page=16, lengths=lengths,
+                        block_tables="shuffled"),
+             tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, bound_ms=b_ms,
+             bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+        if dtype == torch.bfloat16:
+            records["paged_attention"] = rec
+
+    # a narrow case: D = 64, group = 8, a table with unused (garbage) entries
+    q, pools, bt, ln = _paged_case(gen, torch.float32, 3, 2, 8, 64, [40, 7, 0], 4)
+    bt[1, 1:] = 2 ** 30      # pages past a sequence's length are never read
+    bt[2, :] = 2 ** 30
+    out = paged_attention(q, *pools[0], bt, ln)
+    torch.cuda.synchronize()
+    bt_safe = bt.clone()
+    bt_safe[bt_safe == 2 ** 30] = 0
+    err = check_close("paged_attention D=64 group=8", out,
+                      paged_attention_plain(q, *pools[0], bt_safe, ln), torch.float32)
+    emit("kernels", kernel="paged_attention", dtype="torch.float32",
+         shape=dict(B=3, n_kv=2, group=8, D=64, lengths=[40, 7, 0]),
+         tolerance=TOL[torch.float32], max_abs_err=err)
+
+    # ---- flash_prefill: one prompt at a time, (B,S,H,D) tensors as strided views
+    H, Hkv, D = 32, 8, 128
+    cases = [  # (S, q_offset, causal); 341 is the longest prompt `serve` admits
+        (53, 0, True), (341, 0, True), (512, 0, True), (682, 0, True),
+        (200, 312, True), (300, 0, False)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, q_offset, causal in cases:
+            T = q_offset + S if causal else S
+            q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((1, T, Hkv, D), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((1, T, Hkv, D), generator=gen, device="cuda").to(dtype)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            kw = dict(causal=causal, q_offset=q_offset if causal else 0)
+            out = flash_prefill(qt, kt, vt, **kw)
+            torch.cuda.synchronize()
+            want = flash_prefill_plain(qt, kt, vt, **kw)
+            err = check_close(f"flash_prefill {dtype} S={S} off={q_offset} "
+                              f"causal={causal}", out, want, dtype)
+            ms = time_ms(lambda: flash_prefill(qt, kt, vt, **kw))
+            plain_ms = time_ms(lambda: flash_prefill_plain(qt, kt, vt, **kw),
+                               iters=5, warmup=1)
+            library_ms = None
+            if q_offset == 0:
+                ke = kt.repeat_interleave(H // Hkv, dim=1)
+                ve = vt.repeat_interleave(H // Hkv, dim=1)
+                library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, ke, ve, is_causal=causal))
+            seen = sum(q_offset + i + 1 for i in range(S)) if causal else S * T
+            es = q.element_size()
+            b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * es,
+                               4.0 * H * D * seen, dtype)
+            emit("kernels", kernel="flash_prefill", dtype=str(dtype),
+                 shape=dict(B=1, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=q_offset,
+                            causal=causal),
+                 tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, bound_ms=b_ms,
+                 bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+            if dtype == torch.bfloat16 and (S, q_offset, causal) == (341, 0, True):
+                records["flash_prefill"] = {
+                    "name": "flash_prefill", **KERNEL_INFO["flash_prefill"],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+    # narrow head_dim and a batch of two, fp32
+    q = torch.randn((2, 75, 4, 64), generator=gen, device="cuda")
+    k = torch.randn((2, 75, 2, 64), generator=gen, device="cuda")
+    v = torch.randn((2, 75, 2, 64), generator=gen, device="cuda")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = flash_prefill(qt, kt, vt)
+    torch.cuda.synchronize()
+    err = check_close("flash_prefill D=64 B=2", out, flash_prefill_plain(qt, kt, vt),
+                      torch.float32)
+    emit("kernels", kernel="flash_prefill", dtype="torch.float32",
+         shape=dict(B=2, H=4, Hkv=2, D=64, S=75), tolerance=TOL[torch.float32],
+         max_abs_err=err)
+    return records
+
+
+def _parity_run(cfg, params, device, prompts):
+    """Serve ``prompts`` (interactive and batch, with one preemption) and
+    return every slot's next token after every step."""
+    eng = Engine(cfg, params=params, max_slots=3, max_len=96,
+                 dtype=torch.float32, device=device)
+    trace = []
+    reqs = []
+    for i, toks in enumerate(prompts):
+        make = make_batch if i < 3 else make_interactive
+        r = make(len(toks), 10 + 3 * i)
+        r.prompt_tokens = toks
+        reqs.append(r)
+    for r in reqs[:3]:
+        eng.submit(r)
+    step = 0
+    while (eng.waiting or eng.n_active) and step < 400:
+        if step == 3:
+            for r in reqs[3:]:
+                eng.submit(r)        # interactive arrivals preempt a batch request
+        stats = eng.step()
+        for victim in stats.preempted:
+            eng.submit(victim)
+        trace.append([s.token for s in eng.slots])
+        step += 1
+    if any(r.state.value != "finished" for r in reqs):
+        fail(f"parity: not every request finished on {device}")
+    return trace, sum(r.preemptions for r in reqs)
+
+
+def phase_parity() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config("llama-8b").with_(head_dim=64)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    params_cpu = Model(cfg).init(gen, dtype=torch.float32, device="cpu")
+
+    def to_cuda(tree):
+        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
+                for k, v in tree.items()}
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
+               for n in (9, 23, 17, 30, 5)]
+    before = (paged_attention.launches, flash_prefill.launches)
+    gpu_trace, gpu_preempt = _parity_run(cfg, to_cuda(params_cpu), "cuda", prompts)
+    launched = (paged_attention.launches - before[0],
+                flash_prefill.launches - before[1])
+    cpu_trace, cpu_preempt = _parity_run(cfg, params_cpu, "cpu", prompts)
+    if launched[0] == 0 or launched[1] == 0:
+        fail("parity: the engine on the card did not launch both kernels")
+    if gpu_trace != cpu_trace:
+        first = next(i for i, (a, b) in enumerate(zip(gpu_trace, cpu_trace)) if a != b)
+        fail(f"parity: tokens differ at step {first}: card {gpu_trace[first]}, "
+             f"cpu {cpu_trace[first]}")
+    if gpu_preempt < 1 or gpu_preempt != cpu_preempt:
+        fail("parity: the run was meant to go through a preempt-and-restore cycle")
+    emit("parity", config="llama-8b smoke, head_dim=64, float32", steps=len(gpu_trace),
+         preemptions=gpu_preempt, allow_tf32=False, tokens_agree=True,
+         kernel_launches=dict(paged_attention=launched[0], flash_prefill=launched[1]))
+
+
+def _profiled(fn, reps: int) -> dict:
+    """Run ``fn`` ``reps`` times under torch.profiler and return, per run,
+    the device-busy time (sum of the kernels' own times), the number of
+    kernel launches and the busiest kernels. Profiling slows the host, so
+    wall times are taken in a separate, unprofiled window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(((e.key, device_us(e) / reps / 1e3) for e in kernels),
+                 key=lambda kv: -kv[1])
+    return {"device_ms": sum(ms for _, ms in top),
+            "launches": sum(e.count for e in kernels) / reps,
+            "own_kernels_ms": {k.split("<")[0].split("::")[-1]: round(ms, 4)
+                               for k, ms in top if "paged_attention_kernel" in k
+                               or "flash_prefill_kernel" in k},
+            "top_ms": [[k[:60], round(ms, 4)] for k, ms in top[:6]]}
+
+
+def _wall_ms(fn, reps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3 / reps
+
+
+def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
+    """Host (wall) time beside device-busy time of one decode step at a full
+    slot pool and of one prefill: how far the eager host code holds the card
+    back. ``prompt`` is a length near the longest the serve phase admits
+    (341) that its run has most likely not seen, so the first call shows what
+    a new prompt length costs on top of the steady time."""
+    for _ in range(eng.max_slots):
+        eng.submit(make_interactive(64, 2 * steps + 8))
+    eng.set_max_batch_size(eng.max_slots)
+    for _ in range(3):
+        eng.step()
+    out = {"decode_wall_ms_per_step": _wall_ms(eng.step, steps)}
+    prof = _profiled(eng.step, steps)
+    while eng.waiting or eng.n_active:
+        eng.step()
+
+    toks = torch.randint(0, eng.cfg.vocab_size, (1, prompt), device=eng.device)
+
+    @torch.no_grad()
+    def prefill():
+        eng.model.prefill(eng.params, {"tokens": toks}, dtype=eng.dtype)
+
+    out["prefill_tokens"] = prompt
+    out["prefill_first_call_wall_ms"] = _wall_ms(prefill, 1)
+    out["prefill_wall_ms"] = _wall_ms(prefill, 3)
+    pre = _profiled(prefill, 2)
+    if not prof["device_ms"]:      # the profiler saw no device activity here
+        return {**out, "decode_device_ms_per_step": None}
+    for name, p in (("decode", prof), ("prefill", pre)):
+        unit = "_per_step" if name == "decode" else ""
+        out[f"{name}_device_ms{unit}"] = p["device_ms"]
+        out[f"{name}_launches{unit}"] = p["launches"]
+        out[f"{name}_own_kernels_ms{unit}"] = p["own_kernels_ms"]
+        out[f"{name}_top_device_ms{unit}"] = p["top_ms"]
+    out["decode_device_idle_share"] = \
+        1.0 - prof["device_ms"] / out["decode_wall_ms_per_step"]
+    out["prefill_device_idle_share"] = 1.0 - pre["device_ms"] / out["prefill_wall_ms"]
+    return out
+
+
+def phase_serve(smi: str) -> dict:
+    cfg = get_config("llama-8b")
+    n_requests, max_output = 24, 64
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    t0 = time.monotonic()
+    res = serve(cfg, requests=n_requests, max_slots=8, max_len=1024,
+                dtype=torch.bfloat16, device="cuda",
+                max_output=max_output, verbose=False)
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    total_s = time.monotonic() - t0
+    eng = res["engine"]
+    if res["n_finished"] != n_requests:
+        fail(f"serve: {res['n_finished']} of {n_requests} requests finished")
+    want = {"paged_attention": res["decode_steps"] * cfg.n_layers,
+            "flash_prefill": res["prefills"] * cfg.n_layers}
+    if launches != want or min(launches.values()) == 0:
+        fail(f"serve: kernel launches {launches}, the run implies {want}")
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else [v]
+
+    if any(t.device.type != "cuda" for t in [*leaves(eng.params), *leaves(eng.pool)]):
+        fail("serve: a parameter or pool tensor lives on the CPU")
+    for r in res["requests"]:
+        if r.tokens_generated < min(r.output_len, 1) or r.first_token_time is None:
+            fail("serve: a finished request generated no token")
+    itl = np.asarray(res["itl_s"])
+    ttft = np.asarray(res["ttft_s"])
+    share = _where_the_time_goes(eng)
+    emit("serve", gpu=smi, model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype="bfloat16", params=cfg.param_count(),
+         requests=n_requests, max_output=max_output, max_slots=8, max_len=1024,
+         finished=res["n_finished"], tokens=res["tokens"],
+         serve_loop_s=res["wall_s"], with_weight_init_s=total_s,
+         tokens_per_s=res["tokens_per_s"], decode_steps=res["decode_steps"],
+         prefills=res["prefills"], itl_mean_ms=float(itl.mean() * 1e3),
+         itl_p50_ms=float(np.percentile(itl, 50) * 1e3),
+         itl_p99_ms=float(np.percentile(itl, 99) * 1e3),
+         ttft_mean_ms=float(ttft.mean() * 1e3),
+         preemptions=sum(r.preemptions for r in res["requests"]),
+         batch_size_history=res["batch_size_history"],
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         kernel_launches=launches, **share)
+    return launches
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of: " + ", ".join(ALL_PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if any(p not in ALL_PHASES for p in phases):
+        fail(f"unknown phase in {phases}; known: {ALL_PHASES}")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on a GPU")
+
+    smi = phase_env()
+    phase_build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    records = phase_kernels(gen) if "kernels" in phases else {}
+    if "parity" in phases:
+        phase_parity()
+    launches = phase_serve(smi) if "serve" in phases else {}
+    if set(phases) != set(ALL_PHASES):
+        print(f"chip_smoke: partial run ({phases}); no result line")
+        return
+    kernels = [{**records[name], "launches": launches[name]}
+               for name in ("paged_attention", "flash_prefill")]
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in kernels]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,135 @@
+"""Flash attention for prefill: wrapper, plain PyTorch version, launch counter.
+
+The kernel is ``csrc/flash_prefill.cu`` (CUDA C++ for sm_90a). It replaces
+the TPU kernel ``repro/kernels/flash_prefill.py::flash_prefill`` (body
+``_kernel``): causal or full GQA attention with an online softmax in
+float32. It is extended only as far as the serving path feeds it: the keys
+and values may hold ``q_offset`` already-cached positions in front
+(``T = q_offset + S``; query row ``i`` sits at position ``q_offset + i``),
+``S`` and ``T`` are arbitrary, and the batch, head and sequence axes may be
+strided (``D`` contiguous), so ``(B, S, H, D)`` tensors are passed as
+transposed views without a copy.
+
+Bound on the H100: operations, ``4 * B * H * S * T * D`` (half of it when
+causal with ``q_offset == 0``) against ``2 * (S + T) * D`` elements per
+head. The kernel's design (one block per (batch, head, 64 query rows), a
+loop over KV tiles up to the causal limit, both products as fp32 FMAs out of
+padded shared memory) and what holds it back (no tensor cores yet) are
+described at the top of the ``.cu`` source.
+
+``flash_prefill`` runs the plain version only for tensors on the CPU. On
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+_NEG_INF = -1e30
+_HEAD_DIMS = (64, 128)
+
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version, any device: materialises the (S, T) scores.
+
+    q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D). Softmax in float32.
+    """
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qg = q.reshape(B, Hkv, group, S, D).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    if causal:
+        qi = q_offset + torch.arange(S, device=q.device)[:, None]
+        ki = torch.arange(T, device=q.device)[None, :]
+        s = torch.where(ki <= qi, s, torch.full_like(s, _NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def _check(q, k, v, causal, q_offset):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_prefill: q (B,H,S,D) and k, v (B,Hkv,T,D) "
+                         "expected")
+    B, H, S, D = q.shape
+    Bk, Hkv, T, Dk = k.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_prefill kernel: dtype {q.dtype} not taken "
+                        "(float32 and bfloat16 are)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_prefill kernel: q, k and v must share one dtype")
+    if D not in _HEAD_DIMS or Dk != D:
+        raise ValueError(f"flash_prefill kernel: head_dim {D} not taken "
+                         f"(one of {_HEAD_DIMS} is)")
+    if Bk != B or Hkv < 1 or H % Hkv:
+        raise ValueError("flash_prefill kernel: batch or head counts of q and "
+                         "k do not match")
+    if S < 1 or T < 1:
+        raise ValueError("flash_prefill kernel: empty sequence")
+    if q_offset < 0 or (causal and T != q_offset + S):
+        raise ValueError(f"flash_prefill kernel: causal attention needs "
+                         f"T == q_offset + S, got T={T}, q_offset={q_offset}, "
+                         f"S={S}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_prefill kernel: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_prefill kernel: {name} needs a contiguous head_dim "
+                f"axis and 16-byte aligned rows, got strides {t.stride()}")
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.library("flash_prefill")
+    fn = lib.flash_prefill_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+            [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Flash attention. q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D) with
+    q's strides. When causal, ``T == q_offset + S`` and query row ``i`` sees
+    KV rows ``0 .. q_offset + i``.
+
+    Tensors on the CPU go through ``flash_prefill_plain``; tensors on a CUDA
+    device launch the kernel (and count the launch in
+    ``flash_prefill.launches``) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill: device {q.device} not supported")
+    _check(q, k, v, causal, q_offset)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)        # keeps q's strides: no transposed copy
+    if out.stride(3) != 1:
+        raise ValueError("flash_prefill kernel: q is not dense")
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    with torch.cuda.device(q.device):
+        err = _library().flash_prefill_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, Hkv, S, T, D, q_offset, int(causal),
+            int(q.dtype == torch.bfloat16), strides, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error {err}")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0   # launches of the CUDA kernel by this wrapper

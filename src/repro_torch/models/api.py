@@ -1,0 +1,97 @@
+"""Unified model API of the port.
+
+``Model(cfg)`` exposes:
+  init(gen, dtype, device)           -> params
+  forward(params, batch)             -> (logits, aux_loss)
+  prefill(params, batch)             -> (last_logits, cache)
+  decode_step(params, tokens, cache) -> (logits, cache)
+  init_cache(batch, cache_len)       -> zeroed paged cache
+
+``batch`` is a dict with ``tokens (B,S)`` integer ids. Only the dense family
+is ported; the reference's other families raise ``NotImplementedError``.
+Entry points default to ``device="cuda"`` and raise when there is no GPU:
+nothing here continues on the CPU unless the caller asks for it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+Params = Dict[str, Any]
+Batch = Dict[str, torch.Tensor]
+
+_FAMILY = {
+    "dense": transformer,
+}
+
+# where ROADMAP.md (Queue A) lists each family that is still to be ported
+_NOT_PORTED = {
+    "moe": "item 4 (models/moe.py and the moe arm of the transformer)",
+    "vlm": "item 2 (prefix_len and the vlm arm of the transformer)",
+    "ssm": "item 5 (models/ssm.py, mamba_model.py with the ssd_scan kernel)",
+    "hybrid": "item 5 (models/hybrid.py with the ssd_scan kernel)",
+    "audio": "item 6 (models/encdec.py)",
+}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names a CUDA device
+    and there is none, so that no caller continues on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return device
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.arch_type not in _FAMILY:
+            where = _NOT_PORTED.get(cfg.arch_type)
+            if where is None:
+                raise KeyError(f"unknown arch_type {cfg.arch_type!r}")
+            raise NotImplementedError(
+                f"the {cfg.arch_type!r} family is not ported to repro_torch "
+                f"yet: ROADMAP.md, Queue A, {where}")
+        self.cfg = cfg
+        self._m = _FAMILY[cfg.arch_type]
+
+    # ------------------------------------------------------------ params
+    def init(self, gen: Optional[torch.Generator] = None, dtype=None,
+             device="cuda") -> Params:
+        """Random parameters on ``device`` from ``gen`` (default: a generator
+        on that device seeded with 0)."""
+        device = resolve_device(device)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(0)
+        return self._m.init_params(self.cfg, gen, dtype=dtype, device=device)
+
+    # ------------------------------------------------------------ forward
+    def forward(self, params: Params, batch: Batch):
+        return self._m.forward(self.cfg, params, batch["tokens"])
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, cache_len: int, dtype=None, device="cuda"):
+        dtype = dtype or getattr(torch, self.cfg.dtype)
+        return self._m.init_cache(self.cfg, batch, cache_len, dtype,
+                                  resolve_device(device))
+
+    def prefill(self, params: Params, batch: Batch, *,
+                cache_len: Optional[int] = None, dtype=None, past_cache=None):
+        return self._m.prefill(self.cfg, params, batch["tokens"],
+                               cache_len=cache_len, dtype=dtype,
+                               past_cache=past_cache)
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache,
+                    active: Optional[torch.Tensor] = None):
+        return self._m.decode_step(self.cfg, params, tokens, cache, active)
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,323 @@
+"""Shared building blocks of the dense decoder-only family (PyTorch).
+
+The port of the dense subset of ``repro.models.layers``: parameters are
+nested dicts of tensors created by ``init_*`` functions and consumed by the
+matching forward functions, with the reference's layouts at every public
+function.
+
+Conventions:
+- activations compute in the parameter dtype; softmax / norms in float32.
+- full-sequence attention goes through ``ops.flash_prefill`` and one-token
+  decode attention through ``ops.paged_attention`` over a page pool
+  ``(num_pages, page, Hkv, D)`` per layer. On CUDA tensors both are the
+  hand-written kernels; on CPU tensors their plain PyTorch versions.
+- what the two kernels do not take yet raises ``NotImplementedError`` on
+  every device: sliding-window attention, a bidirectional prefix
+  (``prefix_len``) and cross-attention (``kv_x``). See ROADMAP.md, Queue A.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+Params = Dict[str, Any]
+
+# ---------------------------------------------------------------- utilities
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, device,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, scale) drawn in float32 on ``device`` and cast to ``dtype``."""
+    fan_in = shape[0]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, w: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if w is not None:
+        y = y * w.float()
+    return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: Optional[torch.Tensor], b: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if w is not None:
+        y = y * w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def init_norm(cfg: ModelConfig, dtype, device) -> Params:
+    if cfg.norm == "rmsnorm":
+        return {"w": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+                "b": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+    return {}  # nonparametric (OLMo-style)
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, p["w"])
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
+    return layer_norm(x, None, None)  # nonparametric LN
+
+
+# ---------------------------------------------------------------- RoPE
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin of shape (..., head_dim//2), float32."""
+    half = head_dim // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) *
+                      (math.log(theta) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., n_heads, head_dim); cos/sin broadcastable to (..., 1, head_dim//2).
+    The two halves of head_dim are rotated against each other (not
+    interleaved pairs)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
+                   d_model: Optional[int] = None) -> Params:
+    d = d_model or cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": _dense_init(gen, (d, cfg.n_heads * hd), dtype, device),
+        "wk": _dense_init(gen, (d, cfg.n_kv_heads * hd), dtype, device),
+        "wv": _dense_init(gen, (d, cfg.n_kv_heads * hd), dtype, device),
+        "wo": _dense_init(gen, (cfg.n_heads * hd, d), dtype, device),
+    }
+
+
+def _reject_unported(cfg: ModelConfig, *, prefix_len: int = 0, kv_x=None) -> None:
+    if cfg.sliding_window > 0:
+        raise NotImplementedError(
+            "sliding-window attention is not ported to repro_torch yet "
+            "(ROADMAP.md, Queue A)")
+    if prefix_len > 0:
+        raise NotImplementedError(
+            "bidirectional prefix attention (prefix_len > 0, VLM) is not "
+            "ported to repro_torch yet (ROADMAP.md, Queue A)")
+    if kv_x is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_x) is not ported to repro_torch yet "
+            "(ROADMAP.md, Queue A)")
+
+
+def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                      positions: Optional[torch.Tensor] = None,
+                      causal: bool = True,
+                      kv_x: Optional[torch.Tensor] = None,
+                      use_rope: bool = True,
+                      prefix_len: int = 0,
+                      return_kv: bool = False,
+                      past_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Full-sequence self-attention through ``ops.flash_prefill``.
+
+    x (B,S,d). positions: absolute positions (B,S) for RoPE; default
+    ``past_len + arange(S)``.
+    return_kv: also return the (roped) K and V of the new tokens, e.g. for
+    cache building.
+    past_kv: (pk, pv) of shape (B, P, Hkv, D) — already-roped K/V of a
+    prefix (chunked prefill / prefix caching); queries sit at absolute
+    positions P.. and attend to the past causally.
+    ``kv_x`` and ``prefix_len`` are accepted for the reference's signature
+    and raise ``NotImplementedError`` when used.
+    """
+    _reject_unported(cfg, prefix_len=prefix_len, kv_x=kv_x)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    past_len = past_kv[0].shape[1] if past_kv is not None else 0
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    if use_rope:
+        if positions is None:
+            positions = (past_len + torch.arange(S, device=x.device))[None, :] \
+                .expand(B, S)
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    new_k, new_v = k, v
+    if past_kv is not None:
+        k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
+        v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
+    # (B,S,H,D) -> the kernel's (B,H,S,D) as strided views, no copy
+    o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, q_offset=past_len)
+    out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    if return_kv:
+        return out, new_k, new_v   # new tokens only (past excluded)
+    return out
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, n_layers: int,
+                  dtype, device) -> Dict[str, torch.Tensor]:
+    """Zeroed page pools for ``batch`` sequences of up to ``cache_len`` tokens.
+
+    ``k``/``v`` are (n_layers, num_pages, page, Hkv, D) with
+    ``num_pages = batch * ceil(cache_len / page)``. Row ``i`` of
+    ``block_tables`` (batch, pages_per_seq) int32 owns the fixed page range
+    ``[i * pages_per_seq, (i + 1) * pages_per_seq)``.
+    """
+    hd = cfg.resolved_head_dim
+    page_size = ops.DEFAULT_PAGE_SIZE
+    pages_per_seq = -(-cache_len // page_size)
+    shape = (n_layers, batch * pages_per_seq, page_size, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "block_tables": torch.arange(batch * pages_per_seq, dtype=torch.int32,
+                                     device=device).reshape(batch, pages_per_seq),
+    }
+
+
+def decode_plan(cfg: ModelConfig, block_tables: torch.Tensor, pos: torch.Tensor,
+                active: Optional[torch.Tensor], page: int) -> Dict[str, Any]:
+    """What every layer of one decode step shares: where the new token's K/V
+    go in the pools, the lengths to attend over and the RoPE angles. Computed
+    once per step so the layers do not repeat these small launches.
+
+    block_tables (B, pages_per_seq) int32; pos (B,) absolute position of the
+    new token; active (B,) bool or None (all rows hold a sequence). An
+    inactive row gets length 0 and position 0, so its indices stay in range
+    whatever its stale ``pos`` is.
+    """
+    pos = pos.long()
+    if active is not None:
+        pos = pos * active
+    cos, sin = rope_angles(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    lengths = pos + 1
+    if active is not None:
+        lengths = lengths * active
+    return {
+        "page_ids": torch.gather(block_tables.long(), 1,
+                                 (pos // page)[:, None])[:, 0],
+        "offsets": pos % page,
+        "lengths": lengths.to(torch.int32),
+        "cos": cos, "sin": sin,
+        "keep": None if active is None else active[:, None, None],
+    }
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     block_tables: torch.Tensor, pos: torch.Tensor,
+                     active: Optional[torch.Tensor] = None,
+                     *, use_rope: bool = True,
+                     plan: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """One-token decode against a paged KV pool, through ``ops.paged_attention``.
+
+    x (B,1,d); k_pool/v_pool (num_pages, page, Hkv, D) of one layer;
+    block_tables (B, pages_per_seq) int32; pos (B,) absolute position of the
+    new token; active (B,) bool, rows that hold a sequence (default: all);
+    plan: ``decode_plan`` of the same arguments, when the caller shares one
+    between layers.
+
+    The new token's K/V are written into the pools IN PLACE, at page
+    ``block_tables[b, pos // page]``, offset ``pos % page``, before scoring,
+    so the token attends to itself and ``lengths = pos + 1``. (The reference
+    returns updated copies of its dense cache; updating the pool in place
+    avoids copying the whole pool every layer of every step.) Inactive rows
+    leave the pools as they are and attend over length 0, which gives zeros.
+    Returns out (B,1,d).
+    """
+    _reject_unported(cfg)
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    page = k_pool.shape[1]
+    if plan is None:
+        plan = decode_plan(cfg, block_tables, pos, active, page)
+    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    k = (x @ p["wk"]).reshape(B, 1, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, 1, Hkv, hd)
+    if use_rope:
+        q = apply_rope(q, plan["cos"], plan["sin"])
+        k = apply_rope(k, plan["cos"], plan["sin"])
+    where = (plan["page_ids"], plan["offsets"])
+    k_new, v_new = k[:, 0].to(k_pool.dtype), v[:, 0].to(v_pool.dtype)
+    if plan["keep"] is not None:
+        # an inactive row rewrites what its target already holds: a masked
+        # write without data-dependent shapes, hence without a host sync
+        k_new = torch.where(plan["keep"], k_new, k_pool[where])
+        v_new = torch.where(plan["keep"], v_new, v_pool[where])
+    k_pool[where] = k_new
+    v_pool[where] = v_new
+    o = ops.paged_attention(q.reshape(B, Hkv, H // Hkv, hd), k_pool, v_pool,
+                            block_tables, plan["lengths"], page_size=page)
+    return o.reshape(B, 1, H * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------- FFN
+
+
+def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype, device,
+             d_ff: Optional[int] = None, d_model: Optional[int] = None) -> Params:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    if cfg.ffn == "swiglu":
+        return {"w_gate": _dense_init(gen, (d, f), dtype, device),
+                "w_up": _dense_init(gen, (d, f), dtype, device),
+                "w_down": _dense_init(gen, (f, d), dtype, device)}
+    return {"w_up": _dense_init(gen, (d, f), dtype, device),
+            "w_down": _dense_init(gen, (f, d), dtype, device)}
+
+
+def ffn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.ffn == "swiglu":
+        return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])) \
+            @ p["w_down"]
+    # the reference's jax.nn.gelu defaults to the tanh approximation
+    return torch.nn.functional.gelu(x @ p["w_up"], approximate="tanh") \
+        @ p["w_down"]
+
+
+# ---------------------------------------------------------------- embeddings
+
+
+def init_embeddings(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
+    p = {"tok": _dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device,
+                            scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
+    return p
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "head" in p:
+        return x @ p["head"]
+    return x @ p["tok"].T

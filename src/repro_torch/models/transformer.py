@@ -1,0 +1,209 @@
+"""Decoder-only transformer stack, dense arm (PyTorch).
+
+Parameters are stacked over layers (leading axis = n_layers), as in
+``repro.models.transformer``, so the reference's parameters load one to
+one (``repro_torch.params.from_reference``). Where the reference scans over
+the stacked layers, this is a Python loop over views of the stacked tensors.
+
+Two cache formats:
+
+- the *dense* cache ``prefill`` returns: ``{"k", "v": (L, B, T, Hkv, D),
+  "pos": (B,)}``, exactly the prompt's (roped) K/V — what chunked prefill
+  continues from (``past_cache``) and what a serving engine copies into a
+  slot;
+- the *paged* cache ``decode_step`` works on (``init_cache``): page pools
+  ``"k", "v": (L, num_pages, page, Hkv, D)``, ``"block_tables"
+  (B, pages_per_seq)`` int32 in which row ``i`` owns the fixed page range
+  ``[i * pages_per_seq, (i + 1) * pages_per_seq)``, and ``"pos": (B,)``.
+  ``prefill(cache_len=n)`` returns this format, ready for ``decode_step``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+Cache = Dict[str, torch.Tensor]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.arch_type != "dense" or cfg.is_moe:
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet: "
+            "only the dense arm of the transformer is (ROADMAP.md, Queue A)")
+
+
+def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
+    return {
+        "attn": L.init_attention(cfg, gen, dtype, device),
+        "norm1": L.init_norm(cfg, dtype, device),
+        "norm2": L.init_norm(cfg, dtype, device),
+        "ffn": L.init_ffn(cfg, gen, dtype, device),
+    }
+
+
+def _stack_into(stacked: Params, layer: Params, index: int, n_layers: int) -> None:
+    for name, value in layer.items():
+        if isinstance(value, dict):
+            _stack_into(stacked.setdefault(name, {}), value, index, n_layers)
+            continue
+        if name not in stacked:
+            stacked[name] = torch.empty((n_layers,) + tuple(value.shape),
+                                        dtype=value.dtype, device=value.device)
+        stacked[name][index] = value
+
+
+def layer_params(stacked: Params, index: int) -> Params:
+    """Views of layer ``index`` of the stacked parameters."""
+    return {name: layer_params(v, index) if isinstance(v, dict) else v[index]
+            for name, v in stacked.items()}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
+                device="cuda") -> Params:
+    """Random parameters from ``gen`` (a generator on ``device``). Each layer
+    is drawn in float32 and written into the stacked tensors in ``dtype``
+    straight away, so a full-width model never holds more than one layer in
+    float32."""
+    _require_dense(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    emb = L.init_embeddings(cfg, gen, dtype, device)
+    stacked: Params = {}
+    for i in range(cfg.n_layers):
+        _stack_into(stacked, init_layer(cfg, gen, dtype, device), i, cfg.n_layers)
+    return {"emb": emb, "layers": stacked,
+            "final_norm": L.init_norm(cfg, dtype, device)}
+
+
+def _layer_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(cfg, lp["norm1"], x)
+    x = x + L.attention_forward(cfg, lp["attn"], h, positions=positions)
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    return x + L.ffn_forward(cfg, lp["ffn"], h)
+
+
+def forward(cfg: ModelConfig, params: Params,
+            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss); the
+    auxiliary loss of a dense model is zero."""
+    _require_dense(cfg)
+    x = L.embed(params["emb"], tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for i in range(cfg.n_layers):
+        x = _layer_forward(cfg, layer_params(params["layers"], i), x, positions)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return L.unembed(params["emb"], x), torch.zeros((), device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+               device="cuda") -> Cache:
+    """Zeroed paged cache for ``batch`` sequences of up to ``cache_len``."""
+    _require_dense(cfg)
+    c = L.init_kv_cache(cfg, batch, cache_len, cfg.n_layers, dtype, device)
+    c["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return c
+
+
+def cache_rows(cache: Cache, key: str, row: int) -> torch.Tensor:
+    """The K or V storage of sequence ``row`` of a paged cache from
+    ``init_cache``, as a view (L, capacity, Hkv, D) in token order. Relies on
+    row ``i`` owning the contiguous page range ``init_cache`` gave it."""
+    pool = cache[key]
+    pages_per_seq = cache["block_tables"].shape[1]
+    n_layers, _, page, n_kv, hd = pool.shape
+    rows = pool[:, row * pages_per_seq:(row + 1) * pages_per_seq]
+    return rows.view(n_layers, pages_per_seq * page, n_kv, hd)
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            cache_len: Optional[int] = None,
+            past_cache: Optional[Cache] = None,
+            dtype=None) -> Tuple[torch.Tensor, Cache]:
+    """Run the prompt, return last-position logits and the KV cache.
+
+    ``past_cache``: a dense cache to continue from — the chunked-prefill /
+    prefix-caching path: only the new tokens are computed; the returned cache
+    covers past + new. K/V are cast to ``dtype`` on the way out.
+
+    Without ``cache_len`` the cache is dense (see the module docstring);
+    with it, a paged cache of that capacity, ready for ``decode_step``.
+    """
+    _require_dense(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    B, S = tokens.shape
+    past_len = int(past_cache["k"].shape[2]) if past_cache is not None else 0
+    full_len = past_len + S
+    if cache_len is not None and cache_len < full_len:
+        raise ValueError(f"cache_len {cache_len} is shorter than the prompt "
+                         f"({full_len} tokens)")
+
+    x = L.embed(params["emb"], tokens)
+    positions = (past_len + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    hd = cfg.resolved_head_dim
+    ks = torch.empty((cfg.n_layers, B, full_len, cfg.n_kv_heads, hd),
+                     dtype=dtype, device=x.device)
+    vs = torch.empty_like(ks)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        past = None
+        if past_cache is not None:
+            past = (past_cache["k"][i], past_cache["v"][i])
+            ks[i, :, :past_len] = past[0]
+            vs[i, :, :past_len] = past[1]
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        o, k, v = L.attention_forward(cfg, lp["attn"], h, positions=positions,
+                                      return_kv=True, past_kv=past)
+        ks[i, :, past_len:] = k
+        vs[i, :, past_len:] = v
+        x = x + o
+        h = L.apply_norm(cfg, lp["norm2"], x)
+        x = x + L.ffn_forward(cfg, lp["ffn"], h)
+
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(params["emb"], x[:, -1:])[:, 0]
+    pos = torch.full((B,), full_len, dtype=torch.int32, device=x.device)
+    if cache_len is None:
+        return logits, {"k": ks, "v": vs, "pos": pos}
+    cache = init_cache(cfg, B, cache_len, dtype, x.device)
+    for b in range(B):
+        cache_rows(cache, "k", b)[:, :full_len] = ks[:, b]
+        cache_rows(cache, "v", b)[:, :full_len] = vs[:, b]
+    cache["pos"] = pos
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: Cache, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step on a paged cache. tokens (B,1) -> logits (B,V) and the
+    cache with ``pos`` advanced. The pools are updated IN PLACE (the returned
+    cache shares them with the one passed in): copying them every step would
+    move the whole KV store.
+
+    ``active`` (B,) bool marks the rows that hold a sequence (default: all).
+    An inactive row writes no K/V, attends over nothing and keeps its
+    ``pos``; rows are independent, so the active rows' logits do not depend
+    on it.
+    """
+    _require_dense(cfg)
+    x = L.embed(params["emb"], tokens)
+    pos = cache["pos"]
+    bt = cache["block_tables"]
+    plan = L.decode_plan(cfg, bt, pos, active, cache["k"].shape[2])
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.apply_norm(cfg, lp["norm1"], x)
+        x = x + L.attention_decode(cfg, lp["attn"], h, cache["k"][i],
+                                   cache["v"][i], bt, pos, active, plan=plan)
+        h = L.apply_norm(cfg, lp["norm2"], x)
+        x = x + L.ffn_forward(cfg, lp["ffn"], h)
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    logits = L.unembed(params["emb"], x)[:, 0]
+    step = 1 if active is None else active.to(pos.dtype)
+    return logits, dict(cache, pos=pos + step)

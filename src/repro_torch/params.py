@@ -1,0 +1,74 @@
+"""Carries parameters and caches of the reference package over to the port.
+
+The reference's pytrees arrive as nested dicts of ``numpy`` arrays (the
+caller converts them: this package imports neither the reference nor its
+framework). The port stacks parameters over layers exactly as the reference
+does, so parameters map one to one; a cache changes format, from the
+reference's dense ``(L, B, S, Hkv, D)`` to the port's page pools.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.api import resolve_device
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # no numpy-native bfloat16 for torch
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a))     # a copy: jax hands out read-only views
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    return _tensor(tree, device, dtype)
+
+
+def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
+                   device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+    """The reference's parameter pytree (as numpy arrays) -> the port's
+    parameters on ``device`` in ``dtype``."""
+    device = resolve_device(device)
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
+            "(ROADMAP.md, Queue A)")
+    params = _convert(params_numpy, device, dtype)
+    wq = params["layers"]["attn"]["wq"]
+    want = (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+    if tuple(wq.shape) != want:
+        raise ValueError(f"parameters do not fit {cfg.name}: wq has shape "
+                         f"{tuple(wq.shape)}, expected {want}")
+    return params
+
+
+def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
+                         device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The reference's dense decode cache (``k``/``v`` (L, B, S, Hkv, D),
+    ``pos`` (B,)) -> a paged cache of capacity S for ``decode_step``. The
+    reference's ``slot_pos`` is implied by ``pos`` for a cache that is not a
+    ring buffer and is dropped."""
+    device = resolve_device(device)
+    if cfg.sliding_window > 0:
+        raise NotImplementedError(
+            "ring-buffer (sliding-window) caches are not ported to "
+            "repro_torch yet (ROADMAP.md, Queue A)")
+    k = _tensor(cache_numpy["k"], device, dtype)
+    v = _tensor(cache_numpy["v"], device, dtype)
+    _, B, S, _, _ = k.shape
+    cache = transformer.init_cache(cfg, B, S, dtype, device)
+    for b in range(B):
+        transformer.cache_rows(cache, "k", b)[:, :S] = k[:, b]
+        transformer.cache_rows(cache, "v", b)[:, :S] = v[:, b]
+    cache["pos"] = _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)
+    return cache

@@ -1,0 +1,263 @@
+"""Continuous-batching engine with real PyTorch execution.
+
+This is the data plane of a serving instance: slot-based KV pool,
+iteration-level scheduling (admit -> decode-one-token -> retire), preemption
+of batch requests with host KV offload (Chiron's mixed-instance eviction),
+and the ITL / throughput measurements the local autoscaler closes its loop
+on. The max batch size is the knob Algorithm 1 turns.
+
+The KV store is the paged cache of ``repro_torch.models.transformer``: page
+pools per layer in which slot ``i`` owns a fixed, contiguous page range, so
+a slot is written, saved to the host and restored as one view. Prefill
+attention runs through the ``flash_prefill`` kernel and decode attention
+through the ``paged_attention`` kernel.
+
+Against the reference engine (``repro.serving.engine``), on purpose:
+- every decode iteration still runs over all ``max_slots`` rows, but an
+  ``active`` mask keeps free slots from writing K/V or advancing ``pos``
+  (a free slot's position would otherwise run past the end of its pages);
+- the sampled tokens are copied to the host before the clock is read, so
+  the ITL handed to the autoscaler covers the device's work, not only its
+  launch; slot positions and next tokens are mirrored on the host, so the
+  bookkeeping costs no further device reads.
+"""
+from __future__ import annotations
+
+# mirror-sync: module ok(real engine has no RequestLedger/InstancePlane)
+# The columnar mirrors exist only in the simulated data plane.
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import Model
+from repro_torch.models.api import resolve_device
+from repro_torch.models.transformer import cache_rows
+from repro_torch.serving.request import Request, RequestState, RequestType
+
+
+@dataclass
+class StepStats:
+    now: float
+    n_active: int
+    new_tokens: int
+    finished: List[Request] = field(default_factory=list)
+    itl: float = 0.0                 # seconds for this decode iteration
+    throughput: float = 0.0          # tokens/s over the sliding window
+    preempted: List[Request] = field(default_factory=list)
+
+
+@dataclass
+class _Slot:
+    request: Optional[Request] = None
+    token: Optional[int] = None      # next input token id (host copy)
+
+    @property
+    def active(self) -> bool:
+        return self.request is not None
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, *, gen: Optional[torch.Generator] = None,
+                 params=None, max_slots: int = 8, max_len: int = 256,
+                 max_batch_size: Optional[int] = None,
+                 clock=time.monotonic, dtype=torch.float32, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = Model(cfg)
+        self.dtype = dtype
+        self.params = params if params is not None else \
+            self.model.init(gen, dtype=dtype, device=self.device)
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.max_batch_size = max_batch_size or max_slots
+        self.clock = clock
+        self.pool = self.model.init_cache(max_slots, max_len, dtype=dtype,
+                                          device=self.device)
+        self._pos = np.zeros((max_slots,), np.int64)   # host mirror of pool["pos"]
+        self.slots: List[_Slot] = [_Slot() for _ in range(max_slots)]
+        self.waiting: Deque[Request] = deque()
+        self._last_step_t: Optional[float] = None
+        self._window: Deque = deque(maxlen=32)   # (t, tokens) samples
+        self._rng = np.random.default_rng(0)
+
+    # ------------------------------------------------------------ metrics
+    @property
+    def n_active(self) -> int:
+        return sum(s.active for s in self.slots)
+
+    @property
+    def n_waiting(self) -> int:
+        return len(self.waiting)
+
+    def utilization(self) -> float:
+        return self.n_active / max(self.max_batch_size, 1)
+
+    def running_types(self) -> List[RequestType]:
+        return [s.request.request_type for s in self.slots if s.active]
+
+    def throughput(self) -> float:
+        if len(self._window) < 2:
+            return 0.0
+        dt = self._window[-1][0] - self._window[0][0]
+        toks = sum(t for _, t in list(self._window)[1:])
+        return toks / dt if dt > 0 else 0.0
+
+    # ------------------------------------------------------------ intake
+    def submit(self, req: Request) -> None:
+        n = req.prompt_len if req.prompt_tokens is None else \
+            int(np.asarray(req.prompt_tokens).size)
+        if not 0 < n < self.max_len:
+            raise ValueError(f"prompt of {n} tokens does not fit a slot of "
+                             f"max_len {self.max_len}")
+        req.state = RequestState.QUEUED
+        self.waiting.append(req)
+
+    def set_max_batch_size(self, b: int) -> None:
+        self.max_batch_size = max(1, min(int(b), self.max_slots))
+
+    # --------------------------------------------------------- slot cache
+    def _set_pos(self, slot: int, pos: int) -> None:
+        self.pool["pos"][slot] = pos
+        self._pos[slot] = pos
+
+    def _write_slot(self, slot: int, sub: Dict[str, torch.Tensor]) -> None:
+        """Write a batch-of-1 dense cache (k/v (L,1,S,Hkv,D)) into ``slot``."""
+        S = sub["k"].shape[2]
+        for key in ("k", "v"):
+            cache_rows(self.pool, key, slot)[:, :S] = sub[key][:, 0]
+        self._set_pos(slot, S)
+
+    def _read_slot(self, slot: int) -> Dict[str, torch.Tensor]:
+        """The slot's valid K/V as a dense cache on the host."""
+        S = int(self._pos[slot])
+        # copy=True: with the pool itself on the CPU, .cpu() would hand back
+        # a view of the slot, which the next request admitted there overwrites
+        out = {key: cache_rows(self.pool, key, slot)[:, None, :S]
+               .to("cpu", copy=True) for key in ("k", "v")}
+        out["pos"] = torch.tensor([S], dtype=torch.int32)
+        return out
+
+    def _restore_slot(self, slot: int, saved: Dict[str, torch.Tensor]) -> None:
+        self._write_slot(slot, {key: saved[key].to(self.device)
+                                for key in ("k", "v")})
+
+    # ------------------------------------------------------------ admit
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                return i
+        return None
+
+    def _prompt_tokens(self, req: Request) -> np.ndarray:
+        if req.prompt_tokens is not None:
+            return np.asarray(req.prompt_tokens, np.int32).reshape(-1)
+        return self._rng.integers(0, self.cfg.vocab_size,
+                                  size=(req.prompt_len,), dtype=np.int32)
+
+    def _prefill(self, req: Request):
+        """Prefill a prompt; returns (last_logits, dense cache)."""
+        toks = torch.from_numpy(self._prompt_tokens(req)).to(self.device)
+        return self.model.prefill(self.params, {"tokens": toks.long()[None]},
+                                  dtype=self.dtype)
+
+    def _admit(self, req: Request, now: float) -> bool:
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        if req.saved_kv is not None:
+            self._restore_slot(slot, req.saved_kv)
+            req.saved_kv = None
+            tok = 0       # as the reference: a restored request resumes on token 0
+        else:
+            logits, cache = self._prefill(req)
+            self._write_slot(slot, cache)
+            tok = int(torch.argmax(logits, -1)[0])
+            req.tokens_generated += 1
+            if req.first_token_time is None:
+                req.first_token_time = now
+        req.state = RequestState.RUNNING
+        self.slots[slot] = _Slot(req, tok)
+        return True
+
+    def preempt_one_batch(self, now: float) -> Optional[Request]:
+        """Evict the most recently admitted batch request (KV to host)."""
+        for i in reversed(range(self.max_slots)):
+            s = self.slots[i]
+            if s.active and s.request.request_type == RequestType.BATCH:
+                req = s.request
+                req.saved_kv = self._read_slot(i)
+                req.state = RequestState.PREEMPTED
+                req.preemptions += 1
+                self.slots[i] = _Slot()
+                return req
+        return None
+
+    # ------------------------------------------------------------ step
+    @torch.no_grad()
+    def step(self) -> StepStats:
+        now = self.clock()
+        stats = StepStats(now=now, n_active=0, new_tokens=0)
+
+        # 1. admit (interactive first — zero-queuing), preempting batch
+        #    requests on a full instance if an interactive request waits.
+        self.waiting = deque(sorted(
+            self.waiting, key=lambda r: (not r.is_interactive, r.arrival_time)))
+        while self.waiting and self.n_active < self.max_batch_size:
+            req = self.waiting[0]
+            if not self._admit(req, now):
+                break
+            self.waiting.popleft()
+        if self.waiting and self.waiting[0].is_interactive and \
+                self.n_active >= self.max_batch_size:
+            victim = self.preempt_one_batch(now)
+            if victim is not None:
+                stats.preempted.append(victim)
+                self._admit(self.waiting.popleft(), now)
+
+        active_idx = [i for i, s in enumerate(self.slots) if s.active]
+        stats.n_active = len(active_idx)
+        if not active_idx:
+            self._last_step_t = now
+            return stats
+
+        # 2. one decode iteration over the whole slot pool; free slots are
+        #    masked out. Token ids and the mask go up in one small copy each.
+        tokens = torch.tensor([[s.token if s.active else 0] for s in self.slots],
+                              dtype=torch.long).to(self.device)
+        active = torch.tensor([s.active for s in self.slots]).to(self.device)
+        logits, self.pool = self.model.decode_step(self.params, tokens,
+                                                   self.pool, active)
+        # the copy to the host waits for the step: read the clock after it
+        next_tok = torch.argmax(logits, -1).cpu().numpy()
+        t_end = self.clock()
+        self._pos[active_idx] += 1
+        itl = (t_end - self._last_step_t) if self._last_step_t else (t_end - now)
+        self._last_step_t = t_end
+        stats.itl = itl
+
+        # 3. bookkeeping: ITL samples, finishes
+        for i in active_idx:
+            s = self.slots[i]
+            req = s.request
+            req.itl_samples.append(itl)
+            req.tokens_generated += 1
+            stats.new_tokens += 1
+            if req.first_token_time is None:
+                req.first_token_time = t_end
+            if req.tokens_generated >= req.output_len or \
+                    self._pos[i] >= self.max_len - 1:
+                req.state = RequestState.FINISHED
+                req.finish_time = t_end
+                stats.finished.append(req)
+                self.slots[i] = _Slot()
+            else:
+                s.token = int(next_tok[i])
+
+        self._window.append((t_end, stats.new_tokens))
+        stats.throughput = self.throughput()
+        return stats

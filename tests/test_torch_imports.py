@@ -1,0 +1,98 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+every module of it imports on a host with no GPU and no triton, and its
+entry points refuse to run on the CPU unasked."""
+import ast
+import importlib
+import pathlib
+import pkgutil
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models import Model
+from repro_torch.serving.engine import Engine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_and_nothing_of_the_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_sources_were_found():
+    names = {p.name for p in SOURCES}
+    assert {"engine.py", "layers.py", "paged_attention.py", "flash_prefill.py",
+            "_build.py", "serve.py", "chip_smoke.py"} <= names
+
+
+def test_every_module_imports_without_gpu_or_triton():
+    mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")]
+    assert len(mods) >= 20
+    for name in mods:
+        importlib.import_module(name)
+
+
+def test_kernel_sources_are_in_the_package():
+    for name in ("paged_attention", "flash_prefill"):
+        text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch' in text
+        assert "torch/extension.h" not in text
+
+
+def test_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the entry points run on it")
+    cfg = get_smoke_config("llama-8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, max_slots=2, max_len=32)            # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg).init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg).init_cache(1, 16)
+
+
+def test_cuda_tensor_path_never_falls_back_to_plain():
+    """The wrappers take the plain version for CPU tensors only: a tensor on
+    any other device is launched or refused."""
+    from repro_torch.kernels import ops
+    x = torch.zeros((1, 2, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        ops.flash_prefill(x, x, x)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.paged_attention(x, x, x, x, x)
+
+
+def test_unported_configs_and_families_raise():
+    with pytest.raises(NotImplementedError):
+        get_config("yi-34b")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+    cfg = get_smoke_config("llama-8b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg.with_(arch_type="ssm"))
+    from repro_torch.models import layers
+    x = torch.zeros((1, 4, cfg.d_model))
+    p = {}
+    with pytest.raises(NotImplementedError, match="sliding"):
+        layers.attention_forward(cfg.with_(sliding_window=8), p, x)
+    with pytest.raises(NotImplementedError, match="prefix"):
+        layers.attention_forward(cfg, p, x, prefix_len=2)
+    with pytest.raises(NotImplementedError, match="cross"):
+        layers.attention_forward(cfg, p, x, kv_x=x)

@@ -1,0 +1,198 @@
+"""The port's plain PyTorch versions of the kernels against the reference:
+``repro.kernels.ref`` and the Pallas kernels in interpret mode, on the same
+numpy inputs. (The CUDA kernels themselves are held against these plain
+versions on the card by ``chip_smoke.py``.)"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro.models import layers as ref_layers
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_plain)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    # the reference's own kernel tolerances (tests/test_kernels.py::_tol):
+    # bf16 outputs are rounded once more by each side
+    return dict(atol=5e-2, rtol=5e-2) if name == "bfloat16" \
+        else dict(atol=2e-4, rtol=2e-4)
+
+
+def _both(x, name):
+    """One numpy array -> (jax array, torch tensor) of dtype ``name``."""
+    jd, td = DTYPES[name]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _paged_inputs(rng, B, n_kv, group, D, page, max_pages, num_pages):
+    return (rng.standard_normal((B, n_kv, group, D), dtype=np.float32),
+            rng.standard_normal((num_pages, page, n_kv, D), dtype=np.float32),
+            rng.standard_normal((num_pages, page, n_kv, D), dtype=np.float32),
+            rng.integers(0, num_pages, (B, max_pages)).astype(np.int32))
+
+
+# ---------------------------------------------------------- paged attention
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,n_kv,group,D,page,max_pages", [
+    (2, 2, 4, 128, 16, 4),
+    (4, 1, 8, 128, 16, 8),
+    (1, 4, 1, 256, 8, 16),
+])
+def test_paged_attention_sweep(dtype, B, n_kv, group, D, page, max_pages):
+    rng = np.random.default_rng(0)
+    num_pages = max_pages * B + 1
+    q, kp, vp, bt = _paged_inputs(rng, B, n_kv, group, D, page, max_pages,
+                                  num_pages)
+    ln = rng.integers(1, max_pages * page + 1, (B,)).astype(np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, kp, vp))
+    out = ref.paged_attention_ref(qt, kt, vt, torch.from_numpy(bt),
+                                  torch.from_numpy(ln))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    want_ref = ref_ref.paged_attention_ref(qj, kj, vj, jnp.asarray(bt),
+                                           jnp.asarray(ln))
+    want_kernel = ref_ops.paged_attention(qj, kj, vj, jnp.asarray(bt),
+                                          jnp.asarray(ln), page_size=page,
+                                          backend="interpret")
+    np.testing.assert_allclose(_np(out), _np(want_ref), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(want_kernel), **_tol(dtype))
+
+
+@pytest.mark.parametrize("lengths", [[1, 64, 33], [16, 17, 15], [5, 48, 64],
+                                     [63, 2, 31]])
+def test_paged_attention_ragged_lengths(lengths):
+    B, n_kv, group, D, page, max_pages = 3, 2, 2, 128, 16, 4
+    rng = np.random.default_rng(1)
+    q, kp, vp, bt = _paged_inputs(rng, B, n_kv, group, D, page, max_pages, 32)
+    ln = np.asarray(lengths, np.int32)
+    out = paged_attention_plain(*(torch.from_numpy(a) for a in (q, kp, vp, bt, ln)))
+    args = [jnp.asarray(a) for a in (q, kp, vp, bt, ln)]
+    want_kernel = ref_ops.paged_attention(*args, page_size=page,
+                                          backend="interpret")
+    want_ref = ref_ref.paged_attention_ref(*args)
+    # float32 on both sides: only the order of the sums differs
+    np.testing.assert_allclose(_np(out), _np(want_kernel), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(out), _np(want_ref), atol=2e-4, rtol=2e-4)
+
+
+def test_paged_attention_length_zero_gives_zeros():
+    """An empty sequence gives zeros, as the TPU kernel's acc / max(l, 1e-30)
+    does; the other rows are what they are without it."""
+    B, n_kv, group, D, page, max_pages = 3, 2, 4, 64, 16, 4
+    rng = np.random.default_rng(2)
+    q, kp, vp, bt = _paged_inputs(rng, B, n_kv, group, D, page, max_pages, 12)
+    ln = np.asarray([20, 0, 64], np.int32)
+    out = paged_attention_plain(*(torch.from_numpy(a) for a in (q, kp, vp, bt, ln)))
+    assert torch.count_nonzero(out[1]) == 0
+    want_kernel = ref_ops.paged_attention(
+        *(jnp.asarray(a) for a in (q, kp, vp, bt, ln)), page_size=page,
+        backend="interpret")
+    assert np.count_nonzero(np.asarray(want_kernel)[1]) == 0
+    np.testing.assert_allclose(_np(out), _np(want_kernel), atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------- flash prefill
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,S,D,bq,bk", [
+    (1, 2, 1, 256, 128, 64, 64),
+    (2, 4, 4, 256, 128, 128, 64),
+    (1, 8, 2, 512, 256, 128, 128),
+])
+def test_flash_prefill_sweep(dtype, B, H, Hkv, S, D, bq, bk):
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((B, H, S, D), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, S, D), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, S, D), dtype=np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    out = ref.flash_prefill_ref(qt, kt, vt)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    want_ref = ref_ref.flash_prefill_ref(qj, kj, vj)
+    want_kernel = ref_ops.flash_prefill(qj, kj, vj, block_q=bq, block_k=bk,
+                                        backend="interpret")
+    np.testing.assert_allclose(_np(out), _np(want_ref), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(want_kernel), **_tol(dtype))
+
+
+def test_flash_prefill_noncausal():
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((1, 2, 128, 128), dtype=np.float32)
+               for _ in range(3))
+    out = flash_prefill_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=False)
+    want_kernel = ref_ops.flash_prefill(*(jnp.asarray(a) for a in (q, k, v)),
+                                        causal=False, block_q=64, block_k=64,
+                                        backend="interpret")
+    want_ref = ref_ref.flash_prefill_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                         causal=False)
+    np.testing.assert_allclose(_np(out), _np(want_kernel), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(out), _np(want_ref), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("S", [1, 53, 75, 130])
+def test_flash_prefill_ragged_lengths(S):
+    """Any S, not only multiples of a block (the Pallas kernel asserts those,
+    so the oracle here is the reference's jnp version)."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((2, 4, S, 64), dtype=np.float32)
+    k = rng.standard_normal((2, 2, S, 64), dtype=np.float32)
+    v = rng.standard_normal((2, 2, S, 64), dtype=np.float32)
+    out = flash_prefill_plain(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = ref_ref.flash_prefill_ref(*(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(_np(out), _np(want), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("S,past", [(16, 48), (37, 5), (1, 90)])
+def test_flash_prefill_q_offset_matches_attention_forward_past_kv(S, past):
+    """``q_offset`` is the reference's ``attention_forward(past_kv=...)``:
+    with projections that pass x through (identity wq/wo, column selections
+    for wk/wv, no RoPE) its output is the attention of q = x over
+    [past, new] keys, which the plain version must reproduce."""
+    cfg = get_smoke_config("llama-8b")          # d 128, 4 heads / 2 KV heads
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, S, d), dtype=np.float32)
+    pk = rng.standard_normal((2, past, Hkv, hd), dtype=np.float32)
+    pv = rng.standard_normal((2, past, Hkv, hd), dtype=np.float32)
+    eye = np.eye(d, dtype=np.float32)
+    p = {"wq": eye, "wo": eye, "wk": eye[:, :Hkv * hd], "wv": eye[:, Hkv * hd:]}
+    want = ref_layers.attention_forward(
+        cfg, {n: jnp.asarray(w) for n, w in p.items()}, jnp.asarray(x),
+        use_rope=False, past_kv=(jnp.asarray(pk), jnp.asarray(pv)))
+
+    q = torch.from_numpy(x).reshape(2, S, H, hd)
+    k = torch.cat([torch.from_numpy(pk),
+                   torch.from_numpy(x[..., :Hkv * hd]).reshape(2, S, Hkv, hd)], 1)
+    v = torch.cat([torch.from_numpy(pv),
+                   torch.from_numpy(x[..., Hkv * hd:]).reshape(2, S, Hkv, hd)], 1)
+    out = flash_prefill_plain(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, q_offset=past)
+    out = out.transpose(1, 2).reshape(2, S, H * hd)
+    np.testing.assert_allclose(_np(out), _np(want), atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------- dispatch
+def test_wrappers_use_plain_version_on_cpu_and_count_no_launch():
+    rng = np.random.default_rng(7)
+    q, kp, vp, bt = _paged_inputs(rng, 2, 2, 2, 64, 16, 2, 4)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, np.asarray([3, 30], np.int32))]
+    before = (paged_attention.launches, flash_prefill.launches)
+    assert torch.equal(ops.paged_attention(*args), paged_attention_plain(*args))
+    x = torch.from_numpy(rng.standard_normal((1, 2, 9, 64), dtype=np.float32))
+    assert torch.equal(ops.flash_prefill(x, x, x), flash_prefill_plain(x, x, x))
+    assert (paged_attention.launches, flash_prefill.launches) == before
+    assert ops.paged_attention is paged_attention
+    assert ops.flash_prefill is flash_prefill
