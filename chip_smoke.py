@@ -6,10 +6,12 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card, checks that the
 port's engine samples the same tokens on the card (kernels) and on the CPU
-(plain versions), and serves llama-8b at full width (random bf16 weights
-from a seed) through ``repro_torch.launch.serve``'s loop. Every phase prints
-one JSON line; any failure ends the run with a non-zero exit code. Without
-a GPU it fails at once. The last line of the output is
+(plain versions) for the dense and the ssm family, and serves llama-8b and
+mamba2-1.3b at full width (random bf16 weights from a seed) through
+``repro_torch.launch.serve``'s loop, each path with the kernels' launch
+counters set to 0 just before it and read just after. Every phase prints
+JSON lines; any failure ends the run with a non-zero exit code. Without a
+GPU it fails at once. The last line of the output is
 ``{"ok": true, "device": {...}}``; the line with the per-kernel numbers
 (``{"kernels": [...]}``) and the card's name and power limit come just
 before it.
@@ -20,8 +22,11 @@ final ``ok`` line is printed only when every phase ran.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -37,6 +42,7 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,  # noqa: E402
                                                flash_prefill_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
@@ -51,6 +57,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # weights in float32 where the plain versions round the output once, which
 # is far inside the bfloat16 tolerance
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# the SSD scan sums over a chunk of up to 256 steps in another order than the
+# plain version's einsums (the reference's own ssd tolerance in float32)
+SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+KERNELS = {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
+           "ssd_scan": ssd_scan}
 
 KERNEL_INFO = {
     "paged_attention": {
@@ -62,6 +73,11 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_prefill.py:85",
+    },
+    "ssd_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:90",
     },
 }
 
@@ -90,13 +106,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
+                tols=TOL) -> float:
     """Max abs error; fails unless |got - want| <= tol + tol * |want|."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output is not finite")
     err = (got - want).abs()
-    tol = TOL[dtype]
+    tol = tols[dtype]
     if not bool((err <= tol + tol * want.abs()).all()):
         fail(f"{name}: max abs error {err.max().item():.3e} exceeds "
              f"tolerance {tol:g} (atol and rtol)")
@@ -122,18 +139,65 @@ def phase_env() -> str:
     return smi
 
 
+def _demangle(names):
+    """C++ names as the toolkit's ``cu++filt`` (or ``c++filt``) prints them;
+    the mangled names where neither is installed."""
+    tools = [os.path.join(os.path.dirname(_build.find_nvcc()), "cu++filt"),
+             shutil.which("c++filt")]
+    for tool in tools:
+        if tool and os.access(tool, os.X_OK):
+            out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                                 text=True, check=True).stdout.splitlines()
+            if len(out) == len(names):
+                return out
+    return list(names)
+
+
+def ptxas_usage(text: str) -> list:
+    """Each entry function of ``nvcc -Xptxas=-v`` output with its registers
+    and spill bytes, from the "Compiling entry function", "Function
+    properties for" and "Used N registers" lines ptxas prints per function."""
+    spills, regs, order = {}, {}, []
+    entry = props = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            order.append(entry)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props is not None:
+            spills[props] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+
+    def short(pretty):   # "ssd_scan_kernel<float, 128, 64>"
+        pretty = re.sub(r"<unnamed>::|\(anonymous namespace\)::|\((?:unsigned )?\w+\)(?=-?\d)",
+                        "", pretty)
+        return pretty.removeprefix("void ").split("(")[0]
+
+    return [{"kernel": short(pretty), "registers": regs.get(name),
+             "spill_stores": spills.get(name, (0, 0))[0],
+             "spill_loads": spills.get(name, (0, 0))[1]}
+            for name, pretty in zip(order, _demangle(order))]
+
+
 def phase_build() -> None:
     t0 = time.monotonic()
     out = _build.build_all(extra_flags=("-Xptxas=-v",))
-    # registers, shared memory and spills of the widest instantiations
     usage = {}
     for name, text in out.items():
-        lines = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        spills = [ln for ln in text.splitlines()
-                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        usage[name] = {"max_registers": max(
-            (int(ln.split("Used ")[1].split(" registers")[0]) for ln in lines),
-            default=None), "kernels": len(lines), "with_spills": len(spills)}
+        kernels = ptxas_usage(text)
+        usage[name] = {
+            "max_registers": max((k["registers"] or 0 for k in kernels), default=None),
+            "kernels": len(kernels),
+            "spilling": [k for k in kernels if k["spill_stores"] or k["spill_loads"]]}
     emit("build", seconds=round(time.monotonic() - t0, 2),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=usage)
 
@@ -279,7 +343,102 @@ def phase_kernels(gen) -> dict:
     emit("kernels", kernel="flash_prefill", dtype="torch.float32",
          shape=dict(B=2, H=4, Hkv=2, D=64, S=75), tolerance=TOL[torch.float32],
          max_abs_err=err)
+
+    records["ssd_scan"] = _ssd_scan_cases(gen)
     return records
+
+
+def _ssd_case(gen, dtype, b, s, h, p, n, *, h0=False, steep=False, copies=1):
+    """``copies`` sets of random SSD inputs on the card. The decay rates are
+    the model's, A = -linspace(1, 16); ``steep`` puts every head at A = -16
+    with dt near 1, where an unmasked exponent overflows."""
+    dev = "cuda"
+
+    def one():
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        raw = torch.randn((b, s, h), generator=gen, device=dev)
+        dt = 1.0 + 0.01 * raw if steep else torch.nn.functional.softplus(raw)
+        B = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+        C = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+        return x, dt, B, C
+
+    A = torch.full((h,), -16.0, device=dev) if steep else \
+        -torch.linspace(1.0, 16.0, h, device=dev)
+    state = torch.randn((b, h, p, n), generator=gen, device=dev) if h0 else None
+    return [one() for _ in range(copies)], A, state
+
+
+def _ssd_flops(b, s, h, p, n, chunk) -> float:
+    """Operations the scan needs on these inputs, from a zero initial state:
+    per chunk of L valid steps, C B^T over its L (L + 1) / 2 causal pairs
+    once per sequence (it does not depend on the head), and per head
+    (C B^T o L) x over the same pairs, x^T B for the state and, after the
+    first chunk, C h^T."""
+    flops = 0.0
+    for t0 in range(0, s, chunk):
+        L = min(chunk, s - t0)
+        pairs = L * (L + 1) // 2
+        flops += b * 2.0 * pairs * n
+        flops += b * h * (2.0 * pairs * p + 2.0 * L * p * n)
+        if t0 > 0:
+            flops += b * h * 2.0 * L * p * n
+    return flops
+
+
+def _ssd_scan_cases(gen) -> dict:
+    """``ssd_scan`` against ``ssd_scan_plain`` (y and the final state) at the
+    serving path's shape and around it; returns the record of the main shape
+    in bf16."""
+    record = None
+    cases = [  # (name, b, s, h, p, n, chunk, h0, steep); s = 341: the longest prompt
+        ("main", 1, 341, 64, 64, 128, 256, False, False),
+        ("s512", 1, 512, 64, 64, 128, 256, False, False),
+        ("smoke widths, h0", 2, 100, 8, 32, 16, 32, True, False),
+        ("A=-16, dt~1", 1, 341, 64, 64, 128, 256, False, True),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, s, h, p, n, chunk, with_h0, steep in cases:
+            timed = name in ("main", "s512")
+            sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0,
+                                    steep=steep, copies=4 if timed else 1)
+            x, dt, B, C = sets[0]
+            y, state = ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
+            torch.cuda.synchronize()
+            want_y, want_state = ssd_scan_plain(x, dt, A, B, C, chunk, h0=h0)
+            label = f"ssd_scan {dtype} {name}"
+            err = max(check_close(f"{label} y", y, want_y, dtype, SSD_TOL),
+                      check_close(f"{label} state", state, want_state, dtype, SSD_TOL))
+            if not (torch.isfinite(want_y).all() and torch.isfinite(want_state).all()):
+                fail(f"{label}: the plain version is not finite")
+            rec = dict(kernel="ssd_scan", dtype=str(dtype), case=name,
+                       shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, h0=with_h0),
+                       tolerance=SSD_TOL[dtype], max_abs_err=err)
+            if timed:
+                # input sets rotate, as the paged case's pools do
+                turn = [0]
+
+                def run(fn):
+                    turn[0] = (turn[0] + 1) % len(sets)
+                    fn(*sets[turn[0]])
+
+                ms = time_ms(lambda: run(lambda x_, dt_, B_, C_: ssd_scan(
+                    x_, dt_, A, B_, C_, chunk=chunk)))
+                plain_ms = time_ms(lambda: run(lambda x_, dt_, B_, C_: ssd_scan_plain(
+                    x_, dt_, A, B_, C_, chunk)), iters=5, warmup=1)
+                es = x.element_size()
+                n_bytes = (x.numel() + B.numel() + C.numel()) * es + dt.numel() * 4 + \
+                    y.numel() * es + state.numel() * 4
+                b_ms, b_by = bound(n_bytes, _ssd_flops(b, s, h, p, n, chunk),
+                                   dtype)
+                # no single PyTorch call computes an SSD scan: no library time
+                rec.update(time_ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                           library_ms=None)
+                if dtype == torch.bfloat16 and name == "main":
+                    record = {"name": "ssd_scan", **KERNEL_INFO["ssd_scan"],
+                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            emit("kernels", **rec)
+    return record
 
 
 def _parity_run(cfg, params, device, prompts):
@@ -311,10 +470,11 @@ def _parity_run(cfg, params, device, prompts):
     return trace, sum(r.preemptions for r in reqs)
 
 
-def phase_parity() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = get_smoke_config("llama-8b").with_(head_dim=64)
+def _parity(cfg, label: str, prompt_lens, kernels) -> None:
+    """Serve the same prompts with the same float32 parameters on the card
+    and on the CPU: every slot's next token must agree after every step,
+    through a preempt-and-restore cycle, and the card's run must have
+    launched each of ``kernels``."""
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
     params_cpu = Model(cfg).init(gen, dtype=torch.float32, device="cpu")
@@ -325,23 +485,36 @@ def phase_parity() -> None:
 
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
-               for n in (9, 23, 17, 30, 5)]
-    before = (paged_attention.launches, flash_prefill.launches)
+               for n in prompt_lens]
+    before = {name: KERNELS[name].launches for name in kernels}
     gpu_trace, gpu_preempt = _parity_run(cfg, to_cuda(params_cpu), "cuda", prompts)
-    launched = (paged_attention.launches - before[0],
-                flash_prefill.launches - before[1])
+    launched = {name: KERNELS[name].launches - before[name] for name in kernels}
     cpu_trace, cpu_preempt = _parity_run(cfg, params_cpu, "cpu", prompts)
-    if launched[0] == 0 or launched[1] == 0:
-        fail("parity: the engine on the card did not launch both kernels")
+    if min(launched.values()) == 0:
+        fail(f"parity ({label}): the engine on the card did not launch "
+             f"{', '.join(kernels)}: {launched}")
     if gpu_trace != cpu_trace:
         first = next(i for i, (a, b) in enumerate(zip(gpu_trace, cpu_trace)) if a != b)
-        fail(f"parity: tokens differ at step {first}: card {gpu_trace[first]}, "
-             f"cpu {cpu_trace[first]}")
+        fail(f"parity ({label}): tokens differ at step {first}: card "
+             f"{gpu_trace[first]}, cpu {cpu_trace[first]}")
     if gpu_preempt < 1 or gpu_preempt != cpu_preempt:
-        fail("parity: the run was meant to go through a preempt-and-restore cycle")
-    emit("parity", config="llama-8b smoke, head_dim=64, float32", steps=len(gpu_trace),
+        fail(f"parity ({label}): the run was meant to go through a "
+             "preempt-and-restore cycle")
+    emit("parity", config=label, prompt_lens=list(prompt_lens), steps=len(gpu_trace),
          preemptions=gpu_preempt, allow_tf32=False, tokens_agree=True,
-         kernel_launches=dict(paged_attention=launched[0], flash_prefill=launched[1]))
+         kernel_launches=launched)
+
+
+def phase_parity() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _parity(get_smoke_config("llama-8b").with_(head_dim=64),
+            "llama-8b smoke, head_dim=64, float32", (9, 23, 17, 30, 5),
+            ("paged_attention", "flash_prefill"))
+    # one prompt over three chunks of 32 (the state carried between chunks),
+    # one shorter than the conv window
+    _parity(get_smoke_config("mamba2-1.3b"), "mamba2-1.3b smoke, float32",
+            (9, 70, 17, 30, 2), ("ssd_scan",))
 
 
 def _profiled(fn, reps: int) -> dict:
@@ -367,7 +540,7 @@ def _profiled(fn, reps: int) -> dict:
             "launches": sum(e.count for e in kernels) / reps,
             "own_kernels_ms": {k.split("<")[0].split("::")[-1]: round(ms, 4)
                                for k, ms in top if "paged_attention_kernel" in k
-                               or "flash_prefill_kernel" in k},
+                               or "flash_prefill_kernel" in k or "ssd_scan_kernel" in k},
             "top_ms": [[k[:60], round(ms, 4)] for k, ms in top[:6]]}
 
 
@@ -420,38 +593,44 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     return out
 
 
-def phase_serve(smi: str) -> dict:
-    cfg = get_config("llama-8b")
+def _serve_path(smi: str, arch: str, per_layer) -> dict:
+    """Serve ``arch`` at full width through ``launch.serve``'s loop with
+    every kernel's launch counter set to 0 just before and read just after;
+    ``per_layer(res)`` gives, for each kernel of this path, how many runs of
+    one layer the serve run made (launches = that x the layer count)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     n_requests, max_output = 24, 64
     torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0
-    flash_prefill.launches = 0
+    for kernel in KERNELS.values():
+        kernel.launches = 0
     t0 = time.monotonic()
     res = serve(cfg, requests=n_requests, max_slots=8, max_len=1024,
                 dtype=torch.bfloat16, device="cuda",
                 max_output=max_output, verbose=False)
-    launches = {"paged_attention": paged_attention.launches,
-                "flash_prefill": flash_prefill.launches}
+    launches = {name: kernel.launches for name, kernel in KERNELS.items()}
     total_s = time.monotonic() - t0
     eng = res["engine"]
     if res["n_finished"] != n_requests:
-        fail(f"serve: {res['n_finished']} of {n_requests} requests finished")
-    want = {"paged_attention": res["decode_steps"] * cfg.n_layers,
-            "flash_prefill": res["prefills"] * cfg.n_layers}
-    if launches != want or min(launches.values()) == 0:
-        fail(f"serve: kernel launches {launches}, the run implies {want}")
+        fail(f"serve {arch}: {res['n_finished']} of {n_requests} requests finished")
+    want = {name: runs * cfg.n_layers for name, runs in per_layer(res).items()}
+    got = {name: launches[name] for name in want}
+    if got != want or min(got.values()) == 0:
+        fail(f"serve {arch}: kernel launches {launches}, the run implies {want}")
 
     def leaves(tree):
         for v in tree.values():
             yield from leaves(v) if isinstance(v, dict) else [v]
 
     if any(t.device.type != "cuda" for t in [*leaves(eng.params), *leaves(eng.pool)]):
-        fail("serve: a parameter or pool tensor lives on the CPU")
+        fail(f"serve {arch}: a parameter or pool tensor lives on the CPU")
     for r in res["requests"]:
         if r.tokens_generated < min(r.output_len, 1) or r.first_token_time is None:
-            fail("serve: a finished request generated no token")
+            fail(f"serve {arch}: a finished request generated no token")
     itl = np.asarray(res["itl_s"])
     ttft = np.asarray(res["ttft_s"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     share = _where_the_time_goes(eng)
     emit("serve", gpu=smi, model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab_size, dtype="bfloat16", params=cfg.param_count(),
@@ -465,8 +644,16 @@ def phase_serve(smi: str) -> dict:
          ttft_mean_ms=float(ttft.mean() * 1e3),
          preemptions=sum(r.preemptions for r in res["requests"]),
          batch_size_history=res["batch_size_history"],
-         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         kernel_launches=launches, **share)
+         peak_device_memory_gb=peak_gb, kernel_launches=launches, **share)
+    return got
+
+
+def phase_serve(smi: str) -> dict:
+    """Both serving paths; returns each kernel's launches on its own path."""
+    launches = _serve_path(smi, "llama-8b", lambda res: {
+        "paged_attention": res["decode_steps"], "flash_prefill": res["prefills"]})
+    launches.update(_serve_path(smi, "mamba2-1.3b", lambda res: {
+        "ssd_scan": res["prefills"]}))
     return launches
 
 
@@ -492,8 +679,7 @@ def main() -> None:
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return
-    kernels = [{**records[name], "launches": launches[name]}
-               for name in ("paged_attention", "flash_prefill")]
+    kernels = [{**records[name], "launches": launches[name]} for name in KERNELS]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in kernels]}))

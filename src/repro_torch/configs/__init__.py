@@ -19,16 +19,17 @@ from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
 _ARCH_MODULES = {
     "granite-8b": "granite_8b",
     "llama-8b": "llama_8b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 # architectures of the reference package whose families are not ported yet
 _NOT_PORTED = (
-    "olmo-1b", "zamba2-2.7b", "phi3-mini-3.8b", "yi-34b", "mamba2-1.3b",
+    "olmo-1b", "zamba2-2.7b", "phi3-mini-3.8b", "yi-34b",
     "qwen2-moe-a2.7b", "deepseek-moe-16b", "whisper-base", "internvl2-2b",
     "llama-70b",
 )
 
-ASSIGNED_ARCHS: List[str] = ["granite-8b"]
+ASSIGNED_ARCHS: List[str] = ["granite-8b", "mamba2-1.3b"]
 
 
 def _module(arch: str):

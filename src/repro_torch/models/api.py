@@ -7,10 +7,14 @@
   decode_step(params, tokens, cache) -> (logits, cache)
   init_cache(batch, cache_len)       -> zeroed paged cache
 
-``batch`` is a dict with ``tokens (B,S)`` integer ids. Only the dense family
-is ported; the reference's other families raise ``NotImplementedError``.
-Entry points default to ``device="cuda"`` and raise when there is no GPU:
-nothing here continues on the CPU unless the caller asks for it.
+  write_slot(cache, slot, sub)       -> one sequence's cache into a pool row
+  read_slot(cache, slot, length)     -> a pool row, copied to the host
+
+``batch`` is a dict with ``tokens (B,S)`` integer ids. The dense and ssm
+families are ported; the reference's other families raise
+``NotImplementedError``. Entry points default to ``device="cuda"`` and raise
+when there is no GPU: nothing here continues on the CPU unless the caller
+asks for it.
 """
 from __future__ import annotations
 
@@ -19,21 +23,21 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba_model, transformer
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
 _FAMILY = {
     "dense": transformer,
+    "ssm": mamba_model,
 }
 
 # where ROADMAP.md (Queue A) lists each family that is still to be ported
 _NOT_PORTED = {
     "moe": "item 4 (models/moe.py and the moe arm of the transformer)",
     "vlm": "item 2 (prefix_len and the vlm arm of the transformer)",
-    "ssm": "item 5 (models/ssm.py, mamba_model.py with the ssd_scan kernel)",
-    "hybrid": "item 5 (models/hybrid.py with the ssd_scan kernel)",
+    "hybrid": "item 5 (models/hybrid.py: the zamba2 shared attention block)",
     "audio": "item 6 (models/encdec.py)",
 }
 
@@ -91,6 +95,16 @@ class Model:
     def decode_step(self, params: Params, tokens: torch.Tensor, cache,
                     active: Optional[torch.Tensor] = None):
         return self._m.decode_step(self.cfg, params, tokens, cache, active)
+
+    def write_slot(self, cache, slot: int, sub) -> None:
+        """Write a batch-of-1 cache from ``prefill`` (or from ``read_slot``)
+        into row ``slot`` of a pool from ``init_cache``."""
+        self._m.write_slot(cache, slot, sub)
+
+    def read_slot(self, cache, slot: int, length: int):
+        """Row ``slot`` of a pool, holding ``length`` tokens, as a batch-of-1
+        cache copied to the host."""
+        return self._m.read_slot(cache, slot, length)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -1,6 +1,7 @@
-"""Shared building blocks of the dense decoder-only family (PyTorch).
+"""Shared building blocks of the ported model families (PyTorch).
 
-The port of the dense subset of ``repro.models.layers``: parameters are
+The port of the dense subset of ``repro.models.layers`` (the Mamba2 block
+is in ``ssm.py``): parameters are
 nested dicts of tensors created by ``init_*`` functions and consumed by the
 matching forward functions, with the reference's layouts at every public
 function.
@@ -37,6 +38,26 @@ def _dense_init(gen: torch.Generator, shape, dtype, device,
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+def stack_into(stacked: Params, layer: Params, index: int, n_layers: int) -> None:
+    """Write one layer's parameters into slot ``index`` of the tensors
+    stacked over ``n_layers`` (created at the first layer, in each
+    parameter's own dtype)."""
+    for name, value in layer.items():
+        if isinstance(value, dict):
+            stack_into(stacked.setdefault(name, {}), value, index, n_layers)
+            continue
+        if name not in stacked:
+            stacked[name] = torch.empty((n_layers,) + tuple(value.shape),
+                                        dtype=value.dtype, device=value.device)
+        stacked[name][index] = value
+
+
+def layer_params(stacked: Params, index: int) -> Params:
+    """Views of layer ``index`` of the stacked parameters."""
+    return {name: layer_params(v, index) if isinstance(v, dict) else v[index]
+            for name, v in stacked.items()}
 
 
 def rms_norm(x: torch.Tensor, w: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.layers import layer_params, stack_into
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -46,23 +47,6 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
     }
 
 
-def _stack_into(stacked: Params, layer: Params, index: int, n_layers: int) -> None:
-    for name, value in layer.items():
-        if isinstance(value, dict):
-            _stack_into(stacked.setdefault(name, {}), value, index, n_layers)
-            continue
-        if name not in stacked:
-            stacked[name] = torch.empty((n_layers,) + tuple(value.shape),
-                                        dtype=value.dtype, device=value.device)
-        stacked[name][index] = value
-
-
-def layer_params(stacked: Params, index: int) -> Params:
-    """Views of layer ``index`` of the stacked parameters."""
-    return {name: layer_params(v, index) if isinstance(v, dict) else v[index]
-            for name, v in stacked.items()}
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
                 device="cuda") -> Params:
     """Random parameters from ``gen`` (a generator on ``device``). Each layer
@@ -74,7 +58,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
     emb = L.init_embeddings(cfg, gen, dtype, device)
     stacked: Params = {}
     for i in range(cfg.n_layers):
-        _stack_into(stacked, init_layer(cfg, gen, dtype, device), i, cfg.n_layers)
+        stack_into(stacked, init_layer(cfg, gen, dtype, device), i, cfg.n_layers)
     return {"emb": emb, "layers": stacked,
             "final_norm": L.init_norm(cfg, dtype, device)}
 
@@ -119,6 +103,25 @@ def cache_rows(cache: Cache, key: str, row: int) -> torch.Tensor:
     n_layers, _, page, n_kv, hd = pool.shape
     rows = pool[:, row * pages_per_seq:(row + 1) * pages_per_seq]
     return rows.view(n_layers, pages_per_seq * page, n_kv, hd)
+
+
+def write_slot(cache: Cache, slot: int, sub: Cache) -> None:
+    """Write a batch-of-1 dense cache (k/v (L,1,S,Hkv,D)) into row ``slot``
+    of a paged cache. ``pos`` is left to the caller."""
+    S = sub["k"].shape[2]
+    for key in ("k", "v"):
+        cache_rows(cache, key, slot)[:, :S] = sub[key][:, 0]
+
+
+def read_slot(cache: Cache, slot: int, length: int) -> Cache:
+    """The first ``length`` tokens of row ``slot`` as a batch-of-1 dense cache
+    on the host, copied: with the pool itself on the CPU, ``.cpu()`` would
+    hand back a view of the slot, which the next request admitted there
+    overwrites."""
+    out = {key: cache_rows(cache, key, slot)[:, None, :length].to("cpu", copy=True)
+           for key in ("k", "v")}
+    out["pos"] = torch.tensor([length], dtype=torch.int32)
+    return out
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

@@ -3,8 +3,9 @@
 The reference's pytrees arrive as nested dicts of ``numpy`` arrays (the
 caller converts them: this package imports neither the reference nor its
 framework). The port stacks parameters over layers exactly as the reference
-does, so parameters map one to one; a cache changes format, from the
-reference's dense ``(L, B, S, Hkv, D)`` to the port's page pools.
+does, so parameters map one to one; a dense cache changes format, from the
+reference's ``(L, B, S, Hkv, D)`` to the port's page pools, and an ssm
+cache keeps its own.
 """
 from __future__ import annotations
 
@@ -28,9 +29,15 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+# the SSM's decay, skip and step-bias parameters stay float32 in every model
+# dtype, as in the reference
+_FLOAT32_KEYS = ("A_log", "D", "dt_bias")
+
+
 def _convert(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+        return {k: _convert(v, device, torch.float32 if k in _FLOAT32_KEYS else dtype)
+                for k, v in tree.items()}
     return _tensor(tree, device, dtype)
 
 
@@ -39,26 +46,36 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
     """The reference's parameter pytree (as numpy arrays) -> the port's
     parameters on ``device`` in ``dtype``."""
     device = resolve_device(device)
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "ssm"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
             "(ROADMAP.md, Queue A)")
     params = _convert(params_numpy, device, dtype)
-    wq = params["layers"]["attn"]["wq"]
-    want = (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
-    if tuple(wq.shape) != want:
-        raise ValueError(f"parameters do not fit {cfg.name}: wq has shape "
-                         f"{tuple(wq.shape)}, expected {want}")
+    if cfg.arch_type == "dense":
+        name, w = "wq", params["layers"]["attn"]["wq"]
+        want = (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+    else:
+        name, w = "w_in", params["layers"]["w_in"]
+        want = (cfg.n_layers, cfg.d_model,
+                2 * cfg.d_inner + 2 * cfg.ssm.state_dim + cfg.n_ssm_heads)
+    if tuple(w.shape) != want:
+        raise ValueError(f"parameters do not fit {cfg.name}: {name} has shape "
+                         f"{tuple(w.shape)}, expected {want}")
     return params
 
 
 def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
                          device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """The reference's dense decode cache (``k``/``v`` (L, B, S, Hkv, D),
-    ``pos`` (B,)) -> a paged cache of capacity S for ``decode_step``. The
-    reference's ``slot_pos`` is implied by ``pos`` for a cache that is not a
-    ring buffer and is dropped."""
+    """The reference's decode cache -> the port's. A dense cache (``k``/``v``
+    (L, B, S, Hkv, D), ``pos`` (B,)) becomes a paged cache of capacity S for
+    ``decode_step``; the reference's ``slot_pos`` is implied by ``pos`` for
+    a cache that is not a ring buffer and is dropped. An ssm cache (``ssm``
+    float32, ``conv`` in ``dtype``, ``pos``) is carried over unchanged."""
     device = resolve_device(device)
+    if cfg.arch_type == "ssm":
+        return {"ssm": _tensor(cache_numpy["ssm"], device, torch.float32),
+                "conv": _tensor(cache_numpy["conv"], device, dtype),
+                "pos": _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)}
     if cfg.sliding_window > 0:
         raise NotImplementedError(
             "ring-buffer (sliding-window) caches are not ported to "

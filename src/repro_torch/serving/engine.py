@@ -6,16 +6,20 @@ of batch requests with host KV offload (Chiron's mixed-instance eviction),
 and the ITL / throughput measurements the local autoscaler closes its loop
 on. The max batch size is the knob Algorithm 1 turns.
 
-The KV store is the paged cache of ``repro_torch.models.transformer``: page
-pools per layer in which slot ``i`` owns a fixed, contiguous page range, so
-a slot is written, saved to the host and restored as one view. Prefill
-attention runs through the ``flash_prefill`` kernel and decode attention
-through the ``paged_attention`` kernel.
+The pool is the model family's decode cache for ``max_slots`` rows, and
+the model writes, reads and restores one slot of it (``Model.write_slot`` /
+``read_slot``): for the dense family, page pools per layer in which slot
+``i`` owns a fixed, contiguous page range (prefill attention through the
+``flash_prefill`` kernel, decode attention through ``paged_attention``);
+for the ssm family, row ``i`` of the per-layer SSM and conv states (every
+prefill's scan through the ``ssd_scan`` kernel).
 
 Against the reference engine (``repro.serving.engine``), on purpose:
 - every decode iteration still runs over all ``max_slots`` rows, but an
-  ``active`` mask keeps free slots from writing K/V or advancing ``pos``
-  (a free slot's position would otherwise run past the end of its pages);
+  ``active`` mask keeps free slots from advancing ``pos`` and, in the dense
+  family, from writing K/V (a free slot's position would otherwise run past
+  the end of its pages; free ssm rows update their state as the
+  reference's do);
 - the sampled tokens are copied to the host before the clock is read, so
   the ITL handed to the autoscaler covers the device's work, not only its
   launch; slot positions and next tokens are mirrored on the host, so the
@@ -36,7 +40,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
 from repro_torch.models.api import resolve_device
-from repro_torch.models.transformer import cache_rows
 from repro_torch.serving.request import Request, RequestState, RequestType
 
 
@@ -126,25 +129,17 @@ class Engine:
         self._pos[slot] = pos
 
     def _write_slot(self, slot: int, sub: Dict[str, torch.Tensor]) -> None:
-        """Write a batch-of-1 dense cache (k/v (L,1,S,Hkv,D)) into ``slot``."""
-        S = sub["k"].shape[2]
-        for key in ("k", "v"):
-            cache_rows(self.pool, key, slot)[:, :S] = sub[key][:, 0]
-        self._set_pos(slot, S)
+        """Write a batch-of-1 cache (from a prefill, or a saved one) into
+        ``slot``; its ``pos`` (1,) becomes the slot's position."""
+        self.model.write_slot(self.pool, slot, sub)
+        self._set_pos(slot, int(sub["pos"][0]))
 
     def _read_slot(self, slot: int) -> Dict[str, torch.Tensor]:
-        """The slot's valid K/V as a dense cache on the host."""
-        S = int(self._pos[slot])
-        # copy=True: with the pool itself on the CPU, .cpu() would hand back
-        # a view of the slot, which the next request admitted there overwrites
-        out = {key: cache_rows(self.pool, key, slot)[:, None, :S]
-               .to("cpu", copy=True) for key in ("k", "v")}
-        out["pos"] = torch.tensor([S], dtype=torch.int32)
-        return out
+        """The slot's cache, copied to the host."""
+        return self.model.read_slot(self.pool, slot, int(self._pos[slot]))
 
     def _restore_slot(self, slot: int, saved: Dict[str, torch.Tensor]) -> None:
-        self._write_slot(slot, {key: saved[key].to(self.device)
-                                for key in ("k", "v")})
+        self._write_slot(slot, {key: t.to(self.device) for key, t in saved.items()})
 
     # ------------------------------------------------------------ admit
     def _free_slot(self) -> Optional[int]:

@@ -133,7 +133,14 @@ def test_freed_slots_stay_in_range_over_a_long_run(engine_cfg):
     assert int(eng.pool["pos"].max()) < 48
 
 
-@pytest.mark.parametrize("arch", ["llama-8b", "granite-8b"])
+# prompt lengths of the five requests; for the ssm family one prompt spans
+# three smoke chunks of 32 (the state is carried across chunks) and one is
+# shorter than the conv window (its conv rows fill the slot's first rows)
+PROMPT_LENS = {"llama-8b": (9, 23, 17, 30, 5), "granite-8b": (9, 23, 17, 30, 5),
+               "mamba2-1.3b": (9, 70, 17, 30, 2)}
+
+
+@pytest.mark.parametrize("arch", ["llama-8b", "granite-8b", "mamba2-1.3b"])
 def test_token_for_token_with_reference_engine(arch):
     """Same parameters, same explicit prompts, float32: the next input token
     of every slot agrees after every step, through a preempt-and-restore
@@ -147,7 +154,7 @@ def test_token_for_token_with_reference_engine(arch):
                  dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
-               for n in (9, 23, 17, 30, 5)]
+               for n in PROMPT_LENS[arch]]
 
     def requests(mod):
         out = []

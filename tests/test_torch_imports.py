@@ -38,7 +38,8 @@ def test_source_imports_no_jax_and_nothing_of_the_reference(path):
 def test_sources_were_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "layers.py", "paged_attention.py", "flash_prefill.py",
-            "_build.py", "serve.py", "chip_smoke.py"} <= names
+            "ssd_scan.py", "ssm.py", "mamba_model.py", "_build.py", "serve.py",
+            "chip_smoke.py"} <= names
 
 
 def test_every_module_imports_without_gpu_or_triton():
@@ -50,7 +51,10 @@ def test_every_module_imports_without_gpu_or_triton():
 
 
 def test_kernel_sources_are_in_the_package():
-    for name in ("paged_attention", "flash_prefill"):
+    from repro_torch.kernels import _build
+    assert set(_build.KERNEL_SOURCES) == {"paged_attention", "flash_prefill",
+                                          "ssd_scan"}
+    for name in _build.KERNEL_SOURCES:
         text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch' in text
         assert "torch/extension.h" not in text
@@ -68,6 +72,18 @@ def test_entry_points_raise_without_a_gpu():
         Model(cfg).init_cache(1, 16)
 
 
+def test_ssm_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the entry points run on it")
+    cfg = get_smoke_config("mamba2-1.3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, max_slots=2, max_len=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg).init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg).init_cache(1, 16)
+
+
 def test_cuda_tensor_path_never_falls_back_to_plain():
     """The wrappers take the plain version for CPU tensors only: a tensor on
     any other device is launched or refused."""
@@ -77,6 +93,8 @@ def test_cuda_tensor_path_never_falls_back_to_plain():
         ops.flash_prefill(x, x, x)
     with pytest.raises(ValueError, match="not supported"):
         ops.paged_attention(x, x, x, x, x)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[..., 0], x[..., 0])
 
 
 def test_unported_configs_and_families_raise():
@@ -86,7 +104,9 @@ def test_unported_configs_and_families_raise():
         get_config("no-such-arch")
     cfg = get_smoke_config("llama-8b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.with_(arch_type="ssm"))
+        get_config("zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg.with_(arch_type="hybrid"))
     from repro_torch.models import layers
     x = torch.zeros((1, 4, cfg.d_model))
     p = {}

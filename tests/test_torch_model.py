@@ -31,14 +31,20 @@ def _carried_over(arch, ref_params):
                                            dtype=torch.float32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-1.3b"])
 def test_configs_match_reference(arch):
+    """Every field agrees, the nested moe and ssm configs field by field
+    (they are each package's own dataclass), and so do the derived widths."""
+    import dataclasses
     from repro.configs import get_config as ref_get_config
     for ours, theirs in ((get_config(arch), ref_get_config(arch)),
                          (get_smoke_config(arch), ref_smoke_config(arch))):
-        assert ours.__dict__ == theirs.__dict__ or \
-            {k: v for k, v in ours.__dict__.items() if k not in ("moe", "ssm")} == \
+        assert {k: v for k, v in ours.__dict__.items() if k not in ("moe", "ssm")} == \
             {k: v for k, v in theirs.__dict__.items() if k not in ("moe", "ssm")}
+        for sub in ("moe", "ssm"):
+            assert dataclasses.asdict(getattr(ours, sub)) == \
+                dataclasses.asdict(getattr(theirs, sub))
+        assert (ours.d_inner, ours.n_ssm_heads) == (theirs.d_inner, theirs.n_ssm_heads)
         assert ours.param_count() == theirs.param_count()
 
 
