@@ -11,13 +11,23 @@ mamba2-1.3b at full width (random bf16 weights from a seed) through
 ``repro_torch.launch.serve``'s loop, each path with the kernels' launch
 counters set to 0 just before it and read just after. Every phase prints
 JSON lines; any failure ends the run with a non-zero exit code. Without a
-GPU it fails at once. The last line of the output is
+GPU it fails at once. A kernel's ``ms`` (and the plain version's and the
+library call's) is device time: the own times of the kernels one call
+launches, read with torch.profiler; ``call_ms`` beside it is CUDA events
+around calls back to back, which the host's launch rate bounds from below. The last line of the output is
 ``{"ok": true, "device": {...}}``; the line with the per-kernel numbers
 (``{"kernels": [...]}``) and the card's name and power limit come just
 before it.
 
 ``--phases kernels,parity`` runs a subset (env and build always run); the
 final ``ok`` line is printed only when every phase ran.
+
+``--ab OTHER/src`` instead times the three kernels of another tree's port
+(for example the parent commit's, unpacked with ``git archive``) and of this
+checkout's at the serving path's shapes, in turns (other, this, this,
+other), each turn in its own process with the kernels built from that
+tree's sources, and prints one ``ab`` JSON line per (tree, turn, case), so
+that two versions are compared on one card within one call.
 """
 from __future__ import annotations
 
@@ -34,8 +44,20 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+HERE = os.path.dirname(os.path.abspath(__file__))
 
+
+def _port_src() -> str:
+    """The ``src`` directory whose port this process imports: this
+    checkout's, or, in an ``--ab`` turn, the tree given with ``--time-src``."""
+    if "--time-src" in sys.argv:
+        return os.path.abspath(sys.argv[sys.argv.index("--time-src") + 1])
+    return os.path.join(HERE, "src")
+
+
+sys.path.insert(0, _port_src())
+
+import repro_torch.kernels.paged_attention as paged_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill import (flash_prefill,  # noqa: E402
@@ -92,7 +114,9 @@ def fail(message: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events after a warm-up."""
+    """Mean time of one call of ``fn()`` in ms by CUDA events around
+    ``iters`` calls back to back after a warm-up: the device time where the
+    device is the slower side, the host's enqueue time where the host is."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -104,6 +128,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn()`` in ms: the own times of every
+    kernel the calls launched, from torch.profiler, over ``iters`` calls
+    after a warm-up. Unlike ``time_ms`` it does not include the gaps in which
+    the device waits for the host between calls. Now and then a profiler
+    session returns no device events at all; such a session is run again,
+    up to three times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(_device_us(e) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    fail("the profiler saw no device time in three sessions: kernel times "
+         "cannot be read")
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
@@ -188,18 +242,31 @@ def ptxas_usage(text: str) -> list:
             for name, pretty in zip(order, _demangle(order))]
 
 
+# the bf16 instantiations on the llama-8b serving path, which must not spill
+SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128>",
+                     "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>")
+
+
 def phase_build() -> None:
     t0 = time.monotonic()
     out = _build.build_all(extra_flags=("-Xptxas=-v",))
     usage = {}
+    serving = {}
     for name, text in out.items():
         kernels = ptxas_usage(text)
         usage[name] = {
             "max_registers": max((k["registers"] or 0 for k in kernels), default=None),
             "kernels": len(kernels),
             "spilling": [k for k in kernels if k["spill_stores"] or k["spill_loads"]]}
+        serving.update({k["kernel"]: k for k in kernels
+                        if k["kernel"] in SERVING_INSTANCES})
     emit("build", seconds=round(time.monotonic() - t0, 2),
-         flags=" ".join(_build.NVCC_FLAGS), ptxas=usage)
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=usage,
+         serving_instances=list(serving.values()))
+    for inst in SERVING_INSTANCES:
+        k = serving.get(inst)
+        if k is None or k["spill_stores"] or k["spill_loads"]:
+            fail(f"build: serving instantiation {inst} missing or spilling: {k}")
 
 
 def _paged_case(gen, dtype, B, n_kv, group, D, lengths, pages_per_seq, copies=1):
@@ -216,80 +283,138 @@ def _paged_case(gen, dtype, B, n_kv, group, D, lengths, pages_per_seq, copies=1)
     return q, pools, bt, ln
 
 
+def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths) -> dict:
+    """One timed ``paged_attention`` case against its plain version; returns
+    its record for the kernels line (without the launch count)."""
+    # pools rotate so that, as between the layers of a model, a launch does
+    # not find its K/V in the 50 MB L2 from the launch before
+    q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths, pps,
+                                   copies=4)
+    out = paged_attention(q, *pools[0], bt, ln)
+    torch.cuda.synchronize()
+    want = paged_attention_plain(q, *pools[0], bt, ln)
+    err = check_close(f"paged_attention {dtype} {case}", out, want, dtype)
+    for b, n in enumerate(lengths):
+        if n == 0 and out[b].abs().max().item() != 0.0:
+            fail("paged_attention: a sequence of length 0 must give zeros")
+    turn = [0]
+
+    def rotate(fn):
+        turn[0] = (turn[0] + 1) % len(pools)
+        fn(q, *pools[turn[0]], bt, ln)
+
+    ms = device_ms(lambda: rotate(paged_attention))
+    call_ms = time_ms(lambda: rotate(paged_attention))
+    # after ~50 launches the merge's ticket counters must still start at 0
+    again = paged_attention(q, *pools[0], bt, ln)
+    torch.cuda.synchronize()
+    err = max(err, check_close(f"paged_attention {dtype} {case}, after the timed calls",
+                               again, want, dtype))
+    plain_ms = device_ms(lambda: rotate(paged_attention_plain), iters=5, warmup=1)
+    # one library call on the same work: dense gathered K/V and a mask
+    idx = bt.long()
+    kd = pools[0][0][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
+    vd = pools[0][1][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(group, dim=1).contiguous()
+    vd = vd.repeat_interleave(group, dim=1).contiguous()
+    qd = q.reshape(B, n_kv * group, 1, D)
+    mask = (torch.arange(pps * 16, device="cuda")[None, :] < ln[:, None])
+    mask = mask[:, None, None, :]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask))
+    es = q.element_size()
+    tokens = sum(lengths)
+    n_bytes = (2 * tokens * n_kv * D + 2 * q.numel()) * es + \
+        4 * (sum(-(-n // 16) for n in lengths) + B)
+    b_ms, b_by = bound(n_bytes, 4.0 * tokens * n_kv * group * D, dtype)
+    plan = paged_module.split_plan(B, n_kv, group, D, pps)
+    emit("kernels", kernel="paged_attention", dtype=str(dtype), case=case,
+         shape=dict(B=B, n_kv=n_kv, group=group, D=D, page=16, lengths=lengths,
+                    max_pages=pps, block_tables="shuffled"),
+         n_splits=plan.n_splits, pages_per_split=paged_module.PAGES_PER_SPLIT,
+         tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
+         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+    return {"name": "paged_attention", **KERNEL_INFO["paged_attention"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def _paged_garbage(gen, dtype, B, n_kv, group, D, lengths, pps) -> None:
+    """``paged_attention`` with the table entries past each sequence's pages
+    set to 2**30 (never dereferenced), against the plain version on a clean
+    table; checks that the plan has the splits the lengths leave empty."""
+    q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths, pps)
+    safe = bt.clone()
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // 16):] = 2 ** 30
+    out = paged_attention(q, *pools[0], bt, ln)
+    torch.cuda.synchronize()
+    err = check_close(f"paged_attention {dtype} B={B} group={group} D={D} garbage",
+                      out, paged_attention_plain(q, *pools[0], safe, ln), dtype)
+    for b, n in enumerate(lengths):
+        if n == 0 and out[b].abs().max().item() != 0.0:
+            fail("paged_attention: a sequence of length 0 must give zeros")
+    plan = paged_module.split_plan(B, n_kv, group, D, pps)
+    empty = sum(max(0, plan.n_splits - -(-n // (16 * paged_module.PAGES_PER_SPLIT)))
+                for n in lengths)
+    emit("kernels", kernel="paged_attention", dtype=str(dtype),
+         shape=dict(B=B, n_kv=n_kv, group=group, D=D, lengths=lengths, max_pages=pps,
+                    block_tables="garbage past each sequence's pages"),
+         n_splits=plan.n_splits, empty_splits=empty, tolerance=TOL[dtype],
+         max_abs_err=err)
+
+
+def _flash_inputs(gen, dtype, B, S, T, H, Hkv, D):
+    """Random q (B,H,S,D) and k, v (B,Hkv,T,D) on the card, as transposed
+    views of (B,S,H,D) tensors, as the model passes them."""
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(dtype)
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
 def phase_kernels(gen) -> dict:
     """Each kernel against its plain version; returns the per-kernel record
     of the main path's shapes in bf16 (without the launch counts)."""
     records = {}
     F = torch.nn.functional
 
-    # ---- paged_attention: the serving instance's decode shapes
+    # ---- paged_attention: the serving instance's decode shapes (8 slots,
+    # max_len 1024 = 64 pages): long contexts up to the limit, and the
+    # contexts of 64-400 tokens the serve phase's decode steps see
     B, n_kv, group, D, pps = 8, 8, 4, 128, 64
-    lengths = [1024, 0, 1000, 517, 16, 1, 333, 768]   # 0, and not multiples of 16
+    paged_cases = [  # lengths: 0, 1, and not multiples of 16
+        ("long context", [1024, 0, 1000, 517, 16, 1, 333, 768]),
+        ("serve contexts", [64, 400, 120, 257, 333, 96, 201, 310]),
+    ]
     for dtype in (torch.bfloat16, torch.float32):
-        # pools rotate so that, as between the layers of a model, a launch
-        # does not find its K/V in the 50 MB L2 from the launch before
-        q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths,
-                                       pps, copies=4)
-        out = paged_attention(q, *pools[0], bt, ln)
-        torch.cuda.synchronize()
-        want = paged_attention_plain(q, *pools[0], bt, ln)
-        err = check_close(f"paged_attention {dtype}", out, want, dtype)
-        if out[1].abs().max().item() != 0.0:
-            fail("paged_attention: a sequence of length 0 must give zeros")
-        turn = [0]
-
-        def run_kernel():
-            turn[0] = (turn[0] + 1) % len(pools)
-            paged_attention(q, *pools[turn[0]], bt, ln)
-
-        def run_plain():
-            turn[0] = (turn[0] + 1) % len(pools)
-            paged_attention_plain(q, *pools[turn[0]], bt, ln)
-
-        ms = time_ms(run_kernel)
-        plain_ms = time_ms(run_plain, iters=5, warmup=1)
-        # one library call on the same work: dense gathered K/V and a mask
-        idx = bt.long()
-        kd = pools[0][0][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
-        vd = pools[0][1][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
-        kd = kd.repeat_interleave(group, dim=1).contiguous()
-        vd = vd.repeat_interleave(group, dim=1).contiguous()
-        qd = q.reshape(B, n_kv * group, 1, D)
-        mask = (torch.arange(pps * 16, device="cuda")[None, :] < ln[:, None])
-        mask = mask[:, None, None, :]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask))
-        es = q.element_size()
-        tokens = sum(lengths)
-        n_bytes = (2 * tokens * n_kv * D + 2 * q.numel()) * es + \
-            4 * (sum(-(-n // 16) for n in lengths) + B)
-        b_ms, b_by = bound(n_bytes, 4.0 * tokens * n_kv * group * D, dtype)
-        rec = {"name": "paged_attention", **KERNEL_INFO["paged_attention"],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-        emit("kernels", kernel="paged_attention", dtype=str(dtype),
-             shape=dict(B=B, n_kv=n_kv, group=group, D=D, page=16, lengths=lengths,
-                        block_tables="shuffled"),
-             tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, bound_ms=b_ms,
-             bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
-        if dtype == torch.bfloat16:
-            records["paged_attention"] = rec
+        for case, lengths in paged_cases:
+            rec = _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths)
+            if dtype == torch.bfloat16 and case == "long context":
+                records["paged_attention"] = rec
 
     # a narrow case: D = 64, group = 8, a table with unused (garbage) entries
-    q, pools, bt, ln = _paged_case(gen, torch.float32, 3, 2, 8, 64, [40, 7, 0], 4)
-    bt[1, 1:] = 2 ** 30      # pages past a sequence's length are never read
-    bt[2, :] = 2 ** 30
-    out = paged_attention(q, *pools[0], bt, ln)
-    torch.cuda.synchronize()
-    bt_safe = bt.clone()
-    bt_safe[bt_safe == 2 ** 30] = 0
-    err = check_close("paged_attention D=64 group=8", out,
-                      paged_attention_plain(q, *pools[0], bt_safe, ln), torch.float32)
-    emit("kernels", kernel="paged_attention", dtype="torch.float32",
-         shape=dict(B=3, n_kv=2, group=8, D=64, lengths=[40, 7, 0]),
-         tolerance=TOL[torch.float32], max_abs_err=err)
+    _paged_garbage(gen, torch.float32, 3, 2, 8, 64, [40, 7, 0], 4)
+    # several splits, some of them empty (length 0, 17 and 300 of 40 pages)
+    _paged_garbage(gen, torch.bfloat16, 4, 2, 8, 64, [300, 0, 17, 600], 40)
+    _paged_garbage(gen, torch.float32, 4, 2, 1, 128, [300, 257, 256, 1], 48)
 
-    # ---- flash_prefill: one prompt at a time, (B,S,H,D) tensors as strided views
+    # ---- flash_prefill: a single 64 x 64 tile first (the swizzle of the TMA
+    # boxes and of the wgmma descriptors must agree), then one prompt at a
+    # time, (B,S,H,D) tensors as strided views
+    for D in (64, 128):
+        for causal in (False, True):
+            qt, kt, vt = _flash_inputs(gen, torch.bfloat16, 1, 64, 64, 1, 1, D)
+            out = flash_prefill(qt, kt, vt, causal=causal)
+            torch.cuda.synchronize()
+            err = check_close(f"flash_prefill single tile D={D} causal={causal}", out,
+                              flash_prefill_plain(qt, kt, vt, causal=causal),
+                              torch.bfloat16)
+            emit("kernels", kernel="flash_prefill", dtype="torch.bfloat16",
+                 case="single 64x64 tile", shape=dict(B=1, H=1, Hkv=1, D=D, S=64, T=64,
+                                                      causal=causal),
+                 tolerance=TOL[torch.bfloat16], max_abs_err=err)
+
     H, Hkv, D = 32, 8, 128
     cases = [  # (S, q_offset, causal); 341 is the longest prompt `serve` admits
         (53, 0, True), (341, 0, True), (512, 0, True), (682, 0, True),
@@ -297,52 +422,49 @@ def phase_kernels(gen) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for S, q_offset, causal in cases:
             T = q_offset + S if causal else S
-            q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((1, T, Hkv, D), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((1, T, Hkv, D), generator=gen, device="cuda").to(dtype)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            qt, kt, vt = _flash_inputs(gen, dtype, 1, S, T, H, Hkv, D)
             kw = dict(causal=causal, q_offset=q_offset if causal else 0)
             out = flash_prefill(qt, kt, vt, **kw)
             torch.cuda.synchronize()
             want = flash_prefill_plain(qt, kt, vt, **kw)
             err = check_close(f"flash_prefill {dtype} S={S} off={q_offset} "
                               f"causal={causal}", out, want, dtype)
-            ms = time_ms(lambda: flash_prefill(qt, kt, vt, **kw))
-            plain_ms = time_ms(lambda: flash_prefill_plain(qt, kt, vt, **kw),
-                               iters=5, warmup=1)
+            ms = device_ms(lambda: flash_prefill(qt, kt, vt, **kw))
+            call_ms = time_ms(lambda: flash_prefill(qt, kt, vt, **kw))
+            plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, **kw),
+                                 iters=5, warmup=1)
             library_ms = None
             if q_offset == 0:
                 ke = kt.repeat_interleave(H // Hkv, dim=1)
                 ve = vt.repeat_interleave(H // Hkv, dim=1)
-                library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                library_ms = device_ms(lambda: F.scaled_dot_product_attention(
                     qt, ke, ve, is_causal=causal))
             seen = sum(q_offset + i + 1 for i in range(S)) if causal else S * T
-            es = q.element_size()
-            b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * es,
+            es = qt.element_size()
+            b_ms, b_by = bound((2 * qt.numel() + kt.numel() + vt.numel()) * es,
                                4.0 * H * D * seen, dtype)
             emit("kernels", kernel="flash_prefill", dtype=str(dtype),
+                 route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
                  shape=dict(B=1, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=q_offset,
                             causal=causal),
-                 tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, bound_ms=b_ms,
-                 bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+                 tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
+                 bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
             if dtype == torch.bfloat16 and (S, q_offset, causal) == (341, 0, True):
                 records["flash_prefill"] = {
                     "name": "flash_prefill", **KERNEL_INFO["flash_prefill"],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
-    # narrow head_dim and a batch of two, fp32
-    q = torch.randn((2, 75, 4, 64), generator=gen, device="cuda")
-    k = torch.randn((2, 75, 2, 64), generator=gen, device="cuda")
-    v = torch.randn((2, 75, 2, 64), generator=gen, device="cuda")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out = flash_prefill(qt, kt, vt)
-    torch.cuda.synchronize()
-    err = check_close("flash_prefill D=64 B=2", out, flash_prefill_plain(qt, kt, vt),
-                      torch.float32)
-    emit("kernels", kernel="flash_prefill", dtype="torch.float32",
-         shape=dict(B=2, H=4, Hkv=2, D=64, S=75), tolerance=TOL[torch.float32],
-         max_abs_err=err)
+    # narrow head_dim, a ragged prompt and a batch of two
+    for dtype in (torch.bfloat16, torch.float32):
+        qt, kt, vt = _flash_inputs(gen, dtype, 2, 75, 75, 4, 2, 64)
+        out = flash_prefill(qt, kt, vt)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_prefill {dtype} D=64 B=2", out,
+                          flash_prefill_plain(qt, kt, vt), dtype)
+        emit("kernels", kernel="flash_prefill", dtype=str(dtype),
+             shape=dict(B=2, H=4, Hkv=2, D=64, S=75), tolerance=TOL[dtype],
+             max_abs_err=err)
 
     records["ssd_scan"] = _ssd_scan_cases(gen)
     return records
@@ -421,9 +543,12 @@ def _ssd_scan_cases(gen) -> dict:
                     turn[0] = (turn[0] + 1) % len(sets)
                     fn(*sets[turn[0]])
 
-                ms = time_ms(lambda: run(lambda x_, dt_, B_, C_: ssd_scan(
-                    x_, dt_, A, B_, C_, chunk=chunk)))
-                plain_ms = time_ms(lambda: run(lambda x_, dt_, B_, C_: ssd_scan_plain(
+                def kernel():
+                    run(lambda x_, dt_, B_, C_: ssd_scan(x_, dt_, A, B_, C_, chunk=chunk))
+
+                ms = device_ms(kernel)
+                call_ms = time_ms(kernel)
+                plain_ms = device_ms(lambda: run(lambda x_, dt_, B_, C_: ssd_scan_plain(
                     x_, dt_, A, B_, C_, chunk)), iters=5, warmup=1)
                 es = x.element_size()
                 n_bytes = (x.numel() + B.numel() + C.numel()) * es + dt.numel() * 4 + \
@@ -431,8 +556,8 @@ def _ssd_scan_cases(gen) -> dict:
                 b_ms, b_by = bound(n_bytes, _ssd_flops(b, s, h, p, n, chunk),
                                    dtype)
                 # no single PyTorch call computes an SSD scan: no library time
-                rec.update(time_ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
-                           library_ms=None)
+                rec.update(time_ms=ms, call_ms=call_ms, bound_ms=b_ms, bound_by=b_by,
+                           plain_ms=plain_ms, library_ms=None)
                 if dtype == torch.bfloat16 and name == "main":
                     record = {"name": "ssd_scan", **KERNEL_INFO["ssd_scan"],
                               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -529,18 +654,14 @@ def _profiled(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    top = sorted(((e.key, device_us(e) / reps / 1e3) for e in kernels),
+    top = sorted(((e.key, _device_us(e) / reps / 1e3) for e in kernels),
                  key=lambda kv: -kv[1])
+    own = ("paged_attention_", "flash_prefill_kernel", "ssd_scan_kernel")
     return {"device_ms": sum(ms for _, ms in top),
             "launches": sum(e.count for e in kernels) / reps,
             "own_kernels_ms": {k.split("<")[0].split("::")[-1]: round(ms, 4)
-                               for k, ms in top if "paged_attention_kernel" in k
-                               or "flash_prefill_kernel" in k or "ssd_scan_kernel" in k},
+                               for k, ms in top if any(o in k for o in own)},
             "top_ms": [[k[:60], round(ms, 4)] for k, ms in top[:6]]}
 
 
@@ -605,11 +726,13 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for kernel in KERNELS.values():
         kernel.launches = 0
+    flash_prefill.tensor_core_launches = 0
     t0 = time.monotonic()
     res = serve(cfg, requests=n_requests, max_slots=8, max_len=1024,
                 dtype=torch.bfloat16, device="cuda",
                 max_output=max_output, verbose=False)
     launches = {name: kernel.launches for name, kernel in KERNELS.items()}
+    tensor_core_launches = flash_prefill.tensor_core_launches
     total_s = time.monotonic() - t0
     eng = res["engine"]
     if res["n_finished"] != n_requests:
@@ -618,6 +741,10 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
     got = {name: launches[name] for name in want}
     if got != want or min(got.values()) == 0:
         fail(f"serve {arch}: kernel launches {launches}, the run implies {want}")
+    # bf16 prefills must go through the tensor-core kernel, every one of them
+    if tensor_core_launches != launches["flash_prefill"]:
+        fail(f"serve {arch}: {launches['flash_prefill']} flash_prefill launches, "
+             f"{tensor_core_launches} of them on the tensor-core kernel")
 
     def leaves(tree):
         for v in tree.values():
@@ -644,7 +771,8 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
          ttft_mean_ms=float(ttft.mean() * 1e3),
          preemptions=sum(r.preemptions for r in res["requests"]),
          batch_size_history=res["batch_size_history"],
-         peak_device_memory_gb=peak_gb, kernel_launches=launches, **share)
+         peak_device_memory_gb=peak_gb, kernel_launches=launches,
+         flash_prefill_tensor_core_launches=tensor_core_launches, **share)
     return got
 
 
@@ -657,16 +785,74 @@ def phase_serve(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- two trees, in turns
+def ab_turn(src: str, turn: int) -> None:
+    """One ``--ab`` turn: device and event times of the kernels of the port
+    this process imported (``src``), built from that tree's sources, at the
+    serving path's shapes in bf16, on the same inputs in every turn. Uses only
+    the wrappers' signatures, which every slice of the port keeps."""
+    _build.build_all()
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev)
+
+    def emit_ab(kernel, case, fn):
+        emit("ab", src=src, turn=turn, kernel=kernel, case=case,
+             device_ms=device_ms(fn), call_ms=time_ms(fn),
+             gpu=torch.cuda.get_device_name(0))
+
+    for case, lengths in (("long context", [1024, 0, 1000, 517, 16, 1, 333, 768]),
+                          ("serve contexts", [64, 400, 120, 257, 333, 96, 201, 310])):
+        gen.manual_seed(1)
+        q, pools, bt, ln = _paged_case(gen, bf16, 8, 8, 4, 128, lengths, 64, copies=4)
+        rot = [0]
+
+        def paged():
+            rot[0] = (rot[0] + 1) % len(pools)
+            paged_attention(q, *pools[rot[0]], bt, ln)
+        emit_ab("paged_attention", case, paged)
+
+    for S, q_offset in ((341, 0), (512, 0), (682, 0), (200, 312)):
+        gen.manual_seed(2)
+        qt, kt, vt = _flash_inputs(gen, bf16, 1, S, S + q_offset, 32, 8, 128)
+        emit_ab("flash_prefill", f"S={S} q_offset={q_offset} causal",
+                lambda: flash_prefill(qt, kt, vt, causal=True, q_offset=q_offset))
+
+    gen.manual_seed(3)
+    sets, A, _ = _ssd_case(gen, bf16, 1, 341, 64, 64, 128)
+    x, dt, Bm, Cm = sets[0]
+    emit_ab("ssd_scan", "s=341", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=256))
+
+
+def ab(other_src: str) -> None:
+    """Times ``other_src``'s kernels and this checkout's in turns (other,
+    this, this, other), one process per turn."""
+    trees = [os.path.abspath(other_src), os.path.join(HERE, "src")]
+    for turn, src in enumerate(trees + trees[::-1]):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--time-src", src,
+                        "--turn", str(turn)], check=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of: " + ", ".join(ALL_PHASES))
+    ap.add_argument("--ab", metavar="OTHER_SRC",
+                    help="time another tree's kernels and this one's in turns instead")
+    ap.add_argument("--time-src", help=argparse.SUPPRESS)
+    ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in ALL_PHASES for p in phases):
         fail(f"unknown phase in {phases}; known: {ALL_PHASES}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
+    if args.ab:
+        ab(args.ab)
+        print("chip_smoke: kernel times of two trees in turns; no result line")
+        return
+    if args.time_src:
+        ab_turn(args.time_src, args.turn)
+        return
 
     smi = phase_env()
     phase_build()

@@ -89,9 +89,8 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES, *,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             running.append((name, proc, tmp, lib))
         while running:
-            name, proc, tmp, lib = running[0]
+            name, proc, tmp, lib = running.pop(0)
             outputs[name] = _finish(name, proc, tmp, lib)
-            running.pop(0)
     finally:
         for _, proc, tmp, _ in running:   # a build failed: stop the others
             proc.kill()

@@ -2,26 +2,51 @@
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py::_kernel
 // (grid (batch, kv_head, page) with the page axis sequential and the
-// online-softmax state carried in VMEM scratch between grid steps). Here one
-// thread block serves one (sequence, KV head); the sequential page axis is a
-// loop inside the block, split over the block's warps, and the running
-// max / sum / accumulator live in registers. The warps' partial results are
-// merged once through shared memory.
+// online-softmax state carried in VMEM scratch between grid steps). Here the
+// page axis is split (flash-decoding): one thread block serves one (sequence,
+// KV head, split of kPagesPerSplit = 16 pages = 256 tokens) and walks its
+// pages itself; the last split of a sequence to finish merges the splits'
+// partial softmaxes, in the same launch.
 //
-// What bounds it: bytes. Every K and V element of the sequence is read once
-// and used for `group` (1..8) multiply-adds, far below the card's ratio of
-// operations to bytes, so the time is that of streaming length*D*2 elements
-// per block. The design therefore keeps loads wide and many in flight:
-// 16 lanes cover one token row with 16-byte loads (a warp reads two tokens
-// per instruction), a whole chunk of 8 or 16 tokens is loaded before its
-// softmax update, and all `group` query rows share each loaded K/V row.
-// `group` is below any tensor-core tile, so the products are FMAs.
+// What bounds it: bytes. Every K and V element of a sequence is read once and
+// used for `group` (1..8) multiply-adds, far below the card's ratio of
+// operations to bytes, so the least time is that of streaming length*D*2
+// elements per (sequence, KV head): 15.1 MB, 4.5 us at 3.35 TB/s, at the
+// long-context case of the serving instance (8 sequences up to 1024 tokens,
+// 8 KV heads, group 4, D = 128, bf16). Reaching it needs the whole card busy
+// and many bytes in flight, which the design does as follows:
 //
-// What holds it back: the grid is (B, n_kv) blocks, 64 at the serving
-// instance's 8 sequences x 8 KV heads, fewer than the card's 132 SMs, and a
-// long sequence is walked by the 8 warps of one block only. Splitting the
-// pages of one sequence over several blocks with a second combining pass
-// would fill the card; that is left for later.
+// * The grid is (B, n_kv, n_splits). n_splits = ceil(max_pages / 16) depends
+//   on the block table's shape only, never on the lengths, which live on the
+//   device: the launch makes no host sync and its scratch is sized from
+//   shapes, so it can be captured in a CUDA graph. At the serving instance
+//   (max_pages 64) that is 256 blocks on 132 SMs, where one block per
+//   (sequence, KV head) gave 64. A split that starts at or past its
+//   sequence's length exits at once. A sequence whose pages all lie in the
+//   first split is finished by that split, which writes the output itself.
+// * Each of a block's 4 warps takes every 4th page of the split and streams
+//   it through its own two-stage ring in shared memory with 16-byte
+//   cp.async copies: the next page's K and V are in flight while the current
+//   one is scored. Only rows below `length` are read (the others are
+//   zero-filled), and only pages below ceil(length / 16) are looked up, so
+//   garbage table entries past a sequence's pages are never dereferenced. The
+//   query rows and the table entries of all of a warp's pages (at most 4, one
+//   per lane) are loaded before the length is known, so a page's copies never
+//   wait for its table entry.
+// * 8 lanes cover one token row (16 for group 8, whose registers would not
+//   fit), so a score costs 3 shuffles; the online-softmax update runs once per
+//   8 or 16 tokens, and all `group` query rows share each row read. `group` is
+//   below any tensor-core tile, so the products are FMAs.
+// * The warps' partial softmaxes are merged through shared memory. A sequence
+//   over several splits has each split write its partial (m, l, acc in fp32)
+//   and take a ticket from a per-(sequence, KV head) counter; the split that
+//   takes the last ticket merges the partials into the output and sets the
+//   counter back to 0 for the next launch. No second kernel is launched. The
+//   counters are a buffer the caller keeps at zero between launches.
+//
+// What still holds it back: a split's pages are walked by 4 warps with one
+// page in flight each, so a split is latency-bound; the split size is fixed,
+// not fitted to the batch; times are in PERF.md.
 //
 // Plain C interface: paged_attention_launch() returns cudaGetLastError().
 
@@ -32,7 +57,9 @@
 namespace {
 
 constexpr int kPage = 16;     // tokens per page
-constexpr int kWarps = 8;     // warps per block
+constexpr int kWarps = 4;     // warps per block
+constexpr int kPagesPerSplit = 16;   // pages of one sequence per block
+constexpr int kMaxMerge = 2048;      // n_splits * group a merge takes
 constexpr float kNegInf = -1e30f;
 
 // ---- N contiguous elements -> float registers, 16 bytes per load where N allows
@@ -56,13 +83,16 @@ __device__ __forceinline__ void unpack_bf16x2(uint32_t u, float& lo, float& hi) 
 
 template <int N>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&out)[N]) {
-  static_assert(N == 4 || N == 8, "row slice of 8 or 16 bytes");
-  if constexpr (N == 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    unpack_bf16x2(v.x, out[0], out[1]);
-    unpack_bf16x2(v.y, out[2], out[3]);
-    unpack_bf16x2(v.z, out[4], out[5]);
-    unpack_bf16x2(v.w, out[6], out[7]);
+  static_assert(N == 4 || N % 8 == 0, "row slice of 8 bytes or of 16-byte pieces");
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + 8 * i);
+      unpack_bf16x2(v.x, out[8 * i + 0], out[8 * i + 1]);
+      unpack_bf16x2(v.y, out[8 * i + 2], out[8 * i + 3]);
+      unpack_bf16x2(v.z, out[8 * i + 4], out[8 * i + 5]);
+      unpack_bf16x2(v.w, out[8 * i + 6], out[8 * i + 7]);
+    }
   } else {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     unpack_bf16x2(v.x, out[0], out[1]);
@@ -75,37 +105,87 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// One block per (sequence b, KV head h). GP = `group` rounded up to 1/2/4/8.
-template <typename T, int D, int GP>
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {   // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One block per (sequence b, KV head h, split). GP = `group` rounded up to
+// 1/2/4/8; LPR lanes cover one token row, so a warp scores 32 / LPR tokens per
+// step. Partials are indexed ((b * n_kv + h) * n_splits + split) * group + g,
+// tickets b * n_kv + h.
+template <typename T, int D, int GP, int LPR>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ lengths, T* __restrict__ out,
-                       int n_kv, int group, int max_pages, float scale) {
-  constexpr int EPL = D / 16;             // elements per lane: 16 lanes = one row
-  constexpr int TI = (GP == 8) ? 4 : 8;   // steps per chunk, two tokens per step
-  constexpr int CHUNK = 2 * TI;           // tokens per softmax update; divides kPage
+                       float* __restrict__ part_m, float* __restrict__ part_l,
+                       float* __restrict__ part_acc, int* __restrict__ tickets, int n_kv,
+                       int group, int max_pages, float scale) {
+  constexpr int EPL = D / LPR;            // elements per lane
+  constexpr int TPS = 32 / LPR;           // tokens per step
+  constexpr int TI = GP == 8 ? 4 : kPage / TPS;   // steps per softmax update
+  constexpr int CHUNK = TPS * TI;         // tokens per softmax update; divides kPage
+  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte copy
+  constexpr int PAGE = kPage * D;         // elements of one page of one head
   static_assert(kPage % CHUNK == 0, "a chunk must not straddle pages");
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int half = lane >> 4;             // which of the step's two tokens
-  const int sub = lane & 15;              // which slice of the row
-  const int length = lengths[b];
+  const int tis = lane / LPR;             // which of a step's tokens
+  const int sub = lane % LPR;             // which slice of the row
+  const int p0 = split * kPagesPerSplit;
+  const int64_t row0 = (static_cast<int64_t>(b) * n_kv + h) * group;   // first query row
+  const int64_t part0 = ((static_cast<int64_t>(b) * n_kv + h) * n_splits + split) * group;
+  const int* bt = block_tables + static_cast<int64_t>(b) * max_pages;
 
+  // loads that do not depend on the length go out before it is known: the
+  // query rows and the table entries of the warp's pages, lane i holding its
+  // i-th (reading an entry is safe, using a garbage one is not)
   float qf[GP][EPL];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
     if (g < group) {
-      load_row<EPL>(q + ((static_cast<int64_t>(b) * n_kv + h) * group + g) * D +
-                        sub * EPL, qf[g]);
+      load_row<EPL>(q + (row0 + g) * D + sub * EPL, qf[g]);
     } else {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qf[g][e] = 0.f;
     }
+  }
+  static_assert(kPagesPerSplit / kWarps <= 32, "a warp's table entries fit its lanes");
+  const int my_page = p0 + warp + kWarps * lane;
+  const int my_entry = lane < kPagesPerSplit / kWarps && my_page < max_pages ? bt[my_page] : 0;
+  const int length = lengths[b];
+  const int seq_pages = min((length + kPage - 1) / kPage, max_pages);
+  const int p1 = min(p0 + kPagesPerSplit, seq_pages);
+  // the splits that hold pages of the sequence; with one, that split writes
+  // the output itself and no partial is merged
+  const int n_used = (seq_pages + kPagesPerSplit - 1) / kPagesPerSplit;
+
+  if (p0 >= p1) {   // nothing of the sequence in this split
+    if (split == 0) {                     // length 0 gives zeros
+      for (int idx = threadIdx.x; idx < group * D; idx += kWarps * 32)
+        store_out(out + row0 * D + idx, 0.f);
+    }
+    return;
   }
 
   float m[GP], l[GP], acc[GP][EPL];
@@ -117,92 +197,118 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
+  // this warp's ring: [stage][K, V][kPage][D]
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw) + warp * 4 * PAGE;
   const int64_t tok_stride = static_cast<int64_t>(n_kv) * D;
-  const int64_t page_stride = kPage * tok_stride;
-  const int* bt = block_tables + static_cast<int64_t>(b) * max_pages;
-  const int n_chunks = (length + CHUNK - 1) / CHUNK;
+  const int n_mine = max(0, (p1 - p0 - warp + kWarps - 1) / kWarps);
 
-  for (int c = warp; c < n_chunks; c += kWarps) {
-    const int base = c * CHUNK;           // base < length: the chunk's first token is valid
-    const int64_t off = bt[base / kPage] * page_stride +
-                        (base % kPage) * tok_stride + h * D + sub * EPL;
-    const T* kp = k_pool + off;
-    const T* vp = v_pool + off;
+  auto issue = [&](int i) {               // the warp's i-th page into stage i % 2
+    const int page = p0 + warp + kWarps * i;
+    const int tok0 = page * kPage;
+    const int entry = __shfl_sync(0xffffffffu, my_entry, i);
+    const int64_t off = static_cast<int64_t>(entry) * kPage * tok_stride + h * D;
+    T* ks = ring + (i & 1) * 2 * PAGE;
+    T* vs = ks + PAGE;
+    for (int c = lane; c < kPage * (D / VEC); c += 32) {
+      const int t = c / (D / VEC);
+      const int e = (c % (D / VEC)) * VEC;
+      const int bytes = tok0 + t < length ? 16 : 0;
+      cp_async16(ks + t * D + e, k_pool + off + t * tok_stride + e, bytes);
+      cp_async16(vs + t * D + e, v_pool + off + t * tok_stride + e, bytes);
+    }
+  };
 
-    // scores of this half-warp's TI tokens against all query rows
-    float s[GP][TI];
+  if (n_mine > 0) issue(0);
+  cp_async_commit();
+  for (int i = 0; i < n_mine; ++i) {
+    if (i + 1 < n_mine) issue(i + 1);
+    cp_async_commit();                    // a group per step, empty at the end
+    cp_async_wait_one();                  // page i has landed
+    __syncwarp();
+    const T* ks = ring + (i & 1) * 2 * PAGE;
+    const T* vs = ks + PAGE;
+    const int tok0 = (p0 + warp + kWarps * i) * kPage;
+
+    for (int c0 = 0; c0 < kPage && tok0 + c0 < length; c0 += CHUNK) {
+      // scores of this lane group's TI tokens against all query rows
+      float s[GP][TI];
 #pragma unroll
-    for (int i = 0; i < TI; ++i) {
-      const int t = 2 * i + half;
-      const bool valid = base + t < length;
-      // a token past the end reads the chunk's first row instead (always
-      // written); its score is masked below, so the value is never used
-      float kf[EPL];
-      load_row<EPL>(kp + (valid ? t : 0) * tok_stride, kf);
+      for (int j = 0; j < TI; ++j) {
+        const int t = c0 + TPS * j + tis;
+        const bool valid = tok0 + t < length;
+        float kf[EPL];
+        load_row<EPL>(ks + t * D + sub * EPL, kf);   // zeros past the length
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) dot += qf[g][e] * kf[e];
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          s[g][j] = valid ? dot * scale : kNegInf;
+        }
+      }
+
+      // online softmax over the chunk; the lane groups agree on the new max
 #pragma unroll
       for (int g = 0; g < GP; ++g) {
-        float dot = 0.f;
+        float mc = s[g][0];
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot += qf[g][e] * kf[e];
+        for (int j = 1; j < TI; ++j) mc = fmaxf(mc, s[g][j]);
 #pragma unroll
-        for (int o = 8; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        s[g][i] = valid ? dot * scale : kNegInf;
+        for (int o = LPR; o < 32; o <<= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
+        const float m_new = fmaxf(m[g], mc);
+        const float alpha = expf(m[g] - m_new);
+        m[g] = m_new;
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int j = 0; j < TI; ++j) {
+          const float p = expf(s[g][j] - m_new);   // 0 for a masked token
+          s[g][j] = p;
+          l[g] += p;                               // this lane group's share
+        }
+      }
+
+      // acc += p * v (a masked token's row is zeros and its weight 0)
+#pragma unroll
+      for (int j = 0; j < TI; ++j) {
+        float vf[EPL];
+        load_row<EPL>(vs + (c0 + TPS * j + tis) * D + sub * EPL, vf);
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] += s[g][j] * vf[e];
+        }
       }
     }
+    __syncwarp();                         // the stage may be loaded again
+  }
+  cp_async_wait_all();
 
-    // online softmax over the chunk; both half-warps agree on the new max
+  // the lane groups share m; add their sums and accumulators
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
-      float mc = s[g][0];
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
 #pragma unroll
-      for (int i = 1; i < TI; ++i) mc = fmaxf(mc, s[g][i]);
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 16));
-      const float m_new = fmaxf(m[g], mc);
-      const float alpha = expf(m[g] - m_new);
-      m[g] = m_new;
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int i = 0; i < TI; ++i) {
-        const float p = expf(s[g][i] - m_new);   // 0 for a masked token
-        s[g][i] = p;
-        l[g] += p;                               // this half-warp's share
-      }
-    }
-
-    // acc += p * v
-#pragma unroll
-    for (int i = 0; i < TI; ++i) {
-      const int t = 2 * i + half;
-      const bool valid = base + t < length;
-      float vf[EPL];
-      load_row<EPL>(vp + (valid ? t : 0) * tok_stride, vf);   // weight is 0 if masked
-#pragma unroll
-      for (int g = 0; g < GP; ++g) {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] += s[g][i] * vf[e];
-      }
+      for (int e = 0; e < EPL; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
     }
   }
 
-  // the two half-warps share m; add their sums and accumulators
-#pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    l[g] += __shfl_xor_sync(0xffffffffu, l[g], 16);
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
-  }
-
+  // the rings are done with: reuse them for the warps' partials
   __shared__ float sm_m[kWarps][GP];
   __shared__ float sm_l[kWarps][GP];
-  __shared__ float sm_acc[kWarps][GP][D];
-  if (half == 0) {
+  __syncthreads();
+  float* sm_acc = reinterpret_cast<float*>(smem_raw);   // [kWarps][GP][D]
+  if (tis == 0) {
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][sub * EPL + e] = acc[g][e];
+      for (int e = 0; e < EPL; ++e) sm_acc[(warp * GP + g) * D + sub * EPL + e] = acc[g][e];
     }
   }
   if (lane == 0) {
@@ -214,7 +320,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
   __syncthreads();
 
-  // merge the warps' partial softmaxes; length == 0 gives 0 / 1e-30 = 0
+  // merge the warps (a warp without pages has m = -inf, l = 0, acc = 0)
   for (int idx = threadIdx.x; idx < group * D; idx += kWarps * 32) {
     const int g = idx / D;
     const int d = idx % D;
@@ -225,58 +331,144 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float wgt = expf(sm_m[w][g] - m_all);
-      num += wgt * sm_acc[w][g][d];
+      num += wgt * sm_acc[(w * GP + g) * D + d];
       den += wgt * sm_l[w][g];
     }
-    store_out(out + ((static_cast<int64_t>(b) * n_kv + h) * group + g) * D + d,
-              num / fmaxf(den, 1e-30f));
+    if (n_used == 1) {
+      store_out(out + (row0 + g) * D + d, num / fmaxf(den, 1e-30f));
+    } else {
+      part_acc[(part0 + g) * D + d] = num;
+      if (d == 0) {
+        part_m[part0 + g] = m_all;
+        part_l[part0 + g] = den;
+      }
+    }
+  }
+  if (n_used == 1) return;
+
+  // the split that takes the sequence's last ticket merges the partials: every
+  // thread's stores are made visible to the device before the ticket is taken
+  __shared__ bool sm_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ticket = tickets + static_cast<int64_t>(b) * gridDim.y + h;
+    sm_last = atomicAdd(ticket, 1) == n_used - 1;
+    if (sm_last) atomicExch(ticket, 0);   // every split has arrived: ready for the next launch
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+
+  // the used splits' m and l go to the shared memory past the warps' partials,
+  // all loads at once; each becomes the split's weight exp(m_s - m_all) /
+  // sum_s exp(m_s - m_all) l_s per query row. The partials are read through
+  // L2 (.cg), where the other splits' stores landed.
+  float* sm_w = sm_acc + kWarps * GP * D;   // [split][g]: m, then the weight
+  float* sm_pl = sm_w + kMaxMerge;          // [split][g]: l
+  const int64_t first = part0 - static_cast<int64_t>(split) * group;   // split 0, row 0
+  for (int i = threadIdx.x; i < n_used * group; i += kWarps * 32) {
+    sm_w[i] = __ldcg(part_m + first + i);
+    sm_pl[i] = __ldcg(part_l + first + i);
+  }
+  __syncthreads();
+  if (threadIdx.x < group) {
+    const int g = threadIdx.x;
+    float m_seq = kNegInf;
+    for (int sp = 0; sp < n_used; ++sp) m_seq = fmaxf(m_seq, sm_w[sp * group + g]);
+    float den = 0.f;
+    for (int sp = 0; sp < n_used; ++sp) {
+      const float wgt = expf(sm_w[sp * group + g] - m_seq);
+      den += wgt * sm_pl[sp * group + g];
+      sm_w[sp * group + g] = wgt;
+    }
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    for (int sp = 0; sp < n_used; ++sp) sm_w[sp * group + g] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < group * D; idx += kWarps * 32) {
+    const int g = idx / D;
+    const int d = idx % D;
+    float o = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < n_used; ++sp)
+      o += sm_w[sp * group + g] * __ldcg(part_acc + (first + sp * group + g) * D + d);
+    store_out(out + (row0 + g) * D + d, o);
   }
 }
 
+struct Args {
+  const void *q, *k_pool, *v_pool;
+  const int *block_tables, *lengths;
+  void* out;
+  float *part_m, *part_l, *part_acc;
+  int* tickets;
+  int B, n_kv, group, max_pages, n_splits;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int GP, int LPR>
+cudaError_t launch(const Args& a) {
+  constexpr int smem = kWarps * 4 * kPage * D * sizeof(T);   // each warp: 2 stages of K, V
+  // reused after the pages: the warps' partials, then the merge's weights
+  static_assert(kWarps * GP * D * 4 + 2 * kMaxMerge * 4 <= smem, "merge scratch does not fit");
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, D, GP, LPR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  paged_attention_kernel<T, D, GP, LPR>
+      <<<dim3(a.B, a.n_kv, a.n_splits), kWarps * 32, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
+          static_cast<const T*>(a.v_pool), a.block_tables, a.lengths,
+          static_cast<T*>(a.out), a.part_m, a.part_l, a.part_acc, a.tickets, a.n_kv,
+          a.group, a.max_pages, a.scale);
+  return cudaGetLastError();
+}
+
+// 8 lanes a row where the registers allow it (fewer shuffles per score);
+// 16 for group 8, whose query rows and accumulators would not fit
 template <typename T, int D, int GP>
-void launch(const void* q, const void* k_pool, const void* v_pool,
-            const int* block_tables, const int* lengths, void* out, int B,
-            int n_kv, int group, int max_pages, float scale, cudaStream_t stream) {
-  paged_attention_kernel<T, D, GP><<<dim3(B, n_kv), kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), block_tables, lengths, static_cast<T*>(out),
-      n_kv, group, max_pages, scale);
+cudaError_t launch_lpr(const Args& a) {
+  return launch<T, D, GP, GP == 8 ? 16 : 8>(a);
 }
 
 template <typename T, int D>
-bool launch_group(const void* q, const void* k_pool, const void* v_pool,
-                  const int* block_tables, const int* lengths, void* out, int B,
-                  int n_kv, int group, int max_pages, float scale,
-                  cudaStream_t stream) {
-#define REPRO_PAGED_ARGS q, k_pool, v_pool, block_tables, lengths, out, B, n_kv, group, max_pages, scale, stream
-  if (group == 1) launch<T, D, 1>(REPRO_PAGED_ARGS);
-  else if (group == 2) launch<T, D, 2>(REPRO_PAGED_ARGS);
-  else if (group <= 4) launch<T, D, 4>(REPRO_PAGED_ARGS);
-  else if (group <= 8) launch<T, D, 8>(REPRO_PAGED_ARGS);
-  else return false;
-#undef REPRO_PAGED_ARGS
-  return true;
+cudaError_t launch_group(const Args& a) {
+  if (a.group == 1) return launch_lpr<T, D, 1>(a);
+  if (a.group == 2) return launch_lpr<T, D, 2>(a);
+  if (a.group <= 4) return launch_lpr<T, D, 4>(a);
+  if (a.group <= 8) return launch_lpr<T, D, 8>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// Launches the kernel on a (B, n_kv, n_splits) grid, n_splits = ceil(max_pages
+// / 16); part_m / part_l (B, n_kv, n_splits, group) and part_acc (..., D) are
+// float32 scratch and tickets (B, n_kv) int32 counters that are 0 on entry and
+// left 0 (all three unused when n_splits == 1). Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue for a shape the
+// kernel does not take.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const void* block_tables,
-                                      const void* lengths, void* out, int B,
-                                      int n_kv, int group, int D, int max_pages,
-                                      int is_bf16, float scale, void* stream) {
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* ln = static_cast<const int*>(lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-#define REPRO_PAGED_ARGS q, k_pool, v_pool, bt, ln, out, B, n_kv, group, max_pages, scale, st
-  if (is_bf16 && D == 128) ok = launch_group<__nv_bfloat16, 128>(REPRO_PAGED_ARGS);
-  else if (is_bf16 && D == 64) ok = launch_group<__nv_bfloat16, 64>(REPRO_PAGED_ARGS);
-  else if (!is_bf16 && D == 128) ok = launch_group<float, 128>(REPRO_PAGED_ARGS);
-  else if (!is_bf16 && D == 64) ok = launch_group<float, 64>(REPRO_PAGED_ARGS);
-#undef REPRO_PAGED_ARGS
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                                      const void* lengths, void* out, void* part_m,
+                                      void* part_l, void* part_acc, void* tickets,
+                                      int B, int n_kv, int group, int D, int max_pages,
+                                      int n_splits, int is_bf16, float scale,
+                                      void* stream) {
+  const Args a{q, k_pool, v_pool, static_cast<const int*>(block_tables),
+               static_cast<const int*>(lengths), out, static_cast<float*>(part_m),
+               static_cast<float*>(part_l), static_cast<float*>(part_acc),
+               static_cast<int*>(tickets), B, n_kv, group, max_pages, n_splits, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (max_pages < 1 || n_splits * group > kMaxMerge ||
+      n_splits != (max_pages + kPagesPerSplit - 1) / kPagesPerSplit ||
+      (n_splits > 1 && tickets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && D == 128) err = launch_group<__nv_bfloat16, 128>(a);
+  else if (is_bf16 && D == 64) err = launch_group<__nv_bfloat16, 64>(a);
+  else if (!is_bf16 && D == 128) err = launch_group<float, 128>(a);
+  else if (!is_bf16 && D == 64) err = launch_group<float, 64>(a);
+  return static_cast<int>(err);
 }

@@ -10,15 +10,18 @@ and values may hold ``q_offset`` already-cached positions in front
 strided (``D`` contiguous), so ``(B, S, H, D)`` tensors are passed as
 transposed views without a copy.
 
-Bound on the H100: operations, ``4 * B * H * S * T * D`` (half of it when
-causal with ``q_offset == 0``) against ``2 * (S + T) * D`` elements per
-head. The kernel's design (one block per (batch, head, 64 query rows), a
-loop over KV tiles up to the causal limit, both products as fp32 FMAs out of
-padded shared memory) and what holds it back (no tensor cores yet) are
-described at the top of the ``.cu`` source.
+Bound on the H100: ``2 * (S + T) * D`` elements per head moved against
+``4 * S * T * D`` operations (half of it when causal with ``q_offset == 0``);
+in bf16 at the serving shape both are a few microseconds. The source holds
+two kernels, chosen here by dtype and nothing else: bf16 runs both products
+on the tensor cores (``wgmma``, K/V tiles by TMA into a two-stage ring,
+tensor maps encoded per call over the strided views), float32 runs them as
+FMAs (tensor cores would round it to TF32). Their designs and what holds
+them back are described at the top of the ``.cu`` source.
 
 ``flash_prefill`` runs the plain version only for tensors on the CPU. On
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel for their dtype or raises; a bf16 launch
+that fails is not retried on the FMA kernel.
 """
 from __future__ import annotations
 
@@ -106,7 +109,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Tensors on the CPU go through ``flash_prefill_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in
-    ``flash_prefill.launches``) or raise.
+    ``flash_prefill.launches``, a bf16 launch of the tensor-core kernel also
+    in ``flash_prefill.tensor_core_launches``) or raise.
     """
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset)
@@ -120,16 +124,23 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_prefill kernel: q is not dense")
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    # bf16 on the tensor cores; float32 on the FMA kernel, which keeps it
+    # exact (the tensor cores would round it to TF32)
+    tensor_cores = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         err = _library().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Hkv, S, T, D, q_offset, int(causal),
-            int(q.dtype == torch.bfloat16), strides, 1.0 / math.sqrt(D),
-            torch.cuda.current_stream().cuda_stream)
+            B, H, Hkv, S, T, D, q_offset, int(causal), int(tensor_cores),
+            strides, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash_prefill: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error {err}")
     flash_prefill.launches += 1
+    flash_prefill.tensor_core_launches += int(tensor_cores)
     return out
 
 
-flash_prefill.launches = 0   # launches of the CUDA kernel by this wrapper
+flash_prefill.launches = 0   # launches of either CUDA kernel by this wrapper
+flash_prefill.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's

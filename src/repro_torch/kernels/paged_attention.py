@@ -10,10 +10,15 @@ sequence of length 0 gives zeros.
 Bound on the H100: bytes. Each K/V element is read once and used for
 ``group`` (1..8) multiply-adds, so the least time is that of streaming
 ``2 * length * n_kv * D`` elements per sequence from device memory. The
-kernel's design (one block per (sequence, KV head), warps striding over the
-pages, 16-byte loads, all query rows of a group sharing each loaded row)
-and what still holds it back (a grid of ``B * n_kv`` blocks is smaller than
-the card) are described at the top of the ``.cu`` source.
+kernel splits the pages of a sequence over blocks (flash-decoding): a grid
+of ``(B, n_kv, n_splits)`` blocks, each walking ``PAGES_PER_SPLIT`` pages
+with its K/V loads double-buffered; the last split of a sequence to finish
+merges the splits' partial softmaxes in the same launch. ``split_plan``
+fixes ``n_splits`` from the block table's shape alone, so a launch makes no
+host sync and allocates nothing that depends on ``lengths``. The design and
+what still holds it back are described at the top of the ``.cu`` source;
+``paged_attention_split_plain`` computes the same partials and merge in
+plain PyTorch.
 
 ``paged_attention`` runs the plain version only for tensors on the CPU. On
 CUDA tensors it launches the kernel or raises.
@@ -22,15 +27,100 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 DEFAULT_PAGE_SIZE = 16
+PAGES_PER_SPLIT = 16     # 256 tokens of one sequence per block, as in the kernel
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
+
+
+class SplitPlan(NamedTuple):
+    """Grid and scratch of one launch, from shapes only."""
+    n_splits: int
+    grid: Tuple[int, int, int]              # (B, n_kv, n_splits)
+    stats_shape: Tuple[int, int, int, int]  # m and l: (B, n_kv, n_splits, group)
+    acc_shape: Tuple[int, int, int, int, int]   # (B, n_kv, n_splits, group, D)
+
+
+def split_plan(B: int, n_kv: int, group: int, D: int, max_pages: int) -> SplitPlan:
+    """The split of a block table of ``max_pages`` pages: ``ceil(max_pages /
+    PAGES_PER_SPLIT)`` splits, at least one."""
+    n_splits = max(1, -(-max_pages // PAGES_PER_SPLIT))
+    return SplitPlan(n_splits, (B, n_kv, n_splits), (B, n_kv, n_splits, group),
+                     (B, n_kv, n_splits, group, D))
+
+
+def paged_attention_partials_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   lengths: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain PyTorch version of the kernel's splits: each split's partial
+    softmax ``(m, l, acc)`` over its ``PAGES_PER_SPLIT`` pages, float32,
+    shaped as ``split_plan`` says. A split with no token below ``length`` has
+    ``m = -1e30, l = 0, acc = 0`` (the kernel writes no partial for it).
+    Table entries at or past a sequence's ``ceil(length / page)`` pages are
+    never dereferenced."""
+    B, n_kv, group, D = q.shape
+    page = k_pool.shape[1]
+    pps = PAGES_PER_SPLIT
+    plan = split_plan(B, n_kv, group, D, block_tables.shape[1])
+    m = torch.full(plan.stats_shape, _NEG_INF, device=q.device)
+    l = torch.zeros(plan.stats_shape, device=q.device)
+    acc = torch.zeros(plan.acc_shape, device=q.device)
+    n_pages = (lengths.long() + page - 1) // page
+    qf = q.float()
+    for s in range(plan.n_splits):
+        pages = torch.arange(s * pps, min((s + 1) * pps, block_tables.shape[1]),
+                             device=q.device)
+        used = pages[None, :] < n_pages[:, None]                # (B, P)
+        bt = torch.where(used, block_tables[:, pages].long(), 0)
+        k = k_pool[bt].reshape(B, -1, n_kv, D).float()
+        v = v_pool[bt].reshape(B, -1, n_kv, D).float()
+        tok = pages[0] * page + torch.arange(k.shape[1], device=q.device)
+        valid = (tok[None, :] < lengths[:, None])[:, None, None, :]
+        sc = torch.einsum("bkgd,bskd->bkgs", qf, k) / math.sqrt(D)
+        sc = torch.where(valid, sc, torch.full_like(sc, _NEG_INF))
+        ms = sc.amax(-1)
+        p = torch.exp(sc - ms[..., None]) * valid
+        m[:, :, s] = ms
+        l[:, :, s] = p.sum(-1)
+        acc[:, :, s] = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return m, l, acc
+
+
+def paged_attention_merge_plain(m: torch.Tensor, l: torch.Tensor,
+                                acc: torch.Tensor, dtype: torch.dtype
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's merge: the splits' partials
+    (B, n_kv, n_splits, group[, D]) -> (B, n_kv, group, D) in ``dtype``.
+    Splits with ``l == 0`` contribute nothing; with none left the row is 0.
+    (The kernel merges only the splits that hold pages of the sequence, and
+    those have ``l >= 1``.)"""
+    full = l > 0
+    m_all = torch.where(full, m, torch.full_like(m, _NEG_INF)).amax(2, keepdim=True)
+    w = torch.where(full, torch.exp(m - m_all), torch.zeros_like(m))
+    # an empty split's acc is never read: the kernel does not write it
+    num = (w[..., None] * torch.where(full[..., None], acc, 0.0)).sum(2)
+    den = (w * l).sum(2)
+    return (num / den.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def paged_attention_split_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, block_tables: torch.Tensor,
+                                lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch: partials per split, then
+    the merge. Same function as ``paged_attention_plain``."""
+    m, l, acc = paged_attention_partials_plain(q, k_pool, v_pool, block_tables,
+                                               lengths)
+    return paged_attention_merge_plain(m, l, acc, q.dtype)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -103,10 +193,26 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device`` that are 0 between
+    launches: allocated zeroed once (again only when a launch needs more),
+    and set back to 0 by the kernel's merging split, so a launch neither
+    clears them nor changes their address. Launches on one device must not
+    run concurrently on two streams."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -122,8 +228,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     returns      (B, n_kv, group, D)
 
     Tensors on the CPU go through ``paged_attention_plain``; tensors on a
-    CUDA device launch the kernel (and count the launch in
-    ``paged_attention.launches``) or raise.
+    CUDA device launch the kernel (counted in ``paged_attention.launches``)
+    or raise.
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths)
@@ -134,11 +240,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    plan = split_plan(B, n_kv, group, D, block_tables.shape[1])
+    scratch = [0, 0, 0, 0]    # no partials and no tickets with a single split
+    if plan.n_splits > 1:
+        # one float32 allocation holds m, l and acc, in that order
+        n_stats = math.prod(plan.stats_shape)
+        part = torch.empty(n_stats * (2 + D), dtype=torch.float32, device=q.device)
+        base = part.data_ptr()
+        tickets = _ticket_counters(q.device, B * n_kv)
+        scratch = [base, base + 4 * n_stats, base + 8 * n_stats, tickets.data_ptr()]
     with torch.cuda.device(q.device):
         err = _library().paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, n_kv, group, D, block_tables.shape[1],
+            *scratch, B, n_kv, group, D, block_tables.shape[1], plan.n_splits,
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -147,4 +262,4 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-paged_attention.launches = 0   # launches of the CUDA kernel by this wrapper
+paged_attention.launches = 0   # launches of the CUDA kernel

@@ -3,6 +3,7 @@ the same requests from one workload spec and seed, and the same
 Algorithm-1 batch-size history on the same metrics."""
 import numpy as np
 import pytest
+import torch
 
 from repro.core.backpressure import LocalMetrics as RefMetrics
 from repro.core.local_autoscaler import LocalAutoscaler as RefAutoscaler
@@ -10,6 +11,9 @@ from repro.sim import workload as ref_workload
 from repro_torch.core.backpressure import LocalMetrics, local_backpressure
 from repro_torch.core.local_autoscaler import LocalAutoscaler
 from repro_torch.sim import workload
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
 
 _FIELDS = ("prompt_len", "output_len", "arrival_time", "model")
 

@@ -16,6 +16,9 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import (RequestState, make_batch,
                                          make_interactive)
 
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def engine_cfg():

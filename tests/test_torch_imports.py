@@ -14,6 +14,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import Model
 from repro_torch.serving.engine import Engine
 
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]

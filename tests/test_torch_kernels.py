@@ -13,8 +13,13 @@ from repro.kernels import ref as ref_ref
 from repro.models import layers as ref_layers
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_plain
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_plain)
+from repro_torch.kernels.paged_attention import (
+    PAGES_PER_SPLIT, paged_attention, paged_attention_merge_plain,
+    paged_attention_partials_plain, paged_attention_plain,
+    paged_attention_split_plain, split_plan)
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -103,6 +108,100 @@ def test_paged_attention_length_zero_gives_zeros():
         backend="interpret")
     assert np.count_nonzero(np.asarray(want_kernel)[1]) == 0
     np.testing.assert_allclose(_np(out), _np(want_kernel), atol=2e-4, rtol=2e-4)
+
+
+# ------------------------------------------- paged attention, split over pages
+@pytest.mark.parametrize("max_pages,n_splits", [
+    (1, 1), (16, 1), (17, 2), (32, 2), (48, 3), (64, 4), (65, 5)])
+def test_split_plan_shapes(max_pages, n_splits):
+    """The planner maps the table's width to the grid and the scratch shapes,
+    from shapes alone; every split holds at least one page of the table."""
+    plan = split_plan(8, 2, 4, 128, max_pages)
+    assert plan.n_splits == n_splits
+    assert plan.grid == (8, 2, n_splits)
+    assert plan.stats_shape == (8, 2, n_splits, 4)
+    assert plan.acc_shape == (8, 2, n_splits, 4, 128)
+    assert (n_splits - 1) * PAGES_PER_SPLIT < max_pages <= n_splits * PAGES_PER_SPLIT
+
+
+def test_split_plan_default_at_the_serving_instance():
+    """max_len 1024 = 64 pages of 16: four splits of 256 tokens."""
+    assert PAGES_PER_SPLIT == 16
+    assert split_plan(8, 8, 4, 128, 64).grid == (8, 8, 4)
+
+
+def _split_case(n_splits, seed):
+    """fp32 inputs on a table of ``n_splits`` splits of the kernel's
+    ``PAGES_PER_SPLIT`` pages, with lengths 0, 1, 16, exactly one split, one
+    past a split boundary and the whole table, and table entries past each
+    sequence's pages set to 2**30 (with a clean copy for the oracles)."""
+    pps, page, n_kv, group, D = PAGES_PER_SPLIT, 16, 2, 4, 64
+    max_pages = n_splits * pps
+    split = pps * page
+    lengths = [0, 1, 16, split, min(split + 1, max_pages * page), max_pages * page]
+    B = len(lengths)
+    rng = np.random.default_rng(seed)
+    num_pages = B * max_pages
+    q, kp, vp, _ = _paged_inputs(rng, B, n_kv, group, D, page, max_pages, num_pages)
+    clean = rng.permutation(num_pages).reshape(B, max_pages).astype(np.int32)
+    garbage = clean.copy()
+    for b, n in enumerate(lengths):
+        garbage[b, -(-n // page):] = 2 ** 30
+    return q, kp, vp, clean, garbage, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 4])
+def test_paged_attention_split_matches_plain_and_reference(n_splits):
+    """The kernel's algorithm (a partial softmax per split of the pages,
+    then the merge) against the one-pass plain version and the reference's
+    oracle on the same numpy inputs; garbage entries are never looked up."""
+    q, kp, vp, clean, garbage, ln = _split_case(n_splits, 8 + n_splits)
+    assert split_plan(*q.shape, clean.shape[1]).n_splits == n_splits
+    t = torch.from_numpy
+    out = paged_attention_split_plain(t(q), t(kp), t(vp), t(garbage), t(ln))
+    want = paged_attention_plain(t(q), t(kp), t(vp), t(clean), t(ln))
+    np.testing.assert_allclose(_np(out), _np(want), atol=1e-5, rtol=1e-5)
+    want_ref = np.asarray(ref_ref.paged_attention_ref(
+        *(jnp.asarray(a) for a in (q, kp, vp, clean, ln))))
+    full = ln > 0   # the reference's oracle gives a uniform average at length 0
+    np.testing.assert_allclose(_np(out)[full], want_ref[full], atol=1e-5, rtol=1e-5)
+    assert torch.count_nonzero(out[~torch.from_numpy(full)]) == 0
+
+
+@pytest.mark.parametrize("n_splits", [2, 4])
+def test_paged_attention_partials_of_empty_splits(n_splits):
+    """A split that starts at or past its sequence's length is empty:
+    m = -1e30, l = 0, acc = 0; a non-empty one has l >= 1."""
+    q, kp, vp, _, garbage, ln = _split_case(n_splits, 20 + n_splits)
+    t = torch.from_numpy
+    m, l, acc = paged_attention_partials_plain(t(q), t(kp), t(vp), t(garbage),
+                                               t(ln))
+    assert m.shape == l.shape == (len(ln), q.shape[1], n_splits, q.shape[2])
+    assert acc.shape == m.shape + (q.shape[3],)
+    for b, n in enumerate(ln):
+        for s in range(n_splits):
+            empty = s * PAGES_PER_SPLIT * 16 >= n
+            if empty:
+                assert bool((m[b, :, s] == -1e30).all())
+                assert bool((l[b, :, s] == 0).all())
+                assert torch.count_nonzero(acc[b, :, s]) == 0
+            else:
+                assert bool((l[b, :, s] >= 1).all())
+
+
+def test_paged_attention_merge_ignores_the_acc_of_empty_splits():
+    """The merge weighs a split by l, so an empty split's accumulator,
+    which the kernel never writes, may hold anything (NaN here)."""
+    q, kp, vp, _, garbage, ln = _split_case(4, 31)
+    t = torch.from_numpy
+    m, l, acc = paged_attention_partials_plain(t(q), t(kp), t(vp), t(garbage),
+                                               t(ln))
+    want = paged_attention_merge_plain(m, l, acc, torch.float32)
+    acc = torch.where((l == 0)[..., None], torch.full_like(acc, float("nan")), acc)
+    m = torch.where(l == 0, torch.full_like(m, 123.0), m)
+    got = paged_attention_merge_plain(m, l, acc, torch.float32)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------- flash prefill
@@ -196,3 +295,13 @@ def test_wrappers_use_plain_version_on_cpu_and_count_no_launch():
     assert (paged_attention.launches, flash_prefill.launches) == before
     assert ops.paged_attention is paged_attention
     assert ops.flash_prefill is flash_prefill
+
+
+def test_flash_prefill_counts_no_tensor_core_launch_on_cpu():
+    """bf16 on the CPU takes the plain version: neither counter moves."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((1, 2, 9, 64), dtype=np.float32))
+    before = (flash_prefill.launches, flash_prefill.tensor_core_launches)
+    out = flash_prefill(x.bfloat16(), x.bfloat16(), x.bfloat16())
+    assert out.dtype == torch.bfloat16
+    assert (flash_prefill.launches, flash_prefill.tensor_core_launches) == before

@@ -11,6 +11,9 @@ from repro.models import layers as ref_layers
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import layers
 
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
 # float32 on both sides: only the order of the sums differs
 TOL = dict(atol=2e-4, rtol=2e-4)
 

@@ -14,6 +14,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import Model
 from repro_torch.models import transformer
 
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
 ARCHS = ["llama-8b", "granite-8b"]
 
 

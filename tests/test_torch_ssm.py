@@ -20,6 +20,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.models import Model, mamba_model, ssm
 
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
 ARCH = "mamba2-1.3b"
 # sums over a chunk run in another order on each side (the tolerance of the
 # reference's own ssd tests, tests/test_kernels.py)
