@@ -84,6 +84,8 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 KERNELS = {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
            "ssd_scan": ssd_scan}
+# the wrappers whose bf16 launches go to a tensor-core kernel, counted apart
+TENSOR_CORE_KERNELS = ("flash_prefill", "ssd_scan")
 
 KERNEL_INFO = {
     "paged_attention": {
@@ -242,9 +244,11 @@ def ptxas_usage(text: str) -> list:
             for name, pretty in zip(order, _demangle(order))]
 
 
-# the bf16 instantiations on the llama-8b serving path, which must not spill
+# the bf16 instantiations on the llama-8b and mamba2-1.3b serving paths, which
+# must not spill
 SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128>",
-                     "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>")
+                     "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>",
+                     "ssd_scan_kernel_wgmma<128>")
 
 
 def phase_build() -> None:
@@ -470,18 +474,26 @@ def phase_kernels(gen) -> dict:
     return records
 
 
-def _ssd_case(gen, dtype, b, s, h, p, n, *, h0=False, steep=False, copies=1):
+def _ssd_case(gen, dtype, b, s, h, p, n, *, h0=False, steep=False, copies=1,
+              strided=False):
     """``copies`` sets of random SSD inputs on the card. The decay rates are
     the model's, A = -linspace(1, 16); ``steep`` puts every head at A = -16
-    with dt near 1, where an unmasked exponent overflows."""
+    with dt near 1, where an unmasked exponent overflows. ``strided`` makes
+    x, B and C views into one (b, s, h p + 2 n) tensor, as ``mamba_forward``
+    slices them out of the conv output."""
     dev = "cuda"
 
     def one():
-        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        if strided:
+            conv = torch.randn((b, s, h * p + 2 * n), generator=gen, device=dev).to(dtype)
+            x = conv[..., :h * p].reshape(b, s, h, p)
+            B, C = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        else:
+            x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+            B = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+            C = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
         raw = torch.randn((b, s, h), generator=gen, device=dev)
         dt = 1.0 + 0.01 * raw if steep else torch.nn.functional.softplus(raw)
-        B = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
-        C = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
         return x, dt, B, C
 
     A = torch.full((h,), -16.0, device=dev) if steep else \
@@ -510,19 +522,27 @@ def _ssd_flops(b, s, h, p, n, chunk) -> float:
 def _ssd_scan_cases(gen) -> dict:
     """``ssd_scan`` against ``ssd_scan_plain`` (y and the final state) at the
     serving path's shape and around it; returns the record of the main shape
-    in bf16."""
+    in bf16. At the serving widths x, B and C are strided views, as the
+    model passes them."""
     record = None
     cases = [  # (name, b, s, h, p, n, chunk, h0, steep); s = 341: the longest prompt
         ("main", 1, 341, 64, 64, 128, 256, False, False),
         ("s512", 1, 512, 64, 64, 128, 256, False, False),
+        # eight chunks of state carried from chunk to chunk
+        ("s2048", 1, 2048, 64, 64, 128, 256, False, False),
+        # the carried-state product from the first chunk on
+        ("h0", 1, 341, 64, 64, 128, 256, True, False),
+        ("s=1", 1, 1, 64, 64, 128, 256, False, False),
+        ("s=257", 1, 257, 64, 64, 128, 256, False, False),
         ("smoke widths, h0", 2, 100, 8, 32, 16, 32, True, False),
         ("A=-16, dt~1", 1, 341, 64, 64, 128, 256, False, True),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, s, h, p, n, chunk, with_h0, steep in cases:
-            timed = name in ("main", "s512")
+            timed = name in ("main", "s512", "s2048")
             sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0,
-                                    steep=steep, copies=4 if timed else 1)
+                                    steep=steep, copies=4 if timed else 1,
+                                    strided=h == 64)
             x, dt, B, C = sets[0]
             y, state = ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
             torch.cuda.synchronize()
@@ -533,7 +553,9 @@ def _ssd_scan_cases(gen) -> dict:
             if not (torch.isfinite(want_y).all() and torch.isfinite(want_state).all()):
                 fail(f"{label}: the plain version is not finite")
             rec = dict(kernel="ssd_scan", dtype=str(dtype), case=name,
-                       shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, h0=with_h0),
+                       route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
+                       shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, h0=with_h0,
+                                  strided=h == 64),
                        tolerance=SSD_TOL[dtype], max_abs_err=err)
             if timed:
                 # input sets rotate, as the paged case's pools do
@@ -726,13 +748,15 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for kernel in KERNELS.values():
         kernel.launches = 0
-    flash_prefill.tensor_core_launches = 0
+    for kernel in TENSOR_CORE_KERNELS:
+        KERNELS[kernel].tensor_core_launches = 0
     t0 = time.monotonic()
     res = serve(cfg, requests=n_requests, max_slots=8, max_len=1024,
                 dtype=torch.bfloat16, device="cuda",
                 max_output=max_output, verbose=False)
     launches = {name: kernel.launches for name, kernel in KERNELS.items()}
-    tensor_core_launches = flash_prefill.tensor_core_launches
+    tensor_core_launches = {name: KERNELS[name].tensor_core_launches
+                            for name in TENSOR_CORE_KERNELS}
     total_s = time.monotonic() - t0
     eng = res["engine"]
     if res["n_finished"] != n_requests:
@@ -741,10 +765,11 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
     got = {name: launches[name] for name in want}
     if got != want or min(got.values()) == 0:
         fail(f"serve {arch}: kernel launches {launches}, the run implies {want}")
-    # bf16 prefills must go through the tensor-core kernel, every one of them
-    if tensor_core_launches != launches["flash_prefill"]:
-        fail(f"serve {arch}: {launches['flash_prefill']} flash_prefill launches, "
-             f"{tensor_core_launches} of them on the tensor-core kernel")
+    # bf16 prefills must go through the tensor-core kernels, every one of them
+    for name, n in tensor_core_launches.items():
+        if n != launches[name]:
+            fail(f"serve {arch}: {launches[name]} {name} launches, {n} of them on "
+                 "the tensor-core kernel")
 
     def leaves(tree):
         for v in tree.values():
@@ -772,7 +797,7 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
          preemptions=sum(r.preemptions for r in res["requests"]),
          batch_size_history=res["batch_size_history"],
          peak_device_memory_gb=peak_gb, kernel_launches=launches,
-         flash_prefill_tensor_core_launches=tensor_core_launches, **share)
+         tensor_core_launches=tensor_core_launches, **share)
     return got
 
 
@@ -817,10 +842,17 @@ def ab_turn(src: str, turn: int) -> None:
         emit_ab("flash_prefill", f"S={S} q_offset={q_offset} causal",
                 lambda: flash_prefill(qt, kt, vt, causal=True, q_offset=q_offset))
 
-    gen.manual_seed(3)
-    sets, A, _ = _ssd_case(gen, bf16, 1, 341, 64, 64, 128)
-    x, dt, Bm, Cm = sets[0]
-    emit_ab("ssd_scan", "s=341", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=256))
+    # input sets rotate, as in the kernels phase
+    for s in (341, 2048):
+        gen.manual_seed(3)
+        sets, A, _ = _ssd_case(gen, bf16, 1, s, 64, 64, 128, copies=4, strided=True)
+        rot = [0]
+
+        def ssd():
+            rot[0] = (rot[0] + 1) % len(sets)
+            x, dt, Bm, Cm = sets[rot[0]]
+            ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+        emit_ab("ssd_scan", f"s={s}", ssd)
 
 
 def ab(other_src: str) -> None:

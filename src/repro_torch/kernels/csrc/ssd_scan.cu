@@ -3,117 +3,105 @@
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py::_kernel (grid
 // (batch, head, chunk) with the chunk axis sequential and the (P, N) state
 // carried in VMEM scratch between grid steps). On Hopper blocks run in no
-// order, so one thread block owns one (batch, head, tile of 32 of the P
-// columns) and walks the chunks in order itself, with the state in registers
-// and a copy in shared memory. The recurrence is independent per column p
-// (y[:, p] and h[p, :] depend only on x[:, p]), so splitting P gives more
-// blocks: at the serving path's shape (1 sequence, 64 heads, P = 64) that is
-// 128 blocks on 132 SMs instead of 64.
+// order, so one thread block owns one (batch, head, tile of the P columns)
+// and walks the chunks in order itself, with the state in registers.
 //
 // Per chunk of `chunk` steps starting at t0, with dA_cum the running sum of
-// dt * A inside the chunk (fp32, a block-wide scan) and dA_total its last
-// value:
-//   y_i  = sum_{j <= i} (C_i . B_j) exp(dA_cum_i - dA_cum_j) dt_j x_j
-//        + exp(dA_cum_i) (C_i . h_p)                      (carried state)
-//   h_p <- exp(dA_total) h_p + sum_j x_j[p] exp(dA_total - dA_cum_j) dt_j B_j
-// The chunk is cut into row blocks of R (64, or 32 for chunk 32); for a row
-// block I the kernel visits the column blocks J <= I only, staging B_J and
-// x_J as fp32 into padded shared memory. The state update rides on the last
-// row block's pass over the column blocks, after every row has read the
-// entering state.
+// dt * A inside the chunk (fp32) and dA_total its last value:
+//   y_i  = exp(dA_cum_i) (C_i . h_p)                      (carried state)
+//        + sum_{j <= i} (C_i . B_j) exp(dA_cum_i - dA_cum_j) dt_j x_j
+//   h   <- exp(dA_total) h + sum_j fin_j x_j B_j^T,  fin_j = exp(dA_total - dA_cum_j) dt_j
 //
-// Numerics: the decay exponent is masked before exp (only i >= j is ever
-// evaluated; for i < j it is positive and would overflow, and inf * 0 gives
-// NaN), no exp(-dA_cum) is formed alone (every factor is exp of a value
-// <= 0), and products accumulate in fp32.
+// What bounds it, per launch at the serving shape (1 x 341 steps, 64 heads,
+// P = 64, N = 128, chunk 256, bf16): bytes, x, dt, B, C (and h0 when given)
+// read once, y and the fp32 state written once: 7.9 MB, 2.37 us at 3.35 TB/s.
+// The operations that data needs (C B^T once per chunk, shared by the heads;
+// (C B^T o L) x, C h^T and x^T B per head, over the causal part only) come to
+// 0.76 GFLOP, 0.8 us on the bf16 tensor cores. The bf16 kernel meets neither:
+// it runs ~17 us, held by the latency of each warpgroup's chain of products
+// (below), not by bytes or by the tensor cores' rate.
 //
-// Ragged S: the steps t >= S of the last chunk are masked here (dt = 0, no
-// input, no store), which is what the reference's padding to a chunk
-// multiple computes, so the wrapper copies nothing.
+// Two kernels, chosen by dtype in the wrapper:
 //
-// What bounds it, per launch: bytes, x, dt, B, C (and h0 when given) read
-// once, y and the fp32 state written once: 7.9 MB at the serving shape in
-// bf16 (1 x 341 x 64 x 64), 2.4 us at 3.35 TB/s. The operations that data
-// needs (C B^T once per chunk, shared by the heads; (C B^T o L) x,
-// C h^T and x^T B per head, all over the causal part only) come to 0.76
-// GFLOP, 0.8 us on the bf16 tensor cores. This first version is far from
-// both: all products are fp32 FMAs out of shared memory, each block
-// recomputes C B^T (identical for all heads and P tiles), and loads are not
-// overlapped with compute. mma/wgmma on bf16 tiles, and C B^T shared across
-// the heads, are the later steps.
+// * bf16, ssd_scan_kernel_wgmma<NPAD>: every product on the tensor cores.
+//   Grid (P / 32, H, batch): a block owns 32 columns of P of one head, so
+//   at the serving shape 128 blocks fill 128 of the 132 SMs. C B^T does not
+//   depend on P, so the two blocks of a head both compute it; one block a
+//   head (64 columns, 64 blocks) was timed too and took 18-23 % longer
+//   (PERF.md): half the SMs idle cost more than the doubled C B^T.
+//   A block is two consumer warpgroups (warps 0-7) and one producer warp
+//   (warp 8). A chunk is cut into row blocks of 64 (a chunk of 32 is one row
+//   block whose last 32 rows are masked). The producer's first lane loads
+//   each row block's C, B and x tiles by TMA into slot J of a ring (one slot
+//   per row block of a chunk; 3-D/4-D tensor maps over the strided views,
+//   C and B with the 128-byte swizzle, x with the 64-byte one; rows past S
+//   come in as zeros), each slot completed on a "full" mbarrier and released
+//   on an "empty" one once both warpgroups are done with it, so the next
+//   chunk's loads start while the state update of this one runs. The
+//   producer's 32 lanes read dt ahead and scan dt * A for the next chunk
+//   into a second buffer (dt, dA_cum, fin and dA_total, one mbarrier each).
+//   Row block I belongs to warpgroup (I ^ I >> 1) & 1 (0 and 3 to one, 1 and
+//   2 to the other: 5 tile pairs each at chunk 256). For row block I:
+//     y_I  = C_I h^T (wgmma m64n32k16, A = C_I K-major, B = the state),
+//            its rows scaled by exp(dA_cum_i); skipped while h is zero;
+//     for J <= I: S = C_I B_J^T (wgmma m64n64k16, both K-major, N / 16
+//            steps; the first one runs while the scan may still be going);
+//            W = S exp(dA_cum_i - dA_cum_j) dt_j on the accumulator, the
+//            exponent masked to i >= j before exp; W goes to registers as
+//            the A operand, where the accumulator's fragment already is the
+//            A operand's; y_I += W x_J (x_J an MN-major B operand read
+//            through the transpose bit, no transposed copy).
+//   The state is kept transposed, h^T (N x 32) in fp32 registers, each
+//   warpgroup one 64-row half of N (one warpgroup when N <= 64). After every
+//   row of the chunk has read the entering state (a named barrier):
+//     h^T <- exp(dA_total) h^T + sum_J Bt_J^T x_J,  Bt_j = fin_j B_j,
+//   with Bt^T built in registers as the A operand (ldmatrix.trans out of the
+//   swizzled B tile, scaled by fin_j) and x_J the same MN-major B operand as
+//   above, so nothing is written back to shared memory but the copy of h
+//   that the next chunk's C h^T reads. Keeping h transposed is what lets a
+//   block own 32 columns of P (n32 products: M = 64 rows of N).
+//   Rounding points: the three operands formed inside the kernel, W,
+//   Bt = fin o B and the copy of h read by C h^T, each go to the tensor
+//   cores as a bf16 head plus the bf16 rounding of what the head leaves out
+//   (two products each, 16 bits of mantissa). One bf16 rounding of each was
+//   tried first and missed the bf16 tolerance (5e-2 atol and rtol) where y
+//   nearly cancels, the more so over eight chunks of carried state. The
+//   scan of dt * A, every exponent, every accumulator and the master state
+//   are fp32; x, B and C come in as bf16.
+//   Padding: N = 16 and 64 are read as one 64-column box (TMA fills the
+//   columns past N with zeros, which add nothing to C B^T, C h^T or the
+//   state).
+//   What still holds it back (PERF.md): within a warpgroup every product
+//   waits for the one before (S, then W, then W x), so the tensor cores
+//   idle most of the time; the first tiles arrive late, every block reading
+//   C and B from L2; the state update runs on both warpgroups at once after
+//   the chunk, latency-bound. Overlapping W's math with the next S made
+//   ptxas serialize the products and was slower.
 //
-// Plain C interface: ssd_scan_launch() returns cudaGetLastError().
+// * fp32, ssd_scan_kernel_fma<N, R>: the products as fp32 FMAs out of padded
+//   shared memory (tensor cores would round fp32 to TF32). One block per
+//   (batch, head, 32 columns of P), the state in registers and a copy in
+//   shared memory; row blocks of R (64, or 32 for chunk 32) visit the column
+//   blocks J <= I only, and the state update rides on the last row block.
+//
+// Ragged S: the steps t >= S of the last chunk are masked in both kernels
+// (dt = 0, no input, no store), which is what the reference's padding to a
+// chunk multiple computes, so the wrapper copies nothing. No exp(-dA_cum) is
+// formed alone: every exponent is <= 0 (for i < j it would be positive and
+// overflow, and inf * 0 gives NaN).
+//
+// Plain C interface: ssd_scan_launch() launches the kernel that its is_bf16
+// argument names and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kPT = 32;         // P columns per block
 constexpr int kMaxChunk = 256;
-constexpr int kPad = 4;         // floats of padding per shared-memory row
-
-__device__ __forceinline__ void unpack_bf16x2(uint32_t u, float& lo, float& hi) {
-  lo = __uint_as_float(u << 16);          // element 0 sits in the low half
-  hi = __uint_as_float(u & 0xffff0000u);
-}
-
-// 16 bytes from global memory -> floats in shared memory
-__device__ __forceinline__ void stage16(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void stage16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  float4 a, b;
-  unpack_bf16x2(v.x, a.x, a.y);
-  unpack_bf16x2(v.y, a.z, a.w);
-  unpack_bf16x2(v.z, b.x, b.y);
-  unpack_bf16x2(v.w, b.z, b.w);
-  reinterpret_cast<float4*>(dst)[0] = a;
-  reinterpret_cast<float4*>(dst)[1] = b;
-}
-
-// Stage rows [0, R) of a (rows, W) matrix whose row r starts at
-// src + r * stride (elements; W contiguous) into dst[R][W + kPad] as fp32;
-// rows >= n_rows are zero.
-template <typename T, int W, int R>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int64_t stride,
-                                           int n_rows) {
-  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
-  constexpr int VPR = W / VEC;            // loads per row
-  constexpr int LD = W + kPad;
-  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * VEC;
-    float* d = dst + r * LD + c;
-    if (r < n_rows) {
-      stage16(src + r * stride + c, d);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; e += 4)
-        *reinterpret_cast<float4*>(d + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
-                                       float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 v;
-  v.x = *reinterpret_cast<const uint32_t*>(&lo);
-  v.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
+constexpr int kPT = 32;         // P columns per block, in both kernels
 
 struct Strides {   // in elements; p of x and y, n of B and C are contiguous
   int64_t x_b, x_s, x_h;
@@ -122,6 +110,31 @@ struct Strides {   // in elements; p of x and y, n of B and C are contiguous
   int64_t c_b, c_s;
   int64_t y_b, y_s, y_h;
 };
+
+// =============================================================== fp32, FMA
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kPad = 4;         // floats of padding per shared-memory row
+
+// Stage rows [0, R) of a (rows, W) matrix whose row r starts at
+// src + r * stride (elements; W contiguous) into dst[R][W + kPad];
+// rows >= n_rows are zero.
+template <int W, int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int64_t stride,
+                                           int n_rows) {
+  constexpr int VPR = W / 4;              // 16-byte loads per row
+  constexpr int LD = W + kPad;
+  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
+    const int r = idx / VPR;
+    const int c = (idx % VPR) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_rows) v = *reinterpret_cast<const float4*>(src + r * stride + c);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = v;
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
 
 template <int N, int R>
 constexpr size_t smem_floats() {
@@ -135,13 +148,13 @@ constexpr size_t smem_floats() {
 
 // grid (P / 32, H, batch). h0 and state are contiguous (batch, H, P, N), fp32;
 // h0 may be null (a zero initial state).
-template <typename T, int N, int R>
+template <int N, int R>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, const float* __restrict__ h0,
-                T* __restrict__ y, float* __restrict__ state, int S, int H, int P,
-                int chunk, Strides st) {
+ssd_scan_kernel_fma(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ h0,
+                    float* __restrict__ y, float* __restrict__ state, int S, int H,
+                    int P, int chunk, Strides st) {
   constexpr int NP = N + kPad;   // padded row of the C, B and state tiles
   constexpr int XP = kPT + kPad; // padded row of the x tile
   constexpr int WP = R + kPad;   // padded row of the weight tile
@@ -172,11 +185,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int ty16 = tid >> 4;     // score rows ty16 + 16 i
   const float a = A[h];
 
-  const T* xb = x + b * st.x_b + h * st.x_h + p0;
+  const float* xb = x + b * st.x_b + h * st.x_h + p0;
   const float* dtb = dt + b * st.dt_b + h * st.dt_h;
-  const T* Bb = Bm + b * st.b_b;
-  const T* Cb = Cm + b * st.c_b;
-  T* yb = y + b * st.y_b + h * st.y_h + p0;
+  const float* Bb = Bm + b * st.b_b;
+  const float* Cb = Cm + b * st.c_b;
+  float* yb = y + b * st.y_b + h * st.y_h + p0;
   const size_t hoff = (static_cast<size_t>(b * H + h) * P + p0) * N;
 
   // this thread's part of the state: row p = lane, columns warp + 8 k
@@ -217,8 +230,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const int n_blocks = (valid + R - 1) / R;
     for (int I = 0; I < n_blocks; ++I) {
       const int i0 = I * R;
-      stage_rows<T, N, R>(Cs, Cb + static_cast<int64_t>(t0 + i0) * st.c_s, st.c_s,
-                          valid - i0);
+      stage_rows<N, R>(Cs, Cb + static_cast<int64_t>(t0 + i0) * st.c_s, st.c_s,
+                       valid - i0);
       __syncthreads();
 
       // the carried state's part: exp(dA_cum_i) (C_i . h_p)
@@ -263,8 +276,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int J = 0; J <= I; ++J) {
         const int j0 = J * R;
         const int64_t tj = t0 + j0;
-        stage_rows<T, N, R>(Bs, Bb + tj * st.b_s, st.b_s, valid - j0);
-        stage_rows<T, kPT, R>(Xs, xb + tj * st.x_s, st.x_s, valid - j0);
+        stage_rows<N, R>(Bs, Bb + tj * st.b_s, st.b_s, valid - j0);
+        stage_rows<kPT, R>(Xs, xb + tj * st.x_s, st.x_s, valid - j0);
         __syncthreads();
 
         // weights W_ij = (C_i . B_j) exp(dA_cum_i - dA_cum_j) dt_j for i >= j
@@ -339,8 +352,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < YI; ++i) {
         const int row = i0 + ty8 + 32 * i;
         if (row < valid)
-          store4(yb + static_cast<int64_t>(t0 + row) * st.y_s + 4 * tx8, acc[i][0],
-                 acc[i][1], acc[i][2], acc[i][3]);
+          *reinterpret_cast<float4*>(yb + static_cast<int64_t>(t0 + row) * st.y_s +
+                                     4 * tx8) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       }
       // the next row block's staging of Cs waits at its barrier for nothing:
       // every read of Cs in this block came before the J loop's last barrier
@@ -356,44 +370,636 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int k = 0; k < HN; ++k) state[hoff + lane * N + warp + 8 * k] = hreg[k];
 }
 
-template <typename T, int N, int R>
-cudaError_t launch(const void* x, const void* dt, const void* A, const void* B,
-                   const void* C, const void* h0, void* y, void* state, int batch,
-                   int S, int H, int P, int chunk, const Strides& st,
-                   cudaStream_t stream) {
+template <int N, int R>
+cudaError_t launch_fma(const void* x, const void* dt, const void* A, const void* B,
+                       const void* C, const void* h0, void* y, void* state, int batch,
+                       int S, int H, int P, int chunk, const Strides& st,
+                       cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * smem_floats<N, R>();
   // more than the 48 KB a block gets without asking at the widest shapes
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T, N, R>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel_fma<N, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(P / kPT, H, batch);
-  ssd_scan_kernel<T, N, R><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B), static_cast<const T*>(C),
-      static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(state),
-      S, H, P, chunk, st);
+  ssd_scan_kernel_fma<N, R><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<const float*>(C), static_cast<const float*>(h0),
+      static_cast<float*>(y), static_cast<float*>(state), S, H, P, chunk, st);
   return cudaGetLastError();
 }
 
-template <typename T, int N>
-cudaError_t launch_r(const void* x, const void* dt, const void* A, const void* B,
-                     const void* C, const void* h0, void* y, void* state, int batch,
-                     int S, int H, int P, int chunk, const Strides& st,
-                     cudaStream_t stream) {
+template <int N>
+cudaError_t launch_fma_r(const void* x, const void* dt, const void* A, const void* B,
+                         const void* C, const void* h0, void* y, void* state, int batch,
+                         int S, int H, int P, int chunk, const Strides& st,
+                         cudaStream_t stream) {
   if (chunk == 32)
-    return launch<T, N, 32>(x, dt, A, B, C, h0, y, state, batch, S, H, P, chunk, st,
-                            stream);
-  return launch<T, N, 64>(x, dt, A, B, C, h0, y, state, batch, S, H, P, chunk, st,
-                          stream);
+    return launch_fma<N, 32>(x, dt, A, B, C, h0, y, state, batch, S, H, P, chunk, st,
+                             stream);
+  return launch_fma<N, 64>(x, dt, A, B, C, h0, y, state, batch, S, H, P, chunk, st,
+                           stream);
+}
+
+// ============================================================ bf16, wgmma
+constexpr int kRows = 64;                  // rows of a row block and of a TMA box
+constexpr int kConsumers = 256;            // two consumer warpgroups
+constexpr int kWgThreads = kConsumers + 32;   // and one producer warp
+constexpr int kBox = 64 * 64 * 2;          // bytes of one 64-row x 64-column bf16 box
+constexpr int kScan = 3 * kMaxChunk + 4;   // floats of one scan buffer
+constexpr float kMasked = -1e30f;          // exponent of a masked weight: exp gives 0
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// the two consumer warpgroups, without the producer warp
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Byte offset of byte `off` of a tile whose rows are `row_bytes` (128 or 64)
+// wide, as TMA's 128- or 64-byte swizzle stores it (the tile starts on a
+// 1024-byte boundary): the 16-byte chunk index is XORed with the row's.
+template <int row_bytes>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ ((off >> 3) & (row_bytes == 128 ? 0x70u : 0x30u));
+}
+
+// wgmma shared-memory descriptor of a swizzled operand with rows of
+// `row_bytes` (128: 128-byte swizzle, 64: 64-byte swizzle), groups of 8 rows
+// one after another: K-major (C, B) or, with the transpose bit, MN-major
+// (x, the bf16 state). The leading offset is unused for both.
+template <int row_bytes>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;                       // leading (unused)
+  d |= static_cast<uint64_t>((8 * row_bytes) >> 4) << 32;    // 8 rows apart
+  d |= static_cast<uint64_t>(row_bytes == 128 ? 1 : 2) << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving register reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define REPRO_D16(d)                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define REPRO_D32(d)                                                                 \
+  REPRO_D16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),  \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define REPRO_R16                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define REPRO_R32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// S (64 x 64, fp32) = or += A (64 x 16) B^T, A and B (64 x 16) K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_kk(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) = or += A (64 x 16, K-major in shared memory) B (16 x 32,
+// MN-major in shared memory): C h^T
+__device__ __forceinline__ void wgmma_sm(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REPRO_R16
+      ", %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : REPRO_D16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, bf16 in registers) B (16 x 32, MN-major in
+// shared memory): W x and Bt^T x
+__device__ __forceinline__ void wgmma_rm(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REPRO_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : REPRO_D16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef REPRO_D16
+#undef REPRO_D32
+#undef REPRO_R16
+#undef REPRO_R32
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (lo, hi) as a pair of bf16 values `head` and the pair of their rounding
+// errors, rounded to bf16 again, `tail`: head + tail holds 16 bits of each
+__device__ __forceinline__ void split_bf16x2(float lo, float hi, uint32_t& head,
+                                             uint32_t& tail) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  head = *reinterpret_cast<const uint32_t*>(&v);
+  tail = pack_bf16(lo - __low2float(v), hi - __high2float(v));
+}
+
+// grid (P / 32, H, batch), 288 threads: consumer warpgroups 0 and 1 (warps
+// 0-7), producer warp 8. h0 and state are contiguous (batch, H, P, N), fp32;
+// h0 may be null (a zero initial state). Accumulator fragment of thread
+// (warp w of its warpgroup, lane l): register k holds row
+// 16 w + l/4 + 8 ((k/2) % 2), column 8 (k/4) + 2 (l%4) + k%2.
+template <int NPAD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ssd_scan_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_b,
+                      const __grid_constant__ CUtensorMap tm_c,
+                      const float* __restrict__ dt, const float* __restrict__ A,
+                      const float* __restrict__ h0, __nv_bfloat16* __restrict__ y,
+                      float* __restrict__ state, int S, int H, int P, int N, int chunk,
+                      int64_t dt_b, int64_t dt_s, int64_t dt_h, int64_t y_b,
+                      int64_t y_s, int64_t y_h) {
+  constexpr int NBN = NPAD / 64;         // 64-column boxes of a C or B row block
+  constexpr int kCB = NBN * kBox;        // bytes of a C (or B) row block
+  constexpr int XRB = kPT * 2;           // bytes of a row of x and of the bf16 state
+  constexpr int kX = kRows * XRB;        // bytes of an x row block
+  constexpr int NACC = kPT / 2;          // registers of a 64 x 32 accumulator
+  constexpr int KS = NPAD / 16;          // k-steps over N
+
+  __shared__ __align__(8) uint64_t bars[10];   // full[4], empty[4], scan[2]
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int slots = max(chunk, kRows) / kRows;
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t c_s = base;                       // + J * kCB
+  const uint32_t b_s = c_s + slots * kCB;          // + J * kCB
+  const uint32_t x_s = b_s + slots * kCB;          // + J * kX
+  const uint32_t h_s = x_s + slots * kX;           // head, tail: NPAD rows x 32, bf16
+  constexpr int kH = NPAD * XRB;                   // bytes of one copy of h^T
+  uint8_t* const hs = smem_raw + (h_s - raw);
+  float* const scan = reinterpret_cast<float*>(hs + 2 * kH);   // 2 x kScan
+
+  const int p0 = blockIdx.x * kPT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = (S + chunk - 1) / chunk;
+  auto full = [&](int J) { return smem_u32(&bars[J]); };
+  auto empty = [&](int J) { return smem_u32(&bars[4 + J]); };
+  auto scanned = [&](int c) { return smem_u32(&bars[8 + (c & 1)]); };
+
+  if (threadIdx.x == 0) {
+    for (int J = 0; J < 4; ++J) {
+      mbar_init(full(J), 1);
+      mbar_init(empty(J), kConsumers);
+    }
+    mbar_init(scanned(0), 32);
+    mbar_init(scanned(1), 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {   // ---- producer
+    const float a = A[h];
+    const float* dtb = dt + b * dt_b + h * dt_h;
+    const int rpl = max(chunk, kRows) / 32;   // scan rows per lane
+    float d[8];   // this lane's dt of the chunk scanned next
+    auto load_dt = [&](int cc) {
+      const int t0 = cc * chunk;
+      const int valid = min(chunk, S - t0);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = lane * rpl + r;
+        d[r] = r < rpl && row < valid ? dtb[static_cast<int64_t>(t0 + row) * dt_s] : 0.f;
+      }
+    };
+    // dt, dA_cum, fin and dA_total of chunk cc (its dt in d) into scan buffer cc & 1
+    auto scan_chunk = [&](int cc) {
+      float* buf = scan + (cc & 1) * kScan;
+      float v[8], run = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        run += d[r] * a;
+        v[r] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += u;
+      }
+      const float excl = incl - run;
+      const float total = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r >= rpl) break;
+        const int row = lane * rpl + r;
+        const float cum = v[r] + excl;
+        buf[row] = d[r];
+        buf[kMaxChunk + row] = cum;
+        buf[2 * kMaxChunk + row] = __expf(total - cum) * d[r];   // total - cum <= 0
+      }
+      if (lane == 0) buf[3 * kMaxChunk] = total;
+      mbar_arrive(scanned(cc));
+    };
+
+    load_dt(0);   // in flight while the first loads are issued
+    for (int c = 0; c < n_chunks; ++c) {
+      const int t0 = c * chunk;
+      const int nb = (min(chunk, S - t0) + kRows - 1) / kRows;
+      if (lane == 0) {
+        for (int J = 0; J < nb; ++J) {
+          // every chunk but the last fills every slot, so slot J's last use
+          // was chunk c - 1
+          if (c > 0) mbar_wait(empty(J), (c - 1) & 1);
+          mbar_expect_tx(full(J), 2 * kCB + kX);
+          for (int q = 0; q < NBN; ++q) {
+            tma_load_3d(c_s + J * kCB + q * kBox, &tm_c, full(J), 64 * q, t0 + kRows * J, b);
+            tma_load_3d(b_s + J * kCB + q * kBox, &tm_b, full(J), 64 * q, t0 + kRows * J, b);
+          }
+          tma_load_4d(x_s + J * kX, &tm_x, full(J), p0, t0 + kRows * J, h, b);
+        }
+      }
+      __syncwarp();
+      // the buffer of chunk c + 1 was last read in chunk c - 1, which every
+      // consumer has finished: lane 0 saw its slots released above
+      if (c == 0) {
+        scan_chunk(0);
+        if (n_chunks > 1) load_dt(1);
+      }
+      if (c + 1 < n_chunks) {
+        scan_chunk(c + 1);
+        if (c + 2 < n_chunks) load_dt(c + 2);   // in flight until the next scan
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int r0 = wq * 16 + (lane >> 2);   // rows r0 and r0 + 8 of a fragment
+  const int cq = (lane & 3) * 2;
+  const bool holds_state = NPAD == 128 || wg == 0;
+  const int n0 = 64 * wg;                 // first row of h^T this warpgroup holds
+  const size_t hoff = static_cast<size_t>(b * H + h) * P * N;
+  __nv_bfloat16* const yb = y + b * y_b + h * y_h + p0;
+
+  // this warpgroup's 64 rows of h^T, fp32: register k is (n, p) =
+  // (n0 + r0 + 8 ((k/2) % 2), 8 (k/4) + cq + k%2)
+  float hacc[NACC];
+  auto h_index = [&](int k) {
+    const int n = n0 + r0 + 8 * ((k >> 1) & 1);
+    const int p = p0 + 8 * (k >> 2) + cq + (k & 1);
+    return hoff + static_cast<size_t>(p) * N + n;
+  };
+  auto h_row_ok = [&](int k) { return n0 + r0 + 8 * ((k >> 1) & 1) < N; };
+  // h^T as two bf16 copies, head and tail, read by C h^T as MN-major (rows
+  // n, columns p) B operands
+  auto write_hs = [&]() {
+#pragma unroll
+    for (int k = 0; k < NACC; k += 2) {
+      const int n = n0 + r0 + 8 * ((k >> 1) & 1);
+      const int p = 8 * (k >> 2) + cq;
+      const uint32_t off = swz<64>(n * XRB + 2 * p);
+      split_bf16x2(hacc[k], hacc[k + 1], *reinterpret_cast<uint32_t*>(hs + off),
+                   *reinterpret_cast<uint32_t*>(hs + kH + off));
+    }
+    // generic stores, read next by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+#pragma unroll
+  for (int k = 0; k < NACC; ++k)
+    hacc[k] = holds_state && h0 != nullptr && h_row_ok(k) ? h0[h_index(k)] : 0.f;
+  if (h0 != nullptr) {
+    if (holds_state) write_hs();
+    consumers_sync();
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * chunk;
+    const int valid = min(chunk, S - t0);
+    const int nb = (valid + kRows - 1) / kRows;
+    const uint32_t ph = c & 1;
+    const bool carried = c > 0 || h0 != nullptr;   // else h is zero
+    const float* dts = scan + (c & 1) * kScan;
+    const float* cum = dts + kMaxChunk;
+    const float* fin = cum + kMaxChunk;
+
+    for (int I = 0; I < nb; ++I) {
+      if (((I ^ (I >> 1)) & 1) != wg) continue;
+      mbar_wait(full(I), ph);
+      const int i0 = kRows * I + r0;      // rows i0 and i0 + 8 of the chunk
+      const uint32_t c_tile = c_s + I * kCB;
+
+      float acc[NACC];
+#pragma unroll
+      for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
+      if (carried) {   // y_I = exp(dA_cum_i) (C_I h^T), scaled below
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const uint64_t da = desc<128>(c_tile + (kk >> 2) * kBox + (kk & 3) * 32);
+          wgmma_sm(acc, da, desc<64>(h_s + kk * 16 * XRB), kk > 0);
+          wgmma_sm(acc, da, desc<64>(h_s + kH + kk * 16 * XRB), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+
+      for (int J = 0; J <= I; ++J) {
+        if (J < I) mbar_wait(full(J), ph);
+        // S = C_I B_J^T over N
+        float s[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) s[k] = 0.f;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const uint32_t off = (kk >> 2) * kBox + (kk & 3) * 32;
+          wgmma_kk(s, desc<128>(c_tile + off), desc<128>(b_s + J * kCB + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        // the producer's scan of dt * A ran while the first products did
+        if (J == 0) mbar_wait(scanned(c), (c >> 1) & 1);
+        const float ci0 = cum[i0], ci1 = cum[i0 + 8];
+        if (J == 0 && carried) {
+          const float e0 = __expf(ci0), e1 = __expf(ci1);   // <= 1
+#pragma unroll
+          for (int k = 0; k < NACC; ++k) acc[k] *= (k & 2) ? e1 : e0;
+        }
+
+        // W = S exp(dA_cum_i - dA_cum_j) dt_j, the exponent masked to i >= j
+        // on the diagonal tile, split into bf16 head and tail as the A
+        // operands of W x_J
+        const bool diag = J == I;
+        uint32_t wa[4][4], wt[4][4];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = kRows * J + 8 * q + cq;   // columns j and j + 1
+          const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+          const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+          const int il = r0 - 8 * q - cq;         // row - column, inside the tile
+          const float w0 = s[4 * q + 0] * __expf(!diag || il >= 0 ? ci0 - cj.x : kMasked) * dj.x;
+          const float w1 = s[4 * q + 1] * __expf(!diag || il >= 1 ? ci0 - cj.y : kMasked) * dj.y;
+          const float w2 = s[4 * q + 2] * __expf(!diag || il >= -8 ? ci1 - cj.x : kMasked) * dj.x;
+          const float w3 = s[4 * q + 3] * __expf(!diag || il >= -7 ? ci1 - cj.y : kMasked) * dj.y;
+          // columns 16 kk .. 16 kk + 15 are the A fragment of step kk
+          split_bf16x2(w0, w1, wa[q >> 1][(q & 1) * 2], wt[q >> 1][(q & 1) * 2]);
+          split_bf16x2(w2, w3, wa[q >> 1][(q & 1) * 2 + 1], wt[q >> 1][(q & 1) * 2 + 1]);
+        }
+        // y_I += W x_J: 4 steps of 16 rows of x_J
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = desc<64>(x_s + J * kX + kk * 16 * XRB);
+          wgmma_rm(acc, wa[kk], db);
+          wgmma_rm(acc, wt[kk], db);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+
+#pragma unroll
+      for (int k = 0; k < NACC; k += 2) {
+        const int row = i0 + 8 * ((k >> 1) & 1);
+        if (row < valid)
+          *reinterpret_cast<uint32_t*>(yb + static_cast<int64_t>(t0 + row) * y_s +
+                                       8 * (k >> 2) + cq) = pack_bf16(acc[k], acc[k + 1]);
+      }
+    }
+
+    consumers_sync();   // every row of the chunk has read the entering h
+
+    if (holds_state) {
+      // h^T <- exp(dA_total) h^T + sum_J Bt_J^T x_J, Bt_j = fin_j B_j: the
+      // A operand (rows n, columns j) comes from B_J's box of this
+      // warpgroup's n through ldmatrix.trans, scaled by fin_j in registers
+      mbar_wait(scanned(c), (c >> 1) & 1);   // a warpgroup may own no row block
+      const float decay = __expf(dts[3 * kMaxChunk]);
+#pragma unroll
+      for (int k = 0; k < NACC; ++k) hacc[k] *= decay;
+      fence_regs(hacc);
+      // lane l gives the address of row l % 8 of 8 x 8 matrix l / 8: rows
+      // j + 8 (l / 16), 16-byte column chunk 2 wq + (l / 8) % 2 of the box
+      const int lj = (lane & 7) + 8 * (lane >> 4);
+      const int lchunk = 2 * wq + ((lane >> 3) & 1);
+      for (int J = 0; J < nb; ++J) {
+        mbar_wait(full(J), ph);
+        const uint32_t bt = b_s + J * kCB + wg * kBox;
+        uint32_t ba[4][4], bb[4][4];   // Bt^T, head and tail
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int jr = 16 * kk + lj;
+          const uint32_t addr = bt + swz<128>(jr * 128 + lchunk * 16);
+          uint32_t u[4];
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+              : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3])
+              : "r"(addr));
+          // registers 0, 1 hold columns j = 16 kk + cq, + 1; 2, 3 those + 8
+          const float2 f0 = *reinterpret_cast<const float2*>(fin + kRows * J + 16 * kk + cq);
+          const float2 f8 = *reinterpret_cast<const float2*>(fin + kRows * J + 16 * kk + 8 + cq);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 f = r < 2 ? f0 : f8;
+            split_bf16x2(__uint_as_float(u[r] << 16) * f.x,
+                         __uint_as_float(u[r] & 0xffff0000u) * f.y, ba[kk][r], bb[kk][r]);
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = desc<64>(x_s + J * kX + kk * 16 * XRB);
+          wgmma_rm(hacc, ba[kk], db);
+          wgmma_rm(hacc, bb[kk], db);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(hacc);
+        mbar_arrive(empty(J));   // slot J may be loaded with the next chunk
+      }
+      if (c + 1 < n_chunks) write_hs();
+    } else {
+      for (int J = 0; J < nb; ++J) mbar_arrive(empty(J));
+    }
+    consumers_sync();   // the next chunk reads the new bf16 copy of h
+  }
+
+  if (holds_state) {
+#pragma unroll
+    for (int k = 0; k < NACC; ++k)
+      if (h_row_ok(k)) state[h_index(k)] = hacc[k];
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 map of `rank` dimensions (innermost first) with element strides for
+// dimensions 1.., boxes of `box`, out-of-bounds elements read as 0.
+CUresult encode_map(CUtensorMap* map, const void* base, int rank, const int64_t* dims,
+                    const int64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  cuuint64_t d[4], s[3];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) d[i] = static_cast<cuuint64_t>(dims[i]);
+  // the coordinate of a dimension of extent 1 is always 0: any legal stride
+  for (int i = 1; i < rank; ++i)
+    s[i - 1] = static_cast<cuuint64_t>(dims[i] == 1 ? strides[0] : strides[i - 1]) * 2;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int NPAD>
+constexpr int wgmma_smem(int slots) {
+  return 1024 + slots * (2 * (NPAD / 64) * kBox + kRows * kPT * 2) + 2 * NPAD * kPT * 2 +
+         2 * kScan * static_cast<int>(sizeof(float));
+}
+
+template <int NPAD>
+int launch_wgmma(const void* x, const void* dt, const void* A, const void* B,
+                 const void* C, const void* h0, void* y, void* state, int batch, int S,
+                 int H, int P, int N, int chunk, const Strides& st, cudaStream_t stream) {
+  CUtensorMap tm_x, tm_b, tm_c;
+  const int64_t x_dims[4] = {P, S, H, batch};
+  const int64_t x_strides[3] = {st.x_s, st.x_h, st.x_b};
+  const cuuint32_t x_box[4] = {kPT, kRows, 1, 1};
+  const int64_t bc_dims[3] = {N, S, batch};
+  const int64_t b_strides[2] = {st.b_s, st.b_b};
+  const int64_t c_strides[2] = {st.c_s, st.c_b};
+  const cuuint32_t bc_box[3] = {64, kRows, 1};
+  CUresult res = encode_map(&tm_x, x, 4, x_dims, x_strides, x_box,
+                            CU_TENSOR_MAP_SWIZZLE_64B);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(&tm_b, B, 3, bc_dims, b_strides, bc_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res == CUDA_SUCCESS)
+    res = encode_map(&tm_c, C, 3, bc_dims, c_strides, bc_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res != CUDA_SUCCESS) return -static_cast<int>(res);
+  const cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel_wgmma<NPAD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               wgmma_smem<NPAD>(4));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(P / kPT, H, batch);
+  ssd_scan_kernel_wgmma<NPAD>
+      <<<grid, kWgThreads, wgmma_smem<NPAD>(max(chunk, kRows) / kRows), stream>>>(
+          tm_x, tm_b, tm_c, static_cast<const float*>(dt), static_cast<const float*>(A),
+          static_cast<const float*>(h0), static_cast<__nv_bfloat16*>(y),
+          static_cast<float*>(state), S, H, P, N, chunk, st.dt_b, st.dt_s, st.dt_h,
+          st.y_b, st.y_s, st.y_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // strides: 13 element strides, in turn x (batch, seq, head), dt (batch, seq,
 // head), B (batch, seq), C (batch, seq), y (batch, seq, head). h0 may be null.
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// is_bf16 chooses the kernel: 1 the bf16 tensor-core kernel, 0 the fp32 FMA
+// kernel. Returns cudaGetLastError() after the launch (0 = launched), minus
+// the CUresult if a tensor map cannot be encoded, or cudaErrorInvalidValue
+// for a shape the kernels do not take.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C, const void* h0, void* y,
                                void* state, int batch, int S, int H, int P, int N,
@@ -406,17 +1012,20 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   st.c_b = strides[8]; st.c_s = strides[9];
   st.y_b = strides[10]; st.y_s = strides[11]; st.y_h = strides[12];
   const bool chunk_ok = chunk == 32 || chunk == 64 || chunk == 128 || chunk == 256;
-  if (!chunk_ok || P % kPT != 0 || P <= 0 || S <= 0 || H <= 0 || batch <= 0)
+  const bool p_ok = P == 32 || P == 64;
+  if (!chunk_ok || !p_ok || S <= 0 || H <= 0 || batch <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_SSD_ARGS x, dt, A, B, C, h0, y, state, batch, S, H, P
+  if (is_bf16) {   // N = 16 and 64 read as one 64-column box
+    if (N == 128) return launch_wgmma<128>(REPRO_SSD_ARGS, N, chunk, st, s);
+    if (N == 64 || N == 16) return launch_wgmma<64>(REPRO_SSD_ARGS, N, chunk, st, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaErrorInvalidValue;
-#define REPRO_SSD_ARGS x, dt, A, B, C, h0, y, state, batch, S, H, P, chunk, st, s
-  if (is_bf16 && N == 128) err = launch_r<__nv_bfloat16, 128>(REPRO_SSD_ARGS);
-  else if (is_bf16 && N == 64) err = launch_r<__nv_bfloat16, 64>(REPRO_SSD_ARGS);
-  else if (is_bf16 && N == 16) err = launch_r<__nv_bfloat16, 16>(REPRO_SSD_ARGS);
-  else if (!is_bf16 && N == 128) err = launch_r<float, 128>(REPRO_SSD_ARGS);
-  else if (!is_bf16 && N == 64) err = launch_r<float, 64>(REPRO_SSD_ARGS);
-  else if (!is_bf16 && N == 16) err = launch_r<float, 16>(REPRO_SSD_ARGS);
+  if (N == 128) err = launch_fma_r<128>(REPRO_SSD_ARGS, chunk, st, s);
+  else if (N == 64) err = launch_fma_r<64>(REPRO_SSD_ARGS, chunk, st, s);
+  else if (N == 16) err = launch_fma_r<16>(REPRO_SSD_ARGS, chunk, st, s);
 #undef REPRO_SSD_ARGS
   return static_cast<int>(err);
 }

@@ -1,26 +1,35 @@
-"""Mamba2 SSD chunked scan: wrapper, plain PyTorch versions, launch counter.
+"""Mamba2 SSD chunked scan: wrapper, plain PyTorch versions, launch counters.
 
-The kernel is ``csrc/ssd_scan.cu`` (CUDA C++ for sm_90a). It replaces the
-TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan`` (body ``_kernel``) and
-computes the same function: per (batch, head), chunks in order with the
+The kernels are in ``csrc/ssd_scan.cu`` (CUDA C++ for sm_90a). They replace
+the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan`` (body ``_kernel``) and
+compute the same function: per (batch, head), chunks in order with the
 (P, N) state carried across them, an intra-chunk term
 ``((C B^T) o L o dt_j) x`` and an inter-chunk term ``exp(dA_cum) (C h^T)``.
-Unlike the TPU kernel it takes any sequence length: the steps past ``s`` of
+Unlike the TPU kernel they take any sequence length: the steps past ``s`` of
 the last chunk are masked in the kernel (no input, no decay, no store),
 which is what ``repro.kernels.ops.ssd_scan``'s padding to a chunk multiple
 computes, so the wrapper makes no padded copies. x, B and C may be strided
 views (their last axis contiguous), as ``mamba_forward`` slices them out of
 one projection.
 
-Bound on the H100: bytes (x, dt, B, C and h0 read once, y and the fp32 state
-written once) at the serving path's shape; the operations the data needs
-are a third of that time on the bf16 tensor cores. The kernel's design (one
-block per (batch, head, 32 columns of P), the chunk loop inside the block,
-fp32 FMAs out of shared memory) and what holds it back are described at the
-top of the ``.cu`` source.
+Bound on the H100 at the serving path's shape (1 x 341 steps, 64 heads,
+P = 64, N = 128, bf16): bytes, 7.9 MB (x, dt, B, C and h0 read once, y and
+the fp32 state written once), 2.37 us at 3.35 TB/s; the 0.76 GFLOP the data
+needs take a third of that on the bf16 tensor cores. The source holds two
+kernels, chosen here by dtype and nothing else. bf16 runs every product on
+the tensor cores (``wgmma``): one block per (batch, head, 32 columns of P)
+walks the chunks with the state in registers, a producer warp loads the C,
+B and x tiles by TMA (tensor maps encoded per call over the strided views)
+and scans ``dt * A``, and two consumer warpgroups run the products. The
+operands it forms itself (the weights ``W``, ``fin o B`` of the state update
+and the copy of the state that ``C h^T`` reads) go to the tensor cores as a
+bf16 head and tail, which keeps them to 16 bits. float32 runs on the FMA
+kernel (tensor cores would round it to TF32). Their designs and what holds
+them back are described at the top of the ``.cu`` source.
 
 ``ssd_scan`` runs the plain version only for tensors on the CPU. On CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel for their dtype or raises; a bf16 launch
+that fails is not retried on the FMA kernel.
 """
 from __future__ import annotations
 
@@ -184,8 +193,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Any ``s``: a ragged last chunk is masked, not padded.
 
     Tensors on the CPU go through ``ssd_scan_plain``; tensors on a CUDA
-    device launch the kernel (and count the launch in ``ssd_scan.launches``)
-    or raise.
+    device launch the kernel (and count the launch in ``ssd_scan.launches``,
+    a bf16 launch of the tensor-core kernel also in
+    ``ssd_scan.tensor_core_launches``) or raise.
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk, h0=h0)
@@ -199,16 +209,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides = (ctypes.c_longlong * 13)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
         *y.stride()[:3])
+    # bf16 on the tensor cores; float32 on the FMA kernel, which keeps it
+    # exact (the tensor cores would round it to TF32)
+    tensor_cores = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
         err = _library().ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), state.data_ptr(),
-            b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16), strides,
+            b, s, h, p, n, chunk, int(tensor_cores), strides,
             torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"ssd_scan: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.tensor_core_launches += int(tensor_cores)
     return y, state
 
 
-ssd_scan.launches = 0   # launches of the CUDA kernel by this wrapper
+ssd_scan.launches = 0   # launches of either CUDA kernel by this wrapper
+ssd_scan.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's

@@ -144,6 +144,58 @@ def test_kernel_takes_the_strided_views_mamba_forward_passes():
         ssd_module._check(xs, dt, A, transposed, C, None, 256)
 
 
+def _bf16_head_tail(t):
+    """``t`` as the bf16 kernel hands it to the tensor cores: a bf16 head
+    plus the bf16 rounding of what the head leaves out."""
+    head = t.to(torch.bfloat16).float()
+    return head + (t - head).to(torch.bfloat16).float()
+
+
+def _ssd_scan_bf16_kernel_numerics(x, dt, A, B, C, chunk, h0=None):
+    """``ssd_scan_plain``'s algorithm chunk by chunk, in float32, with the
+    operands that the bf16 tensor-core kernel rounds rounded where it rounds
+    them: the weights W of ``W x``, ``fin o B`` of the state update and the
+    state that ``C h^T`` reads (each a bf16 head and tail); y is stored in
+    bf16. x, B and C are the kernel's bf16 inputs, widened."""
+    b, s, h, p = x.shape
+    state = torch.zeros((b, h, p, B.shape[-1])) if h0 is None else h0.clone()
+    ys = []
+    for t0 in range(0, s, chunk):
+        xc, dtc = x[:, t0:t0 + chunk], dt[:, t0:t0 + chunk]
+        Bc, Cc = B[:, t0:t0 + chunk], C[:, t0:t0 + chunk]
+        L = xc.shape[1]
+        cum = torch.cumsum(dtc * A, dim=1)                       # (b, L, h)
+        total = cum[:, -1]
+        causal = (torch.arange(L)[:, None] >= torch.arange(L)[None, :])[None, :, :, None]
+        decay = torch.exp(torch.where(causal, cum[:, :, None] - cum[:, None], -torch.inf))
+        w = torch.einsum("bin,bjn->bij", Cc, Bc)[..., None] * decay * dtc[:, None]
+        y = torch.einsum("bijh,bjhp->bihp", _bf16_head_tail(w), xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum(
+            "bin,bhpn->bihp", Cc, _bf16_head_tail(state))
+        fin = torch.exp(total[:, None] - cum) * dtc              # (b, L, h)
+        bt = _bf16_head_tail(fin[..., None] * Bc[:, :, None])    # (b, L, h, n)
+        state = torch.exp(total)[..., None, None] * state + torch.einsum(
+            "bjhn,bjhp->bhpn", bt, xc)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(torch.bfloat16), state
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_bf16_kernel_rounding_points_hold_over_eight_chunks(with_h0):
+    """The bf16 kernel's rounding points, run on the CPU at the serving widths
+    over eight chunks of carried state, stay within the bf16 tolerance of
+    ``chip_smoke.py`` (5e-2) against the reference's float32 oracle on the
+    same bf16-valued inputs."""
+    x, dt, A, B, C, h0 = _ssd_inputs(6, 1, 2048, 4, 64, 128, with_h0=with_h0)
+    x, B, C = (torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in (x, B, C))
+    y, state = _ssd_scan_bf16_kernel_numerics(*_torch((x, dt, A, B, C)), 256,
+                                              h0=None if h0 is None else torch.from_numpy(h0))
+    want_y, want_h = ref_ref.ssd_scan_ref(*_jax((x, dt, A, B, C, h0)), chunk=256)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want_y), atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_h), atol=5e-2, rtol=5e-2)
+
+
 # ---------------------------------------------------------- Mamba2 block
 def _ref_layer(seed=0):
     rcfg = ref_smoke_config(ARCH)
