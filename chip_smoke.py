@@ -6,10 +6,14 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card, checks that the
 port's engine samples the same tokens on the card (kernels) and on the CPU
-(plain versions) for the dense and the ssm family, and serves llama-8b and
+(plain versions) for the dense and the ssm family, serves llama-8b and
 mamba2-1.3b at full width (random bf16 weights from a seed) through
-``repro_torch.launch.serve``'s loop, each path with the kernels' launch
-counters set to 0 just before it and read just after. Every phase prints
+``repro_torch.launch.serve``'s loop, and runs Chiron's whole hierarchy,
+``serve_forever`` driven by ``ChironController`` over llama-8b instances
+sharing the card (the ``cluster`` phase: first the smoke cluster's
+decisions and tokens card against CPU and a migration mid-generation, then
+a mixed interactive and batch trace at full width), each path with the
+kernels' launch counters set to 0 just before it and read just after. Every phase prints
 JSON lines; any failure ends the run with a non-zero exit code. Without a
 GPU it fails at once. A kernel's ``ms`` (and the plain version's and the
 library call's) is device time: the own times of the kernels one call
@@ -67,10 +71,16 @@ from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving.cluster_trace import ClusterRecorder, SharedClock  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.real_cluster import RealCluster, serve_forever  # noqa: E402
 from repro_torch.serving.request import make_batch, make_interactive  # noqa: E402
+from repro_torch.sim.cluster import InstanceType  # noqa: E402
+from repro_torch.sim.controllers import ChironController  # noqa: E402
+from repro_torch.sim.perf_model import PerfModel  # noqa: E402
+from repro_torch.sim.workload import WorkloadSpec, generate  # noqa: E402
 
-ALL_PHASES = ("kernels", "parity", "serve")
+ALL_PHASES = ("kernels", "parity", "serve", "cluster")
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,6 +96,10 @@ KERNELS = {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
            "ssd_scan": ssd_scan}
 # the wrappers whose bf16 launches go to a tensor-core kernel, counted apart
 TENSOR_CORE_KERNELS = ("flash_prefill", "ssd_scan")
+# the kernels of a llama-8b instance, and so of the cluster phase
+ATTENTION_KERNELS = ("paged_attention", "flash_prefill")
+# the longest the cluster phase's full-width run may take
+CLUSTER_LIMIT_S = 400.0
 
 KERNEL_INFO = {
     "paged_attention": {
@@ -132,29 +146,57 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call of ``fn()`` in ms: the own times of every
-    kernel the calls launched, from torch.profiler, over ``iters`` calls
-    after a warm-up. Unlike ``time_ms`` it does not include the gaps in which
-    the device waits for the host between calls. Now and then a profiler
-    session returns no device events at all; such a session is run again,
-    up to three times in all."""
+def _kernel_rows(fn, reps: int) -> list:
+    """The device rows of ``key_averages()`` over ``reps`` calls of ``fn()``
+    under torch.profiler. A session counts only if its kernel events number
+    exactly ``reps`` times those of one call, read from a one-call session
+    just before it: the profiler drops device events now and then (the
+    first few of a session, which the lead-in below absorbs, and at times
+    more), and a partial session would pass a fraction of the device time
+    as the whole. Such a pair of sessions is run again
+    after a pause, up to six times in all; then the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    for _ in range(3):
+
+    def session(n):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            # a session's first device events are the ones it loses: a
+            # lead-in of marker kernels (``spin_kernel``, left out of the
+            # rows) and a pause take that loss before ``fn`` runs
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(_device_us(e) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / iters / 1e3
-    fail("the profiler saw no device time in three sessions: kernel times "
-         "cannot be read")
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+
+    seen = []
+    for attempt in range(6):
+        time.sleep(0.2 * attempt)
+        one = sum(e.count for e in session(1))
+        rows = session(reps)
+        n = sum(e.count for e in rows)
+        if one > 0 and n == reps * one:
+            return rows
+        seen.append([one, n])
+    fail(f"six profiler sessions of {reps} calls were incomplete (kernel events "
+         f"of one call, of {reps} calls: {seen}): device times cannot be read")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn()`` in ms: the own times of every
+    kernel the calls launched, from a complete torch.profiler session
+    (``_kernel_rows``) over ``iters`` calls after a warm-up. Unlike
+    ``time_ms`` it does not include the gaps in which the device waits for
+    the host between calls. ``fn`` must launch the same kernels at every
+    call."""
+    for _ in range(warmup):
+        fn()
+    return sum(_device_us(e) for e in _kernel_rows(fn, iters)) / iters / 1e3
 
 
 def _device_us(event) -> float:
@@ -617,6 +659,10 @@ def _parity_run(cfg, params, device, prompts):
     return trace, sum(r.preemptions for r in reqs)
 
 
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
 def _parity(cfg, label: str, prompt_lens, kernels) -> None:
     """Serve the same prompts with the same float32 parameters on the card
     and on the CPU: every slot's next token must agree after every step,
@@ -625,16 +671,11 @@ def _parity(cfg, label: str, prompt_lens, kernels) -> None:
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
     params_cpu = Model(cfg).init(gen, dtype=torch.float32, device="cpu")
-
-    def to_cuda(tree):
-        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
-                for k, v in tree.items()}
-
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
                for n in prompt_lens]
     before = {name: KERNELS[name].launches for name in kernels}
-    gpu_trace, gpu_preempt = _parity_run(cfg, to_cuda(params_cpu), "cuda", prompts)
+    gpu_trace, gpu_preempt = _parity_run(cfg, _to_cuda(params_cpu), "cuda", prompts)
     launched = {name: KERNELS[name].launches - before[name] for name in kernels}
     cpu_trace, cpu_preempt = _parity_run(cfg, params_cpu, "cpu", prompts)
     if min(launched.values()) == 0:
@@ -665,18 +706,12 @@ def phase_parity() -> None:
 
 
 def _profiled(fn, reps: int) -> dict:
-    """Run ``fn`` ``reps`` times under torch.profiler and return, per run,
-    the device-busy time (sum of the kernels' own times), the number of
-    kernel launches and the busiest kernels. Profiling slows the host, so
-    wall times are taken in a separate, unprofiled window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    """Run ``fn`` ``reps`` times under torch.profiler (a complete session,
+    ``_kernel_rows``) and return, per run, the device-busy time (sum of the
+    kernels' own times), the number of kernel launches and the busiest
+    kernels. Profiling slows the host, so wall times are taken in a
+    separate, unprofiled window."""
+    kernels = _kernel_rows(fn, reps)
     top = sorted(((e.key, _device_us(e) / reps / 1e3) for e in kernels),
                  key=lambda kv: -kv[1])
     own = ("paged_attention_", "flash_prefill_kernel", "ssd_scan_kernel")
@@ -701,9 +736,11 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     slot pool and of one prefill: how far the eager host code holds the card
     back. ``prompt`` is a length near the longest the serve phase admits
     (341) that its run has most likely not seen, so the first call shows what
-    a new prompt length costs on top of the steady time."""
+    a new prompt length costs on top of the steady time. The requests'
+    outputs outlast every profiler session ``_kernel_rows`` may run, so each
+    profiled step decodes all slots."""
     for _ in range(eng.max_slots):
-        eng.submit(make_interactive(64, 2 * steps + 8))
+        eng.submit(make_interactive(64, 9 * steps + 8))
     eng.set_max_batch_size(eng.max_slots)
     for _ in range(3):
         eng.step()
@@ -722,8 +759,6 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     out["prefill_first_call_wall_ms"] = _wall_ms(prefill, 1)
     out["prefill_wall_ms"] = _wall_ms(prefill, 3)
     pre = _profiled(prefill, 2)
-    if not prof["device_ms"]:      # the profiler saw no device activity here
-        return {**out, "decode_device_ms_per_step": None}
     for name, p in (("decode", prof), ("prefill", pre)):
         unit = "_per_step" if name == "decode" else ""
         out[f"{name}_device_ms{unit}"] = p["device_ms"]
@@ -807,6 +842,351 @@ def phase_serve(smi: str) -> dict:
         "paged_attention": res["decode_steps"], "flash_prefill": res["prefills"]})
     launches.update(_serve_path(smi, "mamba2-1.3b", lambda res: {
         "ssd_scan": res["prefills"]}))
+    return launches
+
+
+# ------------------------------------------------------------ the cluster
+def _cluster_trace(cfg, spec: WorkloadSpec, max_prompt: int, max_output: int):
+    """``spec``'s requests with prompts and outputs capped, and explicit prompt
+    tokens from a seed (so that every engine prefills the same tokens)."""
+    reqs = generate(spec)
+    rng = np.random.default_rng(spec.seed + 100)
+    for r in reqs:
+        r.prompt_len = int(min(r.prompt_len, max_prompt))
+        r.output_len = int(min(r.output_len, max_output))
+        r.prompt_tokens = rng.integers(0, cfg.vocab_size, size=(r.prompt_len,),
+                                       dtype=np.int32)
+    return reqs
+
+
+def _cluster_replay(cfg, params, device):
+    """The fp32 smoke cluster under ``ChironController`` on a shared fake
+    clock; returns the recorder's log, the result and the requests."""
+    cluster = RealCluster(cfg, max_chips=4, max_slots=3, max_len=64,
+                          device=device, params=params)
+    spec = WorkloadSpec(n_requests=24, arrival_rate=12.0, interactive_frac=0.7,
+                        batch_queue_size=10, batch_ttft_slo=5.0, seed=7,
+                        model="llama-8b")
+    reqs = _cluster_trace(cfg, spec, 20, 15)
+    clock = SharedClock(0.05)
+    rec = ClusterRecorder(cluster, reqs, clock)
+    out = serve_forever(reqs, ChironController(model="llama-8b", init_batch=2,
+                                               max_batch=3),
+                        cluster, clock=clock.advance, max_steps=1500)
+    return rec.log, out, reqs
+
+
+def _migration_tokens(cfg, params, steps: int, move: bool) -> list:
+    """One request's next input token after every step on the card, beside
+    two companions on two mixed instances. After ``steps`` steps it moves
+    (``move``: ``RealCluster.migrate``) from the first instance to slot 1 of
+    the second, or it stays and only takes input token 0 there, as a
+    restored request does (the reference's rule), so that both runs feed it
+    the same inputs."""
+    cluster = RealCluster(cfg, max_chips=2, max_slots=3, max_len=96,
+                          device="cuda", params=params)
+    rng = np.random.default_rng(5)
+    reqs = [make_batch(n, 30) for n in (21, 13, 34)]
+    for r in reqs:
+        r.prompt_tokens = rng.integers(0, cfg.vocab_size, size=(r.prompt_len,),
+                                       dtype=np.int32)
+    rec = ClusterRecorder(cluster, reqs)
+    a = cluster.provision("llama-8b", InstanceType.MIXED, 0.0, static_batch=3)
+    b = cluster.provision("llama-8b", InstanceType.MIXED, 0.0, static_batch=3)
+    for inst in (a, b):
+        inst.activate_if_ready(0.0)
+    a.admit(reqs[0], 0.0)        # the request that moves
+    a.admit(reqs[1], 0.0)        # a companion on the first instance
+    b.admit(reqs[2], 0.0)        # one on the second: the mover gets slot 1
+    for _ in range(steps):
+        a.step(0.0)
+        b.step(0.0)
+    if move:
+        if not cluster.migrate(reqs[0].req_id, a, b):
+            fail("cluster: RealCluster.migrate refused a free slot")
+        if reqs[0].state.value != "queued" or a.n_running != 1:
+            fail("cluster: the migrated request did not leave its instance")
+    else:
+        next(s for s in a.engine.slots if s.request is reqs[0]).token = 0
+    for _ in range(200):
+        if all(r.state.value == "finished" for r in reqs):
+            break
+        a.step(0.0)
+        b.step(0.0)
+    if any(r.state.value != "finished" for r in reqs):
+        fail("cluster: the migration run did not finish")
+    return rec.tokens_of(0)
+
+
+def _cluster_parity() -> None:
+    """The llama-8b smoke cluster in float32 (head_dim 64, as the parity
+    phase) under ``ChironController`` on a shared fake clock, on the card and
+    on the CPU: the same decisions and the same token after every step for
+    every request. Then one request migrated mid-generation on the card
+    keeps the tokens of a run without the move."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config("llama-8b").with_(head_dim=64)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(2)
+    params_cpu = Model(cfg).init(gen, dtype=torch.float32, device="cpu")
+    params_gpu = _to_cuda(params_cpu)
+    before = {name: KERNELS[name].launches for name in ATTENTION_KERNELS}
+    gpu_log, gpu_out, gpu_reqs = _cluster_replay(cfg, params_gpu, "cuda")
+    launched = {name: KERNELS[name].launches - before[name] for name in ATTENTION_KERNELS}
+    cpu_log, cpu_out, _ = _cluster_replay(cfg, params_cpu, "cpu")
+    if min(launched.values()) == 0:
+        fail(f"cluster parity: the card's run did not launch both kernels: {launched}")
+    if gpu_log != cpu_log:
+        first = next((i for i, (x, y) in enumerate(zip(gpu_log, cpu_log)) if x != y),
+                     min(len(gpu_log), len(cpu_log)))
+        fail(f"cluster parity: the runs part at event {first}: card "
+             f"{gpu_log[first:first + 1]}, cpu {cpu_log[first:first + 1]}")
+    if gpu_out["finished"] != gpu_out["total"] or \
+            any(gpu_out[k] != cpu_out[k] for k in ("steps", "scale_ups", "scale_downs")):
+        fail(f"cluster parity: card {gpu_out}, cpu {cpu_out}")
+    kinds = {}
+    for e in gpu_log:
+        key = e[0] if e[0] != "provision" else f"provision {e[2]}"
+        kinds[key] = kinds.get(key, 0) + 1
+    if not {"provision mixed", "provision batch", "retire"} <= set(kinds):
+        fail(f"cluster parity: the run was meant to use both arms and retire: {kinds}")
+
+    before_move = KERNELS["paged_attention"].launches
+    base = _migration_tokens(cfg, params_gpu, 6, move=False)
+    toks = _migration_tokens(cfg, params_gpu, 6, move=True)
+    if toks != base or len(toks) < 20:
+        fail(f"cluster migration: the migrated request's tokens {toks} differ "
+             f"from the run without the move {base}")
+    if KERNELS["paged_attention"].launches == before_move:
+        fail("cluster migration: the runs launched no paged_attention")
+    emit("cluster", check="parity",
+         config="llama-8b smoke, head_dim=64, float32, fake clock 0.05 s a loop",
+         requests=len(gpu_reqs), loops=gpu_out["steps"], events=len(gpu_log),
+         decisions=kinds, scale_ups=gpu_out["scale_ups"],
+         scale_downs=gpu_out["scale_downs"], card_equals_cpu=True,
+         kernel_launches=launched, migration_steps=len(toks),
+         migration_tokens_agree=True)
+
+
+def _percentiles(values) -> dict:
+    v = np.asarray(values, dtype=np.float64) * 1e3
+    if v.size == 0:
+        return {"p50_ms": None, "p99_ms": None, "mean_ms": None}
+    return {"p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99)),
+            "mean_ms": float(v.mean())}
+
+
+def _busy_by_batch(cluster, cfg, sizes, prompt: int, steps: int = 5) -> dict:
+    """Device-busy and wall time (ms) of one decode step of an engine alone
+    on the card, at each batch size in ``sizes``, on the cluster's shared
+    weights with ``prompt``-token prompts: a profiled pass after
+    ``serve_forever``, so that the run's window holds no profiler."""
+    out = {}
+    for b in sizes:
+        eng = Engine(cfg, params=cluster._shared_params, max_slots=8, max_len=1024,
+                     dtype=torch.bfloat16, device="cuda")
+        eng.set_max_batch_size(b)
+        for _ in range(b):
+            # the outputs outlast every session _kernel_rows may run
+            eng.submit(make_interactive(prompt, 10 * steps + 8))
+        while eng.waiting or eng.n_active < b:
+            eng.step()
+        eng.step()
+        wall = _wall_ms(eng.step, steps)
+        prof = _profiled(eng.step, steps)
+        out[b] = {"device_ms": prof["device_ms"], "wall_ms": wall,
+                  "launches": prof["launches"]}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cluster(smi: str) -> dict:
+    """Chiron's global layer at full width on the card: ``serve_forever``
+    driven by ``ChironController`` over llama-8b instances (bf16, random
+    weights from seed 0, one copy shared by every instance, a KV pool of
+    8 x 1024 tokens each), on the real clock. Each instance is a logical
+    share of the one card (``max_chips=4``, one "chip" an instance); the
+    loop steps them in turn. Fails unless every request finished, at least
+    two instances served tokens, every attention launch went to the hand
+    kernels and no engine sits on the CPU. The timed window holds no profiler
+    and no recorder: each instance's step, provision and retirement are
+    wrapped only to read the clock and count; device-busy time is taken
+    after the run (``_busy_by_batch``). Returns the kernels' launches."""
+    _cluster_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama-8b")
+    max_prompt, max_output = 341, 64
+    t_weights = time.monotonic()
+    cluster = RealCluster(cfg, max_chips=4, chips_per_instance=1, max_slots=8,
+                          max_len=1024, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weights_s = time.monotonic() - t_weights
+    # interactive arrivals over ~8 s and a batch backlog at t=0 (60 s TTFT)
+    spec = WorkloadSpec(n_requests=30, arrival_rate=4.0, interactive_frac=0.8,
+                        batch_queue_size=12, batch_ttft_slo=60.0, seed=0,
+                        model="llama-8b")
+    reqs = _cluster_trace(cfg, spec, max_prompt, max_output)
+
+    # per instance, by provision order, on this script's own clock: its
+    # lifetime and, for each step that ran requests, the ITL the engine
+    # measured, the batch size, whether it admitted, and its wall time;
+    # besides, the provisions and retirements in order
+    life, per_inst, names, decisions = {}, {}, {}, []
+    provision, retire = cluster.provision, cluster.retire
+
+    def provision_timed(model, itype, now, **kw):
+        inst = provision(model, itype, now, **kw)
+        if inst is None:
+            return None
+        n = names[id(inst)] = len(names)
+        decisions.append(("provision", n, itype.value))
+        life[n] = [time.monotonic(), None, itype.value]
+        stats_n = per_inst[n] = {"steps": 0, "tokens": 0, "itl_s": [], "decode": [],
+                                 "local": inst.local}
+        step = inst.step
+
+        def step_timed(now):
+            running = {id(s.request) for s in inst.running}
+            t = time.monotonic()
+            stats = step(now)
+            wall = time.monotonic() - t
+            stats_n["steps"] += 1
+            if stats.n_active:
+                stats_n["tokens"] += stats.new_tokens
+                stats_n["itl_s"].append(stats.itl)
+                admitted = any(id(s.request) not in running for s in inst.running)
+                stats_n["decode"].append((stats.n_active, admitted, wall))
+            return stats
+        inst.step = step_timed
+        return inst
+
+    def retire_timed(inst):
+        n = names[id(inst)]
+        life[n][1] = time.monotonic()
+        displaced = retire(inst)
+        decisions.append(("retire", n, len(displaced)))
+        return displaced
+
+    cluster.provision, cluster.retire = provision_timed, retire_timed
+    # serve_forever's clock. Its loop does not sleep: while nothing runs it
+    # spins until the next arrival, so its loop count is no bound on time;
+    # the clock ends a run that outlasts CLUSTER_LIMIT_S instead.
+    t0 = []
+
+    def clock():
+        t = time.monotonic()
+        if not t0:
+            t0.append(t)
+        elif t - t0[0] > CLUSTER_LIMIT_S:
+            fail(f"cluster: serve_forever still ran after {CLUSTER_LIMIT_S} s")
+        return t
+
+    controller = ChironController(model="llama-8b", init_batch=2, max_batch=8)
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    for kernel in TENSOR_CORE_KERNELS:
+        KERNELS[kernel].tensor_core_launches = 0
+    out = serve_forever(reqs, controller, cluster, max_steps=10 ** 9, clock=clock)
+    launches = {name: KERNELS[name].launches for name in ATTENTION_KERNELS}
+    tensor_core = KERNELS["flash_prefill"].tensor_core_launches
+    t_end = time.monotonic()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if out["finished"] != len(reqs):
+        fail(f"cluster: {out['finished']} of {len(reqs)} requests finished: {out}")
+    served = [n for n, s in per_inst.items() if s["tokens"] > 0]
+    if len(served) < 2:
+        fail(f"cluster: only instances {served} served tokens")
+    decode_steps = sum(len(s["decode"]) for s in per_inst.values())
+    want = {"paged_attention": decode_steps * cfg.n_layers,
+            "flash_prefill": len(reqs) * cfg.n_layers}
+    if launches != want or tensor_core != launches["flash_prefill"]:
+        fail(f"cluster: attention launches {launches} ({tensor_core} on the "
+             f"tensor-core kernel), the run implies {want}")
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else [v]
+
+    for inst in cluster.instances:
+        if any(t.device.type != "cuda" for t in [*leaves(inst.engine.params),
+                                                 *leaves(inst.engine.pool)]):
+            fail("cluster: an engine's parameters or pool live on the CPU")
+    for r in reqs:
+        if r.tokens_generated < 1 or r.first_token_time is None:
+            fail("cluster: a finished request generated no token")
+
+    by_type = {"provision": {}, "retire": {}}
+    for e in decisions:
+        if e[0] == "provision":
+            by_type["provision"][e[2]] = by_type["provision"].get(e[2], 0) + 1
+        elif e[0] == "retire":
+            kind = life[e[1]][2]
+            by_type["retire"][kind] = by_type["retire"].get(kind, 0) + 1
+    migrated = sum(e[2] for e in decisions if e[0] == "retire")
+    start = t0[0]
+    per_type = {}
+    for kind in ("interactive", "batch"):
+        rs = [r for r in reqs if r.request_type.value == kind]
+        # TTFT from the trace's arrival on serve_forever's clock (the
+        # engine's clock is absolute; Request.ttft would mix the two)
+        ttft = [r.first_token_time - start - r.arrival_time for r in rs]
+        itl = [x for r in rs for x in r.itl_samples]
+        met = sum(r.state.value == "finished" and t <= r.slo.ttft and r.itl_met()
+                  for r, t in zip(rs, ttft))
+        per_type[kind] = {"requests": len(rs), "ttft": _percentiles(ttft),
+                          "itl": _percentiles(itl), "slo_met": met,
+                          "ttft_slo_s": rs[0].slo.ttft if rs else None,
+                          "itl_slo_s": rs[0].slo.itl if rs else None}
+    tokens = sum(r.tokens_generated for r in reqs)
+    # device-busy time of a decode step at each batch size the instances'
+    # decode-only steps ran, from a profiled pass after the timed run
+    sizes = sorted({b for s in per_inst.values() for b, admitted, _ in s["decode"]
+                    if not admitted})
+    busy_prompt = int(round(np.mean([r.prompt_len for r in reqs])))
+    busy = _busy_by_batch(cluster, cfg, sizes, busy_prompt)
+    instances = {}
+    for n, s in per_inst.items():
+        born, gone, kind = life[n]
+        alone = [(b, wall) for b, admitted, wall in s["decode"] if not admitted]
+        instances[n] = {
+            "type": kind, "seconds": (gone or t_end) - born, "steps": s["steps"],
+            "decode_steps": len(s["decode"]), "tokens": s["tokens"],
+            "itl": _percentiles(s["itl_s"]),
+            "decode_only_steps": len(alone),
+            "decode_only_step_wall": _percentiles([wall for _, wall in alone]),
+            "batch_sizes": {b: sum(1 for x, _ in alone if x == b)
+                            for b in sorted({x for x, _ in alone})},
+            # Algorithm 1's batch size after each of its updates
+            "batch_size_history": list(s["local"].history),
+            "device_busy_ms_per_decode_only_step": (float(np.mean(
+                [busy[b]["device_ms"] for b, _ in alone])) if alone else None)}
+    perf = PerfModel("llama-8b")
+    ctx = float(np.mean([r.prompt_len + r.output_len / 2 for r in reqs]))
+    res = dict(
+        gpu=smi, model=cfg.name, dtype="bfloat16", n_layers=cfg.n_layers,
+        d_model=cfg.d_model, max_slots=8, max_len=1024, max_chips=4,
+        requests=len(reqs), max_prompt=max_prompt, max_output=max_output,
+        finished=out["finished"], loops=out["steps"], serve_s=out["wall_s"],
+        weights_s=weights_s, tokens=tokens, tokens_per_s=tokens / out["wall_s"],
+        provisions=by_type["provision"], retires=by_type["retire"],
+        scale_ups=out["scale_ups"], scale_downs=out["scale_downs"],
+        chip_seconds_by_cluster=cluster.chip_seconds,
+        instance_seconds=sum(i["seconds"] for i in instances.values()),
+        preemptions=sum(r.preemptions for r in reqs), migrations=migrated,
+        per_type=per_type, instances_served=len(served), instances=instances,
+        peak_device_memory_gb=peak_gb, kernel_launches=launches,
+        busy_by_batch_size=busy, busy_pass_prompt=busy_prompt,
+        flash_prefill_tensor_core_launches=tensor_core,
+        perf_model={"itl_ms_at_8_slots": perf.itl(8, ctx) * 1e3, "mean_ctx": ctx,
+                    "batch_instance_tokens_per_s":
+                        controller.batch_instance_throughput(cluster)})
+    emit("cluster", check="serve", **res)
     return launches
 
 
@@ -894,10 +1274,15 @@ def main() -> None:
     if "parity" in phases:
         phase_parity()
     launches = phase_serve(smi) if "serve" in phases else {}
+    cluster_launches = phase_cluster(smi) if "cluster" in phases else {}
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return
-    kernels = [{**records[name], "launches": launches[name]} for name in KERNELS]
+    # each kernel's launches over the main paths it serves: its serve path's
+    # and, for the attention kernels, the cluster's
+    total = {name: launches[name] + cluster_launches.get(name, 0) for name in KERNELS}
+    emit("launches", serve=launches, cluster=cluster_launches, total=total)
+    kernels = [{**records[name], "launches": total[name]} for name in KERNELS]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in kernels]}))

@@ -1,13 +1,16 @@
 """Workload generation: ShareGPT-like token distributions, Poisson or
 Gamma arrivals, an interactive/batch class mix.
 
-The port's copy of what ``launch.serve`` needs of ``repro.sim.workload``:
-``WorkloadSpec`` and ``generate``. The draws are made in the same order
-from the same ``numpy`` generator (batch-queue token lengths, live token
-lengths, gaps, class coin flips), so one spec and seed give the same
-requests here and there. The columnar ``Trace`` plane (trace files,
+The port's copy of what ``launch.serve`` and the global layer need of
+``repro.sim.workload``: ``WorkloadSpec``, ``generate``, and the
+arrival-spike statistics behind Theta (``arrival_spikes``,
+``theta_from_history``). The draws are made in the same order from the
+same ``numpy`` generator (batch-queue token lengths, live token lengths,
+gaps, class coin flips), so one spec and seed give the same requests here
+and there. The columnar ``Trace`` plane (trace files,
 multi-model fleets, retries) belongs to the simulator and is not needed
-by a serving instance.
+by a serving instance, so ``_arrival_column`` takes request lists and
+arrays only.
 """
 from __future__ import annotations
 
@@ -93,3 +96,43 @@ def generate(spec: WorkloadSpec) -> List[Request]:
         reqs.append(Request(p, o, rtype, slo, arrival_time=t,
                             model=spec.model))
     return reqs
+
+
+def _arrival_column(source) -> np.ndarray:
+    """Arrival times from an ndarray/sequence of floats, or a sequence of
+    Request-likes (anything with ``.arrival_time``)."""
+    if isinstance(source, np.ndarray):
+        return source.astype(np.float64, copy=False)
+    src = list(source)
+    if not src:
+        return np.empty(0)
+    if hasattr(src[0], "arrival_time"):
+        return np.fromiter((r.arrival_time for r in src), dtype=np.float64,
+                           count=len(src))
+    return np.asarray(src, dtype=np.float64)
+
+
+def arrival_spikes(source, interval: float = 30.0) -> np.ndarray:
+    """Paper §2.3: ratio of arrival rate between consecutive intervals of
+    length = model load time. Used by the Theta-from-history heuristic.
+
+    Vectorized: one ``np.bincount`` over the arrival column, a shifted
+    ratio, and a mask — O(n + bins) with no per-request Python loop.
+    """
+    times = _arrival_column(source)
+    if times.size == 0:
+        return np.empty(0)
+    counts = np.bincount((times / interval).astype(np.int64))
+    prev, nxt = counts[:-1], counts[1:]
+    mask = prev > 0
+    return nxt[mask] / prev[mask]
+
+
+def theta_from_history(source, interval: float = 30.0,
+                       pct: float = 99.0) -> float:
+    """Theta = 1 / tail-spike (paper §5.2 example: spike 3x -> Theta=1/3)."""
+    spikes = arrival_spikes(source, interval)
+    if spikes.size == 0:
+        return 1.0 / 3.0
+    tail = float(np.percentile(spikes, pct))
+    return 1.0 / max(tail, 1.0)

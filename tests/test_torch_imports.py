@@ -42,7 +42,9 @@ def test_sources_were_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "layers.py", "paged_attention.py", "flash_prefill.py",
             "ssd_scan.py", "ssm.py", "mamba_model.py", "_build.py", "serve.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "global_queue.py", "real_cluster.py", "cluster_trace.py",
+            "global_autoscaler.py", "request_groups.py", "waiting_time.py",
+            "baselines.py", "perf_model.py", "cluster.py", "controllers.py"} <= names
 
 
 def test_every_module_imports_without_gpu_or_triton():
