@@ -13,7 +13,14 @@ mamba2-1.3b at full width (random bf16 weights from a seed) through
 sharing the card (the ``cluster`` phase: first the smoke cluster's
 decisions and tokens card against CPU and a migration mid-generation, then
 a mixed interactive and batch trace at full width), each path with the
-kernels' launch counters set to 0 just before it and read just after. Every phase prints
+kernels' launch counters set to 0 just before it and read just after.
+Every engine on the card replays its decode step as a CUDA graph captured
+when it was built; the ``graph`` phase holds one replay against one eager
+``model.decode_step`` from the same pool state at full width, the ``serve``
+phase times both and also serves llama-8b with the prefix cache and chunked
+prefill. A replay counts the launches its capture recorded
+(``serving/decode_graph.py``), and the profiler confirms one
+``paged_attention`` kernel a layer in a replayed step. Every phase prints
 JSON lines; any failure ends the run with a non-zero exit code. Without a
 GPU it fails at once. A kernel's ``ms`` (and the plain version's and the
 library call's) is device time: the own times of the kernels one call
@@ -71,6 +78,7 @@ from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving import decode_graph  # noqa: E402
 from repro_torch.serving.cluster_trace import ClusterRecorder, SharedClock  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.real_cluster import RealCluster, serve_forever  # noqa: E402
@@ -80,7 +88,7 @@ from repro_torch.sim.controllers import ChironController  # noqa: E402
 from repro_torch.sim.perf_model import PerfModel  # noqa: E402
 from repro_torch.sim.workload import WorkloadSpec, generate  # noqa: E402
 
-ALL_PHASES = ("kernels", "parity", "serve", "cluster")
+ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster")
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -118,6 +126,11 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/ssd_scan.py:90",
     },
 }
+
+
+def zero_counts() -> None:
+    """Every launch counter of every kernel wrapper set to 0."""
+    decode_graph.add_counts([-c for c in decode_graph.read_counts()])
 
 
 def emit(phase: str, **fields) -> None:
@@ -656,6 +669,8 @@ def _parity_run(cfg, params, device, prompts):
         step += 1
     if any(r.state.value != "finished" for r in reqs):
         fail(f"parity: not every request finished on {device}")
+    if device == "cuda" and eng.decode_graph._graph is None:
+        fail("parity: the engine on the card holds no captured decode graph")
     return trace, sum(r.preemptions for r in reqs)
 
 
@@ -693,6 +708,63 @@ def _parity(cfg, label: str, prompt_lens, kernels) -> None:
          kernel_launches=launched)
 
 
+def _knobs_run(cfg, params, device, prompts):
+    """Serve ``prompts`` with ``prefill_chunk=8, prefix_cache_entries=8``, the
+    first alone (so that it is cached before the others arrive); returns
+    every slot's next token after every step and the cache's hit counts."""
+    eng = Engine(cfg, params=params, max_slots=3, max_len=96, dtype=torch.float32,
+                 device=device, prefill_chunk=8, prefix_cache_entries=8)
+    reqs = []
+    for toks in prompts:
+        r = make_interactive(len(toks), 8)
+        r.prompt_tokens = toks
+        reqs.append(r)
+    trace = []
+    for wave in (reqs[:1], reqs[1:]):
+        for r in wave:
+            eng.submit(r)
+        while eng.waiting or eng.n_active:
+            eng.step()
+            trace.append([s.token for s in eng.slots])
+    if any(r.state.value != "finished" for r in reqs):
+        fail(f"parity (knobs): not every request finished on {device}")
+    pc = eng.prefix_cache
+    return trace, {"hits": pc.hits, "misses": pc.misses, "hit_tokens": pc.hit_tokens}
+
+
+def _parity_knobs() -> None:
+    """The dense smoke engine with the reference's serving knobs, card
+    against CPU: prompts sharing a 20-token prefix, prefilled from the
+    prefix cache in chunks of 8 (``flash_prefill`` with ``q_offset > 0``)."""
+    cfg = get_smoke_config("llama-8b").with_(head_dim=64)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    params_cpu = Model(cfg).init(gen, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, size=(20,), dtype=np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, size=(n,),
+                                                    dtype=np.int32)])
+               for n in (5, 17, 3, 11, 1)]
+    before = decode_graph.read_counts()
+    gpu_trace, gpu_hits = _knobs_run(cfg, _to_cuda(params_cpu), "cuda", prompts)
+    launched = decode_graph.named_counts(
+        decode_graph.count_delta(before, decode_graph.read_counts()))
+    cpu_trace, cpu_hits = _knobs_run(cfg, params_cpu, "cpu", prompts)
+    if gpu_trace != cpu_trace:
+        first = next((i for i, (a, b) in enumerate(zip(gpu_trace, cpu_trace)) if a != b),
+                     min(len(gpu_trace), len(cpu_trace)))
+        fail(f"parity (knobs): tokens differ at step {first}")
+    if gpu_hits != cpu_hits or gpu_hits["hits"] < len(prompts) - 1:
+        fail(f"parity (knobs): prefix cache card {gpu_hits}, cpu {cpu_hits}")
+    if launched["flash_prefill.offset_launches"] == 0 or \
+            launched["paged_attention.launches"] == 0:
+        fail(f"parity (knobs): no flash_prefill launch with q_offset > 0: {launched}")
+    emit("parity", config="llama-8b smoke, head_dim=64, float32, prefill_chunk=8, "
+         "prefix_cache_entries=8", prompt_lens=[len(p) for p in prompts],
+         steps=len(gpu_trace), prefix_cache=gpu_hits, tokens_agree=True,
+         kernel_launches=launched)
+
+
 def phase_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -703,6 +775,93 @@ def phase_parity() -> None:
     # one shorter than the conv window
     _parity(get_smoke_config("mamba2-1.3b"), "mamba2-1.3b smoke, float32",
             (9, 70, 17, 30, 2), ("ssd_scan",))
+    _parity_knobs()
+
+
+def _graph_check(arch: str) -> None:
+    """One eager ``model.decode_step`` against one replay of the engine's
+    captured graph, at full width in bf16, from one pool state with a mix of
+    active and free slots (one freed mid-run, three never used): the eager
+    step runs on a copy of the pool, the replay on the engine's own. Logits
+    within the bf16 tolerance, ``pos`` equal, the written state within the
+    tolerance, and every other element of the pool bit-identical to the state
+    before."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    eng = Engine(cfg, gen=gen, max_slots=8, max_len=1024, dtype=torch.bfloat16,
+                 device="cuda")
+    g = eng.decode_graph
+    rng = np.random.default_rng(4)
+    for n, out in ((30, 20), (200, 3), (7, 20), (341, 20), (2, 20)):
+        r = make_interactive(n, out)
+        r.prompt_tokens = rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    tokens = [s.token if s.active else 0 for s in eng.slots]
+    active = [s.active for s in eng.slots]
+    if sum(active) != 4 or active[1]:
+        fail(f"graph {arch}: meant to check 4 active slots and 4 free, got {active}")
+    before = {k: v.clone() for k, v in eng.pool.items()}
+    scratch = {k: v.clone() for k, v in eng.pool.items()}
+    with torch.no_grad():
+        want, cache = eng.model.decode_step(
+            eng.params, torch.tensor(tokens, device="cuda")[:, None], scratch,
+            torch.tensor(active, device="cuda"))
+    counts = decode_graph.read_counts()
+    next_tok = g.run(tokens, active)
+    replayed = decode_graph.named_counts(
+        decode_graph.count_delta(counts, decode_graph.read_counts()))
+    torch.cuda.synchronize()
+    bf16 = torch.bfloat16
+    errs = {"logits": check_close(f"graph {arch} logits", g.logits, want, bf16)}
+    if next_tok.tolist() != torch.argmax(g.logits, -1).tolist():
+        fail(f"graph {arch}: next tokens are not the argmax of the static logits")
+    pos = before["pos"] + torch.tensor(active, device="cuda").int()
+    if not (torch.equal(eng.pool["pos"], pos) and torch.equal(cache["pos"], pos)):
+        fail(f"graph {arch}: pos {eng.pool['pos'].tolist()}, eager "
+             f"{cache['pos'].tolist()}, want {pos.tolist()}")
+    if cfg.arch_type == "dense":
+        rows = [b for b, a in enumerate(active) if a]
+        p = before["pos"][rows].long()
+        pages = eng.pool["block_tables"][rows].long().gather(1, (p // 16)[:, None])[:, 0]
+        offs = p % 16
+        for key in ("k", "v"):
+            errs[key] = check_close(f"graph {arch} written {key}",
+                                    eng.pool[key][:, pages, offs],
+                                    scratch[key][:, pages, offs], bf16)
+            for name, t in (("replay", eng.pool[key]), ("eager", scratch[key])):
+                rest, old = t.clone(), before[key].clone()
+                rest[:, pages, offs] = 0
+                old[:, pages, offs] = 0
+                if not torch.equal(rest, old):
+                    fail(f"graph {arch}: the {name} step changed {key} outside the "
+                         "rows it writes")
+        if not torch.equal(eng.pool["block_tables"], before["block_tables"]):
+            fail(f"graph {arch}: the block tables changed")
+        if replayed["paged_attention.launches"] != cfg.n_layers:
+            fail(f"graph {arch}: a replay counted {replayed}")
+    else:
+        for key in ("ssm", "conv"):
+            errs[key] = check_close(f"graph {arch} {key}", eng.pool[key], scratch[key],
+                                    bf16)
+    emit("graph", model=cfg.name, dtype="bfloat16", max_slots=8, max_len=1024,
+         active=active, tolerance=TOL[bf16], max_abs_err=errs, pos_equal=True,
+         # the ssm step advances every row's state, free rows too
+         **({"unwritten_pool_bit_identical": True} if cfg.arch_type == "dense" else {}),
+         replay_counted=replayed, capture_s=g.capture_s,
+         graph_pool_bytes=g.graph_pool_bytes, warmup_steps=decode_graph.WARMUP_STEPS,
+         gpu=torch.cuda.get_device_name(0))
+    eng.close()
+    del eng, before, scratch, g
+
+
+def phase_graph() -> None:
+    _graph_check("llama-8b")
+    _graph_check("mamba2-1.3b")
 
 
 def _profiled(fn, reps: int) -> dict:
@@ -715,10 +874,13 @@ def _profiled(fn, reps: int) -> dict:
     top = sorted(((e.key, _device_us(e) / reps / 1e3) for e in kernels),
                  key=lambda kv: -kv[1])
     own = ("paged_attention_", "flash_prefill_kernel", "ssd_scan_kernel")
+    short = lambda k: k.split("<")[0].split("::")[-1]  # noqa: E731
     return {"device_ms": sum(ms for _, ms in top),
             "launches": sum(e.count for e in kernels) / reps,
-            "own_kernels_ms": {k.split("<")[0].split("::")[-1]: round(ms, 4)
+            "own_kernels_ms": {short(k): round(ms, 4)
                                for k, ms in top if any(o in k for o in own)},
+            "own_kernel_launches": {short(e.key): e.count / reps for e in kernels
+                                    if any(o in e.key for o in own)},
             "top_ms": [[k[:60], round(ms, 4)] for k, ms in top[:6]]}
 
 
@@ -733,12 +895,16 @@ def _wall_ms(fn, reps: int) -> float:
 
 def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     """Host (wall) time beside device-busy time of one decode step at a full
-    slot pool and of one prefill: how far the eager host code holds the card
-    back. ``prompt`` is a length near the longest the serve phase admits
-    (341) that its run has most likely not seen, so the first call shows what
-    a new prompt length costs on top of the steady time. The requests'
-    outputs outlast every profiler session ``_kernel_rows`` may run, so each
-    profiled step decodes all slots."""
+    slot pool, graphed (``eng.step``, a replay) and eager (the model's
+    ``decode_step``, argmax and the copy to the host, as the engine ran it
+    before the graph, on a copy of the pool), and of one prefill: how far the
+    host holds the card back. ``prompt`` is a length near the longest the
+    serve phase admits (341) that its run has most likely not seen, so the
+    first call shows what a new prompt length costs on top of the steady
+    time. The requests' outputs outlast every profiler session
+    ``_kernel_rows`` may run, so each profiled step decodes all slots. Fails
+    unless the profiler sees one ``paged_attention`` kernel a layer in a
+    replayed dense step."""
     for _ in range(eng.max_slots):
         eng.submit(make_interactive(64, 9 * steps + 8))
     eng.set_max_batch_size(eng.max_slots)
@@ -746,8 +912,34 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
         eng.step()
     out = {"decode_wall_ms_per_step": _wall_ms(eng.step, steps)}
     prof = _profiled(eng.step, steps)
+    scratch = {k: v.clone() for k, v in eng.pool.items()}
+    tok = torch.tensor([s.token for s in eng.slots], device=eng.device)[:, None]
+    act = torch.ones((eng.max_slots,), dtype=torch.bool, device=eng.device)
+
+    @torch.no_grad()
+    def eager():
+        logits, _ = eng.model.decode_step(eng.params, tok, scratch, act)
+        torch.argmax(logits, -1).cpu()
+
+    eager()
+    out["eager_decode_wall_ms_per_step"] = _wall_ms(eager, steps)
+    eager_prof = _profiled(eager, steps)
+    del scratch
     while eng.waiting or eng.n_active:
         eng.step()
+    if eng.cfg.arch_type == "dense":
+        for name, p in (("graphed", prof), ("eager", eager_prof)):
+            n = p["own_kernel_launches"].get("paged_attention_kernel")
+            if n != eng.cfg.n_layers:
+                fail(f"{eng.cfg.name}: the profiler saw {n} paged_attention kernels "
+                     f"in one {name} decode step, not {eng.cfg.n_layers}")
+    out["eager_decode_device_ms_per_step"] = eager_prof["device_ms"]
+    out["eager_decode_launches_per_step"] = eager_prof["launches"]
+    out["eager_decode_own_kernel_launches_per_step"] = eager_prof["own_kernel_launches"]
+    out["eager_decode_device_idle_share"] = \
+        1.0 - eager_prof["device_ms"] / out["eager_decode_wall_ms_per_step"]
+    out["capture_s"] = eng.decode_graph.capture_s
+    out["graph_pool_bytes"] = eng.decode_graph.graph_pool_bytes
 
     toks = torch.randint(0, eng.cfg.vocab_size, (1, prompt), device=eng.device)
 
@@ -764,6 +956,7 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
         out[f"{name}_device_ms{unit}"] = p["device_ms"]
         out[f"{name}_launches{unit}"] = p["launches"]
         out[f"{name}_own_kernels_ms{unit}"] = p["own_kernels_ms"]
+        out[f"{name}_own_kernel_launches{unit}"] = p["own_kernel_launches"]
         out[f"{name}_top_device_ms{unit}"] = p["top_ms"]
     out["decode_device_idle_share"] = \
         1.0 - prof["device_ms"] / out["decode_wall_ms_per_step"]
@@ -771,20 +964,19 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     return out
 
 
-def _serve_path(smi: str, arch: str, per_layer) -> dict:
+def _serve_path(smi: str, arch: str, per_layer):
     """Serve ``arch`` at full width through ``launch.serve``'s loop with
     every kernel's launch counter set to 0 just before and read just after;
     ``per_layer(res)`` gives, for each kernel of this path, how many runs of
-    one layer the serve run made (launches = that x the layer count)."""
+    one layer the serve run made (launches = that x the layer count), the
+    engine's warm-up steps before its capture included. Returns the launches
+    and the engine."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
     n_requests, max_output = 24, 64
     torch.cuda.reset_peak_memory_stats()
-    for kernel in KERNELS.values():
-        kernel.launches = 0
-    for kernel in TENSOR_CORE_KERNELS:
-        KERNELS[kernel].tensor_core_launches = 0
+    zero_counts()
     t0 = time.monotonic()
     res = serve(cfg, requests=n_requests, max_slots=8, max_len=1024,
                 dtype=torch.bfloat16, device="cuda",
@@ -833,15 +1025,93 @@ def _serve_path(smi: str, arch: str, per_layer) -> dict:
          batch_size_history=res["batch_size_history"],
          peak_device_memory_gb=peak_gb, kernel_launches=launches,
          tensor_core_launches=tensor_core_launches, **share)
-    return got
+    return got, eng
+
+
+def _serve_prefix(smi: str, params) -> dict:
+    """llama-8b at full width with the reference's serving knobs
+    (``prefix_cache_entries=8, prefill_chunk=128``) on the serve phase's
+    weights: 24 requests, all submitted at once, share a 256-token prefix
+    and end in 1-85 tokens of their own (prompts <= 341). Counters set to 0
+    just before and read just after. Fails unless every request finished,
+    every request after the first reused the prefix, and every
+    ``flash_prefill`` launch (those with ``q_offset > 0`` among them) went
+    to the tensor-core kernel."""
+    cfg = get_config("llama-8b")
+    n_requests, max_output, prefix = 24, 64, 256
+    rng = np.random.default_rng(12)
+    shared = rng.integers(0, cfg.vocab_size, size=(prefix,), dtype=np.int32)
+    reqs = []
+    for n in rng.integers(1, 86, size=n_requests):
+        r = make_interactive(prefix + int(n), max_output)
+        r.prompt_tokens = np.concatenate(
+            [shared, rng.integers(0, cfg.vocab_size, size=(int(n),), dtype=np.int32)])
+        reqs.append(r)
+    zero_counts()
+    eng = Engine(cfg, params=params, max_slots=8, max_len=1024, dtype=torch.bfloat16,
+                 device="cuda", prefix_cache_entries=8, prefill_chunk=128)
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    decode_steps, itl = 0, []
+    while eng.waiting or eng.n_active:
+        stats = eng.step()
+        if stats.n_active:
+            decode_steps += 1
+            itl.append(stats.itl)
+    wall = time.monotonic() - t0
+    counts = decode_graph.named_counts(decode_graph.read_counts())
+    pc = eng.prefix_cache
+    # the first prompt misses and goes in chunks of 128; every other one
+    # reuses at least the prefix, and its remainder (< 128) is one chunk
+    first = -(-reqs[0].prompt_len // 128)
+    want_fp = (first + n_requests - 1) * cfg.n_layers
+    want_offset = (first - 1 + n_requests - 1) * cfg.n_layers
+    want_paged = (decode_steps + decode_graph.WARMUP_STEPS) * cfg.n_layers
+    if any(r.state.value != "finished" for r in reqs):
+        fail("serve prefix: not every request finished")
+    if pc.hits != n_requests - 1 or pc.hit_tokens < (n_requests - 1) * prefix:
+        fail(f"serve prefix: {pc.hits} hits, {pc.hit_tokens} tokens reused")
+    fp = counts["flash_prefill.launches"]
+    if fp != want_fp or fp != counts["flash_prefill.tensor_core_launches"] or \
+            counts["flash_prefill.offset_launches"] != want_offset:
+        fail(f"serve prefix: flash_prefill launches {counts}, the run implies "
+             f"{want_fp}, {want_offset} of them with q_offset > 0, all on the "
+             "tensor-core kernel")
+    if counts["paged_attention.launches"] != want_paged:
+        fail(f"serve prefix: paged_attention launches {counts}, the run implies "
+             f"{want_paged}")
+    itl_a = np.asarray(itl)
+    ttft = np.asarray([r.first_token_time - t0 for r in reqs])
+    emit("serve", check="prefix cache + chunked prefill", gpu=smi, model=cfg.name,
+         dtype="bfloat16", requests=n_requests, shared_prefix=prefix,
+         prompt_lens=[r.prompt_len for r in reqs], max_output=max_output,
+         prefix_cache_entries=8, prefill_chunk=128, hits=pc.hits, misses=pc.misses,
+         hit_tokens=pc.hit_tokens, prefill_chunks=first + n_requests - 1,
+         serve_loop_s=wall, decode_steps=decode_steps,
+         tokens=sum(r.tokens_generated for r in reqs),
+         tokens_per_s=sum(r.tokens_generated for r in reqs) / wall,
+         ttft_mean_ms=float(ttft.mean() * 1e3), ttft_p50_ms=float(np.median(ttft) * 1e3),
+         ttft_max_ms=float(ttft.max() * 1e3),
+         itl_p50_ms=float(np.percentile(itl_a, 50) * 1e3),
+         itl_p99_ms=float(np.percentile(itl_a, 99) * 1e3),
+         capture_s=eng.decode_graph.capture_s, kernel_launches=counts)
+    eng.close()
+    return {"paged_attention": counts["paged_attention.launches"],
+            "flash_prefill": fp}
 
 
 def phase_serve(smi: str) -> dict:
-    """Both serving paths; returns each kernel's launches on its own path."""
-    launches = _serve_path(smi, "llama-8b", lambda res: {
-        "paged_attention": res["decode_steps"], "flash_prefill": res["prefills"]})
-    launches.update(_serve_path(smi, "mamba2-1.3b", lambda res: {
-        "ssd_scan": res["prefills"]}))
+    """Both serving paths and the dense one with the serving knobs; returns
+    each kernel's launches on its own paths."""
+    warm = decode_graph.WARMUP_STEPS
+    launches, eng = _serve_path(smi, "llama-8b", lambda res: {
+        "paged_attention": res["decode_steps"] + warm, "flash_prefill": res["prefills"]})
+    for name, n in _serve_prefix(smi, eng.params).items():
+        launches[name] += n
+    del eng
+    got, _ = _serve_path(smi, "mamba2-1.3b", lambda res: {"ssd_scan": res["prefills"]})
+    launches.update(got)
     return launches
 
 
@@ -997,6 +1267,7 @@ def _busy_by_batch(cluster, cfg, sizes, prompt: int, steps: int = 5) -> dict:
         prof = _profiled(eng.step, steps)
         out[b] = {"device_ms": prof["device_ms"], "wall_ms": wall,
                   "launches": prof["launches"]}
+        eng.close()
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1035,7 +1306,7 @@ def phase_cluster(smi: str) -> dict:
     # lifetime and, for each step that ran requests, the ITL the engine
     # measured, the batch size, whether it admitted, and its wall time;
     # besides, the provisions and retirements in order
-    life, per_inst, names, decisions = {}, {}, {}, []
+    life, per_inst, names, decisions, insts = {}, {}, {}, [], {}
     provision, retire = cluster.provision, cluster.retire
 
     def provision_timed(model, itype, now, **kw):
@@ -1043,10 +1314,14 @@ def phase_cluster(smi: str) -> dict:
         if inst is None:
             return None
         n = names[id(inst)] = len(names)
+        insts[n] = inst
         decisions.append(("provision", n, itype.value))
         life[n] = [time.monotonic(), None, itype.value]
         stats_n = per_inst[n] = {"steps": 0, "tokens": 0, "itl_s": [], "decode": [],
-                                 "local": inst.local}
+                                 "local": inst.local,
+                                 "capture_s": inst.engine.decode_graph.capture_s,
+                                 "graph_pool_bytes":
+                                     inst.engine.decode_graph.graph_pool_bytes}
         step = inst.step
 
         def step_timed(now):
@@ -1087,10 +1362,7 @@ def phase_cluster(smi: str) -> dict:
 
     controller = ChironController(model="llama-8b", init_batch=2, max_batch=8)
     torch.cuda.reset_peak_memory_stats()
-    for kernel in KERNELS.values():
-        kernel.launches = 0
-    for kernel in TENSOR_CORE_KERNELS:
-        KERNELS[kernel].tensor_core_launches = 0
+    zero_counts()
     out = serve_forever(reqs, controller, cluster, max_steps=10 ** 9, clock=clock)
     launches = {name: KERNELS[name].launches for name in ATTENTION_KERNELS}
     tensor_core = KERNELS["flash_prefill"].tensor_core_launches
@@ -1103,7 +1375,9 @@ def phase_cluster(smi: str) -> dict:
     if len(served) < 2:
         fail(f"cluster: only instances {served} served tokens")
     decode_steps = sum(len(s["decode"]) for s in per_inst.values())
-    want = {"paged_attention": decode_steps * cfg.n_layers,
+    # each engine ran its warm-up steps before its capture
+    warmups = decode_graph.WARMUP_STEPS * len(names)
+    want = {"paged_attention": (decode_steps + warmups) * cfg.n_layers,
             "flash_prefill": len(reqs) * cfg.n_layers}
     if launches != want or tensor_core != launches["flash_prefill"]:
         fail(f"cluster: attention launches {launches} ({tensor_core} on the "
@@ -1113,6 +1387,9 @@ def phase_cluster(smi: str) -> dict:
         for v in tree.values():
             yield from leaves(v) if isinstance(v, dict) else [v]
 
+    if any(insts[n].engine.decode_graph._graph is not None
+           for n, (_, gone, _) in life.items() if gone is not None):
+        fail("cluster: a retired engine kept its decode graph")
     for inst in cluster.instances:
         if any(t.device.type != "cuda" for t in [*leaves(inst.engine.params),
                                                  *leaves(inst.engine.pool)]):
@@ -1156,6 +1433,7 @@ def phase_cluster(smi: str) -> dict:
         alone = [(b, wall) for b, admitted, wall in s["decode"] if not admitted]
         instances[n] = {
             "type": kind, "seconds": (gone or t_end) - born, "steps": s["steps"],
+            "capture_s": s["capture_s"], "graph_pool_bytes": s["graph_pool_bytes"],
             "decode_steps": len(s["decode"]), "tokens": s["tokens"],
             "itl": _percentiles(s["itl_s"]),
             "decode_only_steps": len(alone),
@@ -1273,6 +1551,8 @@ def main() -> None:
     records = phase_kernels(gen) if "kernels" in phases else {}
     if "parity" in phases:
         phase_parity()
+    if "graph" in phases:
+        phase_graph()
     launches = phase_serve(smi) if "serve" in phases else {}
     cluster_launches = phase_cluster(smi) if "cluster" in phases else {}
     if set(phases) != set(ALL_PHASES):

@@ -110,7 +110,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Tensors on the CPU go through ``flash_prefill_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in
     ``flash_prefill.launches``, a bf16 launch of the tensor-core kernel also
-    in ``flash_prefill.tensor_core_launches``) or raise.
+    in ``flash_prefill.tensor_core_launches``, one with ``q_offset > 0`` also
+    in ``flash_prefill.offset_launches``) or raise.
     """
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset)
@@ -139,8 +140,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error {err}")
     flash_prefill.launches += 1
     flash_prefill.tensor_core_launches += int(tensor_cores)
+    flash_prefill.offset_launches += int(q_offset > 0)
     return out
 
 
 flash_prefill.launches = 0   # launches of either CUDA kernel by this wrapper
 flash_prefill.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
+flash_prefill.offset_launches = 0   # of those, the ones with cached rows in front

@@ -199,19 +199,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-_tickets: Dict[torch.device, torch.Tensor] = {}
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 counters on ``device`` that are 0 between
-    launches: allocated zeroed once (again only when a launch needs more),
-    and set back to 0 by the kernel's merging split, so a launch neither
-    clears them nor changes their address. Launches on one device must not
-    run concurrently on two streams."""
-    t = _tickets.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(n, dtype=torch.int32, device=device)
-        _tickets[device] = t
+    """``n`` int32 counters on ``device`` that are 0 between launches: one
+    buffer per device and size, allocated zeroed at its first use and never
+    freed or replaced, so that every launch of that size (a CUDA graph
+    captured over one included) finds it at the same address. The kernel's
+    merging split sets the counters back to 0, so a launch neither clears
+    nor moves them. Launches on one device must not run concurrently on two
+    streams; graphs replayed on one stream never overlap."""
+    device = torch.device(device)
+    t = _tickets.get((device, n))
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # a capture would record the zero fill, not run it
+            raise RuntimeError(
+                f"paged_attention: no ticket counters of size {n} before a "
+                "CUDA graph capture; launch once eagerly first")
+        t = _tickets[(device, n)] = torch.zeros(n, dtype=torch.int32, device=device)
     return t
 
 

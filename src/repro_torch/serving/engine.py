@@ -14,6 +14,16 @@ the model writes, reads and restores one slot of it (``Model.write_slot`` /
 for the ssm family, row ``i`` of the per-layer SSM and conv states (every
 prefill's scan through the ``ssd_scan`` kernel).
 
+The decode step is the counterpart of the reference's ``jax.jit`` of
+``model.decode_step``: a ``DecodeGraph`` (``serving/decode_graph.py``)
+captured once as a CUDA graph when the engine is built on a CUDA device and
+replayed every iteration, run eagerly on the CPU. ``close()`` drops it.
+
+The reference's serving knobs (transformer family only; paper Fig. 11):
+``prefix_cache_entries`` reuses the longest cached prompt prefix
+(``serving/prefix_cache.py``) and ``prefill_chunk`` prefills the rest in
+chunks, both through ``Model.prefill(past_cache=...)``.
+
 Against the reference engine (``repro.serving.engine``), on purpose:
 - every decode iteration still runs over all ``max_slots`` rows, but an
   ``active`` mask keeps free slots from advancing ``pos`` and, in the dense
@@ -40,6 +50,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
 from repro_torch.models.api import resolve_device
+from repro_torch.serving.decode_graph import DecodeGraph
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request, RequestState, RequestType
 
 
@@ -68,7 +80,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, *, gen: Optional[torch.Generator] = None,
                  params=None, max_slots: int = 8, max_len: int = 256,
                  max_batch_size: Optional[int] = None,
-                 clock=time.monotonic, dtype=torch.float32, device="cuda"):
+                 clock=time.monotonic, dtype=torch.float32, device="cuda",
+                 prefix_cache_entries: int = 0, prefill_chunk: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg)
@@ -79,8 +92,16 @@ class Engine:
         self.max_len = max_len
         self.max_batch_size = max_batch_size or max_slots
         self.clock = clock
+        # serving-optimization knobs (transformer family only; paper Fig.11)
+        chunkable = cfg.arch_type in ("dense", "moe")
+        self.prefill_chunk = prefill_chunk if chunkable else 0
+        self.prefix_cache = None
+        if prefix_cache_entries > 0 and chunkable:
+            self.prefix_cache = PrefixCache(prefix_cache_entries)
         self.pool = self.model.init_cache(max_slots, max_len, dtype=dtype,
                                           device=self.device)
+        self.decode_graph = DecodeGraph(self.model, self.params, self.pool,
+                                        max_slots, dtype, self.device)
         self._pos = np.zeros((max_slots,), np.int64)   # host mirror of pool["pos"]
         self.slots: List[_Slot] = [_Slot() for _ in range(max_slots)]
         self.waiting: Deque[Request] = deque()
@@ -123,6 +144,11 @@ class Engine:
     def set_max_batch_size(self, b: int) -> None:
         self.max_batch_size = max(1, min(int(b), self.max_slots))
 
+    def close(self) -> None:
+        """Drop the captured decode graph and its memory pool; the engine
+        takes no further step."""
+        self.decode_graph.close()
+
     # --------------------------------------------------------- slot cache
     def _set_pos(self, slot: int, pos: int) -> None:
         self.pool["pos"][slot] = pos
@@ -155,10 +181,25 @@ class Engine:
                                   size=(req.prompt_len,), dtype=np.int32)
 
     def _prefill(self, req: Request):
-        """Prefill a prompt; returns (last_logits, dense cache)."""
-        toks = torch.from_numpy(self._prompt_tokens(req)).to(self.device)
-        return self.model.prefill(self.params, {"tokens": toks.long()[None]},
-                                  dtype=self.dtype)
+        """Prefill a prompt, via the prefix cache and/or in chunks when
+        those knobs are enabled; returns (last_logits, dense cache)."""
+        toks = self._prompt_tokens(req)
+        past = None
+        if self.prefix_cache is not None:
+            past, consumed = self.prefix_cache.lookup(toks)
+            remaining = toks[consumed:]
+        else:
+            remaining = toks
+        chunk = self.prefill_chunk or len(remaining)
+        logits = None
+        for lo in range(0, len(remaining), chunk):
+            piece = torch.from_numpy(remaining[lo:lo + chunk]).to(self.device)
+            logits, past = self.model.prefill(
+                self.params, {"tokens": piece.long()[None]}, dtype=self.dtype,
+                past_cache=past)
+        if self.prefix_cache is not None:
+            self.prefix_cache.store(toks, past)
+        return logits, past
 
     def _admit(self, req: Request, now: float) -> bool:
         slot = self._free_slot()
@@ -220,15 +261,12 @@ class Engine:
             self._last_step_t = now
             return stats
 
-        # 2. one decode iteration over the whole slot pool; free slots are
-        #    masked out. Token ids and the mask go up in one small copy each.
-        tokens = torch.tensor([[s.token if s.active else 0] for s in self.slots],
-                              dtype=torch.long).to(self.device)
-        active = torch.tensor([s.active for s in self.slots]).to(self.device)
-        logits, self.pool = self.model.decode_step(self.params, tokens,
-                                                   self.pool, active)
-        # the copy to the host waits for the step: read the clock after it
-        next_tok = torch.argmax(logits, -1).cpu().numpy()
+        # 2. one decode iteration over the whole slot pool (a graph replay
+        #    on a CUDA device); free slots are masked out
+        next_tok = self.decode_graph.run(
+            [s.token if s.active else 0 for s in self.slots],
+            [s.active for s in self.slots])
+        # the copy to the host waited for the step: read the clock after it
         t_end = self.clock()
         self._pos[active_idx] += 1
         itl = (t_end - self._last_step_t) if self._last_step_t else (t_end - now)

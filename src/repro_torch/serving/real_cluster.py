@@ -262,6 +262,7 @@ class RealCluster:
                     displaced.append(r)
         displaced.extend(inst.engine.waiting)
         inst.engine.waiting.clear()
+        inst.engine.close()          # frees its decode graph's memory pool
         inst.state = InstanceState.RETIRED
         self.instances.remove(inst)
         self.scale_downs += 1
