@@ -4,11 +4,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card, checks that the
-port's engine samples the same tokens on the card (kernels) and on the CPU
-(plain versions) for the dense and the ssm family, serves llama-8b and
-mamba2-1.3b at full width (random bf16 weights from a seed) through
-``repro_torch.launch.serve``'s loop, and runs Chiron's whole hierarchy,
+holds each against its plain PyTorch version on the card (with the sliding
+window, the VLM's bidirectional prefix, head_dim 96, group 7 and a block
+table from ``PagedKVManager``), checks that the port's engine samples the
+same tokens on the card (kernels) and on the CPU (plain versions) for every
+ported family and the model-level VLM and windowed paths agree, serves
+llama-8b, phi3-mini-3.8b, olmo-1b, internvl2-2b, mamba2-1.3b and yi-34b at
+full width (random bf16 weights from a seed; yi-34b last, alone on the
+card) through ``repro_torch.launch.serve``'s loop, fits the planner's
+``MBU`` and ``STEP_OVERHEAD`` to the dense models' graphed decode steps
+(the ``perf_model`` line), and runs Chiron's whole hierarchy,
 ``serve_forever`` driven by ``ChironController`` over llama-8b instances
 sharing the card (the ``cluster`` phase: first the smoke cluster's
 decisions and tokens card against CPU and a migration mid-generation, then
@@ -71,8 +76,8 @@ sys.path.insert(0, _port_src())
 import repro_torch.kernels.paged_attention as paged_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_prefill import (flash_prefill,  # noqa: E402
-                                               flash_prefill_plain)
+from repro_torch.kernels.flash_prefill import (attention_mask,  # noqa: E402
+                                               flash_prefill, flash_prefill_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
@@ -81,6 +86,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving import decode_graph  # noqa: E402
 from repro_torch.serving.cluster_trace import ClusterRecorder, SharedClock  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.kv_manager import PagedKVManager  # noqa: E402
 from repro_torch.serving.real_cluster import RealCluster, serve_forever  # noqa: E402
 from repro_torch.serving.request import make_batch, make_interactive  # noqa: E402
 from repro_torch.sim.cluster import InstanceType  # noqa: E402
@@ -299,10 +305,18 @@ def ptxas_usage(text: str) -> list:
             for name, pretty in zip(order, _demangle(order))]
 
 
-# the bf16 instantiations on the llama-8b and mamba2-1.3b serving paths, which
-# must not spill
-SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128>",
+# the bf16 instantiations on the serving paths, which must not spill: llama-8b
+# (D 128, group 4), phi3-mini (D 96, group 1), olmo-1b (group 1), internvl2-2b
+# (group 2, and its prefills' prefix mask), yi-34b (group 7, taken by the
+# group-8 instance at 16 lanes a row) and mamba2-1.3b
+SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0>",
+                     "flash_prefill_kernel_wgmma<96, 0>",
+                     "flash_prefill_kernel_wgmma<128, 1>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>",
+                     "paged_attention_kernel<__nv_bfloat16, 96, 1, 8>",
+                     "paged_attention_kernel<__nv_bfloat16, 128, 1, 8>",
+                     "paged_attention_kernel<__nv_bfloat16, 128, 2, 8>",
+                     "paged_attention_kernel<__nv_bfloat16, 128, 8, 16>",
                      "ssd_scan_kernel_wgmma<128>")
 
 
@@ -342,30 +356,35 @@ def _paged_case(gen, dtype, B, n_kv, group, D, lengths, pages_per_seq, copies=1)
     return q, pools, bt, ln
 
 
-def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths) -> dict:
-    """One timed ``paged_attention`` case against its plain version; returns
-    its record for the kernels line (without the launch count)."""
+def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
+                 starts=None) -> dict:
+    """One timed ``paged_attention`` case against its plain version, each
+    sequence attending over ``[starts[b], lengths[b])`` (``starts`` None: from
+    0); returns its record for the kernels line (without the launch count)."""
     # pools rotate so that, as between the layers of a model, a launch does
     # not find its K/V in the 50 MB L2 from the launch before
     q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths, pps,
                                    copies=4)
-    out = paged_attention(q, *pools[0], bt, ln)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32,
+                                                  device="cuda")
+    lo = starts or [0] * B
+    out = paged_attention(q, *pools[0], bt, ln, starts=st)
     torch.cuda.synchronize()
-    want = paged_attention_plain(q, *pools[0], bt, ln)
+    want = paged_attention_plain(q, *pools[0], bt, ln, st)
     err = check_close(f"paged_attention {dtype} {case}", out, want, dtype)
-    for b, n in enumerate(lengths):
-        if n == 0 and out[b].abs().max().item() != 0.0:
-            fail("paged_attention: a sequence of length 0 must give zeros")
+    for b, (n, s0) in enumerate(zip(lengths, lo)):
+        if n <= s0 and out[b].abs().max().item() != 0.0:
+            fail("paged_attention: a sequence with nothing to attend to must give zeros")
     turn = [0]
 
     def rotate(fn):
         turn[0] = (turn[0] + 1) % len(pools)
-        fn(q, *pools[turn[0]], bt, ln)
+        fn(q, *pools[turn[0]], bt, ln, starts=st)
 
     ms = device_ms(lambda: rotate(paged_attention))
     call_ms = time_ms(lambda: rotate(paged_attention))
     # after ~50 launches the merge's ticket counters must still start at 0
-    again = paged_attention(q, *pools[0], bt, ln)
+    again = paged_attention(q, *pools[0], bt, ln, starts=st)
     torch.cuda.synchronize()
     err = max(err, check_close(f"paged_attention {dtype} {case}, after the timed calls",
                                again, want, dtype))
@@ -377,19 +396,21 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths) -> dict:
     kd = kd.repeat_interleave(group, dim=1).contiguous()
     vd = vd.repeat_interleave(group, dim=1).contiguous()
     qd = q.reshape(B, n_kv * group, 1, D)
-    mask = (torch.arange(pps * 16, device="cuda")[None, :] < ln[:, None])
+    pos = torch.arange(pps * 16, device="cuda")[None, :]
+    mask = (pos < ln[:, None]) & (pos >= torch.tensor(lo, device="cuda")[:, None])
     mask = mask[:, None, None, :]
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
     es = q.element_size()
-    tokens = sum(lengths)
+    tokens = sum(max(0, n - s0) for n, s0 in zip(lengths, lo))
+    pages = sum(max(0, -(-n // 16) - s0 // 16) for n, s0 in zip(lengths, lo))
     n_bytes = (2 * tokens * n_kv * D + 2 * q.numel()) * es + \
-        4 * (sum(-(-n // 16) for n in lengths) + B)
+        4 * (pages + B * (1 if starts is None else 2))
     b_ms, b_by = bound(n_bytes, 4.0 * tokens * n_kv * group * D, dtype)
     plan = paged_module.split_plan(B, n_kv, group, D, pps)
     emit("kernels", kernel="paged_attention", dtype=str(dtype), case=case,
          shape=dict(B=B, n_kv=n_kv, group=group, D=D, page=16, lengths=lengths,
-                    max_pages=pps, block_tables="shuffled"),
+                    starts=starts, max_pages=pps, block_tables="shuffled"),
          n_splits=plan.n_splits, pages_per_split=paged_module.PAGES_PER_SPLIT,
          tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
          bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
@@ -398,29 +419,41 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths) -> dict:
             "bound_by": b_by, "library_ms": library_ms}
 
 
-def _paged_garbage(gen, dtype, B, n_kv, group, D, lengths, pps) -> None:
-    """``paged_attention`` with the table entries past each sequence's pages
-    set to 2**30 (never dereferenced), against the plain version on a clean
-    table; checks that the plan has the splits the lengths leave empty."""
+def _paged_garbage(gen, dtype, B, n_kv, group, D, lengths, pps, starts=None) -> None:
+    """``paged_attention`` with the table entries outside each sequence's
+    pages in range (past its length, below its lower bound) set to 2**30
+    (never dereferenced), against the plain version on a clean table; the
+    ticket count of a sequence whose first used split is not split 0 must
+    agree too, or the merge comes early, late or never."""
     q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths, pps)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32,
+                                                  device="cuda")
     safe = bt.clone()
     for b, n in enumerate(lengths):
         bt[b, -(-n // 16):] = 2 ** 30
-    out = paged_attention(q, *pools[0], bt, ln)
-    torch.cuda.synchronize()
-    err = check_close(f"paged_attention {dtype} B={B} group={group} D={D} garbage",
-                      out, paged_attention_plain(q, *pools[0], safe, ln), dtype)
+        if starts is not None:
+            bt[b, :starts[b] // 16] = 2 ** 30
+    want = paged_attention_plain(q, *pools[0], safe, ln, st)
+    err = 0.0
+    for rep in range(3):      # a wrong ticket count shows from the second launch on
+        out = paged_attention(q, *pools[0], bt, ln, starts=st)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            f"paged_attention {dtype} B={B} group={group} D={D} garbage, launch {rep}",
+            out, want, dtype))
     for b, n in enumerate(lengths):
-        if n == 0 and out[b].abs().max().item() != 0.0:
-            fail("paged_attention: a sequence of length 0 must give zeros")
+        if n <= (0 if starts is None else starts[b]) and out[b].abs().max().item() != 0.0:
+            fail("paged_attention: a sequence with nothing to attend to must give zeros")
     plan = paged_module.split_plan(B, n_kv, group, D, pps)
-    empty = sum(max(0, plan.n_splits - -(-n // (16 * paged_module.PAGES_PER_SPLIT)))
-                for n in lengths)
+    split = 16 * paged_module.PAGES_PER_SPLIT
+    used = [max(0, -(-n // split) - (0 if starts is None else min(starts[b], n) // split))
+            for b, n in enumerate(lengths)]
     emit("kernels", kernel="paged_attention", dtype=str(dtype),
-         shape=dict(B=B, n_kv=n_kv, group=group, D=D, lengths=lengths, max_pages=pps,
-                    block_tables="garbage past each sequence's pages"),
-         n_splits=plan.n_splits, empty_splits=empty, tolerance=TOL[dtype],
-         max_abs_err=err)
+         shape=dict(B=B, n_kv=n_kv, group=group, D=D, lengths=lengths, starts=starts,
+                    max_pages=pps,
+                    block_tables="garbage outside each sequence's pages in range"),
+         n_splits=plan.n_splits, used_splits=used, tolerance=TOL[dtype],
+         max_abs_err=err, launches_checked=3)
 
 
 def _flash_inputs(gen, dtype, B, S, T, H, Hkv, D):
@@ -430,6 +463,93 @@ def _flash_inputs(gen, dtype, B, S, T, H, Hkv, D):
     k = torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(dtype)
     return tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
+def _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset=0, causal=True, window=0,
+                 prefix_len=0, case=None) -> dict:
+    """One timed ``flash_prefill`` case (B=1) against its plain version;
+    returns its record for the kernels line (without the launch count). The
+    library yardstick is SDPA: causal where there is no other mask and no
+    cached row, with an explicit boolean mask where there is a window or a
+    prefix, none with cached rows only (its causal mask takes no offset)."""
+    T = q_offset + S if causal else S
+    qt, kt, vt = _flash_inputs(gen, dtype, 1, S, T, H, Hkv, D)
+    kw = dict(causal=causal, q_offset=q_offset if causal else 0, window=window,
+              prefix_len=prefix_len)
+    out = flash_prefill(qt, kt, vt, **kw)
+    torch.cuda.synchronize()
+    want = flash_prefill_plain(qt, kt, vt, **kw)
+    label = case or f"S={S} off={q_offset} causal={causal}"
+    err = check_close(f"flash_prefill {dtype} D={D} H={H} {label}", out, want, dtype)
+    ms = device_ms(lambda: flash_prefill(qt, kt, vt, **kw))
+    call_ms = time_ms(lambda: flash_prefill(qt, kt, vt, **kw))
+    plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, **kw), iters=5, warmup=1)
+    ke = kt.repeat_interleave(H // Hkv, dim=1)
+    ve = vt.repeat_interleave(H // Hkv, dim=1)
+    mask = attention_mask(S, T, q_offset=kw["q_offset"], window=window,
+                          prefix_len=prefix_len, device="cuda") if causal else None
+    library_ms = None
+    if window or prefix_len:
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask))
+    elif q_offset == 0:
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, is_causal=causal))
+    seen = int(mask.sum()) if causal else S * T
+    es = qt.element_size()
+    b_ms, b_by = bound((2 * qt.numel() + kt.numel() + vt.numel()) * es,
+                       4.0 * H * D * seen, dtype)
+    emit("kernels", kernel="flash_prefill", dtype=str(dtype), case=case,
+         route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
+         shape=dict(B=1, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=kw["q_offset"],
+                    causal=causal, window=window, prefix_len=prefix_len),
+         tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
+         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+    return {"name": "flash_prefill", **KERNEL_INFO["flash_prefill"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def _paged_from_manager(gen) -> None:
+    """A block table built through ``PagedKVManager`` (allocate, append
+    across pages, swap out, swap back in onto other pages), padded with
+    garbage past each sequence's pages, drives ``paged_attention`` over a
+    bf16 pool on the card; held against the plain version. The port's
+    counterpart of the reference's ``test_allocator_kernel_end_to_end``."""
+    B, n_kv, group, D, num_pages, width = 3, 8, 4, 128, 64, 20
+    m = PagedKVManager(num_pages=num_pages, page_size=16)
+    m.allocate(0, 100)
+    m.allocate(1, 300)                   # 19 pages: over both splits of the table
+    m.allocate(2, 40)
+    for _ in range(40):                  # 100 -> 140 tokens: pages 7..9
+        m.append_token(0)
+    before = m.block_table(1)
+    m.swap_out(1)
+    m.allocate(3, 200)                   # takes pages sequence 1 gave back
+    m.swap_in(1)
+    m.check_invariants()
+    if m.block_table(1) == before:
+        fail("kernels: the swapped-in sequence was meant to land on other pages")
+    bf16 = torch.bfloat16
+    q = torch.randn((B, n_kv, group, D), generator=gen, device="cuda").to(bf16)
+    kp = torch.randn((num_pages, 16, n_kv, D), generator=gen, device="cuda").to(bf16)
+    vp = torch.randn((num_pages, 16, n_kv, D), generator=gen, device="cuda").to(bf16)
+    bt = torch.full((B, width), 2 ** 30, dtype=torch.int32)
+    for b in range(B):
+        bt[b, :len(m.block_table(b))] = torch.tensor(m.block_table(b), dtype=torch.int32)
+    bt = bt.cuda()
+    ln = torch.tensor([m.seq_tokens(b) for b in range(B)], dtype=torch.int32,
+                      device="cuda")
+    out = paged_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    safe = torch.where(bt == 2 ** 30, 0, bt)
+    err = check_close("paged_attention over a PagedKVManager table", out,
+                      paged_attention_plain(q, kp, vp, safe, ln), bf16)
+    emit("kernels", kernel="paged_attention", dtype=str(bf16),
+         case="block table from PagedKVManager",
+         shape=dict(B=B, n_kv=n_kv, group=group, D=D, lengths=ln.tolist(),
+                    max_pages=width, tables=[m.block_table(b) for b in range(B)]),
+         tolerance=TOL[bf16], max_abs_err=err)
 
 
 def phase_kernels(gen) -> dict:
@@ -458,6 +578,32 @@ def phase_kernels(gen) -> dict:
     _paged_garbage(gen, torch.bfloat16, 4, 2, 8, 64, [300, 0, 17, 600], 40)
     _paged_garbage(gen, torch.float32, 4, 2, 1, 128, [300, 257, 256, 1], 48)
 
+    # the new paths' decode shapes at the serve contexts: phi3-mini (D = 96,
+    # 32 KV heads, group 1), olmo-1b (16, group 1), internvl2-2b (8, group 2),
+    # yi-34b (8, group 7: the group-8 instance with one row masked); then a
+    # sliding window's lower bound inside the first split, on a split
+    # boundary, one past it, in a later split, at the length, and wider than
+    # the sequence
+    serve_lengths = paged_cases[1][1]
+    window_starts = [0, 256, 257, 600, 300, 90, 0, 512]
+    window_lengths = [1024, 1000, 517, 700, 300, 333, 16, 768]
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, kv, g, d, lengths, starts in (
+                ("phi3-mini, D=96", 32, 1, 96, serve_lengths, None),
+                ("olmo-1b", 16, 1, 128, serve_lengths, None),
+                ("internvl2-2b", 8, 2, 128, serve_lengths, None),
+                ("yi-34b, group 7", 8, 7, 128, serve_lengths, None),
+                ("window, long context", 8, 4, 128, window_lengths, window_starts),
+                ("D=96, window", 32, 1, 96, window_lengths, window_starts)):
+            _paged_timed(gen, F, dtype, B, kv, g, d, pps, case, lengths, starts)
+    # lower bounds with garbage below them, group 7 and D = 96 in both types
+    for dtype in (torch.bfloat16, torch.float32):
+        _paged_garbage(gen, dtype, 4, 2, 7, 128, [700, 300, 40, 600], 48,
+                       starts=[300, 256, 40, 0])
+        _paged_garbage(gen, dtype, 4, 3, 2, 96, [700, 513, 90, 257], 48,
+                       starts=[600, 255, 10, 256])
+    _paged_from_manager(gen)
+
     # ---- flash_prefill: a single 64 x 64 tile first (the swizzle of the TMA
     # boxes and of the wgmma descriptors must agree), then one prompt at a
     # time, (B,S,H,D) tensors as strided views
@@ -480,39 +626,41 @@ def phase_kernels(gen) -> dict:
         (200, 312, True), (300, 0, False)]
     for dtype in (torch.bfloat16, torch.float32):
         for S, q_offset, causal in cases:
-            T = q_offset + S if causal else S
-            qt, kt, vt = _flash_inputs(gen, dtype, 1, S, T, H, Hkv, D)
-            kw = dict(causal=causal, q_offset=q_offset if causal else 0)
-            out = flash_prefill(qt, kt, vt, **kw)
-            torch.cuda.synchronize()
-            want = flash_prefill_plain(qt, kt, vt, **kw)
-            err = check_close(f"flash_prefill {dtype} S={S} off={q_offset} "
-                              f"causal={causal}", out, want, dtype)
-            ms = device_ms(lambda: flash_prefill(qt, kt, vt, **kw))
-            call_ms = time_ms(lambda: flash_prefill(qt, kt, vt, **kw))
-            plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, **kw),
-                                 iters=5, warmup=1)
-            library_ms = None
-            if q_offset == 0:
-                ke = kt.repeat_interleave(H // Hkv, dim=1)
-                ve = vt.repeat_interleave(H // Hkv, dim=1)
-                library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                    qt, ke, ve, is_causal=causal))
-            seen = sum(q_offset + i + 1 for i in range(S)) if causal else S * T
-            es = qt.element_size()
-            b_ms, b_by = bound((2 * qt.numel() + kt.numel() + vt.numel()) * es,
-                               4.0 * H * D * seen, dtype)
-            emit("kernels", kernel="flash_prefill", dtype=str(dtype),
-                 route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
-                 shape=dict(B=1, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=q_offset,
-                            causal=causal),
-                 tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
-                 bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+            rec = _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset, causal)
             if dtype == torch.bfloat16 and (S, q_offset, causal) == (341, 0, True):
-                records["flash_prefill"] = {
-                    "name": "flash_prefill", **KERNEL_INFO["flash_prefill"],
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+                records["flash_prefill"] = rec
+
+    # the new paths' shapes and masks: phi3-mini (D = 96, 32 heads, no GQA),
+    # olmo-1b (16 heads, no GQA), yi-34b (56 heads over 8), internvl2-2b (a
+    # 256-token vision prefix in front of the longest prompt), and a sliding
+    # window over several tiles, after cached rows and beside a prefix
+    new_cases = [  # (case, H, Hkv, D, S, q_offset, window, prefix_len)
+        ("phi3-mini, D=96", 32, 32, 96, 341, 0, 0, 0),
+        ("olmo-1b", 16, 16, 128, 341, 0, 0, 0),
+        ("yi-34b", 56, 8, 128, 341, 0, 0, 0),
+        ("internvl2-2b, prefix 256", 16, 8, 128, 597, 0, 0, 256),
+        ("window 256", 32, 8, 128, 682, 0, 256, 0),
+        ("window 100, cached rows", 32, 8, 128, 200, 312, 100, 0),
+        ("window 70 beside prefix 100", 16, 8, 128, 400, 0, 70, 100),
+        ("D=96, window 100", 32, 32, 96, 341, 0, 100, 0),
+        ("D=96, prefix 130", 32, 32, 96, 300, 0, 0, 130),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, h, hkv, d, S, q_offset, window, prefix_len in new_cases:
+            _flash_timed(gen, F, dtype, h, hkv, d, S, q_offset, True, window, prefix_len,
+                         case=case)
+    # single tiles at D = 96: the second TMA box reaches past the tensor's
+    # 96 columns and must read zeros there
+    for causal in (False, True):
+        qt, kt, vt = _flash_inputs(gen, torch.bfloat16, 1, 64, 64, 1, 1, 96)
+        out = flash_prefill(qt, kt, vt, causal=causal)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_prefill single tile D=96 causal={causal}", out,
+                          flash_prefill_plain(qt, kt, vt, causal=causal), torch.bfloat16)
+        emit("kernels", kernel="flash_prefill", dtype="torch.bfloat16",
+             case="single 64x64 tile", shape=dict(B=1, H=1, Hkv=1, D=96, S=64, T=64,
+                                                  causal=causal),
+             tolerance=TOL[torch.bfloat16], max_abs_err=err)
 
     # narrow head_dim, a ragged prompt and a batch of two
     for dtype in (torch.bfloat16, torch.float32):
@@ -689,13 +837,18 @@ def _parity(cfg, label: str, prompt_lens, kernels) -> None:
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, size=(n,), dtype=np.int32)
                for n in prompt_lens]
-    before = {name: KERNELS[name].launches for name in kernels}
+    before = decode_graph.read_counts()
     gpu_trace, gpu_preempt = _parity_run(cfg, _to_cuda(params_cpu), "cuda", prompts)
-    launched = {name: KERNELS[name].launches - before[name] for name in kernels}
+    counts = decode_graph.named_counts(
+        decode_graph.count_delta(before, decode_graph.read_counts()))
+    launched = {name: counts[f"{name}.launches"] for name in kernels}
     cpu_trace, cpu_preempt = _parity_run(cfg, params_cpu, "cpu", prompts)
     if min(launched.values()) == 0:
         fail(f"parity ({label}): the engine on the card did not launch "
              f"{', '.join(kernels)}: {launched}")
+    if cfg.arch_type == "vlm" and \
+            counts["flash_prefill.prefix_launches"] != counts["flash_prefill.launches"]:
+        fail(f"parity ({label}): every VLM prefill carries the vision prefix: {counts}")
     if gpu_trace != cpu_trace:
         first = next(i for i, (a, b) in enumerate(zip(gpu_trace, cpu_trace)) if a != b)
         fail(f"parity ({label}): tokens differ at step {first}: card "
@@ -765,12 +918,97 @@ def _parity_knobs() -> None:
          kernel_launches=launched)
 
 
+# logits of the model-level checks, card against CPU: float32 on both, the
+# sums of two layers in other orders (each kernel is within 2e-4 of its plain
+# version)
+MODEL_TOL = 2e-3
+
+
+def _model_steps(model, params, batch, tokens, cap):
+    """``Model.prefill`` of ``batch`` into a paged cache of ``cap`` positions,
+    then one decode step per column of ``tokens`` (B, n); the logits of
+    each, on the CPU."""
+    logits, cache = model.prefill(params, batch, cache_len=cap, dtype=torch.float32)
+    out = [logits.cpu()]
+    for i in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, tokens[:, i:i + 1], cache)
+        out.append(logits.cpu())
+    return out
+
+
+def _parity_model(cfg, label, batch, prompt: int, steps: int, counter: str) -> None:
+    """``Model.forward`` and ``Model.prefill`` of the first ``prompt`` tokens
+    of ``batch`` followed by ``steps`` decode steps, float32, on the card
+    and on the CPU with the same parameters: the card's logits within
+    ``MODEL_TOL`` of the CPU's and its greedy tokens the same; each step's
+    logits within the reference's prefill-vs-decode tolerance (5e-3) of the
+    forward's at that position. ``counter`` must have moved on the card."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(4)
+    model = Model(cfg)
+    params_cpu = model.init(gen, dtype=torch.float32, device="cpu")
+    params_gpu = _to_cuda(params_cpu)
+    gpu_batch = {k: v.cuda() for k, v in batch.items()}
+    head = {k: v[:, :prompt] if k == "tokens" else v for k, v in batch.items()}
+    toks = batch["tokens"][:, prompt:prompt + steps]
+    cap = batch["tokens"].shape[1] + cfg.n_vision_tokens + 8
+    with torch.no_grad():
+        full_cpu, _ = model.forward(params_cpu, batch)
+        cpu = _model_steps(model, params_cpu, head, toks, cap)
+        before = decode_graph.read_counts()
+        full_gpu, _ = model.forward(params_gpu, gpu_batch)
+        gpu = _model_steps(model, params_gpu, {k: v.cuda() for k, v in head.items()},
+                           toks.cuda(), cap)
+        torch.cuda.synchronize()
+    counts = decode_graph.named_counts(
+        decode_graph.count_delta(before, decode_graph.read_counts()))
+    if counts[counter] == 0 or counts["paged_attention.launches"] == 0:
+        fail(f"parity ({label}): the card's run did not launch {counter} and "
+             f"paged_attention: {counts}")
+    tol = {torch.float32: MODEL_TOL}
+    err = check_close(f"parity ({label}) forward", full_gpu.cpu(), full_cpu,
+                      torch.float32, tol)
+    for i, (g, c) in enumerate(zip(gpu, cpu)):
+        err = max(err, check_close(f"parity ({label}) step {i}", g, c, torch.float32, tol))
+        if g.argmax(-1).tolist() != c.argmax(-1).tolist():
+            fail(f"parity ({label}): greedy tokens differ at step {i}")
+        check_close(f"parity ({label}) step {i} against the forward", g,
+                    full_gpu[:, prompt - 1 + i].cpu(), torch.float32,
+                    {torch.float32: 5e-3})
+    emit("parity", config=label, prompt=prompt, decode_steps=steps,
+         tolerance=MODEL_TOL, max_abs_err=err, greedy_tokens_agree=True,
+         kernel_launches={k: v for k, v in counts.items() if v})
+
+
 def phase_parity() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _parity(get_smoke_config("llama-8b").with_(head_dim=64),
             "llama-8b smoke, head_dim=64, float32", (9, 23, 17, 30, 5),
             ("paged_attention", "flash_prefill"))
+    # the new dense and VLM configs at their kernels' widths: head_dim 96,
+    # group 7, a nonparametric LayerNorm, the vision prefix (zero embeddings,
+    # as the engine feeds)
+    for arch, head_dim, what in (("phi3-mini-3.8b", 96, "head_dim=96"),
+                                 ("yi-34b", 64, "head_dim=64, group 7"),
+                                 ("olmo-1b", 64, "head_dim=64, nonparametric LN"),
+                                 ("internvl2-2b", 64, "head_dim=64, 16 vision tokens")):
+        _parity(get_smoke_config(arch).with_(head_dim=head_dim),
+                f"{arch} smoke, {what}, float32", (9, 23, 17, 30, 5),
+                ("paged_attention", "flash_prefill"))
+    # random vision embeddings: zero ones leave the prefix rows zero and would
+    # hide a wrong prefix mask
+    cfg = get_smoke_config("internvl2-2b").with_(head_dim=64)
+    gen = torch.Generator().manual_seed(5)
+    batch = Model(cfg).example_batch(2, 24, gen, dtype=torch.float32, device="cpu")
+    _parity_model(cfg, "internvl2-2b smoke, head_dim=64, random vision embeddings",
+                  batch, 21, 3, "flash_prefill.prefix_launches")
+    # a window of 8 under a 30-token prompt, decoded 10 steps past it
+    cfg = get_smoke_config("llama-8b").with_(head_dim=64, sliding_window=8)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 40))).long()
+    _parity_model(cfg, "llama-8b smoke, head_dim=64, sliding_window=8",
+                  {"tokens": toks}, 30, 10, "flash_prefill.window_launches")
     # one prompt over three chunks of 32 (the state carried between chunks),
     # one shorter than the conv window
     _parity(get_smoke_config("mamba2-1.3b"), "mamba2-1.3b smoke, float32",
@@ -861,6 +1099,7 @@ def _graph_check(arch: str) -> None:
 
 def phase_graph() -> None:
     _graph_check("llama-8b")
+    _graph_check("phi3-mini-3.8b")     # head_dim 96
     _graph_check("mamba2-1.3b")
 
 
@@ -893,6 +1132,11 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.monotonic() - t0) * 1e3 / reps
 
 
+# times the graphed and the eager decode step are profiled before their
+# device-busy times must agree
+PROFILE_ATTEMPTS = 3
+
+
 def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     """Host (wall) time beside device-busy time of one decode step at a full
     slot pool, graphed (``eng.step``, a replay) and eager (the model's
@@ -902,16 +1146,25 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     serve phase admits (341) that its run has most likely not seen, so the
     first call shows what a new prompt length costs on top of the steady
     time. The requests' outputs outlast every profiler session
-    ``_kernel_rows`` may run, so each profiled step decodes all slots. Fails
-    unless the profiler sees one ``paged_attention`` kernel a layer in a
-    replayed dense step."""
+    ``_kernel_rows`` may run, so each profiled step decodes all slots. A
+    replay runs the eager step's kernels on the same data (and five small
+    ones), so their device-busy times agree (within 3.4 % on every path
+    measured); a session can pass ``_kernel_rows``' count check and still
+    misreport every duration (on the H100 once halved, all of a graphed
+    step's kernels), so both are profiled again, up to ``PROFILE_ATTEMPTS``
+    times, until they agree within 10 %. Fails unless they do, and unless the
+    profiler sees one ``paged_attention`` kernel a layer in a replayed dense
+    step."""
+    worst = 3 + steps + PROFILE_ATTEMPTS * 6 * (steps + 1)   # eng.step calls
     for _ in range(eng.max_slots):
-        eng.submit(make_interactive(64, 9 * steps + 8))
+        eng.submit(make_interactive(64, worst + 8))
     eng.set_max_batch_size(eng.max_slots)
     for _ in range(3):
         eng.step()
-    out = {"decode_wall_ms_per_step": _wall_ms(eng.step, steps)}
-    prof = _profiled(eng.step, steps)
+    # the positions the wall-timed steps attend over, for the planner's KV term
+    ctx0 = float(np.mean(eng._pos))
+    out = {"decode_wall_ms_per_step": _wall_ms(eng.step, steps),
+           "decode_mean_context": ctx0 + (steps + 1) / 2}
     scratch = {k: v.clone() for k, v in eng.pool.items()}
     tok = torch.tensor([s.token for s in eng.slots], device=eng.device)[:, None]
     act = torch.ones((eng.max_slots,), dtype=torch.bool, device=eng.device)
@@ -923,7 +1176,17 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
 
     eager()
     out["eager_decode_wall_ms_per_step"] = _wall_ms(eager, steps)
-    eager_prof = _profiled(eager, steps)
+    disagreed = []
+    for _ in range(PROFILE_ATTEMPTS):
+        prof = _profiled(eng.step, steps)
+        eager_prof = _profiled(eager, steps)
+        if abs(prof["device_ms"] / eager_prof["device_ms"] - 1) <= 0.1:
+            break
+        disagreed.append([prof["device_ms"], eager_prof["device_ms"]])
+    else:
+        fail(f"{eng.cfg.name}: the graphed and eager decode steps' device-busy times "
+             f"never agreed within 10 % (ms, graphed and eager): {disagreed}")
+    out["profiles_disagreeing"] = disagreed
     del scratch
     while eng.waiting or eng.n_active:
         eng.step()
@@ -941,11 +1204,13 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     out["capture_s"] = eng.decode_graph.capture_s
     out["graph_pool_bytes"] = eng.decode_graph.graph_pool_bytes
 
-    toks = torch.randint(0, eng.cfg.vocab_size, (1, prompt), device=eng.device)
+    # as the engine prefills it: a VLM's prompt behind zero vision embeddings
+    batch = eng._prompt_batch(np.random.default_rng(9).integers(
+        0, eng.cfg.vocab_size, size=(prompt,), dtype=np.int32))
 
     @torch.no_grad()
     def prefill():
-        eng.model.prefill(eng.params, {"tokens": toks}, dtype=eng.dtype)
+        eng.model.prefill(eng.params, batch, dtype=eng.dtype)
 
     out["prefill_tokens"] = prompt
     out["prefill_first_call_wall_ms"] = _wall_ms(prefill, 1)
@@ -969,10 +1234,11 @@ def _serve_path(smi: str, arch: str, per_layer):
     every kernel's launch counter set to 0 just before and read just after;
     ``per_layer(res)`` gives, for each kernel of this path, how many runs of
     one layer the serve run made (launches = that x the layer count), the
-    engine's warm-up steps before its capture included. Returns the launches
-    and the engine."""
+    engine's warm-up steps before its capture included. Returns the launches,
+    the engine and what ``_where_the_time_goes`` measured of it."""
     gc.collect()
     torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     cfg = get_config(arch)
     n_requests, max_output = 24, 64
     torch.cuda.reset_peak_memory_stats()
@@ -997,6 +1263,9 @@ def _serve_path(smi: str, arch: str, per_layer):
         if n != launches[name]:
             fail(f"serve {arch}: {launches[name]} {name} launches, {n} of them on "
                  "the tensor-core kernel")
+    if cfg.arch_type == "vlm" and flash_prefill.prefix_launches != launches["flash_prefill"]:
+        fail(f"serve {arch}: {flash_prefill.prefix_launches} of "
+             f"{launches['flash_prefill']} prefill launches carried the vision prefix")
 
     def leaves(tree):
         for v in tree.values():
@@ -1011,6 +1280,9 @@ def _serve_path(smi: str, arch: str, per_layer):
     ttft = np.asarray(res["ttft_s"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     share = _where_the_time_goes(eng)
+    peak_all_gb = torch.cuda.max_memory_allocated() / 1e9
+    if cfg.arch_type != "ssm":
+        share["planner"] = _planner_row(cfg, share)
     emit("serve", gpu=smi, model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab_size, dtype="bfloat16", params=cfg.param_count(),
          requests=n_requests, max_output=max_output, max_slots=8, max_len=1024,
@@ -1023,9 +1295,46 @@ def _serve_path(smi: str, arch: str, per_layer):
          ttft_mean_ms=float(ttft.mean() * 1e3),
          preemptions=sum(r.preemptions for r in res["requests"]),
          batch_size_history=res["batch_size_history"],
-         peak_device_memory_gb=peak_gb, kernel_launches=launches,
+         peak_device_memory_gb=peak_gb, peak_with_timing_gb=peak_all_gb,
+         device_total_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9,
+         resident_before_gb=resident_gb, kernel_launches=launches,
+         prefix_launches=flash_prefill.prefix_launches,
          tensor_core_launches=tensor_core_launches, **share)
-    return got, eng
+    return got, eng, share
+
+
+def _planner_row(cfg, share: dict) -> dict:
+    """What ``PerfModel`` plans for the graphed decode step just measured (8
+    slots at its mean context, one card: yi-34b's two-card planning size is
+    a headroom rule, not what ran) beside it, and the bytes the step streams:
+    the weights and the KV of its contexts. MBU and STEP_OVERHEAD of
+    ``sim/perf_model.py`` are fitted to these rows (``_fit_planner``)."""
+    pm = PerfModel(cfg.name, chips=1)
+    ctx = share["decode_mean_context"]
+    kv_bytes = 8 * ctx * pm._kv_per_tok
+    return {"weight_bytes": pm.weight_bytes, "kv_bytes": kv_bytes,
+            "mean_context": ctx, "slots": 8,
+            "planned_ms": pm.itl(8, ctx) * 1e3,
+            "measured_device_ms": share["decode_device_ms_per_step"],
+            "measured_wall_ms": share["decode_wall_ms_per_step"]}
+
+
+def _fit_planner(rows: dict) -> dict:
+    """``MBU`` and ``STEP_OVERHEAD`` from the graphed decode steps of the
+    dense models: MBU by least squares on the relative error of the
+    device-busy time, t_i = bytes_i / (MBU x HBM_BW), which weighs every
+    model alike (r_i = bytes_i / (HBM_BW t_i); MBU = sum r_i^2 / sum r_i);
+    STEP_OVERHEAD the median of wall minus device-busy time."""
+    from repro_torch.sim import perf_model
+    r = np.asarray([(row["weight_bytes"] + row["kv_bytes"]) / perf_model.HBM_BW /
+                    (row["measured_device_ms"] / 1e3) for row in rows.values()])
+    gaps = [(row["measured_wall_ms"] - row["measured_device_ms"]) / 1e3
+            for row in rows.values()]
+    return {"models": list(rows), "per_model_bandwidth_share": dict(zip(rows, r.tolist())),
+            "MBU": float((r ** 2).sum() / r.sum()),
+            "STEP_OVERHEAD_s": float(np.median(gaps)),
+            "module_MBU": perf_model.MBU,
+            "module_STEP_OVERHEAD_s": perf_model.STEP_OVERHEAD}
 
 
 def _serve_prefix(smi: str, params) -> dict:
@@ -1101,17 +1410,37 @@ def _serve_prefix(smi: str, params) -> dict:
             "flash_prefill": fp}
 
 
+# the serving paths at full width, in order: yi-34b last, alone on the card
+SERVE_ARCHS = ("llama-8b", "phi3-mini-3.8b", "olmo-1b", "internvl2-2b", "mamba2-1.3b",
+               "yi-34b")
+
+
 def phase_serve(smi: str) -> dict:
-    """Both serving paths and the dense one with the serving knobs; returns
-    each kernel's launches on its own paths."""
+    """Every serving path and the dense one with the serving knobs; returns
+    each kernel's launches over its paths. Each engine is closed and dropped
+    before the next path builds its own, so that yi-34b's 68.78 GB of
+    weights have the card to themselves."""
     warm = decode_graph.WARMUP_STEPS
-    launches, eng = _serve_path(smi, "llama-8b", lambda res: {
-        "paged_attention": res["decode_steps"] + warm, "flash_prefill": res["prefills"]})
-    for name, n in _serve_prefix(smi, eng.params).items():
-        launches[name] += n
-    del eng
-    got, _ = _serve_path(smi, "mamba2-1.3b", lambda res: {"ssd_scan": res["prefills"]})
-    launches.update(got)
+    launches = {"paged_attention": 0, "flash_prefill": 0, "ssd_scan": 0}
+    planner = {}
+    for arch in SERVE_ARCHS:
+        if get_config(arch).arch_type == "ssm":
+            per_layer = lambda res: {"ssd_scan": res["prefills"]}  # noqa: E731
+        else:
+            per_layer = lambda res: {  # noqa: E731
+                "paged_attention": res["decode_steps"] + warm,
+                "flash_prefill": res["prefills"]}
+        got, eng, share = _serve_path(smi, arch, per_layer)
+        for name, n in got.items():
+            launches[name] += n
+        if arch == "llama-8b":
+            for name, n in _serve_prefix(smi, eng.params).items():
+                launches[name] += n
+        if eng.cfg.arch_type != "ssm":
+            planner[arch] = share["planner"]
+        eng.close()
+        del eng
+    emit("perf_model", gpu=smi, rows=planner, fit=_fit_planner(planner))
     return launches
 
 

@@ -17,19 +17,24 @@ from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
 
 # arch id -> module name
 _ARCH_MODULES = {
+    "olmo-1b": "olmo_1b",
     "granite-8b": "granite_8b",
-    "llama-8b": "llama_8b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "yi-34b": "yi_34b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "internvl2-2b": "internvl2_2b",
+    "llama-8b": "llama_8b",
+    "llama-70b": "llama_70b",
 }
 
 # architectures of the reference package whose families are not ported yet
 _NOT_PORTED = (
-    "olmo-1b", "zamba2-2.7b", "phi3-mini-3.8b", "yi-34b",
-    "qwen2-moe-a2.7b", "deepseek-moe-16b", "whisper-base", "internvl2-2b",
-    "llama-70b",
+    "zamba2-2.7b", "qwen2-moe-a2.7b", "deepseek-moe-16b", "whisper-base",
 )
 
-ASSIGNED_ARCHS: List[str] = ["granite-8b", "mamba2-1.3b"]
+# the reference's assigned architectures that are ported, in its order
+ASSIGNED_ARCHS: List[str] = ["olmo-1b", "granite-8b", "phi3-mini-3.8b", "yi-34b",
+                             "mamba2-1.3b", "internvl2-2b"]
 
 
 def _module(arch: str):

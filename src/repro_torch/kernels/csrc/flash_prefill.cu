@@ -11,6 +11,17 @@
 // T = q_offset + S (a prefix that is already cached), any S and T (ragged last
 // tiles are masked here instead of asserted away), and strides for the batch,
 // head and sequence axes, so (B, S, H, D) tensors need no transposed copy.
+// It also takes the two masks the reference's attention adds to the causal one
+// (src/repro/models/layers.py::attention_forward and _flash_attention_ref),
+// which the TPU kernel leaves to jnp: a sliding window (a query at position p
+// sees keys above p - window) and a bidirectional prefix (every query sees the
+// first prefix_len keys, the VLM's vision tokens), in the reference's order:
+// causal, &= window, |= prefix. The loop bounds follow the masks: with a
+// prefix a tile's loop runs to at least prefix_len, and with a window and no
+// prefix it starts at the first KV tile its first query row can see. The
+// bf16 kernel takes the general mask only where a launch has a window or a
+// prefix (template flag MASKS): on the H100 it made the plain causal path,
+// which is latency-bound, 25 % slower (S = 341: 0.01228 ms against 0.0095).
 //
 // What bounds it: at the serving shape (S = T = 341, H = 32, Hkv = 8,
 // D = 128, bf16) bytes, 2*(S+T)*D elements per KV head plus Q and O, 2.1 us at
@@ -46,10 +57,18 @@
 //   head a block (the 4 heads of a GQA group read the same K/V tiles, the
 //   later ones from L2).
 //
+//   head_dim 96 (phi3-mini) is not a multiple of the 64-column box: its tiles
+//   are two boxes, as at D = 128, and the tensor maps declare the real inner
+//   extent 96, so the TMA unit fills columns 96..127 of the second box with
+//   zeros. Q K^T runs only the 6 steps of 16 real columns; P V runs both
+//   64-column boxes (a third more work than needed, zeros in columns 96..127
+//   of the accumulator), and the epilogue writes 96 columns.
+//
 // * fp32, flash_prefill_kernel_fma<D>: both products as fp32 FMAs out of
 //   padded shared memory (tensor cores would round fp32 to TF32). Each thread
 //   keeps a 4x4 tile of scores and a 4 x D/16 tile of the output in
-//   registers; one tile in flight; 118 KB of shared memory at D = 128.
+//   registers (for D = 96: four columns of the first 64 and two of the last
+//   32); one tile in flight; 118 KB of shared memory at D = 128.
 //
 // What still holds the bf16 kernel back: within a step the softmax waits for
 // Q K^T and the stage's release waits for P V, one consumer warpgroup a
@@ -71,6 +90,30 @@ namespace {
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // KV rows per loop step
 constexpr float kNegInf = -1e30f;
+
+// The reference's mask: key `col` is seen by the query at absolute position
+// `qpos` when it exists and, if causal, lies on or below the diagonal and
+// inside the window (0 = none), or inside the bidirectional prefix.
+__device__ __forceinline__ bool visible(int col, int qpos, int Tkv, int causal, int window,
+                                        int prefix_len) {
+  if (col >= Tkv) return false;
+  if (!causal) return true;
+  return (col <= qpos && (window == 0 || col > qpos - window)) || col < prefix_len;
+}
+
+// The KV rows [lo, hi) a tile of query rows [q0, q0 + 64) must visit, lo a
+// multiple of 64: up to the diagonal of its last row (or the end of the
+// prefix, if later); from the first tile its first row's window reaches when
+// there is a window and no prefix (with both, from 0: the per-element mask
+// does the rest).
+__device__ __forceinline__ void kv_range(int q0, int S, int Tkv, int q_offset, int causal,
+                                         int window, int prefix_len, int& lo, int& hi) {
+  lo = 0;
+  hi = Tkv;
+  if (!causal) return;
+  hi = min(Tkv, max(q_offset + min(q0 + 64, S), prefix_len));
+  if (window > 0 && prefix_len == 0) lo = max(0, q_offset + q0 - window + 1) / 64 * 64;
+}
 
 struct Strides {   // in elements; the D axis is contiguous
   int64_t q_b, q_h, q_s;
@@ -105,11 +148,14 @@ template <int D>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o, int Hkv,
-                         int S, int Tkv, int q_offset, int causal, Strides st,
-                         float scale) {
+                         int S, int Tkv, int q_offset, int causal, int window,
+                         int prefix_len, Strides st, float scale) {
   constexpr int DP = D + kPad;            // padded row of Q/K/V tiles
   constexpr int PP = kBK + kPad;          // padded row of the probability tile
   constexpr int NC = D / 64;              // float4 column groups per thread
+  constexpr int REM = (D % 64) / 16;      // columns per thread past those groups
+  constexpr int NA = 4 * NC + REM;        // output columns per thread
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
 
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                       // [kBQ][DP]
@@ -130,22 +176,19 @@ flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ 
 
   stage_tile<D>(Qs, qb, st.q_s, q0, S);
 
-  float m[4], l[4], acc[4][4 * NC];
+  float m[4], l[4], acc[4][NA];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NA; ++c) acc[i][c] = 0.f;
   }
 
-  int kv_end = Tkv;
-  if (causal) {
-    const int last_q = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
-    kv_end = min(Tkv, q_offset + last_q + 1);
-  }
+  int kv_lo, kv_end;
+  kv_range(q0, S, Tkv, q_offset, causal, window, prefix_len, kv_lo, kv_end);
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int k0 = kv_lo; k0 < kv_end; k0 += kBK) {
     stage_tile<D>(Ks, kb, st.k_s, k0, Tkv);
     stage_tile<D>(Vs, vb, st.v_s, k0, Tkv);
     __syncthreads();
@@ -180,7 +223,7 @@ flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool seen = col < Tkv && (!causal || col <= qpos);
+        const bool seen = visible(col, qpos, Tkv, causal, window, prefix_len);
         s[i][j] = seen ? s[i][j] * scale : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -199,10 +242,12 @@ flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+      // a row whose window starts past this tile sees nothing in it: its
+      // weights here are exp(0) = 1, wiped by alpha = 0 at its first seen key
       m[i] = m_new;
       l[i] = l[i] * alpha + rsum;
 #pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NA; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
 
@@ -231,6 +276,12 @@ flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ 
             acc[i][4 * g + 3] += pa[i][u] * vv.w;
           }
         }
+#pragma unroll
+        for (int r = 0; r < REM; ++r) {
+          const float vv = Vs[(kk + u) * DP + 64 * NC + REM * tx + r];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][4 * NC + r] += pa[i][u] * vv;
+        }
       }
     }
     __syncthreads();   // the next step overwrites Ks, Vs and Ps
@@ -247,13 +298,17 @@ flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ 
       *reinterpret_cast<float4*>(ob + row * st.o_s + 64 * g + 4 * tx) =
           make_float4(acc[i][4 * g + 0] * inv, acc[i][4 * g + 1] * inv,
                       acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
+#pragma unroll
+    for (int r = 0; r < REM; ++r)
+      ob[row * st.o_s + 64 * NC + REM * tx + r] = acc[i][4 * NC + r] * inv;
   }
 }
 
 template <int D>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int B,
                        int H, int Hkv, int S, int Tkv, int q_offset, int causal,
-                       const Strides& st, float scale, cudaStream_t stream) {
+                       int window, int prefix_len, const Strides& st, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem =
       sizeof(float) * (3 * 64 * (D + kPad) + kBQ * (kBK + kPad));
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_fma<D>,
@@ -264,7 +319,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int
   flash_prefill_kernel_fma<D><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hkv, S, Tkv, q_offset,
-      causal, st, scale);
+      causal, window, prefix_len, st, scale);
   return cudaGetLastError();
 }
 
@@ -392,17 +447,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (the last rows, which see the most KV tiles) come first in launch order and
 // so get an SM each before the short ones double up. Query row i sits at
 // absolute position q_offset + i and, when causal, sees KV rows
-// 0 .. q_offset + i. Accumulator fragment of thread (warp w, lane l): register
-// j holds row 16 w + l/4 + 8 ((j/2) % 2), column 8 (j/4) + 2 (l%4) + j%2.
-template <int D>
+// 0 .. q_offset + i, cut by the window and widened by the prefix (`visible`).
+// A row is D columns in ceil(D / 64) boxes of 64. Accumulator fragment of
+// thread (warp w, lane l): register j holds row 16 w + l/4 + 8 ((j/2) % 2),
+// column 8 (j/4) + 2 (l%4) + j%2. MASKS = 0: causal or full attention only
+// (window and prefix_len 0); 1: the general mask of `visible`.
+template <int D, int MASKS>
 __global__ void __launch_bounds__(kWgThreads, 2)
 flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ o, int Hkv, int S, int Tkv,
-                           int q_offset, int causal, int64_t o_b, int64_t o_h,
-                           int64_t o_s, float scale_log2) {
-  constexpr int NB = D / 64;              // 64-column boxes per row
+                           int q_offset, int causal, int window, int prefix_len,
+                           int64_t o_b, int64_t o_h, int64_t o_s, float scale_log2) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int NB = (D + 63) / 64;       // 64-column boxes per row, the last
+                                          // zero-filled past D by the TMA unit
   constexpr int kTile = NB * kBox;        // bytes of one 64-row tile
 
   __shared__ __align__(8) uint64_t bars[5];   // q, full[2], empty[2]
@@ -423,9 +483,10 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  int kv_end = Tkv;
-  if (causal) kv_end = min(Tkv, q_offset + min(q0 + kBQ, S));
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
+  int kv_lo, kv_end;
+  kv_range(q0, S, Tkv, q_offset, causal, window, prefix_len, kv_lo, kv_end);
+  const int t0 = kv_lo / kBK;             // the first KV tile; producer and
+  const int n_tiles = (kv_end + kBK - 1) / kBK - t0;   // consumers agree on it
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -448,9 +509,9 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(bar_full + 8 * st, 2 * kTile);
         for (int nb = 0; nb < NB; ++nb) {
           tma_load(k_s + st * kTile + nb * kBox, &tm_k, bar_full + 8 * st, 64 * nb,
-                   it * kBK, hk, b);
+                   (t0 + it) * kBK, hk, b);
           tma_load(v_s + st * kTile + nb * kBox, &tm_v, bar_full + 8 * st, 64 * nb,
-                   it * kBK, hk, b);
+                   (t0 + it) * kBK, hk, b);
         }
       }
     }
@@ -476,7 +537,8 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_full + 8 * st, (it >> 1) & 1);
     __syncwarp();                         // wgmma wants the warp converged
 
-    // S = Q K^T over D / 16 steps of 16 columns (32 bytes inside a box)
+    // S = Q K^T over D / 16 steps of 16 columns (32 bytes inside a box); the
+    // zero-filled columns past D are skipped
     float s[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) s[j] = 0.f;
@@ -494,13 +556,17 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // mask, then the online-softmax update in base 2; a row's 64 scores sit
     // in the 4 lanes that share l/4. (Skipping the mask on tiles below the
     // diagonal made the kernel slower on the H100, so every tile is masked.)
-    const int k0 = it * kBK;
+    // A row whose window starts past this tile sees nothing in it: its
+    // weights here are exp2(0) = 1, wiped by alpha = 0 at its first seen key.
+    const int k0 = (t0 + it) * kBK;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = k0 + (j >> 2) * 8 + cq + (j & 1);
       const bool second = (j & 2) != 0;
-      const bool seen = col < Tkv && (!causal || col <= (second ? qpos1 : qpos0));
+      const int qpos = second ? qpos1 : qpos0;
+      const bool seen = MASKS ? visible(col, qpos, Tkv, causal, window, prefix_len)
+                              : col < Tkv && (!causal || col <= qpos);
       s[j] = seen ? s[j] * scale_log2 : kNegInf;
       if (second) mx1 = fmaxf(mx1, s[j]);
       else mx0 = fmaxf(mx0, s[j]);
@@ -565,6 +631,7 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
+      if (64 * nb + 8 * i >= D) continue;   // the zero-filled columns past D
       const int col = 64 * nb + 8 * i + cq;
       if (row0 < S)
         *reinterpret_cast<uint32_t*>(ob + row0 * o_s + col) =
@@ -596,7 +663,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A (D, rows, heads, batch) bf16 map with element strides (row, head, batch),
-// boxes of 64 x 64 x 1 x 1, 128-byte swizzle, out-of-bounds rows read as 0.
+// boxes of 64 x 64 x 1 x 1, 128-byte swizzle; out-of-bounds rows, and the
+// columns past D of a box that reaches beyond it (D = 96), read as 0.
 CUresult encode_map(CUtensorMap* map, const void* base, int D, int rows, int heads,
                     int batch, int64_t s_row, int64_t s_head, int64_t s_batch) {
   EncodeTiled fn = encode_tiled();
@@ -617,25 +685,35 @@ CUresult encode_map(CUtensorMap* map, const void* base, int D, int rows, int hea
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                 int Hkv, int S, int Tkv, int q_offset, int causal, const Strides& st,
-                 float scale, cudaStream_t stream) {
+template <int D, int MASKS>
+int launch_wgmma_as(const void* q, const void* k, const void* v, void* o, int B, int H,
+                 int Hkv, int S, int Tkv, int q_offset, int causal, int window,
+                 int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   CUresult res = encode_map(&tm_q, q, D, S, H, B, st.q_s, st.q_h, st.q_b);
   if (res == CUDA_SUCCESS) res = encode_map(&tm_k, k, D, Tkv, Hkv, B, st.k_s, st.k_h, st.k_b);
   if (res == CUDA_SUCCESS) res = encode_map(&tm_v, v, D, Tkv, Hkv, B, st.v_s, st.v_h, st.v_b);
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   // Q + two K/V stages, and room to align the tiles to 1024 bytes
-  constexpr int smem = 5 * (D / 64) * kBox + 1024;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = 5 * ((D + 63) / 64) * kBox + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_wgmma<D, MASKS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, (S + kBQ - 1) / kBQ, B);
-  flash_prefill_kernel_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
+  flash_prefill_kernel_wgmma<D, MASKS><<<grid, kWgThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Hkv, S, Tkv, q_offset, causal,
-      st.o_b, st.o_h, st.o_s, scale * 1.4426950408889634f);
+      window, prefix_len, st.o_b, st.o_h, st.o_s, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
+                 int Hkv, int S, int Tkv, int q_offset, int causal, int window,
+                 int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
+  const bool masks = causal && (window > 0 || prefix_len > 0);
+  return (masks ? launch_wgmma_as<D, 1> : launch_wgmma_as<D, 0>)(
+      q, k, v, o, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale, stream);
 }
 
 Strides unpack(const long long* s) {
@@ -650,20 +728,25 @@ Strides unpack(const long long* s) {
 }  // namespace
 
 // strides: 12 element strides, (batch, head, sequence) of q, k, v, o in turn.
-// is_bf16 chooses the kernel: 1 the bf16 tensor-core kernel, 0 the fp32 FMA
-// kernel. Returns cudaGetLastError() after the launch (0 = launched), minus
-// the CUresult if a tensor map cannot be encoded, or cudaErrorInvalidValue
-// for a head_dim the kernels do not take.
+// window (0 = none) and prefix_len (0 = none) act only when causal. is_bf16
+// chooses the kernel: 1 the bf16 tensor-core kernel, 0 the fp32 FMA kernel.
+// Returns cudaGetLastError() after the launch (0 = launched), minus the
+// CUresult if a tensor map cannot be encoded, or cudaErrorInvalidValue for a
+// head_dim the kernels do not take.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
                                     int B, int H, int Hkv, int S, int Tkv, int D,
-                                    int q_offset, int causal, int is_bf16,
-                                    const long long* strides, float scale, void* stream) {
+                                    int q_offset, int causal, int window, int prefix_len,
+                                    int is_bf16, const long long* strides, float scale,
+                                    void* stream) {
   const Strides st = unpack(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_ARGS q, k, v, o, B, H, Hkv, S, Tkv, q_offset, causal, st, scale, s
+#define REPRO_FLASH_ARGS \
+  q, k, v, o, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale, s
   if (is_bf16 && D == 128) return launch_wgmma<128>(REPRO_FLASH_ARGS);
+  if (is_bf16 && D == 96) return launch_wgmma<96>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 64) return launch_wgmma<64>(REPRO_FLASH_ARGS);
   if (!is_bf16 && D == 128) return static_cast<int>(launch_fma<128>(REPRO_FLASH_ARGS));
+  if (!is_bf16 && D == 96) return static_cast<int>(launch_fma<96>(REPRO_FLASH_ARGS));
   if (!is_bf16 && D == 64) return static_cast<int>(launch_fma<64>(REPRO_FLASH_ARGS));
 #undef REPRO_FLASH_ARGS
   return static_cast<int>(cudaErrorInvalidValue);

@@ -6,7 +6,11 @@
 // page axis is split (flash-decoding): one thread block serves one (sequence,
 // KV head, split of kPagesPerSplit = 16 pages = 256 tokens) and walks its
 // pages itself; the last split of a sequence to finish merges the splits'
-// partial softmaxes, in the same launch.
+// partial softmaxes, in the same launch. Beyond the TPU kernel it takes a
+// per-sequence lower bound `starts[b]` (the reference's sliding window,
+// src/repro/models/layers.py::attention_decode: a token at position p attends
+// to positions above p - window), so a sequence attends over positions
+// [starts[b], lengths[b]).
 //
 // What bounds it: bytes. Every K and V element of a sequence is read once and
 // used for `group` (1..8) multiply-adds, far below the card's ratio of
@@ -22,19 +26,23 @@
 //   shapes, so it can be captured in a CUDA graph. At the serving instance
 //   (max_pages 64) that is 256 blocks on 132 SMs, where one block per
 //   (sequence, KV head) gave 64. A split that starts at or past its
-//   sequence's length exits at once. A sequence whose pages all lie in the
-//   first split is finished by that split, which writes the output itself.
+//   sequence's length, or ends before its lower bound, exits at once. A
+//   sequence whose pages in range all lie in one split is finished by that
+//   split, which writes the output itself.
 // * Each of a block's 4 warps takes every 4th page of the split and streams
 //   it through its own two-stage ring in shared memory with 16-byte
 //   cp.async copies: the next page's K and V are in flight while the current
-//   one is scored. Only rows below `length` are read (the others are
-//   zero-filled), and only pages below ceil(length / 16) are looked up, so
-//   garbage table entries past a sequence's pages are never dereferenced. The
-//   query rows and the table entries of all of a warp's pages (at most 4, one
-//   per lane) are loaded before the length is known, so a page's copies never
-//   wait for its table entry.
+//   one is scored. Only rows in [start, length) are read (the others are
+//   zero-filled), and only pages in that range are looked up, so garbage
+//   table entries outside a sequence's pages are never dereferenced. The
+//   query rows and the table entries of the split's 16 pages (one per lane)
+//   are loaded before the length is known, so a page's copies never wait for
+//   its table entry.
 // * 8 lanes cover one token row (16 for group 8, whose registers would not
-//   fit), so a score costs 3 shuffles; the online-softmax update runs once per
+//   fit), so a score costs 3 shuffles; a lane holds D / 8 (or D / 16)
+//   elements of the row, loaded 16, 8 or 4 bytes at a time as their
+//   alignment allows (D = 96 in bf16: three 8-byte pieces, or three 4-byte
+//   pieces at 16 lanes a row); the online-softmax update runs once per
 //   8 or 16 tokens, and all `group` query rows share each row read. `group` is
 //   below any tensor-core tile, so the products are FMAs.
 // * The warps' partial softmaxes are merged through shared memory. A sequence
@@ -42,7 +50,10 @@
 //   and take a ticket from a per-(sequence, KV head) counter; the split that
 //   takes the last ticket merges the partials into the output and sets the
 //   counter back to 0 for the next launch. No second kernel is launched. The
-//   counters are a buffer the caller keeps at zero between launches.
+//   counters are a buffer the caller keeps at zero between launches. With a
+//   lower bound the splits that hold pages in range start later: every split
+//   derives that range (first split, count) from start and length alike, so
+//   the count of tickets and the partials merged are the same in each.
 //
 // What still holds it back: a split's pages are walked by 4 warps with one
 // page in flight each, so a split is latency-bound; the split size is fixed,
@@ -62,17 +73,28 @@ constexpr int kPagesPerSplit = 16;   // pages of one sequence per block
 constexpr int kMaxMerge = 2048;      // n_splits * group a merge takes
 constexpr float kNegInf = -1e30f;
 
-// ---- N contiguous elements -> float registers, 16 bytes per load where N allows
+// ---- N contiguous elements -> float registers, in the widest pieces that a
+// lane's slice (N elements at an offset of a multiple of N) stays aligned to:
+// 16 bytes, else 8
 template <int N>
 __device__ __forceinline__ void load_row(const float* p, float (&out)[N]) {
-  static_assert(N % 4 == 0, "row slice must be a multiple of 16 bytes");
+  static_assert(N % 2 == 0, "row slice must be a multiple of 8 bytes");
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
-    out[4 * i + 0] = v.x;
-    out[4 * i + 1] = v.y;
-    out[4 * i + 2] = v.z;
-    out[4 * i + 3] = v.w;
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
+      out[4 * i + 0] = v.x;
+      out[4 * i + 1] = v.y;
+      out[4 * i + 2] = v.z;
+      out[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 v = *reinterpret_cast<const float2*>(p + 2 * i);
+      out[2 * i + 0] = v.x;
+      out[2 * i + 1] = v.y;
+    }
   }
 }
 
@@ -81,9 +103,11 @@ __device__ __forceinline__ void unpack_bf16x2(uint32_t u, float& lo, float& hi) 
   hi = __uint_as_float(u & 0xffff0000u);
 }
 
+// 16, 8 or 4 bytes a piece (D = 96: 12 elements a lane at 8 lanes a row, 6
+// at 16)
 template <int N>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&out)[N]) {
-  static_assert(N == 4 || N % 8 == 0, "row slice of 8 bytes or of 16-byte pieces");
+  static_assert(N % 2 == 0, "row slice must be a multiple of 4 bytes");
   if constexpr (N % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 8; ++i) {
@@ -93,10 +117,18 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&out)[N]
       unpack_bf16x2(v.z, out[8 * i + 4], out[8 * i + 5]);
       unpack_bf16x2(v.w, out[8 * i + 6], out[8 * i + 7]);
     }
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + 4 * i);
+      unpack_bf16x2(v.x, out[4 * i + 0], out[4 * i + 1]);
+      unpack_bf16x2(v.y, out[4 * i + 2], out[4 * i + 3]);
+    }
   } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    unpack_bf16x2(v.x, out[0], out[1]);
-    unpack_bf16x2(v.y, out[2], out[3]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p + 2 * i), out[2 * i],
+                    out[2 * i + 1]);
   }
 }
 
@@ -126,13 +158,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // One block per (sequence b, KV head h, split). GP = `group` rounded up to
 // 1/2/4/8; LPR lanes cover one token row, so a warp scores 32 / LPR tokens per
 // step. Partials are indexed ((b * n_kv + h) * n_splits + split) * group + g,
-// tickets b * n_kv + h.
+// tickets b * n_kv + h. `starts` may be null (every sequence from 0).
 template <typename T, int D, int GP, int LPR>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
                        const int* __restrict__ block_tables,
-                       const int* __restrict__ lengths, T* __restrict__ out,
+                       const int* __restrict__ lengths,
+                       const int* __restrict__ starts, T* __restrict__ out,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int* __restrict__ tickets, int n_kv,
                        int group, int max_pages, float scale) {
@@ -158,8 +191,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int* bt = block_tables + static_cast<int64_t>(b) * max_pages;
 
   // loads that do not depend on the length go out before it is known: the
-  // query rows and the table entries of the warp's pages, lane i holding its
-  // i-th (reading an entry is safe, using a garbage one is not)
+  // query rows and the table entries of the split's pages, lane i holding
+  // the i-th (reading an entry is safe, using a garbage one is not)
   float qf[GP][EPL];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
@@ -170,18 +203,23 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       for (int e = 0; e < EPL; ++e) qf[g][e] = 0.f;
     }
   }
-  static_assert(kPagesPerSplit / kWarps <= 32, "a warp's table entries fit its lanes");
-  const int my_page = p0 + warp + kWarps * lane;
-  const int my_entry = lane < kPagesPerSplit / kWarps && my_page < max_pages ? bt[my_page] : 0;
+  static_assert(kPagesPerSplit <= 32, "a split's table entries fit a warp's lanes");
+  const int my_entry = lane < kPagesPerSplit && p0 + lane < max_pages ? bt[p0 + lane] : 0;
   const int length = lengths[b];
+  // the tokens attended to: [lo, length)
+  const int lo = starts == nullptr ? 0 : min(max(starts[b], 0), length);
   const int seq_pages = min((length + kPage - 1) / kPage, max_pages);
+  const int lo_page = lo / kPage;
+  const int pb = max(p0, lo_page);        // this split's pages: [pb, p1)
   const int p1 = min(p0 + kPagesPerSplit, seq_pages);
-  // the splits that hold pages of the sequence; with one, that split writes
-  // the output itself and no partial is merged
-  const int n_used = (seq_pages + kPagesPerSplit - 1) / kPagesPerSplit;
+  // the splits that hold pages in range, from first_split on; with one, that
+  // split writes the output itself and no partial is merged
+  const int first_split = lo_page / kPagesPerSplit;
+  const int n_used =
+      seq_pages > lo_page ? (seq_pages - 1) / kPagesPerSplit - first_split + 1 : 0;
 
-  if (p0 >= p1) {   // nothing of the sequence in this split
-    if (split == 0) {                     // length 0 gives zeros
+  if (pb >= p1) {   // nothing of the sequence in this split
+    if (split == 0 && n_used == 0) {      // nothing to attend to gives zeros
       for (int idx = threadIdx.x; idx < group * D; idx += kWarps * 32)
         store_out(out + row0 * D + idx, 0.f);
     }
@@ -201,19 +239,19 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   extern __shared__ __align__(16) uint8_t smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw) + warp * 4 * PAGE;
   const int64_t tok_stride = static_cast<int64_t>(n_kv) * D;
-  const int n_mine = max(0, (p1 - p0 - warp + kWarps - 1) / kWarps);
+  const int n_mine = max(0, (p1 - pb - warp + kWarps - 1) / kWarps);
 
   auto issue = [&](int i) {               // the warp's i-th page into stage i % 2
-    const int page = p0 + warp + kWarps * i;
+    const int page = pb + warp + kWarps * i;
     const int tok0 = page * kPage;
-    const int entry = __shfl_sync(0xffffffffu, my_entry, i);
+    const int entry = __shfl_sync(0xffffffffu, my_entry, page - p0);
     const int64_t off = static_cast<int64_t>(entry) * kPage * tok_stride + h * D;
     T* ks = ring + (i & 1) * 2 * PAGE;
     T* vs = ks + PAGE;
     for (int c = lane; c < kPage * (D / VEC); c += 32) {
       const int t = c / (D / VEC);
       const int e = (c % (D / VEC)) * VEC;
-      const int bytes = tok0 + t < length ? 16 : 0;
+      const int bytes = tok0 + t >= lo && tok0 + t < length ? 16 : 0;
       cp_async16(ks + t * D + e, k_pool + off + t * tok_stride + e, bytes);
       cp_async16(vs + t * D + e, v_pool + off + t * tok_stride + e, bytes);
     }
@@ -228,17 +266,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     __syncwarp();
     const T* ks = ring + (i & 1) * 2 * PAGE;
     const T* vs = ks + PAGE;
-    const int tok0 = (p0 + warp + kWarps * i) * kPage;
+    const int tok0 = (pb + warp + kWarps * i) * kPage;
 
-    for (int c0 = 0; c0 < kPage && tok0 + c0 < length; c0 += CHUNK) {
+    // from the chunk that holds lo: a chunk wholly below it is skipped, so
+    // every chunk scored holds a token in range and the running max is real
+    for (int c0 = max(0, lo - tok0) / CHUNK * CHUNK; c0 < kPage && tok0 + c0 < length;
+         c0 += CHUNK) {
       // scores of this lane group's TI tokens against all query rows
       float s[GP][TI];
 #pragma unroll
       for (int j = 0; j < TI; ++j) {
         const int t = c0 + TPS * j + tis;
-        const bool valid = tok0 + t < length;
+        const bool valid = tok0 + t >= lo && tok0 + t < length;
         float kf[EPL];
-        load_row<EPL>(ks + t * D + sub * EPL, kf);   // zeros past the length
+        load_row<EPL>(ks + t * D + sub * EPL, kf);   // zeros outside the range
 #pragma unroll
         for (int g = 0; g < GP; ++g) {
           float dot = 0.f;
@@ -366,7 +407,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   // L2 (.cg), where the other splits' stores landed.
   float* sm_w = sm_acc + kWarps * GP * D;   // [split][g]: m, then the weight
   float* sm_pl = sm_w + kMaxMerge;          // [split][g]: l
-  const int64_t first = part0 - static_cast<int64_t>(split) * group;   // split 0, row 0
+  // the first used split's row 0
+  const int64_t first = part0 - static_cast<int64_t>(split - first_split) * group;
   for (int i = threadIdx.x; i < n_used * group; i += kWarps * 32) {
     sm_w[i] = __ldcg(part_m + first + i);
     sm_pl[i] = __ldcg(part_l + first + i);
@@ -399,7 +441,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
 struct Args {
   const void *q, *k_pool, *v_pool;
-  const int *block_tables, *lengths;
+  const int *block_tables, *lengths, *starts;
   void* out;
   float *part_m, *part_l, *part_acc;
   int* tickets;
@@ -419,7 +461,7 @@ cudaError_t launch(const Args& a) {
   paged_attention_kernel<T, D, GP, LPR>
       <<<dim3(a.B, a.n_kv, a.n_splits), kWarps * 32, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
-          static_cast<const T*>(a.v_pool), a.block_tables, a.lengths,
+          static_cast<const T*>(a.v_pool), a.block_tables, a.lengths, a.starts,
           static_cast<T*>(a.out), a.part_m, a.part_l, a.part_acc, a.tickets, a.n_kv,
           a.group, a.max_pages, a.scale);
   return cudaGetLastError();
@@ -444,20 +486,23 @@ cudaError_t launch_group(const Args& a) {
 }  // namespace
 
 // Launches the kernel on a (B, n_kv, n_splits) grid, n_splits = ceil(max_pages
-// / 16); part_m / part_l (B, n_kv, n_splits, group) and part_acc (..., D) are
+// / 16); starts (B,) int32 is each sequence's first position (null: 0);
+// part_m / part_l (B, n_kv, n_splits, group) and part_acc (..., D) are
 // float32 scratch and tickets (B, n_kv) int32 counters that are 0 on entry and
 // left 0 (all three unused when n_splits == 1). Returns cudaGetLastError()
 // after the launch (0 = launched), or cudaErrorInvalidValue for a shape the
 // kernel does not take.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const void* block_tables,
-                                      const void* lengths, void* out, void* part_m,
+                                      const void* lengths, const void* starts, void* out,
+                                      void* part_m,
                                       void* part_l, void* part_acc, void* tickets,
                                       int B, int n_kv, int group, int D, int max_pages,
                                       int n_splits, int is_bf16, float scale,
                                       void* stream) {
   const Args a{q, k_pool, v_pool, static_cast<const int*>(block_tables),
-               static_cast<const int*>(lengths), out, static_cast<float*>(part_m),
+               static_cast<const int*>(lengths), static_cast<const int*>(starts), out,
+               static_cast<float*>(part_m),
                static_cast<float*>(part_l), static_cast<float*>(part_acc),
                static_cast<int*>(tickets), B, n_kv, group, max_pages, n_splits, scale,
                static_cast<cudaStream_t>(stream)};
@@ -467,8 +512,10 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16 && D == 128) err = launch_group<__nv_bfloat16, 128>(a);
+  else if (is_bf16 && D == 96) err = launch_group<__nv_bfloat16, 96>(a);
   else if (is_bf16 && D == 64) err = launch_group<__nv_bfloat16, 64>(a);
   else if (!is_bf16 && D == 128) err = launch_group<float, 128>(a);
+  else if (!is_bf16 && D == 96) err = launch_group<float, 96>(a);
   else if (!is_bf16 && D == 64) err = launch_group<float, 64>(a);
   return static_cast<int>(err);
 }

@@ -8,7 +8,10 @@ and values may hold ``q_offset`` already-cached positions in front
 (``T = q_offset + S``; query row ``i`` sits at position ``q_offset + i``),
 ``S`` and ``T`` are arbitrary, and the batch, head and sequence axes may be
 strided (``D`` contiguous), so ``(B, S, H, D)`` tensors are passed as
-transposed views without a copy.
+transposed views without a copy. It also takes the two masks that the
+reference's ``layers.attention_forward`` adds to the causal one in ``jnp``:
+a sliding ``window`` and a bidirectional prefix of ``prefix_len`` keys (the
+VLM's vision tokens), and head_dim 96 besides 64 and 128.
 
 Bound on the H100: ``2 * (S + T) * D`` elements per head moved against
 ``4 * S * T * D`` operations (half of it when causal with ``q_offset == 0``);
@@ -33,14 +36,31 @@ import torch
 from repro_torch.kernels import _build
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)
+
+
+def attention_mask(S: int, T: int, *, q_offset: int = 0, window: int = 0,
+                   prefix_len: int = 0, device=None) -> torch.Tensor:
+    """The causal mask (S, T) of query rows at positions ``q_offset ..``, in
+    the reference's order: causal, ``&=`` the window (0 = none), ``|=`` the
+    bidirectional prefix (0 = none)."""
+    qi = q_offset + torch.arange(S, device=device)[:, None]
+    ki = torch.arange(T, device=device)[None, :]
+    mask = ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    if prefix_len > 0:
+        mask |= ki < prefix_len
+    return mask
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                        causal: bool = True, q_offset: int = 0, window: int = 0,
+                        prefix_len: int = 0) -> torch.Tensor:
     """Plain PyTorch version, any device: materialises the (S, T) scores.
 
     q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D). Softmax in float32.
+    ``window`` and ``prefix_len`` act only when causal (``attention_mask``).
     """
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -48,15 +68,15 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.reshape(B, Hkv, group, S, D).float()
     s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
     if causal:
-        qi = q_offset + torch.arange(S, device=q.device)[:, None]
-        ki = torch.arange(T, device=q.device)[None, :]
-        s = torch.where(ki <= qi, s, torch.full_like(s, _NEG_INF))
+        mask = attention_mask(S, T, q_offset=q_offset, window=window,
+                              prefix_len=prefix_len, device=q.device)
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
-def _check(q, k, v, causal, q_offset):
+def _check(q, k, v, causal, q_offset, window, prefix_len):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_prefill: q (B,H,S,D) and k, v (B,Hkv,T,D) "
                          "expected")
@@ -79,6 +99,9 @@ def _check(q, k, v, causal, q_offset):
         raise ValueError(f"flash_prefill kernel: causal attention needs "
                          f"T == q_offset + S, got T={T}, q_offset={q_offset}, "
                          f"S={S}")
+    if window < 0 or prefix_len < 0:
+        raise ValueError("flash_prefill kernel: window and prefix_len must be "
+                         ">= 0")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -95,29 +118,38 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("flash_prefill")
     fn = lib.flash_prefill_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + \
             [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                  causal: bool = True, q_offset: int = 0, window: int = 0,
+                  prefix_len: int = 0) -> torch.Tensor:
     """Flash attention. q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D) with
     q's strides. When causal, ``T == q_offset + S`` and query row ``i`` sees
-    KV rows ``0 .. q_offset + i``.
+    KV rows ``0 .. q_offset + i`` inside the last ``window`` of them (0 =
+    all), and every query sees the first ``prefix_len`` rows (0 = none). A
+    prefix with cached rows in front (``q_offset > 0``) is refused, as the
+    reference refuses a vision prefix after the first chunk.
 
     Tensors on the CPU go through ``flash_prefill_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in
     ``flash_prefill.launches``, a bf16 launch of the tensor-core kernel also
     in ``flash_prefill.tensor_core_launches``, one with ``q_offset > 0`` also
-    in ``flash_prefill.offset_launches``) or raise.
+    in ``flash_prefill.offset_launches``, one with a window or a prefix in
+    ``window_launches`` or ``prefix_launches``) or raise.
     """
+    if causal and prefix_len > 0 and q_offset > 0:
+        raise ValueError("flash_prefill: a bidirectional prefix must be in the "
+                         "first chunk (q_offset == 0)")
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset)
+        return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                   window=window, prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: device {q.device} not supported")
-    _check(q, k, v, causal, q_offset)
+    _check(q, k, v, causal, q_offset, window, prefix_len)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)        # keeps q's strides: no transposed copy
@@ -131,7 +163,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = _library().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Hkv, S, T, D, q_offset, int(causal), int(tensor_cores),
+            B, H, Hkv, S, T, D, q_offset, int(causal), window, prefix_len,
+            int(tensor_cores),
             strides, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise RuntimeError(f"flash_prefill: cuTensorMapEncodeTiled failed: "
@@ -141,9 +174,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_prefill.launches += 1
     flash_prefill.tensor_core_launches += int(tensor_cores)
     flash_prefill.offset_launches += int(q_offset > 0)
+    flash_prefill.window_launches += int(causal and window > 0)
+    flash_prefill.prefix_launches += int(causal and prefix_len > 0)
     return out
 
 
 flash_prefill.launches = 0   # launches of either CUDA kernel by this wrapper
 flash_prefill.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
 flash_prefill.offset_launches = 0   # of those, the ones with cached rows in front
+flash_prefill.window_launches = 0   # of those, the ones with a sliding window
+flash_prefill.prefix_launches = 0   # of those, the ones with a bidirectional prefix

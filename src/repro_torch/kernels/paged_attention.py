@@ -5,7 +5,13 @@ the TPU kernel ``repro/kernels/paged_attention.py::paged_attention`` (body
 ``_kernel``) and computes the same function: one query token per sequence
 attends over a KV pool ``(num_pages, page, n_kv, D)`` addressed through a
 per-sequence block table, with tokens at or past ``lengths[b]`` masked; a
-sequence of length 0 gives zeros.
+sequence of length 0 gives zeros. Beyond the TPU kernel it takes an optional
+per-sequence lower bound ``starts[b]``: tokens below it are masked too. That
+is the reference's sliding window (``layers.attention_decode`` masks
+``slot_pos > pos - window``): the port's pool keeps every position of a
+sequence and applies the window as ``starts = max(0, pos + 1 - window)``,
+where the reference keeps a ring of the last ``window`` slots; both attend
+over the same positions. head_dim is 64, 96 or 128.
 
 Bound on the H100: bytes. Each K/V element is read once and used for
 ``group`` (1..8) multiply-adds, so the least time is that of streaming
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,7 +42,7 @@ from repro_torch.kernels import _build
 DEFAULT_PAGE_SIZE = 16
 PAGES_PER_SPLIT = 16     # 256 tokens of one sequence per block, as in the kernel
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)
 _MAX_GROUP = 8
 
 
@@ -56,18 +62,27 @@ def split_plan(B: int, n_kv: int, group: int, D: int, max_pages: int) -> SplitPl
                      (B, n_kv, n_splits, group, D))
 
 
+def _starts(starts: Optional[torch.Tensor], lengths: torch.Tensor) -> torch.Tensor:
+    """Each sequence's first position, clipped to ``[0, length]`` as the
+    kernel clips it (``None``: 0)."""
+    if starts is None:
+        return torch.zeros_like(lengths, dtype=torch.long)
+    return torch.minimum(starts.long().clamp_min(0), lengths.long())
+
+
 def paged_attention_partials_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                    v_pool: torch.Tensor,
                                    block_tables: torch.Tensor,
-                                   lengths: torch.Tensor
+                                   lengths: torch.Tensor,
+                                   starts: Optional[torch.Tensor] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """Plain PyTorch version of the kernel's splits: each split's partial
     softmax ``(m, l, acc)`` over its ``PAGES_PER_SPLIT`` pages, float32,
-    shaped as ``split_plan`` says. A split with no token below ``length`` has
-    ``m = -1e30, l = 0, acc = 0`` (the kernel writes no partial for it).
-    Table entries at or past a sequence's ``ceil(length / page)`` pages are
-    never dereferenced."""
+    shaped as ``split_plan`` says. A split with no token in ``[start,
+    length)`` has ``m = -1e30, l = 0, acc = 0`` (the kernel writes no partial
+    for it). Table entries outside a sequence's pages in that range are never
+    dereferenced."""
     B, n_kv, group, D = q.shape
     page = k_pool.shape[1]
     pps = PAGES_PER_SPLIT
@@ -76,16 +91,19 @@ def paged_attention_partials_plain(q: torch.Tensor, k_pool: torch.Tensor,
     l = torch.zeros(plan.stats_shape, device=q.device)
     acc = torch.zeros(plan.acc_shape, device=q.device)
     n_pages = (lengths.long() + page - 1) // page
+    lo = _starts(starts, lengths)
     qf = q.float()
     for s in range(plan.n_splits):
         pages = torch.arange(s * pps, min((s + 1) * pps, block_tables.shape[1]),
                              device=q.device)
-        used = pages[None, :] < n_pages[:, None]                # (B, P)
+        used = (pages[None, :] < n_pages[:, None]) & \
+            (pages[None, :] >= (lo // page)[:, None])           # (B, P)
         bt = torch.where(used, block_tables[:, pages].long(), 0)
         k = k_pool[bt].reshape(B, -1, n_kv, D).float()
         v = v_pool[bt].reshape(B, -1, n_kv, D).float()
         tok = pages[0] * page + torch.arange(k.shape[1], device=q.device)
-        valid = (tok[None, :] < lengths[:, None])[:, None, None, :]
+        valid = ((tok[None, :] < lengths[:, None]) &
+                 (tok[None, :] >= lo[:, None]))[:, None, None, :]
         sc = torch.einsum("bkgd,bskd->bkgs", qf, k) / math.sqrt(D)
         sc = torch.where(valid, sc, torch.full_like(sc, _NEG_INF))
         ms = sc.amax(-1)
@@ -115,23 +133,26 @@ def paged_attention_merge_plain(m: torch.Tensor, l: torch.Tensor,
 
 def paged_attention_split_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, block_tables: torch.Tensor,
-                                lengths: torch.Tensor) -> torch.Tensor:
+                                lengths: torch.Tensor,
+                                starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's algorithm in plain PyTorch: partials per split, then
     the merge. Same function as ``paged_attention_plain``."""
     m, l, acc = paged_attention_partials_plain(q, k_pool, v_pool, block_tables,
-                                               lengths)
+                                               lengths, starts)
     return paged_attention_merge_plain(m, l, acc, q.dtype)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_tables: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
+                          lengths: torch.Tensor,
+                          starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version, any device, any page size.
 
     q (B, n_kv, group, D); pools (P, page, n_kv, D); block_tables
-    (B, max_pages); lengths (B,). Returns (B, n_kv, group, D). Softmax in
-    float32; a row with every position masked gives zeros, as the kernel's
-    ``acc / max(l, 1e-30)`` does.
+    (B, max_pages); lengths (B,); starts (B,) or None: positions
+    ``[starts[b], lengths[b])`` are attended to. Returns (B, n_kv, group, D).
+    Softmax in float32; a row with every position masked gives zeros, as the
+    kernel's ``acc / max(l, 1e-30)`` does.
     """
     B, n_kv, group, D = q.shape
     page = k_pool.shape[1]
@@ -140,7 +161,8 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     k = k_pool[bt].reshape(B, S, n_kv, D).float()
     v = v_pool[bt].reshape(B, S, n_kv, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", q.float(), k) / math.sqrt(D)
-    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    tok = torch.arange(S, device=q.device)[None, :]
+    valid = (tok < lengths[:, None]) & (tok >= _starts(starts, lengths)[:, None])
     valid = valid[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     w = torch.softmax(s, dim=-1) * valid      # length 0: uniform -> zeros
@@ -148,7 +170,7 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, block_tables, lengths, page_size):
+def _check(q, k_pool, v_pool, block_tables, lengths, starts, page_size):
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError("paged_attention: q (B, n_kv, group, D) and pools "
                          "(num_pages, page, n_kv, D) expected")
@@ -176,8 +198,13 @@ def _check(q, k_pool, v_pool, block_tables, lengths, page_size):
     if block_tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError("paged_attention kernel: block_tables (B, max_pages) "
                          "and lengths (B,) expected")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
+    tensors = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+               ("block_tables", block_tables), ("lengths", lengths)]
+    if starts is not None:
+        if starts.dtype != torch.int32 or starts.shape != (B,):
+            raise ValueError("paged_attention kernel: starts (B,) int32 expected")
+        tensors.append(("starts", starts))
+    for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"paged_attention kernel: {name} on {t.device}, "
                              f"q on {q.device}")
@@ -193,7 +220,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -225,13 +252,16 @@ def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *,
-                    page_size: int = DEFAULT_PAGE_SIZE) -> torch.Tensor:
+                    page_size: int = DEFAULT_PAGE_SIZE,
+                    starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over paged KV.
 
     q            (B, n_kv, group, D)   one query token per sequence
     k_pool/v_pool(num_pages, page_size, n_kv, D)
     block_tables (B, max_pages) int32  page ids per sequence
     lengths      (B,) int32            tokens in each sequence's KV
+    starts       (B,) int32 or None    first position attended to (a
+                                       sliding window's lower bound)
     returns      (B, n_kv, group, D)
 
     Tensors on the CPU go through ``paged_attention_plain``; tensors on a
@@ -239,10 +269,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     or raise.
     """
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths)
+        return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths,
+                                     starts)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: device {q.device} not supported")
-    _check(q, k_pool, v_pool, block_tables, lengths, page_size)
+    _check(q, k_pool, v_pool, block_tables, lengths, starts, page_size)
     B, n_kv, group, D = q.shape
     out = torch.empty_like(q)
     if B == 0:
@@ -259,7 +290,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _library().paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(),
+            None if starts is None else starts.data_ptr(), out.data_ptr(),
             *scratch, B, n_kv, group, D, block_tables.shape[1], plan.n_splits,
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)

@@ -7,7 +7,10 @@ local autoscaler closed-loop on measured ITL/throughput.
 Runs on the GPU (``--device cuda``, the default) and fails when there is
 none; ``--device cpu`` serves the reduced (smoke) variant through the plain
 PyTorch path. Without ``--full-config`` the reduced variant of the
-architecture is served.
+architecture is served. Every ported architecture is served (``--arch``):
+the dense ones (llama-8b, granite-8b, olmo-1b, phi3-mini-3.8b, yi-34b,
+llama-70b), the VLM internvl2-2b (zero vision embeddings in front of each
+prompt, as the reference engine feeds) and the ssm mamba2-1.3b.
 """
 from __future__ import annotations
 
@@ -40,8 +43,10 @@ def serve(cfg: ModelConfig, *, requests: int = 24, max_slots: int = 8,
                         interactive_frac=0.7, model=cfg.name)
     reqs = generate(spec)
     out_cap = max_len // 3 if max_output is None else min(max_output, max_len // 3)
+    # a VLM's vision prefix takes positions of the slot too
+    n_vis = cfg.n_vision_tokens if cfg.arch_type == "vlm" else 0
     for r in reqs:
-        r.prompt_len = min(r.prompt_len, max_len // 3)
+        r.prompt_len = min(r.prompt_len, max_len // 3, max_len - 1 - n_vis)
         r.output_len = min(r.output_len, out_cap)
         eng.submit(r)
 
@@ -86,7 +91,10 @@ def serve(cfg: ModelConfig, *, requests: int = 24, max_slots: int = 8,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--arch", default="granite-8b",
+                    help="a ported architecture: llama-8b, granite-8b, olmo-1b, "
+                         "phi3-mini-3.8b, yi-34b, llama-70b, internvl2-2b, "
+                         "mamba2-1.3b")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=160)

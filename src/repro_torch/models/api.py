@@ -3,15 +3,18 @@
 ``Model(cfg)`` exposes:
   init(gen, dtype, device)           -> params
   forward(params, batch)             -> (logits, aux_loss)
+  loss(params, batch)                -> scalar causal-LM loss (+ aux)
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, tokens, cache) -> (logits, cache)
   init_cache(batch, cache_len)       -> zeroed paged cache
 
   write_slot(cache, slot, sub)       -> one sequence's cache into a pool row
   read_slot(cache, slot, length)     -> a pool row, copied to the host
+  example_batch(batch, seq, gen)     -> random batch with the right modalities
 
-``batch`` is a dict with ``tokens (B,S)`` integer ids. The dense and ssm
-families are ported; the reference's other families raise
+``batch`` is a dict with ``tokens (B,S)`` integer ids, plus ``vision``
+(B, n_vision_tokens, d_model) stub patch embeddings for the VLM family. The
+dense, vlm and ssm families are ported; the reference's other families raise
 ``NotImplementedError``. Entry points default to ``device="cuda"`` and raise
 when there is no GPU: nothing here continues on the CPU unless the caller
 asks for it.
@@ -30,13 +33,13 @@ Batch = Dict[str, torch.Tensor]
 
 _FAMILY = {
     "dense": transformer,
+    "vlm": transformer,
     "ssm": mamba_model,
 }
 
 # where ROADMAP.md (Queue A) lists each family that is still to be ported
 _NOT_PORTED = {
     "moe": "item 4 (models/moe.py and the moe arm of the transformer)",
-    "vlm": "item 2 (prefix_len and the vlm arm of the transformer)",
     "hybrid": "item 5 (models/hybrid.py: the zamba2 shared attention block)",
     "audio": "item 6 (models/encdec.py)",
 }
@@ -76,9 +79,30 @@ class Model:
             gen.manual_seed(0)
         return self._m.init_params(self.cfg, gen, dtype=dtype, device=device)
 
+    def _modalities(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        if self.cfg.arch_type == "vlm":
+            return {"vision_embeds": batch["vision"]}
+        return {}
+
     # ------------------------------------------------------------ forward
     def forward(self, params: Params, batch: Batch):
-        return self._m.forward(self.cfg, params, batch["tokens"])
+        return self._m.forward(self.cfg, params, batch["tokens"],
+                               **self._modalities(batch))
+
+    def loss(self, params: Params, batch: Batch) -> torch.Tensor:
+        """Mean next-token cross-entropy over the text positions (masked by
+        ``batch["loss_mask"]`` where given), in float32, plus the auxiliary
+        loss."""
+        logits, aux = self.forward(params, batch)
+        tokens = batch["tokens"]
+        lg = logits[:, :-1].float()
+        nll = torch.logsumexp(lg, dim=-1) - \
+            torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            m = mask[:, 1:].float()
+            return (nll * m).sum() / m.sum().clamp_min(1.0) + aux
+        return nll.mean() + aux
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int, dtype=None, device="cuda"):
@@ -90,7 +114,7 @@ class Model:
                 cache_len: Optional[int] = None, dtype=None, past_cache=None):
         return self._m.prefill(self.cfg, params, batch["tokens"],
                                cache_len=cache_len, dtype=dtype,
-                               past_cache=past_cache)
+                               past_cache=past_cache, **self._modalities(batch))
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache,
                     active: Optional[torch.Tensor] = None):
@@ -105,6 +129,26 @@ class Model:
         """Row ``slot`` of a pool, holding ``length`` tokens, as a batch-of-1
         cache copied to the host."""
         return self._m.read_slot(cache, slot, length)
+
+    # ------------------------------------------------------------ inputs
+    def example_batch(self, batch: int, seq: int,
+                      gen: Optional[torch.Generator] = None, dtype=None,
+                      device="cuda") -> Batch:
+        """Random token ids and, for the VLM family, standard-normal vision
+        embeddings in ``dtype``, drawn from ``gen`` (default: a generator on
+        ``device`` seeded with 0)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        dtype = dtype or getattr(torch, cfg.dtype)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(0)
+        out: Batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                              generator=gen, device=device)}
+        if cfg.arch_type == "vlm":
+            out["vision"] = torch.randn((batch, cfg.n_vision_tokens, cfg.d_model),
+                                        generator=gen, device=device).to(dtype)
+        return out
 
 
 def get_model(cfg: ModelConfig) -> Model:

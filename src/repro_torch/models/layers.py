@@ -12,9 +12,13 @@ Conventions:
   decode attention through ``ops.paged_attention`` over a page pool
   ``(num_pages, page, Hkv, D)`` per layer. On CUDA tensors both are the
   hand-written kernels; on CPU tensors their plain PyTorch versions.
-- what the two kernels do not take yet raises ``NotImplementedError`` on
-  every device: sliding-window attention, a bidirectional prefix
-  (``prefix_len``) and cross-attention (``kv_x``). See ROADMAP.md, Queue A.
+- a sliding window (``cfg.sliding_window``) and a bidirectional prefix
+  (``prefix_len``, the VLM's vision tokens) are masks of both kernels. The
+  pool keeps every position of a sequence: decode applies the window as a
+  lower bound on the positions attended to, where the reference keeps a ring
+  of ``window`` slots; both see the same positions.
+- cross-attention (``kv_x``) raises ``NotImplementedError`` on every device
+  (ROADMAP.md, Queue A item 6).
 """
 from __future__ import annotations
 
@@ -138,15 +142,7 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
     }
 
 
-def _reject_unported(cfg: ModelConfig, *, prefix_len: int = 0, kv_x=None) -> None:
-    if cfg.sliding_window > 0:
-        raise NotImplementedError(
-            "sliding-window attention is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A)")
-    if prefix_len > 0:
-        raise NotImplementedError(
-            "bidirectional prefix attention (prefix_len > 0, VLM) is not "
-            "ported to repro_torch yet (ROADMAP.md, Queue A)")
+def _reject_unported(kv_x=None) -> None:
     if kv_x is not None:
         raise NotImplementedError(
             "cross-attention (kv_x) is not ported to repro_torch yet "
@@ -170,10 +166,13 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     past_kv: (pk, pv) of shape (B, P, Hkv, D) — already-roped K/V of a
     prefix (chunked prefill / prefix caching); queries sit at absolute
     positions P.. and attend to the past causally.
-    ``kv_x`` and ``prefix_len`` are accepted for the reference's signature
-    and raise ``NotImplementedError`` when used.
+    prefix_len: number of leading tokens (the vision tokens) that every query
+    attends to bidirectionally; with ``cfg.sliding_window`` the causal part
+    is cut to the window, as in the reference.
+    ``kv_x`` is accepted for the reference's signature and raises
+    ``NotImplementedError`` when used.
     """
-    _reject_unported(cfg, prefix_len=prefix_len, kv_x=kv_x)
+    _reject_unported(kv_x)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -194,7 +193,8 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
     # (B,S,H,D) -> the kernel's (B,H,S,D) as strided views, no copy
     o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, q_offset=past_len)
+                          v.transpose(1, 2), causal=causal, q_offset=past_len,
+                          window=cfg.sliding_window, prefix_len=prefix_len)
     out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
     if return_kv:
         return out, new_k, new_v   # new tokens only (past excluded)
@@ -225,8 +225,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, n_layers: int,
 def decode_plan(cfg: ModelConfig, block_tables: torch.Tensor, pos: torch.Tensor,
                 active: Optional[torch.Tensor], page: int) -> Dict[str, Any]:
     """What every layer of one decode step shares: where the new token's K/V
-    go in the pools, the lengths to attend over and the RoPE angles. Computed
-    once per step so the layers do not repeat these small launches.
+    go in the pools, the lengths to attend over, with a sliding window the
+    first position attended to (``starts = max(0, pos + 1 - window)``: the
+    reference's ``slot_pos > pos - window``), and the RoPE angles. Computed
+    once per step on the device, so the layers do not repeat these small
+    launches and a captured graph recomputes them from ``pos`` at every
+    replay.
 
     block_tables (B, pages_per_seq) int32; pos (B,) absolute position of the
     new token; active (B,) bool or None (all rows hold a sequence). An
@@ -240,11 +244,14 @@ def decode_plan(cfg: ModelConfig, block_tables: torch.Tensor, pos: torch.Tensor,
     lengths = pos + 1
     if active is not None:
         lengths = lengths * active
+    window = cfg.sliding_window
     return {
         "page_ids": torch.gather(block_tables.long(), 1,
                                  (pos // page)[:, None])[:, 0],
         "offsets": pos % page,
         "lengths": lengths.to(torch.int32),
+        "starts": (pos + 1 - window).clamp_min(0).to(torch.int32) if window > 0
+        else None,
         "cos": cos, "sin": sin,
         "keep": None if active is None else active[:, None, None],
     }
@@ -270,9 +277,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     returns updated copies of its dense cache; updating the pool in place
     avoids copying the whole pool every layer of every step.) Inactive rows
     leave the pools as they are and attend over length 0, which gives zeros.
-    Returns out (B,1,d).
+    With ``cfg.sliding_window`` a row attends over its last ``window``
+    positions only (``plan["starts"]``). Returns out (B,1,d).
     """
-    _reject_unported(cfg)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -295,7 +302,8 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     k_pool[where] = k_new
     v_pool[where] = v_new
     o = ops.paged_attention(q.reshape(B, Hkv, H // Hkv, hd), k_pool, v_pool,
-                            block_tables, plan["lengths"], page_size=page)
+                            block_tables, plan["lengths"], page_size=page,
+                            starts=plan["starts"])
     return o.reshape(B, 1, H * hd) @ p["wo"]
 
 

@@ -1,4 +1,8 @@
-"""Decoder-only transformer stack, dense arm (PyTorch).
+"""Decoder-only transformer stack, dense and VLM arms (PyTorch).
+
+The VLM arm is the dense stack with ``n_vision_tokens`` vision embeddings
+(the stub frontend's patch embeddings) prepended to the token embeddings,
+which every query attends to bidirectionally (``prefix_len``).
 
 Parameters are stacked over layers (leading axis = n_layers), as in
 ``repro.models.transformer``, so the reference's parameters load one to
@@ -32,10 +36,11 @@ Cache = Dict[str, torch.Tensor]
 
 
 def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.is_moe:
+    if cfg.arch_type not in ("dense", "vlm") or cfg.is_moe:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet: "
-            "only the dense arm of the transformer is (ROADMAP.md, Queue A)")
+            "only the dense and vlm arms of the transformer are (ROADMAP.md, "
+            "Queue A)")
 
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
@@ -64,25 +69,43 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
 
 
 def _layer_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, prefix_len: int) -> torch.Tensor:
     h = L.apply_norm(cfg, lp["norm1"], x)
-    x = x + L.attention_forward(cfg, lp["attn"], h, positions=positions)
+    x = x + L.attention_forward(cfg, lp["attn"], h, positions=positions,
+                                prefix_len=prefix_len)
     h = L.apply_norm(cfg, lp["norm2"], x)
     return x + L.ffn_forward(cfg, lp["ffn"], h)
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss); the
-    auxiliary loss of a dense model is zero."""
-    _require_dense(cfg)
+def _embed(params: Params, tokens: torch.Tensor,
+           vision_embeds: Optional[torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    """Token embeddings with the vision embeddings (B, n_vis, d) in front,
+    and n_vis."""
     x = L.embed(params["emb"], tokens)
+    if vision_embeds is None:
+        return x, 0
+    return torch.cat([vision_embeds.to(x.dtype), x], dim=1), vision_embeds.shape[1]
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss); the
+    auxiliary loss of a dense model is zero.
+
+    For VLM configs, ``vision_embeds`` (B, n_vis, d) is prepended to the
+    token embeddings at positions ``0 .. n_vis - 1``; logits are returned for
+    the text positions only."""
+    _require_dense(cfg)
+    x, prefix_len = _embed(params, tokens, vision_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     for i in range(cfg.n_layers):
-        x = _layer_forward(cfg, layer_params(params["layers"], i), x, positions)
+        x = _layer_forward(cfg, layer_params(params["layers"], i), x, positions,
+                           prefix_len)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return L.unembed(params["emb"], x), torch.zeros((), device=x.device)
+    return L.unembed(params["emb"], x[:, prefix_len:]), \
+        torch.zeros((), device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
@@ -126,27 +149,43 @@ def read_slot(cache: Cache, slot: int, length: int) -> Cache:
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             cache_len: Optional[int] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
             past_cache: Optional[Cache] = None,
             dtype=None) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt, return last-position logits and the KV cache.
 
+    ``vision_embeds`` (B, n_vis, d), VLM: prepended to the prompt, which then
+    fills ``n_vis + S`` positions (``pos = n_vis + S``).
     ``past_cache``: a dense cache to continue from — the chunked-prefill /
     prefix-caching path: only the new tokens are computed; the returned cache
-    covers past + new. K/V are cast to ``dtype`` on the way out.
+    covers past + new. As in the reference it takes neither a vision prefix
+    (that must be in the first chunk) nor a sliding window. K/V are cast to
+    ``dtype`` on the way out.
 
-    Without ``cache_len`` the cache is dense (see the module docstring);
-    with it, a paged cache of that capacity, ready for ``decode_step``.
+    Without ``cache_len`` the cache is dense (see the module docstring) and
+    holds every position, also with a sliding window (the reference's keeps
+    a ring of the last ``window``); with ``cache_len``, a paged cache of that
+    capacity, ready for ``decode_step``.
     """
     _require_dense(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
-    B, S = tokens.shape
-    past_len = int(past_cache["k"].shape[2]) if past_cache is not None else 0
+    past_len = 0
+    if past_cache is not None:
+        if vision_embeds is not None:
+            raise ValueError("prefill: the vision prefix must be in the first "
+                             "chunk (no past_cache with vision_embeds)")
+        if cfg.sliding_window > 0:
+            raise ValueError("prefill: chunked prefill assumes a non-windowed "
+                             "cache")
+        past_len = int(past_cache["k"].shape[2])
+    x, _ = _embed(params, tokens, vision_embeds)
+    n_vis = 0 if vision_embeds is None else vision_embeds.shape[1]
+    B, S, _ = x.shape            # S counts the vision prefix
     full_len = past_len + S
     if cache_len is not None and cache_len < full_len:
         raise ValueError(f"cache_len {cache_len} is shorter than the prompt "
                          f"({full_len} tokens)")
 
-    x = L.embed(params["emb"], tokens)
     positions = (past_len + torch.arange(S, device=x.device))[None, :].expand(B, S)
     hd = cfg.resolved_head_dim
     ks = torch.empty((cfg.n_layers, B, full_len, cfg.n_kv_heads, hd),
@@ -161,7 +200,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             vs[i, :, :past_len] = past[1]
         h = L.apply_norm(cfg, lp["norm1"], x)
         o, k, v = L.attention_forward(cfg, lp["attn"], h, positions=positions,
-                                      return_kv=True, past_kv=past)
+                                      prefix_len=n_vis, return_kv=True,
+                                      past_kv=past)
         ks[i, :, past_len:] = k
         vs[i, :, past_len:] = v
         x = x + o

@@ -3,9 +3,10 @@
 The reference's pytrees arrive as nested dicts of ``numpy`` arrays (the
 caller converts them: this package imports neither the reference nor its
 framework). The port stacks parameters over layers exactly as the reference
-does, so parameters map one to one; a dense cache changes format, from the
-reference's ``(L, B, S, Hkv, D)`` to the port's page pools, and an ssm
-cache keeps its own.
+does, so parameters map one to one (a VLM's tree is the dense one); a dense
+cache changes format, from the reference's ``(L, B, S, Hkv, D)`` slots
+(a ring of them with a sliding window) to the port's page pools, which hold
+every position in order, and an ssm cache keeps its own.
 """
 from __future__ import annotations
 
@@ -46,12 +47,12 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
     """The reference's parameter pytree (as numpy arrays) -> the port's
     parameters on ``device`` in ``dtype``."""
     device = resolve_device(device)
-    if cfg.arch_type not in ("dense", "ssm"):
+    if cfg.arch_type not in ("dense", "vlm", "ssm"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
             "(ROADMAP.md, Queue A)")
     params = _convert(params_numpy, device, dtype)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "vlm"):
         name, w = "wq", params["layers"]["attn"]["wq"]
         want = (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
     else:
@@ -67,25 +68,30 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
 def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
                          device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """The reference's decode cache -> the port's. A dense cache (``k``/``v``
-    (L, B, S, Hkv, D), ``pos`` (B,)) becomes a paged cache of capacity S for
-    ``decode_step``; the reference's ``slot_pos`` is implied by ``pos`` for
-    a cache that is not a ring buffer and is dropped. An ssm cache (``ssm``
+    (L, B, S, Hkv, D), ``slot_pos`` (B, S), ``pos`` (B,)) becomes a paged
+    cache for ``decode_step`` of capacity S or, for a sliding window's ring,
+    of the latest position held plus S (room for a ring's worth of decode
+    steps). Each slot's K/V goes to the position its
+    ``slot_pos`` names (-1: empty); a ring's slots are so unrolled into
+    position order, and the positions the ring no longer holds stay zero,
+    below the window that decode attends over. An ssm cache (``ssm``
     float32, ``conv`` in ``dtype``, ``pos``) is carried over unchanged."""
     device = resolve_device(device)
     if cfg.arch_type == "ssm":
         return {"ssm": _tensor(cache_numpy["ssm"], device, torch.float32),
                 "conv": _tensor(cache_numpy["conv"], device, dtype),
                 "pos": _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)}
-    if cfg.sliding_window > 0:
-        raise NotImplementedError(
-            "ring-buffer (sliding-window) caches are not ported to "
-            "repro_torch yet (ROADMAP.md, Queue A)")
     k = _tensor(cache_numpy["k"], device, dtype)
     v = _tensor(cache_numpy["v"], device, dtype)
     _, B, S, _, _ = k.shape
-    cache = transformer.init_cache(cfg, B, S, dtype, device)
+    slot_pos = np.asarray(cache_numpy["slot_pos"])
+    cache_len = S if cfg.sliding_window == 0 else int(slot_pos.max()) + 1 + S
+    cache = transformer.init_cache(cfg, B, cache_len, dtype, device)
     for b in range(B):
-        transformer.cache_rows(cache, "k", b)[:, :S] = k[:, b]
-        transformer.cache_rows(cache, "v", b)[:, :S] = v[:, b]
+        held = np.nonzero(slot_pos[b] >= 0)[0]
+        where = torch.from_numpy(slot_pos[b][held].astype(np.int64)).to(device)
+        slots = torch.from_numpy(held).to(device)
+        transformer.cache_rows(cache, "k", b)[:, where] = k[:, b, slots]
+        transformer.cache_rows(cache, "v", b)[:, where] = v[:, b, slots]
     cache["pos"] = _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)
     return cache

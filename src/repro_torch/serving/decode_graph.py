@@ -39,7 +39,8 @@ WARMUP_STEPS = 2
 # every launch counter of the kernel wrappers
 COUNTERS = ((paged_attention, "launches"), (flash_prefill, "launches"),
             (flash_prefill, "tensor_core_launches"),
-            (flash_prefill, "offset_launches"), (ssd_scan, "launches"),
+            (flash_prefill, "offset_launches"), (flash_prefill, "window_launches"),
+            (flash_prefill, "prefix_launches"), (ssd_scan, "launches"),
             (ssd_scan, "tensor_core_launches"))
 
 

@@ -33,7 +33,14 @@ Against the reference engine (``repro.serving.engine``), on purpose:
 - the sampled tokens are copied to the host before the clock is read, so
   the ITL handed to the autoscaler covers the device's work, not only its
   launch; slot positions and next tokens are mirrored on the host, so the
-  bookkeeping costs no further device reads.
+  bookkeeping costs no further device reads;
+- ``submit`` refuses a prompt that does not fit a slot: one of 0 tokens, or
+  of ``max_len`` or more positions, the VLM's vision prefix counted (the
+  reference queues it and fails later).
+
+A VLM's prompt batch carries zero vision embeddings
+``(1, n_vision_tokens, d_model)``, as the reference's ``_prompt_batch``
+does: the prompt fills ``n_vision_tokens + n`` positions of its slot.
 """
 from __future__ import annotations
 
@@ -135,9 +142,11 @@ class Engine:
     def submit(self, req: Request) -> None:
         n = req.prompt_len if req.prompt_tokens is None else \
             int(np.asarray(req.prompt_tokens).size)
-        if not 0 < n < self.max_len:
-            raise ValueError(f"prompt of {n} tokens does not fit a slot of "
-                             f"max_len {self.max_len}")
+        n_vis = self.cfg.n_vision_tokens if self.cfg.arch_type == "vlm" else 0
+        if not (n > 0 and n_vis + n < self.max_len):
+            raise ValueError(f"prompt of {n} tokens (after {n_vis} vision "
+                             f"tokens) does not fit a slot of max_len "
+                             f"{self.max_len}")
         req.state = RequestState.QUEUED
         self.waiting.append(req)
 
@@ -180,6 +189,14 @@ class Engine:
         return self._rng.integers(0, self.cfg.vocab_size,
                                   size=(req.prompt_len,), dtype=np.int32)
 
+    def _prompt_batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device).long()[None]}
+        if self.cfg.arch_type == "vlm":
+            batch["vision"] = torch.zeros(
+                (1, self.cfg.n_vision_tokens, self.cfg.d_model), dtype=self.dtype,
+                device=self.device)
+        return batch
+
     def _prefill(self, req: Request):
         """Prefill a prompt, via the prefix cache and/or in chunks when
         those knobs are enabled; returns (last_logits, dense cache)."""
@@ -193,10 +210,9 @@ class Engine:
         chunk = self.prefill_chunk or len(remaining)
         logits = None
         for lo in range(0, len(remaining), chunk):
-            piece = torch.from_numpy(remaining[lo:lo + chunk]).to(self.device)
             logits, past = self.model.prefill(
-                self.params, {"tokens": piece.long()[None]}, dtype=self.dtype,
-                past_cache=past)
+                self.params, self._prompt_batch(remaining[lo:lo + chunk]),
+                dtype=self.dtype, past_cache=past)
         if self.prefix_cache is not None:
             self.prefix_cache.store(toks, past)
         return logits, past

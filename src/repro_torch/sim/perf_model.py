@@ -18,10 +18,18 @@ re-derives the same trade-off from first principles:
 A "chip" here is one card. ``PEAK_FLOPS``, ``HBM_BW``, ``HBM_BYTES`` and
 ``LINK_BW`` are data-sheet numbers of the NVIDIA H100 SXM5 80 GB (dense bf16
 tensor-core peak, HBM3 bandwidth, HBM capacity, NVLink bandwidth per
-direction). ``STEP_OVERHEAD``, ``MFU_DECODE`` and ``MBU`` are not
-hardware numbers: they are the reference's modelling assumptions, kept as
-they are, and nothing here calibrates them against the card yet (ROADMAP.md,
-Queue A item 8). ``INSTANCE_CHIPS`` is re-derived for 80 GB cards (see there).
+direction). ``MBU`` and ``STEP_OVERHEAD`` are fitted to the card: the
+graphed decode step at 8 slots (contexts of 72-328 tokens) of llama-8b,
+phi3-mini-3.8b, olmo-1b, internvl2-2b and yi-34b in bf16, served by
+``python3 chip_smoke.py`` (its ``perf_model`` line) on an NVIDIA H100 80GB
+HBM3 at a 700.00 W power limit (torch 2.11.0+cu128). ``MBU`` is the
+least-squares fit, in relative error, of weight plus KV bytes over
+device-busy time (the five models' own shares of 3.35 TB/s run from 0.27,
+olmo-1b, to 0.67, yi-34b: one share fits llama-8b to 1.4 % and the others
+to 24-41 %); ``STEP_OVERHEAD`` is the median of wall minus device-busy time
+of the five steps (the replay's gaps and the engine's bookkeeping).
+``MFU_DECODE`` is the reference's assumption, kept. ``INSTANCE_CHIPS`` is
+re-derived for 80 GB cards (see there).
 
 All constants are module-level and overridable for calibration tests; they
 are folded into each ``PerfModel`` when it is built.
@@ -41,14 +49,16 @@ HBM_BW = 3.35e12             # bytes/s per card (HBM3)
 HBM_BYTES = 80e9             # per card
 LINK_BW = 450e9              # bytes/s per direction (NVLink 4)
 BYTES_PER_PARAM = 2          # bf16 weights
-STEP_OVERHEAD = 2e-3         # dispatch/sampling overhead per decode step
+STEP_OVERHEAD = 7.425e-4     # host and replay time per graphed decode step (fitted)
 MFU_DECODE = 0.6             # achievable fraction of peak in decode GEMMs
-MBU = 0.75                   # achievable HBM bandwidth fraction
+MBU = 0.4761                 # achieved HBM bandwidth fraction in decode (fitted)
 
 # default tensor-parallel instance sizes (cards per serving instance): the
 # fewest cards, a power of two, whose 80 GB hold the bf16 weights with at
 # least a fifth of the memory left for the KV cache (llama-70b's 141 GB
-# would leave 12 % of two cards, yi-34b's 69 GB 14 % of one)
+# would leave 12 % of two cards, yi-34b's 69 GB 14 % of one). A planning
+# rule for KV headroom, not what a model needs: yi-34b serves on one card
+# with a pool of 8 x 1024 tokens (2.01 GB beside its weights).
 INSTANCE_CHIPS: Dict[str, int] = {
     "llama-8b": 1, "llama-70b": 4,
     "olmo-1b": 1, "granite-8b": 1, "zamba2-2.7b": 1, "phi3-mini-3.8b": 1,

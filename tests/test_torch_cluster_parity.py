@@ -32,6 +32,8 @@ torch.set_num_threads(2)
 
 _REF_CONSTANTS = {"PEAK_FLOPS": ref_perf.PEAK_FLOPS, "HBM_BW": ref_perf.HBM_BW,
                   "HBM_BYTES": ref_perf.HBM_BYTES, "LINK_BW": ref_perf.ICI_BW,
+                  "MBU": ref_perf.MBU, "STEP_OVERHEAD": ref_perf.STEP_OVERHEAD,
+                  "MFU_DECODE": ref_perf.MFU_DECODE,
                   "INSTANCE_CHIPS": dict(ref_perf.INSTANCE_CHIPS)}
 
 

@@ -317,6 +317,8 @@ def test_arrival_spikes_and_theta_are_the_same():
 # the reference's TPU constants, patched into the port's module for parity
 _REF_CONSTANTS = {"PEAK_FLOPS": ref_perf.PEAK_FLOPS, "HBM_BW": ref_perf.HBM_BW,
                   "HBM_BYTES": ref_perf.HBM_BYTES, "LINK_BW": ref_perf.ICI_BW,
+                  "MBU": ref_perf.MBU, "STEP_OVERHEAD": ref_perf.STEP_OVERHEAD,
+                  "MFU_DECODE": ref_perf.MFU_DECODE,
                   "INSTANCE_CHIPS": dict(ref_perf.INSTANCE_CHIPS)}
 
 
@@ -352,10 +354,15 @@ def test_perf_model_plans_for_the_h100():
     assert m.weight_bytes == 2 * 8_029_995_008
     want = (80e9 - m.weight_bytes) * 0.9 / kv_per_token
     assert abs(m.kv_capacity_tokens() / want - 1) < 1e-12
-    # a decode step of 8 slots at 1024 tokens: streaming 16 GB of weights
-    # at three quarters of 3.35 TB/s, plus the step overhead
-    assert 0.007 < m.itl(8, 1024.0) < 0.010
+    # a decode step of 8 slots at 1024 tokens: streaming 16 GB of weights and
+    # 1.07 GB of KV at the fitted share (0.476) of 3.35 TB/s, plus the
+    # fitted step overhead (0.74 ms)
+    assert perf_model.MBU == pytest.approx(0.4761, abs=1e-4)
+    assert perf_model.STEP_OVERHEAD == pytest.approx(7.425e-4, abs=1e-7)
+    assert 0.0110 < m.itl(8, 1024.0) < 0.0120
     assert perf_model.PerfModel("granite-8b").chips == 1
     assert perf_model.PerfModel("mamba2-1.3b").chips == 1
+    # a planning size with headroom for KV, not what one card can hold
+    assert perf_model.PerfModel("yi-34b").chips == 2
     with pytest.raises(NotImplementedError):
-        perf_model.PerfModel("yi-34b")
+        perf_model.PerfModel("qwen2-moe-a2.7b")

@@ -305,3 +305,242 @@ def test_flash_prefill_counts_no_tensor_core_launch_on_cpu():
     out = flash_prefill(x.bfloat16(), x.bfloat16(), x.bfloat16())
     assert out.dtype == torch.bfloat16
     assert (flash_prefill.launches, flash_prefill.tensor_core_launches) == before
+
+
+# ------------------------- masks and head_dim 96 (sliding window, VLM prefix)
+def _identity_attention(H, Hkv, D):
+    """Projections that pass x through: q = x, k and v two column blocks of
+    x, the output projection the identity (d = H * D)."""
+    d = H * D
+    eye = np.eye(d, dtype=np.float32)
+    return {"wq": eye, "wo": eye, "wk": eye[:, :Hkv * D],
+            "wv": eye[:, Hkv * D:2 * Hkv * D]}
+
+
+def _qkv_from_x(x, past_k, past_v, H, Hkv, D):
+    """q (B,H,S,D) and k, v (B,Hkv,T,D) as the identity projections give
+    them, with the past rows in front."""
+    B, S, _ = x.shape
+    q = torch.from_numpy(x).reshape(B, S, H, D)
+    k = torch.from_numpy(x[..., :Hkv * D]).reshape(B, S, Hkv, D)
+    v = torch.from_numpy(x[..., Hkv * D:2 * Hkv * D]).reshape(B, S, Hkv, D)
+    if past_k is not None:
+        k = torch.cat([torch.from_numpy(past_k), k], 1)
+        v = torch.cat([torch.from_numpy(past_v), v], 1)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("window,prefix_len,past", [
+    (8, 0, 0), (0, 12, 0), (8, 12, 0), (5, 0, 20), (40, 0, 0)])
+def test_flash_prefill_masks_match_attention_forward(D, window, prefix_len, past):
+    """``window`` and ``prefix_len`` are the reference's masks in
+    ``attention_forward`` (causal, &= window, |= prefix; with past rows the
+    window counts from each query's absolute position), at head_dim 64 and
+    96, on the plain version through identity projections (no RoPE)."""
+    H, Hkv, S = 4, 2, 37
+    rcfg = get_smoke_config("llama-8b").with_(
+        d_model=H * D, n_heads=H, n_kv_heads=Hkv, head_dim=D, sliding_window=window)
+    rng = np.random.default_rng(10 + D + window + prefix_len + past)
+    x = rng.standard_normal((2, S, H * D), dtype=np.float32)
+    pk = rng.standard_normal((2, past, Hkv, D), dtype=np.float32) if past else None
+    pv = rng.standard_normal((2, past, Hkv, D), dtype=np.float32) if past else None
+    p = {n: jnp.asarray(w) for n, w in _identity_attention(H, Hkv, D).items()}
+    want = ref_layers.attention_forward(
+        rcfg, p, jnp.asarray(x), use_rope=False, prefix_len=prefix_len,
+        past_kv=None if not past else (jnp.asarray(pk), jnp.asarray(pv)))
+    q, k, v = _qkv_from_x(x, pk, pv, H, Hkv, D)
+    out = flash_prefill_plain(q, k, v, q_offset=past, window=window,
+                              prefix_len=prefix_len)
+    out = out.transpose(1, 2).reshape(2, S, H * D)
+    np.testing.assert_allclose(_np(out), _np(want), atol=2e-4, rtol=2e-4)
+    # the wrapper takes the plain version on the CPU, with the same masks
+    assert torch.equal(flash_prefill(q, k, v, q_offset=past, window=window,
+                                     prefix_len=prefix_len),
+                       flash_prefill_plain(q, k, v, q_offset=past, window=window,
+                                           prefix_len=prefix_len))
+
+
+@pytest.mark.parametrize("window,prefix_len,q_offset", [
+    (100, 0, 0), (0, 64, 0), (100, 64, 0), (70, 0, 130)])
+def test_flash_prefill_masks_match_the_long_sequence_reference(window, prefix_len,
+                                                              q_offset):
+    """The reference's chunked online-softmax path (``_flash_attention_ref``,
+    what ``attention_forward`` runs from S = 2048) with a window, a prefix
+    and cached rows in front, at head_dim 96, against the plain version."""
+    B, H, Hkv, S, D = 1, 4, 2, 300, 96
+    rng = np.random.default_rng(20 + window + prefix_len)
+    q = rng.standard_normal((B, S, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, q_offset + S, Hkv, D), dtype=np.float32)
+    v = rng.standard_normal((B, q_offset + S, Hkv, D), dtype=np.float32)
+    want = ref_layers._flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, window=window,
+        prefix_len=prefix_len, n_heads=H, n_kv=Hkv, block=64, q_offset=q_offset)
+    out = flash_prefill_plain(*(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+                              q_offset=q_offset, window=window, prefix_len=prefix_len)
+    np.testing.assert_allclose(_np(out.transpose(1, 2).reshape(B, S, H * D)), _np(want),
+                               atol=2e-4, rtol=2e-4)
+
+
+def test_attention_forward_at_2048_tokens_with_window_and_prefix():
+    """S = 2048 sends the reference's ``attention_forward`` down its chunked
+    path; the port's, through ``ops.flash_prefill``'s plain version, gives
+    the same output with a window and a prefix at head_dim 96."""
+    from repro_torch.models import layers as port_layers
+    from repro_torch.configs import get_smoke_config as port_smoke_config
+    H, Hkv, D, S, window, n_vis = 2, 1, 96, 2048, 300, 256
+    kw = dict(d_model=H * D, n_heads=H, n_kv_heads=Hkv, head_dim=D, sliding_window=window)
+    rcfg = get_smoke_config("llama-8b").with_(**kw)
+    cfg = port_smoke_config("llama-8b").with_(**kw)
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((1, S, H * D), dtype=np.float32)
+    p = _identity_attention(H, Hkv, D)
+    want = ref_layers.attention_forward(rcfg, {n: jnp.asarray(w) for n, w in p.items()},
+                                        jnp.asarray(x), prefix_len=n_vis)
+    got = port_layers.attention_forward(cfg, {n: torch.from_numpy(w) for n, w in p.items()},
+                                        torch.from_numpy(x), prefix_len=n_vis)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_attention_decode_window_matches_reference(D):
+    """Three decode steps with a window of 8: the port attends over its page
+    pool from ``max(0, pos + 1 - window)``, the reference over the slots of
+    its dense cache whose ``slot_pos > pos - window``; same output. Rows
+    start short of the window, across it and far past it."""
+    from repro_torch.models import layers as port_layers
+    from repro_torch.configs import get_smoke_config as port_smoke_config
+    H, Hkv, window = 4, 2, 8
+    kw = dict(d_model=H * D, n_heads=H, n_kv_heads=Hkv, head_dim=D, sliding_window=window)
+    rcfg = get_smoke_config("llama-8b").with_(**kw)
+    cfg = port_smoke_config("llama-8b").with_(**kw)
+    rng = np.random.default_rng(40 + D)
+    p = {n: (rng.standard_normal(w.shape) * w.shape[0] ** -0.5).astype(np.float32)
+         for n, w in _identity_attention(H, Hkv, D).items()}
+    B, cap = 3, 48
+    pos0 = np.asarray([3, 9, 30])
+    kd = np.zeros((B, cap, Hkv, D), np.float32)
+    vd = np.zeros((B, cap, Hkv, D), np.float32)
+    for b in range(B):
+        kd[b, :pos0[b]] = rng.standard_normal((pos0[b], Hkv, D))
+        vd[b, :pos0[b]] = rng.standard_normal((pos0[b], Hkv, D))
+    cache = port_layers.init_kv_cache(cfg, B, cap, 1, torch.float32, "cpu")
+    k_pool, v_pool, bt = cache["k"][0], cache["v"][0], cache["block_tables"]
+    k_pool.view(B, cap, Hkv, D)[:] = torch.from_numpy(kd)
+    v_pool.view(B, cap, Hkv, D)[:] = torch.from_numpy(vd)
+    rk, rv = jnp.asarray(kd), jnp.asarray(vd)
+    slot_pos = np.where(np.arange(cap)[None] < pos0[:, None],
+                        np.arange(cap)[None], -1).astype(np.int32)
+    for step in range(3):
+        pos = pos0 + step
+        x = rng.standard_normal((B, 1, H * D), dtype=np.float32)
+        slot_pos[np.arange(B), pos] = pos
+        want, rk, rv = ref_layers.attention_decode(
+            rcfg, {n: jnp.asarray(w) for n, w in p.items()}, jnp.asarray(x), rk, rv,
+            jnp.asarray(pos, jnp.int32), jnp.asarray(slot_pos))
+        got = port_layers.attention_decode(
+            cfg, {n: torch.from_numpy(w) for n, w in p.items()}, torch.from_numpy(x),
+            k_pool, v_pool, bt, torch.from_numpy(pos).int())
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
+def _window_oracle(q, kp, vp, bt, lengths, starts):
+    """Softmax attention over positions [start, length) of each sequence,
+    in numpy (float64)."""
+    B, n_kv, group, D = q.shape
+    page = kp.shape[1]
+    out = np.zeros(q.shape, np.float64)
+    for b in range(B):
+        pos = np.arange(starts[b], lengths[b])
+        if pos.size == 0:
+            continue
+        rows = bt[b, pos // page] * page + pos % page
+        k = kp.reshape(-1, n_kv, D)[rows].astype(np.float64)     # (T, n_kv, D)
+        v = vp.reshape(-1, n_kv, D)[rows].astype(np.float64)
+        s = np.einsum("kgd,tkd->kgt", q[b].astype(np.float64), k) / np.sqrt(D)
+        w = np.exp(s - s.max(-1, keepdims=True))
+        w /= w.sum(-1, keepdims=True)
+        out[b] = np.einsum("kgt,tkd->kgd", w, v)
+    return out
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_paged_attention_lower_bound_across_split_boundaries(D):
+    """``starts`` through the kernel's algorithm (partials per split, then
+    the merge) and the one-pass plain version, against a numpy oracle: lower
+    bounds inside the first split, on a split boundary, one past it, inside
+    a later split, in the last page, at the length (nothing to attend to)
+    and with a window wider than the sequence. Table entries outside each
+    sequence's pages in range are 2**30 and never looked up; the splits
+    wholly below a sequence's bound hold nothing (m = -1e30, l = 0)."""
+    pps, page, n_kv, group = PAGES_PER_SPLIT, 16, 2, 3
+    n_splits = 3
+    max_pages = n_splits * pps
+    split = pps * page
+    lengths = [700, 700, 700, 700, 530, 300, 90, 40]
+    starts = [100, split, split + 1, 2 * split + 37, 520, 300, 0, 0]
+    B = len(lengths)
+    rng = np.random.default_rng(50 + D)
+    q, kp, vp, _ = _paged_inputs(rng, B, n_kv, group, D, page, max_pages, B * max_pages)
+    clean = rng.permutation(B * max_pages).reshape(B, max_pages).astype(np.int32)
+    garbage = clean.copy()
+    for b, (n, lo) in enumerate(zip(lengths, starts)):
+        garbage[b, -(-n // page):] = 2 ** 30
+        garbage[b, :lo // page] = 2 ** 30
+    t = torch.from_numpy
+    ln = np.asarray(lengths, np.int32)
+    st = np.asarray(starts, np.int32)
+    want = _window_oracle(q, kp, vp, clean, ln, st)
+    plain = paged_attention_plain(t(q), t(kp), t(vp), t(clean), t(ln), t(st))
+    split_out = paged_attention_split_plain(t(q), t(kp), t(vp), t(garbage), t(ln), t(st))
+    np.testing.assert_allclose(_np(plain), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(split_out), want, atol=1e-5, rtol=1e-5)
+    assert torch.count_nonzero(split_out[5]) == 0          # start == length
+    m, l, _ = paged_attention_partials_plain(t(q), t(kp), t(vp), t(garbage), t(ln), t(st))
+    for b, (n, lo) in enumerate(zip(lengths, starts)):
+        for s in range(n_splits):
+            below = (s + 1) * split <= lo
+            past = s * split >= n
+            if below or past or lo >= n:
+                assert bool((l[b, :, s] == 0).all()) and bool((m[b, :, s] == -1e30).all())
+            else:
+                assert bool((l[b, :, s] >= 1).all())
+    # no bound is a bound of 0
+    np.testing.assert_allclose(
+        _np(paged_attention_plain(t(q), t(kp), t(vp), t(clean), t(ln), t(np.zeros(B, np.int32)))),
+        _np(paged_attention_plain(t(q), t(kp), t(vp), t(clean), t(ln))), atol=0, rtol=0)
+    # and the wrapper takes the plain version on the CPU
+    assert torch.equal(paged_attention(t(q), t(kp), t(vp), t(clean), t(ln), starts=t(st)),
+                       plain)
+
+
+@pytest.mark.parametrize("group", [1, 2, 7])
+def test_paged_attention_head_dim_96_and_group_7_match_reference(group):
+    """head_dim 96 (phi3-mini) and group 7 (yi-34b) on the plain version
+    against the reference's oracle."""
+    B, n_kv, D, page, max_pages = 3, 2, 96 if group < 7 else 128, 16, 6
+    rng = np.random.default_rng(60 + group)
+    q, kp, vp, bt = _paged_inputs(rng, B, n_kv, group, D, page, max_pages, 20)
+    ln = np.asarray([1, 50, 96], np.int32)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, ln)]
+    want = ref_ref.paged_attention_ref(*(jnp.asarray(a) for a in (q, kp, vp, bt, ln)))
+    np.testing.assert_allclose(_np(paged_attention_plain(*args)), _np(want),
+                               atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_head_dim_96_matches_reference(dtype):
+    rng = np.random.default_rng(70)
+    q = rng.standard_normal((1, 4, 75, 96), dtype=np.float32)
+    k = rng.standard_normal((1, 2, 75, 96), dtype=np.float32)
+    v = rng.standard_normal((1, 2, 75, 96), dtype=np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    np.testing.assert_allclose(_np(flash_prefill_plain(qt, kt, vt)),
+                               _np(ref_ref.flash_prefill_ref(qj, kj, vj)), **_tol(dtype))
+
+
+def test_flash_prefill_refuses_a_prefix_after_cached_rows():
+    x = torch.zeros((1, 2, 4, 64))
+    kv = torch.zeros((1, 2, 9, 64))
+    with pytest.raises(ValueError, match="first chunk"):
+        flash_prefill(x, kv, kv, q_offset=5, prefix_len=3)

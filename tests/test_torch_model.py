@@ -17,7 +17,10 @@ from repro_torch.models import transformer
 # the test workers share the host's cores: cap each one's intra-op threads
 torch.set_num_threads(2)
 
-ARCHS = ["llama-8b", "granite-8b"]
+# the dense configs; yi-34b's smoke config has group 7 and head_dim 32,
+# olmo-1b's a nonparametric LayerNorm, llama-70b lands at its smoke size
+ARCHS = ["llama-8b", "granite-8b", "olmo-1b", "phi3-mini-3.8b", "yi-34b",
+         "llama-70b"]
 
 
 def _reference(arch, seed=0):
@@ -34,7 +37,7 @@ def _carried_over(arch, ref_params):
                                            dtype=torch.float32)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-1.3b", "internvl2-2b"])
 def test_configs_match_reference(arch):
     """Every field agrees, the nested moe and ssm configs field by field
     (they are each package's own dataclass), and so do the derived widths."""
