@@ -5,15 +5,18 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card (with the sliding
-window, the VLM's bidirectional prefix, head_dim 96, group 7 and a block
-table from ``PagedKVManager``), checks that the port's engine samples the
-same tokens on the card (kernels) and on the CPU (plain versions) for every
-ported family and the model-level VLM and windowed paths agree, serves
-llama-8b, phi3-mini-3.8b, olmo-1b, internvl2-2b, mamba2-1.3b and yi-34b at
-full width (random bf16 weights from a seed; yi-34b last, alone on the
-card) through ``repro_torch.launch.serve``'s loop, fits the planner's
-``MBU`` and ``STEP_OVERHEAD`` to the dense models' graphed decode steps
-(the ``perf_model`` line), and runs Chiron's whole hierarchy,
+window, the VLM's bidirectional prefix, head_dim 80 and 96, group 7, the
+SSD scan at zamba2's N 64 and a block table from ``PagedKVManager``),
+checks that the port's engine samples the same tokens on the card (kernels)
+and on the CPU (plain versions) for every ported family (the MoE arm with
+and without capacity drops, the zamba2 hybrid) and the model-level VLM and
+windowed paths agree, serves llama-8b, phi3-mini-3.8b, olmo-1b,
+internvl2-2b, mamba2-1.3b, qwen2-moe-a2.7b, deepseek-moe-16b, zamba2-2.7b
+and yi-34b at full width (random bf16 weights from a seed; yi-34b last,
+alone on the card) through ``repro_torch.launch.serve``'s loop, puts the
+planner's step beside each graphed one and fits its ``MBU`` and
+``STEP_OVERHEAD`` to the dense and VLM models' (the ``perf_model`` line),
+and runs Chiron's whole hierarchy,
 ``serve_forever`` driven by ``ChironController`` over llama-8b instances
 sharing the card (the ``cluster`` phase: first the smoke cluster's
 decisions and tokens card against CPU and a migration mid-generation, then
@@ -21,11 +24,13 @@ a mixed interactive and batch trace at full width), each path with the
 kernels' launch counters set to 0 just before it and read just after.
 Every engine on the card replays its decode step as a CUDA graph captured
 when it was built; the ``graph`` phase holds one replay against one eager
-``model.decode_step`` from the same pool state at full width, the ``serve``
+``model.decode_step`` from the same pool state at full width, bit for bit,
+the ``serve``
 phase times both and also serves llama-8b with the prefix cache and chunked
 prefill. A replay counts the launches its capture recorded
 (``serving/decode_graph.py``), and the profiler confirms one
-``paged_attention`` kernel a layer in a replayed step. Every phase prints
+``paged_attention`` kernel an attention layer in a replayed step. Every
+phase prints
 JSON lines; any failure ends the run with a non-zero exit code. Without a
 GPU it fails at once. A kernel's ``ms`` (and the plain version's and the
 library call's) is device time: the own times of the kernels one call
@@ -48,6 +53,7 @@ that two versions are compared on one card within one call.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -165,15 +171,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# marker kernels in front of every profiler session (``_kernel_rows``): 8
+# were once enough to take the events a session loses at its start; after
+# the MoE and hybrid paths' sessions, yi-34b's prefill sessions lost one
+# event of their own, every time, on the H100
+LEAD_IN = 32
+
+
 def _kernel_rows(fn, reps: int) -> list:
     """The device rows of ``key_averages()`` over ``reps`` calls of ``fn()``
-    under torch.profiler. A session counts only if its kernel events number
-    exactly ``reps`` times those of one call, read from a one-call session
-    just before it: the profiler drops device events now and then (the
-    first few of a session, which the lead-in below absorbs, and at times
-    more), and a partial session would pass a fraction of the device time
-    as the whole. Such a pair of sessions is run again
-    after a pause, up to six times in all; then the run fails."""
+    under torch.profiler. A session counts only if some of its lead-in's
+    marker kernels were seen (the events it lost at its start were all
+    markers) and its kernel events number exactly ``reps`` times those of
+    one call, read from a one-call session just before it, which must count
+    too: the profiler drops device events now and then (the first few of a
+    session, which the lead-in below absorbs, and at times more), and a
+    partial session would pass a fraction of the device time as the whole.
+    Such a pair of sessions is run again after a pause, up to six times in
+    all; then the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,27 +198,30 @@ def _kernel_rows(fn, reps: int) -> list:
             # a session's first device events are the ones it loses: a
             # lead-in of marker kernels (``spin_kernel``, left out of the
             # rows) and a pause take that loss before ``fn`` runs
-            for _ in range(8):
+            for _ in range(LEAD_IN):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(0.02)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        return [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        markers = sum(e.count for e in events if "spin_kernel" in e.key)
+        return [e for e in events if "spin_kernel" not in e.key], markers
 
     seen = []
     for attempt in range(6):
         time.sleep(0.2 * attempt)
-        one = sum(e.count for e in session(1))
-        rows = session(reps)
+        one_rows, one_markers = session(1)
+        one = sum(e.count for e in one_rows)
+        rows, markers = session(reps)
         n = sum(e.count for e in rows)
-        if one > 0 and n == reps * one:
+        if one > 0 and n == reps * one and one_markers > 0 and markers > 0:
             return rows
-        seen.append([one, n])
+        seen.append([one, n, one_markers, markers])
     fail(f"six profiler sessions of {reps} calls were incomplete (kernel events "
-         f"of one call, of {reps} calls: {seen}): device times cannot be read")
+         f"of one call, of {reps} calls, lead-in markers seen in each of "
+         f"{LEAD_IN}: {seen}): device times cannot be read")
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -306,18 +324,24 @@ def ptxas_usage(text: str) -> list:
 
 
 # the bf16 instantiations on the serving paths, which must not spill: llama-8b
-# (D 128, group 4), phi3-mini (D 96, group 1), olmo-1b (group 1), internvl2-2b
-# (group 2, and its prefills' prefix mask), yi-34b (group 7, taken by the
-# group-8 instance at 16 lanes a row) and mamba2-1.3b
+# (D 128, group 4), phi3-mini (D 96, group 1), olmo-1b, qwen2-moe and
+# deepseek-moe (group 1), internvl2-2b (group 2, and its prefills' prefix
+# mask), yi-34b (group 7, taken by the group-8 instance at 16 lanes a row),
+# mamba2-1.3b (N 128) and zamba2-2.7b (D 80 at group 1; every prefill through
+# the masked instance, its config having a window; the SSD scan at N 64)
 SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0>",
                      "flash_prefill_kernel_wgmma<96, 0>",
                      "flash_prefill_kernel_wgmma<128, 1>",
+                     "flash_prefill_kernel_wgmma<80, 0>",
+                     "flash_prefill_kernel_wgmma<80, 1>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 96, 1, 8>",
+                     "paged_attention_kernel<__nv_bfloat16, 80, 1, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 1, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 2, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 8, 16>",
-                     "ssd_scan_kernel_wgmma<128>")
+                     "ssd_scan_kernel_wgmma<128>",
+                     "ssd_scan_kernel_wgmma<64>")
 
 
 def phase_build() -> None:
@@ -578,30 +602,38 @@ def phase_kernels(gen) -> dict:
     _paged_garbage(gen, torch.bfloat16, 4, 2, 8, 64, [300, 0, 17, 600], 40)
     _paged_garbage(gen, torch.float32, 4, 2, 1, 128, [300, 257, 256, 1], 48)
 
-    # the new paths' decode shapes at the serve contexts: phi3-mini (D = 96,
-    # 32 KV heads, group 1), olmo-1b (16, group 1), internvl2-2b (8, group 2),
-    # yi-34b (8, group 7: the group-8 instance with one row masked); then a
-    # sliding window's lower bound inside the first split, on a split
-    # boundary, one past it, in a later split, at the length, and wider than
-    # the sequence
+    # the other paths' decode shapes at the serve contexts: phi3-mini (D = 96,
+    # 32 KV heads, group 1), olmo-1b, qwen2-moe and deepseek-moe (16, group 1),
+    # internvl2-2b (8, group 2), yi-34b (8, group 7: the group-8 instance with
+    # one row masked), zamba2 (D = 80, 32 KV heads, group 1); then a sliding
+    # window's lower bound inside the first split, on a split boundary, one
+    # past it, in a later split, at the length, and wider than the sequence
     serve_lengths = paged_cases[1][1]
     window_starts = [0, 256, 257, 600, 300, 90, 0, 512]
     window_lengths = [1024, 1000, 517, 700, 300, 333, 16, 768]
     for dtype in (torch.bfloat16, torch.float32):
         for case, kv, g, d, lengths, starts in (
                 ("phi3-mini, D=96", 32, 1, 96, serve_lengths, None),
-                ("olmo-1b", 16, 1, 128, serve_lengths, None),
+                ("olmo-1b, qwen2-moe, deepseek-moe", 16, 1, 128, serve_lengths, None),
                 ("internvl2-2b", 8, 2, 128, serve_lengths, None),
                 ("yi-34b, group 7", 8, 7, 128, serve_lengths, None),
                 ("window, long context", 8, 4, 128, window_lengths, window_starts),
-                ("D=96, window", 32, 1, 96, window_lengths, window_starts)):
+                ("D=96, window", 32, 1, 96, window_lengths, window_starts),
+                ("zamba2-2.7b, D=80", 32, 1, 80, serve_lengths, None),
+                ("D=80, window", 32, 1, 80, window_lengths, window_starts)):
             _paged_timed(gen, F, dtype, B, kv, g, d, pps, case, lengths, starts)
-    # lower bounds with garbage below them, group 7 and D = 96 in both types
+    # lower bounds with garbage below them, group 7, D = 96 and D = 80 (at
+    # 16 lanes a row for group 8: 5 elements a lane, loaded one by one) in
+    # both types
     for dtype in (torch.bfloat16, torch.float32):
         _paged_garbage(gen, dtype, 4, 2, 7, 128, [700, 300, 40, 600], 48,
                        starts=[300, 256, 40, 0])
         _paged_garbage(gen, dtype, 4, 3, 2, 96, [700, 513, 90, 257], 48,
                        starts=[600, 255, 10, 256])
+        _paged_garbage(gen, dtype, 4, 3, 1, 80, [700, 513, 90, 257], 48,
+                       starts=[600, 255, 10, 256])
+        _paged_garbage(gen, dtype, 4, 2, 8, 80, [300, 0, 17, 600], 48,
+                       starts=[40, 0, 0, 300])
     _paged_from_manager(gen)
 
     # ---- flash_prefill: a single 64 x 64 tile first (the swizzle of the TMA
@@ -644,23 +676,31 @@ def phase_kernels(gen) -> dict:
         ("window 70 beside prefix 100", 16, 8, 128, 400, 0, 70, 100),
         ("D=96, window 100", 32, 32, 96, 341, 0, 100, 0),
         ("D=96, prefix 130", 32, 32, 96, 300, 0, 0, 130),
+        # zamba2's shared attention (D = 80, 32 heads, no GQA): without a
+        # window, and with one across tiles; its own window of 4096 cuts
+        # nothing at S = 341 but still selects the masked instance
+        ("zamba2-2.7b, D=80", 32, 32, 80, 341, 0, 0, 0),
+        ("D=80, window 100", 32, 32, 80, 341, 0, 100, 0),
+        ("zamba2-2.7b, D=80, window 4096", 32, 32, 80, 341, 0, 4096, 0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for case, h, hkv, d, S, q_offset, window, prefix_len in new_cases:
             _flash_timed(gen, F, dtype, h, hkv, d, S, q_offset, True, window, prefix_len,
                          case=case)
-    # single tiles at D = 96: the second TMA box reaches past the tensor's
-    # 96 columns and must read zeros there
-    for causal in (False, True):
-        qt, kt, vt = _flash_inputs(gen, torch.bfloat16, 1, 64, 64, 1, 1, 96)
-        out = flash_prefill(qt, kt, vt, causal=causal)
-        torch.cuda.synchronize()
-        err = check_close(f"flash_prefill single tile D=96 causal={causal}", out,
-                          flash_prefill_plain(qt, kt, vt, causal=causal), torch.bfloat16)
-        emit("kernels", kernel="flash_prefill", dtype="torch.bfloat16",
-             case="single 64x64 tile", shape=dict(B=1, H=1, Hkv=1, D=96, S=64, T=64,
-                                                  causal=causal),
-             tolerance=TOL[torch.bfloat16], max_abs_err=err)
+    # single tiles at D = 96 and 80: the second TMA box reaches past the
+    # tensor's columns and must read zeros there
+    for D in (96, 80):
+        for causal in (False, True):
+            qt, kt, vt = _flash_inputs(gen, torch.bfloat16, 1, 64, 64, 1, 1, D)
+            out = flash_prefill(qt, kt, vt, causal=causal)
+            torch.cuda.synchronize()
+            err = check_close(f"flash_prefill single tile D={D} causal={causal}", out,
+                              flash_prefill_plain(qt, kt, vt, causal=causal),
+                              torch.bfloat16)
+            emit("kernels", kernel="flash_prefill", dtype="torch.bfloat16",
+                 case="single 64x64 tile", shape=dict(B=1, H=1, Hkv=1, D=D, S=64, T=64,
+                                                      causal=causal),
+                 tolerance=TOL[torch.bfloat16], max_abs_err=err)
 
     # narrow head_dim, a ragged prompt and a batch of two
     for dtype in (torch.bfloat16, torch.float32):
@@ -724,9 +764,10 @@ def _ssd_flops(b, s, h, p, n, chunk) -> float:
 
 def _ssd_scan_cases(gen) -> dict:
     """``ssd_scan`` against ``ssd_scan_plain`` (y and the final state) at the
-    serving path's shape and around it; returns the record of the main shape
-    in bf16. At the serving widths x, B and C are strided views, as the
-    model passes them."""
+    serving paths' shapes (mamba2-1.3b's, the main one, and zamba2's) and
+    around them; returns the record of the main shape in bf16. At the
+    serving widths (P = 64) x, B and C are strided views, as the model
+    passes them."""
     record = None
     cases = [  # (name, b, s, h, p, n, chunk, h0, steep); s = 341: the longest prompt
         ("main", 1, 341, 64, 64, 128, 256, False, False),
@@ -739,13 +780,16 @@ def _ssd_scan_cases(gen) -> dict:
         ("s=257", 1, 257, 64, 64, 128, 256, False, False),
         ("smoke widths, h0", 2, 100, 8, 32, 16, 32, True, False),
         ("A=-16, dt~1", 1, 341, 64, 64, 128, 256, False, True),
+        # zamba2-2.7b's Mamba2 blocks: 80 heads, N = 64 (the NPAD-64 instance)
+        ("zamba2", 1, 341, 80, 64, 64, 256, False, False),
+        ("zamba2 h0", 1, 341, 80, 64, 64, 256, True, False),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, s, h, p, n, chunk, with_h0, steep in cases:
-            timed = name in ("main", "s512", "s2048")
+            timed = name in ("main", "s512", "s2048", "zamba2")
             sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0,
                                     steep=steep, copies=4 if timed else 1,
-                                    strided=h == 64)
+                                    strided=p == 64)
             x, dt, B, C = sets[0]
             y, state = ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
             torch.cuda.synchronize()
@@ -758,7 +802,7 @@ def _ssd_scan_cases(gen) -> dict:
             rec = dict(kernel="ssd_scan", dtype=str(dtype), case=name,
                        route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
                        shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, h0=with_h0,
-                                  strided=h == 64),
+                                  strided=p == 64),
                        tolerance=SSD_TOL[dtype], max_abs_err=err)
             if timed:
                 # input sets rotate, as the paged case's pools do
@@ -885,11 +929,12 @@ def _knobs_run(cfg, params, device, prompts):
     return trace, {"hits": pc.hits, "misses": pc.misses, "hit_tokens": pc.hit_tokens}
 
 
-def _parity_knobs() -> None:
-    """The dense smoke engine with the reference's serving knobs, card
-    against CPU: prompts sharing a 20-token prefix, prefilled from the
-    prefix cache in chunks of 8 (``flash_prefill`` with ``q_offset > 0``)."""
-    cfg = get_smoke_config("llama-8b").with_(head_dim=64)
+def _parity_knobs(arch: str) -> None:
+    """A transformer smoke engine (dense or moe) with the reference's
+    serving knobs, card against CPU: prompts sharing a 20-token prefix,
+    prefilled from the prefix cache in chunks of 8 (``flash_prefill`` with
+    ``q_offset > 0``)."""
+    cfg = get_smoke_config(arch).with_(head_dim=64)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(3)
     params_cpu = Model(cfg).init(gen, dtype=torch.float32, device="cpu")
@@ -912,7 +957,7 @@ def _parity_knobs() -> None:
     if launched["flash_prefill.offset_launches"] == 0 or \
             launched["paged_attention.launches"] == 0:
         fail(f"parity (knobs): no flash_prefill launch with q_offset > 0: {launched}")
-    emit("parity", config="llama-8b smoke, head_dim=64, float32, prefill_chunk=8, "
+    emit("parity", config=f"{arch} smoke, head_dim=64, float32, prefill_chunk=8, "
          "prefix_cache_entries=8", prompt_lens=[len(p) for p in prompts],
          steps=len(gpu_trace), prefix_cache=gpu_hits, tokens_agree=True,
          kernel_launches=launched)
@@ -1013,17 +1058,49 @@ def phase_parity() -> None:
     # one shorter than the conv window
     _parity(get_smoke_config("mamba2-1.3b"), "mamba2-1.3b smoke, float32",
             (9, 70, 17, 30, 2), ("ssd_scan",))
-    _parity_knobs()
+    _parity_knobs("llama-8b")
+    # the MoE arm: both smoke configs (no drops), and qwen2-moe at capacity
+    # factor 1.0, whose prefills of up to 30 tokens drop assignments (the
+    # drop order, on the card)
+    for arch in ("qwen2-moe-a2.7b", "deepseek-moe-16b"):
+        _parity(get_smoke_config(arch).with_(head_dim=64),
+                f"{arch} smoke, head_dim=64, float32", (9, 23, 17, 30, 5),
+                ("paged_attention", "flash_prefill"))
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    _parity(cfg.with_(head_dim=64, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0)),
+            "qwen2-moe-a2.7b smoke, head_dim=64, capacity factor 1.0 (drops), float32",
+            (9, 23, 17, 30, 5), ("paged_attention", "flash_prefill"))
+    _parity_knobs("qwen2-moe-a2.7b")
+    # zamba2 at the widths its kernels take on the card (D 80, SSM N 64 /
+    # P 64), then with a window of 8 under a 30-token prompt, decoded 10
+    # steps past it
+    cfg = get_smoke_config("zamba2-2.7b")
+    cfg = cfg.with_(head_dim=80, ssm=dataclasses.replace(cfg.ssm, state_dim=64,
+                                                         head_dim=64))
+    _parity(cfg, "zamba2-2.7b smoke, head_dim=80, SSM N 64 / P 64, float32",
+            (9, 70, 17, 30, 2), ("paged_attention", "flash_prefill", "ssd_scan"))
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 40))).long()
+    _parity_model(cfg.with_(sliding_window=8),
+                  "zamba2-2.7b smoke, head_dim=80, SSM N 64 / P 64, sliding_window=8",
+                  {"tokens": toks}, 30, 10, "flash_prefill.window_launches")
+
+
+def attention_layers(cfg) -> int:
+    """The decode step's attention layers: each launches ``paged_attention``
+    once (a hybrid's calls of its shared block; none in an ssm model)."""
+    if cfg.arch_type == "ssm":
+        return 0
+    return cfg.n_layers // cfg.attn_every if cfg.arch_type == "hybrid" else cfg.n_layers
 
 
 def _graph_check(arch: str) -> None:
     """One eager ``model.decode_step`` against one replay of the engine's
     captured graph, at full width in bf16, from one pool state with a mix of
     active and free slots (one freed mid-run, three never used): the eager
-    step runs on a copy of the pool, the replay on the engine's own. Logits
-    within the bf16 tolerance, ``pos`` equal, the written state within the
-    tolerance, and every other element of the pool bit-identical to the state
-    before."""
+    step runs on a copy of the pool, the replay on the engine's own. Logits,
+    ``pos`` and the written state bit for bit, and every other element of
+    the K/V pools bit-identical to the state before."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
@@ -1062,7 +1139,7 @@ def _graph_check(arch: str) -> None:
     if not (torch.equal(eng.pool["pos"], pos) and torch.equal(cache["pos"], pos)):
         fail(f"graph {arch}: pos {eng.pool['pos'].tolist()}, eager "
              f"{cache['pos'].tolist()}, want {pos.tolist()}")
-    if cfg.arch_type == "dense":
+    if "k" in eng.pool:
         rows = [b for b, a in enumerate(active) if a]
         p = before["pos"][rows].long()
         pages = eng.pool["block_tables"][rows].long().gather(1, (p // 16)[:, None])[:, 0]
@@ -1080,16 +1157,19 @@ def _graph_check(arch: str) -> None:
                          "rows it writes")
         if not torch.equal(eng.pool["block_tables"], before["block_tables"]):
             fail(f"graph {arch}: the block tables changed")
-        if replayed["paged_attention.launches"] != cfg.n_layers:
-            fail(f"graph {arch}: a replay counted {replayed}")
-    else:
+    if "ssm" in eng.pool:
         for key in ("ssm", "conv"):
             errs[key] = check_close(f"graph {arch} {key}", eng.pool[key], scratch[key],
                                     bf16)
+    if replayed["paged_attention.launches"] != attention_layers(cfg):
+        fail(f"graph {arch}: a replay counted {replayed}")
+    if any(e != 0.0 for e in errs.values()):
+        fail(f"graph {arch}: the replay and the eager step differ: {errs}")
     emit("graph", model=cfg.name, dtype="bfloat16", max_slots=8, max_len=1024,
          active=active, tolerance=TOL[bf16], max_abs_err=errs, pos_equal=True,
+         bit_identical=True,
          # the ssm step advances every row's state, free rows too
-         **({"unwritten_pool_bit_identical": True} if cfg.arch_type == "dense" else {}),
+         **({"unwritten_kv_bit_identical": True} if "k" in eng.pool else {}),
          replay_counted=replayed, capture_s=g.capture_s,
          graph_pool_bytes=g.graph_pool_bytes, warmup_steps=decode_graph.WARMUP_STEPS,
          gpu=torch.cuda.get_device_name(0))
@@ -1101,6 +1181,17 @@ def phase_graph() -> None:
     _graph_check("llama-8b")
     _graph_check("phi3-mini-3.8b")     # head_dim 96
     _graph_check("mamba2-1.3b")
+    _graph_check("qwen2-moe-a2.7b")    # the MoE dispatch under the graph
+    _graph_check("zamba2-2.7b")        # head_dim 80, 9 shared-block calls
+
+
+def _instance(key: str) -> str:
+    """A profiler kernel name as its template instance, e.g.
+    ``ssd_scan_kernel_wgmma<64>``: without namespace, casts of template
+    arguments, return type and parameters."""
+    key = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((?:unsigned )?\w+\)(?=-?\d)",
+                 "", key)
+    return key.removeprefix("void ").split("(")[0].strip()
 
 
 def _profiled(fn, reps: int) -> dict:
@@ -1120,6 +1211,9 @@ def _profiled(fn, reps: int) -> dict:
                                for k, ms in top if any(o in k for o in own)},
             "own_kernel_launches": {short(e.key): e.count / reps for e in kernels
                                     if any(o in e.key for o in own)},
+            # by template instance, e.g. "ssd_scan_kernel_wgmma<64>"
+            "own_instance_launches": {_instance(e.key): e.count / reps
+                                      for e in kernels if any(o in e.key for o in own)},
             "top_ms": [[k[:60], round(ms, 4)] for k, ms in top[:6]]}
 
 
@@ -1153,8 +1247,8 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     misreport every duration (on the H100 once halved, all of a graphed
     step's kernels), so both are profiled again, up to ``PROFILE_ATTEMPTS``
     times, until they agree within 10 %. Fails unless they do, and unless the
-    profiler sees one ``paged_attention`` kernel a layer in a replayed dense
-    step."""
+    profiler sees one ``paged_attention`` kernel an attention layer in a
+    replayed step (a hybrid's: one a call of its shared block)."""
     worst = 3 + steps + PROFILE_ATTEMPTS * 6 * (steps + 1)   # eng.step calls
     for _ in range(eng.max_slots):
         eng.submit(make_interactive(64, worst + 8))
@@ -1190,12 +1284,12 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     del scratch
     while eng.waiting or eng.n_active:
         eng.step()
-    if eng.cfg.arch_type == "dense":
-        for name, p in (("graphed", prof), ("eager", eager_prof)):
-            n = p["own_kernel_launches"].get("paged_attention_kernel")
-            if n != eng.cfg.n_layers:
-                fail(f"{eng.cfg.name}: the profiler saw {n} paged_attention kernels "
-                     f"in one {name} decode step, not {eng.cfg.n_layers}")
+    want = attention_layers(eng.cfg)
+    for name, p in (("graphed", prof), ("eager", eager_prof)):
+        n = p["own_kernel_launches"].get("paged_attention_kernel", 0)
+        if n != want:
+            fail(f"{eng.cfg.name}: the profiler saw {n} paged_attention kernels "
+                 f"in one {name} decode step, not {want}")
     out["eager_decode_device_ms_per_step"] = eager_prof["device_ms"]
     out["eager_decode_launches_per_step"] = eager_prof["launches"]
     out["eager_decode_own_kernel_launches_per_step"] = eager_prof["own_kernel_launches"]
@@ -1222,6 +1316,7 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
         out[f"{name}_launches{unit}"] = p["launches"]
         out[f"{name}_own_kernels_ms{unit}"] = p["own_kernels_ms"]
         out[f"{name}_own_kernel_launches{unit}"] = p["own_kernel_launches"]
+        out[f"{name}_own_instance_launches{unit}"] = p["own_instance_launches"]
         out[f"{name}_top_device_ms{unit}"] = p["top_ms"]
     out["decode_device_idle_share"] = \
         1.0 - prof["device_ms"] / out["decode_wall_ms_per_step"]
@@ -1229,13 +1324,27 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
     return out
 
 
-def _serve_path(smi: str, arch: str, per_layer):
+def _expected_launches(cfg, res) -> dict:
+    """Each kernel's launches that a serve run of ``cfg`` implies: one
+    ``paged_attention`` an attention layer of every decode step (the
+    engine's warm-up steps before its capture included), one
+    ``flash_prefill`` an attention layer and one ``ssd_scan`` a Mamba2 layer
+    of every prefill."""
+    steps = res["decode_steps"] + decode_graph.WARMUP_STEPS
+    want = {}
+    if attention_layers(cfg):
+        want["paged_attention"] = steps * attention_layers(cfg)
+        want["flash_prefill"] = res["prefills"] * attention_layers(cfg)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        want["ssd_scan"] = res["prefills"] * cfg.n_layers
+    return want
+
+
+def _serve_path(smi: str, arch: str):
     """Serve ``arch`` at full width through ``launch.serve``'s loop with
-    every kernel's launch counter set to 0 just before and read just after;
-    ``per_layer(res)`` gives, for each kernel of this path, how many runs of
-    one layer the serve run made (launches = that x the layer count), the
-    engine's warm-up steps before its capture included. Returns the launches,
-    the engine and what ``_where_the_time_goes`` measured of it."""
+    every kernel's launch counter set to 0 just before and read just after,
+    against what the run implies (``_expected_launches``). Returns the
+    launches, the engine and what ``_where_the_time_goes`` measured of it."""
     gc.collect()
     torch.cuda.empty_cache()
     resident_gb = torch.cuda.memory_allocated() / 1e9
@@ -1254,7 +1363,7 @@ def _serve_path(smi: str, arch: str, per_layer):
     eng = res["engine"]
     if res["n_finished"] != n_requests:
         fail(f"serve {arch}: {res['n_finished']} of {n_requests} requests finished")
-    want = {name: runs * cfg.n_layers for name, runs in per_layer(res).items()}
+    want = _expected_launches(cfg, res)
     got = {name: launches[name] for name in want}
     if got != want or min(got.values()) == 0:
         fail(f"serve {arch}: kernel launches {launches}, the run implies {want}")
@@ -1266,6 +1375,10 @@ def _serve_path(smi: str, arch: str, per_layer):
     if cfg.arch_type == "vlm" and flash_prefill.prefix_launches != launches["flash_prefill"]:
         fail(f"serve {arch}: {flash_prefill.prefix_launches} of "
              f"{launches['flash_prefill']} prefill launches carried the vision prefix")
+    if cfg.sliding_window and flash_prefill.window_launches != launches["flash_prefill"]:
+        fail(f"serve {arch}: {flash_prefill.window_launches} of "
+             f"{launches['flash_prefill']} prefill launches carried the window")
+    window_launches = flash_prefill.window_launches
 
     def leaves(tree):
         for v in tree.values():
@@ -1281,6 +1394,17 @@ def _serve_path(smi: str, arch: str, per_layer):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     share = _where_the_time_goes(eng)
     peak_all_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the instances a prefill of this path launches: zamba2's through the
+    # masked D = 80 one (its config has a window) and the SSD scan at N 64
+    want_instances = {
+        "zamba2-2.7b": {"flash_prefill_kernel_wgmma<80, 1>": attention_layers(cfg),
+                        "ssd_scan_kernel_wgmma<64>": cfg.n_layers},
+        "mamba2-1.3b": {"ssd_scan_kernel_wgmma<128>": cfg.n_layers}}.get(arch, {})
+    for inst, n in want_instances.items():
+        seen = share["prefill_own_instance_launches"].get(inst)
+        if seen != n:
+            fail(f"serve {arch}: the profiled prefill launched {inst} {seen} times, "
+                 f"not {n}: {share['prefill_own_instance_launches']}")
     if cfg.arch_type != "ssm":
         share["planner"] = _planner_row(cfg, share)
     emit("serve", gpu=smi, model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
@@ -1299,6 +1423,7 @@ def _serve_path(smi: str, arch: str, per_layer):
          device_total_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9,
          resident_before_gb=resident_gb, kernel_launches=launches,
          prefix_launches=flash_prefill.prefix_launches,
+         window_launches=window_launches,
          tensor_core_launches=tensor_core_launches, **share)
     return got, eng, share
 
@@ -1412,25 +1537,22 @@ def _serve_prefix(smi: str, params) -> dict:
 
 # the serving paths at full width, in order: yi-34b last, alone on the card
 SERVE_ARCHS = ("llama-8b", "phi3-mini-3.8b", "olmo-1b", "internvl2-2b", "mamba2-1.3b",
-               "yi-34b")
+               "qwen2-moe-a2.7b", "deepseek-moe-16b", "zamba2-2.7b", "yi-34b")
 
 
 def phase_serve(smi: str) -> dict:
     """Every serving path and the dense one with the serving knobs; returns
     each kernel's launches over its paths. Each engine is closed and dropped
     before the next path builds its own, so that yi-34b's 68.78 GB of
-    weights have the card to themselves."""
-    warm = decode_graph.WARMUP_STEPS
+    weights have the card to themselves. The planner's step is put beside
+    every graphed one but the ssm's; its ``MBU`` and ``STEP_OVERHEAD`` are
+    fitted to the dense and VLM models' only, as ``sim/perf_model.py``
+    holds them (the MoE and hybrid rows are its predictions, not its
+    data)."""
     launches = {"paged_attention": 0, "flash_prefill": 0, "ssd_scan": 0}
     planner = {}
     for arch in SERVE_ARCHS:
-        if get_config(arch).arch_type == "ssm":
-            per_layer = lambda res: {"ssd_scan": res["prefills"]}  # noqa: E731
-        else:
-            per_layer = lambda res: {  # noqa: E731
-                "paged_attention": res["decode_steps"] + warm,
-                "flash_prefill": res["prefills"]}
-        got, eng, share = _serve_path(smi, arch, per_layer)
+        got, eng, share = _serve_path(smi, arch)
         for name, n in got.items():
             launches[name] += n
         if arch == "llama-8b":
@@ -1440,7 +1562,9 @@ def phase_serve(smi: str) -> dict:
             planner[arch] = share["planner"]
         eng.close()
         del eng
-    emit("perf_model", gpu=smi, rows=planner, fit=_fit_planner(planner))
+    fitted = {arch: row for arch, row in planner.items()
+              if get_config(arch).arch_type in ("dense", "vlm")}
+    emit("perf_model", gpu=smi, rows=planner, fit=_fit_planner(fitted))
     return launches
 
 

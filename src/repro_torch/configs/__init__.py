@@ -2,8 +2,9 @@
 
 ``get_config("llama-8b")`` returns the full config;
 ``get_smoke_config("llama-8b")`` the reduced same-family variant. Only
-the architectures whose model family is ported are listed; asking for
-another one of the reference's architectures raises
+the architectures whose model family is ported are listed (dense, vlm,
+ssm, moe and hybrid); asking for another one of the reference's
+architectures (whisper-base, the audio family) raises
 ``NotImplementedError`` (see ROADMAP.md, Queue A), anything else
 ``KeyError``.
 """
@@ -19,22 +20,24 @@ from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
 _ARCH_MODULES = {
     "olmo-1b": "olmo_1b",
     "granite-8b": "granite_8b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "yi-34b": "yi_34b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "internvl2-2b": "internvl2_2b",
     "llama-8b": "llama_8b",
     "llama-70b": "llama_70b",
 }
 
 # architectures of the reference package whose families are not ported yet
-_NOT_PORTED = (
-    "zamba2-2.7b", "qwen2-moe-a2.7b", "deepseek-moe-16b", "whisper-base",
-)
+_NOT_PORTED = ("whisper-base",)
 
 # the reference's assigned architectures that are ported, in its order
-ASSIGNED_ARCHS: List[str] = ["olmo-1b", "granite-8b", "phi3-mini-3.8b", "yi-34b",
-                             "mamba2-1.3b", "internvl2-2b"]
+ASSIGNED_ARCHS: List[str] = [
+    "olmo-1b", "granite-8b", "zamba2-2.7b", "phi3-mini-3.8b", "yi-34b",
+    "mamba2-1.3b", "qwen2-moe-a2.7b", "deepseek-moe-16b", "internvl2-2b"]
 
 
 def _module(arch: str):

@@ -57,18 +57,20 @@
 //   head a block (the 4 heads of a GQA group read the same K/V tiles, the
 //   later ones from L2).
 //
-//   head_dim 96 (phi3-mini) is not a multiple of the 64-column box: its tiles
-//   are two boxes, as at D = 128, and the tensor maps declare the real inner
-//   extent 96, so the TMA unit fills columns 96..127 of the second box with
-//   zeros. Q K^T runs only the 6 steps of 16 real columns; P V runs both
-//   64-column boxes (a third more work than needed, zeros in columns 96..127
-//   of the accumulator), and the epilogue writes 96 columns.
+//   head_dim 96 (phi3-mini) and 80 (zamba2's shared attention) are not
+//   multiples of the 64-column box: their tiles are two boxes, as at
+//   D = 128, and the tensor maps declare the real inner extent, so the TMA
+//   unit fills the columns past D of the second box with zeros. Q K^T runs
+//   only the D / 16 steps of real columns (6 or 5 of 8); P V runs both
+//   64-column boxes (zeros in the accumulator's columns past D), and the
+//   epilogue writes D columns.
 //
 // * fp32, flash_prefill_kernel_fma<D>: both products as fp32 FMAs out of
 //   padded shared memory (tensor cores would round fp32 to TF32). Each thread
 //   keeps a 4x4 tile of scores and a 4 x D/16 tile of the output in
 //   registers (for D = 96: four columns of the first 64 and two of the last
-//   32); one tile in flight; 118 KB of shared memory at D = 128.
+//   32; for D = 80 four and one of the last 16); one tile in flight; 118 KB
+//   of shared memory at D = 128.
 //
 // What still holds the bf16 kernel back: within a step the softmax waits for
 // Q K^T and the stage's release waits for P V, one consumer warpgroup a
@@ -664,7 +666,7 @@ EncodeTiled encode_tiled() {
 
 // A (D, rows, heads, batch) bf16 map with element strides (row, head, batch),
 // boxes of 64 x 64 x 1 x 1, 128-byte swizzle; out-of-bounds rows, and the
-// columns past D of a box that reaches beyond it (D = 96), read as 0.
+// columns past D of a box that reaches beyond it (D = 80, 96), read as 0.
 CUresult encode_map(CUtensorMap* map, const void* base, int D, int rows, int heads,
                     int batch, int64_t s_row, int64_t s_head, int64_t s_batch) {
   EncodeTiled fn = encode_tiled();
@@ -744,9 +746,11 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
   q, k, v, o, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale, s
   if (is_bf16 && D == 128) return launch_wgmma<128>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 96) return launch_wgmma<96>(REPRO_FLASH_ARGS);
+  if (is_bf16 && D == 80) return launch_wgmma<80>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 64) return launch_wgmma<64>(REPRO_FLASH_ARGS);
   if (!is_bf16 && D == 128) return static_cast<int>(launch_fma<128>(REPRO_FLASH_ARGS));
   if (!is_bf16 && D == 96) return static_cast<int>(launch_fma<96>(REPRO_FLASH_ARGS));
+  if (!is_bf16 && D == 80) return static_cast<int>(launch_fma<80>(REPRO_FLASH_ARGS));
   if (!is_bf16 && D == 64) return static_cast<int>(launch_fma<64>(REPRO_FLASH_ARGS));
 #undef REPRO_FLASH_ARGS
   return static_cast<int>(cudaErrorInvalidValue);

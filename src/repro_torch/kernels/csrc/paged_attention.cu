@@ -40,9 +40,10 @@
 //   its table entry.
 // * 8 lanes cover one token row (16 for group 8, whose registers would not
 //   fit), so a score costs 3 shuffles; a lane holds D / 8 (or D / 16)
-//   elements of the row, loaded 16, 8 or 4 bytes at a time as their
+//   elements of the row, loaded 16, 8, 4 or 2 bytes at a time as their
 //   alignment allows (D = 96 in bf16: three 8-byte pieces, or three 4-byte
-//   pieces at 16 lanes a row); the online-softmax update runs once per
+//   pieces at 16 lanes a row; D = 80: five 4-byte pieces, or five single
+//   elements at 16 lanes a row); the online-softmax update runs once per
 //   8 or 16 tokens, and all `group` query rows share each row read. `group` is
 //   below any tensor-core tile, so the products are FMAs.
 // * The warps' partial softmaxes are merged through shared memory. A sequence
@@ -75,11 +76,13 @@ constexpr float kNegInf = -1e30f;
 
 // ---- N contiguous elements -> float registers, in the widest pieces that a
 // lane's slice (N elements at an offset of a multiple of N) stays aligned to:
-// 16 bytes, else 8
+// 16 bytes, else 8, else 4 (D = 80 at 16 lanes a row: 5 elements a lane)
 template <int N>
 __device__ __forceinline__ void load_row(const float* p, float (&out)[N]) {
-  static_assert(N % 2 == 0, "row slice must be a multiple of 8 bytes");
-  if constexpr (N % 4 == 0) {
+  if constexpr (N % 2 != 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
+  } else if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) {
       const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
@@ -103,12 +106,14 @@ __device__ __forceinline__ void unpack_bf16x2(uint32_t u, float& lo, float& hi) 
   hi = __uint_as_float(u & 0xffff0000u);
 }
 
-// 16, 8 or 4 bytes a piece (D = 96: 12 elements a lane at 8 lanes a row, 6
-// at 16)
+// 16, 8, 4 or 2 bytes a piece (D = 96: 12 elements a lane at 8 lanes a row,
+// 6 at 16; D = 80: 10 at 8 lanes, in 4-byte pieces, and 5 at 16, one by one)
 template <int N>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&out)[N]) {
-  static_assert(N % 2 == 0, "row slice must be a multiple of 4 bytes");
-  if constexpr (N % 8 == 0) {
+  if constexpr (N % 2 != 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
+  } else if constexpr (N % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 8; ++i) {
       const uint4 v = *reinterpret_cast<const uint4*>(p + 8 * i);
@@ -513,9 +518,11 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16 && D == 128) err = launch_group<__nv_bfloat16, 128>(a);
   else if (is_bf16 && D == 96) err = launch_group<__nv_bfloat16, 96>(a);
+  else if (is_bf16 && D == 80) err = launch_group<__nv_bfloat16, 80>(a);
   else if (is_bf16 && D == 64) err = launch_group<__nv_bfloat16, 64>(a);
   else if (!is_bf16 && D == 128) err = launch_group<float, 128>(a);
   else if (!is_bf16 && D == 96) err = launch_group<float, 96>(a);
+  else if (!is_bf16 && D == 80) err = launch_group<float, 80>(a);
   else if (!is_bf16 && D == 64) err = launch_group<float, 64>(a);
   return static_cast<int>(err);
 }

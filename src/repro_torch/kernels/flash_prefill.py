@@ -11,7 +11,7 @@ strided (``D`` contiguous), so ``(B, S, H, D)`` tensors are passed as
 transposed views without a copy. It also takes the two masks that the
 reference's ``layers.attention_forward`` adds to the causal one in ``jnp``:
 a sliding ``window`` and a bidirectional prefix of ``prefix_len`` keys (the
-VLM's vision tokens), and head_dim 96 besides 64 and 128.
+VLM's vision tokens), and head_dim 80 and 96 besides 64 and 128.
 
 Bound on the H100: ``2 * (S + T) * D`` elements per head moved against
 ``4 * S * T * D`` operations (half of it when causal with ``q_offset == 0``);
@@ -36,7 +36,7 @@ import torch
 from repro_torch.kernels import _build
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 96, 128)
+_HEAD_DIMS = (64, 80, 96, 128)
 
 
 def attention_mask(S: int, T: int, *, q_offset: int = 0, window: int = 0,

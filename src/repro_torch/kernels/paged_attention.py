@@ -11,7 +11,7 @@ is the reference's sliding window (``layers.attention_decode`` masks
 ``slot_pos > pos - window``): the port's pool keeps every position of a
 sequence and applies the window as ``starts = max(0, pos + 1 - window)``,
 where the reference keeps a ring of the last ``window`` slots; both attend
-over the same positions. head_dim is 64, 96 or 128.
+over the same positions. head_dim is 64, 80, 96 or 128.
 
 Bound on the H100: bytes. Each K/V element is read once and used for
 ``group`` (1..8) multiply-adds, so the least time is that of streaming
@@ -42,7 +42,7 @@ from repro_torch.kernels import _build
 DEFAULT_PAGE_SIZE = 16
 PAGES_PER_SPLIT = 16     # 256 tokens of one sequence per block, as in the kernel
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 96, 128)
+_HEAD_DIMS = (64, 80, 96, 128)
 _MAX_GROUP = 8
 
 

@@ -9,8 +9,9 @@ none; ``--device cpu`` serves the reduced (smoke) variant through the plain
 PyTorch path. Without ``--full-config`` the reduced variant of the
 architecture is served. Every ported architecture is served (``--arch``):
 the dense ones (llama-8b, granite-8b, olmo-1b, phi3-mini-3.8b, yi-34b,
-llama-70b), the VLM internvl2-2b (zero vision embeddings in front of each
-prompt, as the reference engine feeds) and the ssm mamba2-1.3b.
+llama-70b), the MoE ones (qwen2-moe-a2.7b, deepseek-moe-16b), the VLM
+internvl2-2b (zero vision embeddings in front of each prompt, as the
+reference engine feeds), the ssm mamba2-1.3b and the hybrid zamba2-2.7b.
 """
 from __future__ import annotations
 
@@ -93,8 +94,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b",
                     help="a ported architecture: llama-8b, granite-8b, olmo-1b, "
-                         "phi3-mini-3.8b, yi-34b, llama-70b, internvl2-2b, "
-                         "mamba2-1.3b")
+                         "phi3-mini-3.8b, yi-34b, llama-70b, qwen2-moe-a2.7b, "
+                         "deepseek-moe-16b, internvl2-2b, mamba2-1.3b, "
+                         "zamba2-2.7b")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=160)

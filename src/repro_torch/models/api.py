@@ -14,10 +14,10 @@
 
 ``batch`` is a dict with ``tokens (B,S)`` integer ids, plus ``vision``
 (B, n_vision_tokens, d_model) stub patch embeddings for the VLM family. The
-dense, vlm and ssm families are ported; the reference's other families raise
-``NotImplementedError``. Entry points default to ``device="cuda"`` and raise
-when there is no GPU: nothing here continues on the CPU unless the caller
-asks for it.
+dense, moe, vlm, ssm and hybrid families are ported; the reference's audio
+family raises ``NotImplementedError``. Entry points default to
+``device="cuda"`` and raise when there is no GPU: nothing here continues on
+the CPU unless the caller asks for it.
 """
 from __future__ import annotations
 
@@ -26,21 +26,21 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba_model, transformer
+from repro_torch.models import hybrid, mamba_model, transformer
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
 _FAMILY = {
     "dense": transformer,
+    "moe": transformer,
     "vlm": transformer,
     "ssm": mamba_model,
+    "hybrid": hybrid,
 }
 
 # where ROADMAP.md (Queue A) lists each family that is still to be ported
 _NOT_PORTED = {
-    "moe": "item 4 (models/moe.py and the moe arm of the transformer)",
-    "hybrid": "item 5 (models/hybrid.py: the zamba2 shared attention block)",
     "audio": "item 6 (models/encdec.py)",
 }
 

@@ -1,8 +1,14 @@
-"""Decoder-only transformer stack, dense and VLM arms (PyTorch).
+"""Decoder-only transformer stack, dense, MoE and VLM arms (PyTorch).
 
-The VLM arm is the dense stack with ``n_vision_tokens`` vision embeddings
-(the stub frontend's patch embeddings) prepended to the token embeddings,
-which every query attends to bidirectionally (``prefix_len``).
+The MoE arm replaces each layer's FFN by ``models/moe.py``: forward and
+prefill dispatch per batch row (``moe_forward_batched``; chunked prefill
+over the chunk only, with its capacity from the chunk's length), the decode
+step over the flat slots (``moe_forward``), where a free slot takes no
+expert capacity. ``forward`` returns the layers' summed auxiliary
+(load-balance) loss. The VLM arm is the dense stack with
+``n_vision_tokens`` vision embeddings (the stub frontend's patch
+embeddings) prepended to the token embeddings, which every query attends
+to bidirectionally (``prefix_len``).
 
 Parameters are stacked over layers (leading axis = n_layers), as in
 ``repro.models.transformer``, so the reference's parameters load one to
@@ -30,26 +36,31 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import layer_params, stack_into
+from repro_torch.models.moe import init_moe, moe_forward, moe_forward_batched
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "vlm") or cfg.is_moe:
+def _require_transformer(cfg: ModelConfig) -> None:
+    if cfg.arch_type not in ("dense", "vlm", "moe") or \
+            cfg.is_moe != (cfg.arch_type == "moe"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet: "
-            "only the dense and vlm arms of the transformer are (ROADMAP.md, "
-            "Queue A)")
+            f"arch_type {cfg.arch_type!r} is not an arm of the transformer: "
+            "its dense, moe and vlm arms are ported (ROADMAP.md, Queue A)")
 
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
-    return {
+    p = {
         "attn": L.init_attention(cfg, gen, dtype, device),
         "norm1": L.init_norm(cfg, dtype, device),
         "norm2": L.init_norm(cfg, dtype, device),
-        "ffn": L.init_ffn(cfg, gen, dtype, device),
     }
+    if cfg.is_moe:
+        p["moe"] = init_moe(cfg, gen, dtype, device)
+    else:
+        p["ffn"] = L.init_ffn(cfg, gen, dtype, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
@@ -57,8 +68,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
     """Random parameters from ``gen`` (a generator on ``device``). Each layer
     is drawn in float32 and written into the stacked tensors in ``dtype``
     straight away, so a full-width model never holds more than one layer in
-    float32."""
-    _require_dense(cfg)
+    float32 (an MoE router stays float32, as in the reference)."""
+    _require_transformer(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     emb = L.init_embeddings(cfg, gen, dtype, device)
     stacked: Params = {}
@@ -68,13 +79,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
             "final_norm": L.init_norm(cfg, dtype, device)}
 
 
+def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's FFN over (B, S, d): the dense one, or the MoE dispatched
+    per batch row with its auxiliary loss (None for a dense layer)."""
+    if cfg.is_moe:
+        return moe_forward_batched(cfg, lp["moe"], h)
+    return L.ffn_forward(cfg, lp["ffn"], h), None
+
+
 def _layer_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                   positions: torch.Tensor, prefix_len: int) -> torch.Tensor:
+                   positions: torch.Tensor, prefix_len: int
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = L.apply_norm(cfg, lp["norm1"], x)
     x = x + L.attention_forward(cfg, lp["attn"], h, positions=positions,
                                 prefix_len=prefix_len)
-    h = L.apply_norm(cfg, lp["norm2"], x)
-    return x + L.ffn_forward(cfg, lp["ffn"], h)
+    y, aux = _ffn(cfg, lp, L.apply_norm(cfg, lp["norm2"], x))
+    return x + y, aux
 
 
 def _embed(params: Params, tokens: torch.Tensor,
@@ -90,28 +111,30 @@ def _embed(params: Params, tokens: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             vision_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss); the
-    auxiliary loss of a dense model is zero.
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the MoE
+    layers' summed load-balance loss, zero for a dense model.
 
     For VLM configs, ``vision_embeds`` (B, n_vis, d) is prepended to the
     token embeddings at positions ``0 .. n_vis - 1``; logits are returned for
     the text positions only."""
-    _require_dense(cfg)
+    _require_transformer(cfg)
     x, prefix_len = _embed(params, tokens, vision_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        x = _layer_forward(cfg, layer_params(params["layers"], i), x, positions,
-                           prefix_len)
+        x, a = _layer_forward(cfg, layer_params(params["layers"], i), x, positions,
+                              prefix_len)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return L.unembed(params["emb"], x[:, prefix_len:]), \
-        torch.zeros((), device=x.device)
+    return L.unembed(params["emb"], x[:, prefix_len:]), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                device="cuda") -> Cache:
     """Zeroed paged cache for ``batch`` sequences of up to ``cache_len``."""
-    _require_dense(cfg)
+    _require_transformer(cfg)
     c = L.init_kv_cache(cfg, batch, cache_len, cfg.n_layers, dtype, device)
     c["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return c
@@ -160,14 +183,15 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     prefix-caching path: only the new tokens are computed; the returned cache
     covers past + new. As in the reference it takes neither a vision prefix
     (that must be in the first chunk) nor a sliding window. K/V are cast to
-    ``dtype`` on the way out.
+    ``dtype`` on the way out. An MoE layer dispatches over the new tokens
+    only, with the capacity of their count, as the reference's does.
 
     Without ``cache_len`` the cache is dense (see the module docstring) and
     holds every position, also with a sliding window (the reference's keeps
     a ring of the last ``window``); with ``cache_len``, a paged cache of that
     capacity, ready for ``decode_step``.
     """
-    _require_dense(cfg)
+    _require_transformer(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     past_len = 0
     if past_cache is not None:
@@ -205,8 +229,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         ks[i, :, past_len:] = k
         vs[i, :, past_len:] = v
         x = x + o
-        h = L.apply_norm(cfg, lp["norm2"], x)
-        x = x + L.ffn_forward(cfg, lp["ffn"], h)
+        x = x + _ffn(cfg, lp, L.apply_norm(cfg, lp["norm2"], x))[0]
 
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(params["emb"], x[:, -1:])[:, 0]
@@ -232,9 +255,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``active`` (B,) bool marks the rows that hold a sequence (default: all).
     An inactive row writes no K/V, attends over nothing and keeps its
     ``pos``; rows are independent, so the active rows' logits do not depend
-    on it.
+    on it. An MoE layer dispatches the B rows as flat tokens
+    (``moe_forward``, router in float32); an inactive row takes no expert
+    capacity.
     """
-    _require_dense(cfg)
+    _require_transformer(cfg)
     x = L.embed(params["emb"], tokens)
     pos = cache["pos"]
     bt = cache["block_tables"]
@@ -245,7 +270,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x + L.attention_decode(cfg, lp["attn"], h, cache["k"][i],
                                    cache["v"][i], bt, pos, active, plan=plan)
         h = L.apply_norm(cfg, lp["norm2"], x)
-        x = x + L.ffn_forward(cfg, lp["ffn"], h)
+        if cfg.is_moe:
+            x = x + moe_forward(cfg, lp["moe"], h[:, 0], active)[0][:, None]
+        else:
+            x = x + L.ffn_forward(cfg, lp["ffn"], h)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(params["emb"], x)[:, 0]
     step = 1 if active is None else active.to(pos.dtype)

@@ -3,10 +3,11 @@
 The reference's pytrees arrive as nested dicts of ``numpy`` arrays (the
 caller converts them: this package imports neither the reference nor its
 framework). The port stacks parameters over layers exactly as the reference
-does, so parameters map one to one (a VLM's tree is the dense one); a dense
-cache changes format, from the reference's ``(L, B, S, Hkv, D)`` slots
-(a ring of them with a sliding window) to the port's page pools, which hold
-every position in order, and an ssm cache keeps its own.
+does, so parameters map one to one (a VLM's tree is the dense one, an MoE
+layer's ``moe`` subtree keeps its float32 router); a dense cache changes
+format, from the reference's ``(L, B, S, Hkv, D)`` slots (a ring of them
+with a sliding window) to the port's page pools, which hold every position
+in order, an ssm cache keeps its own, and a hybrid cache does both.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import layers
 from repro_torch.models.api import resolve_device
+from repro_torch.models.transformer import cache_rows
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -30,9 +32,9 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-# the SSM's decay, skip and step-bias parameters stay float32 in every model
-# dtype, as in the reference
-_FLOAT32_KEYS = ("A_log", "D", "dt_bias")
+# the SSM's decay, skip and step-bias parameters and the MoE router stay
+# float32 in every model dtype, as in the reference
+_FLOAT32_KEYS = ("A_log", "D", "dt_bias", "router")
 
 
 def _convert(tree, device, dtype):
@@ -47,21 +49,30 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
     """The reference's parameter pytree (as numpy arrays) -> the port's
     parameters on ``device`` in ``dtype``."""
     device = resolve_device(device)
-    if cfg.arch_type not in ("dense", "vlm", "ssm"):
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
             "(ROADMAP.md, Queue A)")
     params = _convert(params_numpy, device, dtype)
-    if cfg.arch_type in ("dense", "vlm"):
-        name, w = "wq", params["layers"]["attn"]["wq"]
-        want = (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
-    else:
-        name, w = "w_in", params["layers"]["w_in"]
-        want = (cfg.n_layers, cfg.d_model,
-                2 * cfg.d_inner + 2 * cfg.ssm.state_dim + cfg.n_ssm_heads)
-    if tuple(w.shape) != want:
-        raise ValueError(f"parameters do not fit {cfg.name}: {name} has shape "
-                         f"{tuple(w.shape)}, expected {want}")
+    checks = []
+    if cfg.arch_type in ("dense", "vlm", "moe"):
+        checks.append(("wq", params["layers"]["attn"]["wq"],
+                       (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)))
+    if cfg.arch_type == "moe":
+        m = cfg.moe
+        checks.append(("moe.w_gate", params["layers"]["moe"]["w_gate"],
+                       (cfg.n_layers, m.n_experts, cfg.d_model, m.d_ff)))
+    if cfg.arch_type in ("ssm", "hybrid"):
+        checks.append(("w_in", params["layers"]["w_in"],
+                       (cfg.n_layers, cfg.d_model,
+                        2 * cfg.d_inner + 2 * cfg.ssm.state_dim + cfg.n_ssm_heads)))
+    if cfg.arch_type == "hybrid":
+        checks.append(("shared.attn.wq", params["shared"]["attn"]["wq"],
+                       (cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)))
+    for name, w, want in checks:
+        if tuple(w.shape) != want:
+            raise ValueError(f"parameters do not fit {cfg.name}: {name} has shape "
+                             f"{tuple(w.shape)}, expected {want}")
     return params
 
 
@@ -75,23 +86,27 @@ def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
     ``slot_pos`` names (-1: empty); a ring's slots are so unrolled into
     position order, and the positions the ring no longer holds stay zero,
     below the window that decode attends over. An ssm cache (``ssm``
-    float32, ``conv`` in ``dtype``, ``pos``) is carried over unchanged."""
+    float32, ``conv`` in ``dtype``, ``pos``) is carried over unchanged. A
+    hybrid cache is both: its ``ssm`` and ``conv`` unchanged, the K/V of
+    each of its G shared-block calls (``k``/``v`` (G, B, S, Hkv, D)) into
+    page pools as a dense cache's."""
     device = resolve_device(device)
+    cache = {"pos": _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        cache["ssm"] = _tensor(cache_numpy["ssm"], device, torch.float32)
+        cache["conv"] = _tensor(cache_numpy["conv"], device, dtype)
     if cfg.arch_type == "ssm":
-        return {"ssm": _tensor(cache_numpy["ssm"], device, torch.float32),
-                "conv": _tensor(cache_numpy["conv"], device, dtype),
-                "pos": _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)}
+        return cache
     k = _tensor(cache_numpy["k"], device, dtype)
     v = _tensor(cache_numpy["v"], device, dtype)
-    _, B, S, _, _ = k.shape
+    n_pools, B, S, _, _ = k.shape
     slot_pos = np.asarray(cache_numpy["slot_pos"])
     cache_len = S if cfg.sliding_window == 0 else int(slot_pos.max()) + 1 + S
-    cache = transformer.init_cache(cfg, B, cache_len, dtype, device)
+    cache.update(layers.init_kv_cache(cfg, B, cache_len, n_pools, dtype, device))
     for b in range(B):
         held = np.nonzero(slot_pos[b] >= 0)[0]
         where = torch.from_numpy(slot_pos[b][held].astype(np.int64)).to(device)
         slots = torch.from_numpy(held).to(device)
-        transformer.cache_rows(cache, "k", b)[:, where] = k[:, b, slots]
-        transformer.cache_rows(cache, "v", b)[:, where] = v[:, b, slots]
-    cache["pos"] = _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)
+        cache_rows(cache, "k", b)[:, where] = k[:, b, slots]
+        cache_rows(cache, "v", b)[:, where] = v[:, b, slots]
     return cache

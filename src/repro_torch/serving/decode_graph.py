@@ -12,8 +12,11 @@ and a failed capture raises. On the CPU the same function runs eagerly.
 
 Capture. ``WARMUP_STEPS`` eager steps on a side stream go first (cuBLAS
 handles, the kernels' libraries, their function attributes) on a clone of
-the pool, so that the live pool is left as it was: a decode step advances
-the ssm state of free rows too. Capture itself executes nothing.
+the pool, so that the live pool is left as it was: a decode step of the ssm
+and hybrid families advances the state of free rows too. Capture itself
+executes nothing. Every ported family's step is capturable: the dense, vlm
+and moe transformers (an MoE step dispatches over static capacity buffers,
+without a host sync), the ssm and the hybrid model.
 
 Launch counters. The kernel wrappers count a launch on the host, so a
 replay would count nothing. The counters' change during capture is

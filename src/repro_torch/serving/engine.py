@@ -8,11 +8,13 @@ on. The max batch size is the knob Algorithm 1 turns.
 
 The pool is the model family's decode cache for ``max_slots`` rows, and
 the model writes, reads and restores one slot of it (``Model.write_slot`` /
-``read_slot``): for the dense family, page pools per layer in which slot
-``i`` owns a fixed, contiguous page range (prefill attention through the
-``flash_prefill`` kernel, decode attention through ``paged_attention``);
-for the ssm family, row ``i`` of the per-layer SSM and conv states (every
-prefill's scan through the ``ssd_scan`` kernel).
+``read_slot``): for the dense, moe and vlm families, page pools per layer
+in which slot ``i`` owns a fixed, contiguous page range (prefill attention
+through the ``flash_prefill`` kernel, decode attention through
+``paged_attention``); for the ssm family, row ``i`` of the per-layer SSM and
+conv states (every prefill's scan through the ``ssd_scan`` kernel); for the
+hybrid family both, with a page pool per call of its shared attention
+block.
 
 The decode step is the counterpart of the reference's ``jax.jit`` of
 ``model.decode_step``: a ``DecodeGraph`` (``serving/decode_graph.py``)
@@ -26,10 +28,11 @@ chunks, both through ``Model.prefill(past_cache=...)``.
 
 Against the reference engine (``repro.serving.engine``), on purpose:
 - every decode iteration still runs over all ``max_slots`` rows, but an
-  ``active`` mask keeps free slots from advancing ``pos`` and, in the dense
-  family, from writing K/V (a free slot's position would otherwise run past
-  the end of its pages; free ssm rows update their state as the
-  reference's do);
+  ``active`` mask keeps free slots from advancing ``pos`` and, in the
+  families with attention, from writing K/V (a free slot's position would
+  otherwise run past the end of its pages; free ssm rows update their state
+  as the reference's do), and in the moe family from taking expert
+  capacity;
 - the sampled tokens are copied to the host before the clock is read, so
   the ITL handed to the autoscaler covers the device's work, not only its
   launch; slot positions and next tokens are mirrored on the host, so the

@@ -29,11 +29,13 @@ from repro_torch.serving.request import RequestState, make_interactive
 # the test workers share the host's cores: cap each one's intra-op threads
 torch.set_num_threads(2)
 
-# one prompt spans three smoke chunks of 32 (ssm), one is two tokens long
-# (shorter than the conv window: its conv rows keep the slot's old ones)
+# one prompt spans three smoke chunks of 32 (ssm, hybrid), one is two tokens
+# long (shorter than the conv window: its conv rows keep the slot's old ones)
 PROMPT_LENS = {"llama-8b": (9, 23, 17, 30, 2, 12),
                "granite-8b": (9, 23, 17, 30, 2, 12),
-               "mamba2-1.3b": (9, 70, 17, 30, 2, 12)}
+               "qwen2-moe-a2.7b": (9, 23, 17, 30, 2, 12),
+               "mamba2-1.3b": (9, 70, 17, 30, 2, 12),
+               "zamba2-2.7b": (9, 70, 17, 30, 2, 12)}
 # the max batch size Algorithm 1 would set, by step
 BATCH_SIZES = {6: 2, 20: 1, 30: 3}
 
@@ -57,7 +59,8 @@ def _addresses(eng):
             **{key: t.data_ptr() for key, t in eng.pool.items()}}
 
 
-@pytest.mark.parametrize("arch", ["llama-8b", "granite-8b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["llama-8b", "granite-8b", "qwen2-moe-a2.7b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_step_function_is_token_for_token_with_the_jitted_reference(arch):
     """Same parameters and prompts, float32: every slot's next input token
     agrees after every step, through a preempt-and-restore cycle, a 2-token

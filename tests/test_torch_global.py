@@ -364,5 +364,6 @@ def test_perf_model_plans_for_the_h100():
     assert perf_model.PerfModel("mamba2-1.3b").chips == 1
     # a planning size with headroom for KV, not what one card can hold
     assert perf_model.PerfModel("yi-34b").chips == 2
+    assert perf_model.PerfModel("qwen2-moe-a2.7b").chips == 1
     with pytest.raises(NotImplementedError):
-        perf_model.PerfModel("qwen2-moe-a2.7b")
+        perf_model.PerfModel("whisper-base")

@@ -103,15 +103,19 @@ def test_cuda_tensor_path_never_falls_back_to_plain():
 
 
 def test_unported_configs_and_families_raise():
-    with pytest.raises(NotImplementedError):
-        get_config("qwen2-moe-a2.7b")
+    """whisper-base and the audio family are what is left to port; the moe
+    and hybrid architectures build."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("whisper-base")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_smoke_config("llama-8b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.with_(arch_type="hybrid"))
+        Model(cfg.with_(arch_type="audio"))
+    for arch, family in (("qwen2-moe-a2.7b", "moe"), ("deepseek-moe-16b", "moe"),
+                         ("zamba2-2.7b", "hybrid")):
+        for c in (get_config(arch), get_smoke_config(arch)):
+            assert Model(c).cfg.arch_type == family
     from repro_torch.models import layers
     x = torch.zeros((1, 4, cfg.d_model))
     p = {}

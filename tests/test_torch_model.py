@@ -37,7 +37,8 @@ def _carried_over(arch, ref_params):
                                            dtype=torch.float32)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-1.3b", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-1.3b", "internvl2-2b", "qwen2-moe-a2.7b",
+                                  "deepseek-moe-16b", "zamba2-2.7b"])
 def test_configs_match_reference(arch):
     """Every field agrees, the nested moe and ssm configs field by field
     (they are each package's own dataclass), and so do the derived widths."""
