@@ -11,17 +11,23 @@ checks that the port's engine samples the same tokens on the card (kernels)
 and on the CPU (plain versions) for every ported family (the MoE arm with
 and without capacity drops, the zamba2 hybrid) and the model-level VLM and
 windowed paths agree, serves llama-8b, phi3-mini-3.8b, olmo-1b,
-internvl2-2b, mamba2-1.3b, qwen2-moe-a2.7b, deepseek-moe-16b, zamba2-2.7b
-and yi-34b at full width (random bf16 weights from a seed; yi-34b last,
-alone on the card) through ``repro_torch.launch.serve``'s loop, puts the
+internvl2-2b, mamba2-1.3b, qwen2-moe-a2.7b, deepseek-moe-16b, zamba2-2.7b,
+whisper-base and yi-34b at full width (random bf16 weights from a seed;
+yi-34b last, alone on the card) through ``repro_torch.launch.serve``'s
+loop, puts the
 planner's step beside each graphed one and fits its ``MBU`` and
 ``STEP_OVERHEAD`` to the dense and VLM models' (the ``perf_model`` line),
 and runs Chiron's whole hierarchy,
 ``serve_forever`` driven by ``ChironController`` over llama-8b instances
 sharing the card (the ``cluster`` phase: first the smoke cluster's
 decisions and tokens card against CPU and a migration mid-generation, then
-a mixed interactive and batch trace at full width), each path with the
-kernels' launch counters set to 0 just before it and read just after.
+a mixed interactive and batch trace at full width), and trains olmo-1b at
+full width in float32 through ``repro_torch.launch.train``'s loop (the
+``train`` phase: first one step card against CPU at the smoke size), each
+path with the kernels' launch counters set to 0 just before it and read
+just after. The attention gradient runs through the hand-written
+``flash_prefill`` backward kernel, held against its plain version in the
+``kernels`` phase.
 Every engine on the card replays its decode step as a CUDA graph captured
 when it was built; the ``graph`` phase holds one replay against one eager
 ``model.decode_step`` from the same pool state at full width, bit for bit,
@@ -43,7 +49,7 @@ before it.
 ``--phases kernels,parity`` runs a subset (env and build always run); the
 final ``ok`` line is printed only when every phase ran.
 
-``--ab OTHER/src`` instead times the three kernels of another tree's port
+``--ab OTHER/src`` instead times the three serving kernels of another tree's port
 (for example the parent commit's, unpacked with ``git archive``) and of this
 checkout's at the serving path's shapes, in turns (other, this, this,
 other), each turn in its own process with the kernels built from that
@@ -81,13 +87,16 @@ sys.path.insert(0, _port_src())
 
 import repro_torch.kernels.paged_attention as paged_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_prefill import (attention_mask,  # noqa: E402
-                                               flash_prefill, flash_prefill_plain)
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.flash_prefill import (  # noqa: E402
+    attention_mask, flash_prefill, flash_prefill_backward, flash_prefill_backward_plain,
+    flash_prefill_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads, make_train_step  # noqa: E402
+from repro_torch.launch.train import synthetic_lm_batch, train  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving import decode_graph  # noqa: E402
 from repro_torch.serving.cluster_trace import ClusterRecorder, SharedClock  # noqa: E402
@@ -99,8 +108,10 @@ from repro_torch.sim.cluster import InstanceType  # noqa: E402
 from repro_torch.sim.controllers import ChironController  # noqa: E402
 from repro_torch.sim.perf_model import PerfModel  # noqa: E402
 from repro_torch.sim.workload import WorkloadSpec, generate  # noqa: E402
+from repro_torch.training import tree  # noqa: E402
+from repro_torch.training.optimizer import adamw_init  # noqa: E402
 
-ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster")
+ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train")
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -112,8 +123,14 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # the SSD scan sums over a chunk of up to 256 steps in another order than the
 # plain version's einsums (the reference's own ssd tolerance in float32)
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+# whisper-base's attention averages over 1500 keys, so its outputs and
+# gradients are far below 1 (an output's std is about sqrt(e / 1500) = 0.043)
+# and TOL's bfloat16 atol exceeds a typical value: there the error is held to
+# this share of the largest |want| as well (one bfloat16 ulp is at most 2**-7
+# of a value; a dropped 28-row tail tile or split moves the output by ~0.02)
+OF_MAX_TOL = 1e-2
 KERNELS = {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
-           "ssd_scan": ssd_scan}
+           "ssd_scan": ssd_scan, "flash_prefill_backward": flash_prefill_backward}
 # the wrappers whose bf16 launches go to a tensor-core kernel, counted apart
 TENSOR_CORE_KERNELS = ("flash_prefill", "ssd_scan")
 # the kernels of a llama-8b instance, and so of the cluster phase
@@ -137,12 +154,20 @@ KERNEL_INFO = {
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:90",
     },
+    # the reference has no Pallas backward: it trains through jax.grad of
+    # its plain attention, which this kernel stands in for
+    "flash_prefill_backward": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+        "replaces": "src/repro/models/layers.py:130",
+    },
 }
 
 
 def zero_counts() -> None:
     """Every launch counter of every kernel wrapper set to 0."""
     decode_graph.add_counts([-c for c in decode_graph.read_counts()])
+    flash_prefill_backward.launches = 0
 
 
 def emit(phase: str, **fields) -> None:
@@ -242,8 +267,9 @@ def _device_us(event) -> float:
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
-                tols=TOL) -> float:
-    """Max abs error; fails unless |got - want| <= tol + tol * |want|."""
+                tols=TOL, of_max: float | None = None) -> float:
+    """Max abs error; fails unless |got - want| <= tol + tol * |want| and,
+    with ``of_max``, unless |got - want| <= of_max * max |want| as well."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output is not finite")
@@ -252,6 +278,9 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
     if not bool((err <= tol + tol * want.abs()).all()):
         fail(f"{name}: max abs error {err.max().item():.3e} exceeds "
              f"tolerance {tol:g} (atol and rtol)")
+    if of_max is not None and err.max().item() > of_max * want.abs().max().item():
+        fail(f"{name}: max abs error {err.max().item():.3e} exceeds {of_max:g} of "
+             f"max |want| {want.abs().max().item():.3e}")
     return err.max().item()
 
 
@@ -327,9 +356,12 @@ def ptxas_usage(text: str) -> list:
 # (D 128, group 4), phi3-mini (D 96, group 1), olmo-1b, qwen2-moe and
 # deepseek-moe (group 1), internvl2-2b (group 2, and its prefills' prefix
 # mask), yi-34b (group 7, taken by the group-8 instance at 16 lanes a row),
-# mamba2-1.3b (N 128) and zamba2-2.7b (D 80 at group 1; every prefill through
-# the masked instance, its config having a window; the SSD scan at N 64)
+# mamba2-1.3b (N 128), zamba2-2.7b (D 80 at group 1; every prefill through
+# the masked instance, its config having a window; the SSD scan at N 64) and
+# whisper-base (D 64 at group 1: its encoder, cross and causal prefills, its
+# decoder's self and cross attention)
 SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0>",
+                     "flash_prefill_kernel_wgmma<64, 0>",
                      "flash_prefill_kernel_wgmma<96, 0>",
                      "flash_prefill_kernel_wgmma<128, 1>",
                      "flash_prefill_kernel_wgmma<80, 0>",
@@ -337,11 +369,19 @@ SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 96, 1, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 80, 1, 8>",
+                     "paged_attention_kernel<__nv_bfloat16, 64, 1, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 1, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 2, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 8, 16>",
                      "ssd_scan_kernel_wgmma<128>",
                      "ssd_scan_kernel_wgmma<64>")
+
+
+# the backward's instantiations on the training path (olmo-1b: D 128, float32),
+# which must not spill either
+TRAINING_INSTANCES = ("flash_prefill_bwd_rowstats<128, float>",
+                      "flash_prefill_bwd_dkdv<128, float>",
+                      "flash_prefill_bwd_dq<128, float>")
 
 
 def phase_build() -> None:
@@ -357,9 +397,16 @@ def phase_build() -> None:
             "spilling": [k for k in kernels if k["spill_stores"] or k["spill_loads"]]}
         serving.update({k["kernel"]: k for k in kernels
                         if k["kernel"] in SERVING_INSTANCES})
+    training = {k["kernel"]: k for k in ptxas_usage(out["flash_prefill_bwd"])
+                if k["kernel"] in TRAINING_INSTANCES}
     emit("build", seconds=round(time.monotonic() - t0, 2),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=usage,
-         serving_instances=list(serving.values()))
+         serving_instances=list(serving.values()),
+         training_instances=list(training.values()))
+    for inst in TRAINING_INSTANCES:
+        k = training.get(inst)
+        if k is None or k["spill_stores"] or k["spill_loads"]:
+            fail(f"build: training instantiation {inst} missing or spilling: {k}")
     for inst in SERVING_INSTANCES:
         k = serving.get(inst)
         if k is None or k["spill_stores"] or k["spill_loads"]:
@@ -381,7 +428,7 @@ def _paged_case(gen, dtype, B, n_kv, group, D, lengths, pages_per_seq, copies=1)
 
 
 def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
-                 starts=None) -> dict:
+                 starts=None, of_max=None) -> dict:
     """One timed ``paged_attention`` case against its plain version, each
     sequence attending over ``[starts[b], lengths[b])`` (``starts`` None: from
     0); returns its record for the kernels line (without the launch count)."""
@@ -395,7 +442,7 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
     out = paged_attention(q, *pools[0], bt, ln, starts=st)
     torch.cuda.synchronize()
     want = paged_attention_plain(q, *pools[0], bt, ln, st)
-    err = check_close(f"paged_attention {dtype} {case}", out, want, dtype)
+    err = check_close(f"paged_attention {dtype} {case}", out, want, dtype, of_max=of_max)
     for b, (n, s0) in enumerate(zip(lengths, lo)):
         if n <= s0 and out[b].abs().max().item() != 0.0:
             fail("paged_attention: a sequence with nothing to attend to must give zeros")
@@ -411,7 +458,7 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
     again = paged_attention(q, *pools[0], bt, ln, starts=st)
     torch.cuda.synchronize()
     err = max(err, check_close(f"paged_attention {dtype} {case}, after the timed calls",
-                               again, want, dtype))
+                               again, want, dtype, of_max=of_max))
     plain_ms = device_ms(lambda: rotate(paged_attention_plain), iters=5, warmup=1)
     # one library call on the same work: dense gathered K/V and a mask
     idx = bt.long()
@@ -436,7 +483,7 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
          shape=dict(B=B, n_kv=n_kv, group=group, D=D, page=16, lengths=lengths,
                     starts=starts, max_pages=pps, block_tables="shuffled"),
          n_splits=plan.n_splits, pages_per_split=paged_module.PAGES_PER_SPLIT,
-         tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
+         tolerance=TOL[dtype], tolerance_of_max=of_max, max_abs_err=err, time_ms=ms, call_ms=call_ms,
          bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
     return {"name": "paged_attention", **KERNEL_INFO["paged_attention"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -490,13 +537,15 @@ def _flash_inputs(gen, dtype, B, S, T, H, Hkv, D):
 
 
 def _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset=0, causal=True, window=0,
-                 prefix_len=0, case=None) -> dict:
+                 prefix_len=0, case=None, T=None, of_max=None) -> dict:
     """One timed ``flash_prefill`` case (B=1) against its plain version;
     returns its record for the kernels line (without the launch count). The
     library yardstick is SDPA: causal where there is no other mask and no
     cached row, with an explicit boolean mask where there is a window or a
-    prefix, none with cached rows only (its causal mask takes no offset)."""
-    T = q_offset + S if causal else S
+    prefix, none with cached rows only (its causal mask takes no offset) and
+    none for full attention. Full attention (``causal=False``) takes any
+    ``T`` (default ``S``): a cross-attention's."""
+    T = q_offset + S if causal else (T or S)
     qt, kt, vt = _flash_inputs(gen, dtype, 1, S, T, H, Hkv, D)
     kw = dict(causal=causal, q_offset=q_offset if causal else 0, window=window,
               prefix_len=prefix_len)
@@ -504,7 +553,8 @@ def _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset=0, causal=True, window=0,
     torch.cuda.synchronize()
     want = flash_prefill_plain(qt, kt, vt, **kw)
     label = case or f"S={S} off={q_offset} causal={causal}"
-    err = check_close(f"flash_prefill {dtype} D={D} H={H} {label}", out, want, dtype)
+    err = check_close(f"flash_prefill {dtype} D={D} H={H} {label}", out, want, dtype,
+                      of_max=of_max)
     ms = device_ms(lambda: flash_prefill(qt, kt, vt, **kw))
     call_ms = time_ms(lambda: flash_prefill(qt, kt, vt, **kw))
     plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, **kw), iters=5, warmup=1)
@@ -527,11 +577,56 @@ def _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset=0, causal=True, window=0,
          route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
          shape=dict(B=1, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=kw["q_offset"],
                     causal=causal, window=window, prefix_len=prefix_len),
-         tolerance=TOL[dtype], max_abs_err=err, time_ms=ms, call_ms=call_ms,
+         tolerance=TOL[dtype], tolerance_of_max=of_max, max_abs_err=err, time_ms=ms, call_ms=call_ms,
          bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
     return {"name": "flash_prefill", **KERNEL_INFO["flash_prefill"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def _flash_bwd_timed(gen, F, dtype, B, H, Hkv, D, S, T, causal, case,
+                     of_max=None) -> dict:
+    """One timed ``flash_prefill_backward`` case against
+    ``flash_prefill_backward_plain`` on the same q, k, v, forward output and
+    output gradient; returns its record for the kernels line (without the
+    launch count). Bound: the bytes of q, k, v, o, dO, dQ, dK and dV, and
+    2.5 times the forward's operations (Q K^T again, dP = dO V^T, dV, dQ and
+    dK: five products of the forward's two). Yardstick: the backward of
+    ``scaled_dot_product_attention`` alone (its forward run once before,
+    K/V expanded to the query heads outside the timed graph)."""
+    qt, kt, vt = _flash_inputs(gen, dtype, B, S, T, H, Hkv, D)
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    o = flash_prefill(qt, kt, vt, causal=causal)
+    got = flash_prefill_backward(qt, kt, vt, o, do, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_prefill_backward_plain(qt, kt, vt, o, do, causal=causal)
+    err = max(check_close(f"flash_prefill_backward {dtype} {case} {name}", g, w, dtype,
+                          of_max=of_max)
+              for name, g, w in zip(("dq", "dk", "dv"), got, want))
+    ms = device_ms(lambda: flash_prefill_backward(qt, kt, vt, o, do, causal=causal))
+    call_ms = time_ms(lambda: flash_prefill_backward(qt, kt, vt, o, do, causal=causal))
+    plain_ms = device_ms(lambda: flash_prefill_backward_plain(qt, kt, vt, o, do,
+                                                              causal=causal),
+                         iters=5, warmup=1)
+    lq = qt.detach().clone().requires_grad_(True)
+    lk = kt.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
+    lv = vt.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
+    with torch.enable_grad():
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+    library_ms = device_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
+                                                       retain_graph=True))
+    seen = int(attention_mask(S, T, device="cuda").sum()) if causal else S * T
+    es = qt.element_size()
+    b_ms, b_by = bound((4 * qt.numel() + 4 * kt.numel()) * es,
+                       2.5 * 4.0 * B * H * D * seen, dtype)
+    emit("kernels", kernel="flash_prefill_backward", dtype=str(dtype), case=case,
+         route="fp32 FMA (bf16 widened as staged)",
+         shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=T, causal=causal),
+         tolerance=TOL[dtype], tolerance_of_max=of_max, max_abs_err=err, time_ms=ms, call_ms=call_ms,
+         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+    return {"name": "flash_prefill_backward", **KERNEL_INFO["flash_prefill_backward"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
 
 
 def _paged_from_manager(gen) -> None:
@@ -622,6 +717,10 @@ def phase_kernels(gen) -> dict:
                 ("zamba2-2.7b, D=80", 32, 1, 80, serve_lengths, None),
                 ("D=80, window", 32, 1, 80, window_lengths, window_starts)):
             _paged_timed(gen, F, dtype, B, kv, g, d, pps, case, lengths, starts)
+        # whisper-base's cross-attention: every slot over its 1500 encoder
+        # rows (94 pages of 16, 6 splits), n_kv 8, group 1, D 64
+        _paged_timed(gen, F, dtype, B, 8, 1, 64, 94, "whisper-base cross, D=64",
+                     [1500] * B, of_max=OF_MAX_TOL)
     # lower bounds with garbage below them, group 7, D = 96 and D = 80 (at
     # 16 lanes a row for group 8: 5 elements a lane, loaded one by one) in
     # both types
@@ -701,6 +800,26 @@ def phase_kernels(gen) -> dict:
                  case="single 64x64 tile", shape=dict(B=1, H=1, Hkv=1, D=D, S=64, T=64,
                                                       causal=causal),
                  tolerance=TOL[torch.bfloat16], max_abs_err=err)
+
+    # whisper-base (H 8, D 64, full attention): its encoder over 1500 frames
+    # (1500 = 23 x 64 + 28: the last KV tile is TMA zero-fill and the mask)
+    # and a 337-token prompt's cross-attention over them
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, S, T in (("whisper-base encoder, full", 1500, 1500),
+                           ("whisper-base cross prefill, full", 337, 1500)):
+            _flash_timed(gen, F, dtype, 8, 8, 64, S, causal=False, T=T, case=case,
+                         of_max=OF_MAX_TOL)
+
+    # the backward: olmo-1b's training shape (B 8, H 16, D 128, S 128,
+    # causal) and whisper-base's encoder (full, S = T = 1500)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, B_, H_, D_, S, causal, of_max in (
+                ("olmo-1b training", 8, 16, 128, 128, True, None),
+                ("whisper-base encoder, full", 1, 8, 64, 1500, False, OF_MAX_TOL)):
+            rec = _flash_bwd_timed(gen, F, dtype, B_, H_, H_, D_, S, S, causal, case,
+                                   of_max)
+            if dtype == torch.float32 and case == "olmo-1b training":
+                records["flash_prefill_backward"] = rec
 
     # narrow head_dim, a ragged prompt and a batch of two
     for dtype in (torch.bfloat16, torch.float32):
@@ -893,6 +1012,14 @@ def _parity(cfg, label: str, prompt_lens, kernels) -> None:
     if cfg.arch_type == "vlm" and \
             counts["flash_prefill.prefix_launches"] != counts["flash_prefill.launches"]:
         fail(f"parity ({label}): every VLM prefill carries the vision prefix: {counts}")
+    if cfg.arch_type == "audio":
+        # a prefill: the encoder's and the cross-attention's launches full,
+        # the decoder's self-attention causal
+        prefills, rest = divmod(counts["flash_prefill.launches"], prefill_attention_calls(cfg))
+        if rest or prefills < len(prompt_lens) or counts["flash_prefill.full_launches"] != \
+                prefills * (cfg.n_enc_layers + cfg.n_layers):
+            fail(f"parity ({label}): the encoder and cross prefills must be full, the "
+                 f"rest causal: {counts}")
     if gpu_trace != cpu_trace:
         first = next(i for i, (a, b) in enumerate(zip(gpu_trace, cpu_trace)) if a != b)
         fail(f"parity ({label}): tokens differ at step {first}: card "
@@ -1084,14 +1211,30 @@ def phase_parity() -> None:
     _parity_model(cfg.with_(sliding_window=8),
                   "zamba2-2.7b smoke, head_dim=80, SSM N 64 / P 64, sliding_window=8",
                   {"tokens": toks}, 30, 10, "flash_prefill.window_launches")
+    # whisper-base at full width (1500 encoder frames, 94 cross pages a
+    # slot; zero frames, as the engine feeds)
+    _parity(get_config("whisper-base"), "whisper-base full width, float32",
+            (9, 23, 17, 30, 5), ("paged_attention", "flash_prefill"))
 
 
 def attention_layers(cfg) -> int:
-    """The decode step's attention layers: each launches ``paged_attention``
-    once (a hybrid's calls of its shared block; none in an ssm model)."""
+    """The decode step's attention calls: each launches ``paged_attention``
+    once (a hybrid's calls of its shared block; an audio model's self- and
+    cross-attention; none in an ssm model)."""
     if cfg.arch_type == "ssm":
         return 0
+    if cfg.arch_type == "audio":
+        return 2 * cfg.n_layers
     return cfg.n_layers // cfg.attn_every if cfg.arch_type == "hybrid" else cfg.n_layers
+
+
+def prefill_attention_calls(cfg) -> int:
+    """A prefill's ``flash_prefill`` launches: one an attention call of the
+    model (an audio model's encoder layers besides its decoder's self- and
+    cross-attention)."""
+    if cfg.arch_type == "audio":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return attention_layers(cfg)
 
 
 def _graph_check(arch: str) -> None:
@@ -1157,6 +1300,10 @@ def _graph_check(arch: str) -> None:
                          "rows it writes")
         if not torch.equal(eng.pool["block_tables"], before["block_tables"]):
             fail(f"graph {arch}: the block tables changed")
+    for key in ("cross_k", "cross_v", "cross_block_tables"):
+        if key in eng.pool and not (torch.equal(eng.pool[key], before[key]) and
+                                    torch.equal(scratch[key], before[key])):
+            fail(f"graph {arch}: a decode step changed {key}, which it only reads")
     if "ssm" in eng.pool:
         for key in ("ssm", "conv"):
             errs[key] = check_close(f"graph {arch} {key}", eng.pool[key], scratch[key],
@@ -1183,6 +1330,7 @@ def phase_graph() -> None:
     _graph_check("mamba2-1.3b")
     _graph_check("qwen2-moe-a2.7b")    # the MoE dispatch under the graph
     _graph_check("zamba2-2.7b")        # head_dim 80, 9 shared-block calls
+    _graph_check("whisper-base")       # self- and cross-attention, D 64
 
 
 def _instance(key: str) -> str:
@@ -1203,7 +1351,8 @@ def _profiled(fn, reps: int) -> dict:
     kernels = _kernel_rows(fn, reps)
     top = sorted(((e.key, _device_us(e) / reps / 1e3) for e in kernels),
                  key=lambda kv: -kv[1])
-    own = ("paged_attention_", "flash_prefill_kernel", "ssd_scan_kernel")
+    own = ("paged_attention_", "flash_prefill_kernel", "flash_prefill_bwd",
+           "ssd_scan_kernel")
     short = lambda k: k.split("<")[0].split("::")[-1]  # noqa: E731
     return {"device_ms": sum(ms for _, ms in top),
             "launches": sum(e.count for e in kernels) / reps,
@@ -1334,7 +1483,7 @@ def _expected_launches(cfg, res) -> dict:
     want = {}
     if attention_layers(cfg):
         want["paged_attention"] = steps * attention_layers(cfg)
-        want["flash_prefill"] = res["prefills"] * attention_layers(cfg)
+        want["flash_prefill"] = res["prefills"] * prefill_attention_calls(cfg)
     if cfg.arch_type in ("ssm", "hybrid"):
         want["ssd_scan"] = res["prefills"] * cfg.n_layers
     return want
@@ -1378,6 +1527,12 @@ def _serve_path(smi: str, arch: str):
     if cfg.sliding_window and flash_prefill.window_launches != launches["flash_prefill"]:
         fail(f"serve {arch}: {flash_prefill.window_launches} of "
              f"{launches['flash_prefill']} prefill launches carried the window")
+    full_launches = flash_prefill.full_launches
+    want_full = res["prefills"] * (cfg.n_enc_layers + cfg.n_layers) \
+        if cfg.arch_type == "audio" else 0
+    if full_launches != want_full:
+        fail(f"serve {arch}: {full_launches} full (non-causal) prefill launches, the "
+             f"run implies {want_full}")
     window_launches = flash_prefill.window_launches
 
     def leaves(tree):
@@ -1399,7 +1554,9 @@ def _serve_path(smi: str, arch: str):
     want_instances = {
         "zamba2-2.7b": {"flash_prefill_kernel_wgmma<80, 1>": attention_layers(cfg),
                         "ssd_scan_kernel_wgmma<64>": cfg.n_layers},
-        "mamba2-1.3b": {"ssd_scan_kernel_wgmma<128>": cfg.n_layers}}.get(arch, {})
+        "mamba2-1.3b": {"ssd_scan_kernel_wgmma<128>": cfg.n_layers},
+        "whisper-base": {"flash_prefill_kernel_wgmma<64, 0>": prefill_attention_calls(cfg)},
+    }.get(arch, {})
     for inst, n in want_instances.items():
         seen = share["prefill_own_instance_launches"].get(inst)
         if seen != n:
@@ -1423,7 +1580,7 @@ def _serve_path(smi: str, arch: str):
          device_total_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9,
          resident_before_gb=resident_gb, kernel_launches=launches,
          prefix_launches=flash_prefill.prefix_launches,
-         window_launches=window_launches,
+         window_launches=window_launches, full_launches=full_launches,
          tensor_core_launches=tensor_core_launches, **share)
     return got, eng, share
 
@@ -1537,6 +1694,7 @@ def _serve_prefix(smi: str, params) -> dict:
 
 # the serving paths at full width, in order: yi-34b last, alone on the card
 SERVE_ARCHS = ("llama-8b", "phi3-mini-3.8b", "olmo-1b", "internvl2-2b", "mamba2-1.3b",
+               "whisper-base",
                "qwen2-moe-a2.7b", "deepseek-moe-16b", "zamba2-2.7b", "yi-34b")
 
 
@@ -1549,7 +1707,8 @@ def phase_serve(smi: str) -> dict:
     fitted to the dense and VLM models' only, as ``sim/perf_model.py``
     holds them (the MoE and hybrid rows are its predictions, not its
     data)."""
-    launches = {"paged_attention": 0, "flash_prefill": 0, "ssd_scan": 0}
+    launches = {"paged_attention": 0, "flash_prefill": 0, "ssd_scan": 0,
+                "flash_prefill_backward": 0}
     planner = {}
     for arch in SERVE_ARCHS:
         got, eng, share = _serve_path(smi, arch)
@@ -1921,6 +2080,261 @@ def phase_cluster(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ training
+# the train phase's tolerance, card against CPU: float32 on both, the
+# layers' sums in other orders
+TRAIN_TOL = 1e-4
+# the parameters after one step at lr 1e-3, card against CPU: Adam's first
+# step moves each element by about lr, so a leaf whose gradient were lost
+# (moved by the weight decay alone) is off by ~5x this
+TRAIN_PARAM_TOL = 2e-4
+# the full-width run's learning rate: ``make_train_step``'s default, the
+# reference's (at the launcher's 1e-3 the loss of olmo-1b from random weights
+# did not fall over 20 steps on the H100: 11.30 -> 11.52; ``_train_lr_witness``
+# runs that rate with the kernels and with plain PyTorch attention)
+TRAIN_LR = 3e-4
+LAUNCHER_LR = 1e-3
+# the launcher's 20 steps at LAUNCHER_LR, attention through the kernels
+# against plain PyTorch attention on the card: the same float32 math in other
+# sum orders, so the first steps' losses agree within TRAIN_TOL; later the
+# rising loss amplifies those differences (~1e-6 at step 1, ~1e-2 by step 17
+# on the H100), so there only the verdict, fallen or not, must agree
+WITNESS_STEPS = 6
+
+
+def _train_parity() -> dict:
+    """One float32 train step (remat on) at the olmo-1b smoke size, widened
+    to head_dim 64 (the kernels' widths), on the card and on the CPU from
+    the same parameters and batch: loss and gradient norm within
+    ``TRAIN_TOL``. The card's step launches ``flash_prefill`` twice a layer
+    (remat runs each forward again) and its backward once a layer."""
+    cfg = get_smoke_config("olmo-1b").with_(head_dim=64)
+    model = Model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(6), dtype=torch.float32,
+                            device="cpu")
+    batch_cpu = synthetic_lm_batch(np.random.default_rng(6), model, 4, 64, device="cpu")
+    step = make_train_step(cfg, remat=True, lr=1e-3)
+    p_cpu, _, m_cpu = step(params_cpu, adamw_init(params_cpu), batch_cpu)
+    params_gpu = _to_cuda(params_cpu)
+    zero_counts()
+    p_gpu, _, m_gpu = step(params_gpu, adamw_init(params_gpu),
+                           {k: v.cuda() for k, v in batch_cpu.items()})
+    torch.cuda.synchronize()
+    counts = {"flash_prefill": flash_prefill.launches,
+              "flash_prefill_backward": flash_prefill_backward.launches}
+    want = {"flash_prefill": 2 * cfg.n_layers, "flash_prefill_backward": cfg.n_layers}
+    if counts != want:
+        fail(f"train parity: launches {counts}, a step implies {want}")
+    loss = (float(m_gpu["loss"]), float(m_cpu["loss"]))
+    norm = (float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"]))
+    if abs(loss[0] - loss[1]) > TRAIN_TOL or \
+            abs(norm[0] - norm[1]) > TRAIN_TOL * max(1.0, norm[1]):
+        fail(f"train parity: loss (card, cpu) {loss}, grad norm {norm}, beyond "
+             f"{TRAIN_TOL:g}")
+    param_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)))
+    if param_err > TRAIN_PARAM_TOL:
+        fail(f"train parity: parameters after one step differ by {param_err:.3e}, beyond "
+             f"{TRAIN_PARAM_TOL:g}")
+    out = {"config": "olmo-1b smoke, head_dim=64, float32, remat", "batch": 4, "seq": 64,
+           "loss": loss, "grad_norm": norm, "tolerance": TRAIN_TOL,
+           "params_max_abs_err_after_step": param_err,
+           "params_tolerance": TRAIN_PARAM_TOL, "kernel_launches": counts}
+    emit("train", check="one step, card against CPU", **out)
+    return out
+
+
+def _leaf_names(t, prefix: str = "") -> list:
+    """Dotted names of a parameter tree's leaves in ``tree.flatten`` order."""
+    if isinstance(t, dict):
+        return [n for k in sorted(t) for n in _leaf_names(t[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def _leaf_grad_norms(names, grads) -> dict:
+    """Each leaf's gradient norm on the host in float64: one a layer for the
+    stacked layer leaves, one for any other leaf."""
+    return {n: (g.reshape(g.shape[0], -1) if n.startswith("layers.") else g.reshape(1, -1))
+            .double().norm(dim=1).cpu() for n, g in zip(names, grads)}
+
+
+def _train_width_parity() -> dict:
+    """The gradient of one float32 loss at olmo-1b's full widths cut to 2
+    layers (no remat, as the launcher runs), on the card and on the CPU from
+    the same parameters and batch: the loss, the global gradient norm and
+    each leaf's gradient norm (a layer's slice for the stacked leaves) agree
+    within ``TRAIN_TOL`` of the CPU's (of the leaf's largest, for a leaf)."""
+    cfg = get_config("olmo-1b").with_(n_layers=2)
+    model = Model(cfg)
+    B, S = 4, 128
+    params_cpu = model.init(torch.Generator().manual_seed(7), dtype=torch.float32,
+                            device="cpu")
+    batch_cpu = synthetic_lm_batch(np.random.default_rng(7), model, B, S, device="cpu")
+    names = _leaf_names(params_cpu)
+    loss_cpu, grads_cpu = loss_and_grads(model, params_cpu, batch_cpu)
+    norms_cpu = _leaf_grad_norms(names, grads_cpu)
+    del grads_cpu
+    zero_counts()
+    loss_gpu, grads_gpu = loss_and_grads(model, _to_cuda(params_cpu),
+                                         {k: v.cuda() for k, v in batch_cpu.items()})
+    torch.cuda.synchronize()
+    counts = {"flash_prefill": flash_prefill.launches,
+              "flash_prefill_backward": flash_prefill_backward.launches}
+    want = {"flash_prefill": cfg.n_layers, "flash_prefill_backward": cfg.n_layers}
+    if counts != want:
+        fail(f"train width parity: launches {counts}, a loss and its gradient imply {want}")
+    norms_gpu = _leaf_grad_norms(names, grads_gpu)
+    del grads_gpu
+    loss = (float(loss_gpu), float(loss_cpu))
+    norm = tuple(float(torch.cat(list(n.values())).norm()) for n in (norms_gpu, norms_cpu))
+    if abs(loss[0] - loss[1]) > TRAIN_TOL or abs(norm[0] - norm[1]) > TRAIN_TOL * norm[1]:
+        fail(f"train width parity: loss (card, cpu) {loss}, grad norm {norm}, beyond "
+             f"{TRAIN_TOL:g}")
+    leaf_err = {}
+    for n in names:
+        a, b = norms_gpu[n], norms_cpu[n]
+        if float(b.max()) == 0.0:
+            fail(f"train width parity: {n} gets no gradient on the CPU")
+        leaf_err[n] = float((a - b).abs().max()) / float(b.max())
+        if leaf_err[n] > TRAIN_TOL:
+            fail(f"train width parity: {n}'s gradient norms (card, cpu) {a.tolist()}, "
+                 f"{b.tolist()} differ by {leaf_err[n]:.3e} of the largest")
+    out = {"config": "olmo-1b full widths, 2 layers, float32, no remat", "batch": B,
+           "seq": S, "loss": loss, "grad_norm": norm, "tolerance": TRAIN_TOL,
+           "leaf_grad_norm_rel_err_max": max(leaf_err.values()),
+           "leaf_grad_norms_cpu": {n: v.tolist() for n, v in norms_cpu.items()},
+           "kernel_launches": counts}
+    emit("train", check="gradient at full width, 2 layers, card against CPU", **out)
+    return out
+
+
+def _train_full(smi: str) -> dict:
+    """olmo-1b at full width in float32 through ``launch.train``'s loop:
+    20 steps of batch 8 x 128 tokens with remat at ``TRAIN_LR``, counters
+    set to 0 just before and read just after. Fails unless the loss falls,
+    every loss and
+    gradient norm is finite, and every step launches the backward kernel
+    once a layer and the forward kernel twice a layer. Then two more steps
+    are profiled for their device-busy time and timed on the wall clock."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("olmo-1b")
+    steps, B, S = 20, 8, 128
+    per_step, last, held = [], [0, 0], []
+
+    def on_step(_):
+        now = [flash_prefill_backward.launches, flash_prefill.launches]
+        per_step.append([now[0] - last[0], now[1] - last[1]])
+        last[:] = now
+        held.append(torch.cuda.memory_allocated() / 1e9)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    res = train(cfg, steps=steps, batch=B, seq=S, lr=TRAIN_LR, remat=True, device="cuda",
+                on_step=on_step)
+    total_s = time.monotonic() - t0
+    launches = {"flash_prefill_backward": flash_prefill_backward.launches,
+                "flash_prefill": flash_prefill.launches,
+                "tensor_core_launches": flash_prefill.tensor_core_launches,
+                "paged_attention": paged_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms = res["losses"], res["grad_norms"]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"train olmo-1b: a loss or gradient norm is not finite: {losses}, {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train olmo-1b: the loss did not fall: {losses}")
+    if any(p != [cfg.n_layers, 2 * cfg.n_layers] for p in per_step) or \
+            len(per_step) != steps:
+        fail(f"train olmo-1b: launches a step (backward, forward) {per_step}, want "
+             f"[{cfg.n_layers}, {2 * cfg.n_layers}] each")
+    # device-busy time of a step, then its wall time, on a fixed batch
+    state = [res["params"], res["opt_state"]]
+    batch = synthetic_lm_batch(np.random.default_rng(1), res["model"], B, S)
+    step_fn = make_train_step(cfg, remat=True, lr=TRAIN_LR)
+
+    def one():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        float(m["loss"])
+
+    one()
+    prof = _profiled(one, 2)
+    wall_ms = _wall_ms(one, 3)
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    steady = float(np.median(step_ms[1:]))
+    out = {"model": cfg.name, "params": cfg.param_count(), "dtype": "float32",
+           "remat": True, "steps": steps, "batch": B, "seq": S, "lr": TRAIN_LR,
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "grad_norms": norms, "step_ms": step_ms, "step_ms_median_after_first": steady,
+           "tokens_per_s": B * S / (steady / 1e3), "train_loop_s": total_s,
+           "peak_device_memory_gb": peak_gb, "held_between_steps_gb_max": max(held),
+           "kernel_launches": launches,
+           "launches_per_step_backward_forward": per_step[0],
+           "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": prof["device_ms"],
+           "device_idle_share": 1.0 - prof["device_ms"] / wall_ms,
+           "step_launches": prof["launches"], "own_kernels_ms": prof["own_kernels_ms"],
+           "top_device_ms": prof["top_ms"]}
+    emit("train", gpu=smi, **out)
+    del state, res
+    return {"flash_prefill": launches["flash_prefill"],
+            "flash_prefill_backward": launches["flash_prefill_backward"]}
+
+
+def _train_lr_witness() -> dict:
+    """``launch.train``'s defaults at olmo-1b's full width (lr LAUNCHER_LR, no
+    remat, 20 steps of 8 x 128 from seed 0), twice: the attention through the
+    kernels, then through ``flash_prefill_plain`` (autograd of plain PyTorch
+    on the card, no kernel launched). Fails unless the first
+    ``WITNESS_STEPS`` losses agree within ``TRAIN_TOL`` and both runs' losses
+    fall, or both do not: whether the loss falls at this rate is then the
+    optimisation's and not the kernels'."""
+    cfg = get_config("olmo-1b")
+    losses = {}
+    for route in ("kernels", "plain attention"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = flash_prefill.launches + flash_prefill_backward.launches
+        if route == "plain attention":
+            ops.flash_prefill = flash_prefill_plain
+        try:
+            res = train(cfg, steps=20, batch=8, seq=128, lr=LAUNCHER_LR, remat=False,
+                        device="cuda")
+        finally:
+            ops.flash_prefill = flash_prefill
+        launched = flash_prefill.launches + flash_prefill_backward.launches - before
+        if (route == "plain attention") != (launched == 0):
+            fail(f"train witness: the {route} run launched {launched} attention kernels")
+        losses[route] = res["losses"]
+        del res
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        fail(f"train witness: a loss is not finite: {losses}")
+    diffs = [abs(a - b) for a, b in zip(*losses.values())]
+    early = max(diffs[:WITNESS_STEPS])
+    fell = {k: v[-1] < v[0] for k, v in losses.items()}
+    if early > TRAIN_TOL or len(set(fell.values())) != 1:
+        fail(f"train witness: kernels and plain attention part by {early:.3e} in the "
+             f"first {WITNESS_STEPS} steps, or one falls and the other not: {losses}")
+    out = {"model": cfg.name, "lr": LAUNCHER_LR, "remat": False, "steps": 20, "batch": 8,
+           "seq": 128, "losses": losses, "loss_diff_first_steps_max": early,
+           "first_steps": WITNESS_STEPS, "tolerance": TRAIN_TOL,
+           "loss_diff_max": max(diffs), "loss_fell": fell}
+    emit("train", check="the launcher's lr, kernels against plain attention", **out)
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """One step card against CPU at the smoke size, one gradient card
+    against CPU at full width in 2 layers, then olmo-1b at full width, and
+    the launcher's rate with kernels and with plain attention; returns each
+    kernel's launches over the full-width run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _train_parity()
+    _train_width_parity()
+    launches = _train_full(smi)
+    _train_lr_witness()
+    return launches
+
+
 # ------------------------------------------------- two trees, in turns
 def ab_turn(src: str, turn: int) -> None:
     """One ``--ab`` turn: device and event times of the kernels of the port
@@ -2008,13 +2422,16 @@ def main() -> None:
         phase_graph()
     launches = phase_serve(smi) if "serve" in phases else {}
     cluster_launches = phase_cluster(smi) if "cluster" in phases else {}
+    train_launches = phase_train(smi) if "train" in phases else {}
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return
-    # each kernel's launches over the main paths it serves: its serve path's
-    # and, for the attention kernels, the cluster's
-    total = {name: launches[name] + cluster_launches.get(name, 0) for name in KERNELS}
-    emit("launches", serve=launches, cluster=cluster_launches, total=total)
+    # each kernel's launches over the main paths it serves: its serve path's,
+    # for the attention kernels the cluster's, and the training run's
+    total = {name: launches[name] + cluster_launches.get(name, 0) +
+             train_launches.get(name, 0) for name in KERNELS}
+    emit("launches", serve=launches, cluster=cluster_launches, train=train_launches,
+         total=total)
     kernels = [{**records[name], "launches": total[name]} for name in KERNELS]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

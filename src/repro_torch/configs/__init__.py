@@ -1,12 +1,9 @@
 """Architecture config registry of the port.
 
 ``get_config("llama-8b")`` returns the full config;
-``get_smoke_config("llama-8b")`` the reduced same-family variant. Only
-the architectures whose model family is ported are listed (dense, vlm,
-ssm, moe and hybrid); asking for another one of the reference's
-architectures (whisper-base, the audio family) raises
-``NotImplementedError`` (see ROADMAP.md, Queue A), anything else
-``KeyError``.
+``get_smoke_config("llama-8b")`` the reduced same-family variant. Every
+architecture of the reference is listed (dense, vlm, ssm, moe, hybrid and
+audio); asking for another one raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -26,25 +23,20 @@ _ARCH_MODULES = {
     "mamba2-1.3b": "mamba2_1_3b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "whisper-base": "whisper_base",
     "internvl2-2b": "internvl2_2b",
     "llama-8b": "llama_8b",
     "llama-70b": "llama_70b",
 }
 
-# architectures of the reference package whose families are not ported yet
-_NOT_PORTED = ("whisper-base",)
-
-# the reference's assigned architectures that are ported, in its order
+# the reference's assigned architectures, in its order
 ASSIGNED_ARCHS: List[str] = [
     "olmo-1b", "granite-8b", "zamba2-2.7b", "phi3-mini-3.8b", "yi-34b",
-    "mamba2-1.3b", "qwen2-moe-a2.7b", "deepseek-moe-16b", "internvl2-2b"]
+    "mamba2-1.3b", "qwen2-moe-a2.7b", "deepseek-moe-16b", "whisper-base",
+    "internvl2-2b"]
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md, Queue A); ported: {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

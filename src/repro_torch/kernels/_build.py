@@ -4,7 +4,8 @@ with ``ctypes``.
 Each source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries are
 built at first use into ``build/`` beside this file, named after a hash of
-the source so an edited source is rebuilt. ``build_all`` starts one ``nvcc``
+the source and of the headers ``csrc/*.cuh`` so that an edited source or
+header is rebuilt. ``build_all`` starts one ``nvcc``
 per source at the same time. A failed build raises with the compiler's
 output; nothing here falls back to another implementation.
 """
@@ -20,7 +21,8 @@ from typing import Dict, Iterable, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_SOURCES: Tuple[str, ...] = ("paged_attention", "flash_prefill", "ssd_scan")
+KERNEL_SOURCES: Tuple[str, ...] = ("paged_attention", "flash_prefill",
+                                   "flash_prefill_bwd", "ssd_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC")
@@ -49,7 +51,10 @@ def _paths(name: str) -> Tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"kernel source missing: {src}")
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 

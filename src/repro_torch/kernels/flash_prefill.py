@@ -25,6 +25,17 @@ them back are described at the top of the ``.cu`` source.
 ``flash_prefill`` runs the plain version only for tensors on the CPU. On
 CUDA tensors it launches the kernel for their dtype or raises; a bf16 launch
 that fails is not retried on the FMA kernel.
+
+Gradients. A call whose inputs require a gradient (with grad mode on) goes
+through ``FlashPrefill``, an autograd function: its forward is the call
+above and saves q, k, v and the output; its backward is
+``flash_prefill_backward``, which launches ``csrc/flash_prefill_bwd.cu`` on
+CUDA tensors and runs ``flash_prefill_backward_plain`` (the explicit
+formulas, no autograd) on CPU tensors, so that training takes the same route
+on both. The TPU package has no Pallas backward; it trains through
+``jax.grad`` of plain attention, which the backward kernel stands in for.
+Training has no cached rows: a gradient through a call with ``q_offset > 0``
+is refused.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import wants_grad
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 80, 96, 128)
@@ -139,11 +151,27 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_prefill.launches``, a bf16 launch of the tensor-core kernel also
     in ``flash_prefill.tensor_core_launches``, one with ``q_offset > 0`` also
     in ``flash_prefill.offset_launches``, one with a window or a prefix in
-    ``window_launches`` or ``prefix_launches``) or raise.
+    ``window_launches`` or ``prefix_launches``, one without the causal mask
+    in ``full_launches``) or raise. Inputs that
+    require a gradient go through ``FlashPrefill`` (see the module
+    docstring).
     """
     if causal and prefix_len > 0 and q_offset > 0:
         raise ValueError("flash_prefill: a bidirectional prefix must be in the "
                          "first chunk (q_offset == 0)")
+    if wants_grad(q, k, v):
+        if q_offset:
+            raise ValueError("flash_prefill: no gradient through cached rows "
+                             "(q_offset > 0); training has none")
+        return FlashPrefill.apply(q, k, v, causal, window, prefix_len)
+    return _forward(q, k, v, causal=causal, q_offset=q_offset, window=window,
+                    prefix_len=prefix_len)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+             q_offset: int, window: int, prefix_len: int) -> torch.Tensor:
+    """``flash_prefill`` without autograd: the plain version on the CPU, the
+    kernel on a CUDA device."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset,
                                    window=window, prefix_len=prefix_len)
@@ -176,6 +204,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_prefill.offset_launches += int(q_offset > 0)
     flash_prefill.window_launches += int(causal and window > 0)
     flash_prefill.prefix_launches += int(causal and prefix_len > 0)
+    flash_prefill.full_launches += int(not causal)
     return out
 
 
@@ -184,3 +213,124 @@ flash_prefill.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
 flash_prefill.offset_launches = 0   # of those, the ones with cached rows in front
 flash_prefill.window_launches = 0   # of those, the ones with a sliding window
 flash_prefill.prefix_launches = 0   # of those, the ones with a bidirectional prefix
+flash_prefill.full_launches = 0   # of those, the ones without the causal mask
+
+
+class FlashPrefill(torch.autograd.Function):
+    """``flash_prefill`` with a gradient: the forward launches the kernel (the
+    plain version on the CPU) and saves q, k, v and the output; the backward
+    is ``flash_prefill_backward``. q (B,H,S,D), k/v (B,Hkv,T,D); no cached
+    rows (``q_offset == 0``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, prefix_len: int):
+        o = _forward(q, k, v, causal=causal, q_offset=0, window=window,
+                     prefix_len=prefix_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.masks = (causal, window, prefix_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, prefix_len = ctx.masks
+        dq, dk, dv = flash_prefill_backward(q, k, v, o, do, causal=causal,
+                                            window=window, prefix_len=prefix_len)
+        return dq, dk, dv, None, None, None
+
+
+def flash_prefill_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 o: torch.Tensor, do: torch.Tensor, *,
+                                 causal: bool = True, window: int = 0,
+                                 prefix_len: int = 0):
+    """The gradients of ``flash_prefill_plain`` (no cached rows) by the
+    explicit formulas, in float32, without autograd: P = softmax(Q K^T scale
+    + mask), dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)), dQ = dS K
+    scale, dK = dS^T Q scale, dK and dV summed over each KV head's group.
+    q, o, do (B,H,S,D); k, v (B,Hkv,T,D). Returns (dq, dk, dv) in the
+    inputs' dtype."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, group, S, D).float()
+    dog = do.reshape(B, Hkv, group, S, D).float()
+    og = o.reshape(B, Hkv, group, S, D).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    if causal:
+        mask = attention_mask(S, T, window=window, prefix_len=prefix_len,
+                              device=q.device)
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
+    delta = (dog * og).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _backward_library() -> ctypes.CDLL:
+    lib = _build.library("flash_prefill_bwd")
+    fn = lib.flash_prefill_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + \
+            [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                           window: int = 0, prefix_len: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_prefill(q, k, v, causal=,
+    window=, prefix_len=)`` whose output was ``o``, for the output's
+    gradient ``do``; no cached rows. Causal or full (S != T), with a window
+    or a prefix; each gradient in its input's dtype and shape.
+
+    Tensors on the CPU go through ``flash_prefill_backward_plain``; tensors
+    on a CUDA device launch ``csrc/flash_prefill_bwd.cu`` (counted in
+    ``flash_prefill_backward.launches``: one a call, whose three kernels run
+    in turn) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_prefill_backward_plain(q, k, v, o, do, causal=causal,
+                                            window=window, prefix_len=prefix_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill_backward: device {q.device} not supported")
+    _check(q, k, v, causal, 0, window, prefix_len)
+    vec = 16 // q.element_size()
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_prefill_backward: {name} must have q's shape, "
+                             "dtype and device")
+    if do.stride(3) != 1 or any(st % vec for st in do.stride()[:3]) or \
+            do.data_ptr() % 16:
+        do = do.contiguous()
+    if o.stride(3) != 1 or any(st % vec for st in o.stride()[:3]) or o.data_ptr() % 16:
+        raise ValueError("flash_prefill_backward: o needs a contiguous head_dim "
+                         "axis and 16-byte aligned rows")
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    if any(t.stride(3) != 1 for t in (dq, dk, dv)):
+        raise ValueError("flash_prefill_backward: q, k and v must be dense")
+    strides = (ctypes.c_longlong * 24)(*[st for t in tensors for st in t.stride()[:3]])
+    with torch.cuda.device(q.device):
+        err = _backward_library().flash_prefill_bwd_launch(
+            *[t.data_ptr() for t in tensors], stats[0].data_ptr(), stats[1].data_ptr(),
+            B, H, Hkv, S, T, D, int(causal), window, prefix_len,
+            int(q.dtype == torch.bfloat16), strides, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_prefill_backward kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_prefill_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_prefill_backward.launches = 0   # calls that launched the CUDA kernels

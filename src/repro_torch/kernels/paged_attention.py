@@ -38,6 +38,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 
 DEFAULT_PAGE_SIZE = 16
 PAGES_PER_SPLIT = 16     # 256 tokens of one sequence per block, as in the kernel
@@ -266,13 +267,16 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     Tensors on the CPU go through ``paged_attention_plain``; tensors on a
     CUDA device launch the kernel (counted in ``paged_attention.launches``)
-    or raise.
+    or raise. The kernel has no backward (it serves the decode step, which
+    no training path runs): on a CUDA device, inputs that require a gradient
+    (with grad mode on) raise ``NotImplementedError`` instead of losing it.
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths,
                                      starts)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: device {q.device} not supported")
+    refuse_grad("paged_attention", q, k_pool, v_pool)
     _check(q, k_pool, v_pool, block_tables, lengths, starts, page_size)
     B, n_kv, group, D = q.shape
     out = torch.empty_like(q)

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 
 _CHUNKS = (32, 64, 128, 256)
 _HEAD_DIMS = (32, 64)          # P
@@ -195,12 +196,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Tensors on the CPU go through ``ssd_scan_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in ``ssd_scan.launches``,
     a bf16 launch of the tensor-core kernel also in
-    ``ssd_scan.tensor_core_launches``) or raise.
+    ``ssd_scan.tensor_core_launches``) or raise. The kernel has no backward:
+    on a CUDA device, inputs that require a gradient (with grad mode on)
+    raise ``NotImplementedError`` instead of losing it.
     """
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: device {x.device} not supported")
+    refuse_grad("ssd_scan", x, dt, A, B, C, h0)
     _check(x, dt, A, B, C, h0, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]

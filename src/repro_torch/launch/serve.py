@@ -11,7 +11,9 @@ architecture is served. Every ported architecture is served (``--arch``):
 the dense ones (llama-8b, granite-8b, olmo-1b, phi3-mini-3.8b, yi-34b,
 llama-70b), the MoE ones (qwen2-moe-a2.7b, deepseek-moe-16b), the VLM
 internvl2-2b (zero vision embeddings in front of each prompt, as the
-reference engine feeds), the ssm mamba2-1.3b and the hybrid zamba2-2.7b.
+reference engine feeds), the ssm mamba2-1.3b, the hybrid zamba2-2.7b and
+the encoder-decoder whisper-base (zero frame embeddings for each prompt,
+as the reference engine feeds).
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ def main(argv=None) -> None:
                     help="a ported architecture: llama-8b, granite-8b, olmo-1b, "
                          "phi3-mini-3.8b, yi-34b, llama-70b, qwen2-moe-a2.7b, "
                          "deepseek-moe-16b, internvl2-2b, mamba2-1.3b, "
-                         "zamba2-2.7b")
+                         "zamba2-2.7b, whisper-base")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=160)

@@ -2,8 +2,8 @@
 
 ``Model(cfg)`` exposes:
   init(gen, dtype, device)           -> params
-  forward(params, batch)             -> (logits, aux_loss)
-  loss(params, batch)                -> scalar causal-LM loss (+ aux)
+  forward(params, batch, remat)      -> (logits, aux_loss)
+  loss(params, batch, remat)         -> scalar causal-LM loss (+ aux)
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, tokens, cache) -> (logits, cache)
   init_cache(batch, cache_len)       -> zeroed paged cache
@@ -13,11 +13,13 @@
   example_batch(batch, seq, gen)     -> random batch with the right modalities
 
 ``batch`` is a dict with ``tokens (B,S)`` integer ids, plus ``vision``
-(B, n_vision_tokens, d_model) stub patch embeddings for the VLM family. The
-dense, moe, vlm, ssm and hybrid families are ported; the reference's audio
-family raises ``NotImplementedError``. Entry points default to
-``device="cuda"`` and raise when there is no GPU: nothing here continues on
-the CPU unless the caller asks for it.
+(B, n_vision_tokens, d_model) stub patch embeddings for the VLM family and
+``frames`` (B, enc_seq, d_model) stub frame embeddings for the audio
+family. Every family of the reference is ported: dense, moe, vlm, ssm,
+hybrid and audio. ``remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+Entry points default to ``device="cuda"`` and raise when there is no GPU:
+nothing here continues on the CPU unless the caller asks for it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, mamba_model, transformer
+from repro_torch.models import encdec, hybrid, mamba_model, transformer
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -37,11 +39,7 @@ _FAMILY = {
     "vlm": transformer,
     "ssm": mamba_model,
     "hybrid": hybrid,
-}
-
-# where ROADMAP.md (Queue A) lists each family that is still to be ported
-_NOT_PORTED = {
-    "audio": "item 6 (models/encdec.py)",
+    "audio": encdec,
 }
 
 
@@ -59,12 +57,7 @@ def resolve_device(device) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.arch_type not in _FAMILY:
-            where = _NOT_PORTED.get(cfg.arch_type)
-            if where is None:
-                raise KeyError(f"unknown arch_type {cfg.arch_type!r}")
-            raise NotImplementedError(
-                f"the {cfg.arch_type!r} family is not ported to repro_torch "
-                f"yet: ROADMAP.md, Queue A, {where}")
+            raise KeyError(f"unknown arch_type {cfg.arch_type!r}")
         self.cfg = cfg
         self._m = _FAMILY[cfg.arch_type]
 
@@ -82,18 +75,21 @@ class Model:
     def _modalities(self, batch: Batch) -> Dict[str, torch.Tensor]:
         if self.cfg.arch_type == "vlm":
             return {"vision_embeds": batch["vision"]}
+        if self.cfg.arch_type == "audio":
+            return {"frames": batch["frames"]}
         return {}
 
     # ------------------------------------------------------------ forward
-    def forward(self, params: Params, batch: Batch):
-        return self._m.forward(self.cfg, params, batch["tokens"],
+    def forward(self, params: Params, batch: Batch, *, remat: bool = False):
+        return self._m.forward(self.cfg, params, batch["tokens"], remat=remat,
                                **self._modalities(batch))
 
-    def loss(self, params: Params, batch: Batch) -> torch.Tensor:
+    def loss(self, params: Params, batch: Batch, *,
+             remat: bool = False) -> torch.Tensor:
         """Mean next-token cross-entropy over the text positions (masked by
         ``batch["loss_mask"]`` where given), in float32, plus the auxiliary
         loss."""
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(params, batch, remat=remat)
         tokens = batch["tokens"]
         lg = logits[:, :-1].float()
         nll = torch.logsumexp(lg, dim=-1) - \
@@ -135,8 +131,9 @@ class Model:
                       gen: Optional[torch.Generator] = None, dtype=None,
                       device="cuda") -> Batch:
         """Random token ids and, for the VLM family, standard-normal vision
-        embeddings in ``dtype``, drawn from ``gen`` (default: a generator on
-        ``device`` seeded with 0)."""
+        embeddings (for the audio family, frame embeddings) in ``dtype``,
+        drawn from ``gen`` (default: a generator on ``device`` seeded with
+        0)."""
         cfg = self.cfg
         device = resolve_device(device)
         dtype = dtype or getattr(torch, cfg.dtype)
@@ -145,6 +142,9 @@ class Model:
             gen.manual_seed(0)
         out: Batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
                                               generator=gen, device=device)}
+        if cfg.arch_type == "audio":
+            out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                        generator=gen, device=device).to(dtype)
         if cfg.arch_type == "vlm":
             out["vision"] = torch.randn((batch, cfg.n_vision_tokens, cfg.d_model),
                                         generator=gen, device=device).to(dtype)

@@ -66,9 +66,18 @@ def _shared_ffn(cfg: ModelConfig, sp: Params, x: torch.Tensor) -> torch.Tensor:
     return x + L.ffn_forward(cfg, sp["ffn"], L.apply_norm(cfg, sp["norm2"], x))
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: (logits (B,S,V), aux_loss = 0)."""
+def _shared_block(cfg: ModelConfig, sp: Params, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(cfg, sp["norm1"], x)
+    return _shared_ffn(cfg, sp, x + L.attention_forward(cfg, sp["attn"], h,
+                                                         positions=positions))
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (logits (B,S,V), aux_loss = 0). ``remat``
+    recomputes each Mamba2 layer and each call of the shared block in the
+    backward pass (``layers.maybe_remat``)."""
     G, A = _n_groups(cfg), cfg.attn_every
     x = L.embed(params["emb"], tokens)
     B, S, _ = x.shape
@@ -76,10 +85,9 @@ def forward(cfg: ModelConfig, params: Params,
     sp = params["shared"]
     for g in range(G):
         for i in range(g * A, (g + 1) * A):
-            x, _, _ = mamba_forward(cfg, L.layer_params(params["layers"], i), x)
-        h = L.apply_norm(cfg, sp["norm1"], x)
-        x = _shared_ffn(cfg, sp, x + L.attention_forward(cfg, sp["attn"], h,
-                                                          positions=positions))
+            x = L.maybe_remat(mamba_model._layer, remat, cfg,
+                              L.layer_params(params["layers"], i), x)
+        x = L.maybe_remat(_shared_block, remat, cfg, sp, x, positions)
     x = L.rms_norm(x, params["final_norm"]["w"])
     return L.unembed(params["emb"], x), torch.zeros((), device=x.device)
 

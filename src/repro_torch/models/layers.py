@@ -17,8 +17,10 @@ Conventions:
   pool keeps every position of a sequence: decode applies the window as a
   lower bound on the positions attended to, where the reference keeps a ring
   of ``window`` slots; both see the same positions.
-- cross-attention (``kv_x``) raises ``NotImplementedError`` on every device
-  (ROADMAP.md, Queue A item 6).
+- cross-attention (``kv_x``, the audio family's decoder over its encoder
+  states) goes through ``ops.flash_prefill`` without a causal mask, and in
+  the decode step through ``ops.paged_attention`` over a fixed pool of the
+  encoder's K/V (``cross_attention_decode``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -62,6 +65,16 @@ def layer_params(stacked: Params, index: int) -> Params:
     """Views of layer ``index`` of the stacked parameters."""
     return {name: layer_params(v, index) if isinstance(v, dict) else v[index]
             for name, v in stacked.items()}
+
+
+def maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat``, through ``torch.utils.checkpoint``
+    (non-reentrant), which keeps none of ``fn``'s activations and runs it
+    again in the backward pass: the counterpart of the reference's
+    ``jax.checkpoint`` of a layer."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def rms_norm(x: torch.Tensor, w: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
@@ -142,13 +155,6 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
     }
 
 
-def _reject_unported(kv_x=None) -> None:
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x) is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A)")
-
-
 def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                       positions: Optional[torch.Tensor] = None,
                       causal: bool = True,
@@ -157,10 +163,12 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                       prefix_len: int = 0,
                       return_kv: bool = False,
                       past_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Full-sequence self-attention through ``ops.flash_prefill``.
+    """Full-sequence (self or cross) attention through ``ops.flash_prefill``.
 
-    x (B,S,d). positions: absolute positions (B,S) for RoPE; default
-    ``past_len + arange(S)``.
+    x (B,S,d). kv_x: source of K and V for cross-attention (B,T,d); None =
+    self. Cross-attention takes no RoPE, as in the reference, and is full
+    (``causal=False``) over the T rows. positions: absolute positions (B,S)
+    for RoPE; default ``past_len + arange(S)``.
     return_kv: also return the (roped) K and V of the new tokens, e.g. for
     cache building.
     past_kv: (pk, pv) of shape (B, P, Hkv, D) — already-roped K/V of a
@@ -169,18 +177,16 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     prefix_len: number of leading tokens (the vision tokens) that every query
     attends to bidirectionally; with ``cfg.sliding_window`` the causal part
     is cut to the window, as in the reference.
-    ``kv_x`` is accepted for the reference's signature and raises
-    ``NotImplementedError`` when used.
     """
-    _reject_unported(kv_x)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    src = x if kv_x is None else kv_x
     past_len = past_kv[0].shape[1] if past_kv is not None else 0
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
-    if use_rope:
+    k = (src @ p["wk"]).reshape(B, src.shape[1], Hkv, hd)
+    v = (src @ p["wv"]).reshape(B, src.shape[1], Hkv, hd)
+    if use_rope and kv_x is None:
         if positions is None:
             positions = (past_len + torch.arange(S, device=x.device))[None, :] \
                 .expand(B, S)
@@ -191,9 +197,11 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     if past_kv is not None:
         k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
         v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
-    # (B,S,H,D) -> the kernel's (B,H,S,D) as strided views, no copy
+    # (B,S,H,D) -> the kernel's (B,H,S,D) as strided views, no copy; as in
+    # the reference, a cross-attention is never masked
     o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, q_offset=past_len,
+                          v.transpose(1, 2), causal=causal and kv_x is None,
+                          q_offset=past_len,
                           window=cfg.sliding_window, prefix_len=prefix_len)
     out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
     if return_kv:
@@ -304,6 +312,33 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     o = ops.paged_attention(q.reshape(B, Hkv, H // Hkv, hd), k_pool, v_pool,
                             block_tables, plan["lengths"], page_size=page,
                             starts=plan["starts"])
+    return o.reshape(B, 1, H * hd) @ p["wo"]
+
+
+def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                           k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention over each sequence's fixed encoder K/V,
+    through ``ops.paged_attention``.
+
+    x (B,1,d); k_pool/v_pool (num_pages, page, Hkv, D) of one layer, holding
+    each sequence's ``enc_seq`` encoder rows (written at prefill, never
+    changed by a decode step); block_tables (B, pages_per_seq) int32;
+    lengths (B,) int32: ``enc_seq`` for a row that holds a sequence, 0 for a
+    free one (which gives zeros). Returns out (B,1,d).
+
+    The reference (``repro.models.layers.cross_attention_decode``) casts the
+    softmax weights to the cache dtype before the P V product, where the
+    kernel keeps them in float32: the same in float32, and inside the
+    bfloat16 tolerance in bfloat16.
+    """
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, Hkv, H // Hkv, hd)
+    o = ops.paged_attention(q, k_pool, v_pool, block_tables, lengths,
+                            page_size=k_pool.shape[1])
     return o.reshape(B, 1, H * hd) @ p["wo"]
 
 

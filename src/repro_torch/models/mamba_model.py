@@ -38,12 +38,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
                                            device=device)}}
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: (logits (B,S,V), aux_loss = 0)."""
+def _layer(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    return mamba_forward(cfg, lp, x)[0]
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (logits (B,S,V), aux_loss = 0). ``remat``
+    recomputes each layer in the backward pass (``layers.maybe_remat``)."""
     x = L.embed(params["emb"], tokens)
     for i in range(cfg.n_layers):
-        x, _, _ = mamba_forward(cfg, L.layer_params(params["layers"], i), x)
+        x = L.maybe_remat(_layer, remat, cfg, L.layer_params(params["layers"], i), x)
     x = L.rms_norm(x, params["final_norm"]["w"])
     return L.unembed(params["emb"], x), torch.zeros((), device=x.device)
 

@@ -109,10 +109,11 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            vision_embeds: Optional[torch.Tensor] = None
+            vision_embeds: Optional[torch.Tensor] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the MoE
-    layers' summed load-balance loss, zero for a dense model.
+    layers' summed load-balance loss, zero for a dense model. ``remat``
+    recomputes each layer in the backward pass (``layers.maybe_remat``).
 
     For VLM configs, ``vision_embeds`` (B, n_vis, d) is prepended to the
     token embeddings at positions ``0 .. n_vis - 1``; logits are returned for
@@ -123,8 +124,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _layer_forward(cfg, layer_params(params["layers"], i), x, positions,
-                              prefix_len)
+        x, a = L.maybe_remat(_layer_forward, remat, cfg,
+                             layer_params(params["layers"], i), x, positions,
+                             prefix_len)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(cfg, params["final_norm"], x)
@@ -140,12 +142,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     return c
 
 
-def cache_rows(cache: Cache, key: str, row: int) -> torch.Tensor:
+def cache_rows(cache: Cache, key: str, row: int,
+               table: str = "block_tables") -> torch.Tensor:
     """The K or V storage of sequence ``row`` of a paged cache from
     ``init_cache``, as a view (L, capacity, Hkv, D) in token order. Relies on
-    row ``i`` owning the contiguous page range ``init_cache`` gave it."""
+    row ``i`` owning the contiguous page range ``init_cache`` gave it in the
+    block table ``cache[table]``."""
     pool = cache[key]
-    pages_per_seq = cache["block_tables"].shape[1]
+    pages_per_seq = cache[table].shape[1]
     n_layers, _, page, n_kv, hd = pool.shape
     rows = pool[:, row * pages_per_seq:(row + 1) * pages_per_seq]
     return rows.view(n_layers, pages_per_seq * page, n_kv, hd)

@@ -4,10 +4,12 @@ The reference's pytrees arrive as nested dicts of ``numpy`` arrays (the
 caller converts them: this package imports neither the reference nor its
 framework). The port stacks parameters over layers exactly as the reference
 does, so parameters map one to one (a VLM's tree is the dense one, an MoE
-layer's ``moe`` subtree keeps its float32 router); a dense cache changes
-format, from the reference's ``(L, B, S, Hkv, D)`` slots (a ring of them
-with a sliding window) to the port's page pools, which hold every position
-in order, an ssm cache keeps its own, and a hybrid cache does both.
+layer's ``moe`` subtree keeps its float32 router, an audio model's tree is
+the reference's encoder-decoder one); a dense cache changes format, from
+the reference's ``(L, B, S, Hkv, D)`` slots (a ring of them with a sliding
+window) to the port's page pools, which hold every position in order, an
+ssm cache keeps its own, a hybrid cache does both, and an audio cache also
+carries its encoder K/V over into a cross pool.
 """
 from __future__ import annotations
 
@@ -49,10 +51,8 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
     """The reference's parameter pytree (as numpy arrays) -> the port's
     parameters on ``device`` in ``dtype``."""
     device = resolve_device(device)
-    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A)")
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
+        raise KeyError(f"unknown arch_type {cfg.arch_type!r}")
     params = _convert(params_numpy, device, dtype)
     checks = []
     if cfg.arch_type in ("dense", "vlm", "moe"):
@@ -66,6 +66,10 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig,
         checks.append(("w_in", params["layers"]["w_in"],
                        (cfg.n_layers, cfg.d_model,
                         2 * cfg.d_inner + 2 * cfg.ssm.state_dim + cfg.n_ssm_heads)))
+    if cfg.arch_type == "audio":
+        checks.append(("dec_layers.self_attn.wq", params["dec_layers"]["self_attn"]["wq"],
+                       (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)))
+        checks.append(("enc_pos", params["enc_pos"], (cfg.enc_seq, cfg.d_model)))
     if cfg.arch_type == "hybrid":
         checks.append(("shared.attn.wq", params["shared"]["attn"]["wq"],
                        (cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)))
@@ -89,7 +93,9 @@ def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
     float32, ``conv`` in ``dtype``, ``pos``) is carried over unchanged. A
     hybrid cache is both: its ``ssm`` and ``conv`` unchanged, the K/V of
     each of its G shared-block calls (``k``/``v`` (G, B, S, Hkv, D)) into
-    page pools as a dense cache's."""
+    page pools as a dense cache's. An audio cache is a dense one plus its
+    encoder K/V (``cross_k``/``cross_v`` (L, B, enc_seq, Hkv, D)), which go
+    into the cross pool of ``enc_seq`` positions a row."""
     device = resolve_device(device)
     cache = {"pos": _tensor(cache_numpy["pos"], device, dtype).to(torch.int32)}
     if cfg.arch_type in ("ssm", "hybrid"):
@@ -109,4 +115,13 @@ def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
         slots = torch.from_numpy(held).to(device)
         cache_rows(cache, "k", b)[:, where] = k[:, b, slots]
         cache_rows(cache, "v", b)[:, where] = v[:, b, slots]
+    if cfg.arch_type == "audio":
+        cross = layers.init_kv_cache(cfg, B, cfg.enc_seq, n_pools, dtype, device)
+        cache.update({"cross_k": cross["k"], "cross_v": cross["v"],
+                      "cross_block_tables": cross["block_tables"]})
+        for key in ("cross_k", "cross_v"):
+            t = _tensor(cache_numpy[key], device, dtype)
+            for b in range(B):
+                cache_rows(cache, key, b, table="cross_block_tables")[:, :t.shape[2]] = \
+                    t[:, b]
     return cache

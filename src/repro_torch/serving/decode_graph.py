@@ -43,7 +43,8 @@ WARMUP_STEPS = 2
 COUNTERS = ((paged_attention, "launches"), (flash_prefill, "launches"),
             (flash_prefill, "tensor_core_launches"),
             (flash_prefill, "offset_launches"), (flash_prefill, "window_launches"),
-            (flash_prefill, "prefix_launches"), (ssd_scan, "launches"),
+            (flash_prefill, "prefix_launches"), (flash_prefill, "full_launches"),
+            (ssd_scan, "launches"),
             (ssd_scan, "tensor_core_launches"))
 
 

@@ -43,7 +43,11 @@ Against the reference engine (``repro.serving.engine``), on purpose:
 
 A VLM's prompt batch carries zero vision embeddings
 ``(1, n_vision_tokens, d_model)``, as the reference's ``_prompt_batch``
-does: the prompt fills ``n_vision_tokens + n`` positions of its slot.
+does: the prompt fills ``n_vision_tokens + n`` positions of its slot. An
+audio model's carries zero frame embeddings ``(1, enc_seq, d_model)``, as
+the reference's does; its slot holds the encoder's K/V beside the prompt's
+(a cross pool of ``enc_seq`` positions a row), and a preempted slot saves
+both.
 """
 from __future__ import annotations
 
@@ -194,6 +198,9 @@ class Engine:
 
     def _prompt_batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
         batch = {"tokens": torch.from_numpy(tokens).to(self.device).long()[None]}
+        if self.cfg.arch_type == "audio":
+            batch["frames"] = torch.zeros((1, self.cfg.enc_seq, self.cfg.d_model),
+                                          dtype=self.dtype, device=self.device)
         if self.cfg.arch_type == "vlm":
             batch["vision"] = torch.zeros(
                 (1, self.cfg.n_vision_tokens, self.cfg.d_model), dtype=self.dtype,

@@ -1,0 +1,130 @@
+"""The gradient of ``flash_prefill`` in the port: the plain backward
+(``flash_prefill_backward_plain``, the explicit formulas) against
+``torch.autograd.grad`` of ``flash_prefill_plain`` and against ``jax.vjp`` of
+the reference's attention (``repro.models.layers._flash_attention_ref``) on
+the same numpy inputs; the route a call with a gradient takes
+(``FlashPrefill``); and the guards of the kernels that have no backward.
+The backward kernel itself runs on the card only (``chip_smoke.py``)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as ref_layers
+from repro_torch.kernels import _grad
+from repro_torch.kernels.flash_prefill import (FlashPrefill, flash_prefill,
+                                               flash_prefill_backward,
+                                               flash_prefill_backward_plain,
+                                               flash_prefill_plain)
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
+TOL = 1e-5
+
+# (case, B, H, Hkv, S, T, D, causal, window, prefix_len)
+CASES = [
+    ("causal", 2, 4, 4, 37, 37, 64, True, 0, 0),
+    ("full, S != T", 1, 4, 2, 21, 45, 64, False, 0, 0),
+    ("window", 2, 4, 2, 50, 50, 64, True, 9, 0),
+    ("prefix", 1, 4, 1, 40, 40, 64, True, 0, 7),
+    ("window beside prefix", 1, 4, 2, 40, 40, 64, True, 6, 10),
+    ("group 1", 1, 3, 3, 33, 33, 64, True, 0, 0),
+    ("group 4", 1, 8, 2, 33, 33, 64, True, 0, 0),
+    ("group 7", 1, 7, 1, 33, 33, 64, True, 0, 0),
+    ("D 80", 1, 4, 2, 29, 29, 80, True, 0, 0),
+    ("D 96", 1, 4, 2, 29, 29, 96, True, 0, 0),
+    ("D 128", 1, 4, 2, 29, 29, 128, True, 0, 0),
+    ("full, D 80, group 4", 1, 8, 2, 17, 70, 80, False, 0, 0),
+]
+
+
+def _inputs(B, H, Hkv, S, T, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    do = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_backward_plain_matches_autograd_and_jax_vjp(case):
+    _, B, H, Hkv, S, T, D, causal, window, prefix_len = case
+    q, k, v, do = _inputs(B, H, Hkv, S, T, D, seed=S * D)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    # the port's (B, H, S, D) layout, as transposed views
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+    with torch.no_grad():
+        o = flash_prefill_plain(qt, kt, vt, **kw)
+    got = flash_prefill_backward_plain(qt, kt, vt, o, dot, **kw)
+    assert all(g.dtype == torch.float32 for g in got)
+
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    want = torch.autograd.grad(flash_prefill_plain(*leaves, **kw), leaves, dot)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL)
+
+    def ref(q_, k_, v_):
+        return ref_layers._flash_attention_ref(q_, k_, v_, causal=causal, window=window,
+                                               prefix_len=prefix_len, n_heads=H,
+                                               n_kv=Hkv)
+    out, vjp = jax.vjp(ref, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(o.transpose(1, 2).reshape(B, S, H * D).numpy(),
+                               np.asarray(out), atol=TOL, rtol=TOL)
+    jq, jk, jv = vjp(jnp.asarray(do.reshape(B, S, H * D)))
+    for g, w in zip(got, (jq, jk, jv)):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), np.asarray(w),
+                                   atol=TOL, rtol=TOL)
+
+
+def test_backward_keeps_the_input_dtype():
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2).to(torch.bfloat16)
+                   for a in _inputs(1, 4, 2, 20, 20, 64, seed=1))
+    o = flash_prefill_plain(q, k, v)
+    dq, dk, dv = flash_prefill_backward(q, k, v, o, do)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert flash_prefill_backward.launches == 0     # nothing launched on the CPU
+
+
+def test_a_call_with_a_gradient_goes_through_the_autograd_function():
+    """On inputs that require a gradient ``flash_prefill`` returns
+    ``FlashPrefill``'s output, whose backward is ``flash_prefill_backward``
+    (here its plain version); under ``no_grad`` or without such inputs, the
+    bare forward. A gradient through cached rows is refused."""
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2)
+                   for a in _inputs(1, 4, 2, 20, 20, 64, seed=2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_prefill(*leaves, window=5)
+    assert type(out.grad_fn).__name__ == FlashPrefill.__name__ + "Backward"
+    got = torch.autograd.grad(out, leaves, do)
+    o = flash_prefill_plain(q, k, v, window=5)
+    want = flash_prefill_backward_plain(q, k, v, o, do, window=5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    with torch.no_grad():
+        assert flash_prefill(*leaves).grad_fn is None
+    assert flash_prefill(q, k, v).grad_fn is None
+    with pytest.raises(ValueError, match="cached rows"):
+        flash_prefill(leaves[0][:, :, 10:], *leaves[1:], q_offset=10)
+
+
+@pytest.mark.parametrize("kernel, n_inputs", [("ssd_scan", 6), ("paged_attention", 3)])
+def test_kernels_without_a_backward_refuse_a_gradient(kernel, n_inputs):
+    """The condition under which the CUDA branch of ``ssd_scan`` and
+    ``paged_attention`` raises (``_grad.refuse_grad``, called there with
+    their float inputs): grad mode on and some input requiring a gradient.
+    Under ``no_grad``, or with no such input, it lets the launch go."""
+    inputs = [torch.zeros(3) for _ in range(n_inputs)]
+    _grad.refuse_grad(kernel, *inputs)
+    if kernel == "ssd_scan":
+        inputs[-1] = None                            # no initial state
+        _grad.refuse_grad(kernel, *inputs)
+    inputs[1] = torch.zeros(3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match=f"{kernel}: no backward.*item 7b"):
+        _grad.refuse_grad(kernel, *inputs)
+    with torch.no_grad():
+        _grad.refuse_grad(kernel, *inputs)
+    assert _grad.wants_grad(*inputs) and not _grad.wants_grad(torch.zeros(1), None)

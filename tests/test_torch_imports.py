@@ -58,7 +58,7 @@ def test_every_module_imports_without_gpu_or_triton():
 def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import _build
     assert set(_build.KERNEL_SOURCES) == {"paged_attention", "flash_prefill",
-                                          "ssd_scan"}
+                                          "flash_prefill_bwd", "ssd_scan"}
     for name in _build.KERNEL_SOURCES:
         text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch' in text
@@ -103,21 +103,22 @@ def test_cuda_tensor_path_never_falls_back_to_plain():
 
 
 def test_unported_configs_and_families_raise():
-    """whisper-base and the audio family are what is left to port; the moe
-    and hybrid architectures build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-base")
+    """Every architecture and family of the reference is ported: whisper-base
+    and the audio family build, cross-attention (``kv_x``) runs, and an
+    unknown architecture or family raises."""
+    assert get_config("whisper-base").arch_type == "audio"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_smoke_config("llama-8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.with_(arch_type="audio"))
+    with pytest.raises(KeyError):
+        Model(cfg.with_(arch_type="no-such-family"))
     for arch, family in (("qwen2-moe-a2.7b", "moe"), ("deepseek-moe-16b", "moe"),
-                         ("zamba2-2.7b", "hybrid")):
+                         ("zamba2-2.7b", "hybrid"), ("whisper-base", "audio")):
         for c in (get_config(arch), get_smoke_config(arch)):
             assert Model(c).cfg.arch_type == family
     from repro_torch.models import layers
-    x = torch.zeros((1, 4, cfg.d_model))
-    p = {}
-    with pytest.raises(NotImplementedError, match="cross"):
-        layers.attention_forward(cfg, p, x, kv_x=x)
+    gen = torch.Generator().manual_seed(0)
+    p = layers.init_attention(cfg, gen, torch.float32, "cpu")
+    x, enc = torch.zeros((1, 4, cfg.d_model)), torch.ones((1, 9, cfg.d_model))
+    assert layers.attention_forward(cfg, p, x, kv_x=enc, causal=False,
+                                    use_rope=False).shape == x.shape
