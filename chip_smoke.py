@@ -26,8 +26,10 @@ full width in float32 through ``repro_torch.launch.train``'s loop (the
 ``train`` phase: first one step card against CPU at the smoke size), each
 path with the kernels' launch counters set to 0 just before it and read
 just after. The attention gradient runs through the hand-written
-``flash_prefill`` backward kernel, held against its plain version in the
-``kernels`` phase.
+``flash_prefill`` backward kernels (bf16 on ``wgmma`` + TMA, float32 on
+FMAs), given the log-sum-exp that the forward's LSE instance saved, and is
+held against its plain version in the ``kernels`` phase, directly and
+through ``FlashPrefill`` under autograd.
 Every engine on the card replays its decode step as a CUDA graph captured
 when it was built; the ``graph`` phase holds one replay against one eager
 ``model.decode_step`` from the same pool state at full width, bit for bit,
@@ -51,7 +53,8 @@ final ``ok`` line is printed only when every phase ran.
 
 ``--ab OTHER/src`` instead times the three serving kernels of another tree's port
 (for example the parent commit's, unpacked with ``git archive``) and of this
-checkout's at the serving path's shapes, in turns (other, this, this,
+checkout's at the serving path's shapes, and the attention's gradient at
+whisper-base's encoder and olmo-1b's training shape, in turns (other, this, this,
 other), each turn in its own process with the kernels built from that
 tree's sources, and prints one ``ab`` JSON line per (tree, turn, case), so
 that two versions are compared on one card within one call.
@@ -61,6 +64,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import re
@@ -89,8 +93,8 @@ import repro_torch.kernels.paged_attention as paged_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
-    attention_mask, flash_prefill, flash_prefill_backward, flash_prefill_backward_plain,
-    flash_prefill_plain)
+    _forward as _flash_forward, attention_mask, flash_prefill, flash_prefill_backward,
+    flash_prefill_backward_plain, flash_prefill_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
@@ -168,6 +172,7 @@ def zero_counts() -> None:
     """Every launch counter of every kernel wrapper set to 0."""
     decode_graph.add_counts([-c for c in decode_graph.read_counts()])
     flash_prefill_backward.launches = 0
+    flash_prefill.lse_launches = 0
 
 
 def emit(phase: str, **fields) -> None:
@@ -360,12 +365,12 @@ def ptxas_usage(text: str) -> list:
 # the masked instance, its config having a window; the SSD scan at N 64) and
 # whisper-base (D 64 at group 1: its encoder, cross and causal prefills, its
 # decoder's self and cross attention)
-SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0>",
-                     "flash_prefill_kernel_wgmma<64, 0>",
-                     "flash_prefill_kernel_wgmma<96, 0>",
-                     "flash_prefill_kernel_wgmma<128, 1>",
-                     "flash_prefill_kernel_wgmma<80, 0>",
-                     "flash_prefill_kernel_wgmma<80, 1>",
+SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0, 0>",
+                     "flash_prefill_kernel_wgmma<64, 0, 0>",
+                     "flash_prefill_kernel_wgmma<96, 0, 0>",
+                     "flash_prefill_kernel_wgmma<128, 1, 0>",
+                     "flash_prefill_kernel_wgmma<80, 0, 0>",
+                     "flash_prefill_kernel_wgmma<80, 1, 0>",
                      "paged_attention_kernel<__nv_bfloat16, 128, 4, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 96, 1, 8>",
                      "paged_attention_kernel<__nv_bfloat16, 80, 1, 8>",
@@ -377,40 +382,47 @@ SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0>",
                      "ssd_scan_kernel_wgmma<64>")
 
 
-# the backward's instantiations on the training path (olmo-1b: D 128, float32),
-# which must not spill either
-TRAINING_INSTANCES = ("flash_prefill_bwd_rowstats<128, float>",
-                      "flash_prefill_bwd_dkdv<128, float>",
-                      "flash_prefill_bwd_dq<128, float>")
+# the instantiations on the training path (olmo-1b: D 128, float32): the
+# forward that writes the log-sum-exp and the backward's two kernels
+TRAINING_INSTANCES = ("flash_prefill_kernel_fma<128, 1>",
+                      "flash_prefill_bwd_dq_fma<128>",
+                      "flash_prefill_bwd_dkdv_fma<128>")
+# the backward's bf16 tensor-core instantiations: every head_dim, with and
+# without the general mask
+BACKWARD_WGMMA_INSTANCES = tuple(
+    f"flash_prefill_bwd_{k}_wgmma<{d}, {m}>"
+    for k in ("dq", "dkdv") for d in (64, 80, 96, 128) for m in (0, 1))
 
 
 def phase_build() -> None:
+    """Builds every kernel source with ``-Xptxas=-v``; fails if a listed
+    serving, training or backward instantiation is missing or if any
+    instantiation of the two ``flash_prefill`` sources spills."""
     t0 = time.monotonic()
     out = _build.build_all(extra_flags=("-Xptxas=-v",))
     usage = {}
-    serving = {}
+    found = {}
     for name, text in out.items():
         kernels = ptxas_usage(text)
         usage[name] = {
             "max_registers": max((k["registers"] or 0 for k in kernels), default=None),
             "kernels": len(kernels),
             "spilling": [k for k in kernels if k["spill_stores"] or k["spill_loads"]]}
-        serving.update({k["kernel"]: k for k in kernels
-                        if k["kernel"] in SERVING_INSTANCES})
-    training = {k["kernel"]: k for k in ptxas_usage(out["flash_prefill_bwd"])
-                if k["kernel"] in TRAINING_INSTANCES}
+        found.update({k["kernel"]: k for k in kernels})
+    listed = {"serving": SERVING_INSTANCES, "training": TRAINING_INSTANCES,
+              "backward_wgmma": BACKWARD_WGMMA_INSTANCES}
     emit("build", seconds=round(time.monotonic() - t0, 2),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=usage,
-         serving_instances=list(serving.values()),
-         training_instances=list(training.values()))
-    for inst in TRAINING_INSTANCES:
-        k = training.get(inst)
-        if k is None or k["spill_stores"] or k["spill_loads"]:
-            fail(f"build: training instantiation {inst} missing or spilling: {k}")
-    for inst in SERVING_INSTANCES:
-        k = serving.get(inst)
-        if k is None or k["spill_stores"] or k["spill_loads"]:
-            fail(f"build: serving instantiation {inst} missing or spilling: {k}")
+         **{f"{kind}_instances": [found.get(i) for i in insts]
+            for kind, insts in listed.items()})
+    for kind, insts in listed.items():
+        for inst in insts:
+            k = found.get(inst)
+            if k is None or k["spill_stores"] or k["spill_loads"]:
+                fail(f"build: {kind} instantiation {inst} missing or spilling: {k}")
+    for name in ("flash_prefill", "flash_prefill_bwd"):
+        if usage[name]["spilling"]:
+            fail(f"build: {name} instantiations spill: {usage[name]['spilling']}")
 
 
 def _paged_case(gen, dtype, B, n_kv, group, D, lengths, pages_per_seq, copies=1):
@@ -584,49 +596,129 @@ def _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset=0, causal=True, window=0,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def _flash_bwd_timed(gen, F, dtype, B, H, Hkv, D, S, T, causal, case,
-                     of_max=None) -> dict:
-    """One timed ``flash_prefill_backward`` case against
+# the log-sum-exp the forward writes for the backward, kernel against
+# ``flash_prefill_plain(return_lse=True)``: natural-log values of order
+# log(T) + a few, in float32 sums of other orders (bf16 inputs are the same
+# bf16 values on both sides)
+LSE_TOL = 1e-3
+
+
+def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
+                    prefix_len=0, of_max=None, timed=False) -> dict | None:
+    """One ``flash_prefill_backward`` case against
     ``flash_prefill_backward_plain`` on the same q, k, v, forward output and
-    output gradient; returns its record for the kernels line (without the
-    launch count). Bound: the bytes of q, k, v, o, dO, dQ, dK and dV, and
-    2.5 times the forward's operations (Q K^T again, dP = dO V^T, dV, dQ and
-    dK: five products of the forward's two). Yardstick: the backward of
-    ``scaled_dot_product_attention`` alone (its forward run once before,
-    K/V expanded to the query heads outside the timed graph)."""
+    output gradient, with the log-sum-exp that the forward's LSE instance
+    wrote (itself held against the plain version's), and once without it
+    (the wrapper then launches that instance itself), and through
+    ``FlashPrefill`` under autograd (whose backward runs on the autograd
+    engine's device thread), each bit for bit with the first. ``timed``: also its
+    times; returns its record for the kernels line (without the launch
+    count). Bound: the bytes of q, k, v, o, dO, dQ, dK, dV and the
+    log-sum-exp, and 2.5 times the forward's operations (dV, dP, dQ, dK and
+    S again: five products of the forward's two; the kernels do seven, S
+    and dP twice, for want of atomics). Yardstick: the backward of
+    ``scaled_dot_product_attention`` alone (its forward run once before, K/V
+    expanded to the query heads outside the timed graph; a boolean mask for
+    a window or a prefix)."""
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     qt, kt, vt = _flash_inputs(gen, dtype, B, S, T, H, Hkv, D)
     do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    o = flash_prefill(qt, kt, vt, causal=causal)
-    got = flash_prefill_backward(qt, kt, vt, o, do, causal=causal)
+    before = flash_prefill.lse_launches
+    o, lse = _flash_forward(qt, kt, vt, q_offset=0, with_lse=True, **kw)
+    got = flash_prefill_backward(qt, kt, vt, o, do, lse=lse, **kw)
+    again = flash_prefill_backward(qt, kt, vt, o, do, **kw)
     torch.cuda.synchronize()
-    want = flash_prefill_backward_plain(qt, kt, vt, o, do, causal=causal)
-    err = max(check_close(f"flash_prefill_backward {dtype} {case} {name}", g, w, dtype,
-                          of_max=of_max)
+    if flash_prefill.lse_launches - before != 2:
+        fail(f"flash_prefill_backward {case}: {flash_prefill.lse_launches - before} "
+             "forward launches wrote the log-sum-exp, not 2")
+    o, lse = o.detach(), lse.detach()
+    label = f"flash_prefill_backward {dtype} {case}"
+    _, lse_want = flash_prefill_plain(qt, kt, vt, return_lse=True, **kw)
+    lse_err = (lse - lse_want).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        fail(f"{label}: the forward's log-sum-exp is off by {lse_err:.3e}")
+    want = flash_prefill_backward_plain(qt, kt, vt, o, do, **kw)
+    err = max(check_close(f"{label} {name}", g, w, dtype, of_max=of_max)
               for name, g, w in zip(("dq", "dk", "dv"), got, want))
-    ms = device_ms(lambda: flash_prefill_backward(qt, kt, vt, o, do, causal=causal))
-    call_ms = time_ms(lambda: flash_prefill_backward(qt, kt, vt, o, do, causal=causal))
-    plain_ms = device_ms(lambda: flash_prefill_backward_plain(qt, kt, vt, o, do,
-                                                              causal=causal),
+    leaves = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
+    with torch.enable_grad():
+        through = torch.autograd.grad(flash_prefill(*leaves, **kw), leaves, do)
+    for route, grads in (("the call without lse", again), ("FlashPrefill", through)):
+        for name, g, w in zip(("dq", "dk", "dv"), grads, got):
+            if not torch.equal(g, w):
+                fail(f"{label} {name}: {route} differs from the call given lse")
+    # the kernels a call given lse launches, by the profiler's names: the
+    # dtype's two, the general-mask instances for a window or a prefix
+    iters = 20 if timed else 1
+    rows = _kernel_rows(lambda: flash_prefill_backward(qt, kt, vt, o, do, lse=lse, **kw),
+                        iters)
+    instances = {_instance(e.key): e.count / iters for e in rows}
+    if dtype == torch.bfloat16:
+        masks = int(causal and (window > 0 or prefix_len > 0))
+        want = {f"flash_prefill_bwd_{k}_wgmma<{D}, {masks}>": 1 for k in ("dq", "dkdv")}
+    else:
+        want = {f"flash_prefill_bwd_{k}_fma<{D}>": 1 for k in ("dq", "dkdv")}
+    if instances != want:
+        fail(f"{label}: a call launched {instances}, want {want}")
+    shape = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=T, causal=causal, window=window,
+                 prefix_len=prefix_len)
+    route = "wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA"
+    if not timed:
+        emit("kernels", kernel="flash_prefill_backward", dtype=str(dtype), case=case,
+             route=route, kernel_instances=instances, shape=shape, tolerance=TOL[dtype],
+             tolerance_of_max=of_max, max_abs_err=err, lse_max_abs_err=lse_err)
+        return None
+    ms = sum(_device_us(e) for e in rows) / iters / 1e3
+    call_ms = time_ms(lambda: flash_prefill_backward(qt, kt, vt, o, do, lse=lse, **kw))
+    plain_ms = device_ms(lambda: flash_prefill_backward_plain(qt, kt, vt, o, do, **kw),
                          iters=5, warmup=1)
+    mask = attention_mask(S, T, window=window, prefix_len=prefix_len,
+                          device="cuda") if causal else None
     lq = qt.detach().clone().requires_grad_(True)
     lk = kt.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     lv = vt.repeat_interleave(H // Hkv, dim=1).detach().requires_grad_(True)
     with torch.enable_grad():
-        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        if window or prefix_len:
+            lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        else:
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
     library_ms = device_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
                                                        retain_graph=True))
-    seen = int(attention_mask(S, T, device="cuda").sum()) if causal else S * T
+    seen = int(mask.sum()) if causal else S * T
     es = qt.element_size()
-    b_ms, b_by = bound((4 * qt.numel() + 4 * kt.numel()) * es,
+    b_ms, b_by = bound((4 * qt.numel() + 4 * kt.numel()) * es + 4 * B * H * S,
                        2.5 * 4.0 * B * H * D * seen, dtype)
     emit("kernels", kernel="flash_prefill_backward", dtype=str(dtype), case=case,
-         route="fp32 FMA (bf16 widened as staged)",
-         shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=T, causal=causal),
-         tolerance=TOL[dtype], tolerance_of_max=of_max, max_abs_err=err, time_ms=ms, call_ms=call_ms,
+         route=route, kernel_instances=instances, shape=shape, tolerance=TOL[dtype],
+         tolerance_of_max=of_max, max_abs_err=err, lse_max_abs_err=lse_err, time_ms=ms,
+         call_ms=call_ms,
          bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
     return {"name": "flash_prefill_backward", **KERNEL_INFO["flash_prefill_backward"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> None:
+    """The forward's LSE instance (the one ``FlashPrefill`` launches) at a
+    training shape (causal, no GQA), beside the instance without the
+    log-sum-exp, the plain version asked for it, and SDPA's forward. Bound:
+    the bytes of q, k, v, o and the log-sum-exp, and the forward's
+    operations."""
+    qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, H, D)
+    ms = device_ms(lambda: _flash_forward(qt, kt, vt, causal=True, q_offset=0, window=0,
+                                          prefix_len=0, with_lse=True))
+    without = device_ms(lambda: flash_prefill(qt, kt, vt))
+    plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, return_lse=True),
+                         iters=5, warmup=1)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    seen = int(attention_mask(S, S, device="cuda").sum())
+    b_ms, b_by = bound(4 * qt.numel() * qt.element_size() + 4 * B * H * S,
+                       4.0 * B * H * D * seen, dtype)
+    emit("kernels", kernel="flash_prefill", dtype=str(dtype),
+         case="training shape, with the log-sum-exp (LSE instance)",
+         shape=dict(B=B, H=H, Hkv=H, D=D, S=S, T=S, causal=True), time_ms=ms,
+         time_ms_without_lse=without, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+         library_ms=library_ms)
 
 
 def _paged_from_manager(gen) -> None:
@@ -811,15 +903,29 @@ def phase_kernels(gen) -> dict:
                          of_max=OF_MAX_TOL)
 
     # the backward: olmo-1b's training shape (B 8, H 16, D 128, S 128,
-    # causal) and whisper-base's encoder (full, S = T = 1500)
+    # causal) and whisper-base's encoder (full, S = T = 1500, a ragged last
+    # tile of 28 rows) timed; then head_dim 80 and 96, a window and a prefix
+    # of 256, GQA groups 4 and 7, a ragged S of 337, full attention with
+    # S != T and a batch of two, held against the plain version
+    bwd_cases = [  # (case, B, H, Hkv, D, S, T, causal, window, prefix_len, of_max)
+        ("olmo-1b training", 8, 16, 16, 128, 128, 128, True, 0, 0, None),
+        ("whisper-base encoder, full", 1, 8, 8, 64, 1500, 1500, False, 0, 0, OF_MAX_TOL),
+        ("D=80", 1, 32, 32, 80, 341, 341, True, 0, 0, None),
+        ("D=96", 1, 32, 32, 96, 341, 341, True, 0, 0, None),
+        ("window 256", 1, 32, 8, 128, 682, 682, True, 256, 0, None),
+        ("prefix 256", 1, 16, 8, 128, 597, 597, True, 0, 256, None),
+        ("group 4", 1, 32, 8, 128, 341, 341, True, 0, 0, None),
+        ("group 7", 1, 56, 8, 128, 341, 341, True, 0, 0, None),
+        ("ragged S=337", 1, 16, 16, 128, 337, 337, True, 0, 0, None),
+        ("full, S=337, T=1500", 1, 8, 8, 64, 337, 1500, False, 0, 0, OF_MAX_TOL),
+        ("batch 2, group 2", 2, 4, 2, 64, 75, 75, True, 0, 0, None),
+    ]
     for dtype in (torch.float32, torch.bfloat16):
-        for case, B_, H_, D_, S, causal, of_max in (
-                ("olmo-1b training", 8, 16, 128, 128, True, None),
-                ("whisper-base encoder, full", 1, 8, 64, 1500, False, OF_MAX_TOL)):
-            rec = _flash_bwd_timed(gen, F, dtype, B_, H_, H_, D_, S, S, causal, case,
-                                   of_max)
-            if dtype == torch.float32 and case == "olmo-1b training":
+        for i, (case, *shape, of_max) in enumerate(bwd_cases):
+            rec = _flash_bwd_case(gen, F, dtype, case, *shape, of_max=of_max, timed=i < 2)
+            if dtype == torch.float32 and i == 0:
                 records["flash_prefill_backward"] = rec
+        _flash_lse_timed(gen, F, dtype, 8, 16, 128, 128)
 
     # narrow head_dim, a ragged prompt and a batch of two
     for dtype in (torch.bfloat16, torch.float32):
@@ -1552,10 +1658,10 @@ def _serve_path(smi: str, arch: str):
     # the instances a prefill of this path launches: zamba2's through the
     # masked D = 80 one (its config has a window) and the SSD scan at N 64
     want_instances = {
-        "zamba2-2.7b": {"flash_prefill_kernel_wgmma<80, 1>": attention_layers(cfg),
+        "zamba2-2.7b": {"flash_prefill_kernel_wgmma<80, 1, 0>": attention_layers(cfg),
                         "ssd_scan_kernel_wgmma<64>": cfg.n_layers},
         "mamba2-1.3b": {"ssd_scan_kernel_wgmma<128>": cfg.n_layers},
-        "whisper-base": {"flash_prefill_kernel_wgmma<64, 0>": prefill_attention_calls(cfg)},
+        "whisper-base": {"flash_prefill_kernel_wgmma<64, 0, 0>": prefill_attention_calls(cfg)},
     }.get(arch, {})
     for inst, n in want_instances.items():
         seen = share["prefill_own_instance_launches"].get(inst)
@@ -2107,7 +2213,9 @@ def _train_parity() -> dict:
     to head_dim 64 (the kernels' widths), on the card and on the CPU from
     the same parameters and batch: loss and gradient norm within
     ``TRAIN_TOL``. The card's step launches ``flash_prefill`` twice a layer
-    (remat runs each forward again) and its backward once a layer."""
+    (remat runs each forward again), each writing the log-sum-exp (both run
+    through ``FlashPrefill``; the backward takes the second's), and its
+    backward once a layer."""
     cfg = get_smoke_config("olmo-1b").with_(head_dim=64)
     model = Model(cfg)
     params_cpu = model.init(torch.Generator().manual_seed(6), dtype=torch.float32,
@@ -2121,8 +2229,11 @@ def _train_parity() -> dict:
                            {k: v.cuda() for k, v in batch_cpu.items()})
     torch.cuda.synchronize()
     counts = {"flash_prefill": flash_prefill.launches,
+              "flash_prefill.lse_launches": flash_prefill.lse_launches,
               "flash_prefill_backward": flash_prefill_backward.launches}
-    want = {"flash_prefill": 2 * cfg.n_layers, "flash_prefill_backward": cfg.n_layers}
+    want = {"flash_prefill": 2 * cfg.n_layers,
+            "flash_prefill.lse_launches": 2 * cfg.n_layers,
+            "flash_prefill_backward": cfg.n_layers}
     if counts != want:
         fail(f"train parity: launches {counts}, a step implies {want}")
     loss = (float(m_gpu["loss"]), float(m_cpu["loss"]))
@@ -2179,8 +2290,12 @@ def _train_width_parity() -> dict:
                                          {k: v.cuda() for k, v in batch_cpu.items()})
     torch.cuda.synchronize()
     counts = {"flash_prefill": flash_prefill.launches,
+              "flash_prefill.lse_launches": flash_prefill.lse_launches,
               "flash_prefill_backward": flash_prefill_backward.launches}
-    want = {"flash_prefill": cfg.n_layers, "flash_prefill_backward": cfg.n_layers}
+    # no remat: one forward a layer, which writes the log-sum-exp that the
+    # layer's backward takes
+    want = {"flash_prefill": cfg.n_layers, "flash_prefill.lse_launches": cfg.n_layers,
+            "flash_prefill_backward": cfg.n_layers}
     if counts != want:
         fail(f"train width parity: launches {counts}, a loss and its gradient imply {want}")
     norms_gpu = _leaf_grad_norms(names, grads_gpu)
@@ -2214,8 +2329,11 @@ def _train_full(smi: str) -> dict:
     set to 0 just before and read just after. Fails unless the loss falls,
     every loss and
     gradient norm is finite, and every step launches the backward kernel
-    once a layer and the forward kernel twice a layer. Then two more steps
-    are profiled for their device-busy time and timed on the wall clock."""
+    once a layer and the forward kernel twice a layer, every forward launch
+    writing the log-sum-exp. Then two more steps are profiled for their
+    device-busy time and timed on the wall clock; the profile must show the
+    backward's two FMA kernels once a layer each and no other backward
+    kernel (no row-statistics pass)."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("olmo-1b")
@@ -2236,6 +2354,7 @@ def _train_full(smi: str) -> dict:
     total_s = time.monotonic() - t0
     launches = {"flash_prefill_backward": flash_prefill_backward.launches,
                 "flash_prefill": flash_prefill.launches,
+                "flash_prefill.lse_launches": flash_prefill.lse_launches,
                 "tensor_core_launches": flash_prefill.tensor_core_launches,
                 "paged_attention": paged_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2248,6 +2367,9 @@ def _train_full(smi: str) -> dict:
             len(per_step) != steps:
         fail(f"train olmo-1b: launches a step (backward, forward) {per_step}, want "
              f"[{cfg.n_layers}, {2 * cfg.n_layers}] each")
+    if launches["flash_prefill.lse_launches"] != launches["flash_prefill"]:
+        fail(f"train olmo-1b: of {launches['flash_prefill']} forward launches "
+             f"{launches['flash_prefill.lse_launches']} wrote the log-sum-exp")
     # device-busy time of a step, then its wall time, on a fixed batch
     state = [res["params"], res["opt_state"]]
     batch = synthetic_lm_batch(np.random.default_rng(1), res["model"], B, S)
@@ -2259,6 +2381,12 @@ def _train_full(smi: str) -> dict:
 
     one()
     prof = _profiled(one, 2)
+    backward = {k: n for k, n in prof["own_kernel_launches"].items()
+                if k.startswith("flash_prefill_bwd")}
+    want = {"flash_prefill_bwd_dq_fma": cfg.n_layers, "flash_prefill_bwd_dkdv_fma": cfg.n_layers}
+    if backward != want:
+        fail(f"train olmo-1b: a profiled step launched the backward kernels {backward}, "
+             f"want {want}")
     wall_ms = _wall_ms(one, 3)
     step_ms = [t * 1e3 for t in res["step_s"]]
     steady = float(np.median(step_ms[1:]))
@@ -2273,6 +2401,7 @@ def _train_full(smi: str) -> dict:
            "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": prof["device_ms"],
            "device_idle_share": 1.0 - prof["device_ms"] / wall_ms,
            "step_launches": prof["launches"], "own_kernels_ms": prof["own_kernels_ms"],
+           "backward_kernel_launches_per_step": backward,
            "top_device_ms": prof["top_ms"]}
     emit("train", gpu=smi, **out)
     del state, res
@@ -2294,6 +2423,7 @@ def _train_lr_witness() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         before = flash_prefill.launches + flash_prefill_backward.launches
+        lse_before, bwd_before = flash_prefill.lse_launches, flash_prefill_backward.launches
         if route == "plain attention":
             ops.flash_prefill = flash_prefill_plain
         try:
@@ -2304,6 +2434,11 @@ def _train_lr_witness() -> dict:
         launched = flash_prefill.launches + flash_prefill_backward.launches - before
         if (route == "plain attention") != (launched == 0):
             fail(f"train witness: the {route} run launched {launched} attention kernels")
+        if route == "kernels" and flash_prefill.lse_launches - lse_before != \
+                flash_prefill_backward.launches - bwd_before:
+            fail("train witness: the forward launches that wrote the log-sum-exp "
+                 f"({flash_prefill.lse_launches - lse_before}) are not the backward's "
+                 f"calls ({flash_prefill_backward.launches - bwd_before})")
         losses[route] = res["losses"]
         del res
     if not all(np.isfinite(v).all() for v in losses.values()):
@@ -2339,8 +2474,10 @@ def phase_train(smi: str) -> dict:
 def ab_turn(src: str, turn: int) -> None:
     """One ``--ab`` turn: device and event times of the kernels of the port
     this process imported (``src``), built from that tree's sources, at the
-    serving path's shapes in bf16, on the same inputs in every turn. Uses only
-    the wrappers' signatures, which every slice of the port keeps."""
+    serving path's shapes in bf16, and the attention's gradient at the
+    backward's three shapes, on the same inputs in every turn. Uses only the
+    wrappers' signatures, which every slice of the port keeps (a backward
+    that takes the forward's log-sum-exp is also timed given it)."""
     _build.build_all()
     dev, bf16 = "cuda", torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -2378,6 +2515,34 @@ def ab_turn(src: str, turn: int) -> None:
             x, dt, Bm, Cm = sets[rot[0]]
             ssd_scan(x, dt, A, Bm, Cm, chunk=256)
         emit_ab("ssd_scan", f"s={s}", ssd)
+
+    # the backward called directly (a tree whose backward takes the
+    # log-sum-exp launches the forward for it first), given the saved
+    # log-sum-exp where it takes one, and forward plus backward through
+    # ``FlashPrefill`` under autograd
+    takes_lse = "lse" in inspect.signature(flash_prefill_backward).parameters
+    for dtype, case, B, H, D, S, causal in (
+            (bf16, "whisper-base encoder, full", 1, 8, 64, 1500, False),
+            (bf16, "olmo-1b training", 8, 16, 128, 128, True),
+            (torch.float32, "olmo-1b training", 8, 16, 128, 128, True)):
+        gen.manual_seed(4)
+        qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, H, D)
+        do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        o = flash_prefill(qt, kt, vt, causal=causal)
+        label = f"{case}, {str(dtype).removeprefix('torch.')}"
+        emit_ab("flash_prefill_backward", label,
+                lambda: flash_prefill_backward(qt, kt, vt, o, do, causal=causal))
+        if takes_lse:
+            _, lse = _flash_forward(qt, kt, vt, causal=causal, q_offset=0, window=0,
+                                    prefix_len=0, with_lse=True)
+            emit_ab("flash_prefill_backward", f"{label}, given lse",
+                    lambda: flash_prefill_backward(qt, kt, vt, o, do, causal=causal, lse=lse))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                torch.autograd.grad(flash_prefill(*leaves, causal=causal), leaves, do)
+        emit_ab("FlashPrefill forward + backward", label, fwd_bwd)
 
 
 def ab(other_src: str) -> None:

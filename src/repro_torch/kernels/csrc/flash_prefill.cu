@@ -79,6 +79,12 @@
 // during step i+1's softmax with K and V on separate barriers (FA3's
 // intra-warpgroup overlap), and masking only the tiles on the diagonal.
 //
+// The log-sum-exp for the backward: given an lse buffer, each kernel also
+// writes every real row's m + log(l) (natural log of the scaled scores; the
+// bf16 kernel converts its base-2 m). It is a template flag (LSE), as MASKS
+// is, so the serving instances (LSE = 0) compile as they did: no store, no
+// register for it. Training's forward (FlashPrefill) launches LSE = 1.
+//
 // Plain C interface: flash_prefill_launch() launches the kernel that its
 // is_bf16 argument names and returns cudaGetLastError().
 
@@ -87,7 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_mask.cuh"   // visible() and kv_range(), shared with the backward
+#include "flash_hopper.cuh"   // TMA, mbarriers, wgmma; shared with the backward
+#include "flash_mask.cuh"     // visible() and kv_range(), shared with the backward
 
 namespace {
 
@@ -123,11 +130,15 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src, int64_t
 }
 
 // grid (ceil(S / 64), H, B). Query row i sits at absolute position
-// q_offset + i and, when causal, sees KV rows 0 .. q_offset + i.
-template <int D>
-__global__ void __launch_bounds__(kFmaThreads)
+// q_offset + i and, when causal, sees KV rows 0 .. q_offset + i. LSE = 1:
+// also writes each row's log-sum-exp of its scaled, masked scores into lse
+// (B, H, S) for the backward; LSE = 0 leaves lse unread. One block an SM at
+// least (`, 1`): without it ptxas held D = 128 to 128 registers and spilled.
+template <int D, int LSE>
+__global__ void __launch_bounds__(kFmaThreads, 1)
 flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, int Hkv,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int Hkv,
                          int S, int Tkv, int q_offset, int causal, int window,
                          int prefix_len, Strides st, float scale) {
   constexpr int DP = D + kPad;            // padded row of Q/K/V tiles
@@ -281,147 +292,41 @@ flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
     for (int r = 0; r < REM; ++r)
       ob[row * st.o_s + 64 * NC + REM * tx + r] = acc[i][4 * NC + r] * inv;
+    if (LSE && tx == 0)
+      lse[(static_cast<int64_t>(b) * gridDim.y + h) * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
-template <int D>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-                       int H, int Hkv, int S, int Tkv, int q_offset, int causal,
-                       int window, int prefix_len, const Strides& st, float scale,
-                       cudaStream_t stream) {
+template <int D, int LSE>
+cudaError_t launch_fma_as(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int H, int Hkv, int S, int Tkv, int q_offset, int causal,
+                          int window, int prefix_len, const Strides& st, float scale,
+                          cudaStream_t stream) {
   constexpr size_t smem =
       sizeof(float) * (3 * 64 * (D + kPad) + kBQ * (kBK + kPad));
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_fma<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_fma<D, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_prefill_kernel_fma<D><<<grid, kFmaThreads, smem, stream>>>(
+  flash_prefill_kernel_fma<D, LSE><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hkv, S, Tkv, q_offset,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hkv, S, Tkv, q_offset,
       causal, window, prefix_len, st, scale);
   return cudaGetLastError();
 }
 
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int H, int Hkv, int S, int Tkv, int q_offset, int causal, int window,
+               int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
+  return static_cast<int>((lse ? launch_fma_as<D, 1> : launch_fma_as<D, 0>)(
+      q, k, v, o, lse, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale,
+      stream));
+}
+
 // ============================================================ bf16, wgmma
 constexpr int kWgThreads = 160;   // one consumer warpgroup + one producer warp
-constexpr int kBox = 64 * 64 * 2; // bytes of one 64-row x 64-column bf16 box
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-// Returns once the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 64 x 64 box of a 4-D (D, rows, heads, batch) tensor map into shared
-// memory, completed on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand whose groups
-// of 8 rows of 128 bytes lie 1024 bytes apart: K-major (Q, K) or, with the
-// transpose bit, MN-major (V). The leading offset is unused for both.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;             // leading byte offset (unused)
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;     // stride byte offset
-  d |= static_cast<uint64_t>(1) << 62;             // layout: 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving register reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define REPRO_WG_D32                                                                 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
-      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-      "+f"(d[30]), "+f"(d[31])
-#define REPRO_WG_REGS32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64, fp32) = or += A (64 x 16) B (16 x 64), both K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_WG_D32
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 in registers) B (16 x 64), B MN-major
-// in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : REPRO_WG_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef REPRO_WG_D32
-#undef REPRO_WG_REGS32
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // grid (H, ceil(S / 64), B), 160 threads: the blocks of the longest tiles
 // (the last rows, which see the most KV tiles) come first in launch order and
@@ -431,13 +336,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // A row is D columns in ceil(D / 64) boxes of 64. Accumulator fragment of
 // thread (warp w, lane l): register j holds row 16 w + l/4 + 8 ((j/2) % 2),
 // column 8 (j/4) + 2 (l%4) + j%2. MASKS = 0: causal or full attention only
-// (window and prefix_len 0); 1: the general mask of `visible`.
-template <int D, int MASKS>
+// (window and prefix_len 0); 1: the general mask of `visible`. LSE = 1: also
+// each row's log-sum-exp into lse (B, H, S), as the FMA kernel's.
+template <int D, int MASKS, int LSE>
 __global__ void __launch_bounds__(kWgThreads, 2)
 flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           __nv_bfloat16* __restrict__ o, int Hkv, int S, int Tkv,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                           int Hkv, int S, int Tkv,
                            int q_offset, int causal, int window, int prefix_len,
                            int64_t o_b, int64_t o_h, int64_t o_s, float scale_log2) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
@@ -530,7 +437,7 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       wgmma_ss(s, sw128_desc(q_s + off), sw128_desc(k_s + st * kTile + off), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // mask, then the online-softmax update in base 2; a row's 64 scores sit
@@ -574,10 +481,7 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // the accumulator fragment of columns 16 kk .. 16 kk + 15 is the A
     // fragment of step kk
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    to_a_frags(s, pa);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
@@ -593,7 +497,7 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs(acc[nb], pa[kk], sw128_desc(v_s + st * kTile + nb * kBox + kk * 2048));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
     mbar_arrive(bar_empty + 8 * st);      // this stage may be loaded again
@@ -606,6 +510,14 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const int row0 = q0 + r0, row1 = row0 + 8;
+  if (LSE && (lane & 3) == 0) {
+    // m is in base-2 units of the scaled scores: the backward's
+    // exp(s scale - lse) wants natural ones
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = lse + (static_cast<int64_t>(b) * gridDim.x + h) * S;
+    if (row0 < S) lb[row0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
+    if (row1 < S) lb[row1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
+  }
   __nv_bfloat16* ob = o + b * o_b + h * o_h;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -622,78 +534,39 @@ flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (D, rows, heads, batch) bf16 map with element strides (row, head, batch),
-// boxes of 64 x 64 x 1 x 1, 128-byte swizzle; out-of-bounds rows, and the
-// columns past D of a box that reaches beyond it (D = 80, 96), read as 0.
-CUresult encode_map(CUtensorMap* map, const void* base, int D, int rows, int heads,
-                    int batch, int64_t s_row, int64_t s_head, int64_t s_batch) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  // the coordinate of a dimension of extent 1 is always 0: any legal stride
-  if (heads == 1) s_head = s_row;
-  if (batch == 1) s_batch = s_row;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row) * 2,
-                                 static_cast<cuuint64_t>(s_head) * 2,
-                                 static_cast<cuuint64_t>(s_batch) * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-template <int D, int MASKS>
-int launch_wgmma_as(const void* q, const void* k, const void* v, void* o, int B, int H,
-                 int Hkv, int S, int Tkv, int q_offset, int causal, int window,
-                 int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
+template <int D, int MASKS, int LSE>
+int launch_wgmma_as(const void* q, const void* k, const void* v, void* o, float* lse,
+                    int B, int H, int Hkv, int S, int Tkv, int q_offset, int causal,
+                    int window, int prefix_len, const Strides& st, float scale,
+                    cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  CUresult res = encode_map(&tm_q, q, D, S, H, B, st.q_s, st.q_h, st.q_b);
+  CUresult res = bind_context();
+  if (res == CUDA_SUCCESS) res = encode_map(&tm_q, q, D, S, H, B, st.q_s, st.q_h, st.q_b);
   if (res == CUDA_SUCCESS) res = encode_map(&tm_k, k, D, Tkv, Hkv, B, st.k_s, st.k_h, st.k_b);
   if (res == CUDA_SUCCESS) res = encode_map(&tm_v, v, D, Tkv, Hkv, B, st.v_s, st.v_h, st.v_b);
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   // Q + two K/V stages, and room to align the tiles to 1024 bytes
   constexpr int smem = 5 * ((D + 63) / 64) * kBox + 1024;
-  const cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_wgmma<D, MASKS>,
+  const cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_wgmma<D, MASKS, LSE>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, (S + kBQ - 1) / kBQ, B);
-  flash_prefill_kernel_wgmma<D, MASKS><<<grid, kWgThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Hkv, S, Tkv, q_offset, causal,
+  flash_prefill_kernel_wgmma<D, MASKS, LSE><<<grid, kWgThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, Hkv, S, Tkv, q_offset, causal,
       window, prefix_len, st.o_b, st.o_h, st.o_s, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                 int Hkv, int S, int Tkv, int q_offset, int causal, int window,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int H, int Hkv, int S, int Tkv, int q_offset, int causal, int window,
                  int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
   const bool masks = causal && (window > 0 || prefix_len > 0);
-  return (masks ? launch_wgmma_as<D, 1> : launch_wgmma_as<D, 0>)(
-      q, k, v, o, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale, stream);
+  auto fn = masks ? (lse ? launch_wgmma_as<D, 1, 1> : launch_wgmma_as<D, 1, 0>)
+                  : (lse ? launch_wgmma_as<D, 0, 1> : launch_wgmma_as<D, 0, 0>);
+  return fn(q, k, v, o, lse, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st,
+            scale, stream);
 }
 
 Strides unpack(const long long* s) {
@@ -708,28 +581,30 @@ Strides unpack(const long long* s) {
 }  // namespace
 
 // strides: 12 element strides, (batch, head, sequence) of q, k, v, o in turn.
+// lse: nullptr, or float32 (B, H, S), contiguous, for each row's log-sum-exp
+// of its scaled, masked scores (natural log), which the backward reads.
 // window (0 = none) and prefix_len (0 = none) act only when causal. is_bf16
 // chooses the kernel: 1 the bf16 tensor-core kernel, 0 the fp32 FMA kernel.
 // Returns cudaGetLastError() after the launch (0 = launched), minus the
 // CUresult if a tensor map cannot be encoded, or cudaErrorInvalidValue for a
 // head_dim the kernels do not take.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
-                                    int B, int H, int Hkv, int S, int Tkv, int D,
+                                    float* lse, int B, int H, int Hkv, int S, int Tkv, int D,
                                     int q_offset, int causal, int window, int prefix_len,
                                     int is_bf16, const long long* strides, float scale,
                                     void* stream) {
   const Strides st = unpack(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_ARGS \
-  q, k, v, o, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale, s
+  q, k, v, o, lse, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale, s
   if (is_bf16 && D == 128) return launch_wgmma<128>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 96) return launch_wgmma<96>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 80) return launch_wgmma<80>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 64) return launch_wgmma<64>(REPRO_FLASH_ARGS);
-  if (!is_bf16 && D == 128) return static_cast<int>(launch_fma<128>(REPRO_FLASH_ARGS));
-  if (!is_bf16 && D == 96) return static_cast<int>(launch_fma<96>(REPRO_FLASH_ARGS));
-  if (!is_bf16 && D == 80) return static_cast<int>(launch_fma<80>(REPRO_FLASH_ARGS));
-  if (!is_bf16 && D == 64) return static_cast<int>(launch_fma<64>(REPRO_FLASH_ARGS));
+  if (!is_bf16 && D == 128) return launch_fma<128>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 96) return launch_fma<96>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 80) return launch_fma<80>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 64) return launch_fma<64>(REPRO_FLASH_ARGS);
 #undef REPRO_FLASH_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

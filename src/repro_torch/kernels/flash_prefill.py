@@ -28,12 +28,13 @@ that fails is not retried on the FMA kernel.
 
 Gradients. A call whose inputs require a gradient (with grad mode on) goes
 through ``FlashPrefill``, an autograd function: its forward is the call
-above and saves q, k, v and the output; its backward is
-``flash_prefill_backward``, which launches ``csrc/flash_prefill_bwd.cu`` on
-CUDA tensors and runs ``flash_prefill_backward_plain`` (the explicit
-formulas, no autograd) on CPU tensors, so that training takes the same route
-on both. The TPU package has no Pallas backward; it trains through
-``jax.grad`` of plain attention, which the backward kernel stands in for.
+above, which also returns each row's log-sum-exp, and saves q, k, v, the
+output and the log-sum-exp; its backward is ``flash_prefill_backward``,
+which launches ``csrc/flash_prefill_bwd.cu`` on CUDA tensors and runs
+``flash_prefill_backward_plain`` (the explicit formulas, no autograd) on CPU
+tensors, so that training takes the same route on both. The TPU package has
+no Pallas backward; it trains through ``jax.grad`` of plain attention, which
+the backward kernels stand in for.
 Training has no cached rows: a gradient through a call with ``q_offset > 0``
 is refused.
 """
@@ -68,11 +69,14 @@ def attention_mask(S: int, T: int, *, q_offset: int = 0, window: int = 0,
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0, window: int = 0,
-                        prefix_len: int = 0) -> torch.Tensor:
+                        prefix_len: int = 0, return_lse: bool = False):
     """Plain PyTorch version, any device: materialises the (S, T) scores.
 
     q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D). Softmax in float32.
     ``window`` and ``prefix_len`` act only when causal (``attention_mask``).
+    With ``return_lse``, returns ``(o, lse)``: lse (B,H,S) float32, each
+    row's log-sum-exp of its scaled, masked scores, as the kernel writes it
+    for the backward.
     """
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -84,8 +88,10 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               prefix_len=prefix_len, device=q.device)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
-    return o.reshape(B, H, S, D).to(q.dtype)
+    o = torch.einsum("bkgst,bktd->bkgsd", w, v.float()).reshape(B, H, S, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    return o
 
 
 def _check(q, k, v, causal, q_offset, window, prefix_len):
@@ -130,7 +136,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("flash_prefill")
     fn = lib.flash_prefill_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + \
             [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -169,12 +175,15 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-             q_offset: int, window: int, prefix_len: int) -> torch.Tensor:
+             q_offset: int, window: int, prefix_len: int, with_lse: bool = False):
     """``flash_prefill`` without autograd: the plain version on the CPU, the
-    kernel on a CUDA device."""
+    kernel on a CUDA device. ``with_lse``: returns ``(o, lse)``, lse (B,H,S)
+    float32 as ``flash_prefill_plain(return_lse=True)`` gives it; on the card
+    the kernel's LSE instance writes it (``flash_prefill.lse_launches``)."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                   window=window, prefix_len=prefix_len)
+                                   window=window, prefix_len=prefix_len,
+                                   return_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: device {q.device} not supported")
     _check(q, k, v, causal, q_offset, window, prefix_len)
@@ -183,6 +192,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     out = torch.empty_like(q)        # keeps q's strides: no transposed copy
     if out.stride(3) != 1:
         raise ValueError("flash_prefill kernel: q is not dense")
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse \
+        else None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     # bf16 on the tensor cores; float32 on the FMA kernel, which keeps it
@@ -191,6 +202,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     with torch.cuda.device(q.device):
         err = _library().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, H, Hkv, S, T, D, q_offset, int(causal), window, prefix_len,
             int(tensor_cores),
             strides, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
@@ -205,7 +217,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     flash_prefill.window_launches += int(causal and window > 0)
     flash_prefill.prefix_launches += int(causal and prefix_len > 0)
     flash_prefill.full_launches += int(not causal)
-    return out
+    flash_prefill.lse_launches += int(with_lse)
+    return (out, lse) if with_lse else out
 
 
 flash_prefill.launches = 0   # launches of either CUDA kernel by this wrapper
@@ -214,39 +227,45 @@ flash_prefill.offset_launches = 0   # of those, the ones with cached rows in fro
 flash_prefill.window_launches = 0   # of those, the ones with a sliding window
 flash_prefill.prefix_launches = 0   # of those, the ones with a bidirectional prefix
 flash_prefill.full_launches = 0   # of those, the ones without the causal mask
+flash_prefill.lse_launches = 0   # of those, the ones that wrote the log-sum-exp
 
 
 class FlashPrefill(torch.autograd.Function):
-    """``flash_prefill`` with a gradient: the forward launches the kernel (the
-    plain version on the CPU) and saves q, k, v and the output; the backward
-    is ``flash_prefill_backward``. q (B,H,S,D), k/v (B,Hkv,T,D); no cached
-    rows (``q_offset == 0``)."""
+    """``flash_prefill`` with a gradient: the forward launches the kernel's
+    LSE instance (the plain version on the CPU) and saves q, k, v, the output
+    and each row's log-sum-exp (B,H,S) float32, 4 bytes a query row and head;
+    the backward is ``flash_prefill_backward`` given that log-sum-exp, so it
+    repeats no forward pass. q (B,H,S,D), k/v (B,Hkv,T,D); no cached rows
+    (``q_offset == 0``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, prefix_len: int):
-        o = _forward(q, k, v, causal=causal, q_offset=0, window=window,
-                     prefix_len=prefix_len)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal=causal, q_offset=0, window=window,
+                          prefix_len=prefix_len, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.masks = (causal, window, prefix_len)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, window, prefix_len = ctx.masks
         dq, dk, dv = flash_prefill_backward(q, k, v, o, do, causal=causal,
-                                            window=window, prefix_len=prefix_len)
+                                            window=window, prefix_len=prefix_len,
+                                            lse=lse)
         return dq, dk, dv, None, None, None
 
 
 def flash_prefill_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  o: torch.Tensor, do: torch.Tensor, *,
                                  causal: bool = True, window: int = 0,
-                                 prefix_len: int = 0):
+                                 prefix_len: int = 0, lse: torch.Tensor | None = None):
     """The gradients of ``flash_prefill_plain`` (no cached rows) by the
     explicit formulas, in float32, without autograd: P = softmax(Q K^T scale
     + mask), dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)), dQ = dS K
     scale, dK = dS^T Q scale, dK and dV summed over each KV head's group.
+    Given the forward's log-sum-exp ``lse`` (B,H,S), P = exp(Q K^T scale -
+    lse) where the mask lets a key through, as the kernels form it.
     q, o, do (B,H,S,D); k, v (B,Hkv,T,D). Returns (dq, dk, dv) in the
     inputs' dtype."""
     B, H, S, D = q.shape
@@ -262,7 +281,10 @@ def flash_prefill_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         mask = attention_mask(S, T, window=window, prefix_len=prefix_len,
                               device=q.device)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+    else:   # a masked score's exp(-1e30 - lse) is 0
+        p = torch.exp(s - lse.float().reshape(B, Hkv, group, S, 1))
     dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
     dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
     delta = (dog * og).sum(-1, keepdim=True)
@@ -284,16 +306,25 @@ def _backward_library() -> ctypes.CDLL:
 
 def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-                           window: int = 0, prefix_len: int = 0):
+                           window: int = 0, prefix_len: int = 0,
+                           lse: torch.Tensor | None = None):
     """The gradients (dq, dk, dv) of ``flash_prefill(q, k, v, causal=,
     window=, prefix_len=)`` whose output was ``o``, for the output's
     gradient ``do``; no cached rows. Causal or full (S != T), with a window
-    or a prefix; each gradient in its input's dtype and shape.
+    or a prefix; each gradient in its input's dtype and shape. ``lse``: that
+    forward's log-sum-exp (B,H,S) float32, as ``FlashPrefill`` saves it.
 
-    Tensors on the CPU go through ``flash_prefill_backward_plain``; tensors
-    on a CUDA device launch ``csrc/flash_prefill_bwd.cu`` (counted in
-    ``flash_prefill_backward.launches``: one a call, whose three kernels run
-    in turn) or raise.
+    Tensors on the CPU go through ``flash_prefill_backward_plain`` without
+    ``lse``: P is the softmax of its own scores, the rounding that the CPU's
+    training parity against the reference's jitted AdamW steps holds (an
+    update divides a near-zero gradient by its own magnitude, so a one-ulp
+    change in P moves a parameter by a share of ``lr``). Tensors on a CUDA
+    device launch
+    ``csrc/flash_prefill_bwd.cu`` (counted in
+    ``flash_prefill_backward.launches``: one a call, whose two kernels run
+    in turn, dQ then dK/dV; bf16 on the tensor cores, float32 on FMAs) or
+    raise. On the card, a call without ``lse`` first launches the forward
+    kernel's LSE instance to get it (counted as a ``flash_prefill`` launch).
     """
     if q.device.type == "cpu":
         return flash_prefill_backward_plain(q, k, v, o, do, causal=causal,
@@ -314,18 +345,28 @@ def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "axis and 16-byte aligned rows")
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
+    if lse is None:
+        _, lse = _forward(q, k, v, causal=causal, q_offset=0, window=window,
+                          prefix_len=prefix_len, with_lse=True)
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_prefill_backward: lse must be float32 {(B, H, S)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
     if any(t.stride(3) != 1 for t in (dq, dk, dv)):
         raise ValueError("flash_prefill_backward: q, k and v must be dense")
     strides = (ctypes.c_longlong * 24)(*[st for t in tensors for st in t.stride()[:3]])
     with torch.cuda.device(q.device):
         err = _backward_library().flash_prefill_bwd_launch(
-            *[t.data_ptr() for t in tensors], stats[0].data_ptr(), stats[1].data_ptr(),
+            *[t.data_ptr() for t in tensors], lse.data_ptr(), delta.data_ptr(),
             B, H, Hkv, S, T, D, int(causal), window, prefix_len,
             int(q.dtype == torch.bfloat16), strides, 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash_prefill_backward: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_prefill_backward kernel launch failed: CUDA "
                            f"error {err}")

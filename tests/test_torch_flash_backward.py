@@ -2,9 +2,12 @@
 (``flash_prefill_backward_plain``, the explicit formulas) against
 ``torch.autograd.grad`` of ``flash_prefill_plain`` and against ``jax.vjp`` of
 the reference's attention (``repro.models.layers._flash_attention_ref``) on
-the same numpy inputs; the route a call with a gradient takes
-(``FlashPrefill``); and the guards of the kernels that have no backward.
-The backward kernel itself runs on the card only (``chip_smoke.py``)."""
+the same numpy inputs; the forward's log-sum-exp, which the backward takes
+instead of recomputing it, against ``jax.nn.logsumexp`` of the reference's
+scores; the route a call with a gradient takes (``FlashPrefill``, which
+saves that log-sum-exp); and the guards of the kernels that have no
+backward. The backward kernels themselves run on the card only
+(``chip_smoke.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +50,63 @@ def _inputs(B, H, Hkv, S, T, D, seed):
     v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
     do = rng.standard_normal((B, S, H, D)).astype(np.float32)
     return q, k, v, do
+
+
+def _ref_lse(q, k, *, causal, window, prefix_len):
+    """``jax.nn.logsumexp`` of the reference's scaled, masked scores (its
+    ``_flash_attention_ref`` in one block): q (B,S,H,D), k (B,T,Hkv,D)
+    numpy; returns (B,H,S)."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = jnp.asarray(q).reshape(B, S, Hkv, H // Hkv, D).transpose(0, 2, 3, 1, 4)
+    s = jnp.einsum("bkgsd,btkd->bkgst", qg, jnp.asarray(k)) / np.sqrt(D)
+    qpos, kpos = jnp.arange(S), jnp.arange(T)
+    mask = jnp.ones((S, T), bool)
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        if prefix_len > 0:
+            mask |= kpos[None, :] < prefix_len
+    s = jnp.where(mask[None, None, None], s, -1e30)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(B, H, S)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_forward_log_sum_exp_matches_jax(case):
+    """The log-sum-exp ``flash_prefill_plain(return_lse=True)`` returns (the
+    quantity the kernels write for the backward) is the reference's."""
+    _, B, H, Hkv, S, T, D, causal, window, prefix_len = case
+    q, k, v, _ = _inputs(B, H, Hkv, S, T, D, seed=S * D + 1)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    qt, kt, vt = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    o, lse = flash_prefill_plain(qt, kt, vt, return_lse=True, **kw)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(o, flash_prefill_plain(qt, kt, vt, **kw), atol=0, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), _ref_lse(q, k, **kw), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_backward_plain_with_the_saved_lse(case):
+    """Given the forward's log-sum-exp, the plain backward forms P as
+    exp(s - lse), as the kernels do: the same gradients as its softmax
+    route and as ``jax.vjp`` of the reference's attention."""
+    _, B, H, Hkv, S, T, D, causal, window, prefix_len = case
+    q, k, v, do = _inputs(B, H, Hkv, S, T, D, seed=S * D + 2)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+    o, lse = flash_prefill_plain(qt, kt, vt, return_lse=True, **kw)
+    got = flash_prefill_backward_plain(qt, kt, vt, o, dot, lse=lse, **kw)
+    want = flash_prefill_backward_plain(qt, kt, vt, o, dot, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL)
+
+    def ref(q_, k_, v_):
+        return ref_layers._flash_attention_ref(q_, k_, v_, n_heads=H, n_kv=Hkv, **kw)
+    _, vjp = jax.vjp(ref, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, w in zip(got, vjp(jnp.asarray(do.reshape(B, S, H * D)))):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), np.asarray(w),
+                                   atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
@@ -109,6 +169,30 @@ def test_a_call_with_a_gradient_goes_through_the_autograd_function():
     assert flash_prefill(q, k, v).grad_fn is None
     with pytest.raises(ValueError, match="cached rows"):
         flash_prefill(leaves[0][:, :, 10:], *leaves[1:], q_offset=10)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_prefill_saves_the_log_sum_exp(case):
+    """On the CPU, ``FlashPrefill`` saves q, k, v, the output and the
+    forward's log-sum-exp, and the gradient through it is unchanged: the
+    plain backward's softmax route, bit for bit, and its route through the
+    saved log-sum-exp (the kernels' formula) within ``TOL``."""
+    _, B, H, Hkv, S, T, D, causal, window, prefix_len = case
+    q, k, v, do = _inputs(B, H, Hkv, S, T, D, seed=S * D + 3)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do))
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out = flash_prefill(*leaves, **kw)
+    saved = out.grad_fn.saved_tensors
+    o, lse = flash_prefill_plain(qt, kt, vt, return_lse=True, **kw)
+    assert len(saved) == 5
+    torch.testing.assert_close(saved[3], o, atol=0, rtol=0)
+    torch.testing.assert_close(saved[4], lse, atol=0, rtol=0)
+    got = torch.autograd.grad(out, leaves, dot)
+    for g, w in zip(got, flash_prefill_backward_plain(qt, kt, vt, o, dot, **kw)):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    for g, w in zip(got, flash_prefill_backward_plain(qt, kt, vt, o, dot, lse=lse, **kw)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("kernel, n_inputs", [("ssd_scan", 6), ("paged_attention", 3)])
