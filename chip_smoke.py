@@ -25,7 +25,15 @@ a mixed interactive and batch trace at full width), and trains olmo-1b at
 full width in float32 through ``repro_torch.launch.train``'s loop (the
 ``train`` phase: first one step card against CPU at the smoke size), each
 path with the kernels' launch counters set to 0 just before it and read
-just after. The attention gradient runs through the hand-written
+just after. The ``sim`` phase then runs Chiron's simulator on the card's
+planning constants: it measures the host-to-card rate of a llama-8b
+checkpoint load beside ``sim/perf_model.py``'s ``_LOAD_BW``, puts the
+planned prefill beside the one the ``serve`` phase measured, and runs the
+paper's Fig. 19 scenario under ``ChironController`` (with the shadow
+verifier and a flight recorder) and ``LlumnixController`` on 50 cards,
+on the shipped constants and on the ``serve`` phase's fitted ones; it
+fails if a request is lost. The simulator is host code: it launches no
+kernel. The attention gradient runs through the hand-written
 ``flash_prefill`` backward kernels (bf16 on ``wgmma`` + TMA, float32 on
 FMAs), given the log-sum-exp that the forward's LSE instance saved, and is
 held against its plain version in the ``kernels`` phase, directly and
@@ -49,7 +57,9 @@ around calls back to back, which the host's launch rate bounds from below. The l
 before it.
 
 ``--phases kernels,parity`` runs a subset (env and build always run); the
-final ``ok`` line is printed only when every phase ran.
+final ``ok`` line is printed only when every phase ran. ``--phases sim``
+runs the simulator alone, ``--phases serve,sim`` with the prefill report
+and the fitted constants' run.
 
 ``--ab OTHER/src`` instead times the three serving kernels of another tree's port
 (for example the parent commit's, unpacked with ``git archive``) and of this
@@ -108,14 +118,16 @@ from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.kv_manager import PagedKVManager  # noqa: E402
 from repro_torch.serving.real_cluster import RealCluster, serve_forever  # noqa: E402
 from repro_torch.serving.request import make_batch, make_interactive  # noqa: E402
-from repro_torch.sim.cluster import InstanceType  # noqa: E402
-from repro_torch.sim.controllers import ChironController  # noqa: E402
+from repro_torch.analysis import ShadowVerifyError  # noqa: E402
+from repro_torch.sim.cluster import InstanceType, SimCluster  # noqa: E402
+from repro_torch.sim.controllers import ChironController, LlumnixController  # noqa: E402
 from repro_torch.sim.perf_model import PerfModel  # noqa: E402
+from repro_torch.sim.simulator import default_perf_factory, simulate_events  # noqa: E402
 from repro_torch.sim.workload import WorkloadSpec, generate  # noqa: E402
 from repro_torch.training import tree  # noqa: E402
 from repro_torch.training.optimizer import adamw_init  # noqa: E402
 
-ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train")
+ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train", "sim")
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -182,6 +194,11 @@ def emit(phase: str, **fields) -> None:
 def fail(message: str) -> None:
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else [v]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1641,11 +1658,7 @@ def _serve_path(smi: str, arch: str):
              f"run implies {want_full}")
     window_launches = flash_prefill.window_launches
 
-    def leaves(tree):
-        for v in tree.values():
-            yield from leaves(v) if isinstance(v, dict) else [v]
-
-    if any(t.device.type != "cuda" for t in [*leaves(eng.params), *leaves(eng.pool)]):
+    if any(t.device.type != "cuda" for t in [*_leaves(eng.params), *_leaves(eng.pool)]):
         fail(f"serve {arch}: a parameter or pool tensor lives on the CPU")
     for r in res["requests"]:
         if r.tokens_generated < min(r.output_len, 1) or r.first_token_time is None:
@@ -1804,9 +1817,10 @@ SERVE_ARCHS = ("llama-8b", "phi3-mini-3.8b", "olmo-1b", "internvl2-2b", "mamba2-
                "qwen2-moe-a2.7b", "deepseek-moe-16b", "zamba2-2.7b", "yi-34b")
 
 
-def phase_serve(smi: str) -> dict:
+def phase_serve(smi: str):
     """Every serving path and the dense one with the serving knobs; returns
-    each kernel's launches over its paths. Each engine is closed and dropped
+    each kernel's launches over its paths, and what the ``sim`` phase reads
+    of the run: each path's ``_where_the_time_goes`` and the planner's fit. Each engine is closed and dropped
     before the next path builds its own, so that yi-34b's 68.78 GB of
     weights have the card to themselves. The planner's step is put beside
     every graphed one but the ssm's; its ``MBU`` and ``STEP_OVERHEAD`` are
@@ -1815,9 +1829,10 @@ def phase_serve(smi: str) -> dict:
     data)."""
     launches = {"paged_attention": 0, "flash_prefill": 0, "ssd_scan": 0,
                 "flash_prefill_backward": 0}
-    planner = {}
+    planner, shares = {}, {}
     for arch in SERVE_ARCHS:
         got, eng, share = _serve_path(smi, arch)
+        shares[arch] = share
         for name, n in got.items():
             launches[name] += n
         if arch == "llama-8b":
@@ -1829,8 +1844,9 @@ def phase_serve(smi: str) -> dict:
         del eng
     fitted = {arch: row for arch, row in planner.items()
               if get_config(arch).arch_type in ("dense", "vlm")}
-    emit("perf_model", gpu=smi, rows=planner, fit=_fit_planner(fitted))
-    return launches
+    fit = _fit_planner(fitted)
+    emit("perf_model", gpu=smi, rows=planner, fit=fit)
+    return launches, {"shares": shares, "fit": fit}
 
 
 # ------------------------------------------------------------ the cluster
@@ -2470,6 +2486,154 @@ def phase_train(smi: str) -> dict:
     return launches
 
 
+
+# ------------------------------------------------------------ the simulator
+LOAD_REPS = 3
+# the paper's Fig. 19 scenario (the reference's benchmarks/fig19_timeline.py):
+# an interactive stream, then a batch dump of 30,000 requests due in 30 min
+FIG19_SPEC = dict(n_requests=2000, arrival_rate=30.0, interactive_frac=1.0,
+                  batch_queue_size=30000, batch_ttft_slo=1800.0, model="llama-8b",
+                  seed=5)
+FIG19_MAX_TIME = 2400.0
+FIG19_CHIPS = 50             # the paper's budget of 50 GPUs, here 50 H100s
+
+
+def _load_bandwidth(smi: str) -> float:
+    """Host-to-card rate of a checkpoint load into a new instance: llama-8b's
+    bf16 parameter tree, leaf by leaf from pageable host memory (its pages
+    written before), ``torch.cuda.synchronize()``d, bytes over wall. The
+    median of ``LOAD_REPS`` loads; each load's copy is freed before the next."""
+    from repro_torch.sim import perf_model
+    cfg = get_config("llama-8b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    host = [t.cpu() for t in _leaves(Model(cfg).init(gen, dtype=torch.bfloat16,
+                                                     device="cuda"))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_bytes = sum(t.numel() * t.element_size() for t in host)
+    n_leaves = len(host)
+    seconds = []
+    for _ in range(LOAD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = [t.to("cuda") for t in host]
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        del on_card
+        torch.cuda.empty_cache()
+    del host
+    gc.collect()
+    rate = n_bytes / float(np.median(seconds))
+    load = {}
+    for arch in perf_model.INSTANCE_CHIPS:
+        shipped = PerfModel(arch)
+        saved = perf_model._LOAD_BW
+        perf_model._LOAD_BW = rate
+        try:
+            measured = PerfModel(arch)
+        finally:
+            perf_model._LOAD_BW = saved
+        load[arch] = {"chips": shipped.chips, "weight_bytes": shipped.weight_bytes,
+                      "model_load_time_s": shipped.model_load_time(),
+                      "with_measured_rate_s": measured.model_load_time()}
+    emit("sim", check="load bandwidth", gpu=smi, model=cfg.name, dtype="bfloat16",
+         leaves=n_leaves, bytes=n_bytes, seconds=seconds, bytes_per_s=[n_bytes / s for s in seconds],
+         measured_bytes_per_s=rate, module_LOAD_BW=perf_model._LOAD_BW,
+         model_load_time=load)
+    return rate
+
+
+
+def _prefill_plan(smi: str, served: dict) -> None:
+    """``PerfModel.prefill_time`` of the prompt the serve phase profiled
+    (337 tokens) beside that prefill's wall and device time, for every model
+    served at full width: a report of how far the plan is from the card, not
+    a refit. Planned on one card, as the prefill ran."""
+    rows = {}
+    for arch, share in served["shares"].items():
+        planned = PerfModel(arch, chips=1).prefill_time(share["prefill_tokens"])
+        rows[arch] = {"prompt": share["prefill_tokens"], "planned_ms": planned * 1e3,
+                      "measured_wall_ms": share["prefill_wall_ms"],
+                      "measured_first_call_wall_ms": share["prefill_first_call_wall_ms"],
+                      "measured_device_ms": share["prefill_device_ms"],
+                      "wall_over_planned": share["prefill_wall_ms"] / (planned * 1e3),
+                      "device_over_planned": share["prefill_device_ms"] / (planned * 1e3)}
+    emit("sim", check="prefill plan", gpu=smi, rows=rows)
+
+
+def _fig19(smi: str, constants: str) -> dict:
+    """Fig. 19 through the port's simulator under ``ChironController`` (with
+    the shadow verifier and a flight recorder) and ``LlumnixController``, on
+    the perf model's constants as they stand. Fails if a request is lost: a
+    Chiron run that does not finish every request, or any run whose
+    requests do not all end in a terminal state."""
+    from repro_torch.obs import FlightRecorder
+    from repro_torch.sim.ledger import EXPIRED, FINISHED, REJECTED, SHED
+    out = {}
+    for name, ctrl in (("chiron", ChironController()), ("llumnix", LlumnixController())):
+        reqs = generate(WorkloadSpec(**FIG19_SPEC))
+        cluster = SimCluster(default_perf_factory(), max_chips=FIG19_CHIPS)
+        rec = FlightRecorder() if name == "chiron" else None
+        t0 = time.perf_counter()
+        try:
+            res = simulate_events(reqs, ctrl, cluster, max_time=FIG19_MAX_TIME,
+                                  warm_start=2, shadow_verify=name == "chiron",
+                                  telemetry=rec)
+        except ShadowVerifyError as e:
+            fail(f"sim {constants} {name}: the shadow verifier raised: {e}")
+        wall = time.perf_counter() - t0
+        counts = res.ledger.state_counts()
+        terminal = int(counts[FINISHED] + counts[REJECTED] + counts[SHED] + counts[EXPIRED])
+        if terminal != res.ledger.n:
+            fail(f"sim {constants} {name}: {terminal} of {res.ledger.n} requests ended")
+        if name == "chiron" and res.completion_rate() < 1.0:
+            fail(f"sim {constants} chiron: completion rate {res.completion_rate()}")
+        rows = None if rec is None else {"signals": rec.signals.n,
+                                         "cluster_ticks": rec.cticks.n,
+                                         "decisions": rec.decisions.n,
+                                         "spans": rec.spans.n}
+        out[name] = res.summary()
+        led = res.ledger
+        inter = led.interactive.astype(bool)
+        # which SLO the interactive requests miss: TTFT or ITL
+        misses = {"ttft_met": float(led.ttft_met_mask()[inter].mean()),
+                  "itl_met": float(led.itl_met_mask()[inter].mean()),
+                  "mean_itl_p50_p90_s": np.nanpercentile(led.mean_itl[inter],
+                                                         [50, 90]).tolist()}
+        emit("sim", check="fig19", gpu=smi, constants=constants, controller=name,
+             requests=res.ledger.n, max_chips=FIG19_CHIPS, summary=out[name],
+             interactive=misses,
+             events=res.n_events, scale_ups=res.scale_ups, scale_downs=res.scale_downs,
+             wall_s=wall, shadow_verify=name == "chiron", recorder_rows=rows)
+    c, l = out["chiron"]["gpu_hours"], out["llumnix"]["gpu_hours"]
+    emit("sim", check="fig19 saving", gpu=smi, constants=constants, chiron_gpu_hours=c,
+         llumnix_gpu_hours=l, gpu_hour_saving=1.0 - c / l)
+    return out
+
+
+def phase_sim(smi: str, served) -> None:
+    """The port's simulator on the card's planning constants: the measured
+    host-to-card load rate beside ``_LOAD_BW``, the planned prefill beside the
+    measured one (when ``serve`` ran in this call), and Fig. 19 under both
+    controllers on the shipped constants and, when ``serve`` ran, on that
+    run's own fitted ``MBU`` and ``STEP_OVERHEAD``. The simulator is host code
+    and launches no kernel."""
+    from repro_torch.sim import perf_model
+    _load_bandwidth(smi)
+    _fig19(smi, "shipped")
+    if served is None:
+        return
+    _prefill_plan(smi, served)
+    fit = served["fit"]
+    saved = perf_model.MBU, perf_model.STEP_OVERHEAD
+    perf_model.MBU, perf_model.STEP_OVERHEAD = fit["MBU"], fit["STEP_OVERHEAD_s"]
+    try:
+        _fig19(smi, "fitted in this run")
+    finally:
+        perf_model.MBU, perf_model.STEP_OVERHEAD = saved
+
+
 # ------------------------------------------------- two trees, in turns
 def ab_turn(src: str, turn: int) -> None:
     """One ``--ab`` turn: device and event times of the kernels of the port
@@ -2585,9 +2749,11 @@ def main() -> None:
         phase_parity()
     if "graph" in phases:
         phase_graph()
-    launches = phase_serve(smi) if "serve" in phases else {}
+    launches, served = phase_serve(smi) if "serve" in phases else ({}, None)
     cluster_launches = phase_cluster(smi) if "cluster" in phases else {}
     train_launches = phase_train(smi) if "train" in phases else {}
+    if "sim" in phases:
+        phase_sim(smi, served)
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return

@@ -19,7 +19,6 @@ from typing import List, Optional, Sequence
 from repro_torch.core.request_groups import (GroupStat, IncrementalGrouper,
                                              RequestGroup, make_request_groups)
 from repro_torch.core.waiting_time import WaitingTimeEstimator
-from repro_torch.serving.global_queue import GlobalQueue
 from repro_torch.serving.request import Request
 
 
@@ -104,22 +103,37 @@ class BatchAutoscaler:
         self.last_wait = w
         return bbp
 
+    def _iter_batch(self, queue):
+        """Model-filtered batch iteration, tolerating single-model queues
+        whose ``iter_batch`` takes no model argument."""
+        try:
+            return queue.iter_batch(self.model)
+        except TypeError:
+            return queue.iter_batch()
+
     def _groups_for(self, queued_batch) -> List[RequestGroup]:
         """Request groups for either a queue snapshot (one-shot k-means) or
         a ``GlobalQueue`` (incrementally maintained via its listener API,
         filtered to ``self.model`` when set)."""
-        if isinstance(queued_batch, GlobalQueue):
+        if callable(getattr(queued_batch, "attach_batch_listener", None)):
             if self.group_k < 0:
                 # grouping-disabled ablation: one group per request
                 return [GroupStat(r.deadline, 1) for r in
-                        sorted(queued_batch.iter_batch(self.model),
+                        sorted(self._iter_batch(queued_batch),
                                key=lambda r: r.deadline)]
             if self._grouper is None or self._grouper_src is not queued_batch:
                 self._grouper = IncrementalGrouper(k=self.group_k)
                 self._grouper_src = queued_batch
-                queued_batch.attach_batch_listener(self._grouper,
-                                                   model=self.model)
+                try:
+                    queued_batch.attach_batch_listener(self._grouper,
+                                                       model=self.model)
+                except TypeError:   # legacy listener API: no model filter
+                    queued_batch.attach_batch_listener(self._grouper)
             return self._grouper.group_stats()
+        if hasattr(queued_batch, "iter_batch"):
+            # queue-like without the listener API: re-cluster a snapshot
+            # every tick (the pre-incremental behaviour)
+            queued_batch = list(self._iter_batch(queued_batch))
         k = -1 if self.group_k < 0 else self.group_k
         return make_request_groups(queued_batch, k=k)
 

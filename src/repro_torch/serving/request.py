@@ -95,7 +95,7 @@ class Request:
     # optional explicit prompt token ids (enables prefix caching; the
     # engine synthesizes random tokens when absent)
     prompt_tokens: Optional[object] = None
-    # columnar ledger row id (repro.sim.ledger.RequestLedger): the event
+    # columnar ledger row id (repro_torch.sim.ledger.RequestLedger): the event
     # core records this request's outcomes by integer row instead of — in
     # addition to — mutating the object; -1 = not tracked by a ledger
     row: int = -1

@@ -44,7 +44,9 @@ def test_sources_were_found():
             "ssd_scan.py", "ssm.py", "mamba_model.py", "_build.py", "serve.py",
             "chip_smoke.py", "global_queue.py", "real_cluster.py", "cluster_trace.py",
             "global_autoscaler.py", "request_groups.py", "waiting_time.py",
-            "baselines.py", "perf_model.py", "cluster.py", "controllers.py"} <= names
+            "baselines.py", "perf_model.py", "cluster.py", "controllers.py",
+            "simulator.py", "workload.py", "trace_io.py", "ledger.py", "metrics.py",
+            "overload.py", "recorder.py", "shadow.py"} <= names
 
 
 def test_every_module_imports_without_gpu_or_triton():
