@@ -31,9 +31,17 @@ checkpoint load beside ``sim/perf_model.py``'s ``_LOAD_BW``, puts the
 planned prefill beside the one the ``serve`` phase measured, and runs the
 paper's Fig. 19 scenario under ``ChironController`` (with the shadow
 verifier and a flight recorder) and ``LlumnixController`` on 50 cards,
-on the shipped constants and on the ``serve`` phase's fitted ones; it
-fails if a request is lost. The simulator is host code: it launches no
-kernel. The attention gradient runs through the hand-written
+on the shipped constants and on the ``serve`` phase's fitted ones. Then it
+audits the port's package with its static auditor (any finding fails),
+exports that Chiron run's flight recorder (JSONL, Perfetto JSON,
+Prometheus text, into a temporary directory) and reads the JSONL
+back through the terminal dashboards, runs the fleet scenarios
+``regional_spillover`` and ``zone_outage`` through ``simulate_fleet`` with
+the shadow verifier (every cluster on the baseline accelerator row, the
+card's own constants; chip-hours, no dollars), and every other registered
+scenario at its default size, but the two that put clusters on TPU-scaled
+rows. It fails if a request is lost. The simulator is host code: it
+launches no kernel. The attention gradient runs through the hand-written
 ``flash_prefill`` backward kernels (bf16 on ``wgmma`` + TMA, float32 on
 FMAs), given the log-sum-exp that the forward's LSE instance saved, and is
 held against its plain version in the ``kernels`` phase, directly and
@@ -2562,15 +2570,24 @@ def _prefill_plan(smi: str, served: dict) -> None:
     emit("sim", check="prefill plan", gpu=smi, rows=rows)
 
 
-def _fig19(smi: str, constants: str) -> dict:
+def _terminal_or_fail(what: str, res) -> None:
+    """Fails unless every request of the run ended in a terminal state."""
+    from repro_torch.sim.ledger import EXPIRED, FINISHED, REJECTED, SHED
+    counts = res.ledger.state_counts()
+    terminal = int(counts[FINISHED] + counts[REJECTED] + counts[SHED] + counts[EXPIRED])
+    if terminal != res.ledger.n:
+        fail(f"sim {what}: {terminal} of {res.ledger.n} requests ended")
+
+
+def _fig19(smi: str, constants: str):
     """Fig. 19 through the port's simulator under ``ChironController`` (with
     the shadow verifier and a flight recorder) and ``LlumnixController``, on
     the perf model's constants as they stand. Fails if a request is lost: a
     Chiron run that does not finish every request, or any run whose
-    requests do not all end in a terminal state."""
+    requests do not all end in a terminal state. Returns the Chiron run,
+    its recorder attached."""
     from repro_torch.obs import FlightRecorder
-    from repro_torch.sim.ledger import EXPIRED, FINISHED, REJECTED, SHED
-    out = {}
+    out, runs = {}, {}
     for name, ctrl in (("chiron", ChironController()), ("llumnix", LlumnixController())):
         reqs = generate(WorkloadSpec(**FIG19_SPEC))
         cluster = SimCluster(default_perf_factory(), max_chips=FIG19_CHIPS)
@@ -2583,17 +2600,14 @@ def _fig19(smi: str, constants: str) -> dict:
         except ShadowVerifyError as e:
             fail(f"sim {constants} {name}: the shadow verifier raised: {e}")
         wall = time.perf_counter() - t0
-        counts = res.ledger.state_counts()
-        terminal = int(counts[FINISHED] + counts[REJECTED] + counts[SHED] + counts[EXPIRED])
-        if terminal != res.ledger.n:
-            fail(f"sim {constants} {name}: {terminal} of {res.ledger.n} requests ended")
+        _terminal_or_fail(f"{constants} {name}", res)
         if name == "chiron" and res.completion_rate() < 1.0:
             fail(f"sim {constants} chiron: completion rate {res.completion_rate()}")
         rows = None if rec is None else {"signals": rec.signals.n,
                                          "cluster_ticks": rec.cticks.n,
                                          "decisions": rec.decisions.n,
                                          "spans": rec.spans.n}
-        out[name] = res.summary()
+        out[name], runs[name] = res.summary(), res
         led = res.ledger
         inter = led.interactive.astype(bool)
         # which SLO the interactive requests miss: TTFT or ITL
@@ -2609,7 +2623,171 @@ def _fig19(smi: str, constants: str) -> dict:
     c, l = out["chiron"]["gpu_hours"], out["llumnix"]["gpu_hours"]
     emit("sim", check="fig19 saving", gpu=smi, constants=constants, chiron_gpu_hours=c,
          llumnix_gpu_hours=l, gpu_hour_saving=1.0 - c / l)
-    return out
+    return runs["chiron"]
+
+
+def _audit(smi: str) -> None:
+    """The port's static auditor (``repro_torch.analysis``: mirror-sync,
+    determinism and hygiene rules) over the port's own package; any finding
+    fails the run."""
+    from repro_torch.analysis import iter_py_files, run_analysis
+    root = os.path.join(_port_src(), "repro_torch")
+    t0 = time.perf_counter()
+    files = iter_py_files([root])
+    findings = run_analysis([root])
+    wall = time.perf_counter() - t0
+    emit("sim", check="audit", gpu=smi, root="src/repro_torch", files=len(files),
+         findings=len(findings), wall_s=wall)
+    if not files or findings:
+        fail(f"audit: {len(files)} files, findings: "
+             + "; ".join(str(f) for f in findings[:20]))
+
+
+def _export(smi: str, res) -> None:
+    """The shipped-constants Fig. 19 Chiron run's flight recorder through
+    the three exporters (JSONL, Perfetto JSON, Prometheus text) into a
+    temporary directory, then the JSONL through the terminal dashboards.
+    Fails if the Perfetto JSON does not parse or the JSONL's rows of a kind
+    do not number the recorder's."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="sim_export_") as out_dir:
+        _export_into(smi, res, out_dir)
+
+
+def _export_into(smi: str, res, out_dir: str) -> None:
+    import contextlib
+    import io
+    from repro_torch.obs import export
+    from repro_torch.obs import __main__ as dashboards
+    rec = res.telemetry
+    paths = {fmt: os.path.join(out_dir, f"fig19_chiron.{fmt}")
+             for fmt in ("jsonl", "perfetto.json", "prom")}
+    wall = {}
+    t0 = time.perf_counter()
+    n_lines = export.to_jsonl(res, paths["jsonl"])
+    wall["jsonl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export.to_perfetto(res, paths["perfetto.json"])
+    wall["perfetto"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export.to_prometheus(res, paths["prom"])
+    wall["prometheus"] = time.perf_counter() - t0
+    try:
+        with open(paths["perfetto.json"]) as fh:
+            events = json.load(fh)["traceEvents"]
+    except (ValueError, KeyError) as e:
+        fail(f"sim export: the Perfetto JSON does not parse: {e}")
+    rows = {}
+    with open(paths["jsonl"]) as fh:
+        for line in fh:
+            kind = json.loads(line)["kind"]
+            rows[kind] = rows.get(kind, 0) + 1
+    want = {"meta": 1, "timeline": len(res.timeline), "signal": rec.signals.n,
+            "cluster": rec.cticks.n, "decision": rec.decisions.n,
+            "request": len(export.sampled_requests(res, rec))}
+    if rows != want or sum(rows.values()) != n_lines or not events:
+        fail(f"sim export: JSONL rows {rows} (lines {n_lines}), recorder {want}, "
+             f"{len(events)} Perfetto events")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = dashboards.main([paths["jsonl"]])
+    wall["dashboards"] = time.perf_counter() - t0
+    shown = text.getvalue()
+    if rc != 0 or "decision ledger" not in shown:
+        fail(f"sim export: the dashboards returned {rc}")
+    emit("sim", check="export", gpu=smi, run="fig19 chiron, shipped constants", rows=rows,
+         perfetto_events=len(events),
+         bytes={fmt: os.path.getsize(p) for fmt, p in paths.items()},
+         dashboard_lines=len(shown.splitlines()), wall_s=wall)
+
+
+# the fleet scenarios the card's constants run: every cluster on the
+# baseline row ("v5e", no scales: perf_model's H100 constants); the other
+# two put clusters on TPU-scaled rows and are held on the CPU only
+FLEET_ON_CARD = ("regional_spillover", "zone_outage")
+HELD_ON_CPU = ("multi_region", "heterogeneous_accelerators")
+
+
+def _fleet(smi: str) -> None:
+    """``regional_spillover`` and ``zone_outage`` at their default sizes
+    through ``simulate_fleet`` on the card's planning constants, with the
+    shadow verifier on: per cluster, SLO attainment by type, chip-hours,
+    peak chips, spills and re-routes, migrations. Chip-hours only: the
+    accelerator rows' prices are TPU list prices. Fails if a request is lost
+    or the verifier raises."""
+    from repro_torch.analysis import ShadowVerifier
+    from repro_torch.sim.scenarios import build_trace
+    from repro_torch.sim.simulator import simulate_fleet
+    for name in FLEET_ON_CARD:
+        trace, kw = build_trace(name, seed=0)
+        fleet = kw["fleet"]()
+        rows = {fc.spec.accelerator for fc in fleet.clusters}
+        if rows != {"v5e"}:
+            fail(f"sim fleet {name}: clusters on {sorted(rows)}, not the baseline row")
+        verifier = ShadowVerifier()
+        t0 = time.perf_counter()
+        try:
+            res = simulate_fleet(trace, fleet, max_time=kw["max_time"], warm_start=1,
+                                 outages=kw.get("outages"), shadow_verify=verifier)
+        except ShadowVerifyError as e:
+            fail(f"sim fleet {name}: the shadow verifier raised: {e}")
+        wall = time.perf_counter() - t0
+        _terminal_or_fail(f"fleet {name}", res)
+        if res.completion_rate() < 1.0:
+            fail(f"sim fleet {name}: completion rate {res.completion_rate()}")
+        s = res.summary()
+        clusters = {c.name: {
+            "region": c.region, "max_chips": fleet.by_name[c.name].spec.max_chips,
+            "served_interactive": c.served_interactive, "served_batch": c.served_batch,
+            "slo_interactive": c.slo_interactive(),
+            "slo_batch": c.slo_met_batch / c.served_batch if c.served_batch else None,
+            "chip_hours": c.chip_seconds / 3600.0, "peak_chips": c.peak_chips,
+            "remote_served": c.remote_served, "handbacks": c.handbacks,
+            "migrations_in": c.migrations_in, "migrations_out": c.migrations_out,
+            "scale_ups": c.scale_ups, "scale_downs": c.scale_downs}
+            for c in res.clusters}
+        emit("sim", check="fleet", gpu=smi, scenario=name,
+             baseline_row="v5e key = this card's constants", requests=res.ledger.n,
+             completion_rate=res.completion_rate(), slo_interactive=s["slo_interactive"],
+             slo_batch=s["slo_batch"], chip_hours=s["gpu_hours"], peak_chips=res.peak_chips,
+             migrations=res.migrations, handbacks=res.handbacks,
+             recovery=res.recovery_metrics(), clusters=clusters,
+             shadow_checks={"ledger": verifier.ledger_checks, "plane": verifier.plane_checks,
+                            "queue": verifier.queue_checks},
+             events=res.n_events, wall_s=wall)
+
+
+def _scenarios(smi: str) -> None:
+    """Every other registered scenario at its default size through
+    ``simulate_events`` on the card's planning constants and the paper's
+    budget of 50 cards (the overload scenarios' own caps where they set
+    one): completion, SLO attainment by type, chip-hours, host wall. Fails
+    if a request is lost."""
+    from repro_torch.sim.scenarios import SCENARIOS, build_trace
+    rows = {}
+    for name in sorted(SCENARIOS):
+        if name in FLEET_ON_CARD + HELD_ON_CPU:
+            continue
+        trace, kw = build_trace(name, seed=0)
+        cluster = SimCluster(default_perf_factory(), max_chips=kw.get("max_chips", FIG19_CHIPS))
+        ctrl = ChironController(**({"models": kw["models"]} if "models" in kw else {}))
+        t0 = time.perf_counter()
+        res = simulate_events(trace, ctrl, cluster, max_time=kw["max_time"], warm_start=2,
+                              failures=kw.get("failures"), degradations=kw.get("degradations"),
+                              outages=kw.get("outages"), flash_crowds=kw.get("flash_crowds"),
+                              detector=kw.get("detector"), overload=kw.get("overload"))
+        wall = time.perf_counter() - t0
+        _terminal_or_fail(f"scenario {name}", res)
+        s = res.summary()
+        rows[name] = {"requests": res.ledger.n, "max_chips": cluster.max_chips,
+                      "completion_rate": s["completion_rate"],
+                      "slo_interactive": s["slo_interactive"], "slo_batch": s["slo_batch"],
+                      "chip_hours": s["gpu_hours"], "peak_chips": res.peak_chips,
+                      "wall_s": wall}
+    emit("sim", check="scenarios", gpu=smi, rows=rows,
+         held_on_the_cpu_only={name: "rows scaled for TPU parts" for name in HELD_ON_CPU},
+         wall_s=sum(r["wall_s"] for r in rows.values()))
 
 
 def phase_sim(smi: str, served) -> None:
@@ -2621,7 +2799,11 @@ def phase_sim(smi: str, served) -> None:
     and launches no kernel."""
     from repro_torch.sim import perf_model
     _load_bandwidth(smi)
-    _fig19(smi, "shipped")
+    fig19 = _fig19(smi, "shipped")
+    _audit(smi)
+    _export(smi, fig19)
+    _fleet(smi)
+    _scenarios(smi)
     if served is None:
         return
     _prefill_plan(smi, served)

@@ -1,11 +1,11 @@
 """Runtime shadow verification of the columnar mirrors.
 
-The repo's static mirror auditor (``repro.analysis.checks``) proves every
+The static mirror auditor (:mod:`repro_torch.analysis.checks`) proves every
 mutation *site* pairs its object write with the column write — but it
 cannot prove the paired writes store the same value, fire under the same
 conditions, or that no site was exempted wrongly. The shadow verifier
 closes that gap at runtime: the event engines
-(``simulate_events`` with ``shadow_verify=True`` or
+(``simulate_events``/``simulate_fleet`` with ``shadow_verify=True`` or
 env ``CHIRON_SHADOW_VERIFY=1``) rebuild the ledger/plane columns from
 the object view at control ticks and completion sweeps and assert
 **exact** agreement — the mirrors are written at the same sites with the

@@ -1,10 +1,10 @@
-"""Observability plane: the columnar flight recorder, its decision ledger
-and request-lifecycle spans (see ``repro_torch.obs.recorder``).
+"""Observability plane: columnar flight recorder, decision ledger,
+request-lifecycle tracing and exporters (see ``repro_torch.obs.recorder``).
 
 Engines gate on :func:`resolve` (``telemetry=`` argument or the
-``CHIRON_TELEMETRY`` environment variable). The exporters and the terminal
-dashboard (the reference's ``obs.export`` and ``obs.__main__``) are not
-part of the port yet (ROADMAP.md, Queue A item 9c).
+``CHIRON_TELEMETRY`` environment variable); exports (JSONL, Perfetto JSON,
+Prometheus text) live in ``repro_torch.obs.export`` and the terminal
+dashboard CLI runs as ``python -m repro_torch.obs <run.jsonl>``.
 """
 from repro_torch.obs.recorder import FlightRecorder, resolve
 

@@ -34,8 +34,8 @@ as the decision-equivalence baseline (the engines' ``reference=True``
 mode); both flavours produce bit-identical pop orders.
 
 The mirror registry ``QUEUE_MIRRORS`` maps each mirrored ``Request``
-attribute to its lane column; the repo's static auditor
-(``repro.analysis``, rule MIR103) checks that every payload write also
+attribute to its lane column; the static auditor
+(``repro_torch.analysis``, rule MIR103) checks that every payload write also
 writes the key columns, and the runtime shadow verifier rebuilds the
 columns from the payload objects and asserts exact agreement.
 

@@ -119,8 +119,8 @@ _DEFAULT_DETECTOR = DetectorConfig()
 
 # Mirror registries: ``SimInstance`` fluid scalar -> ``InstancePlane``
 # column kept in sync at every mutation site (directly, via
-# ``_sync_plane()``, or via ``plane.alloc``/``plane.free``). The repo's
-# static mirror auditor (``repro.analysis``, rule MIR102) checks
+# ``_sync_plane()``, or via ``plane.alloc``/``plane.free``). The static
+# mirror auditor (``repro_torch.analysis``, rule MIR102) checks
 # assignments against these mappings and the runtime shadow verifier
 # asserts the columns agree with the objects — extend them when mirroring
 # a new scalar into the plane.

@@ -55,8 +55,8 @@ STATE_CODES: Dict[RequestState, int] = {
 TERMINAL_CODES = (FINISHED, REJECTED, SHED, EXPIRED)
 
 # Mirror registry: ``Request`` attribute -> ledger outcome column written
-# at the same mutation site (``led.<col>[req.row] = ...``). The repo's
-# static mirror auditor (``repro.analysis``, rule MIR101) walks
+# at the same mutation site (``led.<col>[req.row] = ...``). The static
+# mirror auditor (``repro_torch.analysis``, rule MIR101) walks
 # assignments against this mapping, and the runtime shadow verifier rebuilds the
 # columns from the objects and asserts exact agreement — extend it when
 # adding a mirrored outcome field.

@@ -32,9 +32,10 @@ re-queue, and the control hierarchy heals the fleet on its next tick.
 victim stays up but its ITL inflates by a factor for a while; the control
 plane detects it through the health EWMA and routes around it.
 
-Multi-cluster fleets (``simulate_fleet`` over the reference's
-``sim.fleet``) are not ported yet: ``simulate_fleet`` raises (ROADMAP.md,
-Queue A item 9d).
+Multi-cluster fleets: ``simulate_fleet`` drives a ``repro_torch.sim.fleet``
+Fleet — several clusters, each with its own queue and Chiron hierarchy —
+off one shared event heap, adding cross-region network-delay events for
+routed arrivals and placement warm-up events for model migrations.
 
 ``simulate_fixed_tick`` is the original discrete-time loop (default tick
 0.25 s), kept as the equivalence reference and quantization baseline.
@@ -55,7 +56,8 @@ import numpy as np
 
 from repro_torch.obs.recorder import (R_INJECTED as _R_INJECTED,
                                       R_OUTAGE as _R_OUTAGE)
-from repro_torch.serving.global_queue import GlobalQueue, make_queue
+from repro_torch.serving.global_queue import (GlobalQueue, ReferenceGlobalQueue,
+                                              make_queue)
 from repro_torch.serving.request import Request
 from repro_torch.sim.cluster import InstanceState, InstanceType, SimCluster
 from repro_torch.sim.controllers import BaseController
@@ -1239,13 +1241,641 @@ def simulate(requests: RequestSource, controller: BaseController,
     raise ValueError(f"unknown engine {engine!r} (want 'event' or 'fixed')")
 
 
-def simulate_fleet(requests: RequestSource, fleet, **kwargs) -> RunResult:
-    """The multi-cluster event loop (several clusters under one Router and
-    GlobalPlacer, the third tier above the paper's two) is not ported yet:
-    it comes with ``sim/fleet.py`` (ROADMAP.md, Queue A item 9d)."""
-    raise NotImplementedError(
-        "simulate_fleet and sim/fleet.py are not ported yet "
-        "(ROADMAP.md, Queue A item 9d)")
+@_gc_paused
+def simulate_fleet(requests: RequestSource, fleet, *,
+                   control_interval: float = 1.0, max_time: float = 7200.0,
+                   warm_start: int = 0, timeline_every: float = 5.0,
+                   completion_grain: float = 0.25,
+                   failures: Optional[FailurePlan] = None,
+                   degradations: Optional[DegradationPlan] = None,
+                   outages=None,
+                   flash_crowds=None,
+                   detector=None,
+                   reference: bool = False,
+                   shadow_verify=None,
+                   telemetry=None,
+                   overload: Optional[OverloadConfig] = None,
+                   phase_timers=None) -> RunResult:
+    """Multi-cluster event loop: one shared heap drives every cluster in a
+    :class:`repro_torch.sim.fleet.Fleet`, each with its own queue and Chiron
+    hierarchy (the paper's two tiers), under the fleet's Router/GlobalPlacer
+    (the third tier).
+
+    Beyond the single-cluster event kinds, the heap carries cross-region
+    network-delay events (a routed arrival reaches a remote cluster's
+    queue only after the origin->region latency — TTFT accounting then
+    includes the hop for free) and placement warm-up events (a migrated
+    model serves only after its weights transferred and loaded).
+    ``warm_start`` pre-provisions that many instances *per cluster* over
+    the models initially resident there. Failure/degradation victims are
+    drawn uniformly over the whole fleet's active instances.
+
+    Reported ``peak_chips`` is the sum of per-cluster peaks (budgets are
+    disjoint, so coincident peaks are what capacity planning needs).
+
+    ``shadow_verify`` mirrors :func:`simulate_events`: a truthy value (or
+    ``CHIRON_SHADOW_VERIFY=1``) audits every cluster's plane and the
+    shared ledger at control ticks and completion sweeps.
+
+    ``telemetry`` mirrors :func:`simulate_events` too: one shared
+    :class:`repro_torch.obs.FlightRecorder` spans the fleet — clusters are
+    registered under their fleet names, and tier-3 placement actions
+    (migrations, hand-backs, drains) land in the decision ledger
+    alongside every cluster's own Chiron actions.
+
+    ``overload`` arms the per-cluster overload plane (admission at each
+    destination queue, deadline sweeps, client retries re-routed through
+    the Router, per-cluster brownout) — and, when the fleet's Router
+    carries a :class:`repro_torch.sim.overload.BreakerConfig`, feeds each
+    cluster's admission outcomes into its circuit breaker so routing
+    deflects around clusters whose rejection-rate EWMA tripped."""
+    from repro_torch.analysis.shadow import resolve as _shadow_resolve
+    from repro_torch.obs.recorder import resolve as _obs_resolve
+    shadow = _shadow_resolve(shadow_verify)
+    rec = _obs_resolve(telemetry)
+    ov = overload if overload is not None and overload.active else None
+    if ov is not None and reference:
+        raise ValueError("overload control requires the columnar engine "
+                         "(reference=True is the pre-overload baseline)")
+    cursor = _RequestCursor(requests)
+    clusters = list(fleet.clusters)
+    by_sim = {id(fc.cluster): fc for fc in clusters}
+    t = 0.0
+    use_memo = not reference
+
+    # ---- overload control plane (all off when ov is None) ----
+    ov_adm = ov.admission if ov is not None else None
+    ov_shed = ov.shedding if ov is not None else None
+    ov_retry = ov.retry if ov is not None else None
+    ov_brown = ov.brownout if ov is not None else None
+    pending_retry = 0
+    led = cursor.ledger
+    gauges: Dict[int, WaitGauge] = {}
+    brownouts: Dict[int, BrownoutState] = {}
+    if ov is not None:
+        for fc in clusters:
+            g = WaitGauge(fc.controller, fc.cluster)
+            if g.supported:
+                gauges[id(fc)] = g
+        if not gauges:
+            ov_adm = None
+            ov_brown = None
+        if ov_brown is not None:
+            for fc in clusters:
+                if id(fc) in gauges:
+                    brownouts[id(fc)] = BrownoutState()
+    if rec is not None:
+        fleet.obs = rec
+    for fc in clusters:
+        fc.cluster.event_mode = True
+        fc.cluster.now = 0.0
+        fc.cluster.completion_grain = completion_grain
+        fc.cluster.ledger = cursor.ledger
+        if detector is not None:
+            fc.cluster.detector = detector
+        if reference:
+            fc.cluster.vec_min = 1 << 30
+            fc.queue = ReferenceGlobalQueue()   # object-queue baseline
+        if rec is not None:
+            rec.register_cluster(fc.cluster, fc.name)
+            fc.cluster.obs = rec
+            fc.controller.obs = rec
+        _warm_start(fc.controller, fc.cluster, t, warm_start)
+        fc.cluster.new_loading = [i for i in fc.cluster.instances
+                                  if i.state == InstanceState.LOADING]
+
+    heap: list = []                  # (time, kind, seq, payload, epoch)
+    ev_seq = itertools.count()
+    timeline = Timeline()
+    next_control = 0.0
+    next_place = fleet.placer.interval
+    control_parked = False
+    next_timeline = 0.0
+    last_sample_t = 0.0
+    n_events = 0
+    batch_seq = 0
+    pending_net = 0                  # in-flight cross-region arrivals
+    eps = 1e-12
+    heappush = heapq.heappush
+    heappop = heapq.heappop
+    heapify = heapq.heapify
+    timers = phase_timers
+    timing = timers is not None
+
+    fail_rng = None
+    if failures is not None:
+        fail_rng = np.random.default_rng(failures.seed)
+        for tf in failures.sorted_times():
+            heappush(heap, (tf, _FAIL, next(ev_seq), None, 0))
+    deg_rng = None
+    if degradations is not None:
+        deg_rng = np.random.default_rng(degradations.seed)
+        for td in degradations.sorted_times():
+            heappush(heap, (td, _DEGRADE, next(ev_seq), None, 0))
+    skipped_injections = 0
+    shocks: List[Shock] = []
+    for plan in _as_plans(outages, OutagePlan):
+        if plan.cluster is not None and plan.cluster not in fleet.by_name:
+            raise ValueError(f"OutagePlan: unknown cluster {plan.cluster!r}")
+        heappush(heap, (float(plan.start), _OUTAGE, next(ev_seq), plan, 0))
+        shocks.append(Shock("outage", float(plan.start), plan.end_time(),
+                            plan.cluster or clusters[0].name))
+    for plan in _as_plans(flash_crowds, FlashCrowdPlan):
+        heappush(heap, (float(plan.start), _BURST, next(ev_seq), plan, 0))
+        shocks.append(Shock("flash_crowd", float(plan.start),
+                            plan.end_time(), plan.model))
+
+    def emit_warm(delay: float, payload) -> None:
+        heappush(heap, (t + max(delay, 0.0), _WARM,
+                        next(ev_seq), payload, 0))
+
+    def _maybe_retry(req: Request, now: float) -> None:
+        """Schedule the client's next attempt (fleet flavour: the retry
+        re-routes through the Router, so an open breaker deflects it)."""
+        nonlocal pending_retry
+        if ov_retry is None:
+            return
+        attempt = req.retries + 1
+        if attempt > ov_retry.max_retries:
+            return
+        key = req.row if req.row >= 0 else req.req_id
+        when = now + ov_retry.backoff(key, attempt)
+        if when > req.arrival_time + ov_retry.budget:
+            return
+        led.bump_retry(req)
+        pending_retry += 1
+        heappush(heap, (when, _RETRY, next(ev_seq), req, 0))
+
+    def _enqueue(fc, req: Request, now: float) -> None:
+        if ov_adm is not None and req.is_interactive:
+            g = gauges.get(id(fc))
+            if g is not None:
+                budget_w = ov_adm.slack * req.slo.ttft
+                wait = g.wait(fc.queue, req.model)
+                rejected = wait > budget_w
+                trans = fleet.router.note_admission(fc, rejected, now)
+                if trans is not None and rec is not None:
+                    rec.record_breaker(now, fc.name, trans[0], trans[1],
+                                      fleet.router.breaker.open_threshold)
+                if rejected:
+                    led.mark_rejected(req)
+                    if rec is not None:
+                        rec.record_reject(fc.cluster, now, req.model,
+                                          wait, budget_w)
+                    _maybe_retry(req, now)
+                    return
+        fc.queue.push(req)
+        fc.controller.observe_arrival(req, now)
+
+    def _dispatch(req: Request, now: float) -> None:
+        nonlocal pending_net
+        fc, delay = fleet.route(req, now)
+        if delay > eps:
+            heappush(heap, (now + delay, _NET, next(ev_seq),
+                            (req, fc), 0))
+            pending_net += 1
+        else:
+            _enqueue(fc, req, now)
+
+    def _overload_tick_fc(fc, now: float) -> None:
+        """Per-cluster control-tick overload pass (brownout hysteresis,
+        then the vectorized interactive deadline sweep)."""
+        g = gauges.get(id(fc))
+        bstate = brownouts.get(id(fc))
+        if bstate is not None and g is not None:
+            flip = bstate.update(
+                is_overloaded(fc.cluster, fc.queue, g, ov_brown), ov_brown)
+            if flip is not None:
+                fc.controller.brownout_active = flip
+                if rec is not None:
+                    rec.record_brownout(fc.cluster, now, flip,
+                                        fc.queue.n_interactive,
+                                        ov_brown.queue_min)
+                if flip:
+                    fc.controller.brownout_preempt_batch(fc.cluster,
+                                                         fc.queue, now)
+        if ov_shed is not None and fc.queue._icount:
+            wbm = None
+            if bstate is not None and bstate.engaged and g is not None:
+                wbm = {m: g.per_request_wait(m)
+                       for m in fc.queue.interactive_models()}
+            expired, shed = fc.queue.sweep_interactive(
+                now, grace=ov_shed.grace, wait_by_model=wbm)
+            for req in expired:
+                led.mark_expired(req)
+            for req in shed:
+                led.mark_shed(req)
+                _maybe_retry(req, now)
+            if rec is not None:
+                for reqs, hook in ((expired, rec.record_expire),
+                                   (shed, rec.record_shed)):
+                    counts: Dict[str, int] = {}
+                    for req in reqs:
+                        counts[req.model] = counts.get(req.model, 0) + 1
+                    for m in sorted(counts):
+                        hook(fc.cluster, now, m, counts[m])
+
+    def _all_active():
+        # merged per-cluster active registries, id-ordered (deterministic
+        # victim draws without scanning every instance per event)
+        out = []
+        for fc in clusters:
+            out.extend(fc.cluster._active.values())
+        out.sort(key=lambda i: i.id)
+        return out
+
+    def _sample(now: float) -> None:
+        nonlocal last_sample_t, next_timeline
+        toks = n_i = n_m = n_b = chips = q_i = q_b = 0
+        qi_m: Dict[str, int] = {}
+        qb_m: Dict[str, int] = {}
+        for fc in clusters:
+            toks += fc.cluster.take_tokens()
+            i, m, b = fc.cluster.counts_by_type()
+            n_i += i
+            n_m += m
+            n_b += b
+            chips += fc.cluster.used_chips()
+            q = fc.queue
+            q_i += q.n_interactive
+            q_b += q.n_batch
+            for mdl in q.interactive_models():
+                qi_m[mdl] = qi_m.get(mdl, 0) + q.n_interactive_for(mdl)
+            for mdl in q.batch_models():
+                qb_m[mdl] = qb_m.get(mdl, 0) + q.n_batch_for(mdl)
+        rate = toks / max(now - last_sample_t, 1e-9)
+        timeline.append_sample(now, n_i, n_m, n_b, chips, q_i, q_b, rate,
+                               q_interactive_by_model=qi_m,
+                               q_batch_by_model=qb_m)
+        last_sample_t = now
+        next_timeline = now + timeline_every
+
+    t_arr = cursor.peek_time()
+
+    while True:
+        # ---- termination: everything arrived, landed, and finished,
+        # and no client retry is still in backoff
+        if t_arr == _INF and pending_net == 0 and pending_retry == 0 and \
+                all(len(fc.queue) == 0 and fc.cluster.total_running == 0
+                    for fc in clusters):
+            break
+
+        # ---- stale completion estimates landing strictly before every
+        # other event source: drain without a loop iteration (see the
+        # single-cluster loop for the full argument; chip-time advances
+        # per event so accumulation stays bit-identical)
+        if heap and not any(fc.queue._icount or fc.queue._bcount
+                            for fc in clusters):
+            while heap:
+                ev = heap[0]
+                th = ev[0]
+                if th >= t_arr - eps or th >= next_control - eps \
+                        or th >= next_place - eps \
+                        or th >= next_timeline - eps or th > max_time \
+                        or ev[1] != _COMPLETION:
+                    break
+                inst = ev[3]
+                if ev[4] == inst._epoch \
+                        and inst.state == InstanceState.ACTIVE:
+                    break                    # live estimate — a real event
+                heappop(heap)
+                n_events += 1
+                for fc in clusters:
+                    fc.cluster.advance_time(th)
+
+        # ---- next event time across all sources
+        t_next = t_arr
+        if heap and heap[0][0] < t_next:
+            t_next = heap[0][0]
+        if next_control < t_next:
+            t_next = next_control
+        if not control_parked:
+            if next_place < t_next:
+                t_next = next_place
+            if next_timeline < t_next:
+                t_next = next_timeline
+        if t_next > max_time or t_next == _INF:
+            for fc in clusters:
+                fc.cluster.advance_time(max_time)
+            t = max_time
+            break
+        t = t_next
+        batch_seq += 1
+        for fc in clusters:
+            fc.cluster.advance_time(t)
+            fc.cluster.batch_seq = batch_seq
+        changed = False
+        freed: Dict[int, List] = {}      # id(fc) -> instances w/ capacity
+
+        if timing:
+            _t0 = timers.clock()
+
+        # 1. arrivals due at t, popped as one cohort (one searchsorted +
+        #    one materialize slice): forecast observation, then route —
+        #    local arrivals enqueue now, cross-region after the hop
+        if t_arr <= t + eps:
+            cohort, t_arr = cursor.pop_until(t + eps)
+            n_events += len(cohort)
+            changed = True
+            for req in cohort:
+                fleet.observe_arrival(req, t)
+                _dispatch(req, t)
+
+        if timing:
+            _t0 = timers.lap("arrivals", _t0)
+
+        # 2. heap events due at t
+        while heap and heap[0][0] <= t + eps:
+            _, kind, _, payload, epoch = heappop(heap)
+            n_events += 1
+            if kind == _NET:
+                req, fc = payload
+                pending_net -= 1
+                _enqueue(fc, req, t)
+                changed = True
+            elif kind == _WARM:
+                fleet.on_warm(payload, t)
+                changed = True
+            elif kind == _READY:
+                inst = payload
+                if inst.state == InstanceState.LOADING:
+                    # scheduled at ready_time exactly; t may sit an epsilon
+                    # below it (see simulate_events) — never lose the event
+                    inst.activate_if_ready(max(t, inst.ready_time))
+                    inst.mark_dirty()
+                    freed.setdefault(id(by_sim[id(inst._cluster)]),
+                                     []).append(inst)
+                    changed = True
+            elif kind == _FAIL:
+                # one draw per victim slot, eligible or not (see the
+                # single-cluster loop) — seeded victim sequences never
+                # shift when the fleet happens to be empty
+                for _ in range(max(1, failures.victims)):
+                    draw = int(fail_rng.integers(1 << 30))
+                    active = _all_active()
+                    if not active:
+                        skipped_injections += 1
+                        continue
+                    victim = active[draw % len(active)]
+                    fc = by_sim[id(victim._cluster)]
+                    flist = freed.get(id(fc))
+                    if flist and victim in flist:
+                        flist.remove(victim)
+                    displaced = fc.cluster.fail_instance(victim)
+                    for r in victim.drain_finished():
+                        fc.controller.observe_completion(r)
+                        fleet.observe_completion(r, fc, t)
+                    for r in displaced:
+                        fc.queue.requeue(r)
+                    fc.cluster.dirty.discard(victim)
+                    changed = True
+            elif kind == _DEGRADE:
+                draw = int(deg_rng.integers(1 << 30))
+                cands = [i for i in _all_active() if i.slow_factor == 1.0]
+                if cands:
+                    victim = cands[draw % len(cands)]
+                    victim._cluster.degrade_instance(
+                        victim, degradations.factor, t)
+                    heappush(heap, (t + degradations.duration,
+                                    _RECOVER, next(ev_seq), victim, 0))
+                    changed = True
+                else:
+                    skipped_injections += 1
+            elif kind == _RECOVER:
+                inst = payload
+                if inst.state != InstanceState.RETIRED \
+                        and inst.slow_factor != 1.0:
+                    inst._cluster.recover_instance(inst, t)
+                    changed = True
+            elif kind == _OUTAGE:
+                # correlated zone outage against one named fleet cluster
+                plan = payload
+                fc = fleet.by_name[plan.cluster] \
+                    if plan.cluster is not None else clusters[0]
+                victims = sorted(fc.cluster.instances, key=lambda i: i.id)
+                if plan.fraction < 1.0 and victims:
+                    k = min(len(victims), max(1, math.ceil(
+                        plan.fraction * len(victims))))
+                    sel = np.random.default_rng(plan.seed).permutation(
+                        len(victims))[:k]
+                    sel.sort()
+                    victims = [victims[int(i)] for i in sel]
+                if not victims:
+                    skipped_injections += 1
+                withhold = int(round(min(plan.fraction, 1.0)
+                                     * fc.cluster.max_chips))
+                if rec is not None:
+                    rec.record_outage(fc.cluster, t, len(victims),
+                                      withhold)
+                    rec.inj_reason = _R_OUTAGE
+                flist = freed.get(id(fc))
+                for victim in victims:
+                    if flist and victim in flist:
+                        flist.remove(victim)
+                    displaced = fc.cluster.fail_instance(victim)
+                    for r in victim.drain_finished():
+                        fc.controller.observe_completion(r)
+                        fleet.observe_completion(r, fc, t)
+                    for r in displaced:
+                        fc.queue.requeue(r)
+                    fc.cluster.dirty.discard(victim)
+                if rec is not None:
+                    rec.inj_reason = _R_INJECTED
+                stages = max(1, int(plan.recovery_stages))
+                base_amt, rem = divmod(withhold, stages)
+                for k2 in range(stages):
+                    amt = base_amt + (1 if k2 < rem else 0)
+                    heappush(heap, (plan.start + plan.duration
+                                    + k2 * plan.stage_interval,
+                                    _RESTORE, next(ev_seq), (fc, amt), 0))
+                fc.cluster.max_chips -= withhold
+                fc.cluster.route_version += 1
+                changed = True
+            elif kind == _RESTORE:
+                fc, amt = payload
+                fc.cluster.max_chips += amt
+                fc.cluster.route_version += 1
+                if rec is not None:
+                    rec.record_restore(fc.cluster, t, amt)
+                changed = True
+            elif kind == _BURST:
+                if rec is not None:
+                    rec.record_flash_crowd(clusters[0].cluster, t,
+                                           payload.model)
+                changed = True
+            elif kind == _RETRY:
+                # client retry re-arrival: fresh per-attempt deadline,
+                # observed as demand, re-routed through the Router (an
+                # open breaker deflects it to a healthy cluster at the
+                # price of the network hop)
+                req = payload
+                pending_retry -= 1
+                fleet.observe_arrival(req, t)
+                req.deadline_at = t + req.slo.ttft
+                led.mark_queued(req)
+                _dispatch(req, t)
+                changed = True
+            else:                        # completion estimate
+                inst = payload
+                if epoch == inst._epoch \
+                        and inst.state == InstanceState.ACTIVE:
+                    inst.advance(t)
+                    freed.setdefault(id(by_sim[id(inst._cluster)]),
+                                     []).append(inst)
+                    changed = True
+
+        if timing:
+            _t0 = timers.lap("heap_drain", _t0)
+
+        # a parked control loop resumes as soon as anything happens
+        if control_parked and changed:
+            next_control = t
+            control_parked = False
+
+        # 3. control tick: every cluster runs its own Chiron hierarchy on
+        #    its own queue against its own chip budget
+        ran_control = t >= next_control - eps
+        if ran_control:
+            n_events += 1
+            pre = post = 0
+            for fc in clusters:
+                fc.cluster.catch_up(t, batch_seq)
+                if shadow is not None:
+                    shadow.verify_cluster(fc.cluster)
+                    shadow.verify_queue(fc.queue)
+                if ov is not None:
+                    _overload_tick_fc(fc, t)
+                pre += len(fc.cluster.instances) + fc.cluster.scale_ups \
+                    + fc.cluster.scale_downs
+                fc.controller.control(fc.cluster, fc.queue, t)
+                for inst in fc.cluster.drain_new_loading():
+                    heappush(heap, (inst.ready_time, _READY,
+                                    next(ev_seq), inst, 0))
+                post += len(fc.cluster.instances) + fc.cluster.scale_ups \
+                    + fc.cluster.scale_downs
+                if rec is not None:
+                    rec.record_cluster_tick(t, fc.cluster, fc.queue)
+            quiescent = (pre == post and pending_net == 0
+                         and all(len(fc.queue) == 0
+                                 and fc.cluster.total_running == 0
+                                 and fc.cluster.n_loading == 0
+                                 for fc in clusters))
+            if quiescent:
+                # nothing can change before the next arrival (warm-up
+                # events still fire off the heap); park the control and
+                # placer clocks
+                next_control = t_arr
+                control_parked = True
+            else:
+                next_control = t + control_interval
+
+        if timing:
+            _t0 = timers.lap("control", _t0)
+
+        # 4. placement review (tier 3): forecast-driven residency changes,
+        #    batch-target selection, saturation hand-back
+        if not control_parked and t >= next_place - eps:
+            n_events += 1
+            for req, fc, delay in fleet.review(t, emit_warm):
+                if delay > eps:
+                    heappush(heap, (t + delay, _NET, next(ev_seq),
+                                    (req, fc), 0))
+                    pending_net += 1
+                else:
+                    _enqueue(fc, req, t)
+                changed = True
+            next_place = t + fleet.placer.interval
+
+        # 5. routing per cluster (full pass at control ticks, incremental
+        #    zero-queuing + freed-instance backfill in between)
+        for fc in clusters:
+            if ran_control:
+                fc.controller.route(fc.cluster, fc.queue, t)
+            else:
+                fc.controller.route_interactive(fc.cluster, fc.queue, t,
+                                                use_memo)
+                flist = freed.get(id(fc))
+                if flist and fc.queue.n_batch:
+                    if len(flist) > 1:
+                        flist.sort(key=lambda i:
+                                   i.itype != InstanceType.BATCH)
+                    fc.controller.backfill(flist, fc.queue, t)
+
+        if timing:
+            _t0 = timers.lap("routing", _t0)
+
+        # 6. sweep dirty instances: completions surface to the owning
+        #    cluster's controller and the fleet rollup, then each
+        #    cluster's vectorized ``sweep_etas`` pass bulk-refills the
+        #    shared heap (epochs still advance per instance)
+        for fc in clusters:
+            if not fc.cluster.dirty:
+                continue
+            dirty = fc.cluster.drain_dirty()
+            for inst in dirty:
+                pf = inst._pending_finished
+                if pf:
+                    inst._pending_finished = []
+                    for r in pf:
+                        fc.controller.observe_completion(r)
+                        fleet.observe_completion(r, fc, t)
+            refill = fc.cluster.sweep_etas(dirty, batch_seq)
+            if refill:
+                if 8 * len(refill) < len(heap):
+                    for inst, eta in refill:
+                        inst._epoch += 1
+                        heappush(heap, (t + eta, _COMPLETION,
+                                        next(ev_seq), inst,
+                                        inst._epoch))
+                else:
+                    for inst, eta in refill:
+                        inst._epoch += 1
+                        heap.append((t + eta, _COMPLETION,
+                                     next(ev_seq), inst, inst._epoch))
+                    heapify(heap)
+            if shadow is not None:
+                shadow.verify_cluster(fc.cluster)
+        if shadow is not None and ran_control:
+            shadow.maybe_verify_ledger(cursor.ledger, cursor.all, t)
+
+        if timing:
+            _t0 = timers.lap("sweep", _t0)
+
+        # 7. timeline sample (suppressed while parked — state is frozen)
+        if not control_parked and t >= next_timeline - eps:
+            _sample(t)
+
+        if timing:
+            timers.lap("sampling", _t0)
+
+    if timeline and t > timeline[-1].t:
+        _sample(t)
+    if shadow is not None:
+        for fc in clusters:
+            shadow.verify_cluster(fc.cluster)
+            shadow.verify_queue(fc.queue)
+        shadow.verify_ledger(cursor.ledger, cursor.all)
+    if rec is not None:
+        fleet.obs = None
+        for fc in clusters:
+            fc.cluster.obs = None
+            fc.controller.obs = None
+    stats = fleet.finalize()
+    return RunResult(
+        requests=cursor.all_requests(), timeline=timeline,
+        chip_seconds=sum(fc.cluster.chip_seconds for fc in clusters),
+        peak_chips=sum(fc.cluster.peak_chips for fc in clusters),
+        scale_ups=sum(fc.cluster.scale_ups for fc in clusters),
+        scale_downs=sum(fc.cluster.scale_downs for fc in clusters),
+        duration=t,
+        failures=sum(fc.cluster.failures for fc in clusters),
+        degradations=sum(fc.cluster.degradations for fc in clusters),
+        skipped_injections=skipped_injections, shocks=shocks,
+        n_events=n_events, clusters=stats,
+        migrations=fleet.migrations, handbacks=fleet.handbacks,
+        egress_bytes=fleet.egress_bytes,
+        egress_cost_usd=fleet.egress_cost_usd,
+        ledger=cursor.ledger, telemetry=rec)
 
 
 def default_perf_factory(**perf_kw) -> Callable[[str], PerfModel]:

@@ -46,7 +46,8 @@ def test_sources_were_found():
             "global_autoscaler.py", "request_groups.py", "waiting_time.py",
             "baselines.py", "perf_model.py", "cluster.py", "controllers.py",
             "simulator.py", "workload.py", "trace_io.py", "ledger.py", "metrics.py",
-            "overload.py", "recorder.py", "shadow.py"} <= names
+            "overload.py", "recorder.py", "shadow.py", "fleet.py", "scenarios.py",
+            "checks.py", "findings.py", "export.py", "__main__.py"} <= names
 
 
 def test_every_module_imports_without_gpu_or_triton():

@@ -11,43 +11,12 @@ and the ledger's columns must be equal, exactly: the port runs the same
 numpy operations in the same order. One case runs on the port's own
 constants and differs, which shows the patch, not luck, makes the others
 equal."""
-import dataclasses
-import importlib
-import itertools
 import math
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
-
-def _package(root):
-    def mod(name):
-        return importlib.import_module(f"{root}.{name}")
-    return SimpleNamespace(
-        workload=mod("sim.workload"), simulator=mod("sim.simulator"),
-        cluster=mod("sim.cluster"), controllers=mod("sim.controllers"),
-        perf=mod("sim.perf_model"), request=mod("serving.request"),
-        overload=mod("sim.overload"), shadow=mod("analysis.shadow"),
-        recorder=mod("obs.recorder"), queue=mod("serving.global_queue"))
-
-
-REF, PORT = _package("repro"), _package("repro_torch")
-
-# the reference's TPU planning constants, patched into the port's module
-_REF_CONSTANTS = {"PEAK_FLOPS": REF.perf.PEAK_FLOPS, "HBM_BW": REF.perf.HBM_BW,
-                  "HBM_BYTES": REF.perf.HBM_BYTES, "LINK_BW": REF.perf.ICI_BW,
-                  "STEP_OVERHEAD": REF.perf.STEP_OVERHEAD,
-                  "MFU_DECODE": REF.perf.MFU_DECODE, "MBU": REF.perf.MBU,
-                  "INSTANCE_CHIPS": dict(REF.perf.INSTANCE_CHIPS),
-                  "_LOAD_BW": REF.perf._LOAD_BW}
-
-
-@pytest.fixture
-def patched(monkeypatch):
-    for key, value in _REF_CONSTANTS.items():
-        monkeypatch.setattr(PORT.perf, key, value)
-    return monkeypatch
+from test_torch_sim_parity import PORT, REF, assert_same_run, fresh_counters, patched  # noqa: F401
 
 
 def _run(P, monkeypatch, requests, controller, *, max_chips=200, events=False,
@@ -55,8 +24,7 @@ def _run(P, monkeypatch, requests, controller, *, max_chips=200, events=False,
     """One run of package ``P`` from fresh request and instance counters (a
     slow-node detector hashes instance ids, so both must count alike);
     ``per_package(P)`` gives the arguments built from ``P``'s own classes."""
-    monkeypatch.setattr(P.request, "_req_counter", itertools.count())
-    monkeypatch.setattr(P.cluster, "_inst_counter", itertools.count())
+    fresh_counters(P, monkeypatch)
     reqs = requests(P)
     cluster = P.cluster.SimCluster(P.simulator.default_perf_factory(), max_chips=max_chips)
     sim = P.simulator.simulate_events if events else P.simulator.simulate
@@ -64,34 +32,13 @@ def _run(P, monkeypatch, requests, controller, *, max_chips=200, events=False,
     return res, reqs if isinstance(reqs, list) else res.requests
 
 
-def _same(x, y):
-    if isinstance(x, float) and isinstance(y, float) and math.isnan(x) and math.isnan(y):
-        return True
-    return x == y
-
-
 def _assert_same_run(ref, port):
     (ra, qa), (rb, qb) = ref, port
-    sa, sb = ra.summary(), rb.summary()
-    assert sa.keys() == sb.keys()
-    assert {k: (sa[k], sb[k]) for k in sa if not _same(sa[k], sb[k])} == {}
+    assert_same_run(ra, rb)
     assert len(qa) == len(qb) > 0
     for a, b in zip(qa, qb):
         assert (a.state.value, a.first_token_time, a.finish_time, a.tokens_generated) == \
             (b.state.value, b.first_token_time, b.finish_time, b.tokens_generated)
-    assert [dataclasses.astuple(p) for p in ra.timeline] == \
-        [dataclasses.astuple(p) for p in rb.timeline]
-    fields = ("chip_seconds", "peak_chips", "scale_ups", "scale_downs", "duration",
-              "n_events", "failures", "degradations", "skipped_injections")
-    assert [getattr(ra, f) for f in fields] == [getattr(rb, f) for f in fields]
-    assert [dataclasses.astuple(s) for s in ra.shocks] == \
-        [dataclasses.astuple(s) for s in rb.shocks]
-    assert (ra.ledger is None) == (rb.ledger is None)
-    if ra.ledger is not None:
-        for col in ("state", "first_token_time", "finish_time", "tokens_generated",
-                    "mean_itl", "retries"):
-            np.testing.assert_array_equal(getattr(ra.ledger, col), getattr(rb.ledger, col),
-                                          err_msg=col)
 
 
 def _both(monkeypatch, requests, controller, **kw):
@@ -337,8 +284,3 @@ def test_the_port_plans_load_times_on_the_card():
     for name in PORT.perf.INSTANCE_CHIPS:
         assert PORT.perf.PerfModel(name).model_load_time() == 15.0
     assert PORT.cluster.SimCluster(PORT.simulator.default_perf_factory()).max_chips == 50
-
-
-def test_simulate_fleet_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="9d"):
-        PORT.simulator.simulate_fleet([], None, max_time=10.0)
