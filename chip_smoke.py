@@ -21,11 +21,12 @@ and runs Chiron's whole hierarchy,
 ``serve_forever`` driven by ``ChironController`` over llama-8b instances
 sharing the card (the ``cluster`` phase: first the smoke cluster's
 decisions and tokens card against CPU and a migration mid-generation, then
-a mixed interactive and batch trace at full width), and trains olmo-1b at
-full width in float32 through ``repro_torch.launch.train``'s loop (the
-``train`` phase: first one step card against CPU at the smoke size), each
-path with the kernels' launch counters set to 0 just before it and read
-just after. The ``sim`` phase then runs Chiron's simulator on the card's
+a mixed interactive and batch trace at full width), and trains olmo-1b and
+mamba2-1.3b at full width in float32 through ``repro_torch.launch.train``'s
+loop (the ``train`` phase: first one step card against CPU at the smoke
+size and one gradient card against CPU at full widths, zamba2-2.7b's
+included), each path with the kernels' launch counters set to 0 just
+before it and read just after. The ``sim`` phase then runs Chiron's simulator on the card's
 planning constants: it measures the host-to-card rate of a llama-8b
 checkpoint load beside ``sim/perf_model.py``'s ``_LOAD_BW``, puts the
 planned prefill beside the one the ``serve`` phase measured, and runs the
@@ -45,7 +46,9 @@ launches no kernel. The attention gradient runs through the hand-written
 ``flash_prefill`` backward kernels (bf16 on ``wgmma`` + TMA, float32 on
 FMAs), given the log-sum-exp that the forward's LSE instance saved, and is
 held against its plain version in the ``kernels`` phase, directly and
-through ``FlashPrefill`` under autograd.
+through ``FlashPrefill`` under autograd; the SSD scan's gradient through
+the hand-written ``ssd_scan`` backward kernel (fp32 FMAs), held against
+``ssd_scan_backward_plain`` there, directly and through ``SSDScan``.
 Every engine on the card replays its decode step as a CUDA graph captured
 when it was built; the ``graph`` phase holds one replay against one eager
 ``model.decode_step`` from the same pool state at full width, bit for bit,
@@ -115,7 +118,13 @@ from repro_torch.kernels.flash_prefill import (  # noqa: E402
     flash_prefill_backward_plain, flash_prefill_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: E402
                                                  paged_attention_plain)
+import repro_torch.kernels.ssd_scan as ssd_module  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+# the SSD scan's backward: a tree older than it has none, and an ``--ab``
+# turn imports such a tree (it times no SSD backward)
+ssd_scan_backward = getattr(ssd_module, "ssd_scan_backward", None)
+ssd_scan_backward_plain = getattr(ssd_module, "ssd_scan_backward_plain", None)
+from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.launch.train import synthetic_lm_batch, train  # noqa: E402
@@ -154,7 +163,8 @@ SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 # of a value; a dropped 28-row tail tile or split moves the output by ~0.02)
 OF_MAX_TOL = 1e-2
 KERNELS = {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
-           "ssd_scan": ssd_scan, "flash_prefill_backward": flash_prefill_backward}
+           "ssd_scan": ssd_scan, "flash_prefill_backward": flash_prefill_backward,
+           "ssd_scan_backward": ssd_scan_backward}
 # the wrappers whose bf16 launches go to a tensor-core kernel, counted apart
 TENSOR_CORE_KERNELS = ("flash_prefill", "ssd_scan")
 # the kernels of a llama-8b instance, and so of the cluster phase
@@ -185,6 +195,13 @@ KERNEL_INFO = {
         "source": "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
         "replaces": "src/repro/models/layers.py:130",
     },
+    # nor for the SSD scan: the reference trains through jax.grad of its jnp
+    # oracle ssd_chunked, which ssm.py:183 reaches through ops.ssd_scan
+    "ssd_scan_backward": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:25",
+    },
 }
 
 
@@ -193,6 +210,7 @@ def zero_counts() -> None:
     decode_graph.add_counts([-c for c in decode_graph.read_counts()])
     flash_prefill_backward.launches = 0
     flash_prefill.lse_launches = 0
+    ssd_scan_backward.launches = 0
 
 
 def emit(phase: str, **fields) -> None:
@@ -407,11 +425,27 @@ SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0, 0>",
                      "ssd_scan_kernel_wgmma<64>")
 
 
-# the instantiations on the training path (olmo-1b: D 128, float32): the
-# forward that writes the log-sum-exp and the backward's two kernels
+# the instantiations on the training paths, float32, which must not spill:
+# olmo-1b (D 128) the forward that writes the log-sum-exp and the backward's
+# two kernels; the SSD backward at mamba2-1.3b's widths (P 64, N 128, row
+# blocks of 64), zamba2-2.7b's (N 64; its shared attention at D 80) and the
+# mamba2 smoke step's (P 32, N 16, chunks of 32)
 TRAINING_INSTANCES = ("flash_prefill_kernel_fma<128, 1>",
                       "flash_prefill_bwd_dq_fma<128>",
-                      "flash_prefill_bwd_dkdv_fma<128>")
+                      "flash_prefill_bwd_dkdv_fma<128>",
+                      "ssd_scan_bwd_kernel<float, 64, 128, 64>",
+                      "ssd_scan_bwd_kernel<float, 64, 64, 64>",
+                      "flash_prefill_kernel_fma<80, 1>",
+                      "flash_prefill_bwd_dq_fma<80>",
+                      "flash_prefill_bwd_dkdv_fma<80>",
+                      "ssd_scan_bwd_kernel<float, 32, 16, 32>")
+# the SSD scan's FMA forward at the same widths, also on the training paths:
+# it must be there; its spills are reported, not refused (16 bytes at N 128
+# and 8 at N 64 on the H100: the serving source, ``ssd_scan.cu``, is not
+# this training slice's to edit; ROADMAP Queue B)
+TRAINING_FORWARD_SSD_INSTANCES = ("ssd_scan_kernel_fma<128, 64>",
+                                  "ssd_scan_kernel_fma<64, 64>",
+                                  "ssd_scan_kernel_fma<16, 32>")
 # the backward's bf16 tensor-core instantiations: every head_dim, with and
 # without the general mask
 BACKWARD_WGMMA_INSTANCES = tuple(
@@ -421,8 +455,9 @@ BACKWARD_WGMMA_INSTANCES = tuple(
 
 def phase_build() -> None:
     """Builds every kernel source with ``-Xptxas=-v``; fails if a listed
-    serving, training or backward instantiation is missing or if any
-    instantiation of the two ``flash_prefill`` sources spills."""
+    serving, training or backward instantiation is missing or spills (the
+    SSD scan's FMA forward: if it is missing), or if any instantiation of
+    the two ``flash_prefill`` sources or of the SSD backward spills."""
     t0 = time.monotonic()
     out = _build.build_all(extra_flags=("-Xptxas=-v",))
     usage = {}
@@ -439,13 +474,18 @@ def phase_build() -> None:
     emit("build", seconds=round(time.monotonic() - t0, 2),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=usage,
          **{f"{kind}_instances": [found.get(i) for i in insts]
-            for kind, insts in listed.items()})
+            for kind, insts in listed.items()},
+         training_forward_ssd_instances=[found.get(i)
+                                         for i in TRAINING_FORWARD_SSD_INSTANCES])
+    for inst in TRAINING_FORWARD_SSD_INSTANCES:
+        if inst not in found:
+            fail(f"build: training instantiation {inst} missing")
     for kind, insts in listed.items():
         for inst in insts:
             k = found.get(inst)
             if k is None or k["spill_stores"] or k["spill_loads"]:
                 fail(f"build: {kind} instantiation {inst} missing or spilling: {k}")
-    for name in ("flash_prefill", "flash_prefill_bwd"):
+    for name in ("flash_prefill", "flash_prefill_bwd", "ssd_scan_bwd"):
         if usage[name]["spilling"]:
             fail(f"build: {name} instantiations spill: {usage[name]['spilling']}")
 
@@ -964,6 +1004,7 @@ def phase_kernels(gen) -> dict:
              max_abs_err=err)
 
     records["ssd_scan"] = _ssd_scan_cases(gen)
+    records["ssd_scan_backward"] = _ssd_scan_backward_cases(gen)
     return records
 
 
@@ -1010,6 +1051,152 @@ def _ssd_flops(b, s, h, p, n, chunk) -> float:
         if t0 > 0:
             flops += b * h * 2.0 * L * p * n
     return flops
+
+
+def _ssd_bwd_flops(b, s, h, p, n, chunk, h0: bool, dstate: bool) -> float:
+    """Operations the scan's gradient needs on these inputs: per chunk of L
+    valid steps, C B^T over its L (L + 1) / 2 causal pairs once per
+    sequence, and per head dy x^T, W^T dy (P each), Z^T C and Z B (N each)
+    over the same pairs; where the entering state is not zero (a later chunk,
+    or h0) its recomputation, the carried-state term of dC and the entering
+    state's gradient (L P N products each); where G is not zero (an earlier
+    chunk, or a final-state cotangent) the G terms of dx and dB."""
+    flops = 0.0
+    n_chunks = -(-s // chunk)
+    for z in range(n_chunks):
+        L = min(chunk, s - z * chunk)
+        pairs = L * (L + 1) // 2
+        flops += b * 2.0 * pairs * n + b * h * 2.0 * pairs * (2 * p + 2 * n)
+        state_terms = (3 if z > 0 else 2 if h0 else 0) + (2 if z < n_chunks - 1 or dstate
+                                                          else 0)
+        flops += b * h * 2.0 * L * p * n * state_terms
+    return flops
+
+
+def _ssd_bwd_dA_scale(dt, A, ddt) -> torch.Tensor:
+    """The magnitude of what dA sums, per head: dA_h = sum over b, s of dt r,
+    where A r is d(dt) less its direct part, so its terms are of order
+    |dt d(dt) / A|. They cancel to far less where the decay is steep (A =
+    -16, dt ~ 1) or there is one step (dA = 0 exactly), so dA is held to
+    the tolerance times this, not times its own largest value."""
+    return (dt * ddt.float()).abs().sum(dim=(0, 1)) / A.abs()
+
+
+def _ssd_scan_backward_cases(gen) -> dict:
+    """``ssd_scan_backward`` against ``ssd_scan_backward_plain`` on the card
+    (each gradient within ``SSD_TOL`` of its largest magnitude, dA of
+    ``_ssd_bwd_dA_scale``), a second call bit for bit with the first (no
+    atomics), in float32 and bf16: mamba2-1.3b's and zamba2-2.7b's training
+    shapes (x, B and C strided views, as the model slices them; timed),
+    s 341, eight chunks of carried state (G and h both non-zero), h0 with a
+    final-state cotangent, s = 1 and 257, the smoke widths, A = -16 with
+    dt ~ 1. The float32 mamba2 case also goes through ``SSDScan`` under
+    autograd (bit for bit with the direct call) and is held against
+    ``torch.autograd.grad`` of ``ssd_scan_plain``. Returns the float32
+    mamba2 record (the main path's) for the kernels line."""
+    record = None
+    cases = [  # (name, b, s, h, p, n, chunk, h0, dstate, steep)
+        ("mamba2-1.3b training", 8, 128, 64, 64, 128, 256, False, False, False),
+        ("zamba2-2.7b training", 8, 128, 80, 64, 64, 256, False, False, False),
+        ("s341", 1, 341, 64, 64, 128, 256, False, False, False),
+        ("s2048", 1, 2048, 64, 64, 128, 256, False, False, False),
+        ("h0, dstate", 1, 341, 64, 64, 128, 256, True, True, False),
+        ("s=1", 1, 1, 64, 64, 128, 256, False, False, False),
+        ("s=257", 1, 257, 64, 64, 128, 256, False, False, False),
+        ("smoke widths, h0, dstate", 2, 100, 8, 32, 16, 32, True, True, False),
+        ("A=-16, dt~1", 1, 341, 64, 64, 128, 256, False, False, True),
+    ]
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, s, h, p, n, chunk, with_h0, with_dstate, steep in cases:
+            sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0, steep=steep,
+                                    strided=p == 64)
+            x, dt, B, C = sets[0]
+            dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+            dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") \
+                if with_dstate else None
+            before = ssd_scan_backward.launches
+            got = ssd_scan_backward(x, dt, A, B, C, h0, dy, dstate, chunk=chunk)
+            again = ssd_scan_backward(x, dt, A, B, C, h0, dy, dstate, chunk=chunk)
+            torch.cuda.synchronize()
+            if ssd_scan_backward.launches - before != 2:
+                fail(f"ssd_scan_backward {name}: two calls counted "
+                     f"{ssd_scan_backward.launches - before} launches")
+            want = ssd_scan_backward_plain(x, dt, A, B, C, h0, dy, dstate, chunk)
+            label = f"ssd_scan_backward {dtype} {name}"
+            errs = {}
+            for nm, g, w, g2 in zip(names, got, want, again):
+                if (g is None) != (w is None) or (g is not None and g.shape != w.shape):
+                    fail(f"{label} {nm}: got {None if g is None else tuple(g.shape)}, "
+                         f"want {None if w is None else tuple(w.shape)}")
+                if w is None:
+                    continue
+                if not torch.equal(g, g2):
+                    fail(f"{label} {nm}: a second call gave other bits")
+                if not (torch.isfinite(g.float()).all() and torch.isfinite(w.float()).all()):
+                    fail(f"{label} {nm}: not finite")
+                err = (g.float() - w.float()).abs()
+                scale = _ssd_bwd_dA_scale(dt, A, want[1]) if nm == "dA" \
+                    else w.float().abs().max()
+                if not bool((err <= SSD_TOL[dtype] * scale).all()):
+                    fail(f"{label} {nm}: error {err.max().item():.3e} beyond {SSD_TOL[dtype]:g} "
+                         f"of {scale.max().item():.3e}")
+                errs[nm] = float((err / scale).max())
+            rec = dict(kernel="ssd_scan_backward", dtype=str(dtype), case=name,
+                       route="fp32 FMA", shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk,
+                                                    h0=with_h0, dstate=with_dstate,
+                                                    strided=p == 64),
+                       tolerance=SSD_TOL[dtype], rel_err=errs,
+                       max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                       for g, w in zip(got, want) if w is not None))
+            if dtype == torch.float32 and name == "mamba2-1.3b training":
+                # the autograd route: SSDScan's backward is the direct call
+                leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+                with torch.enable_grad():
+                    y, _ = ssd_scan(*leaves, chunk=chunk)
+                    through = torch.autograd.grad(y, leaves, dy)
+                    y_plain, _ = ssd_scan_plain(*leaves, chunk)
+                    auto = torch.autograd.grad(y_plain, leaves, dy)
+                for nm, g, w, a in zip(names, through, got, auto):
+                    if not torch.equal(g, w):
+                        fail(f"{label} {nm}: SSDScan's gradient differs from the direct call")
+                    scale = _ssd_bwd_dA_scale(dt, A, want[1]) if nm == "dA" \
+                        else a.abs().max()
+                    if not bool(((g - a).abs() <= SSD_TOL[dtype] * scale).all()):
+                        fail(f"{label} {nm}: beyond {SSD_TOL[dtype]:g} of autograd of "
+                             "ssd_scan_plain")
+                rec["autograd_route"] = "SSDScan bit for bit with the direct call, within " \
+                    "tolerance of autograd of ssd_scan_plain"
+            if "training" in name:
+                def kernel():
+                    ssd_scan_backward(x, dt, A, B, C, h0, dy, dstate, chunk=chunk)
+
+                rows = _kernel_rows(kernel, 20)
+                ms = sum(_device_us(e) for e in rows) / 20 / 1e3
+                own = {_instance(e.key): e.count / 20 for e in rows if "ssd_scan_bwd" in e.key}
+                elem = "float" if dtype == torch.float32 else "__nv_bfloat16"
+                if own != {f"ssd_scan_bwd_kernel<{elem}, {p}, {n}, 64>": 1}:
+                    fail(f"{label}: a call launched {own}")
+                kernel_ms = sum(_device_us(e) for e in rows if "ssd_scan_bwd" in e.key) / 20 / 1e3
+                call_ms = time_ms(kernel)
+                plain_ms = device_ms(lambda: ssd_scan_backward_plain(
+                    x, dt, A, B, C, h0, dy, dstate, chunk), iters=5, warmup=1)
+                es = x.element_size()
+                n_bytes = 2 * (x.numel() + B.numel() + C.numel()) * es + dy.numel() * es + \
+                    (2 * dt.numel() + 2 * A.numel()) * 4
+                b_ms, b_by = bound(n_bytes, _ssd_bwd_flops(b, s, h, p, n, chunk, with_h0,
+                                                           with_dstate), dtype)
+                # no single PyTorch call computes this gradient: no library time
+                rec.update(time_ms=ms, kernel_ms=kernel_ms, call_ms=call_ms, bound_ms=b_ms,
+                           bound_by=b_by, plain_ms=plain_ms, library_ms=None,
+                           kernel_instances=own)
+                if dtype == torch.float32 and name == "mamba2-1.3b training":
+                    record = {"name": "ssd_scan_backward", **KERNEL_INFO["ssd_scan_backward"],
+                              "max_abs_err": rec["max_abs_err"], "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": None}
+            emit("kernels", **rec)
+    return record
 
 
 def _ssd_scan_cases(gen) -> dict:
@@ -1483,7 +1670,7 @@ def _profiled(fn, reps: int) -> dict:
     top = sorted(((e.key, _device_us(e) / reps / 1e3) for e in kernels),
                  key=lambda kv: -kv[1])
     own = ("paged_attention_", "flash_prefill_kernel", "flash_prefill_bwd",
-           "ssd_scan_kernel")
+           "ssd_scan_kernel", "ssd_scan_bwd")
     short = lambda k: k.split("<")[0].split("::")[-1]  # noqa: E731
     return {"device_ms": sum(ms for _, ms in top),
             "launches": sum(e.count for e in kernels) / reps,
@@ -1836,7 +2023,7 @@ def phase_serve(smi: str):
     holds them (the MoE and hybrid rows are its predictions, not its
     data)."""
     launches = {"paged_attention": 0, "flash_prefill": 0, "ssd_scan": 0,
-                "flash_prefill_backward": 0}
+                "flash_prefill_backward": 0, "ssd_scan_backward": 0}
     planner, shares = {}, {}
     for arch in SERVE_ARCHS:
         got, eng, share = _serve_path(smi, arch)
@@ -2232,19 +2419,30 @@ LAUNCHER_LR = 1e-3
 WITNESS_STEPS = 6
 
 
-def _train_parity() -> dict:
-    """One float32 train step (remat on) at the olmo-1b smoke size, widened
-    to head_dim 64 (the kernels' widths), on the card and on the CPU from
-    the same parameters and batch: loss and gradient norm within
-    ``TRAIN_TOL``. The card's step launches ``flash_prefill`` twice a layer
-    (remat runs each forward again), each writing the log-sum-exp (both run
-    through ``FlashPrefill``; the backward takes the second's), and its
-    backward once a layer."""
-    cfg = get_smoke_config("olmo-1b").with_(head_dim=64)
+def _launch_counts(names) -> dict:
+    """The launch counters of ``names``, as the train phase reads them."""
+    read = {"flash_prefill": lambda: flash_prefill.launches,
+            "flash_prefill.lse_launches": lambda: flash_prefill.lse_launches,
+            "flash_prefill_backward": lambda: flash_prefill_backward.launches,
+            "ssd_scan": lambda: ssd_scan.launches,
+            "ssd_scan_backward": lambda: ssd_scan_backward.launches}
+    return {n: read[n]() for n in names}
+
+
+def _train_parity(cfg, label: str, B: int, S: int, want: dict) -> dict:
+    """One float32 train step (remat on) of ``cfg`` on the card and on the
+    CPU from the same parameters and batch: loss and gradient norm within
+    ``TRAIN_TOL``, the parameters after the step within ``TRAIN_PARAM_TOL``;
+    the card's step must launch the kernels ``want`` says. olmo-1b (widened
+    to head_dim 64, the kernels' widths) launches ``flash_prefill`` twice a
+    layer (remat runs each forward again), each writing the log-sum-exp
+    (both run through ``FlashPrefill``; the backward takes the second's),
+    and its backward once a layer; mamba2-1.3b ``ssd_scan`` twice a layer
+    (both through ``SSDScan``) and its backward once a layer."""
     model = Model(cfg)
     params_cpu = model.init(torch.Generator().manual_seed(6), dtype=torch.float32,
                             device="cpu")
-    batch_cpu = synthetic_lm_batch(np.random.default_rng(6), model, 4, 64, device="cpu")
+    batch_cpu = synthetic_lm_batch(np.random.default_rng(6), model, B, S, device="cpu")
     step = make_train_step(cfg, remat=True, lr=1e-3)
     p_cpu, _, m_cpu = step(params_cpu, adamw_init(params_cpu), batch_cpu)
     params_gpu = _to_cuda(params_cpu)
@@ -2252,26 +2450,21 @@ def _train_parity() -> dict:
     p_gpu, _, m_gpu = step(params_gpu, adamw_init(params_gpu),
                            {k: v.cuda() for k, v in batch_cpu.items()})
     torch.cuda.synchronize()
-    counts = {"flash_prefill": flash_prefill.launches,
-              "flash_prefill.lse_launches": flash_prefill.lse_launches,
-              "flash_prefill_backward": flash_prefill_backward.launches}
-    want = {"flash_prefill": 2 * cfg.n_layers,
-            "flash_prefill.lse_launches": 2 * cfg.n_layers,
-            "flash_prefill_backward": cfg.n_layers}
+    counts = _launch_counts(want)
     if counts != want:
-        fail(f"train parity: launches {counts}, a step implies {want}")
+        fail(f"train parity {label}: launches {counts}, a step implies {want}")
     loss = (float(m_gpu["loss"]), float(m_cpu["loss"]))
     norm = (float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"]))
     if abs(loss[0] - loss[1]) > TRAIN_TOL or \
             abs(norm[0] - norm[1]) > TRAIN_TOL * max(1.0, norm[1]):
-        fail(f"train parity: loss (card, cpu) {loss}, grad norm {norm}, beyond "
+        fail(f"train parity {label}: loss (card, cpu) {loss}, grad norm {norm}, beyond "
              f"{TRAIN_TOL:g}")
     param_err = max(float((a.cpu() - b).abs().max())
                     for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)))
     if param_err > TRAIN_PARAM_TOL:
-        fail(f"train parity: parameters after one step differ by {param_err:.3e}, beyond "
-             f"{TRAIN_PARAM_TOL:g}")
-    out = {"config": "olmo-1b smoke, head_dim=64, float32, remat", "batch": 4, "seq": 64,
+        fail(f"train parity {label}: parameters after one step differ by {param_err:.3e}, "
+             f"beyond {TRAIN_PARAM_TOL:g}")
+    out = {"config": label, "batch": B, "seq": S,
            "loss": loss, "grad_norm": norm, "tolerance": TRAIN_TOL,
            "params_max_abs_err_after_step": param_err,
            "params_tolerance": TRAIN_PARAM_TOL, "kernel_launches": counts}
@@ -2293,15 +2486,15 @@ def _leaf_grad_norms(names, grads) -> dict:
             .double().norm(dim=1).cpu() for n, g in zip(names, grads)}
 
 
-def _train_width_parity() -> dict:
-    """The gradient of one float32 loss at olmo-1b's full widths cut to 2
-    layers (no remat, as the launcher runs), on the card and on the CPU from
-    the same parameters and batch: the loss, the global gradient norm and
-    each leaf's gradient norm (a layer's slice for the stacked leaves) agree
-    within ``TRAIN_TOL`` of the CPU's (of the leaf's largest, for a leaf)."""
-    cfg = get_config("olmo-1b").with_(n_layers=2)
+def _train_width_parity(cfg, label: str, B: int, S: int, want: dict) -> dict:
+    """The gradient of one float32 loss of ``cfg`` (no remat, as the
+    launcher runs) on the card and on the CPU from the same parameters and
+    batch: the loss, the global gradient norm and each leaf's gradient norm
+    (a layer's slice for the stacked leaves) agree within ``TRAIN_TOL`` of
+    the CPU's (of the leaf's largest, for a leaf), and the card launches the
+    kernels ``want`` says: one forward a layer (olmo-1b's writes the
+    log-sum-exp that the layer's backward takes) and one backward a layer."""
     model = Model(cfg)
-    B, S = 4, 128
     params_cpu = model.init(torch.Generator().manual_seed(7), dtype=torch.float32,
                             device="cpu")
     batch_cpu = synthetic_lm_batch(np.random.default_rng(7), model, B, S, device="cpu")
@@ -2313,37 +2506,31 @@ def _train_width_parity() -> dict:
     loss_gpu, grads_gpu = loss_and_grads(model, _to_cuda(params_cpu),
                                          {k: v.cuda() for k, v in batch_cpu.items()})
     torch.cuda.synchronize()
-    counts = {"flash_prefill": flash_prefill.launches,
-              "flash_prefill.lse_launches": flash_prefill.lse_launches,
-              "flash_prefill_backward": flash_prefill_backward.launches}
-    # no remat: one forward a layer, which writes the log-sum-exp that the
-    # layer's backward takes
-    want = {"flash_prefill": cfg.n_layers, "flash_prefill.lse_launches": cfg.n_layers,
-            "flash_prefill_backward": cfg.n_layers}
+    counts = _launch_counts(want)
     if counts != want:
-        fail(f"train width parity: launches {counts}, a loss and its gradient imply {want}")
+        fail(f"train width parity {label}: launches {counts}, a loss and its gradient "
+             f"imply {want}")
     norms_gpu = _leaf_grad_norms(names, grads_gpu)
     del grads_gpu
     loss = (float(loss_gpu), float(loss_cpu))
     norm = tuple(float(torch.cat(list(n.values())).norm()) for n in (norms_gpu, norms_cpu))
     if abs(loss[0] - loss[1]) > TRAIN_TOL or abs(norm[0] - norm[1]) > TRAIN_TOL * norm[1]:
-        fail(f"train width parity: loss (card, cpu) {loss}, grad norm {norm}, beyond "
-             f"{TRAIN_TOL:g}")
+        fail(f"train width parity {label}: loss (card, cpu) {loss}, grad norm {norm}, "
+             f"beyond {TRAIN_TOL:g}")
     leaf_err = {}
     for n in names:
         a, b = norms_gpu[n], norms_cpu[n]
         if float(b.max()) == 0.0:
-            fail(f"train width parity: {n} gets no gradient on the CPU")
+            fail(f"train width parity {label}: {n} gets no gradient on the CPU")
         leaf_err[n] = float((a - b).abs().max()) / float(b.max())
         if leaf_err[n] > TRAIN_TOL:
-            fail(f"train width parity: {n}'s gradient norms (card, cpu) {a.tolist()}, "
-                 f"{b.tolist()} differ by {leaf_err[n]:.3e} of the largest")
-    out = {"config": "olmo-1b full widths, 2 layers, float32, no remat", "batch": B,
-           "seq": S, "loss": loss, "grad_norm": norm, "tolerance": TRAIN_TOL,
-           "leaf_grad_norm_rel_err_max": max(leaf_err.values()),
+            fail(f"train width parity {label}: {n}'s gradient norms (card, cpu) "
+                 f"{a.tolist()}, {b.tolist()} differ by {leaf_err[n]:.3e} of the largest")
+    out = {"config": label, "batch": B, "seq": S, "loss": loss, "grad_norm": norm,
+           "tolerance": TRAIN_TOL, "leaf_grad_norm_rel_err_max": max(leaf_err.values()),
            "leaf_grad_norms_cpu": {n: v.tolist() for n, v in norms_cpu.items()},
            "kernel_launches": counts}
-    emit("train", check="gradient at full width, 2 layers, card against CPU", **out)
+    emit("train", check="gradient at full width, card against CPU", **out)
     return out
 
 
@@ -2481,16 +2668,187 @@ def _train_lr_witness() -> dict:
     return out
 
 
+class _NoPlainSSD:
+    """While active, ``ssd_scan_plain`` and ``ssd_scan_backward_plain``
+    fail the run if they are called on a CUDA tensor: the card's SSD work,
+    forward and gradient, must all be the kernels'."""
+
+    def __enter__(self):
+        self.saved = (ssd_module.ssd_scan_plain, ssd_module.ssd_scan_backward_plain)
+
+        def guard(fn):
+            def run(x, *args, **kw):
+                if x.device.type == "cuda":
+                    fail(f"train: {fn.__name__} ran on the card")
+                return fn(x, *args, **kw)
+            return run
+
+        ssd_module.ssd_scan_plain, ssd_module.ssd_scan_backward_plain = map(guard, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        ssd_module.ssd_scan_plain, ssd_module.ssd_scan_backward_plain = self.saved
+        return False
+
+
+def _train_ssm_full(smi: str) -> dict:
+    """mamba2-1.3b at full width and depth in float32 through
+    ``launch.train``'s loop: 20 steps of 8 x 128 tokens with remat at
+    ``TRAIN_LR``, counters set to 0 just before and read just after, no
+    plain SSD call on the card (``_NoPlainSSD``). Fails unless every loss
+    and gradient norm is finite and every step launches the ``ssd_scan``
+    forward twice a layer and its backward once a layer. Then a step is
+    profiled for its device-busy time and timed on the wall clock; the
+    profile must show the backward kernel once a layer, the FMA forward
+    twice, and no other SSD kernel. Where the loss does not fall,
+    ``_train_ssm_witness`` runs the same steps with plain PyTorch SSD and
+    fails unless that run does not fall either: whether the loss falls at
+    this rate is then the optimisation's and not the kernels'."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-1.3b")
+    steps, B, S = 20, 8, 128
+    per_step, last, held = [], [0, 0], []
+
+    def on_step(_):
+        now = [ssd_scan_backward.launches, ssd_scan.launches]
+        per_step.append([now[0] - last[0], now[1] - last[1]])
+        last[:] = now
+        held.append(torch.cuda.memory_allocated() / 1e9)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    with _NoPlainSSD():
+        res = train(cfg, steps=steps, batch=B, seq=S, lr=TRAIN_LR, remat=True,
+                    device="cuda", on_step=on_step)
+    total_s = time.monotonic() - t0
+    launches = {"ssd_scan_backward": ssd_scan_backward.launches,
+                "ssd_scan": ssd_scan.launches,
+                "tensor_core_launches": ssd_scan.tensor_core_launches,
+                "flash_prefill": flash_prefill.launches,
+                "paged_attention": paged_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms = res["losses"], res["grad_norms"]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"train mamba2-1.3b: a loss or gradient norm is not finite: {losses}, {norms}")
+    fell = losses[-1] < losses[0]
+    if any(p != [cfg.n_layers, 2 * cfg.n_layers] for p in per_step) or \
+            len(per_step) != steps or launches["tensor_core_launches"] or \
+            launches["flash_prefill"] or launches["paged_attention"]:
+        fail(f"train mamba2-1.3b: launches a step (backward, forward) {per_step}, want "
+             f"[{cfg.n_layers}, {2 * cfg.n_layers}] each; in all {launches}")
+    state = [res["params"], res["opt_state"]]
+    batch = synthetic_lm_batch(np.random.default_rng(1), res["model"], B, S)
+    step_fn = make_train_step(cfg, remat=True, lr=TRAIN_LR)
+
+    def one():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        float(m["loss"])
+
+    with _NoPlainSSD():
+        one()
+        prof = _profiled(one, 2)
+        wall_ms = _wall_ms(one, 3)
+    ssd = {k: n for k, n in prof["own_instance_launches"].items() if "ssd" in k}
+    want = {"ssd_scan_bwd_kernel<float, 64, 128, 64>": cfg.n_layers,
+            "ssd_scan_kernel_fma<128, 64>": 2 * cfg.n_layers}
+    if ssd != want:
+        fail(f"train mamba2-1.3b: a profiled step launched the SSD kernels {ssd}, "
+             f"want {want}")
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    steady = float(np.median(step_ms[1:]))
+    out = {"model": cfg.name, "params": cfg.param_count(), "dtype": "float32",
+           "remat": True, "steps": steps, "batch": B, "seq": S, "lr": TRAIN_LR,
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "grad_norms": norms, "step_ms": step_ms, "step_ms_median_after_first": steady,
+           "tokens_per_s": B * S / (steady / 1e3), "train_loop_s": total_s,
+           "peak_device_memory_gb": peak_gb, "held_between_steps_gb_max": max(held),
+           "kernel_launches": launches,
+           "launches_per_step_backward_forward": per_step[0],
+           "profiled_step_wall_ms": wall_ms, "profiled_step_device_ms": prof["device_ms"],
+           "device_idle_share": 1.0 - prof["device_ms"] / wall_ms,
+           "step_launches": prof["launches"], "own_kernels_ms": prof["own_kernels_ms"],
+           "ssd_kernel_launches_per_step": ssd, "top_device_ms": prof["top_ms"],
+           "loss_fell": fell}
+    emit("train", gpu=smi, **out)
+    del state, res
+    if not fell:
+        _train_ssm_witness(losses)
+    return {"ssd_scan": launches["ssd_scan"],
+            "ssd_scan_backward": launches["ssd_scan_backward"]}
+
+
+def _train_ssm_witness(kernel_losses) -> dict:
+    """Run only when mamba2-1.3b's loss did not fall at ``TRAIN_LR``: the
+    same 20 steps again with the SSD scan through ``ssd_scan_ref`` (plain
+    PyTorch on the card under autograd, no kernel launched) in
+    ``ops.ssd_scan``, the two runs' losses side by side. Fails unless the
+    first step's losses (the same parameters and batch) agree within
+    ``TRAIN_TOL`` and the plain run does not fall either. The later steps
+    are not compared: AdamW's first update moves every element by about
+    ``lr`` whatever its gradient's size, so an element whose gradient is
+    near zero (d(dt) sums cancelling terms) moves by the sign of its
+    rounding, and the two runs part by ~1e-3 from the second step on."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = ssd_scan.launches + ssd_scan_backward.launches
+    ops.ssd_scan = ssd_scan_ref
+    try:
+        res = train(get_config("mamba2-1.3b"), steps=20, batch=8, seq=128, lr=TRAIN_LR,
+                    remat=True, device="cuda")
+    finally:
+        ops.ssd_scan = ssd_scan
+    plain = res["losses"]
+    del res
+    launched = ssd_scan.launches + ssd_scan_backward.launches - before
+    first = abs(kernel_losses[0] - plain[0])
+    out = {"model": "mamba2-1.3b", "lr": TRAIN_LR, "remat": True, "steps": 20, "batch": 8,
+           "seq": 128, "losses": {"kernels": kernel_losses, "plain ssd": plain},
+           "first_step_loss_diff": first, "tolerance": TRAIN_TOL,
+           "loss_diff_max": max(abs(a - b) for a, b in zip(kernel_losses, plain)),
+           "loss_fell": {"kernels": kernel_losses[-1] < kernel_losses[0],
+                         "plain ssd": plain[-1] < plain[0]}}
+    emit("train", check="mamba2-1.3b, the loss not falling: kernels against plain SSD", **out)
+    if launched or not np.isfinite(plain).all() or first > TRAIN_TOL or \
+            plain[-1] < plain[0]:
+        verdict = "fell" if plain[-1] < plain[0] else "did not fall"
+        fail(f"train mamba2-1.3b: the kernels' loss did not fall; with plain SSD on the "
+             f"card ({launched} kernel launches) it {verdict}, first losses "
+             f"{kernel_losses[0]} and {plain[0]}")
+    return out
+
+
 def phase_train(smi: str) -> dict:
-    """One step card against CPU at the smoke size, one gradient card
-    against CPU at full width in 2 layers, then olmo-1b at full width, and
-    the launcher's rate with kernels and with plain attention; returns each
-    kernel's launches over the full-width run."""
+    """One step card against CPU at the smoke size (olmo-1b, mamba2-1.3b),
+    one gradient card against CPU at full width (olmo-1b and mamba2-1.3b in
+    2 layers, zamba2-2.7b in 6: one call of its shared attention), then
+    olmo-1b at full width, the launcher's rate with kernels and with plain
+    attention, and mamba2-1.3b at full width and depth; returns each
+    kernel's launches over the two full-width runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    _train_parity()
-    _train_width_parity()
+    flash = ("flash_prefill", "flash_prefill.lse_launches", "flash_prefill_backward")
+    olmo = get_smoke_config("olmo-1b").with_(head_dim=64)
+    _train_parity(olmo, "olmo-1b smoke, head_dim=64, float32, remat", 4, 64,
+                  dict(zip(flash, (2 * olmo.n_layers, 2 * olmo.n_layers, olmo.n_layers))))
+    mamba = get_smoke_config("mamba2-1.3b")
+    _train_parity(mamba, "mamba2-1.3b smoke, float32, remat", 4, 64,
+                  {"ssd_scan": 2 * mamba.n_layers, "ssd_scan_backward": mamba.n_layers})
+    _train_width_parity(get_config("olmo-1b").with_(n_layers=2),
+                        "olmo-1b full widths, 2 layers, float32, no remat", 4, 128,
+                        dict(zip(flash, (2, 2, 2))))
+    # one full chunk of 256 and a ragged one of 64: the carried-state terms
+    _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
+                        "mamba2-1.3b full widths, 2 layers, float32, no remat", 2, 320,
+                        {"ssd_scan": 2, "ssd_scan_backward": 2})
+    # six Mamba2 layers and one call of the shared attention block (D 80,
+    # window 4096: the FMA instances of the forward and of its backward)
+    _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
+                        "zamba2-2.7b full widths, 6 layers, float32, no remat", 2, 320,
+                        {"ssd_scan": 6, "ssd_scan_backward": 6, **dict(zip(flash, (1, 1, 1)))})
     launches = _train_full(smi)
     _train_lr_witness()
+    launches.update(_train_ssm_full(smi))
     return launches
 
 

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, List, Tuple
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNEL_SOURCES: Tuple[str, ...] = ("paged_attention", "flash_prefill",
-                                   "flash_prefill_bwd", "ssd_scan")
+                                   "flash_prefill_bwd", "ssd_scan", "ssd_scan_bwd")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC")

@@ -2,9 +2,10 @@
 
 The wrappers hand their outputs to the caller as plain tensors (a ``ctypes``
 launch leaves no autograd record), so a launch on inputs that require a
-gradient would cut the gradient off without a word. ``flash_prefill``
-routes such a call through its autograd function (a hand-written backward
-kernel); the kernels that have no backward refuse it (``refuse_grad``)."""
+gradient would cut the gradient off without a word. ``flash_prefill`` and
+``ssd_scan`` route such a call through their autograd functions (each with
+a hand-written backward kernel). ``paged_attention``, a decode kernel that
+no trainer reaches, has no backward and refuses it (``refuse_grad``)."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +23,6 @@ def refuse_grad(kernel: str, *tensors) -> None:
     launch of ``kernel`` would return a tensor without a gradient."""
     if wants_grad(*tensors):
         raise NotImplementedError(
-            f"{kernel}: no backward pass on a CUDA device (ROADMAP.md, Queue A "
-            "item 7b): call it under torch.no_grad() or on inputs that do not "
-            "require a gradient")
+            f"{kernel}: no backward pass on a CUDA device (a decode kernel, which "
+            "no trainer reaches): call it under torch.no_grad() or on inputs that "
+            "do not require a gradient")

@@ -7,7 +7,7 @@ from repro_torch.kernels.flash_prefill import \
     flash_prefill_plain as flash_prefill_ref
 from repro_torch.kernels.paged_attention import \
     paged_attention_plain as paged_attention_ref
-from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_backward_plain, ssd_scan_plain
 from repro_torch.kernels.ssd_scan import \
     ssd_sequential_plain as ssd_sequential_ref
 
@@ -17,5 +17,5 @@ def ssd_scan_ref(x, dt, A, B, C, h0=None, *, chunk: int = 256):
     return ssd_scan_plain(x, dt, A, B, C, chunk, h0=h0)
 
 
-__all__ = ["flash_prefill_ref", "paged_attention_ref", "ssd_scan_ref",
-           "ssd_sequential_ref"]
+__all__ = ["flash_prefill_ref", "paged_attention_ref", "ssd_scan_backward_plain",
+           "ssd_scan_ref", "ssd_sequential_ref"]

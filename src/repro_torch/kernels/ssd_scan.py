@@ -30,6 +30,16 @@ them back are described at the top of the ``.cu`` source.
 ``ssd_scan`` runs the plain version only for tensors on the CPU. On CUDA
 tensors it launches the kernel for their dtype or raises; a bf16 launch
 that fails is not retried on the FMA kernel.
+
+Gradients. A call whose inputs require a gradient (with grad mode on) goes
+through ``SSDScan``, an autograd function whose forward is the call above
+and whose backward is ``ssd_scan_backward``: on CUDA tensors it launches
+``csrc/ssd_scan_bwd.cu`` (fp32 FMA arithmetic for float32 and bf16 inputs),
+on CPU tensors it runs ``ssd_scan_backward_plain`` (the explicit formulas,
+no autograd), so that training takes the same route on both. The TPU
+package has no Pallas backward: it trains through ``jax.grad`` of its jnp
+oracle (``repro.models.ssm.ssd_chunked``), which the backward kernel stands
+in for. A bf16 backward that fails is not retried in float32.
 """
 from __future__ import annotations
 
@@ -40,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import refuse_grad
+from repro_torch.kernels._grad import wants_grad
 
 _CHUNKS = (32, 64, 128, 256)
 _HEAD_DIMS = (32, 64)          # P
@@ -55,7 +65,9 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``repro.models.ssm.ssd_chunked`` (Mamba2 Listing 1), with its signature.
 
     x (b,s,h,p); dt (b,s,h); A (h,); B/C (b,s,n); h0 optional (b,h,p,n).
-    Returns (y (b,s,h,p) in x's dtype, final state (b,h,p,n) float32).
+    Returns (y (b,s,h,p) in x's dtype, final state (b,h,p,n) float32). The
+    sums run in float32, in float64 for float64 inputs (the tests' exact
+    check of the backward's formulas).
     """
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -69,10 +81,11 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                     F.pad(C, (0, 0, 0, pad)), chunk, h0=h0)
         return y[:, :s], h_final
     nc = s // chunk
-    xc = x.reshape(b, nc, chunk, h, p).float()
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xc = x.reshape(b, nc, chunk, h, p).to(wide)
     dtc = dt.reshape(b, nc, chunk, h)
-    Bc = B.reshape(b, nc, chunk, n).float()
-    Cc = C.reshape(b, nc, chunk, n).float()
+    Bc = B.reshape(b, nc, chunk, n).to(wide)
+    Cc = C.reshape(b, nc, chunk, n).to(wide)
 
     dA = dtc * A                                      # (b,nc,cs,h), negative
     dA_cum = torch.cumsum(dA, dim=2)
@@ -92,12 +105,12 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # per-chunk final states
     decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)      # (b,nc,cs,h)
     states = torch.einsum("bzjn,bzjh,bzjhp->bzhpn", Bc,
-                          (decay_to_end * dtc).float(), xc)     # (b,nc,h,p,n)
+                          (decay_to_end * dtc).to(wide), xc)    # (b,nc,h,p,n)
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])                # (b,nc,h)
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0.float()
+    state = torch.zeros((b, h, p, n), dtype=wide, device=x.device) \
+        if h0 is None else h0.to(wide)
     entering = []
     for z in range(nc):
         entering.append(state)
@@ -109,6 +122,98 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          h_entering)
     y = (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)
     return y, state
+
+
+def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                            B: torch.Tensor, C: torch.Tensor,
+                            h0: Optional[torch.Tensor], dy: torch.Tensor,
+                            dstate: Optional[torch.Tensor], chunk: int):
+    """The gradients ``(dx, ddt, dA, dB, dC, dh0)`` of ``ssd_scan_plain`` by
+    the explicit formulas, without autograd, in float32 (float64 for
+    float64 inputs), for the cotangents ``dy`` of y and ``dstate`` of the
+    final state (``None``: zero, as in training, where the loss never reads
+    it). Each gradient in its input's dtype; dh0 is ``None`` without ``h0``.
+
+    Per chunk, with a_i the running sum of dt * A inside it, a_L its last
+    value, L_ij = exp(a_i - a_j) for i >= j, S_ij = C_i . B_j, M_ij = dy_i . x_j,
+    h the state entering the chunk (recomputed by a forward sweep) and G the
+    gradient of the state leaving it (carried from the last chunk back):
+
+      dx_j = sum_{i>=j} S_ij L_ij dt_j dy_i + exp(a_L - a_j) dt_j G B_j
+      dB_j = sum_h [sum_{i>=j} M_ij L_ij dt_j C_i + exp(a_L - a_j) dt_j G^T x_j]
+      dC_i = sum_h [sum_{j<=i} M_ij L_ij dt_j B_j + exp(a_i) h^T dy_i]
+      G   <- exp(a_L) G + sum_i exp(a_i) dy_i C_i^T   (the entering state's)
+
+    d(dt_j) is its direct part plus A times the reverse sum, inside the
+    chunk, of the gradients of the a_k; dA is dt times that sum, summed over
+    b and s. Every exponent is a difference, masked before ``exp``. A ragged
+    last chunk is padded with dt = 0 as the forward pads it."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    pad = -s % chunk
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Bf, Cf, dyf = (t.to(wide) for t in (x, dt, B, C, dy))
+    if pad:
+        xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf, Cf = (F.pad(t, (0, 0, 0, pad)) for t in (Bf, Cf))
+    nc = (s + pad) // chunk
+    xc, dyc = (t.reshape(b, nc, chunk, h, p) for t in (xf, dyf))
+    dtc = dtf.reshape(b, nc, chunk, h)
+    Bc, Cc = (t.reshape(b, nc, chunk, n) for t in (Bf, Cf))
+    Af = A.to(wide)
+
+    a = torch.cumsum(dtc * Af, dim=2)                            # (b,z,L,h)
+    a_last = a[:, :, -1]                                         # (b,z,h)
+    idx = torch.arange(chunk, device=x.device)
+    mask = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    Lmat = torch.exp(torch.where(mask, a[:, :, :, None] - a[:, :, None], -torch.inf))
+    S = torch.einsum("bzin,bzjn->bzij", Cc, Bc)[..., None]      # (b,z,i,j,1)
+    M = torch.einsum("bzihp,bzjhp->bzijh", dyc, xc)              # (b,z,i,j,h)
+    dt_j = dtc[:, :, None]                                       # (b,z,1,j,h)
+    W = S * Lmat * dt_j                                          # dx's weights
+    Z = M * Lmat * dt_j                                          # dB's and dC's
+    Q = S * Lmat * M                                             # d(dt)'s
+    ea = torch.exp(a)                                            # (b,z,L,h)
+    fin = torch.exp(a_last[:, :, None] - a) * dtc                # (b,z,L,h)
+
+    # the state entering each chunk, then the gradient of the state leaving it
+    states = torch.einsum("bzjn,bzjh,bzjhp->bzhpn", Bc, fin, xc)
+    state = torch.zeros((b, h, p, n), dtype=wide, device=x.device) \
+        if h0 is None else h0.to(wide)
+    entering = []
+    for z in range(nc):
+        entering.append(state)
+        state = torch.exp(a_last[:, z])[..., None, None] * state + states[:, z]
+    G = torch.zeros_like(state) if dstate is None else dstate.to(wide)
+    leaving = [None] * nc
+    for z in range(nc - 1, -1, -1):
+        leaving[z] = G
+        G = torch.exp(a_last[:, z])[..., None, None] * G + torch.einsum(
+            "bihp,bih,bin->bhpn", dyc[:, z], ea[:, z], Cc[:, z])
+    Hs, Gs = torch.stack(entering, dim=1), torch.stack(leaving, dim=1)
+
+    GB = torch.einsum("bzhpn,bzjn->bzjhp", Gs, Bc)               # (b,z,j,h,p)
+    dx = torch.einsum("bzijh,bzihp->bzjhp", W, dyc) + fin[..., None] * GB
+    dB = torch.einsum("bzijh,bzin->bzjn", Z, Cc) + torch.einsum(
+        "bzjh,bzhpn,bzjhp->bzjn", fin, Gs, xc)
+    hdy = torch.einsum("bzhpn,bzihp->bzihn", Hs, dyc) * ea[..., None]
+    dC = torch.einsum("bzijh,bzjn->bzin", Z, Bc) + hdy.sum(dim=3)
+    g = torch.exp(a_last[:, :, None] - a) * (xc * GB).sum(-1)   # (b,z,j,h)
+    col = Q.sum(dim=2)                                           # sum over i
+    da = (Q * dt_j).sum(dim=3) - dtc * col - dtc * g + \
+        torch.einsum("bzin,bzihn->bzih", Cc, hdy)
+    da[:, :, -1] += torch.exp(a_last) * (Gs * Hs).sum((-1, -2)) + (dtc * g).sum(2)
+    r = torch.flip(torch.cumsum(torch.flip(da, [2]), dim=2), [2])
+    ddt = col + g + Af * r
+    dA = (dtc * r).sum((0, 1, 2))
+    dh0 = None if h0 is None else G.to(h0.dtype)
+    return (dx.reshape(b, nc * chunk, h, p)[:, :s].to(x.dtype),
+            ddt.reshape(b, nc * chunk, h)[:, :s].to(dt.dtype),
+            dA.to(A.dtype),
+            dB.reshape(b, nc * chunk, n)[:, :s].to(B.dtype),
+            dC.reshape(b, nc * chunk, n)[:, :s].to(C.dtype),
+            dh0)
 
 
 def ssd_sequential_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -196,15 +301,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Tensors on the CPU go through ``ssd_scan_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in ``ssd_scan.launches``,
     a bf16 launch of the tensor-core kernel also in
-    ``ssd_scan.tensor_core_launches``) or raise. The kernel has no backward:
-    on a CUDA device, inputs that require a gradient (with grad mode on)
-    raise ``NotImplementedError`` instead of losing it.
+    ``ssd_scan.tensor_core_launches``) or raise. A call whose inputs require
+    a gradient (with grad mode on) goes through ``SSDScan`` on both devices:
+    the same forward, and ``ssd_scan_backward`` for its gradient (the
+    backward kernel on the card, ``ssd_scan_backward_plain`` on the CPU). A
+    call without one takes the forward alone, as serving does.
     """
+    if wants_grad(x, dt, A, B, C, h0):
+        return SSDScan.apply(x, dt, A, B, C, h0, chunk)
+    return _forward(x, dt, A, B, C, h0, chunk)
+
+
+def _forward(x, dt, A, B, C, h0, chunk):
+    """``ssd_scan`` without autograd: the plain version on the CPU, the
+    kernel on a CUDA device."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: device {x.device} not supported")
-    refuse_grad("ssd_scan", x, dt, A, B, C, h0)
     _check(x, dt, A, B, C, h0, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -233,3 +347,111 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 ssd_scan.launches = 0   # launches of either CUDA kernel by this wrapper
 ssd_scan.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with a gradient: the forward is the call without one (the
+    kernel on the card, the plain version on the CPU) and saves x, dt, A, B,
+    C and h0; the backward is ``ssd_scan_backward``, given the cotangents of
+    y and of the final state (``None`` where the loss does not read it, as in
+    training). It returns a gradient for ``h0`` only when ``h0`` was given."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h0, chunk: int):
+        y, state = _forward(x, dt, A, B, C, h0, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        dx, ddt, dA, dB, dC, dh0 = ssd_scan_backward(x, dt, A, B, C, h0, dy, dstate,
+                                                     chunk=ctx.chunk)
+        return dx, ddt, dA, dB, dC, dh0, None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _backward_library() -> ctypes.CDLL:
+    lib = _build.library("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
+            [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, h0: Optional[torch.Tensor],
+                      dy: torch.Tensor, dstate: Optional[torch.Tensor] = None, *,
+                      chunk: int = 256):
+    """The gradients ``(dx, ddt, dA, dB, dC, dh0)`` of ``ssd_scan(x, dt, A,
+    B, C, h0, chunk=chunk)`` for the cotangents ``dy`` of y and ``dstate``
+    of the final state (``None``: zero). dx, dB and dC in their inputs'
+    dtypes, ddt, dA and dh0 float32; dh0 is ``None`` without ``h0``.
+
+    Tensors on the CPU go through ``ssd_scan_backward_plain``; tensors on a
+    CUDA device launch ``csrc/ssd_scan_bwd.cu`` (counted in
+    ``ssd_scan_backward.launches``, one a call; float32 and bf16 inputs,
+    fp32 FMA arithmetic) or raise. x, B, C and dt are read through their
+    strides; dy too where its last axis is contiguous and its rows 16-byte
+    aligned (else it is made contiguous), dstate is made contiguous. The
+    kernel writes per-head partials of dB and dC and per-(batch, head)
+    partials of dA (no atomics: the same inputs give the same bits); the
+    sums over the heads and over the batch here are the second pass of
+    that cross-block reduction.
+    """
+    if x.device.type == "cpu":
+        return ssd_scan_backward_plain(x, dt, A, B, C, h0, dy, dstate, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_backward: device {x.device} not supported")
+    _check(x, dt, A, B, C, h0, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError("ssd_scan_backward: dy must have x's shape, dtype and device")
+    vec = 16 // x.element_size()
+    if dy.stride(-1) != 1 or any(st % vec for st in dy.stride()[:-1]) or \
+            dy.data_ptr() % 16:
+        dy = dy.contiguous()
+    if dstate is not None:
+        if dstate.shape != (b, h, p, n) or dstate.dtype != torch.float32 or \
+                dstate.device != x.device:
+            raise ValueError(f"ssd_scan_backward: dstate must be float32 {(b, h, p, n)} "
+                             f"on {x.device}")
+        dstate = dstate.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((b, s, h), **f32)
+    dA_part = torch.empty((b, h), **f32)
+    dB_part = torch.empty((b, s, h, n), **f32)
+    dC_part = torch.empty((b, s, h, n), **f32)
+    dh0 = None if h0 is None else torch.empty((b, h, p, n), **f32)
+    n_chunks = -(-s // chunk)
+    # the states entering chunks 1 .., recomputed by the kernel's forward sweep
+    scratch = torch.empty((b, h, n_chunks - 1, p, n), **f32) if n_chunks > 1 else None
+    strides = (ctypes.c_longlong * 13)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+        *dy.stride()[:3])
+    with torch.cuda.device(x.device):
+        err = _backward_library().ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            _ptr(h0), dy.data_ptr(), _ptr(dstate), dx.data_ptr(), ddt.data_ptr(),
+            dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), _ptr(dh0),
+            _ptr(scratch), b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16), strides,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_backward kernel launch failed: CUDA error {err}")
+    ssd_scan_backward.launches += 1
+    return (dx, ddt, dA_part.sum(0), dB_part.sum(2).to(B.dtype),
+            dC_part.sum(2).to(C.dtype), dh0)
+
+
+ssd_scan_backward.launches = 0   # calls that launched the CUDA kernel

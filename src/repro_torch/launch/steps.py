@@ -2,7 +2,8 @@
 
 A copy of ``repro.launch.steps.make_train_step`` without ``jax.jit``: the
 step takes the gradient of ``Model.loss`` with autograd (through the
-``flash_prefill`` backward kernel on a CUDA device) and applies AdamW. The
+``flash_prefill`` and ``ssd_scan`` backward kernels on a CUDA device) and
+applies AdamW. The
 reference's sharded steps (``jit_step``, ``input_specs``, the prefill and
 serve step builders over a device mesh) are ROADMAP.md Queue A item 8b.
 """

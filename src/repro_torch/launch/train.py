@@ -7,11 +7,11 @@ versions.
       --batch 8 --seq 128
 
 Without ``--full-config`` the reduced (smoke) variant of the architecture
-trains. The attention-bearing families train on the card (dense, vlm, moe,
-audio): their attention's gradient runs through the ``flash_prefill``
-backward kernel. The ssm and hybrid families raise there, because
-``ssd_scan`` has no backward yet (ROADMAP.md Queue A item 7b); on the CPU
-every family trains.
+trains. Every family trains on the card: the attention's gradient runs
+through the ``flash_prefill`` backward kernel (dense, vlm, moe, audio, and
+the hybrid's shared block), the SSD scan's through the ``ssd_scan``
+backward kernel (ssm, hybrid). On the CPU both run through their plain
+versions.
 """
 from __future__ import annotations
 

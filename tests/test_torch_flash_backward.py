@@ -5,9 +5,9 @@ the reference's attention (``repro.models.layers._flash_attention_ref``) on
 the same numpy inputs; the forward's log-sum-exp, which the backward takes
 instead of recomputing it, against ``jax.nn.logsumexp`` of the reference's
 scores; the route a call with a gradient takes (``FlashPrefill``, which
-saves that log-sum-exp); and the guards of the kernels that have no
-backward. The backward kernels themselves run on the card only
-(``chip_smoke.py``)."""
+saves that log-sum-exp) and ``ssd_scan``'s (``SSDScan``); and the guard of
+the kernel that has no backward. The backward kernels themselves run on the
+card only (``chip_smoke.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_prefill import (FlashPrefill, flash_prefill,
                                                flash_prefill_backward,
                                                flash_prefill_backward_plain,
                                                flash_prefill_plain)
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 
 # the test workers share the host's cores: cap each one's intra-op threads
 torch.set_num_threads(2)
@@ -195,20 +196,38 @@ def test_flash_prefill_saves_the_log_sum_exp(case):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("kernel, n_inputs", [("ssd_scan", 6), ("paged_attention", 3)])
+@pytest.mark.parametrize("kernel, n_inputs", [("paged_attention", 3)])
 def test_kernels_without_a_backward_refuse_a_gradient(kernel, n_inputs):
-    """The condition under which the CUDA branch of ``ssd_scan`` and
-    ``paged_attention`` raises (``_grad.refuse_grad``, called there with
-    their float inputs): grad mode on and some input requiring a gradient.
-    Under ``no_grad``, or with no such input, it lets the launch go."""
+    """The condition under which the CUDA branch of ``paged_attention`` (a
+    decode kernel, which no trainer reaches) raises (``_grad.refuse_grad``,
+    called there with its float inputs): grad mode on and some input
+    requiring a gradient. Under ``no_grad``, or with no such input, it lets
+    the launch go."""
     inputs = [torch.zeros(3) for _ in range(n_inputs)]
     _grad.refuse_grad(kernel, *inputs)
-    if kernel == "ssd_scan":
-        inputs[-1] = None                            # no initial state
-        _grad.refuse_grad(kernel, *inputs)
     inputs[1] = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=f"{kernel}: no backward.*item 7b"):
+    with pytest.raises(NotImplementedError, match=f"{kernel}: no backward.*decode kernel"):
         _grad.refuse_grad(kernel, *inputs)
     with torch.no_grad():
         _grad.refuse_grad(kernel, *inputs)
     assert _grad.wants_grad(*inputs) and not _grad.wants_grad(torch.zeros(1), None)
+
+
+def test_ssd_scan_routes_a_gradient_through_its_backward():
+    """``ssd_scan`` has a backward: where ``_grad.wants_grad`` holds for its
+    inputs (a missing initial state skipped) it goes through ``SSDScan``,
+    as ``flash_prefill`` goes through ``FlashPrefill``; under ``no_grad``
+    it takes the forward alone."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, 9, 2, 32)).astype(np.float32))
+    dt = torch.full((1, 9, 2), 0.5)
+    A = torch.tensor([-1.0, -2.0], requires_grad=True)
+    B, C = (torch.from_numpy(rng.standard_normal((1, 9, 16)).astype(np.float32))
+            for _ in range(2))
+    assert _grad.wants_grad(x, dt, A, B, C, None)
+    y, _ = ssd_scan(x, dt, A, B, C, None, chunk=32)
+    assert type(y.grad_fn).__name__ == SSDScan.__name__ + "Backward"
+    dA, = torch.autograd.grad(y.sum(), [A])
+    assert dA.shape == A.shape and torch.isfinite(dA).all()
+    with torch.no_grad():
+        assert ssd_scan(x, dt, A, B, C, None, chunk=32)[0].grad_fn is None

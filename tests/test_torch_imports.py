@@ -61,7 +61,7 @@ def test_every_module_imports_without_gpu_or_triton():
 def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import _build
     assert set(_build.KERNEL_SOURCES) == {"paged_attention", "flash_prefill",
-                                          "flash_prefill_bwd", "ssd_scan"}
+                                          "flash_prefill_bwd", "ssd_scan", "ssd_scan_bwd"}
     for name in _build.KERNEL_SOURCES:
         text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch' in text

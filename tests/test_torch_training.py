@@ -5,7 +5,8 @@ two ``make_train_step`` steps against the reference's jitted step on the
 same parameters and batches (loss, gradient norm and parameters), the
 synthetic batches draw for draw, checkpoints read across the packages, and
 the launcher. Attention's gradient runs through ``FlashPrefill`` and the
-plain backward here (the backward kernel on the card)."""
+SSD scan's through ``SSDScan``, each with its plain backward here (the
+backward kernels on the card)."""
 import gc
 import os
 import tempfile
@@ -207,6 +208,27 @@ def test_audio_gradients_match_the_reference(remat):
     ref_model, ref_params, model, params = _pair("whisper-base", seed=5)
     batch = model.example_batch(2, 20, torch.Generator().manual_seed(5),
                                 dtype=torch.float32, device="cpu")
+    rloss, rgrads = jax.value_and_grad(
+        lambda p: ref_model.loss(p, _ref_batch(batch), remat=remat))(ref_params)
+    flat, treedef = tree.flatten(params)
+    leaves = [p.clone().requires_grad_(True) for p in flat]
+    loss = model.loss(tree.unflatten(treedef, leaves), batch, remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    assert abs(float(loss.detach()) - float(rloss)) <= TOL
+    _assert_trees_close(tree.unflatten(treedef, list(grads)), rgrads)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_and_hybrid_gradients_match_the_reference(arch, remat):
+    """mamba2-1.3b and zamba2-2.7b (smoke): the loss and every parameter's
+    gradient against ``jax.grad`` of the reference's loss, 2 x 40 tokens in
+    chunks of 32 (the last one ragged). The SSD scan's gradient runs through
+    ``SSDScan`` and the plain backward (the reference's through ``jax.grad``
+    of its jnp oracle), zamba2's shared attention through ``FlashPrefill``."""
+    ref_model, ref_params, model, params = _pair(arch, seed=8)
+    batch = port_train.synthetic_lm_batch(np.random.default_rng(8), model, 2, 40,
+                                          device="cpu")
     rloss, rgrads = jax.value_and_grad(
         lambda p: ref_model.loss(p, _ref_batch(batch), remat=remat))(ref_params)
     flat, treedef = tree.flatten(params)
