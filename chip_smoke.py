@@ -47,8 +47,12 @@ launches no kernel. The attention gradient runs through the hand-written
 FMAs), given the log-sum-exp that the forward's LSE instance saved, and is
 held against its plain version in the ``kernels`` phase, directly and
 through ``FlashPrefill`` under autograd; the SSD scan's gradient through
-the hand-written ``ssd_scan`` backward kernel (fp32 FMAs), held against
-``ssd_scan_backward_plain`` there, directly and through ``SSDScan``.
+the hand-written ``ssd_scan`` backward kernels (one chunk without state,
+as in training: 3xTF32 products on the tensor cores; otherwise fp32 FMAs),
+held against ``ssd_scan_backward_plain`` there, directly and through
+``SSDScan``. The ``kernels`` phase first runs the bf16 SSD forward under
+remat on PyTorch's autograd thread and from a new host thread (its tensor
+maps need the context those threads lack until the launcher binds it).
 Every engine on the card replays its decode step as a CUDA graph captured
 when it was built; the ``graph`` phase holds one replay against one eager
 ``model.decode_step`` from the same pool state at full width, bit for bit,
@@ -74,8 +78,9 @@ and the fitted constants' run.
 
 ``--ab OTHER/src`` instead times the three serving kernels of another tree's port
 (for example the parent commit's, unpacked with ``git archive``) and of this
-checkout's at the serving path's shapes, and the attention's gradient at
-whisper-base's encoder and olmo-1b's training shape, in turns (other, this, this,
+checkout's at the serving path's shapes, the attention's gradient at
+whisper-base's encoder and olmo-1b's training shape, and the SSD scan's at
+mamba2-1.3b's and zamba2-2.7b's, in turns (other, this, this,
 other), each turn in its own process with the kernels built from that
 tree's sources, and prints one ``ab`` JSON line per (tree, turn, case), so
 that two versions are compared on one card within one call.
@@ -211,6 +216,7 @@ def zero_counts() -> None:
     flash_prefill_backward.launches = 0
     flash_prefill.lse_launches = 0
     ssd_scan_backward.launches = 0
+    ssd_scan_backward.tensor_core_launches = 0
 
 
 def emit(phase: str, **fields) -> None:
@@ -427,12 +433,17 @@ SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0, 0>",
 
 # the instantiations on the training paths, float32, which must not spill:
 # olmo-1b (D 128) the forward that writes the log-sum-exp and the backward's
-# two kernels; the SSD backward at mamba2-1.3b's widths (P 64, N 128, row
-# blocks of 64), zamba2-2.7b's (N 64; its shared attention at D 80) and the
-# mamba2 smoke step's (P 32, N 16, chunks of 32)
+# two kernels; the SSD backward's tensor-core kernel at mamba2-1.3b's widths
+# (N 128: every backward launch of its training run) and zamba2-2.7b's (N
+# 64), and its FMA kernel where a call has more than one chunk (the
+# card-against-CPU gradients at 2 x 320: P 64, N 128 and 64, row blocks of
+# 64; its shared attention at D 80) or the smoke widths (P 32, N 16, chunks
+# of 32)
 TRAINING_INSTANCES = ("flash_prefill_kernel_fma<128, 1>",
                       "flash_prefill_bwd_dq_fma<128>",
                       "flash_prefill_bwd_dkdv_fma<128>",
+                      "ssd_scan_bwd_tc<float, 128>",
+                      "ssd_scan_bwd_tc<float, 64>",
                       "ssd_scan_bwd_kernel<float, 64, 128, 64>",
                       "ssd_scan_bwd_kernel<float, 64, 64, 64>",
                       "flash_prefill_kernel_fma<80, 1>",
@@ -451,11 +462,16 @@ TRAINING_FORWARD_SSD_INSTANCES = ("ssd_scan_kernel_fma<128, 64>",
 BACKWARD_WGMMA_INSTANCES = tuple(
     f"flash_prefill_bwd_{k}_wgmma<{d}, {m}>"
     for k in ("dq", "dkdv") for d in (64, 80, 96, 128) for m in (0, 1))
+# the SSD backward's tensor-core (3xTF32 mma.sync) instantiations: both input
+# types at N 128 and 64
+SSD_BACKWARD_TC_INSTANCES = tuple(f"ssd_scan_bwd_tc<{t}, {n}>"
+                                  for t in ("float", "__nv_bfloat16") for n in (128, 64))
 
 
 def phase_build() -> None:
     """Builds every kernel source with ``-Xptxas=-v``; fails if a listed
-    serving, training or backward instantiation is missing or spills (the
+    serving, training or backward instantiation (the SSD backward's
+    tensor-core ones included) is missing or spills (the
     SSD scan's FMA forward: if it is missing), or if any instantiation of
     the two ``flash_prefill`` sources or of the SSD backward spills."""
     t0 = time.monotonic()
@@ -470,7 +486,8 @@ def phase_build() -> None:
             "spilling": [k for k in kernels if k["spill_stores"] or k["spill_loads"]]}
         found.update({k["kernel"]: k for k in kernels})
     listed = {"serving": SERVING_INSTANCES, "training": TRAINING_INSTANCES,
-              "backward_wgmma": BACKWARD_WGMMA_INSTANCES}
+              "backward_wgmma": BACKWARD_WGMMA_INSTANCES,
+              "ssd_backward_tc": SSD_BACKWARD_TC_INSTANCES}
     emit("build", seconds=round(time.monotonic() - t0, 2),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=usage,
          **{f"{kind}_instances": [found.get(i) for i in insts]
@@ -828,11 +845,60 @@ def _paged_from_manager(gen) -> None:
          tolerance=TOL[bf16], max_abs_err=err)
 
 
+def _ssd_remat_bf16(gen) -> None:
+    """The bf16 SSD forward encodes its TMA maps with libcuda's
+    ``cuTensorMapEncodeTiled``, which needs a context current on the calling
+    host thread. Remat's recomputed forward runs on PyTorch's autograd device
+    thread: ``ssd_scan`` in bf16 with a gradient at mamba2-1.3b's widths (b 2,
+    s 128, 64 heads of P 64, N 128) inside ``torch.utils.checkpoint.checkpoint
+    (use_reentrant=False)``, ``backward()`` on the card; its gradients must
+    equal the same call's without checkpoint, bit for bit. It runs first in
+    the kernels phase, before any other backward has used that thread. Then
+    the same forward from a new host thread, which has made no CUDA call
+    (after one on this thread, so that the allocator serves the new thread's
+    outputs from its cache and the encoder is the thread's first CUDA call),
+    bit for bit with this thread's."""
+    from concurrent.futures import ThreadPoolExecutor
+    from torch.utils.checkpoint import checkpoint
+
+    sets, A, _ = _ssd_case(gen, torch.bfloat16, 2, 128, 64, 64, 128, strided=True)
+    x, dt, B, C = sets[0]
+    dy = torch.randn((2, 128, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def y_of(*inputs):
+        return ssd_scan(*inputs, chunk=256)[0]
+
+    grads = {}
+    for route in ("checkpoint", "direct"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+        with torch.enable_grad():
+            y = checkpoint(y_of, *leaves, use_reentrant=False) if route == "checkpoint" \
+                else y_of(*leaves)
+            torch.autograd.backward(y, dy)
+        torch.cuda.synchronize()
+        grads[route] = [t.grad for t in leaves]
+    for nm, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), *grads.values()):
+        if not torch.equal(a, b):
+            fail(f"ssd_scan bf16 under checkpoint: {nm} differs from the call without it")
+    here = y_of(x, dt, A, B, C)
+    with ThreadPoolExecutor(1) as pool:
+        there = pool.submit(y_of, x, dt, A, B, C).result()
+    torch.cuda.synchronize()
+    if not torch.equal(here, there):
+        fail("ssd_scan bf16 from a new host thread differs from this thread's")
+    emit("kernels", kernel="ssd_scan", dtype="torch.bfloat16",
+         case="remat's forward on the autograd thread; a new host thread",
+         shape=dict(b=2, s=128, h=64, p=64, n=128, chunk=256, strided=True),
+         result="gradients bit for bit with and without checkpoint; y bit for bit "
+                "from a new thread")
+
+
 def phase_kernels(gen) -> dict:
     """Each kernel against its plain version; returns the per-kernel record
     of the main path's shapes in bf16 (without the launch counts)."""
     records = {}
     F = torch.nn.functional
+    _ssd_remat_bf16(gen)   # first: no backward has run on the autograd thread yet
 
     # ---- paged_attention: the serving instance's decode shapes (8 slots,
     # max_len 1024 = 64 pages): long contexts up to the limit, and the
@@ -1053,20 +1119,26 @@ def _ssd_flops(b, s, h, p, n, chunk) -> float:
     return flops
 
 
-def _ssd_bwd_flops(b, s, h, p, n, chunk, h0: bool, dstate: bool) -> float:
+def _ssd_bwd_flops(b, s, h, p, n, chunk, h0: bool, dstate: bool,
+                   heads_summed: bool = True) -> float:
     """Operations the scan's gradient needs on these inputs: per chunk of L
-    valid steps, C B^T over its L (L + 1) / 2 causal pairs once per
-    sequence, and per head dy x^T, W^T dy (P each), Z^T C and Z B (N each)
-    over the same pairs; where the entering state is not zero (a later chunk,
-    or h0) its recomputation, the carried-state term of dC and the entering
-    state's gradient (L P N products each); where G is not zero (an earlier
-    chunk, or a final-state cotangent) the G terms of dx and dB."""
+    valid steps, over its L (L + 1) / 2 causal pairs, C B^T once per
+    sequence, dy x^T and W^T dy (P each) per head, and Z^T C and Z B (N
+    each) once per sequence on the sum of Z over the heads (B and C are
+    shared by the heads, so dB and dC are products of that sum; with
+    ``heads_summed=False``, once per head, the count of the FMA kernel,
+    which does them so); where the entering state is not zero (a later
+    chunk, or h0) its recomputation, the carried-state term of dC and the
+    entering state's gradient (L P N products each, per head); where G is
+    not zero (an earlier chunk, or a final-state cotangent) the G terms of
+    dx and dB."""
     flops = 0.0
     n_chunks = -(-s // chunk)
     for z in range(n_chunks):
         L = min(chunk, s - z * chunk)
         pairs = L * (L + 1) // 2
-        flops += b * 2.0 * pairs * n + b * h * 2.0 * pairs * (2 * p + 2 * n)
+        zn = (1 if heads_summed else h) * 2.0 * pairs * 2 * n
+        flops += b * 2.0 * pairs * n + b * zn + b * h * 2.0 * pairs * 2 * p
         state_terms = (3 if z > 0 else 2 if h0 else 0) + (2 if z < n_chunks - 1 or dstate
                                                           else 0)
         flops += b * h * 2.0 * L * p * n * state_terms
@@ -1087,17 +1159,21 @@ def _ssd_scan_backward_cases(gen) -> dict:
     (each gradient within ``SSD_TOL`` of its largest magnitude, dA of
     ``_ssd_bwd_dA_scale``), a second call bit for bit with the first (no
     atomics), in float32 and bf16: mamba2-1.3b's and zamba2-2.7b's training
-    shapes (x, B and C strided views, as the model slices them; timed),
+    shapes (x, B and C strided views, as the model slices them; timed), one
+    full chunk of 256 (ten tile pairs), s = 1, on the tensor-core kernel;
     s 341, eight chunks of carried state (G and h both non-zero), h0 with a
-    final-state cotangent, s = 1 and 257, the smoke widths, A = -16 with
-    dt ~ 1. The float32 mamba2 case also goes through ``SSDScan`` under
-    autograd (bit for bit with the direct call) and is held against
-    ``torch.autograd.grad`` of ``ssd_scan_plain``. Returns the float32
-    mamba2 record (the main path's) for the kernels line."""
+    final-state cotangent, s = 257, the smoke widths and A = -16 with dt ~ 1
+    on the FMA kernel (each call's kernel as ``backward_route`` names it,
+    counted in ``tensor_core_launches`` or not). The float32 mamba2 case
+    also goes through ``SSDScan`` under autograd (bit for bit with the
+    direct call) and is held against ``torch.autograd.grad`` of
+    ``ssd_scan_plain``. Returns the float32 mamba2 record (the main path's)
+    for the kernels line."""
     record = None
     cases = [  # (name, b, s, h, p, n, chunk, h0, dstate, steep)
         ("mamba2-1.3b training", 8, 128, 64, 64, 128, 256, False, False, False),
         ("zamba2-2.7b training", 8, 128, 80, 64, 64, 256, False, False, False),
+        ("s=256", 1, 256, 64, 64, 128, 256, False, False, False),
         ("s341", 1, 341, 64, 64, 128, 256, False, False, False),
         ("s2048", 1, 2048, 64, 64, 128, 256, False, False, False),
         ("h0, dstate", 1, 341, 64, 64, 128, 256, True, True, False),
@@ -1107,6 +1183,7 @@ def _ssd_scan_backward_cases(gen) -> dict:
         ("A=-16, dt~1", 1, 341, 64, 64, 128, 256, False, False, True),
     ]
     names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, s, h, p, n, chunk, with_h0, with_dstate, steep in cases:
             sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0, steep=steep,
@@ -1115,13 +1192,17 @@ def _ssd_scan_backward_cases(gen) -> dict:
             dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
             dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") \
                 if with_dstate else None
-            before = ssd_scan_backward.launches
+            tensor_cores, heads = ssd_module.backward_route(b, s, h, p, n, chunk, with_h0,
+                                                            with_dstate, n_sms)
+            before = (ssd_scan_backward.launches, ssd_scan_backward.tensor_core_launches)
             got = ssd_scan_backward(x, dt, A, B, C, h0, dy, dstate, chunk=chunk)
             again = ssd_scan_backward(x, dt, A, B, C, h0, dy, dstate, chunk=chunk)
             torch.cuda.synchronize()
-            if ssd_scan_backward.launches - before != 2:
-                fail(f"ssd_scan_backward {name}: two calls counted "
-                     f"{ssd_scan_backward.launches - before} launches")
+            counted = (ssd_scan_backward.launches - before[0],
+                       ssd_scan_backward.tensor_core_launches - before[1])
+            if counted != (2, 2 * int(tensor_cores)):
+                fail(f"ssd_scan_backward {name}: two calls counted (launches, tensor-core "
+                     f"launches) {counted}, the route implies (2, {2 * int(tensor_cores)})")
             want = ssd_scan_backward_plain(x, dt, A, B, C, h0, dy, dstate, chunk)
             label = f"ssd_scan_backward {dtype} {name}"
             errs = {}
@@ -1143,9 +1224,10 @@ def _ssd_scan_backward_cases(gen) -> dict:
                          f"of {scale.max().item():.3e}")
                 errs[nm] = float((err / scale).max())
             rec = dict(kernel="ssd_scan_backward", dtype=str(dtype), case=name,
-                       route="fp32 FMA", shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk,
-                                                    h0=with_h0, dstate=with_dstate,
-                                                    strided=p == 64),
+                       route="3xTF32 mma.sync" if tensor_cores else "fp32 FMA",
+                       heads_per_block=heads,
+                       shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk,
+                                  h0=with_h0, dstate=with_dstate, strided=p == 64),
                        tolerance=SSD_TOL[dtype], rel_err=errs,
                        max_abs_err=max(float((g.float() - w.float()).abs().max())
                                        for g, w in zip(got, want) if w is not None))
@@ -1175,7 +1257,7 @@ def _ssd_scan_backward_cases(gen) -> dict:
                 ms = sum(_device_us(e) for e in rows) / 20 / 1e3
                 own = {_instance(e.key): e.count / 20 for e in rows if "ssd_scan_bwd" in e.key}
                 elem = "float" if dtype == torch.float32 else "__nv_bfloat16"
-                if own != {f"ssd_scan_bwd_kernel<{elem}, {p}, {n}, 64>": 1}:
+                if own != {f"ssd_scan_bwd_tc<{elem}, {n}>": 1}:
                     fail(f"{label}: a call launched {own}")
                 kernel_ms = sum(_device_us(e) for e in rows if "ssd_scan_bwd" in e.key) / 20 / 1e3
                 call_ms = time_ms(kernel)
@@ -1184,12 +1266,18 @@ def _ssd_scan_backward_cases(gen) -> dict:
                 es = x.element_size()
                 n_bytes = 2 * (x.numel() + B.numel() + C.numel()) * es + dy.numel() * es + \
                     (2 * dt.numel() + 2 * A.numel()) * 4
-                b_ms, b_by = bound(n_bytes, _ssd_bwd_flops(b, s, h, p, n, chunk, with_h0,
-                                                           with_dstate), dtype)
+                flops = _ssd_bwd_flops(b, s, h, p, n, chunk, with_h0, with_dstate)
+                b_ms, b_by = bound(n_bytes, flops, dtype)
+                # the same work as 3xTF32 products on the tensor cores (495 TFLOP/s
+                # TF32, three products each), and the FMA kernel's per-head count
+                tf32_ms = max(n_bytes / PEAK_BYTES_PER_S, 3 * flops / 495e12) * 1e3
+                per_head_ms, _ = bound(n_bytes, _ssd_bwd_flops(
+                    b, s, h, p, n, chunk, with_h0, with_dstate, heads_summed=False), dtype)
                 # no single PyTorch call computes this gradient: no library time
                 rec.update(time_ms=ms, kernel_ms=kernel_ms, call_ms=call_ms, bound_ms=b_ms,
-                           bound_by=b_by, plain_ms=plain_ms, library_ms=None,
-                           kernel_instances=own)
+                           bound_by=b_by, bound_3xtf32_ms=tf32_ms,
+                           bound_per_head_products_ms=per_head_ms, flops=flops,
+                           plain_ms=plain_ms, library_ms=None, kernel_instances=own)
                 if dtype == torch.float32 and name == "mamba2-1.3b training":
                     record = {"name": "ssd_scan_backward", **KERNEL_INFO["ssd_scan_backward"],
                               "max_abs_err": rec["max_abs_err"], "ms": ms,
@@ -1202,7 +1290,8 @@ def _ssd_scan_backward_cases(gen) -> dict:
 def _ssd_scan_cases(gen) -> dict:
     """``ssd_scan`` against ``ssd_scan_plain`` (y and the final state) at the
     serving paths' shapes (mamba2-1.3b's, the main one, and zamba2's) and
-    around them; returns the record of the main shape in bf16. At the
+    around them, and at mamba2-1.3b's training shape (8 x 128); returns the
+    record of the main shape in bf16. At the
     serving widths (P = 64) x, B and C are strided views, as the model
     passes them."""
     record = None
@@ -1220,10 +1309,13 @@ def _ssd_scan_cases(gen) -> dict:
         # zamba2-2.7b's Mamba2 blocks: 80 heads, N = 64 (the NPAD-64 instance)
         ("zamba2", 1, 341, 80, 64, 64, 256, False, False),
         ("zamba2 h0", 1, 341, 80, 64, 64, 256, True, False),
+        # mamba2-1.3b's training step (float32: the FMA kernel, two launches a
+        # layer with remat)
+        ("mamba2-1.3b training", 8, 128, 64, 64, 128, 256, False, False),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, s, h, p, n, chunk, with_h0, steep in cases:
-            timed = name in ("main", "s512", "s2048", "zamba2")
+            timed = name in ("main", "s512", "s2048", "zamba2", "mamba2-1.3b training")
             sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0,
                                     steep=steep, copies=4 if timed else 1,
                                     strided=p == 64)
@@ -2425,7 +2517,9 @@ def _launch_counts(names) -> dict:
             "flash_prefill.lse_launches": lambda: flash_prefill.lse_launches,
             "flash_prefill_backward": lambda: flash_prefill_backward.launches,
             "ssd_scan": lambda: ssd_scan.launches,
-            "ssd_scan_backward": lambda: ssd_scan_backward.launches}
+            "ssd_scan_backward": lambda: ssd_scan_backward.launches,
+            "ssd_scan_backward.tensor_core_launches":
+                lambda: ssd_scan_backward.tensor_core_launches}
     return {n: read[n]() for n in names}
 
 
@@ -2438,7 +2532,8 @@ def _train_parity(cfg, label: str, B: int, S: int, want: dict) -> dict:
     layer (remat runs each forward again), each writing the log-sum-exp
     (both run through ``FlashPrefill``; the backward takes the second's),
     and its backward once a layer; mamba2-1.3b ``ssd_scan`` twice a layer
-    (both through ``SSDScan``) and its backward once a layer."""
+    (both through ``SSDScan``) and its backward once a layer (on the FMA
+    kernel: the smoke widths, P 32 and N 16, over two chunks)."""
     model = Model(cfg)
     params_cpu = model.init(torch.Generator().manual_seed(6), dtype=torch.float32,
                             device="cpu")
@@ -2697,10 +2792,11 @@ def _train_ssm_full(smi: str) -> dict:
     ``TRAIN_LR``, counters set to 0 just before and read just after, no
     plain SSD call on the card (``_NoPlainSSD``). Fails unless every loss
     and gradient norm is finite and every step launches the ``ssd_scan``
-    forward twice a layer and its backward once a layer. Then a step is
-    profiled for its device-busy time and timed on the wall clock; the
-    profile must show the backward kernel once a layer, the FMA forward
-    twice, and no other SSD kernel. Where the loss does not fall,
+    forward twice a layer and its backward once a layer, every backward
+    launch the tensor-core kernel's. Then a step is profiled for its
+    device-busy time and timed on the wall clock; the profile must show the
+    backward's tensor-core kernel once a layer, the FMA forward twice, and
+    no other SSD kernel. Where the loss does not fall,
     ``_train_ssm_witness`` runs the same steps with plain PyTorch SSD and
     fails unless that run does not fall either: whether the loss falls at
     this rate is then the optimisation's and not the kernels'."""
@@ -2724,6 +2820,8 @@ def _train_ssm_full(smi: str) -> dict:
                     device="cuda", on_step=on_step)
     total_s = time.monotonic() - t0
     launches = {"ssd_scan_backward": ssd_scan_backward.launches,
+                "ssd_scan_backward.tensor_core_launches":
+                    ssd_scan_backward.tensor_core_launches,
                 "ssd_scan": ssd_scan.launches,
                 "tensor_core_launches": ssd_scan.tensor_core_launches,
                 "flash_prefill": flash_prefill.launches,
@@ -2735,9 +2833,12 @@ def _train_ssm_full(smi: str) -> dict:
     fell = losses[-1] < losses[0]
     if any(p != [cfg.n_layers, 2 * cfg.n_layers] for p in per_step) or \
             len(per_step) != steps or launches["tensor_core_launches"] or \
-            launches["flash_prefill"] or launches["paged_attention"]:
+            launches["flash_prefill"] or launches["paged_attention"] or \
+            launches["ssd_scan_backward.tensor_core_launches"] != \
+            launches["ssd_scan_backward"]:
         fail(f"train mamba2-1.3b: launches a step (backward, forward) {per_step}, want "
-             f"[{cfg.n_layers}, {2 * cfg.n_layers}] each; in all {launches}")
+             f"[{cfg.n_layers}, {2 * cfg.n_layers}] each, every backward launch on the "
+             f"tensor cores; in all {launches}")
     state = [res["params"], res["opt_state"]]
     batch = synthetic_lm_batch(np.random.default_rng(1), res["model"], B, S)
     step_fn = make_train_step(cfg, remat=True, lr=TRAIN_LR)
@@ -2751,7 +2852,7 @@ def _train_ssm_full(smi: str) -> dict:
         prof = _profiled(one, 2)
         wall_ms = _wall_ms(one, 3)
     ssd = {k: n for k, n in prof["own_instance_launches"].items() if "ssd" in k}
-    want = {"ssd_scan_bwd_kernel<float, 64, 128, 64>": cfg.n_layers,
+    want = {"ssd_scan_bwd_tc<float, 128>": cfg.n_layers,
             "ssd_scan_kernel_fma<128, 64>": 2 * cfg.n_layers}
     if ssd != want:
         fail(f"train mamba2-1.3b: a profiled step launched the SSD kernels {ssd}, "
@@ -2822,7 +2923,8 @@ def _train_ssm_witness(kernel_losses) -> dict:
 def phase_train(smi: str) -> dict:
     """One step card against CPU at the smoke size (olmo-1b, mamba2-1.3b),
     one gradient card against CPU at full width (olmo-1b and mamba2-1.3b in
-    2 layers, zamba2-2.7b in 6: one call of its shared attention), then
+    2 layers, zamba2-2.7b in 6: one call of its shared attention; the SSD
+    models at 2 x 320, two chunks, and at 2 x 128, one), then
     olmo-1b at full width, the launcher's rate with kernels and with plain
     attention, and mamba2-1.3b at full width and depth; returns each
     kernel's launches over the two full-width runs."""
@@ -2832,20 +2934,29 @@ def phase_train(smi: str) -> dict:
     _train_parity(olmo, "olmo-1b smoke, head_dim=64, float32, remat", 4, 64,
                   dict(zip(flash, (2 * olmo.n_layers, 2 * olmo.n_layers, olmo.n_layers))))
     mamba = get_smoke_config("mamba2-1.3b")
+    ssd = ("ssd_scan", "ssd_scan_backward", "ssd_scan_backward.tensor_core_launches")
     _train_parity(mamba, "mamba2-1.3b smoke, float32, remat", 4, 64,
-                  {"ssd_scan": 2 * mamba.n_layers, "ssd_scan_backward": mamba.n_layers})
+                  dict(zip(ssd, (2 * mamba.n_layers, mamba.n_layers, 0))))
     _train_width_parity(get_config("olmo-1b").with_(n_layers=2),
                         "olmo-1b full widths, 2 layers, float32, no remat", 4, 128,
                         dict(zip(flash, (2, 2, 2))))
-    # one full chunk of 256 and a ragged one of 64: the carried-state terms
+    # one full chunk of 256 and a ragged one of 64: the carried-state terms,
+    # so the SSD backward's FMA kernel
     _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
                         "mamba2-1.3b full widths, 2 layers, float32, no remat", 2, 320,
-                        {"ssd_scan": 2, "ssd_scan_backward": 2})
+                        dict(zip(ssd, (2, 2, 0))))
     # six Mamba2 layers and one call of the shared attention block (D 80,
     # window 4096: the FMA instances of the forward and of its backward)
     _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
                         "zamba2-2.7b full widths, 6 layers, float32, no remat", 2, 320,
-                        {"ssd_scan": 6, "ssd_scan_backward": 6, **dict(zip(flash, (1, 1, 1)))})
+                        {**dict(zip(ssd, (6, 6, 0))), **dict(zip(flash, (1, 1, 1)))})
+    # the same gradients in one chunk (2 x 128): the tensor-core kernel
+    _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
+                        "mamba2-1.3b full widths, 2 layers, float32, no remat, one chunk",
+                        2, 128, dict(zip(ssd, (2, 2, 2))))
+    _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
+                        "zamba2-2.7b full widths, 6 layers, float32, no remat, one chunk",
+                        2, 128, {**dict(zip(ssd, (6, 6, 6))), **dict(zip(flash, (1, 1, 1)))})
     launches = _train_full(smi)
     _train_lr_witness()
     launches.update(_train_ssm_full(smi))
@@ -3181,7 +3292,12 @@ def ab_turn(src: str, turn: int) -> None:
     serving path's shapes in bf16, and the attention's gradient at the
     backward's three shapes, on the same inputs in every turn. Uses only the
     wrappers' signatures, which every slice of the port keeps (a backward
-    that takes the forward's log-sum-exp is also timed given it)."""
+    that takes the forward's log-sum-exp is also timed given it), and, in a
+    tree with an SSD backward, that backward at mamba2-1.3b's and
+    zamba2-2.7b's training shapes. First, before anything has run on
+    PyTorch's autograd thread, the bf16 SSD forward under remat and from a
+    new host thread (``_ssd_remat_bf16``): whether each tree's encoder finds
+    a context there, reported as a result, not a failure."""
     _build.build_all()
     dev, bf16 = "cuda", torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -3190,6 +3306,16 @@ def ab_turn(src: str, turn: int) -> None:
         emit("ab", src=src, turn=turn, kernel=kernel, case=case,
              device_ms=device_ms(fn), call_ms=time_ms(fn),
              gpu=torch.cuda.get_device_name(0))
+
+    if ssd_scan_backward is not None:
+        gen.manual_seed(5)
+        try:   # a parent tree without the context bind raises: that is its result
+            _ssd_remat_bf16(gen)
+            result = "passed"
+        except RuntimeError as e:
+            result = f"raised: {e}"
+        emit("ab", src=src, turn=turn, kernel="ssd_scan",
+             case="bf16 under remat, then from a new host thread", result=result)
 
     for case, lengths in (("long context", [1024, 0, 1000, 517, 16, 1, 333, 768]),
                           ("serve contexts", [64, 400, 120, 257, 333, 96, 201, 310])):
@@ -3247,6 +3373,17 @@ def ab_turn(src: str, turn: int) -> None:
             with torch.enable_grad():
                 torch.autograd.grad(flash_prefill(*leaves, causal=causal), leaves, do)
         emit_ab("FlashPrefill forward + backward", label, fwd_bwd)
+
+    if ssd_scan_backward is not None:
+        for dtype in (torch.float32, bf16):
+            for case, h, n in (("mamba2-1.3b training", 64, 128),
+                               ("zamba2-2.7b training", 80, 64)):
+                gen.manual_seed(6)
+                sets, A, _ = _ssd_case(gen, dtype, 8, 128, h, 64, n, strided=True)
+                x, dt, Bm, Cm = sets[0]
+                dy = torch.randn((8, 128, h, 64), generator=gen, device=dev).to(dtype)
+                emit_ab("ssd_scan_backward", f"{case}, {str(dtype).removeprefix('torch.')}",
+                        lambda: ssd_scan_backward(x, dt, A, Bm, Cm, None, dy, None, chunk=256))
 
 
 def ab(other_src: str) -> None:

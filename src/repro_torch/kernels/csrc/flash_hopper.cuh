@@ -1,8 +1,9 @@
 // The Hopper building blocks of flash_prefill's bf16 kernels, shared by its
-// forward (flash_prefill.cu) and backward (flash_prefill_bwd.cu): mbarriers,
+// forward (flash_prefill.cu) and backward (flash_prefill_bwd.cu), whose
+// mbarriers ssd_scan_bwd.cu's tensor-core kernel uses too: mbarriers,
 // TMA loads of 64 x 64 boxes with the 128-byte swizzle, the wgmma descriptors
 // that read those boxes, the two wgmma forms both passes use, and the host's
-// tensor-map encoding.
+// tensor-map encoding (after bind_context() of cuda_context.cuh).
 //
 // The two products, for a 64-row accumulator fragment (thread of warp w, lane
 // l: register j holds row 16 w + l/4 + 8 ((j/2) % 2), column
@@ -21,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cuda_context.cuh"   // bind_context(), before a launch's maps are encoded
 
 namespace {
 
@@ -171,18 +174,6 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
-}
-
-// The driver's encoder needs a current context, which a host thread that has
-// made no runtime call yet lacks (PyTorch runs a backward on its autograd
-// engine's device thread, where it returned CUDA_ERROR_INVALID_CONTEXT):
-// cudaSetDevice binds the current device's primary context to the thread.
-// Called once before a launch's maps are encoded.
-CUresult bind_context() {
-  int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
-    return CUDA_ERROR_INVALID_CONTEXT;
-  return CUDA_SUCCESS;
 }
 
 // A (D, rows, heads, batch) bf16 map with element strides (row, head, batch),

@@ -98,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cuda_context.cuh"   // bind_context(), before the bf16 launch's maps are encoded
+
 namespace {
 
 constexpr int kMaxChunk = 256;
@@ -971,8 +973,10 @@ int launch_wgmma(const void* x, const void* dt, const void* A, const void* B,
   const int64_t b_strides[2] = {st.b_s, st.b_b};
   const int64_t c_strides[2] = {st.c_s, st.c_b};
   const cuuint32_t bc_box[3] = {64, kRows, 1};
-  CUresult res = encode_map(&tm_x, x, 4, x_dims, x_strides, x_box,
-                            CU_TENSOR_MAP_SWIZZLE_64B);
+  // a recomputed forward (remat) runs on the autograd engine's device thread
+  CUresult res = bind_context();
+  if (res == CUDA_SUCCESS)
+    res = encode_map(&tm_x, x, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B);
   if (res == CUDA_SUCCESS)
     res = encode_map(&tm_b, B, 3, bc_dims, b_strides, bc_box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (res == CUDA_SUCCESS)

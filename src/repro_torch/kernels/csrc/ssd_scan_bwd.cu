@@ -23,14 +23,101 @@
 // a_L. Every exponent is a difference (a_i - a_j, a_L - a_j) or a_i itself,
 // all <= 0; the exponent of a pair i < j is never formed.
 //
-// Design (fp32 FMA arithmetic, fp32 accumulators; the input type T is float,
-// the trainer's, or bf16, converted to fp32 as it is staged):
+// Two kernels, chosen by the shape alone (the wrapper's backward_route, this
+// launcher's tensor_cores argument; a launch of one is never retried on the
+// other):
+//
+// * ssd_scan_bwd_tc<T, N>, for P 64, N 64 or 128, one chunk (S <= chunk), no
+//   h0 and no final-state cotangent: every training call of mamba2-1.3b and
+//   zamba2-2.7b at s <= 256 (the intra-chunk terms above are then the whole
+//   gradient). All five products run on the tensor cores in 3xTF32, below.
+// * ssd_scan_bwd_kernel<T, P, N, R>, fp32 FMAs, for every other shape (P 32,
+//   N 16, more than one chunk, h0, dstate): the carried-state terms.
+//
+// ---- The tensor-core kernel.
+//
+// * 3xTF32. A TF32 rounding keeps about three digits, which is not the
+//   float32 trainer's arithmetic. Each operand value v is split as it is
+//   read into hi, v rounded to TF32 (to nearest, in two integer operations),
+//   and lo = v - hi (exact in fp32, read by the tensor cores truncated to
+//   TF32), and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi with fp32
+//   accumulators: float32-accurate (tests/test_torch_ssd_tf32.py models it
+//   on the CPU against float64). A bf16 input is exact in TF32 (lo = 0): its
+//   lo terms are left out, so C B^T and dy x^T are one product in a bf16
+//   call and the others two.
+// * The products are mma.sync.m16n8k8.tf32, not wgmma. wgmma takes a 32-bit
+//   operand from shared memory K-major only (no transpose bit), and three of
+//   the five products read an input transposed (dx += W^T dy reads dy^T, dB
+//   += Z^T C reads C^T, dC += Z B reads B^T). With a hi and a lo copy of
+//   every staged operand, wgmma would need four copies of B and C each
+//   (128 KB at N 128) and left no room for the row blocks of x and dy.
+//   mma.sync's fragments are loaded by the threads, in either orientation,
+//   from one fp32 (or bf16) copy of each tile, and split in registers.
+// * The heads share C B^T and the head sums of dB and dC. C B^T does not
+//   depend on the head, and B and C are shared by the heads (one group), so
+//   dB_j = sum_i (sum_h Z_ij^h) C_i and dC_i = sum_j (sum_h Z_ij^h) B_j: both
+//   are one product of the head sum Zsum a tile pair, not one a head. A block
+//   owns hg heads of one sequence (grid (ceil(H / hg), batch)); the wrapper
+//   picks the fewest heads that fit the blocks into one wave of SMs, at most
+//   kMaxHeads = 5 (mamba2-1.3b's training shape, 8 x 64 heads: 4, 128
+//   blocks on 132 SMs; zamba2's 8 x 80: 5). The block computes S^T = B_J C_I^T
+//   once a tile pair and keeps it in registers over its heads; per head it
+//   computes M^T = x_J dy_I^T, forms W^T, Z^T and Q on the accumulators, and
+//   adds W^T dy_I into dx_J (registers over I); Zsum^T sums Z^T over the
+//   heads in registers. The dB and dC partials are per block, (ceil(H /
+//   hg), b, s, N), summed by the wrapper over their leading axis: 4-5x fewer
+//   than one a head.
+//   (A thread-block cluster of a sequence's head blocks, sharing S through
+//   distributed shared memory, was the other route: a block that loops over
+//   its heads needs no cross-block protocol, and the products of the head
+//   sums need all of Zsum in one place anyway.)
+// * Layout of a block: 8 consumer warps and 1 producer warp (288 threads).
+//   Tiles are 64 x 64 tile pairs (I >= J, row blocks of 64); consumer warp w
+//   owns rows 16 (w % 4) .. + 15 of a pair and columns 32 (w / 4) .. + 31,
+//   so S^T, M^T, Zsum^T are 16 registers each and dx_J of each head 16 (80
+//   for 5 heads). W^T goes through shared memory between the two warps that
+//   share its rows (a 64-thread named barrier); dx_J reads it whole. Zsum^T
+//   goes through shared memory once a pair, between two barriers of the
+//   consumers (bar 1), read by dB, then (C_I released, so that the next
+//   pair's C loads meanwhile) by dC, transposed.
+// * Staging: the producer warp issues cp.async for each tile in the order
+//   the consumers use them (B_J; C_I; x_J and dy_I per head, two slots) and
+//   completes them on "full" mbarriers (cp.async.mbarrier.arrive.noinc); the
+//   consumers release each buffer on an "empty" mbarrier, so the next
+//   head's x and dy load while this head computes. Tiles are row-major with
+//   16 bytes of padding a row, which makes every fragment load conflict-
+//   free. TMA was not used: its boxes are dense (no padding), and the
+//   128-byte swizzle leaves the transposed fragment loads 2-way conflicted.
+// * Shared memory at N 128, fp32: B_J and C_I 33.8 KB each, two x/dy slots
+//   69.6 KB, W^T (two) and Zsum^T 52.2 KB, the per-head vectors (a, dt, da,
+//   d(dt)'s direct part) and Q's partial sums 28.2 KB: 217.7 KB, one block
+//   an SM (the FMA kernel's 215 KB; R 32 would not buy a second block: the
+//   x/dy slots and the per-head state dominate).
+// * Deterministic: Q's row and column sums go through per-warp partials
+//   reduced in a fixed order after the pair's barrier; dB and dC are stored
+//   by the first pair of a row block and added to by the later ones (the
+//   same thread, in pair order); no atomics.
+// * Bound at mamba2-1.3b's training shape (b 8, s 128, h 64, fp32): the
+//   function needs C B^T, dB's and dC's products once a sequence and dy x^T
+//   and W^T dy once a head over the 8256 causal pairs: 1.13 GFLOP, 0.0169 ms
+//   at the 67 TFLOP/s fp32 rate, 0.0069 ms as 3xTF32 on the 495 TFLOP/s
+//   tensor cores, under the 0.0158 ms the 53 MB of inputs and outputs take.
+//   What holds it back (PERF.md, H100): not the products. Rounding hi with
+//   integer operations instead of cvt.rna (and lo not at all) took 17 % off;
+//   issuing a k-step's products accumulator by accumulator, 3 %; skipping
+//   the masked half of the diagonal tile pairs (a seventh of the products)
+//   moved it by -1 to +2 % and was left out. Each scheduler holds two
+//   consumer warps (one block of 8 an SM, bound by shared memory), so the
+//   latency of each fragment load, split and product chain, and of the pair
+//   barriers, is exposed.
+//
+// ---- The FMA kernel (fp32 FMA arithmetic, fp32 accumulators; the input
+// type T is float or bf16, converted to fp32 as it is staged):
 //
 // * One block per (head, batch) owns the whole of P and walks the chunks in
 //   reverse, G in shared memory. Owning P lets the block finish d(dt) and its
-//   head's share of dA itself. At mamba2-1.3b's training shape (b 8, h 64)
-//   that is 512 blocks for 132 SMs, one block an SM (215 KB of shared
-//   memory at P 64, N 128).
+//   head's share of dA itself (215 KB of shared memory at P 64, N 128, one
+//   block an SM).
 // * The states entering the chunks are recomputed first, by a forward sweep
 //   over the chunks (the state in registers), into fp32 scratch (b, h,
 //   chunks - 1, P, N) that the wrapper allocates; the serving forward kernel
@@ -51,39 +138,32 @@
 // * Zero work is skipped: the terms in h while the state is zero (the first
 //   chunk without h0), the terms in G while G is zero (the last chunk without
 //   a final-state cotangent), and the entering state's gradient where no one
-//   reads it (the first chunk without h0). In training (no h0, no cotangent
-//   of the final state) at s <= chunk only the intra-chunk terms run.
+//   reads it (the first chunk without h0).
 // * No atomics, so the same inputs give the same bits. dB and dC are sums
 //   over the heads, dA over the batch: each block writes its own fp32
-//   partials (dB and dC (b, s, h, N), dA (b, h)) and the wrapper sums them
-//   over h and over b. Those two sums are the second pass of a cross-block
-//   reduction, not the function's work. Every in-block sum (rows by warp
-//   shuffles, columns through a small shared buffer, the scans and the
-//   block sums) runs in a fixed order.
-// * x, B, C, dt and dy are read through their strides (x, B and C as views
-//   of mamba_forward's conv output, no copy); the last axis must be
-//   contiguous. h0, dstate and every output are contiguous.
-// * Ragged S: steps past S of the last chunk are masked (dt = 0, no input,
-//   no store), which is the plain version's padding.
+//   partials (dB and dC (h, b, s, N), dA (b, h)) and the wrapper sums them
+//   over h and over b. Every in-block sum (rows by warp shuffles, columns
+//   through a small shared buffer, the scans and the block sums) runs in a
+//   fixed order.
+// * Its time at mamba2-1.3b's training shape, when that shape ran on it
+//   (PERF.md): 0.4277 ms, 8.8x the 0.04871 ms the per-head products it does
+//   would take at the fp32 rate: C B^T recomputed by every head's block, one
+//   block of 8 warps an SM with a barrier per tile, and FMAs.
 //
-// What bounds it, at mamba2-1.3b's training shape (b 8, s 128, h 64, P 64,
-// N 128, one chunk of 256, fp32): operations. The data need C B^T over the
-// 8256 causal pairs once a sequence and, per head, dy x^T (P), Z^T C and Z B
-// (N each) and W^T dy (P) over them: 3.26 GFLOP, 0.049 ms at 67 TFLOP/s
-// (the card's fp32 rate off the tensor cores); the bytes (x, dy, dx 16.8 MB
-// each, B, C, dt and their gradients) take 0.016 ms. What holds the design
-// back: C B^T is recomputed by every head's block (a third of the
-// products); one block of 8 warps an SM, at 215 KB of shared memory, so
-// each barrier idles the SM; dC_I goes through device memory once per
-// (I, J) pair; and the products are FMA, not wgmma (fp32 would round to
-// TF32 on the tensor cores; bf16 could use them).
+// Both kernels read x, B, C, dt and dy through their strides (x, B and C as
+// views of mamba_forward's conv output, no copy; the last axis contiguous);
+// h0, dstate and every output are contiguous. Ragged S: steps past S of the
+// last chunk are masked (dt = 0, no input, no store), which is the plain
+// version's padding.
 //
-// Plain C interface: ssd_scan_bwd_launch() launches the instance for the
-// input type, P, N and chunk and returns cudaGetLastError().
+// Plain C interface: ssd_scan_bwd_launch() launches the kernel and instance
+// for the route, input type, P, N and chunk and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_hopper.cuh"   // mbarriers; bind_context() (cuda_context.cuh)
 
 namespace {
 
@@ -221,7 +301,7 @@ constexpr size_t smem_floats() {
 
 // grid (H, batch). h0, dstate, dh0 and scratch are contiguous fp32; h0 and
 // dstate may be null (zero), and then so may dh0 (no gradient asked).
-// dx (b, S, H, P) in T, ddt (b, S, H), dB and dC partials (b, S, H, N), dA
+// dx (b, S, H, P) in T, ddt (b, S, H), dB and dC partials (H, b, S, N), dA
 // partial (b, H): contiguous, fp32 but dx.
 template <typename T, int P, int N, int R>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -273,8 +353,9 @@ ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const T* dyb = dy + b * st.dy_b + h * st.dy_h;
   const int64_t out_row = static_cast<int64_t>(b) * S;   // first (b, s) row
   T* dxb = dx + (out_row * H + h) * P;                   // row stride H P
-  float* dBb = dB_part + (out_row * H + h) * N;          // row stride H N
-  float* dCb = dC_part + (out_row * H + h) * N;
+  // the head's (S, N) slab of the (H, batch, S, N) partials, row stride N
+  float* dBb = dB_part + (static_cast<int64_t>(h) * gridDim.y + b) * S * N;
+  float* dCb = dC_part + (static_cast<int64_t>(h) * gridDim.y + b) * S * N;
   float* ddtb = ddt + out_row * H + h;                   // row stride H
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t PN = static_cast<size_t>(P) * N;
@@ -403,7 +484,7 @@ ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           if (nx == 0 && row < R && i0 + row < valid) da[i0 + row] += u;
         }
         if (row < R && i0 + row < valid)
-          store4(dCb + static_cast<int64_t>(t0 + i0 + row) * H * N + 4 * nx, acc);
+          store4(dCb + static_cast<int64_t>(t0 + i0 + row) * N + 4 * nx, acc);
       }
       if (need_dh) {   // next G += exp(a_i) dy_i C_i^T
         for (int i = 0; i < min(R, valid - i0); ++i) {
@@ -624,7 +705,7 @@ ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
               for (int q = 0; q < 4; ++q) acc[q] += z * at(bv, q);
             }
-            float* dst = dCb + static_cast<int64_t>(t0 + i0 + row) * H * N + 4 * nx;
+            float* dst = dCb + static_cast<int64_t>(t0 + i0 + row) * N + 4 * nx;
             const float4 old = load4(dst);
 #pragma unroll
             for (int q = 0; q < 4; ++q) acc[q] += at(old, q);
@@ -644,7 +725,7 @@ ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int r = 0; r < LN::RPT; ++r) {
         const int row = ny + LN::TY * r;
         if (row < R && j0 + row < valid)
-          store4(dBb + static_cast<int64_t>(t0 + j0 + row) * H * N + 4 * nx, dba[r]);
+          store4(dBb + static_cast<int64_t>(t0 + j0 + row) * N + 4 * nx, dba[r]);
       }
       __syncthreads();   // the next column block restages Bs and Xs
     }
@@ -746,18 +827,526 @@ cudaError_t launch_p(int P, int N, const void* x, const void* dt, const void* A,
   return cudaErrorInvalidValue;
 }
 
+// ==================================================== 3xTF32 on the tensor cores
+
+constexpr int kTcWarps = 8;                       // consumer warps
+constexpr int kTcThreads = (kTcWarps + 1) * 32;   // and one producer warp
+constexpr int kRows = 64;                         // rows of a row block
+constexpr int kTcP = 64;                          // the P the instances take
+constexpr int kMaxHeads = 5;                      // heads a block, at most
+constexpr int kWP = kRows + 4;                    // floats a row of W^T and Zsum^T
+
+// elements of padding per shared-memory row of a staged tile: 16 bytes
+template <typename T>
+constexpr int kPadT = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// v rounded to TF32, to nearest with ties away from zero: half a unit of the
+// last TF32 place added to the bit pattern, the 13 bits below it cut (what
+// cvt.rna.tf32.f32 gives, in two integer operations)
+__device__ __forceinline__ uint32_t tf32_hi(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v - hi, exact in fp32; the tensor cores read a TF32 operand's top 19 bits,
+// so it enters the product truncated to TF32, which keeps hi + lo within
+// 2^-21 of v
+__device__ __forceinline__ uint32_t tf32_lo(float v, uint32_t hi) {
+  return __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d (16 x 8, fp32) += a (16 x 8, tf32) b (8 x 8, tf32), one warp
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[nt] += A (16 x K) B (K x 8 NT) in 3xTF32, one warp: each operand value v
+// is split into hi = tf32_hi(v) and lo = tf32_lo(v, hi), and a product is
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in fp32; the lo term of an
+// operand that is exact in TF32 (a bf16 input) is left out. la(m, k) and
+// lb(k, n) read A and B from shared memory as floats. The fragment of d[nt]:
+// lane l holds rows l/4 and l/4 + 8, columns 8 nt + 2 (l%4) and + 1. A k-step
+// loads and splits all its fragments first, then issues the products term by
+// term over the n-tiles, so that back-to-back products go to different
+// accumulators (a product's latency is hidden behind the NT - 1 others).
+template <int NT, int K, bool A_EXACT, bool B_EXACT, typename LA, typename LB>
+__device__ __forceinline__ void warp_mma(float (&d)[NT][4], LA la, LB lb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const float av[4] = {la(g, k0 + t), la(g + 8, k0 + t), la(g, k0 + t + 4),
+                         la(g + 8, k0 + t + 4)};
+    float bv[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bv[nt][0] = lb(k0 + t, 8 * nt + g);
+      bv[nt][1] = lb(k0 + t + 4, 8 * nt + g);
+    }
+    uint32_t ahi[4], alo[4], bhi[NT][2], blo[NT][2];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ahi[q] = tf32_hi(av[q]);
+      alo[q] = A_EXACT ? 0u : tf32_lo(av[q], ahi[q]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        bhi[nt][q] = tf32_hi(bv[nt][q]);
+        blo[nt][q] = B_EXACT ? 0u : tf32_lo(bv[nt][q], bhi[nt][q]);
+      }
+    if (!A_EXACT)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], alo, bhi[nt][0], bhi[nt][1]);
+    if (!B_EXACT)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ahi, blo[nt][0], blo[nt][1]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ahi, bhi[nt][0], bhi[nt][1]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// the barrier's arrival once every cp.async this thread issued has landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// the consumer warps, and the two warps that share rows 16 rg .. of a tile
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kTcWarps * 32) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(2 + rg) : "memory");
+}
+
+// Rows [0, kRows) of a (rows, W) matrix whose row r starts at src + r *
+// stride (elements, W contiguous) into dst[kRows][LD] by cp.async from the
+// calling warp; rows >= n_valid read as 0.
+template <int W, int LD, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, int n_valid) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));   // elements a 16-byte piece
+  constexpr int CPR = W / E;                            // pieces a row
+  for (int idx = threadIdx.x & 31; idx < kRows * CPR; idx += 32) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = r < n_valid;
+    cp_async16(smem_u32(dst + r * LD + c * E), src + (ok ? r * stride : 0) + c * E,
+               ok ? 16u : 0u);
+  }
+}
+
+template <typename T, int N>
+constexpr size_t tc_smem() {
+  return 64 + sizeof(float) * (3 * kRows * kWP + 4 * kMaxHeads * kMaxChunk +
+                               kMaxHeads * kTcWarps * 48) +
+         sizeof(T) * (2 * kRows * (N + kPadT<T>) + 4 * kRows * (kTcP + kPadT<T>));
+}
+
+// grid (ceil(H / hg), batch): a block owns heads hg b .. of sequence b (fewer
+// in the last group). One chunk (S <= chunk), no h0, no final-state
+// cotangent. dx (b, S, H, P) in T, ddt (b, S, H), dA partial (b, H), dB and
+// dC partials (ceil(H / hg), b, S, N) fp32, all contiguous.
+template <typename T, int N>
+__global__ void __launch_bounds__(kTcThreads, 1)
+ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const T* __restrict__ Bm,
+                const T* __restrict__ Cm, const T* __restrict__ dy, T* __restrict__ dx,
+                float* __restrict__ ddt, float* __restrict__ dA_part, float* dB_part,
+                float* dC_part, int S, int H, int hg, Strides st) {
+  constexpr int LN = N + kPadT<T>;          // elements a row of the B and C tiles
+  constexpr int LX = kTcP + kPadT<T>;       // of the x and dy tiles
+  constexpr bool kExact = sizeof(T) == 2;      // bf16 inputs are exact in TF32
+  constexpr int NH = N / 2;                    // columns of dB and dC a warp
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);   // 8 mbarriers
+  float* Wb = reinterpret_cast<float*>(smem_tc + 64);      // [2][kRows][kWP] W^T
+  float* Zb = Wb + 2 * kRows * kWP;                        // [kRows][kWP] Zsum^T
+  float* av = Zb + kRows * kWP;                            // [kMaxHeads][kMaxChunk] a
+  float* dtv = av + kMaxHeads * kMaxChunk;                 // dt
+  float* dav = dtv + kMaxHeads * kMaxChunk;                // the gradient of a
+  float* ddd = dav + kMaxHeads * kMaxChunk;                // d(dt)'s direct part
+  float* rowpart = ddd + kMaxHeads * kMaxChunk;            // [kMaxHeads][8][32]
+  float* colpart = rowpart + kMaxHeads * kTcWarps * 32;    // [kMaxHeads][8][16]
+  T* Bs = reinterpret_cast<T*>(colpart + kMaxHeads * kTcWarps * 16);   // [kRows][LN]
+  T* Cs = Bs + kRows * LN;                                 // [kRows][LN]
+  T* Xs = Cs + kRows * LN;                                 // [2][kRows][LX]
+  T* Ds = Xs + 2 * kRows * LX;                             // [2][kRows][LX] dy
+  // "full" barriers 0-3 (B_J, C_I, the two x and dy slots), completed by the
+  // producer's 32 lanes; "empty" barriers 4-7 (the same buffers), one arrival
+  // a consumer warp
+  constexpr int kFullB = 0, kFullC = 1, kFullX = 2, kEmptyB = 4, kEmptyC = 5, kEmptyX = 6;
+  auto bar = [&](int i) { return smem_u32(bars + i); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, hb = blockIdx.x * hg;
+  const int nh = min(hg, H - hb);
+  const int nb = (S + kRows - 1) / kRows;
+
+  if (tid == 0)
+    for (int i = 0; i < 8; ++i) mbar_init(bar(i), i < kEmptyB ? 32 : kTcWarps);
+  __syncthreads();
+
+  // ---- the producer warp: the tiles, in the order the consumers use them
+  if (warp == kTcWarps) {
+    int ub = 0, uc = 0, ux = 0;
+    for (int J = 0; J < nb; ++J) {
+      const int j0 = J * kRows;
+      if (ub > 0) mbar_wait(bar(kEmptyB), (ub - 1) & 1);
+      load_tile<N, LN>(Bs, Bm + b * st.b_b + j0 * st.b_s, st.b_s, S - j0);
+      cp_async_arrive(bar(kFullB));
+      ++ub;
+      for (int I = J; I < nb; ++I) {
+        const int i0 = I * kRows;
+        if (uc > 0) mbar_wait(bar(kEmptyC), (uc - 1) & 1);
+        load_tile<N, LN>(Cs, Cm + b * st.c_b + i0 * st.c_s, st.c_s, S - i0);
+        cp_async_arrive(bar(kFullC));
+        ++uc;
+        for (int hh = 0; hh < nh; ++hh, ++ux) {
+          const int slot = ux & 1, use = ux >> 1;
+          if (use > 0) mbar_wait(bar(kEmptyX + slot), (use - 1) & 1);
+          const int h = hb + hh;
+          load_tile<kTcP, LX>(Xs + slot * kRows * LX,
+                              x + b * st.x_b + j0 * st.x_s + h * st.x_h, st.x_s, S - j0);
+          load_tile<kTcP, LX>(Ds + slot * kRows * LX,
+                              dy + b * st.dy_b + i0 * st.dy_s + h * st.dy_h, st.dy_s, S - i0);
+          cp_async_arrive(bar(kFullX + slot));
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- the consumer warps
+  const int rg = warp & 3, half = warp >> 2, g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < kMaxHeads * kMaxChunk; i += kTcWarps * 32) dav[i] = ddd[i] = 0.f;
+  if (warp < nh) {   // a = the running sum of dt * A over the chunk, head hb + warp
+    const int h = hb + warp;
+    const float ah = A[h];
+    float v[8], run = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = 8 * lane + q;   // steps at or past S: dt = 0
+      const float d = k < S ? dt[b * st.dt_b + k * st.dt_s + h * st.dt_h] : 0.f;
+      dtv[warp * kMaxChunk + k] = d;
+      run += d * ah;
+      v[q] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) av[warp * kMaxChunk + 8 * lane + q] = v[q] + incl - run;
+  }
+  consumers_sync();
+
+  float dxa[kMaxHeads][4][4];   // dx_J of each head: rows 16 rg .., columns 32 half ..
+  int ub = 0, uc = 0, ux = 0;
+  for (int J = 0; J < nb; ++J) {
+    const int j0 = J * kRows;
+    mbar_wait(bar(kFullB), ub & 1);
+#pragma unroll
+    for (int hh = 0; hh < kMaxHeads; ++hh)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dxa[hh][nt][r] = 0.f;
+
+    for (int I = J; I < nb; ++I) {
+      const int i0 = I * kRows;
+      mbar_wait(bar(kFullC), uc & 1);
+      // S^T = B_J C_I^T (the heads share it): rows j 16 rg .., columns i 32 half ..
+      float sT[4][4] = {};
+      {
+        const T* Ba = Bs + 16 * rg * LN;
+        const T* Cb = Cs + 32 * half * LN;
+        warp_mma<4, N, kExact, kExact>(
+            sT, [&](int m, int k) { return to_f(Ba[m * LN + k]); },
+            [&](int k, int n) { return to_f(Cb[n * LN + k]); });
+      }
+      float zs[4][4] = {};   // Zsum^T = sum over the heads of Z^T, the same tile
+#pragma unroll
+      for (int hh = 0; hh < kMaxHeads; ++hh) {
+        if (hh < nh) {
+          const int slot = ux & 1;
+          mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
+          const T* xs = Xs + slot * kRows * LX;
+          const T* ds = Ds + slot * kRows * LX;
+          // M^T = x_J dy_I^T, the same tile
+          float mT[4][4] = {};
+          warp_mma<4, kTcP, kExact, kExact>(
+              mT, [&](int m, int k) { return to_f(xs[(16 * rg + m) * LX + k]); },
+              [&](int k, int n) { return to_f(ds[(32 * half + n) * LX + k]); });
+          // W^T = S^T o L^T dt_j into W, Z^T = M^T o L^T dt_j into Zsum^T, and
+          // Q = S o L o M's row sums and its column sums weighted by dt_j
+          const float* a = av + hh * kMaxChunk;
+          const float* dtp = dtv + hh * kMaxChunk;
+          float* W = Wb + slot * kRows * kWP;
+          const int jl = 16 * rg + g;   // the thread's rows jl and jl + 8
+          const float aj[2] = {a[j0 + jl], a[j0 + jl + 8]};
+          const float dj[2] = {dtp[j0 + jl], dtp[j0 + jl + 8]};
+          float colp[2] = {0.f, 0.f}, rowp[4][2] = {};
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int il = 32 * half + 8 * nt + 2 * t;   // the thread's columns il, il + 1
+#pragma unroll
+            for (int jr = 0; jr < 2; ++jr) {
+              const int gj = j0 + jl + 8 * jr;
+              float w[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int gi = i0 + il + e;
+                float z = 0.f, q = 0.f;
+                w[e] = 0.f;
+                // the exponent is formed for i >= j only: for i < j it is positive
+                if (gi >= gj && gi < S) {
+                  const float L = expf(a[gi] - aj[jr]);
+                  const float sl = sT[nt][2 * jr + e] * L;
+                  const float m = mT[nt][2 * jr + e];
+                  w[e] = sl * dj[jr];
+                  z = m * L * dj[jr];
+                  q = sl * m;
+                }
+                zs[nt][2 * jr + e] += z;
+                colp[jr] += q;
+                rowp[nt][e] += q * dj[jr];
+              }
+              *reinterpret_cast<float2*>(W + (jl + 8 * jr) * kWP + il) = make_float2(w[0], w[1]);
+            }
+          }
+#pragma unroll
+          for (int jr = 0; jr < 2; ++jr) {   // over the 4 lanes of a row
+            colp[jr] += __shfl_xor_sync(0xffffffffu, colp[jr], 1);
+            colp[jr] += __shfl_xor_sync(0xffffffffu, colp[jr], 2);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)     // over the 8 lanes of a column
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1)
+                rowp[nt][e] += __shfl_xor_sync(0xffffffffu, rowp[nt][e], off);
+          float* cp = colpart + (hh * kTcWarps + warp) * 16;
+          float* rp = rowpart + (hh * kTcWarps + warp) * 32;
+          if (t == 0) {
+            cp[g] = colp[0];
+            cp[g + 8] = colp[1];
+          }
+          if (g == 0) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              rp[8 * nt + 2 * t] = rowp[nt][0];
+              rp[8 * nt + 2 * t + 1] = rowp[nt][1];
+            }
+          }
+          pair_sync(rg);   // both halves of W^T's rows 16 rg .. are written
+          // dx_J += W^T dy_I: rows j 16 rg .., columns p 32 half ..; K = i
+          warp_mma<4, kRows, false, kExact>(
+              dxa[hh], [&](int m, int k) { return W[(16 * rg + m) * kWP + k]; },
+              [&](int k, int n) { return to_f(ds[k * LX + 32 * half + n]); });
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar(kEmptyX + slot));   // x and dy slot free
+          ++ux;
+        }
+      }
+      consumers_sync();   // every warp is done reading the last pair's Zsum^T (dC)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int jr = 0; jr < 2; ++jr)
+          *reinterpret_cast<float2*>(Zb + (16 * rg + g + 8 * jr) * kWP + 32 * half + 8 * nt +
+                                     2 * t) = make_float2(zs[nt][2 * jr], zs[nt][2 * jr + 1]);
+      consumers_sync();   // Zsum^T and the partial sums of Q are complete
+
+      // da and d(dt)'s direct part, from the partial sums in a fixed order:
+      // row xl of the tile (j = j0 + xl) sums its two column halves, column xl
+      // (i = i0 + xl) its four row groups
+      for (int idx = tid; idx < nh * kRows; idx += kTcWarps * 32) {
+        const int hh = idx / kRows, xl = idx % kRows;
+        const float* rp = rowpart + hh * kTcWarps * 32;
+        const float* cp = colpart + hh * kTcWarps * 16;
+        float* da = dav + hh * kMaxChunk;
+        const int hx = xl / 32, rx = xl / 16;
+        const float rs = rp[(4 * hx + 0) * 32 + xl % 32] + rp[(4 * hx + 1) * 32 + xl % 32] +
+                         rp[(4 * hx + 2) * 32 + xl % 32] + rp[(4 * hx + 3) * 32 + xl % 32];
+        const float cs = cp[rx * 16 + xl % 16] + cp[(rx + 4) * 16 + xl % 16];
+        if (j0 + xl < S) {
+          ddd[hh * kMaxChunk + j0 + xl] += cs;
+          da[j0 + xl] -= dtv[hh * kMaxChunk + j0 + xl] * cs;
+        }
+        if (i0 + xl < S) da[i0 + xl] += rs;
+      }
+
+      // the partials of the block's heads: dB_J += Zsum^T C_I (rows j), then
+      // C_I is released (the next pair's loads while dC runs), dC_I += Zsum
+      // B_J (rows i); columns n NH half ..; the first pair of a row block
+      // stores, later ones add (the same thread, nothing shared)
+      auto to_partial = [&](float* part, int r0, bool first, const float (&acc)[NH / 8][4]) {
+#pragma unroll
+        for (int nt = 0; nt < NH / 8; ++nt)
+#pragma unroll
+          for (int jr = 0; jr < 2; ++jr) {
+            const int row = r0 + 16 * rg + g + 8 * jr;
+            if (row < S) {
+              float2* p = reinterpret_cast<float2*>(
+                  part + ((static_cast<int64_t>(blockIdx.x) * gridDim.y + b) * S + row) * N +
+                  NH * half + 8 * nt + 2 * t);
+              float2 v = make_float2(acc[nt][2 * jr], acc[nt][2 * jr + 1]);
+              if (!first) {
+                const float2 o = *p;
+                v.x += o.x;
+                v.y += o.y;
+              }
+              *p = v;
+            }
+          }
+      };
+      {
+        float acc[NH / 8][4] = {};
+        warp_mma<NH / 8, kRows, false, kExact>(
+            acc, [&](int m, int k) { return Zb[(16 * rg + m) * kWP + k]; },
+            [&](int k, int n) { return to_f(Cs[k * LN + NH * half + n]); });
+        to_partial(dB_part, j0, I == J, acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(kEmptyC));   // C_I and the partial sums free
+      ++uc;
+      {
+        float acc[NH / 8][4] = {};
+        warp_mma<NH / 8, kRows, false, kExact>(
+            acc, [&](int m, int k) { return Zb[k * kWP + 16 * rg + m]; },
+            [&](int k, int n) { return to_f(Bs[k * LN + NH * half + n]); });
+        to_partial(dC_part, i0, J == 0, acc);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < kMaxHeads; ++hh) {
+      if (hh < nh) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int jr = 0; jr < 2; ++jr) {
+            const int j = j0 + 16 * rg + g + 8 * jr;
+            if (j < S)
+              store2(dx + (static_cast<int64_t>(b * S + j) * H + hb + hh) * kTcP + 32 * half +
+                         8 * nt + 2 * t,
+                     dxa[hh][nt][2 * jr], dxa[hh][nt][2 * jr + 1]);
+          }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(kEmptyB));   // B_J free
+    ++ub;
+  }
+
+  // r = the reverse running sum of da over the chunk; d(dt) and the dA part
+  consumers_sync();
+  if (warp < nh) {
+    const int h = hb + warp;
+    const float* da = dav + warp * kMaxChunk;
+    float v[8], run = 0.f;
+#pragma unroll
+    for (int q = 7; q >= 0; --q) {
+      run += da[8 * lane + q];
+      v[q] = run;
+    }
+    float incl = run;   // over this lane's and the later lanes' steps
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_down_sync(0xffffffffu, incl, off);
+      if (lane + off < 32) incl += u;
+    }
+    const float ah = A[h];
+    float part = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = 8 * lane + q;
+      if (k < S) {
+        const float r = v[q] + incl - run;
+        ddt[static_cast<int64_t>(b * S + k) * H + h] = ddd[warp * kMaxChunk + k] + ah * r;
+        part += dtv[warp * kMaxChunk + k] * r;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (lane == 0) dA_part[b * H + h] = part;
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_tc(const void* x, const void* dt, const void* A, const void* B,
+                      const void* C, const void* dy, void* dx, void* ddt, void* dA_part,
+                      void* dB_part, void* dC_part, int batch, int S, int H, int hg,
+                      const Strides& st, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem<T, N>();
+  static_assert(smem <= 232448, "more shared memory than a block can have");
+  auto kernel = ssd_scan_bwd_tc<T, N>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((H + hg - 1) / hg, batch), kTcThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(dA_part),
+      static_cast<float*>(dB_part), static_cast<float*>(dC_part), S, H, hg, st);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tc_n(int N, const void* x, const void* dt, const void* A, const void* B,
+                        const void* C, const void* dy, void* dx, void* ddt, void* dA_part,
+                        void* dB_part, void* dC_part, int batch, int S, int H, int hg,
+                        const Strides& st, cudaStream_t stream) {
+  if (N == 128)
+    return launch_tc<T, 128>(x, dt, A, B, C, dy, dx, ddt, dA_part, dB_part, dC_part, batch,
+                             S, H, hg, st, stream);
+  return launch_tc<T, 64>(x, dt, A, B, C, dy, dx, ddt, dA_part, dB_part, dC_part, batch, S,
+                          H, hg, st, stream);
+}
+
 }  // namespace
 
 // strides: x (b, s, h), dt (b, s, h), B (b, s), C (b, s), dy (b, s, h), in
 // elements. scratch: (batch, H, chunks - 1, P, N) fp32, null for one chunk.
-// is_bf16 chooses the input type: 1 bf16, 0 float32.
+// is_bf16 chooses the input type: 1 bf16, 0 float32. tensor_cores chooses
+// the kernel: 1 ssd_scan_bwd_tc, whose dB and dC partials are
+// (ceil(H / heads_per_block), batch, S, N), for the shapes it takes (P 64, N
+// 64 or 128, one chunk, no h0, no dstate; anything else is
+// cudaErrorInvalidValue); 0 the FMA kernel, whose partials are (H, batch, S,
+// N).
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                                    const void* B, const void* C, const void* h0,
                                    const void* dy, const void* dstate, void* dx, void* ddt,
                                    void* dA_part, void* dB_part, void* dC_part, void* dh0,
                                    void* scratch, int batch, int S, int H, int P, int N,
-                                   int chunk, int is_bf16, const long long* strides,
+                                   int chunk, int is_bf16, int tensor_cores,
+                                   int heads_per_block, const long long* strides,
                                    void* stream) {
+  // the autograd engine's device thread runs every backward: the device's
+  // primary context is made current first, as for the launchers that encode
+  // tensor maps (this one encodes none: cp.async stages its tiles)
+  if (bind_context() != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidDevice);
   Strides st;
   st.x_b = strides[0]; st.x_s = strides[1]; st.x_h = strides[2];
   st.dt_b = strides[3]; st.dt_s = strides[4]; st.dt_h = strides[5];
@@ -769,6 +1358,17 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
       ((S + chunk - 1) / chunk > 1) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (P != kTcP || (N != 64 && N != 128) || S > chunk || h0 != nullptr ||
+        dstate != nullptr || heads_per_block < 1 || heads_per_block > kMaxHeads)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err =
+        is_bf16 ? launch_tc_n<__nv_bfloat16>(N, x, dt, A, B, C, dy, dx, ddt, dA_part, dB_part,
+                                             dC_part, batch, S, H, heads_per_block, st, s)
+                : launch_tc_n<float>(N, x, dt, A, B, C, dy, dx, ddt, dA_part, dB_part,
+                                     dC_part, batch, S, H, heads_per_block, st, s);
+    return static_cast<int>(err);
+  }
   cudaError_t err = is_bf16
       ? launch_p<__nv_bfloat16>(P, N, x, dt, A, B, C, h0, dy, dstate, dx, ddt, dA_part,
                                 dB_part, dC_part, dh0, scratch, batch, S, H, chunk, st, s)

@@ -34,12 +34,14 @@ that fails is not retried on the FMA kernel.
 Gradients. A call whose inputs require a gradient (with grad mode on) goes
 through ``SSDScan``, an autograd function whose forward is the call above
 and whose backward is ``ssd_scan_backward``: on CUDA tensors it launches
-``csrc/ssd_scan_bwd.cu`` (fp32 FMA arithmetic for float32 and bf16 inputs),
-on CPU tensors it runs ``ssd_scan_backward_plain`` (the explicit formulas,
-no autograd), so that training takes the same route on both. The TPU
-package has no Pallas backward: it trains through ``jax.grad`` of its jnp
-oracle (``repro.models.ssm.ssd_chunked``), which the backward kernel stands
-in for. A bf16 backward that fails is not retried in float32.
+``csrc/ssd_scan_bwd.cu`` (for one chunk without state, as in training, the
+tensor-core kernel: every product in 3xTF32 on ``mma.sync``, float32-
+accurate; else the fp32 FMA kernel; both for float32 and bf16 inputs), on
+CPU tensors it runs ``ssd_scan_backward_plain`` (the explicit formulas, no
+autograd), so that training takes the same route on both. The TPU package
+has no Pallas backward: it trains through ``jax.grad`` of its jnp oracle
+(``repro.models.ssm.ssd_chunked``), which the backward kernel stands in
+for. A backward that fails is not retried on the other kernel.
 """
 from __future__ import annotations
 
@@ -382,10 +384,34 @@ def _backward_library() -> ctypes.CDLL:
     lib = _build.library("ssd_scan_bwd")
     fn = lib.ssd_scan_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + \
             [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+# The shapes the backward's tensor-core kernel takes (``csrc/ssd_scan_bwd.cu``,
+# ``ssd_scan_bwd_tc``): P 64, N 64 or 128, one chunk (s <= chunk), no h0 and
+# no final-state cotangent, which is every training call of mamba2-1.3b and
+# zamba2-2.7b at s <= 256. Every other shape goes to the FMA kernel.
+_TC_HEAD_DIM = 64
+_TC_STATE_DIMS = (64, 128)
+_TC_MAX_HEADS = 5   # kMaxHeads: the heads one block of the tensor-core kernel owns
+
+
+def backward_route(b: int, s: int, h: int, p: int, n: int, chunk: int, has_h0: bool,
+                   has_dstate: bool, n_sms: int) -> Tuple[bool, int]:
+    """``(tensor_cores, heads_per_block)`` of a backward launch: whether the
+    shape goes to the tensor-core kernel, and how many heads of a sequence
+    one of its blocks owns (its C B^T and the sums of dB and dC over those
+    heads are shared): the fewest that fit the b x ceil(h / heads) blocks
+    into one wave of ``n_sms`` blocks, at most ``_TC_MAX_HEADS``
+    (mamba2-1.3b's training shape, 8 x 64 heads on 132 SMs: 4; zamba2's, 8 x
+    80: 5). The FMA kernel owns one head a block."""
+    if p == _TC_HEAD_DIM and n in _TC_STATE_DIMS and s <= chunk and not has_h0 \
+            and not has_dstate:
+        return True, min(_TC_MAX_HEADS, max(1, -(-b * h // n_sms)))
+    return False, 1
 
 
 def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -399,13 +425,18 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Tensors on the CPU go through ``ssd_scan_backward_plain``; tensors on a
     CUDA device launch ``csrc/ssd_scan_bwd.cu`` (counted in
-    ``ssd_scan_backward.launches``, one a call; float32 and bf16 inputs,
-    fp32 FMA arithmetic) or raise. x, B, C and dt are read through their
-    strides; dy too where its last axis is contiguous and its rows 16-byte
-    aligned (else it is made contiguous), dstate is made contiguous. The
-    kernel writes per-head partials of dB and dC and per-(batch, head)
-    partials of dA (no atomics: the same inputs give the same bits); the
-    sums over the heads and over the batch here are the second pass of
+    ``ssd_scan_backward.launches``, one a call) or raise. The source holds
+    two kernels, chosen by ``backward_route`` on the shape alone: the
+    tensor-core kernel (3xTF32 ``mma.sync`` products, a block owning a few
+    heads of one sequence; counted in
+    ``ssd_scan_backward.tensor_core_launches`` too) for one chunk without
+    state, the FMA kernel (one head a block) for the rest; float32 and bf16
+    inputs both. x, B, C and dt are read through their strides; dy too where
+    its last axis is contiguous and its rows 16-byte aligned (else it is
+    made contiguous), dstate is made contiguous. The kernels write partials
+    of dB and dC per block (summed over the block's heads) and of dA per
+    (batch, head), with no atomics (the same inputs give the same bits); the
+    sums over the head groups and over the batch here are the second pass of
     that cross-block reduction.
     """
     if x.device.type == "cpu":
@@ -427,15 +458,19 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssd_scan_backward: dstate must be float32 {(b, h, p, n)} "
                              f"on {x.device}")
         dstate = dstate.contiguous()
+    tensor_cores, heads = backward_route(
+        b, s, h, p, n, chunk, h0 is not None, dstate is not None,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    groups = -(-h // heads)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     ddt = torch.empty((b, s, h), **f32)
     dA_part = torch.empty((b, h), **f32)
-    dB_part = torch.empty((b, s, h, n), **f32)
-    dC_part = torch.empty((b, s, h, n), **f32)
+    dB_part = torch.empty((groups, b, s, n), **f32)
+    dC_part = torch.empty((groups, b, s, n), **f32)
     dh0 = None if h0 is None else torch.empty((b, h, p, n), **f32)
     n_chunks = -(-s // chunk)
-    # the states entering chunks 1 .., recomputed by the kernel's forward sweep
+    # the states entering chunks 1 .., recomputed by the FMA kernel's forward sweep
     scratch = torch.empty((b, h, n_chunks - 1, p, n), **f32) if n_chunks > 1 else None
     strides = (ctypes.c_longlong * 13)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
@@ -445,13 +480,15 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             _ptr(h0), dy.data_ptr(), _ptr(dstate), dx.data_ptr(), ddt.data_ptr(),
             dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), _ptr(dh0),
-            _ptr(scratch), b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16), strides,
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(scratch), b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16),
+            int(tensor_cores), heads, strides, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_backward kernel launch failed: CUDA error {err}")
     ssd_scan_backward.launches += 1
-    return (dx, ddt, dA_part.sum(0), dB_part.sum(2).to(B.dtype),
-            dC_part.sum(2).to(C.dtype), dh0)
+    ssd_scan_backward.tensor_core_launches += int(tensor_cores)
+    return (dx, ddt, dA_part.sum(0), dB_part.sum(0).to(B.dtype),
+            dC_part.sum(0).to(C.dtype), dh0)
 
 
-ssd_scan_backward.launches = 0   # calls that launched the CUDA kernel
+ssd_scan_backward.launches = 0   # calls that launched a CUDA kernel
+ssd_scan_backward.tensor_core_launches = 0   # of those, the tensor-core kernel's

@@ -1,0 +1,185 @@
+"""The precision of the SSD backward's tensor-core kernel, on the CPU.
+
+``csrc/ssd_scan_bwd.cu``'s tensor-core kernel runs every product of the
+backward in 3xTF32: each float32 operand value v becomes hi, v rounded to
+TF32 (to nearest, ties away from zero, at 13 bits below a float32's
+mantissa, as ``cvt.rna.tf32.f32`` rounds), and lo = v - hi, which the
+tensor cores read truncated to TF32 (they take a TF32 operand's top 19
+bits); a product is a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in
+float32. A product of two TF32 values is exact in float32, so
+``torch.matmul`` in float32 on the split operands models what the tensor
+cores compute, up to the order of the float32 sums.
+
+Here the kernel's formulas for one chunk without state (what it takes: the
+training shape) run with that operand rounding at mamba2-1.3b's widths (P
+64, N 128, 128 steps, 4 heads, batch 2), inputs from a numpy seed, and each
+gradient is held against float64 (``ssd_scan_backward_plain`` in float64):
+its error must stay within ``FACTOR`` of the plain float32 version's own
+error on the same inputs and within ``SSD_TOL`` of the gradient's largest
+value (dA: of the magnitude of what it sums, as in
+``tests/test_torch_ssd_backward.py``). The split helper and the route a
+backward takes on the card (``backward_route``) are checked too. The kernel
+itself runs on the card only (``chip_smoke.py``)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd_scan import backward_route, ssd_scan_backward_plain
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
+# chip_smoke.py's tolerance of the backward kernel in float32, of the largest value
+SSD_TOL = 2e-3
+# 3xTF32 keeps float32's precision: each gradient's error against float64 at
+# most this many times the plain float32 version's (their sums run in other
+# orders, so neither is always the smaller)
+FACTOR = 4.0
+NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def _bits(a: torch.Tensor) -> np.ndarray:
+    return a.contiguous().numpy().view(np.uint32)
+
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` rounded to TF32 as the kernel rounds hi (and as
+    ``cvt.rna.tf32.f32`` does): to nearest at 13 bits below the mantissa's
+    last, ties away from zero (half a unit added to the magnitude's bit
+    pattern, then the 13 bits cut)."""
+    u = _bits(a)
+    return torch.from_numpy(((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def truncate(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` as the tensor cores read a TF32 operand: its 13 low
+    mantissa bits dropped (toward zero)."""
+    return torch.from_numpy((_bits(a) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def split(a: torch.Tensor):
+    """(hi, lo) of float32 ``a`` as the products see them: hi = tf32(a), lo =
+    a - hi (exact in float32) truncated to TF32."""
+    hi = tf32(a)
+    return hi, truncate(a - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32, float32 sums: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def tensor_core_backward(x, dt, A, B, C, dy, mm=mm3):
+    """The kernel's formulas for one chunk (s <= chunk), no h0, no final-state
+    cotangent, every product through ``mm`` (3xTF32), the rest in float32:
+    S = C B^T once a sequence, per head M = dy x^T, W = S o L dt_j, Z = M o L dt_j,
+    Q = S o L o M and dx = W^T dy; dB = Zsum^T C and dC = Zsum B with Zsum
+    the sum of Z over the heads; da from Q's row and column sums, r its
+    reverse running sum, d(dt) = Q's column sums + A r, dA = sum dt r."""
+    b, s, h, _ = x.shape
+    a = torch.cumsum(dt * A, dim=1)                              # (b, s, h)
+    i = torch.arange(s)
+    causal = (i[:, None] >= i[None, :])[None, :, :, None]        # (1, i, j, 1)
+    L = torch.exp(torch.where(causal, a[:, :, None] - a[:, None], -torch.inf))
+    S = mm(C, B.transpose(1, 2))                                 # (b, i, j)
+    xh, dyh = x.permute(0, 2, 1, 3), dy.permute(0, 2, 1, 3)       # (b, h, s, p)
+    M = mm(dyh, xh.transpose(2, 3)).permute(0, 2, 3, 1)         # (b, i, j, h)
+    dt_j = dt[:, None]                                            # (b, 1, j, h)
+    W = S[..., None] * L * dt_j
+    Z = M * L * dt_j
+    Q = S[..., None] * L * M
+    dx = mm(W.permute(0, 3, 2, 1), dyh).permute(0, 2, 1, 3)      # (b, j, h, p)
+    Zsum = Z.sum(dim=3)                                           # (b, i, j)
+    dB = mm(Zsum.transpose(1, 2), C)
+    dC = mm(Zsum, B)
+    col = Q.sum(dim=1)                                            # (b, j, h)
+    da = (Q * dt_j).sum(dim=2) - dt * col
+    r = torch.flip(torch.cumsum(torch.flip(da, [1]), dim=1), [1])
+    return dx, col + A * r, (dt * r).sum((0, 1)), dB, dC
+
+
+def _inputs(seed, steep, b=2, s=128, h=4, p=64, n=128):
+    rng = np.random.default_rng(seed)
+    raw = rng.standard_normal((b, s, h))
+    arrays = dict(x=rng.standard_normal((b, s, h, p)), B=rng.standard_normal((b, s, n)),
+                  C=rng.standard_normal((b, s, n)),
+                  dt=1.0 + 0.01 * raw if steep else np.log1p(np.exp(raw)),
+                  A=np.full(h, -16.0) if steep else -np.linspace(1.0, 16.0, h),
+                  dy=rng.standard_normal((b, s, h, p)))
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in arrays.items()}
+
+
+def _errors(got, want, dt, A):
+    """Each gradient's largest error against ``want`` (float64), over its
+    largest magnitude; dA's over the magnitude of what it sums."""
+    out = {}
+    for name, g, w in zip(NAMES, got, want):
+        err = (g.double() - w).abs()
+        if name == "dA":
+            scale = (dt.double() * want[1]).abs().sum(dim=(0, 1)) / A.double().abs()
+            out[name] = float((err / scale).max())
+        else:
+            out[name] = float(err.max() / w.abs().max())
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("steep", [False, True], ids=["model decay", "A=-16, dt~1"])
+def test_3xtf32_backward_keeps_float32_precision(seed, steep):
+    t = _inputs(seed, steep)
+    args = (t["x"], t["dt"], t["A"], t["B"], t["C"])
+    want = ssd_scan_backward_plain(*(v.double() for v in args), None,
+                                   t["dy"].double(), None, 256)
+    plain = ssd_scan_backward_plain(*args, None, t["dy"], None, 256)
+    got = tensor_core_backward(*args, t["dy"])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+    e_tc, e_plain = _errors(got, want, t["dt"], t["A"]), _errors(plain, want, t["dt"], t["A"])
+    for name in NAMES:
+        assert e_tc[name] <= SSD_TOL, (name, e_tc[name])
+        assert e_tc[name] <= FACTOR * e_plain[name], (name, e_tc[name], e_plain[name])
+
+
+def test_one_tf32_rounding_would_not_keep_float32_precision():
+    """The case for three products: with every operand rounded once to TF32
+    the same formulas miss float32's precision by orders of magnitude."""
+    t = _inputs(0, False)
+    args = (t["x"], t["dt"], t["A"], t["B"], t["C"])
+    want = ssd_scan_backward_plain(*(v.double() for v in args), None,
+                                   t["dy"].double(), None, 256)
+    plain = _errors(ssd_scan_backward_plain(*args, None, t["dy"], None, 256), want,
+                    t["dt"], t["A"])
+    once = _errors(tensor_core_backward(*args, t["dy"], mm=lambda a, b: tf32(a) @ tf32(b)),
+                   want, t["dt"], t["A"])
+    assert once["dx"] > 30 * plain["dx"] and once["dB"] > 30 * plain["dB"], (once, plain)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_split_recovers_float32(seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy((rng.standard_normal(100_000) *
+                          np.exp(rng.uniform(-20, 20, 100_000))).astype(np.float32))
+    hi, lo = split(a)
+    # hi and lo are TF32 values: their 13 low mantissa bits are zero
+    for part in (hi, lo):
+        assert not (part.numpy().view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert ((hi.double() + lo.double() - a.double()).abs() <= 2.0 ** -21 * a.double().abs()).all()
+    # a bf16 value is a TF32 value: its lo is 0, so its lo products are left out
+    bf = a.to(torch.bfloat16).float()
+    hi, lo = split(bf)
+    assert torch.equal(hi, bf) and not lo.any()
+
+
+@pytest.mark.parametrize("b, s, h, p, n, chunk, h0, dstate, want", [
+    (8, 128, 64, 64, 128, 256, False, False, (True, 4)),   # mamba2-1.3b's training shape
+    (8, 128, 80, 64, 64, 256, False, False, (True, 5)),    # zamba2-2.7b's
+    (1, 1, 64, 64, 128, 256, False, False, (True, 1)),
+    (64, 256, 64, 64, 128, 256, False, False, (True, 5)),  # more blocks than a wave at most
+    (2, 320, 64, 64, 128, 256, False, False, (False, 1)),  # two chunks: the carried state
+    (1, 128, 64, 64, 128, 256, True, False, (False, 1)),   # h0
+    (1, 128, 64, 64, 128, 256, False, True, (False, 1)),   # a final-state cotangent
+    (4, 64, 24, 32, 16, 32, False, False, (False, 1)),     # the smoke widths: P 32, N 16
+])
+def test_backward_route(b, s, h, p, n, chunk, h0, dstate, want):
+    assert backward_route(b, s, h, p, n, chunk, h0, dstate, n_sms=132) == want
