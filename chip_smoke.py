@@ -50,7 +50,15 @@ through ``FlashPrefill`` under autograd; the SSD scan's gradient through
 the hand-written ``ssd_scan`` backward kernels (one chunk without state,
 as in training: 3xTF32 products on the tensor cores; otherwise fp32 FMAs),
 held against ``ssd_scan_backward_plain`` there, directly and through
-``SSDScan``. The ``kernels`` phase first runs the bf16 SSD forward under
+``SSDScan``. The float32 forwards that training launches run on their own
+3xTF32 kernels (``flash_prefill_kernel_tf32``; ``ssd_scan_kernel_tf32`` for
+one chunk from a zero state), held against their plain versions there in
+every case a second time bit for bit (the SSD one also against its plain
+version in float64, within ``TF32_FACTOR`` of the float32 plain version's
+error), and each has a row of its own in the kernels line, whose bound is
+that of 3xTF32 on the tensor cores (the FMA rate's beside it, in
+``bound_fp32_fma_ms``, as for the SSD backward's row); the wrappers' rows
+count the wrappers' other kernels. The ``kernels`` phase first runs the bf16 SSD forward under
 remat on PyTorch's autograd thread and from a new host thread (its tensor
 maps need the context those threads lack until the launcher binds it).
 Every engine on the card replays its decode step as a CUDA graph captured
@@ -78,8 +86,11 @@ and the fitted constants' run.
 
 ``--ab OTHER/src`` instead times the three serving kernels of another tree's port
 (for example the parent commit's, unpacked with ``git archive``) and of this
-checkout's at the serving path's shapes, the attention's gradient at
-whisper-base's encoder and olmo-1b's training shape, and the SSD scan's at
+checkout's at the serving path's shapes, the float32 forwards that training
+launches (the attention's with the log-sum-exp at olmo-1b's training shape,
+the SSD scan's at mamba2-1.3b's and zamba2-2.7b's, and beside them the
+float32 SSD scan at s 341, which stays on the FMA kernel), the attention's gradient
+at whisper-base's encoder and olmo-1b's training shape, and the SSD scan's at
 mamba2-1.3b's and zamba2-2.7b's, in turns (other, this, this,
 other), each turn in its own process with the kernels built from that
 tree's sources, and prints one ``ab`` JSON line per (tree, turn, case), so
@@ -154,6 +165,7 @@ ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train", "sim")
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32_FLOPS = 495e12
 # tolerances of the reference's kernel tests; the kernels keep the softmax
 # weights in float32 where the plain versions round the output once, which
 # is far inside the bfloat16 tolerance
@@ -161,6 +173,11 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # the SSD scan sums over a chunk of up to 256 steps in another order than the
 # plain version's einsums (the reference's own ssd tolerance in float32)
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+# 3xTF32 keeps float32's precision: against float64, a float32 kernel on the
+# tensor cores errs at most this many times the plain float32 version's
+# (their sums run in other orders; tests/test_torch_ssd_forward_tf32.py's
+# FACTOR)
+TF32_FACTOR = 4.0
 # whisper-base's attention averages over 1500 keys, so its outputs and
 # gradients are far below 1 (an output's std is about sqrt(e / 1500) = 0.043)
 # and TOL's bfloat16 atol exceeds a typical value: there the error is held to
@@ -170,8 +187,13 @@ OF_MAX_TOL = 1e-2
 KERNELS = {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
            "ssd_scan": ssd_scan, "flash_prefill_backward": flash_prefill_backward,
            "ssd_scan_backward": ssd_scan_backward}
-# the wrappers whose bf16 launches go to a tensor-core kernel, counted apart
+# the wrappers whose bf16 launches go to a wgmma kernel, counted apart in
+# their ``tensor_core_launches``
 TENSOR_CORE_KERNELS = ("flash_prefill", "ssd_scan")
+# the float32 forwards' own kernels in those wrappers, in the same order
+# (3xTF32 on the tensor cores, counted in their ``tf32_launches``), each with
+# a row of its own in the kernels line
+TF32_KERNELS = ("flash_prefill_tf32", "ssd_scan_tf32")
 # the kernels of a llama-8b instance, and so of the cluster phase
 ATTENTION_KERNELS = ("paged_attention", "flash_prefill")
 # the longest the cluster phase's full-width run may take
@@ -189,6 +211,18 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/flash_prefill.py:85",
     },
     "ssd_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:90",
+    },
+    # the float32 forwards of the two, their own kernels in the same sources
+    # and wrappers (3xTF32 on the tensor cores), launched by training
+    "flash_prefill_tf32": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill.py:85",
+    },
+    "ssd_scan_tf32": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:90",
@@ -215,6 +249,8 @@ def zero_counts() -> None:
     decode_graph.add_counts([-c for c in decode_graph.read_counts()])
     flash_prefill_backward.launches = 0
     flash_prefill.lse_launches = 0
+    flash_prefill.tf32_launches = 0
+    ssd_scan.tf32_launches = 0
     ssd_scan_backward.launches = 0
     ssd_scan_backward.tensor_core_launches = 0
 
@@ -344,6 +380,14 @@ def bound(n_bytes: float, n_flops: float, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_3xtf32(n_bytes: float, n_flops: float):
+    """``bound`` for a float32 function whose products run on the tensor
+    cores in 3xTF32: three TF32 products a pair, at the TF32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3 * n_flops / PEAK_TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # ------------------------------------------------------------------ phases
 def phase_env() -> str:
     smi = subprocess.run(
@@ -431,32 +475,33 @@ SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0, 0>",
                      "ssd_scan_kernel_wgmma<64>")
 
 
-# the instantiations on the training paths, float32, which must not spill:
-# olmo-1b (D 128) the forward that writes the log-sum-exp and the backward's
-# two kernels; the SSD backward's tensor-core kernel at mamba2-1.3b's widths
-# (N 128: every backward launch of its training run) and zamba2-2.7b's (N
-# 64), and its FMA kernel where a call has more than one chunk (the
-# card-against-CPU gradients at 2 x 320: P 64, N 128 and 64, row blocks of
-# 64; its shared attention at D 80) or the smoke widths (P 32, N 16, chunks
-# of 32)
-TRAINING_INSTANCES = ("flash_prefill_kernel_fma<128, 1>",
-                      "flash_prefill_bwd_dq_fma<128>",
+# the instantiations on the training paths, float32, which must not spill
+# (the forwards' 3xTF32 ones are listed in FORWARD_TF32_INSTANCES): olmo-1b's
+# backward kernels (D 128); the SSD backward's tensor-core kernel at
+# mamba2-1.3b's widths (N 128: every SSD launch of its training run) and
+# zamba2-2.7b's (N 64); the FMA kernels of the SSD forward and backward
+# where a call has more than one chunk (the card-against-CPU gradients at 2
+# x 320: P 64, N 128 and 64, row blocks of 64) or the smoke widths (P 32, N
+# 16, chunks of 32); zamba2's shared attention's backward at D 80
+TRAINING_INSTANCES = ("flash_prefill_bwd_dq_fma<128>",
                       "flash_prefill_bwd_dkdv_fma<128>",
                       "ssd_scan_bwd_tc<float, 128>",
                       "ssd_scan_bwd_tc<float, 64>",
+                      "ssd_scan_kernel_fma<128, 64>",
+                      "ssd_scan_kernel_fma<64, 64>",
+                      "ssd_scan_kernel_fma<16, 32>",
                       "ssd_scan_bwd_kernel<float, 64, 128, 64>",
                       "ssd_scan_bwd_kernel<float, 64, 64, 64>",
-                      "flash_prefill_kernel_fma<80, 1>",
                       "flash_prefill_bwd_dq_fma<80>",
                       "flash_prefill_bwd_dkdv_fma<80>",
                       "ssd_scan_bwd_kernel<float, 32, 16, 32>")
-# the SSD scan's FMA forward at the same widths, also on the training paths:
-# it must be there; its spills are reported, not refused (16 bytes at N 128
-# and 8 at N 64 on the H100: the serving source, ``ssd_scan.cu``, is not
-# this training slice's to edit; ROADMAP Queue B)
-TRAINING_FORWARD_SSD_INSTANCES = ("ssd_scan_kernel_fma<128, 64>",
-                                  "ssd_scan_kernel_fma<64, 64>",
-                                  "ssd_scan_kernel_fma<16, 32>")
+# the float32 forwards' 3xTF32 instantiations, all on the training paths:
+# flash_prefill at every head_dim, with and without the log-sum-exp (olmo-1b
+# launches <128, 1>, zamba2-2.7b's shared attention <80, 1>); ssd_scan at N
+# 128 (mamba2-1.3b) and 64 (zamba2-2.7b)
+FORWARD_TF32_INSTANCES = tuple(
+    f"flash_prefill_kernel_tf32<{d}, {lse}>" for d in (64, 80, 96, 128) for lse in (0, 1)) + \
+    ("ssd_scan_kernel_tf32<128>", "ssd_scan_kernel_tf32<64>")
 # the backward's bf16 tensor-core instantiations: every head_dim, with and
 # without the general mask
 BACKWARD_WGMMA_INSTANCES = tuple(
@@ -470,10 +515,10 @@ SSD_BACKWARD_TC_INSTANCES = tuple(f"ssd_scan_bwd_tc<{t}, {n}>"
 
 def phase_build() -> None:
     """Builds every kernel source with ``-Xptxas=-v``; fails if a listed
-    serving, training or backward instantiation (the SSD backward's
-    tensor-core ones included) is missing or spills (the
-    SSD scan's FMA forward: if it is missing), or if any instantiation of
-    the two ``flash_prefill`` sources or of the SSD backward spills."""
+    serving, training, forward 3xTF32 or backward instantiation (the SSD
+    backward's tensor-core ones included) is missing or spills, or if any
+    instantiation of the two ``flash_prefill`` sources or of the two SSD
+    sources spills."""
     t0 = time.monotonic()
     out = _build.build_all(extra_flags=("-Xptxas=-v",))
     usage = {}
@@ -486,23 +531,19 @@ def phase_build() -> None:
             "spilling": [k for k in kernels if k["spill_stores"] or k["spill_loads"]]}
         found.update({k["kernel"]: k for k in kernels})
     listed = {"serving": SERVING_INSTANCES, "training": TRAINING_INSTANCES,
+              "forward_tf32": FORWARD_TF32_INSTANCES,
               "backward_wgmma": BACKWARD_WGMMA_INSTANCES,
               "ssd_backward_tc": SSD_BACKWARD_TC_INSTANCES}
     emit("build", seconds=round(time.monotonic() - t0, 2),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=usage,
          **{f"{kind}_instances": [found.get(i) for i in insts]
-            for kind, insts in listed.items()},
-         training_forward_ssd_instances=[found.get(i)
-                                         for i in TRAINING_FORWARD_SSD_INSTANCES])
-    for inst in TRAINING_FORWARD_SSD_INSTANCES:
-        if inst not in found:
-            fail(f"build: training instantiation {inst} missing")
+            for kind, insts in listed.items()})
     for kind, insts in listed.items():
         for inst in insts:
             k = found.get(inst)
             if k is None or k["spill_stores"] or k["spill_loads"]:
                 fail(f"build: {kind} instantiation {inst} missing or spilling: {k}")
-    for name in ("flash_prefill", "flash_prefill_bwd", "ssd_scan_bwd"):
+    for name in ("flash_prefill", "flash_prefill_bwd", "ssd_scan", "ssd_scan_bwd"):
         if usage[name]["spilling"]:
             fail(f"build: {name} instantiations spill: {usage[name]['spilling']}")
 
@@ -668,7 +709,7 @@ def _flash_timed(gen, F, dtype, H, Hkv, D, S, q_offset=0, causal=True, window=0,
     b_ms, b_by = bound((2 * qt.numel() + kt.numel() + vt.numel()) * es,
                        4.0 * H * D * seen, dtype)
     emit("kernels", kernel="flash_prefill", dtype=str(dtype), case=case,
-         route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
+         route="wgmma + TMA" if dtype == torch.bfloat16 else "3xTF32 mma.sync",
          shape=dict(B=1, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=kw["q_offset"],
                     causal=causal, window=window, prefix_len=prefix_len),
          tolerance=TOL[dtype], tolerance_of_max=of_max, max_abs_err=err, time_ms=ms, call_ms=call_ms,
@@ -780,12 +821,14 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> None:
+def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> dict:
     """The forward's LSE instance (the one ``FlashPrefill`` launches) at a
     training shape (causal, no GQA), beside the instance without the
     log-sum-exp, the plain version asked for it, and SDPA's forward. Bound:
     the bytes of q, k, v, o and the log-sum-exp, and the forward's
-    operations."""
+    operations at the dtype's rate; for float32 also as 3xTF32 on the
+    tensor cores (three products a pair at the 495 TFLOP/s TF32 rate).
+    Returns the numbers of the line."""
     qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, H, D)
     ms = device_ms(lambda: _flash_forward(qt, kt, vt, causal=True, q_offset=0, window=0,
                                           prefix_len=0, with_lse=True))
@@ -794,13 +837,95 @@ def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> None:
                          iters=5, warmup=1)
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     seen = int(attention_mask(S, S, device="cuda").sum())
-    b_ms, b_by = bound(4 * qt.numel() * qt.element_size() + 4 * B * H * S,
-                       4.0 * B * H * D * seen, dtype)
+    n_bytes = 4 * qt.numel() * qt.element_size() + 4 * B * H * S
+    flops = 4.0 * B * H * D * seen
+    b_ms, b_by = bound(n_bytes, flops, dtype)
+    tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops) if dtype == torch.float32 \
+        else (None, None)
+    rec = dict(time_ms=ms, time_ms_without_lse=without, bound_ms=b_ms, bound_by=b_by,
+               bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by, plain_ms=plain_ms,
+               library_ms=library_ms)
     emit("kernels", kernel="flash_prefill", dtype=str(dtype),
          case="training shape, with the log-sum-exp (LSE instance)",
-         shape=dict(B=B, H=H, Hkv=H, D=D, S=S, T=S, causal=True), time_ms=ms,
-         time_ms_without_lse=without, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
-         library_ms=library_ms)
+         route="wgmma + TMA" if dtype == torch.bfloat16 else "3xTF32 mma.sync",
+         shape=dict(B=B, H=H, Hkv=H, D=D, S=S, T=S, causal=True), **rec)
+    return rec
+
+
+# the float32 forward's cases on its 3xTF32 kernel (case, B, H, Hkv, D, S,
+# q_offset, causal, window, prefix_len, T): the training shapes of olmo-1b
+# and of zamba2-2.7b's shared attention, then every head_dim with GQA, the
+# window, the prefix, cached rows, full attention and ragged lengths
+FLASH_TF32_CASES = [
+    ("olmo-1b training", 8, 16, 16, 128, 128, 0, True, 0, 0, None),
+    ("zamba2-2.7b training, D=80, window 4096", 8, 32, 32, 80, 128, 0, True, 4096, 0, None),
+    ("D=64, group 2, ragged S=75, batch 2", 2, 4, 2, 64, 75, 0, True, 0, 0, None),
+    ("D=80, group 7, ragged S=53", 1, 14, 2, 80, 53, 0, True, 0, 0, None),
+    ("D=96, window 100", 1, 32, 32, 96, 341, 0, True, 100, 0, None),
+    ("D=96, prefix 130", 1, 32, 32, 96, 300, 0, True, 0, 130, None),
+    ("D=128, group 4, cached rows", 1, 32, 8, 128, 200, 312, True, 0, 0, None),
+    ("window 100 after cached rows", 1, 32, 8, 128, 200, 312, True, 100, 0, None),
+    ("window 70 beside prefix 100", 1, 16, 8, 128, 400, 0, True, 70, 100, None),
+    ("full, D=128, S=300", 1, 32, 8, 128, 300, 0, False, 0, 0, None),
+    ("full, D=64, S=337, T=1500", 1, 8, 8, 64, 337, 0, False, 0, 0, 1500),
+]
+
+
+def _flash_tf32_cases(gen) -> float:
+    """The float32 forward's 3xTF32 kernel against ``flash_prefill_plain``
+    in every case of ``FLASH_TF32_CASES``, (B, S, H, D) tensors as strided
+    views: the instance without the log-sum-exp and the LSE instance
+    (its log-sum-exp within ``LSE_TOL`` of the plain version's), each output
+    within ``TOL``, each called twice and bit for bit, each launch counted
+    in ``flash_prefill.tf32_launches`` (none in ``tensor_core_launches``,
+    the bf16 kernel's) and seen by the profiler as the
+    instance ``flash_prefill_kernel_tf32<D, LSE>``. Returns the largest
+    error at olmo-1b's training shape."""
+    dtype = torch.float32
+    main_err = None
+    for case, B, H, Hkv, D, S, q_offset, causal, window, prefix_len, T in FLASH_TF32_CASES:
+        T = q_offset + S if causal else (T or S)
+        qt, kt, vt = _flash_inputs(gen, dtype, B, S, T, H, Hkv, D)
+        kw = dict(causal=causal, q_offset=q_offset, window=window, prefix_len=prefix_len)
+        label = f"flash_prefill 3xTF32 {case}"
+        before = (flash_prefill.launches, flash_prefill.tf32_launches,
+                  flash_prefill.tensor_core_launches)
+        o = flash_prefill(qt, kt, vt, **kw)
+        o_again = flash_prefill(qt, kt, vt, **kw)
+        o_lse, lse = _flash_forward(qt, kt, vt, with_lse=True, **kw)
+        o_lse_again, lse_again = _flash_forward(qt, kt, vt, with_lse=True, **kw)
+        torch.cuda.synchronize()
+        counted = (flash_prefill.launches - before[0], flash_prefill.tf32_launches - before[1],
+                   flash_prefill.tensor_core_launches - before[2])
+        if counted != (4, 4, 0):
+            fail(f"{label}: four calls counted (launches, 3xTF32 launches, wgmma "
+                 f"launches) {counted}")
+        want, lse_want = flash_prefill_plain(qt, kt, vt, return_lse=True, **kw)
+        err = max(check_close(f"{label}, LSE 0", o, want, dtype),
+                  check_close(f"{label}, LSE 1", o_lse, want, dtype))
+        lse_err = (lse - lse_want).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            fail(f"{label}: the log-sum-exp is off by {lse_err:.3e}")
+        for what, a, b in (("o", o, o_again), ("o, LSE 1", o_lse, o_lse_again),
+                           ("lse", lse, lse_again)):
+            if not torch.equal(a, b):
+                fail(f"{label}: {what}: a second call gave other bits")
+        instances = {}
+        for lse_flag, fn in ((0, lambda: flash_prefill(qt, kt, vt, **kw)),
+                             (1, lambda: _flash_forward(qt, kt, vt, with_lse=True, **kw))):
+            got = {_instance(e.key): e.count for e in _kernel_rows(fn, 1)}
+            if got != {f"flash_prefill_kernel_tf32<{D}, {lse_flag}>": 1}:
+                fail(f"{label}: a call launched {got}")
+            instances.update(got)
+        emit("kernels", kernel="flash_prefill", dtype=str(dtype), case=case,
+             route="3xTF32 mma.sync", kernel_instances=instances,
+             shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=q_offset, causal=causal,
+                        window=window, prefix_len=prefix_len),
+             tolerance=TOL[dtype], max_abs_err=err, lse_tolerance=LSE_TOL,
+             lse_max_abs_err=lse_err, second_call="bit for bit")
+        if main_err is None:
+            main_err = err
+    return main_err
 
 
 def _paged_from_manager(gen) -> None:
@@ -1051,12 +1176,23 @@ def phase_kernels(gen) -> dict:
         ("full, S=337, T=1500", 1, 8, 8, 64, 337, 1500, False, 0, 0, OF_MAX_TOL),
         ("batch 2, group 2", 2, 4, 2, 64, 75, 75, True, 0, 0, None),
     ]
+    lse_timed = {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (case, *shape, of_max) in enumerate(bwd_cases):
             rec = _flash_bwd_case(gen, F, dtype, case, *shape, of_max=of_max, timed=i < 2)
             if dtype == torch.float32 and i == 0:
                 records["flash_prefill_backward"] = rec
-        _flash_lse_timed(gen, F, dtype, 8, 16, 128, 128)
+        lse_timed[dtype] = _flash_lse_timed(gen, F, dtype, 8, 16, 128, 128)
+
+    # the float32 forward's 3xTF32 kernel: every case bit for bit on a second
+    # call; its record is olmo-1b's training shape with the log-sum-exp
+    err = _flash_tf32_cases(gen)
+    t = lse_timed[torch.float32]
+    records["flash_prefill_tf32"] = {
+        "name": "flash_prefill_tf32", **KERNEL_INFO["flash_prefill_tf32"], "max_abs_err": err,
+        "ms": t["time_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_3xtf32_ms"],
+        "bound_by": t["bound_3xtf32_by"], "bound_fp32_fma_ms": t["bound_ms"],
+        "library_ms": t["library_ms"]}
 
     # narrow head_dim, a ragged prompt and a batch of two
     for dtype in (torch.bfloat16, torch.float32):
@@ -1070,6 +1206,7 @@ def phase_kernels(gen) -> dict:
              max_abs_err=err)
 
     records["ssd_scan"] = _ssd_scan_cases(gen)
+    records["ssd_scan_tf32"] = _ssd_tf32_cases(gen)
     records["ssd_scan_backward"] = _ssd_scan_backward_cases(gen)
     return records
 
@@ -1270,7 +1407,7 @@ def _ssd_scan_backward_cases(gen) -> dict:
                 b_ms, b_by = bound(n_bytes, flops, dtype)
                 # the same work as 3xTF32 products on the tensor cores (495 TFLOP/s
                 # TF32, three products each), and the FMA kernel's per-head count
-                tf32_ms = max(n_bytes / PEAK_BYTES_PER_S, 3 * flops / 495e12) * 1e3
+                tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops)
                 per_head_ms, _ = bound(n_bytes, _ssd_bwd_flops(
                     b, s, h, p, n, chunk, with_h0, with_dstate, heads_summed=False), dtype)
                 # no single PyTorch call computes this gradient: no library time
@@ -1279,10 +1416,11 @@ def _ssd_scan_backward_cases(gen) -> dict:
                            bound_per_head_products_ms=per_head_ms, flops=flops,
                            plain_ms=plain_ms, library_ms=None, kernel_instances=own)
                 if dtype == torch.float32 and name == "mamba2-1.3b training":
+                    # its kernel runs 3xTF32 on the tensor cores: that is its bound
                     record = {"name": "ssd_scan_backward", **KERNEL_INFO["ssd_scan_backward"],
                               "max_abs_err": rec["max_abs_err"], "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "library_ms": None}
+                              "plain_ms": plain_ms, "bound_ms": tf32_ms, "bound_by": tf32_by,
+                              "bound_fp32_fma_ms": b_ms, "library_ms": None}
             emit("kernels", **rec)
     return record
 
@@ -1309,10 +1447,11 @@ def _ssd_scan_cases(gen) -> dict:
         # zamba2-2.7b's Mamba2 blocks: 80 heads, N = 64 (the NPAD-64 instance)
         ("zamba2", 1, 341, 80, 64, 64, 256, False, False),
         ("zamba2 h0", 1, 341, 80, 64, 64, 256, True, False),
-        # mamba2-1.3b's training step (float32: the FMA kernel, two launches a
-        # layer with remat)
+        # mamba2-1.3b's training step (float32: the 3xTF32 kernel, two
+        # launches a layer with remat; ``_ssd_tf32_cases`` holds it further)
         ("mamba2-1.3b training", 8, 128, 64, 64, 128, 256, False, False),
     ]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.bfloat16, torch.float32):
         for name, b, s, h, p, n, chunk, with_h0, steep in cases:
             timed = name in ("main", "s512", "s2048", "zamba2", "mamba2-1.3b training")
@@ -1328,8 +1467,11 @@ def _ssd_scan_cases(gen) -> dict:
                       check_close(f"{label} state", state, want_state, dtype, SSD_TOL))
             if not (torch.isfinite(want_y).all() and torch.isfinite(want_state).all()):
                 fail(f"{label}: the plain version is not finite")
+            route, _ = ssd_module.forward_route(b, s, h, p, n, chunk, with_h0,
+                                                dtype == torch.bfloat16, n_sms)
             rec = dict(kernel="ssd_scan", dtype=str(dtype), case=name,
-                       route="wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA",
+                       route={"wgmma": "wgmma + TMA", "tf32": "3xTF32 mma.sync",
+                              "fma": "fp32 FMA"}[route],
                        shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, h0=with_h0,
                                   strided=p == 64),
                        tolerance=SSD_TOL[dtype], max_abs_err=err)
@@ -1361,6 +1503,128 @@ def _ssd_scan_cases(gen) -> dict:
                               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             emit("kernels", **rec)
+    return record
+
+
+# the float32 forward's one-chunk cases on its 3xTF32 kernel (case, b, s, h,
+# n, steep): mamba2-1.3b's and zamba2-2.7b's training shapes (timed), a full
+# chunk of 256, a ragged 200, batches that do not fill a wave, one step, and
+# A = -16 with dt ~ 1; x, B and C strided views, as the model passes them
+SSD_TF32_CASES = [
+    ("mamba2-1.3b training", 8, 128, 64, 128, False),
+    ("zamba2-2.7b training", 8, 128, 80, 64, False),
+    ("mamba2, s=256", 8, 256, 64, 128, False),
+    ("zamba2, s=256", 2, 256, 80, 64, False),
+    ("mamba2, ragged s=200", 2, 200, 64, 128, False),
+    ("zamba2, ragged s=200", 3, 200, 80, 64, False),
+    ("mamba2, batch 1", 1, 128, 64, 128, False),
+    ("zamba2, batch 3", 3, 128, 80, 64, False),
+    ("s=1", 2, 1, 64, 128, False),
+    ("A=-16, dt~1", 8, 128, 64, 128, True),
+]
+
+
+def _rel_max(got, want) -> float:
+    """The largest error of ``got`` against ``want``, over ``want``'s
+    largest magnitude."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def _ssd_tf32_cases(gen) -> dict:
+    """The float32 SSD forward's 3xTF32 kernel against ``ssd_scan_plain``
+    (y and the final state within ``SSD_TOL``, and against its float64 run
+    within ``TF32_FACTOR`` of the float32 plain version's error) in every case of
+    ``SSD_TF32_CASES``, each call's kernel as ``ssd_scan.forward_route``
+    names it (counted in ``ssd_scan.tf32_launches``, seen by the profiler as
+    ``ssd_scan_kernel_tf32<N>``), a second call bit for bit. The training
+    shapes are timed over four rotated input sets; their bound counts the
+    function's operations (``_ssd_flops``) at the fp32 rate and, beside it,
+    as 3xTF32 on the tensor cores. Returns mamba2-1.3b's record for the
+    kernels line."""
+    record = None
+    dtype = torch.float32
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, b, s, h, n, steep in SSD_TF32_CASES:
+        p, chunk = 64, 256
+        timed = "training" in case
+        sets, A, _ = _ssd_case(gen, dtype, b, s, h, p, n, steep=steep,
+                               copies=4 if timed else 1, strided=True)
+        x, dt, B, C = sets[0]
+        route, heads = ssd_module.forward_route(b, s, h, p, n, chunk, False, False, n_sms)
+        if route != "tf32":
+            fail(f"ssd_scan 3xTF32 {case}: forward_route names {route}")
+        label = f"ssd_scan 3xTF32 {case}"
+        before = (ssd_scan.launches, ssd_scan.tf32_launches, ssd_scan.tensor_core_launches)
+        y, state = ssd_scan(x, dt, A, B, C, chunk=chunk)
+        y2, state2 = ssd_scan(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        counted = (ssd_scan.launches - before[0], ssd_scan.tf32_launches - before[1],
+                   ssd_scan.tensor_core_launches - before[2])
+        if counted != (2, 2, 0):
+            fail(f"{label}: two calls counted (launches, 3xTF32 launches, wgmma launches) "
+                 f"{counted}")
+        if not (torch.equal(y, y2) and torch.equal(state, state2)):
+            fail(f"{label}: a second call gave other bits")
+        want_y, want_state = ssd_scan_plain(x, dt, A, B, C, chunk)
+        if not (torch.isfinite(want_y).all() and torch.isfinite(want_state).all()):
+            fail(f"{label}: the plain version is not finite")
+        err = max(check_close(f"{label} y", y, want_y, dtype, SSD_TOL),
+                  check_close(f"{label} state", state, want_state, dtype, SSD_TOL))
+        # float32's precision: against the plain version in float64, the
+        # kernel's error at most TF32_FACTOR times the float32 plain version's
+        # (one TF32 rounding a product is 20 to 1000 times it)
+        exact = ssd_scan_plain(*(t.double() for t in (x, dt, A, B, C)), chunk)
+        f64_err, plain_f64_err = {}, {}
+        for what, got, plain, want in (("y", y, want_y, exact[0]),
+                                       ("state", state, want_state, exact[1])):
+            f64_err[what] = _rel_max(got, want)
+            plain_f64_err[what] = _rel_max(plain, want)
+            if not f64_err[what] <= TF32_FACTOR * plain_f64_err[what]:
+                fail(f"{label} {what}: error {f64_err[what]:.3e} of the largest value "
+                     f"against float64, beyond {TF32_FACTOR:g} x the float32 plain "
+                     f"version's {plain_f64_err[what]:.3e}")
+        del exact
+        own = {_instance(e.key): e.count for e in
+               _kernel_rows(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), 1)}
+        if own != {f"ssd_scan_kernel_tf32<{n}>": 1}:
+            fail(f"{label}: a call launched {own}")
+        rec = dict(kernel="ssd_scan", dtype=str(dtype), case=case, route="3xTF32 mma.sync",
+                   heads_per_block=heads, kernel_instances=own,
+                   shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, strided=True),
+                   tolerance=SSD_TOL[dtype], max_abs_err=err,
+                   rel_err={"y": _rel_max(y, want_y), "state": _rel_max(state, want_state)},
+                   rel_err_float64=f64_err, plain_rel_err_float64=plain_f64_err,
+                   float64_factor=TF32_FACTOR, second_call="bit for bit")
+        if timed:
+            turn = [0]
+
+            def run(fn):
+                turn[0] = (turn[0] + 1) % len(sets)
+                fn(*sets[turn[0]])
+
+            def kernel():
+                run(lambda x_, dt_, B_, C_: ssd_scan(x_, dt_, A, B_, C_, chunk=chunk))
+
+            ms = device_ms(kernel)
+            call_ms = time_ms(kernel)
+            plain_ms = device_ms(lambda: run(lambda x_, dt_, B_, C_: ssd_scan_plain(
+                x_, dt_, A, B_, C_, chunk)), iters=5, warmup=1)
+            n_bytes = (x.numel() + B.numel() + C.numel() + y.numel()) * 4 + \
+                dt.numel() * 4 + state.numel() * 4
+            flops = _ssd_flops(b, s, h, p, n, chunk)
+            b_ms, b_by = bound(n_bytes, flops, dtype)
+            tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops)
+            # no single PyTorch call computes an SSD scan: no library time
+            rec.update(time_ms=ms, call_ms=call_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by, flops=flops,
+                       plain_ms=plain_ms, library_ms=None)
+            if record is None:
+                # the kernel runs 3xTF32 on the tensor cores: that is its bound
+                record = {"name": "ssd_scan_tf32", **KERNEL_INFO["ssd_scan_tf32"],
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": tf32_ms, "bound_by": tf32_by,
+                          "bound_fp32_fma_ms": b_ms, "library_ms": None}
+        emit("kernels", **rec)
     return record
 
 
@@ -2503,6 +2767,13 @@ TRAIN_PARAM_TOL = 2e-4
 # runs that rate with the kernels and with plain PyTorch attention)
 TRAIN_LR = 3e-4
 LAUNCHER_LR = 1e-3
+# the first step's loss of the full-width runs (20 steps of 8 x 128 from seed
+# 0 at TRAIN_LR) when their float32 forwards ran on the FMA kernels, to the
+# four decimals PERF.md keeps (H100 80GB HBM3, 700 W): the 3xTF32 forwards
+# keep float32's precision, so the first loss stays within TRAIN_TOL of it,
+# plus half a unit of its last digit
+FMA_FIRST_LOSS = {"olmo-1b": 11.3005, "mamba2-1.3b": 11.2905}
+FIRST_LOSS_TOL = TRAIN_TOL + 5e-5
 # the launcher's 20 steps at LAUNCHER_LR, attention through the kernels
 # against plain PyTorch attention on the card: the same float32 math in other
 # sum orders, so the first steps' losses agree within TRAIN_TOL; later the
@@ -2515,8 +2786,10 @@ def _launch_counts(names) -> dict:
     """The launch counters of ``names``, as the train phase reads them."""
     read = {"flash_prefill": lambda: flash_prefill.launches,
             "flash_prefill.lse_launches": lambda: flash_prefill.lse_launches,
+            "flash_prefill.tf32_launches": lambda: flash_prefill.tf32_launches,
             "flash_prefill_backward": lambda: flash_prefill_backward.launches,
             "ssd_scan": lambda: ssd_scan.launches,
+            "ssd_scan.tf32_launches": lambda: ssd_scan.tf32_launches,
             "ssd_scan_backward": lambda: ssd_scan_backward.launches,
             "ssd_scan_backward.tensor_core_launches":
                 lambda: ssd_scan_backward.tensor_core_launches}
@@ -2634,12 +2907,14 @@ def _train_full(smi: str) -> dict:
     20 steps of batch 8 x 128 tokens with remat at ``TRAIN_LR``, counters
     set to 0 just before and read just after. Fails unless the loss falls,
     every loss and
-    gradient norm is finite, and every step launches the backward kernel
-    once a layer and the forward kernel twice a layer, every forward launch
-    writing the log-sum-exp. Then two more steps are profiled for their
-    device-busy time and timed on the wall clock; the profile must show the
-    backward's two FMA kernels once a layer each and no other backward
-    kernel (no row-statistics pass)."""
+    gradient norm is finite, the first loss is within ``FIRST_LOSS_TOL`` of
+    ``FMA_FIRST_LOSS``, and every step launches the backward kernel once a
+    layer and the forward kernel twice a layer, every forward launch the
+    3xTF32 kernel's and writing the log-sum-exp. Then two more steps are
+    profiled for their device-busy time and timed on the wall clock; the
+    profile must show the backward's two FMA kernels once a layer each and
+    no other backward kernel (no row-statistics pass), and the forward's
+    LSE instance ``flash_prefill_kernel_tf32<128, 1>`` twice a layer."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("olmo-1b")
@@ -2662,6 +2937,7 @@ def _train_full(smi: str) -> dict:
                 "flash_prefill": flash_prefill.launches,
                 "flash_prefill.lse_launches": flash_prefill.lse_launches,
                 "tensor_core_launches": flash_prefill.tensor_core_launches,
+                "flash_prefill.tf32_launches": flash_prefill.tf32_launches,
                 "paged_attention": paged_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses, norms = res["losses"], res["grad_norms"]
@@ -2673,9 +2949,16 @@ def _train_full(smi: str) -> dict:
             len(per_step) != steps:
         fail(f"train olmo-1b: launches a step (backward, forward) {per_step}, want "
              f"[{cfg.n_layers}, {2 * cfg.n_layers}] each")
-    if launches["flash_prefill.lse_launches"] != launches["flash_prefill"]:
+    if launches["flash_prefill.lse_launches"] != launches["flash_prefill"] or \
+            launches["flash_prefill.tf32_launches"] != launches["flash_prefill"] or \
+            launches["tensor_core_launches"]:
         fail(f"train olmo-1b: of {launches['flash_prefill']} forward launches "
-             f"{launches['flash_prefill.lse_launches']} wrote the log-sum-exp")
+             f"{launches['flash_prefill.lse_launches']} wrote the log-sum-exp, "
+             f"{launches['flash_prefill.tf32_launches']} ran the 3xTF32 kernel, "
+             f"{launches['tensor_core_launches']} the bf16 wgmma kernel")
+    if abs(losses[0] - FMA_FIRST_LOSS[cfg.name]) > FIRST_LOSS_TOL:
+        fail(f"train olmo-1b: the first loss {losses[0]!r} is not within {FIRST_LOSS_TOL:g} "
+             f"of {FMA_FIRST_LOSS[cfg.name]}")
     # device-busy time of a step, then its wall time, on a fixed batch
     state = [res["params"], res["opt_state"]]
     batch = synthetic_lm_batch(np.random.default_rng(1), res["model"], B, S)
@@ -2693,6 +2976,10 @@ def _train_full(smi: str) -> dict:
     if backward != want:
         fail(f"train olmo-1b: a profiled step launched the backward kernels {backward}, "
              f"want {want}")
+    forward = {k: n for k, n in prof["own_instance_launches"].items()
+               if k.startswith("flash_prefill_kernel")}
+    if forward != {"flash_prefill_kernel_tf32<128, 1>": 2 * cfg.n_layers}:
+        fail(f"train olmo-1b: a profiled step launched the forward kernels {forward}")
     wall_ms = _wall_ms(one, 3)
     step_ms = [t * 1e3 for t in res["step_s"]]
     steady = float(np.median(step_ms[1:]))
@@ -2708,10 +2995,13 @@ def _train_full(smi: str) -> dict:
            "device_idle_share": 1.0 - prof["device_ms"] / wall_ms,
            "step_launches": prof["launches"], "own_kernels_ms": prof["own_kernels_ms"],
            "backward_kernel_launches_per_step": backward,
+           "forward_kernel_launches_per_step": forward,
+           "first_loss_with_fma_forward": FMA_FIRST_LOSS[cfg.name],
            "top_device_ms": prof["top_ms"]}
     emit("train", gpu=smi, **out)
     del state, res
     return {"flash_prefill": launches["flash_prefill"],
+            "flash_prefill_tf32": launches["flash_prefill.tf32_launches"],
             "flash_prefill_backward": launches["flash_prefill_backward"]}
 
 
@@ -2791,12 +3081,13 @@ def _train_ssm_full(smi: str) -> dict:
     ``launch.train``'s loop: 20 steps of 8 x 128 tokens with remat at
     ``TRAIN_LR``, counters set to 0 just before and read just after, no
     plain SSD call on the card (``_NoPlainSSD``). Fails unless every loss
-    and gradient norm is finite and every step launches the ``ssd_scan``
-    forward twice a layer and its backward once a layer, every backward
-    launch the tensor-core kernel's. Then a step is profiled for its
-    device-busy time and timed on the wall clock; the profile must show the
-    backward's tensor-core kernel once a layer, the FMA forward twice, and
-    no other SSD kernel. Where the loss does not fall,
+    and gradient norm is finite, the first loss is within ``FIRST_LOSS_TOL``
+    of ``FMA_FIRST_LOSS``, and every step launches the ``ssd_scan`` forward
+    twice a layer and its backward once a layer, every forward launch the
+    3xTF32 kernel's and every backward launch the tensor-core kernel's. Then
+    a step is profiled for its device-busy time and timed on the wall clock;
+    the profile must show the backward's tensor-core kernel once a layer,
+    the 3xTF32 forward twice, and no other SSD kernel. Where the loss does not fall,
     ``_train_ssm_witness`` runs the same steps with plain PyTorch SSD and
     fails unless that run does not fall either: whether the loss falls at
     this rate is then the optimisation's and not the kernels'."""
@@ -2824,6 +3115,7 @@ def _train_ssm_full(smi: str) -> dict:
                     ssd_scan_backward.tensor_core_launches,
                 "ssd_scan": ssd_scan.launches,
                 "tensor_core_launches": ssd_scan.tensor_core_launches,
+                "ssd_scan.tf32_launches": ssd_scan.tf32_launches,
                 "flash_prefill": flash_prefill.launches,
                 "paged_attention": paged_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2832,13 +3124,19 @@ def _train_ssm_full(smi: str) -> dict:
         fail(f"train mamba2-1.3b: a loss or gradient norm is not finite: {losses}, {norms}")
     fell = losses[-1] < losses[0]
     if any(p != [cfg.n_layers, 2 * cfg.n_layers] for p in per_step) or \
-            len(per_step) != steps or launches["tensor_core_launches"] or \
+            len(per_step) != steps or \
+            launches["ssd_scan.tf32_launches"] != launches["ssd_scan"] or \
+            launches["tensor_core_launches"] or \
             launches["flash_prefill"] or launches["paged_attention"] or \
             launches["ssd_scan_backward.tensor_core_launches"] != \
             launches["ssd_scan_backward"]:
         fail(f"train mamba2-1.3b: launches a step (backward, forward) {per_step}, want "
-             f"[{cfg.n_layers}, {2 * cfg.n_layers}] each, every backward launch on the "
-             f"tensor cores; in all {launches}")
+             f"[{cfg.n_layers}, {2 * cfg.n_layers}] each, every forward launch on the "
+             f"3xTF32 kernel (none on the bf16 wgmma kernel) and every backward launch "
+             f"on the tensor cores; in all {launches}")
+    if abs(losses[0] - FMA_FIRST_LOSS[cfg.name]) > FIRST_LOSS_TOL:
+        fail(f"train mamba2-1.3b: the first loss {losses[0]!r} is not within "
+             f"{FIRST_LOSS_TOL:g} of {FMA_FIRST_LOSS[cfg.name]}")
     state = [res["params"], res["opt_state"]]
     batch = synthetic_lm_batch(np.random.default_rng(1), res["model"], B, S)
     step_fn = make_train_step(cfg, remat=True, lr=TRAIN_LR)
@@ -2853,7 +3151,7 @@ def _train_ssm_full(smi: str) -> dict:
         wall_ms = _wall_ms(one, 3)
     ssd = {k: n for k, n in prof["own_instance_launches"].items() if "ssd" in k}
     want = {"ssd_scan_bwd_tc<float, 128>": cfg.n_layers,
-            "ssd_scan_kernel_fma<128, 64>": 2 * cfg.n_layers}
+            "ssd_scan_kernel_tf32<128>": 2 * cfg.n_layers}
     if ssd != want:
         fail(f"train mamba2-1.3b: a profiled step launched the SSD kernels {ssd}, "
              f"want {want}")
@@ -2871,12 +3169,13 @@ def _train_ssm_full(smi: str) -> dict:
            "device_idle_share": 1.0 - prof["device_ms"] / wall_ms,
            "step_launches": prof["launches"], "own_kernels_ms": prof["own_kernels_ms"],
            "ssd_kernel_launches_per_step": ssd, "top_device_ms": prof["top_ms"],
-           "loss_fell": fell}
+           "first_loss_with_fma_forward": FMA_FIRST_LOSS[cfg.name], "loss_fell": fell}
     emit("train", gpu=smi, **out)
     del state, res
     if not fell:
         _train_ssm_witness(losses)
     return {"ssd_scan": launches["ssd_scan"],
+            "ssd_scan_tf32": launches["ssd_scan.tf32_launches"],
             "ssd_scan_backward": launches["ssd_scan_backward"]}
 
 
@@ -2929,34 +3228,42 @@ def phase_train(smi: str) -> dict:
     attention, and mamba2-1.3b at full width and depth; returns each
     kernel's launches over the two full-width runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    flash = ("flash_prefill", "flash_prefill.lse_launches", "flash_prefill_backward")
+    # every float32 attention forward runs the 3xTF32 kernel; an SSD forward
+    # does where the call is one chunk (s <= 256) at P 64 (the full widths),
+    # else the FMA kernel
+    flash = ("flash_prefill", "flash_prefill.lse_launches", "flash_prefill.tf32_launches",
+             "flash_prefill_backward")
     olmo = get_smoke_config("olmo-1b").with_(head_dim=64)
     _train_parity(olmo, "olmo-1b smoke, head_dim=64, float32, remat", 4, 64,
-                  dict(zip(flash, (2 * olmo.n_layers, 2 * olmo.n_layers, olmo.n_layers))))
+                  dict(zip(flash, (2 * olmo.n_layers, 2 * olmo.n_layers, 2 * olmo.n_layers,
+                                   olmo.n_layers))))
     mamba = get_smoke_config("mamba2-1.3b")
-    ssd = ("ssd_scan", "ssd_scan_backward", "ssd_scan_backward.tensor_core_launches")
+    ssd = ("ssd_scan", "ssd_scan.tf32_launches", "ssd_scan_backward",
+           "ssd_scan_backward.tensor_core_launches")
     _train_parity(mamba, "mamba2-1.3b smoke, float32, remat", 4, 64,
-                  dict(zip(ssd, (2 * mamba.n_layers, mamba.n_layers, 0))))
+                  dict(zip(ssd, (2 * mamba.n_layers, 0, mamba.n_layers, 0))))
     _train_width_parity(get_config("olmo-1b").with_(n_layers=2),
                         "olmo-1b full widths, 2 layers, float32, no remat", 4, 128,
-                        dict(zip(flash, (2, 2, 2))))
+                        dict(zip(flash, (2, 2, 2, 2))))
     # one full chunk of 256 and a ragged one of 64: the carried-state terms,
-    # so the SSD backward's FMA kernel
+    # so the SSD forward's and backward's FMA kernels
     _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
                         "mamba2-1.3b full widths, 2 layers, float32, no remat", 2, 320,
-                        dict(zip(ssd, (2, 2, 0))))
+                        dict(zip(ssd, (2, 0, 2, 0))))
     # six Mamba2 layers and one call of the shared attention block (D 80,
-    # window 4096: the FMA instances of the forward and of its backward)
+    # window 4096: the 3xTF32 forward's instance and the backward's FMA ones)
     _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
                         "zamba2-2.7b full widths, 6 layers, float32, no remat", 2, 320,
-                        {**dict(zip(ssd, (6, 6, 0))), **dict(zip(flash, (1, 1, 1)))})
-    # the same gradients in one chunk (2 x 128): the tensor-core kernel
+                        {**dict(zip(ssd, (6, 0, 6, 0))), **dict(zip(flash, (1, 1, 1, 1)))})
+    # the same gradients in one chunk (2 x 128): the 3xTF32 forward and the
+    # backward's tensor-core kernel
     _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
                         "mamba2-1.3b full widths, 2 layers, float32, no remat, one chunk",
-                        2, 128, dict(zip(ssd, (2, 2, 2))))
+                        2, 128, dict(zip(ssd, (2, 2, 2, 2))))
     _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
                         "zamba2-2.7b full widths, 6 layers, float32, no remat, one chunk",
-                        2, 128, {**dict(zip(ssd, (6, 6, 6))), **dict(zip(flash, (1, 1, 1)))})
+                        2, 128, {**dict(zip(ssd, (6, 6, 6, 6))),
+                                 **dict(zip(flash, (1, 1, 1, 1)))})
     launches = _train_full(smi)
     _train_lr_witness()
     launches.update(_train_ssm_full(smi))
@@ -3289,7 +3596,8 @@ def phase_sim(smi: str, served) -> None:
 def ab_turn(src: str, turn: int) -> None:
     """One ``--ab`` turn: device and event times of the kernels of the port
     this process imported (``src``), built from that tree's sources, at the
-    serving path's shapes in bf16, and the attention's gradient at the
+    serving path's shapes in bf16, the float32 forwards at the training
+    shapes, and the attention's gradient at the
     backward's three shapes, on the same inputs in every turn. Uses only the
     wrappers' signatures, which every slice of the port keeps (a backward
     that takes the forward's log-sum-exp is also timed given it), and, in a
@@ -3345,6 +3653,31 @@ def ab_turn(src: str, turn: int) -> None:
             x, dt, Bm, Cm = sets[rot[0]]
             ssd_scan(x, dt, A, Bm, Cm, chunk=256)
         emit_ab("ssd_scan", f"s={s}", ssd)
+
+    # the float32 forwards that training launches: flash_prefill with the
+    # log-sum-exp at olmo-1b's training shape, ssd_scan at mamba2-1.3b's and
+    # zamba2-2.7b's (strided x, B, C; input sets rotating); a tree before
+    # their 3xTF32 kernels runs its FMA kernels there
+    gen.manual_seed(7)
+    qt, kt, vt = _flash_inputs(gen, torch.float32, 8, 128, 128, 16, 16, 128)
+    emit_ab("flash_prefill", "olmo-1b training, float32, with the log-sum-exp",
+            lambda: _flash_forward(qt, kt, vt, causal=True, q_offset=0, window=0,
+                                   prefix_len=0, with_lse=True))
+    # and, beside them, float32 shapes that stay on the FMA kernel in both
+    # trees (two chunks, at mamba2-1.3b's N 128 and zamba2-2.7b's N 64)
+    for case, b, s, h, n in (("mamba2-1.3b training", 8, 128, 64, 128),
+                             ("zamba2-2.7b training", 8, 128, 80, 64),
+                             ("mamba2-1.3b s=341 (FMA kernel)", 1, 341, 64, 128),
+                             ("zamba2-2.7b s=341 (FMA kernel)", 1, 341, 80, 64)):
+        gen.manual_seed(8)
+        sets, A, _ = _ssd_case(gen, torch.float32, b, s, h, 64, n, copies=4, strided=True)
+        rot = [0]
+
+        def ssd_fp32():
+            rot[0] = (rot[0] + 1) % len(sets)
+            x, dt, Bm, Cm = sets[rot[0]]
+            ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+        emit_ab("ssd_scan", f"{case}, float32", ssd_fp32)
 
     # the backward called directly (a tree whose backward takes the
     # log-sum-exp launches the forward for it first), given the saved
@@ -3438,12 +3771,25 @@ def main() -> None:
     # for the attention kernels the cluster's, and the training run's
     total = {name: launches[name] + cluster_launches.get(name, 0) +
              train_launches.get(name, 0) for name in KERNELS}
+    # the float32 forwards' 3xTF32 kernels run on the training path only
+    # (serving is bf16): their rows count them, and their wrappers' rows
+    # only the wrappers' other kernels, so that no launch is counted twice
+    for name, wrapper in zip(TF32_KERNELS, TENSOR_CORE_KERNELS):
+        total[name] = train_launches[name]
+        total[wrapper] -= train_launches[name]
+    idle = [name for name, n in total.items() if n <= 0]
+    if idle:
+        fail(f"no launch on the main paths of {idle}: {total}")
     emit("launches", serve=launches, cluster=cluster_launches, train=train_launches,
          total=total)
-    kernels = [{**records[name], "launches": total[name]} for name in KERNELS]
+    kernels = [{**records[name], "launches": total[name]}
+               for name in (*KERNELS, *TF32_KERNELS)]
+    # bound_fp32_fma_ms: the kernels that run float32 on the tensor cores in
+    # 3xTF32 also carry the bound at the FMA rate beside their own
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in order} for rec in kernels]}))
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_fp32_fma_ms")
+    print(json.dumps({"kernels": [{k: rec[k] for k in order if k in rec}
+                                  for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

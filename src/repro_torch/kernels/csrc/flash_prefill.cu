@@ -65,13 +65,32 @@
 //   64-column boxes (zeros in the accumulator's columns past D), and the
 //   epilogue writes D columns.
 //
-// * fp32, flash_prefill_kernel_fma<D>: both products as fp32 FMAs out of
-//   padded shared memory (tensor cores would round fp32 to TF32). Each thread
-//   keeps a 4x4 tile of scores and a 4 x D/16 tile of the output in
-//   registers (for D = 96: four columns of the first 64 and two of the last
-//   32; for D = 80 four and one of the last 16); one tile in flight; 118 KB
-//   of shared memory at D = 128.
-//
+// * fp32, flash_prefill_kernel_tf32<D, LSE>: both products on the tensor
+//   cores in 3xTF32 (tf32_mma.cuh: each operand split into a TF32 hi and
+//   lo, three mma.sync.m16n8k8 products, fp32 accumulators), which keeps
+//   float32's precision (tests/test_torch_flash_tf32.py models it on the CPU
+//   against float64); the fp32 trainer's forward, with LSE = 1. wgmma is not
+//   used: it takes a 32-bit operand K-major only, and V is read along its
+//   rows. A block is four consumer warps (16 query rows each) and one
+//   producer warp; the producer's lanes stage Q once, then K and V of each
+//   KV step by cp.async into padded rows (D + 4 floats: conflict-free
+//   fragment loads), each completed on a "full" mbarrier and released by the
+//   consumers on an "empty" one. K and V have a buffer each, not a ring of
+//   two K/V stages (that would be 169 KB at D = 128, one block an SM): K of
+//   step i + 1 loads while step i's softmax and P V run, V while step i + 1's
+//   Q K^T does. Q, K and V take 101,440 bytes at D = 128, so two blocks share
+//   an SM and olmo-1b's training shape (B 8, H 16, S 128: 256 blocks) runs
+//   in one wave on 132 SMs. P never leaves the registers: O += P V reads its
+//   k axis in pair order (pair_k), where the accumulator fragment of S's
+//   columns 8 kk .. 8 kk + 7 is already the A fragment of k-step kk, and V's
+//   rows 8 kk + 2t and + 1 are its B fragment. The online softmax, m, l, the
+//   output accumulator and the log-sum-exp stay fp32, natural exp and log
+//   as in the plain version. Q's fragments are read and split again at
+//   every KV step (a training tile sees at most two).
+//   What bounds it at olmo-1b's training shape: bytes, Q, K, V and O once
+//   and the log-sum-exp (33.6 MB, 10.0 us at 3.35 TB/s), against 0.81 GFLOP
+//   of causal tile pairs, 4.9 us as 3xTF32 at 495 TFLOP/s (PERF.md).
+
 // What still holds the bf16 kernel back: within a step the softmax waits for
 // Q K^T and the stage's release waits for P V, one consumer warpgroup a
 // block; the output is written from registers with 4-byte stores. Two things
@@ -95,6 +114,7 @@
 
 #include "flash_hopper.cuh"   // TMA, mbarriers, wgmma; shared with the backward
 #include "flash_mask.cuh"     // visible() and kv_range(), shared with the backward
+#include "tf32_mma.cuh"       // 3xTF32 products on mma.sync, cp.async staging
 
 namespace {
 
@@ -109,207 +129,218 @@ struct Strides {   // in elements; the D axis is contiguous
   int64_t o_b, o_h, o_s;
 };
 
-// =============================================================== fp32, FMA
-constexpr int kFmaThreads = 256;  // 16 x 16 threads, each 4 rows x 4 columns
-constexpr int kPad = 4;           // floats of padding per shared-memory row
+// ====================================================== fp32, 3xTF32 mma.sync
+constexpr int kTfWarps = 4;                       // consumer warps, 16 query rows each
+constexpr int kTfThreads = (kTfWarps + 1) * 32;   // and one producer warp
 
-// Stage rows [row0, row0 + 64) of a (rows, D) matrix with row stride
-// `stride` (elements) into dst[64][D + kPad]; rows >= n_rows are zero.
+// Shared memory of the fp32 kernel: five mbarriers, then the Q, K and V
+// tiles, 64 rows of D + 4 floats each (16 bytes of padding a row): 101,440
+// bytes at D = 128, so two blocks share an SM.
 template <int D>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src, int64_t stride,
-                                           int row0, int n_rows) {
-  constexpr int VPR = D / 4;              // 16-byte loads per row
-  constexpr int DP = D + kPad;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += kFmaThreads) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<float4*>(dst + r * DP + c) = val;
-  }
+constexpr int tf32_smem() {
+  return 64 + 3 * 64 * (D + 4) * static_cast<int>(sizeof(float));
 }
 
-// grid (ceil(S / 64), H, B). Query row i sits at absolute position
-// q_offset + i and, when causal, sees KV rows 0 .. q_offset + i. LSE = 1:
-// also writes each row's log-sum-exp of its scaled, masked scores into lse
-// (B, H, S) for the backward; LSE = 0 leaves lse unread. One block an SM at
-// least (`, 1`): without it ptxas held D = 128 to 128 registers and spilled.
+// grid (H, ceil(S / 64), B), 160 threads: consumer warps 0-3 (rows 16 w ..
+// 16 w + 15 of the query tile), producer warp 4; the longest tiles first, as
+// in the bf16 kernel. Query row i sits at absolute position q_offset + i and,
+// when causal, sees KV rows 0 .. q_offset + i, cut by the window and widened
+// by the prefix (`visible`). LSE = 1: also each row's log-sum-exp of its
+// scaled, masked scores into lse (B, H, S), for the backward. Two blocks an
+// SM (`, 2`): at most 204 registers a thread.
 template <int D, int LSE>
-__global__ void __launch_bounds__(kFmaThreads, 1)
-flash_prefill_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int Hkv,
-                         int S, int Tkv, int q_offset, int causal, int window,
-                         int prefix_len, Strides st, float scale) {
-  constexpr int DP = D + kPad;            // padded row of Q/K/V tiles
-  constexpr int PP = kBK + kPad;          // padded row of the probability tile
-  constexpr int NC = D / 64;              // float4 column groups per thread
-  constexpr int REM = (D % 64) / 16;      // columns per thread past those groups
-  constexpr int NA = 4 * NC + REM;        // output columns per thread
+__global__ void __launch_bounds__(kTfThreads, 2)
+flash_prefill_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int Hkv, int S, int Tkv, int q_offset,
+                          int causal, int window, int prefix_len, Strides st, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int LD = D + 4;                  // floats a row of the Q, K and V tiles
+  constexpr int NO = D / 8;                  // 8-column tiles of the output
+  constexpr int G = NO % 4 == 0 ? 4 : 2;     // of them, a group of P V's products
+  extern __shared__ __align__(16) unsigned char smem_tf[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tf);
+  float* Qs = reinterpret_cast<float*>(smem_tf + 64);   // [64][LD]
+  float* Ks = Qs + kBQ * LD;                            // [64][LD]
+  float* Vs = Ks + kBK * LD;                            // [64][LD]
+  // "full" barriers of Q, K and V, completed by the producer's 32 lanes;
+  // "empty" barriers of K and V, one arrival a consumer warp
+  constexpr int kFullQ = 0, kFullK = 1, kFullV = 2, kEmptyK = 3, kEmptyV = 4;
+  auto bar = [&](int i) { return smem_u32(bars + i); };
 
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                       // [kBQ][DP]
-  float* Ks = Qs + kBQ * DP;              // [kBK][DP]
-  float* Vs = Ks + kBK * DP;              // [kBK][DP]
-  float* Ps = Vs + kBK * DP;              // [kBQ][PP]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int b = blockIdx.z;
-  const int hk = h / (gridDim.y / Hkv);
-  const int tx = threadIdx.x & 15;        // columns tx + 16 j
-  const int ty = threadIdx.x >> 4;        // rows ty + 16 i
-
-  const float* qb = q + b * st.q_b + h * st.q_h;
-  const float* kb = k + b * st.k_b + hk * st.k_h;
-  const float* vb = v + b * st.v_b + hk * st.v_h;
-
-  stage_tile<D>(Qs, qb, st.q_s, q0, S);
-
-  float m[4], l[4], acc[4][NA];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NA; ++c) acc[i][c] = 0.f;
-  }
+  const int hk = h / (gridDim.x / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   int kv_lo, kv_end;
   kv_range(q0, S, Tkv, q_offset, causal, window, prefix_len, kv_lo, kv_end);
+  const int t0 = kv_lo / kBK;             // the first KV tile; producer and
+  const int n_tiles = (kv_end + kBK - 1) / kBK - t0;   // consumers agree on it
 
-  for (int k0 = kv_lo; k0 < kv_end; k0 += kBK) {
-    stage_tile<D>(Ks, kb, st.k_s, k0, Tkv);
-    stage_tile<D>(Vs, vb, st.v_s, k0, Tkv);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bar(i), i <= kFullV ? 32 : kTfWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * DP + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * DP + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] += qa[i].x * ka[j].x + qa[i].y * ka[j].y + qa[i].z * ka[j].z +
-                     qa[i].w * ka[j].w;
+  if (warp == kTfWarps) {   // ---- producer: Q, then K and V of each step
+    cp_async_rows<kBQ, D, LD>(Qs, q + b * st.q_b + h * st.q_h + q0 * st.q_s, st.q_s, S - q0);
+    cp_async_arrive(bar(kFullQ));
+    const float* kb = k + b * st.k_b + hk * st.k_h;
+    const float* vb = v + b * st.v_b + hk * st.v_h;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = (t0 + it) * kBK;
+      // K of step it + 1 loads while step it's softmax and P V run, V while
+      // step it + 1's Q K^T does
+      if (it > 0) mbar_wait(bar(kEmptyK), (it - 1) & 1);
+      cp_async_rows<kBK, D, LD>(Ks, kb + k0 * st.k_s, st.k_s, Tkv - k0);
+      cp_async_arrive(bar(kFullK));
+      if (it > 0) mbar_wait(bar(kEmptyV), (it - 1) & 1);
+      cp_async_rows<kBK, D, LD>(Vs, vb + k0 * st.v_s, st.v_s, Tkv - k0);
+      cp_async_arrive(bar(kFullV));
     }
-
-    // a row's 64 scores sit in the 16 lanes that share ty
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty + 16 * i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool seen = visible(col, qpos, Tkv, causal, window, prefix_len);
-        s[i][j] = seen ? s[i][j] * scale : kNegInf;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);   // 0 for a masked column
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      // a row whose window starts past this tile sees nothing in it: its
-      // weights here are exp(0) = 1, wiped by alpha = 0 at its first seen key
-      m[i] = m_new;
-      l[i] = l[i] * alpha + rsum;
-#pragma unroll
-      for (int c = 0; c < NA; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float pa[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PP + kk);
-        pa[i][0] = p4.x;
-        pa[i][1] = p4.y;
-        pa[i][2] = p4.z;
-        pa[i][3] = p4.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < NC; ++g) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(Vs + (kk + u) * DP + 64 * g + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][4 * g + 0] += pa[i][u] * vv.x;
-            acc[i][4 * g + 1] += pa[i][u] * vv.y;
-            acc[i][4 * g + 2] += pa[i][u] * vv.z;
-            acc[i][4 * g + 3] += pa[i][u] * vv.w;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < REM; ++r) {
-          const float vv = Vs[(kk + u) * DP + 64 * NC + REM * tx + r];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][4 * NC + r] += pa[i][u] * vv;
-        }
-      }
-    }
-    __syncthreads();   // the next step overwrites Ks, Vs and Ps
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
+  // ---- consumer warps: rows r0 + g and r0 + g + 8 of the tile in this thread
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const int qpos0 = q_offset + q0 + r0 + g;
+  const int qpos1 = qpos0 + 8;
+  const float* qs = Qs + r0 * LD;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // l: this thread's share
+
+  mbar_wait(bar(kFullQ), 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t ph = it & 1;
+    mbar_wait(bar(kFullK), ph);
+    // S = Q K^T over D: 16 rows x 64 KV columns a warp, 8 tiles of 8
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+    warp_mma<8, D, false, false>(s, [&](int m, int kk) { return qs[m * LD + kk]; },
+                                 [&](int kk, int n) { return Ks[n * LD + kk]; });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(kEmptyK));   // K may be loaded again
+
+    // mask, then the online-softmax update; a row's 64 scores sit in the 4
+    // lanes that share g. A row whose window starts past this tile sees
+    // nothing in it: its weights here are exp(0) = 1, wiped by alpha = 0 at
+    // its first seen key.
+    const int k0 = (t0 + it) * kBK;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * nt + 2 * t + e;
+        s[nt][e] = visible(col, qpos0, Tkv, causal, window, prefix_len) ? s[nt][e] * scale
+                                                                         : kNegInf;
+        s[nt][2 + e] = visible(col, qpos1, Tkv, causal, window, prefix_len)
+                           ? s[nt][2 + e] * scale
+                           : kNegInf;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = expf(s[nt][e] - mn0);           // 0 for a masked column
+        s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
+        ps0 += s[nt][e];
+        ps1 += s[nt][2 + e];
+      }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+      acc[nt][0] *= alpha0;
+      acc[nt][1] *= alpha0;
+      acc[nt][2] *= alpha1;
+      acc[nt][3] *= alpha1;
+    }
+
+    // O += P V with k in pair order (tf32_mma.cuh, pair_k): the accumulator
+    // fragment of P's columns 8 kk .. 8 kk + 7 is the A fragment of k-step
+    // kk as it stands, and V's rows 8 kk + 2t, + 1 are its B fragment
+    mbar_wait(bar(kFullV), ph);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const float av[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      const float* vr = Vs + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += G) {
+        float bv[G][2];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          bv[j][0] = vr[8 * (n0 + j)];
+          bv[j][1] = vr[LD + 8 * (n0 + j)];
+        }
+        mma3_step<G, false, false>(acc, n0, av, bv);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(kEmptyV));   // V may be loaded again
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  if (LSE && t == 0) {
+    float* lb = lse + (static_cast<int64_t>(b) * gridDim.x + h) * S;
+    if (row0 < S) lb[row0] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (row1 < S) lb[row1] = m1 + logf(fmaxf(l1, 1e-30f));
+  }
   float* ob = o + b * st.o_b + h * st.o_h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int g = 0; g < NC; ++g)
-      *reinterpret_cast<float4*>(ob + row * st.o_s + 64 * g + 4 * tx) =
-          make_float4(acc[i][4 * g + 0] * inv, acc[i][4 * g + 1] * inv,
-                      acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
-#pragma unroll
-    for (int r = 0; r < REM; ++r)
-      ob[row * st.o_s + 64 * NC + REM * tx + r] = acc[i][4 * NC + r] * inv;
-    if (LSE && tx == 0)
-      lse[(static_cast<int64_t>(b) * gridDim.y + h) * S + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  for (int nt = 0; nt < NO; ++nt) {
+    const int col = 8 * nt + 2 * t;
+    if (row0 < S)
+      *reinterpret_cast<float2*>(ob + row0 * st.o_s + col) =
+          make_float2(acc[nt][0] * inv0, acc[nt][1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<float2*>(ob + row1 * st.o_s + col) =
+          make_float2(acc[nt][2] * inv1, acc[nt][3] * inv1);
   }
 }
 
 template <int D, int LSE>
-cudaError_t launch_fma_as(const void* q, const void* k, const void* v, void* o, float* lse,
-                          int B, int H, int Hkv, int S, int Tkv, int q_offset, int causal,
-                          int window, int prefix_len, const Strides& st, float scale,
-                          cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(float) * (3 * 64 * (D + kPad) + kBQ * (kBK + kPad));
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_fma<D, LSE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+cudaError_t launch_tf32_as(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int B, int H, int Hkv, int S, int Tkv, int q_offset, int causal,
+                           int window, int prefix_len, const Strides& st, float scale,
+                           cudaStream_t stream) {
+  constexpr int smem = tf32_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel_tf32<D, LSE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_prefill_kernel_fma<D, LSE><<<grid, kFmaThreads, smem, stream>>>(
+  const dim3 grid(H, (S + kBQ - 1) / kBQ, B);
+  flash_prefill_kernel_tf32<D, LSE><<<grid, kTfThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Hkv, S, Tkv, q_offset,
       causal, window, prefix_len, st, scale);
@@ -317,10 +348,10 @@ cudaError_t launch_fma_as(const void* q, const void* k, const void* v, void* o, 
 }
 
 template <int D>
-int launch_fma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-               int H, int Hkv, int S, int Tkv, int q_offset, int causal, int window,
-               int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
-  return static_cast<int>((lse ? launch_fma_as<D, 1> : launch_fma_as<D, 0>)(
+int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int H, int Hkv, int S, int Tkv, int q_offset, int causal, int window,
+                int prefix_len, const Strides& st, float scale, cudaStream_t stream) {
+  return static_cast<int>((lse ? launch_tf32_as<D, 1> : launch_tf32_as<D, 0>)(
       q, k, v, o, lse, B, H, Hkv, S, Tkv, q_offset, causal, window, prefix_len, st, scale,
       stream));
 }
@@ -337,7 +368,7 @@ constexpr int kWgThreads = 160;   // one consumer warpgroup + one producer warp
 // thread (warp w, lane l): register j holds row 16 w + l/4 + 8 ((j/2) % 2),
 // column 8 (j/4) + 2 (l%4) + j%2. MASKS = 0: causal or full attention only
 // (window and prefix_len 0); 1: the general mask of `visible`. LSE = 1: also
-// each row's log-sum-exp into lse (B, H, S), as the FMA kernel's.
+// each row's log-sum-exp into lse (B, H, S), as the fp32 kernel's.
 template <int D, int MASKS, int LSE>
 __global__ void __launch_bounds__(kWgThreads, 2)
 flash_prefill_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -584,7 +615,7 @@ Strides unpack(const long long* s) {
 // lse: nullptr, or float32 (B, H, S), contiguous, for each row's log-sum-exp
 // of its scaled, masked scores (natural log), which the backward reads.
 // window (0 = none) and prefix_len (0 = none) act only when causal. is_bf16
-// chooses the kernel: 1 the bf16 tensor-core kernel, 0 the fp32 FMA kernel.
+// chooses the kernel: 1 the bf16 wgmma kernel, 0 the fp32 3xTF32 kernel.
 // Returns cudaGetLastError() after the launch (0 = launched), minus the
 // CUresult if a tensor map cannot be encoded, or cudaErrorInvalidValue for a
 // head_dim the kernels do not take.
@@ -601,10 +632,10 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
   if (is_bf16 && D == 96) return launch_wgmma<96>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 80) return launch_wgmma<80>(REPRO_FLASH_ARGS);
   if (is_bf16 && D == 64) return launch_wgmma<64>(REPRO_FLASH_ARGS);
-  if (!is_bf16 && D == 128) return launch_fma<128>(REPRO_FLASH_ARGS);
-  if (!is_bf16 && D == 96) return launch_fma<96>(REPRO_FLASH_ARGS);
-  if (!is_bf16 && D == 80) return launch_fma<80>(REPRO_FLASH_ARGS);
-  if (!is_bf16 && D == 64) return launch_fma<64>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 128) return launch_tf32<128>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 96) return launch_tf32<96>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 80) return launch_tf32<80>(REPRO_FLASH_ARGS);
+  if (!is_bf16 && D == 64) return launch_tf32<64>(REPRO_FLASH_ARGS);
 #undef REPRO_FLASH_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,7 +21,9 @@
 // it runs ~17 us, held by the latency of each warpgroup's chain of products
 // (below), not by bytes or by the tensor cores' rate.
 //
-// Two kernels, chosen by dtype in the wrapper:
+// Three kernels, chosen in the wrapper by dtype and, for float32, by the
+// shape alone (ssd_scan.forward_route; a launch of one is never retried on
+// another):
 //
 // * bf16, ssd_scan_kernel_wgmma<NPAD>: every product on the tensor cores.
 //   Grid (P / 32, H, batch): a block owns 32 columns of P of one head, so
@@ -78,20 +80,50 @@
 //   the chunk, latency-bound. Overlapping W's math with the next S made
 //   ptxas serialize the products and was slower.
 //
-// * fp32, ssd_scan_kernel_fma<N, R>: the products as fp32 FMAs out of padded
-//   shared memory (tensor cores would round fp32 to TF32). One block per
-//   (batch, head, 32 columns of P), the state in registers and a copy in
-//   shared memory; row blocks of R (64, or 32 for chunk 32) visit the column
-//   blocks J <= I only, and the state update rides on the last row block.
+// * fp32, one chunk (S <= chunk) from a zero state, P 64, N 64 or 128:
+//   ssd_scan_kernel_tf32<N>, every product on the tensor cores in 3xTF32
+//   (tf32_mma.cuh: each operand split into a TF32 hi and lo, three
+//   mma.sync.m16n8k8 products, fp32 accumulators), which keeps float32's
+//   precision (tests/test_torch_ssd_forward_tf32.py models it, its warp
+//   scan of dt * A included, against float64). dA_total is the scan's value
+//   at the last step itself, so that fin_{S-1} = dt_{S-1} exactly: the sum
+//   of the lanes' sums differs from it by a rounding, which cost the final
+//   state 1e-4 of relative error where its last term dominates (A = -16).
+//   Every training call of mamba2-1.3b and zamba2-2.7b at s <= 256 is such
+//   a call. The design is the SSD backward's tensor-core kernel's
+//   (ssd_scan_bwd.cu): C B^T does not depend on the head, so a block owns hg
+//   heads of one sequence, grid (ceil(H / hg), batch), hg the fewest that
+//   fit one wave of SMs (mamba2's 8 x 64 heads: 4, 128 blocks; zamba2's 8 x
+//   80: 5). 8 consumer warps and a producer warp that stages C_I, B_J and
+//   each head's x_J by cp.async into padded rows, on "full" and "empty"
+//   mbarriers. Per tile pair (I >= J, row blocks of 64) the block computes
+//   S = C_I B_J^T once, 16 rows x 32 columns a warp in registers, and per
+//   head forms W = S exp(dA_cum_i - dA_cum_j) dt_j on it (the exponent
+//   masked to i >= j before exp), passes W to the other warp of its rows
+//   through shared memory (a 64-thread named barrier) and adds W x_J into
+//   y_I of each head (registers over J). Then each head's final state
+//   h[p][n] = sum_j fin_j x_j[p] B_j[n] over every J, written from the
+//   accumulators. The two products over j read their k axis in pair order
+//   (tf32_mma.cuh, pair_k), so x_J and B_J, read down their columns, are
+//   conflict-free with 16 bytes of padding a row. Shared memory 154.7 KB at
+//   N 128: one block an SM. What bounds it at mamba2-1.3b's training shape
+//   (b 8, s 128, h 64): bytes, 51 MB (x, dt, B, C and y, the state), 0.0153
+//   ms at 3.35 TB/s, against 1.63 GFLOP, 0.0099 ms as 3xTF32 at 495 TFLOP/s.
+// * fp32, every other shape (more than one chunk, h0, P 32, N 16):
+//   ssd_scan_kernel_fma<N, R>, the products as fp32 FMAs out of padded
+//   shared memory. One block per (batch, head, 32 columns of P), the state
+//   in registers and a copy in shared memory; row blocks of R (64, or 32 for
+//   chunk 32) visit the column blocks J <= I only, and the state update
+//   rides on the last row block.
 //
-// Ragged S: the steps t >= S of the last chunk are masked in both kernels
+// Ragged S: the steps t >= S of the last chunk are masked in every kernel
 // (dt = 0, no input, no store), which is what the reference's padding to a
 // chunk multiple computes, so the wrapper copies nothing. No exp(-dA_cum) is
 // formed alone: every exponent is <= 0 (for i < j it would be positive and
 // overflow, and inf * 0 gives NaN).
 //
 // Plain C interface: ssd_scan_launch() launches the kernel that its is_bf16
-// argument names and returns cudaGetLastError().
+// and tensor_cores arguments name and returns cudaGetLastError().
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -99,11 +131,12 @@
 #include <stdint.h>
 
 #include "cuda_context.cuh"   // bind_context(), before the bf16 launch's maps are encoded
+#include "tf32_mma.cuh"       // 3xTF32 products on mma.sync, cp.async staging
 
 namespace {
 
 constexpr int kMaxChunk = 256;
-constexpr int kPT = 32;         // P columns per block, in both kernels
+constexpr int kPT = 32;         // P columns per block, in the bf16 and FMA kernels
 
 struct Strides {   // in elements; p of x and y, n of B and C are contiguous
   int64_t x_b, x_s, x_h;
@@ -149,9 +182,11 @@ constexpr size_t smem_floats() {
 }
 
 // grid (P / 32, H, batch). h0 and state are contiguous (batch, H, P, N), fp32;
-// h0 may be null (a zero initial state).
+// h0 may be null (a zero initial state). One block an SM at least (`, 1`):
+// without it ptxas held every instance to 128 registers, and those at N 64
+// and 128 with row blocks of 64 (and N 64 with 32) spilled 8-16 bytes.
 template <int N, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel_fma(const float* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ Cm, const float* __restrict__ h0,
@@ -996,18 +1031,319 @@ int launch_wgmma(const void* x, const void* dt, const void* A, const void* B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ====================================================== fp32, 3xTF32 mma.sync
+constexpr int kTfWarps = 8;                       // consumer warps
+constexpr int kTfThreads = (kTfWarps + 1) * 32;   // and one producer warp
+constexpr int kTfP = 64;                          // the P the instances take
+constexpr int kTfMaxHeads = 5;                    // heads a block, at most
+constexpr int kWP = kRows + 8;                    // floats a row of W
+
+// the two consumer warps that share rows 16 rg .. of a tile
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(2 + rg) : "memory");
+}
+
+// Shared memory of the fp32 one-chunk kernel: eight mbarriers; a, dt and fin
+// of each head; W (two buffers); the C_I and B_J tiles (rows of N + 4
+// floats); two x_J slots (rows of P + 4 floats). 154,688 bytes at N 128: one
+// block an SM.
+template <int N>
+constexpr size_t tf32_smem() {
+  return 64 + sizeof(float) * (3 * kTfMaxHeads * kMaxChunk + 2 * kRows * kWP +
+                               2 * kRows * (N + 4) + 2 * kRows * (kTfP + 4));
+}
+
+// grid (ceil(H / hg), batch), 288 threads: a block owns heads hg b .. of
+// sequence b (fewer in the last group): consumer warps 0-7, producer warp 8.
+// One chunk (S <= kMaxChunk) from a zero state. y (b, S, H, P) through its
+// strides; state (b, H, P, N) contiguous.
+template <int N>
+__global__ void __launch_bounds__(kTfThreads, 1)
+ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const float* __restrict__ Bm,
+                     const float* __restrict__ Cm, float* __restrict__ y,
+                     float* __restrict__ state, int S, int H, int hg, Strides st) {
+  constexpr int LN = N + 4;       // floats a row of the C and B tiles
+  constexpr int LX = kTfP + 4;    // of the x tiles
+  constexpr int NH = N / 2;       // state columns a warp
+  extern __shared__ __align__(16) unsigned char smem_tf[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tf);     // 8 mbarriers
+  float* av = reinterpret_cast<float*>(smem_tf + 64);        // [kTfMaxHeads][kMaxChunk] dA_cum
+  float* dtv = av + kTfMaxHeads * kMaxChunk;                 // dt
+  float* finv = dtv + kTfMaxHeads * kMaxChunk;               // exp(dA_total - dA_cum) dt
+  float* Wb = finv + kTfMaxHeads * kMaxChunk;                // [2][kRows][kWP]
+  float* Cs = Wb + 2 * kRows * kWP;                          // [kRows][LN]
+  float* Bs = Cs + kRows * LN;                               // [kRows][LN]
+  float* Xs = Bs + kRows * LN;                               // [2][kRows][LX]
+  // "full" barriers 0-3 (C_I, B_J, the two x slots), completed by the
+  // producer's 32 lanes; "empty" barriers 4-7 (the same buffers), one arrival
+  // a consumer warp
+  constexpr int kFullC = 0, kFullB = 1, kFullX = 2, kEmptyC = 4, kEmptyB = 5, kEmptyX = 6;
+  auto bar = [&](int i) { return smem_u32(bars + i); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, hb = blockIdx.x * hg;
+  const int nh = min(hg, H - hb);
+  const int nb = (S + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    for (int i = 0; i < 8; ++i) mbar_init(bar(i), i < kEmptyC ? 32 : kTfWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // ---- the producer warp: the tiles, in the order the consumers use them
+  if (warp == kTfWarps) {
+    int ub = 0, ux = 0;
+    auto load_b = [&](int j0) {
+      if (ub > 0) mbar_wait(bar(kEmptyB), (ub - 1) & 1);
+      cp_async_rows<kRows, N, LN>(Bs, Bm + b * st.b_b + j0 * st.b_s, st.b_s, S - j0);
+      cp_async_arrive(bar(kFullB));
+      ++ub;
+    };
+    auto load_x = [&](int hh, int j0) {
+      const int slot = ux & 1, use = ux >> 1;
+      if (use > 0) mbar_wait(bar(kEmptyX + slot), (use - 1) & 1);
+      cp_async_rows<kRows, kTfP, LX>(Xs + slot * kRows * LX,
+                                     x + b * st.x_b + j0 * st.x_s + (hb + hh) * st.x_h,
+                                     st.x_s, S - j0);
+      cp_async_arrive(bar(kFullX + slot));
+      ++ux;
+    };
+    // y: C_I, then per J <= I B_J and each head's x_J
+    for (int I = 0; I < nb; ++I) {
+      const int i0 = I * kRows;
+      if (I > 0) mbar_wait(bar(kEmptyC), (I - 1) & 1);
+      cp_async_rows<kRows, N, LN>(Cs, Cm + b * st.c_b + i0 * st.c_s, st.c_s, S - i0);
+      cp_async_arrive(bar(kFullC));
+      for (int J = 0; J <= I; ++J) {
+        load_b(J * kRows);
+        for (int hh = 0; hh < nh; ++hh) load_x(hh, J * kRows);
+      }
+    }
+    // the final states: per head, each J's B_J and x_J
+    for (int hh = 0; hh < nh; ++hh)
+      for (int J = 0; J < nb; ++J) {
+        load_b(J * kRows);
+        load_x(hh, J * kRows);
+      }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- the consumer warps
+  const int rg = warp & 3, half = warp >> 2, g = lane >> 2, t = lane & 3;
+  if (warp < nh) {   // dA_cum, the running sum of dt * A over the chunk, head hb + warp
+    const int h = hb + warp;
+    const float ah = A[h];
+    float d[8], v[8], run = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int kq = 8 * lane + q;   // steps at or past S: dt = 0
+      d[q] = kq < S ? dt[b * st.dt_b + kq * st.dt_s + h * st.dt_h] : 0.f;
+      run += d[q] * ah;
+      v[q] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    // dA_total is dA_cum at the last step, bit for bit: fin_{S-1} = dt_{S-1}
+    // exactly, as in the plain version. The sum of the lanes' sums (incl at
+    // lane 31) rounds otherwise, and exp of that difference would put about
+    // 1e-4 of relative error on the final state's last, largest term.
+    const float total = __shfl_sync(0xffffffffu, v[7] + incl - run, (S - 1) >> 3);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int kq = warp * kMaxChunk + 8 * lane + q;
+      const float cum = v[q] + incl - run;
+      av[kq] = cum;
+      dtv[kq] = d[q];
+      finv[kq] = expf(total - cum) * d[q];   // total - cum <= 0
+    }
+  }
+  consumers_sync();
+
+  // y_I = sum_{J <= I} W_IJ x_J, W_ij = (C_i . B_j) exp(dA_cum_i - dA_cum_j) dt_j
+  // for i >= j. A warp owns rows 16 rg .. of a tile pair and its columns 32
+  // half ..: S = C_I B_J^T (shared by the heads) in registers, W of each head
+  // formed from it and exchanged through shared memory with the other warp
+  // of the rows, and y_I of each head's rows 16 rg .., columns p 32 half ..
+  // in registers over J.
+  int ub = 0, ux = 0;
+  for (int I = 0; I < nb; ++I) {
+    const int i0 = I * kRows;
+    mbar_wait(bar(kFullC), I & 1);
+    float ya[kTfMaxHeads][4][4];
+#pragma unroll
+    for (int hh = 0; hh < kTfMaxHeads; ++hh)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ya[hh][nt][r] = 0.f;
+    const int il = 16 * rg + g;             // the thread's rows il and il + 8
+    for (int J = 0; J <= I; ++J) {
+      const int j0 = J * kRows;
+      mbar_wait(bar(kFullB), ub & 1);
+      float sc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[nt][r] = 0.f;
+      {
+        const float* Ca = Cs + 16 * rg * LN;
+        const float* Bb = Bs + 32 * half * LN;
+        warp_mma<4, N, false, false>(sc, [&](int m, int k) { return Ca[m * LN + k]; },
+                                     [&](int k, int n) { return Bb[n * LN + k]; });
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bar(kEmptyB));                 // B_J free
+        if (J == I) mbar_arrive(bar(kEmptyC));     // C_I free
+      }
+      ++ub;
+#pragma unroll
+      for (int hh = 0; hh < kTfMaxHeads; ++hh) {
+        if (hh < nh) {
+          const int slot = ux & 1;
+          const float* a = av + hh * kMaxChunk;
+          const float* dtp = dtv + hh * kMaxChunk;
+          float* W = Wb + slot * kRows * kWP;
+          const float ai[2] = {a[i0 + il], a[i0 + il + 8]};
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int jl = 32 * half + 8 * nt + 2 * t;   // the thread's columns jl, jl + 1
+#pragma unroll
+            for (int ir = 0; ir < 2; ++ir) {
+              float w[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int gj = j0 + jl + e;
+                // the exponent is formed for i >= j only: for i < j it is positive
+                w[e] = i0 + il + 8 * ir >= gj ? sc[nt][2 * ir + e] * expf(ai[ir] - a[gj]) * dtp[gj]
+                                              : 0.f;
+              }
+              *reinterpret_cast<float2*>(W + (il + 8 * ir) * kWP + jl) = make_float2(w[0], w[1]);
+            }
+          }
+          pair_sync(rg);   // both halves of W's rows 16 rg .. are written
+          mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
+          // y_I += W x_J, k (= j) in pair order: W's columns 2t, 2t + 1 of a
+          // k-step are one float2, x_J's rows 2t, 2t + 1 conflict-free
+          const float* xs = Xs + slot * kRows * LX + 32 * half + g;
+          const float* Wr = W + il * kWP + 2 * t;
+#pragma unroll 2
+          for (int k0 = 0; k0 < kRows; k0 += 8) {
+            const float2 w0 = *reinterpret_cast<const float2*>(Wr + k0);
+            const float2 w8 = *reinterpret_cast<const float2*>(Wr + 8 * kWP + k0);
+            const float a4[4] = {w0.x, w8.x, w0.y, w8.y};
+            float bv[4][2];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              bv[nt][0] = xs[(k0 + 2 * t) * LX + 8 * nt];
+              bv[nt][1] = xs[(k0 + 2 * t + 1) * LX + 8 * nt];
+            }
+            mma3_step<4, false, false>(ya[hh], 0, a4, bv);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar(kEmptyX + slot));   // x slot free
+          ++ux;
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < kTfMaxHeads; ++hh) {
+      if (hh < nh) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int ir = 0; ir < 2; ++ir) {
+            const int i = i0 + il + 8 * ir;
+            if (i < S)
+              *reinterpret_cast<float2*>(y + b * st.y_b + i * st.y_s + (hb + hh) * st.y_h +
+                                         32 * half + 8 * nt + 2 * t) =
+                  make_float2(ya[hh][nt][2 * ir], ya[hh][nt][2 * ir + 1]);
+          }
+      }
+    }
+  }
+
+  // the final state of each head, h[p][n] = sum_j fin_j x_j[p] B_j[n]: rows
+  // p 16 rg .., columns n NH half .., over every J; k (= j) in pair order,
+  // so that both operands, read down their columns, are conflict-free
+  for (int hh = 0; hh < nh; ++hh) {
+    float hs[NH / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < NH / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) hs[nt][r] = 0.f;
+    const float* fin = finv + hh * kMaxChunk;
+    for (int J = 0; J < nb; ++J) {
+      const int j0 = J * kRows, slot = ux & 1;
+      mbar_wait(bar(kFullB), ub & 1);
+      mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
+      const float* xs = Xs + slot * kRows * LX + 16 * rg;
+      const float* Bb = Bs + NH * half;
+      warp_mma<NH / 8, kRows, false, false>(
+          hs,
+          [&](int m, int k) {
+            const int j = pair_k(k);
+            return xs[j * LX + m] * fin[j0 + j];
+          },
+          [&](int k, int n) { return Bb[pair_k(k) * LN + n]; });
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bar(kEmptyB));
+        mbar_arrive(bar(kEmptyX + slot));
+      }
+      ++ub;
+      ++ux;
+    }
+    float* sb = state + (static_cast<int64_t>(b) * H + hb + hh) * kTfP * N;
+#pragma unroll
+    for (int nt = 0; nt < NH / 8; ++nt)
+#pragma unroll
+      for (int ir = 0; ir < 2; ++ir)
+        *reinterpret_cast<float2*>(sb + (16 * rg + g + 8 * ir) * N + NH * half + 8 * nt +
+                                   2 * t) = make_float2(hs[nt][2 * ir], hs[nt][2 * ir + 1]);
+  }
+}
+
+template <int N>
+cudaError_t launch_tf32(const void* x, const void* dt, const void* A, const void* B,
+                        const void* C, void* y, void* state, int batch, int S, int H, int hg,
+                        const Strides& st, cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem<N>();
+  static_assert(smem <= 232448, "more shared memory than a block can have");
+  auto kernel = ssd_scan_kernel_tf32<N>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((H + hg - 1) / hg, batch), kTfThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const float*>(B), static_cast<const float*>(C), static_cast<float*>(y),
+      static_cast<float*>(state), S, H, hg, st);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // strides: 13 element strides, in turn x (batch, seq, head), dt (batch, seq,
 // head), B (batch, seq), C (batch, seq), y (batch, seq, head). h0 may be null.
-// is_bf16 chooses the kernel: 1 the bf16 tensor-core kernel, 0 the fp32 FMA
-// kernel. Returns cudaGetLastError() after the launch (0 = launched), minus
-// the CUresult if a tensor map cannot be encoded, or cudaErrorInvalidValue
-// for a shape the kernels do not take.
+// is_bf16 chooses the input type: 1 bf16, on the wgmma kernel; 0 float32,
+// where tensor_cores chooses the kernel: 1 ssd_scan_kernel_tf32, a block
+// owning heads_per_block heads of a sequence, for the shapes it takes (P 64,
+// N 64 or 128, one chunk, no h0; anything else is cudaErrorInvalidValue), 0
+// the FMA kernel. Returns cudaGetLastError() after the launch (0 =
+// launched), minus the CUresult if a tensor map cannot be encoded, or
+// cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C, const void* h0, void* y,
                                void* state, int batch, int S, int H, int P, int N,
-                               int chunk, int is_bf16, const long long* strides,
+                               int chunk, int is_bf16, int tensor_cores,
+                               int heads_per_block, const long long* strides,
                                void* stream) {
   Strides st;
   st.x_b = strides[0]; st.x_s = strides[1]; st.x_h = strides[2];
@@ -1025,6 +1361,15 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
     if (N == 128) return launch_wgmma<128>(REPRO_SSD_ARGS, N, chunk, st, s);
     if (N == 64 || N == 16) return launch_wgmma<64>(REPRO_SSD_ARGS, N, chunk, st, s);
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tensor_cores) {   // fp32, one chunk from a zero state: the 3xTF32 kernel
+    if (P != kTfP || (N != 64 && N != 128) || S > chunk || h0 != nullptr ||
+        heads_per_block < 1 || heads_per_block > kTfMaxHeads)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(N == 128 ? launch_tf32<128>(x, dt, A, B, C, y, state, batch, S, H,
+                                                        heads_per_block, st, s)
+                                     : launch_tf32<64>(x, dt, A, B, C, y, state, batch, S, H,
+                                                       heads_per_block, st, s));
   }
   cudaError_t err = cudaErrorInvalidValue;
   if (N == 128) err = launch_fma_r<128>(REPRO_SSD_ARGS, chunk, st, s);

@@ -164,6 +164,7 @@
 #include <stdint.h>
 
 #include "flash_hopper.cuh"   // mbarriers; bind_context() (cuda_context.cuh)
+#include "tf32_mma.cuh"       // the 3xTF32 products (warp_mma) and cp.async staging
 
 namespace {
 
@@ -848,86 +849,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// v rounded to TF32, to nearest with ties away from zero: half a unit of the
-// last TF32 place added to the bit pattern, the 13 bits below it cut (what
-// cvt.rna.tf32.f32 gives, in two integer operations)
-__device__ __forceinline__ uint32_t tf32_hi(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v - hi, exact in fp32; the tensor cores read a TF32 operand's top 19 bits,
-// so it enters the product truncated to TF32, which keeps hi + lo within
-// 2^-21 of v
-__device__ __forceinline__ uint32_t tf32_lo(float v, uint32_t hi) {
-  return __float_as_uint(v - __uint_as_float(hi));
-}
-
-// d (16 x 8, fp32) += a (16 x 8, tf32) b (8 x 8, tf32), one warp
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d[nt] += A (16 x K) B (K x 8 NT) in 3xTF32, one warp: each operand value v
-// is split into hi = tf32_hi(v) and lo = tf32_lo(v, hi), and a product is
-// a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in fp32; the lo term of an
-// operand that is exact in TF32 (a bf16 input) is left out. la(m, k) and
-// lb(k, n) read A and B from shared memory as floats. The fragment of d[nt]:
-// lane l holds rows l/4 and l/4 + 8, columns 8 nt + 2 (l%4) and + 1. A k-step
-// loads and splits all its fragments first, then issues the products term by
-// term over the n-tiles, so that back-to-back products go to different
-// accumulators (a product's latency is hidden behind the NT - 1 others).
-template <int NT, int K, bool A_EXACT, bool B_EXACT, typename LA, typename LB>
-__device__ __forceinline__ void warp_mma(float (&d)[NT][4], LA la, LB lb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    const float av[4] = {la(g, k0 + t), la(g + 8, k0 + t), la(g, k0 + t + 4),
-                         la(g + 8, k0 + t + 4)};
-    float bv[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      bv[nt][0] = lb(k0 + t, 8 * nt + g);
-      bv[nt][1] = lb(k0 + t + 4, 8 * nt + g);
-    }
-    uint32_t ahi[4], alo[4], bhi[NT][2], blo[NT][2];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      ahi[q] = tf32_hi(av[q]);
-      alo[q] = A_EXACT ? 0u : tf32_lo(av[q], ahi[q]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        bhi[nt][q] = tf32_hi(bv[nt][q]);
-        blo[nt][q] = B_EXACT ? 0u : tf32_lo(bv[nt][q], bhi[nt][q]);
-      }
-    if (!A_EXACT)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], alo, bhi[nt][0], bhi[nt][1]);
-    if (!B_EXACT)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ahi, blo[nt][0], blo[nt][1]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ahi, bhi[nt][0], bhi[nt][1]);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-// the barrier's arrival once every cp.async this thread issued has landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // the consumer warps, and the two warps that share rows 16 rg .. of a tile

@@ -16,15 +16,17 @@ VLM's vision tokens), and head_dim 80 and 96 besides 64 and 128.
 Bound on the H100: ``2 * (S + T) * D`` elements per head moved against
 ``4 * S * T * D`` operations (half of it when causal with ``q_offset == 0``);
 in bf16 at the serving shape both are a few microseconds. The source holds
-two kernels, chosen here by dtype and nothing else: bf16 runs both products
-on the tensor cores (``wgmma``, K/V tiles by TMA into a two-stage ring,
-tensor maps encoded per call over the strided views), float32 runs them as
-FMAs (tensor cores would round it to TF32). Their designs and what holds
-them back are described at the top of the ``.cu`` source.
+two kernels, chosen here by dtype and nothing else, both on the tensor
+cores: bf16 runs ``wgmma`` (K/V tiles by TMA into a two-stage ring, tensor
+maps encoded per call over the strided views), float32 runs 3xTF32
+``mma.sync`` (each operand split into a TF32 head and tail, three products,
+which keeps float32's precision; K and V staged by ``cp.async``). Their
+designs and what holds them back are described at the top of the ``.cu``
+source.
 
 ``flash_prefill`` runs the plain version only for tensors on the CPU. On
 CUDA tensors it launches the kernel for their dtype or raises; a bf16 launch
-that fails is not retried on the FMA kernel.
+that fails is not retried on the other kernel.
 
 Gradients. A call whose inputs require a gradient (with grad mode on) goes
 through ``FlashPrefill``, an autograd function: its forward is the call
@@ -154,11 +156,12 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Tensors on the CPU go through ``flash_prefill_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in
-    ``flash_prefill.launches``, a bf16 launch of the tensor-core kernel also
-    in ``flash_prefill.tensor_core_launches``, one with ``q_offset > 0`` also
-    in ``flash_prefill.offset_launches``, one with a window or a prefix in
-    ``window_launches`` or ``prefix_launches``, one without the causal mask
-    in ``full_launches``) or raise. Inputs that
+    ``flash_prefill.launches``, a bf16 launch of the wgmma kernel also in
+    ``flash_prefill.tensor_core_launches``, a float32 launch of the 3xTF32
+    kernel in ``flash_prefill.tf32_launches``, one with ``q_offset > 0``
+    also in ``flash_prefill.offset_launches``, one with a window or a prefix
+    in ``window_launches`` or ``prefix_launches``, one without the causal
+    mask in ``full_launches``) or raise. Inputs that
     require a gradient go through ``FlashPrefill`` (see the module
     docstring).
     """
@@ -196,15 +199,15 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         else None
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    # bf16 on the tensor cores; float32 on the FMA kernel, which keeps it
-    # exact (the tensor cores would round it to TF32)
-    tensor_cores = q.dtype == torch.bfloat16
+    # bf16 on the wgmma kernel; float32 on the 3xTF32 kernel, whose three
+    # products a pair of operands keep float32's precision
+    is_bf16 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         err = _library().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, H, Hkv, S, T, D, q_offset, int(causal), window, prefix_len,
-            int(tensor_cores),
+            int(is_bf16),
             strides, 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise RuntimeError(f"flash_prefill: cuTensorMapEncodeTiled failed: "
@@ -212,7 +215,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed: CUDA error {err}")
     flash_prefill.launches += 1
-    flash_prefill.tensor_core_launches += int(tensor_cores)
+    flash_prefill.tensor_core_launches += int(is_bf16)
+    flash_prefill.tf32_launches += int(not is_bf16)
     flash_prefill.offset_launches += int(q_offset > 0)
     flash_prefill.window_launches += int(causal and window > 0)
     flash_prefill.prefix_launches += int(causal and prefix_len > 0)
@@ -223,6 +227,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 flash_prefill.launches = 0   # launches of either CUDA kernel by this wrapper
 flash_prefill.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
+flash_prefill.tf32_launches = 0   # of those, the float32 3xTF32 kernel's
 flash_prefill.offset_launches = 0   # of those, the ones with cached rows in front
 flash_prefill.window_launches = 0   # of those, the ones with a sliding window
 flash_prefill.prefix_launches = 0   # of those, the ones with a bidirectional prefix

@@ -15,21 +15,26 @@ one projection.
 Bound on the H100 at the serving path's shape (1 x 341 steps, 64 heads,
 P = 64, N = 128, bf16): bytes, 7.9 MB (x, dt, B, C and h0 read once, y and
 the fp32 state written once), 2.37 us at 3.35 TB/s; the 0.76 GFLOP the data
-needs take a third of that on the bf16 tensor cores. The source holds two
-kernels, chosen here by dtype and nothing else. bf16 runs every product on
-the tensor cores (``wgmma``): one block per (batch, head, 32 columns of P)
-walks the chunks with the state in registers, a producer warp loads the C,
-B and x tiles by TMA (tensor maps encoded per call over the strided views)
-and scans ``dt * A``, and two consumer warpgroups run the products. The
-operands it forms itself (the weights ``W``, ``fin o B`` of the state update
-and the copy of the state that ``C h^T`` reads) go to the tensor cores as a
-bf16 head and tail, which keeps them to 16 bits. float32 runs on the FMA
-kernel (tensor cores would round it to TF32). Their designs and what holds
-them back are described at the top of the ``.cu`` source.
+needs take a third of that on the bf16 tensor cores. The source holds three
+kernels, chosen by ``forward_route`` on the dtype and the shape alone. bf16
+runs every product on the tensor cores (``wgmma``): one block per (batch,
+head, 32 columns of P) walks the chunks with the state in registers, a
+producer warp loads the C, B and x tiles by TMA (tensor maps encoded per
+call over the strided views) and scans ``dt * A``, and two consumer
+warpgroups run the products. The operands it forms itself (the weights
+``W``, ``fin o B`` of the state update and the copy of the state that
+``C h^T`` reads) go to the tensor cores as a bf16 head and tail, which keeps
+them to 16 bits. float32 in one chunk from a zero state (P 64, N 64 or 128:
+every training call) runs the 3xTF32 kernel: every product on ``mma.sync``
+with each operand split into a TF32 head and tail (three products, which
+keeps float32's precision), a block owning a few heads of one sequence so
+that C B^T is formed once a tile pair for all of them. Every other float32
+shape runs the FMA kernel. Their designs and what holds them back are
+described at the top of the ``.cu`` source.
 
 ``ssd_scan`` runs the plain version only for tensors on the CPU. On CUDA
-tensors it launches the kernel for their dtype or raises; a bf16 launch
-that fails is not retried on the FMA kernel.
+tensors it launches the kernel ``forward_route`` names or raises; a launch
+that fails is not retried on another kernel.
 
 Gradients. A call whose inputs require a gradient (with grad mode on) goes
 through ``SSDScan``, an autograd function whose forward is the call above
@@ -285,7 +290,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("ssd_scan")
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
             [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -301,9 +306,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Any ``s``: a ragged last chunk is masked, not padded.
 
     Tensors on the CPU go through ``ssd_scan_plain``; tensors on a CUDA
-    device launch the kernel (and count the launch in ``ssd_scan.launches``,
-    a bf16 launch of the tensor-core kernel also in
-    ``ssd_scan.tensor_core_launches``) or raise. A call whose inputs require
+    device launch the kernel ``forward_route`` names (and count the launch
+    in ``ssd_scan.launches``, a bf16 launch of the wgmma kernel also in
+    ``ssd_scan.tensor_core_launches``, one of the float32 3xTF32 kernel in
+    ``ssd_scan.tf32_launches``) or raise. A call whose inputs require
     a gradient (with grad mode on) goes through ``SSDScan`` on both devices:
     the same forward, and ``ssd_scan_backward`` for its gradient (the
     backward kernel on the card, ``ssd_scan_backward_plain`` on the CPU). A
@@ -329,26 +335,55 @@ def _forward(x, dt, A, B, C, h0, chunk):
     strides = (ctypes.c_longlong * 13)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
         *y.stride()[:3])
-    # bf16 on the tensor cores; float32 on the FMA kernel, which keeps it
-    # exact (the tensor cores would round it to TF32)
-    tensor_cores = x.dtype == torch.bfloat16
+    is_bf16 = x.dtype == torch.bfloat16
+    route, heads = forward_route(
+        b, s, h, p, n, chunk, h0 is not None, is_bf16,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     with torch.cuda.device(x.device):
         err = _library().ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), state.data_ptr(),
-            b, s, h, p, n, chunk, int(tensor_cores), strides,
+            b, s, h, p, n, chunk, int(is_bf16), int(route == "tf32"), heads, strides,
             torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise RuntimeError(f"ssd_scan: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1
-    ssd_scan.tensor_core_launches += int(tensor_cores)
+    ssd_scan.tensor_core_launches += int(route == "wgmma")
+    ssd_scan.tf32_launches += int(route == "tf32")
     return y, state
 
 
-ssd_scan.launches = 0   # launches of either CUDA kernel by this wrapper
+ssd_scan.launches = 0   # launches of any CUDA kernel by this wrapper
 ssd_scan.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
+ssd_scan.tf32_launches = 0   # of those, the float32 3xTF32 kernel's
+
+
+# The shapes the forward's 3xTF32 kernel takes (``csrc/ssd_scan.cu``,
+# ``ssd_scan_kernel_tf32``): float32, P 64, N 64 or 128, one chunk (s <=
+# chunk) from a zero state, which is every training call of mamba2-1.3b and
+# zamba2-2.7b at s <= 256. Every other float32 shape goes to the FMA kernel.
+_TF32_HEAD_DIM = 64
+_TF32_STATE_DIMS = (64, 128)
+_TF32_MAX_HEADS = 5   # kTfMaxHeads: the heads one block of the 3xTF32 kernel owns
+
+
+def forward_route(b: int, s: int, h: int, p: int, n: int, chunk: int, has_h0: bool,
+                  is_bf16: bool, n_sms: int) -> Tuple[str, int]:
+    """``(kernel, heads_per_block)`` of a forward launch, decided on the dtype
+    and the shape alone: ``"wgmma"`` for bf16; for float32 ``"tf32"``, the
+    3xTF32 kernel, where P is 64, N 64 or 128, ``s <= chunk`` and there is
+    no ``h0``, with the heads of a sequence one of its blocks owns (C B^T is
+    shared by them): the fewest that fit the b x ceil(h / heads) blocks into
+    one wave of ``n_sms`` blocks, at most ``_TF32_MAX_HEADS`` (mamba2-1.3b's
+    training shape, 8 x 64 heads on 132 SMs: 4; zamba2's, 8 x 80: 5); else
+    ``"fma"``. The other kernels own one head (a part of it) a block."""
+    if is_bf16:
+        return "wgmma", 1
+    if p == _TF32_HEAD_DIM and n in _TF32_STATE_DIMS and s <= chunk and not has_h0:
+        return "tf32", min(_TF32_MAX_HEADS, max(1, -(-b * h // n_sms)))
+    return "fma", 1
 
 
 class SSDScan(torch.autograd.Function):

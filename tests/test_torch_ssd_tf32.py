@@ -8,7 +8,8 @@ tensor cores read truncated to TF32 (they take a TF32 operand's top 19
 bits); a product is a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated in
 float32. A product of two TF32 values is exact in float32, so
 ``torch.matmul`` in float32 on the split operands models what the tensor
-cores compute, up to the order of the float32 sums.
+cores compute, up to the order of the float32 sums (``kernels/tf32.py``,
+the model the forward's tests share).
 
 Here the kernel's formulas for one chunk without state (what it takes: the
 training shape) run with that operand rounding at mamba2-1.3b's widths (P
@@ -25,6 +26,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssd_scan import backward_route, ssd_scan_backward_plain
+# the rounding model of the 3xTF32 products, shared with the forward's tests
+from repro_torch.kernels.tf32 import matmul_3xtf32 as mm3
+from repro_torch.kernels.tf32 import matmul_1xtf32, split
 
 # the test workers share the host's cores: cap each one's intra-op threads
 torch.set_num_threads(2)
@@ -36,38 +40,6 @@ SSD_TOL = 2e-3
 # orders, so neither is always the smaller)
 FACTOR = 4.0
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
-
-
-def _bits(a: torch.Tensor) -> np.ndarray:
-    return a.contiguous().numpy().view(np.uint32)
-
-
-def tf32(a: torch.Tensor) -> torch.Tensor:
-    """float32 ``a`` rounded to TF32 as the kernel rounds hi (and as
-    ``cvt.rna.tf32.f32`` does): to nearest at 13 bits below the mantissa's
-    last, ties away from zero (half a unit added to the magnitude's bit
-    pattern, then the 13 bits cut)."""
-    u = _bits(a)
-    return torch.from_numpy(((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
-
-
-def truncate(a: torch.Tensor) -> torch.Tensor:
-    """float32 ``a`` as the tensor cores read a TF32 operand: its 13 low
-    mantissa bits dropped (toward zero)."""
-    return torch.from_numpy((_bits(a) & np.uint32(0xFFFFE000)).view(np.float32))
-
-
-def split(a: torch.Tensor):
-    """(hi, lo) of float32 ``a`` as the products see them: hi = tf32(a), lo =
-    a - hi (exact in float32) truncated to TF32."""
-    hi = tf32(a)
-    return hi, truncate(a - hi)
-
-
-def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in 3xTF32, float32 sums: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def tensor_core_backward(x, dt, A, B, C, dy, mm=mm3):
@@ -150,8 +122,8 @@ def test_one_tf32_rounding_would_not_keep_float32_precision():
                                    t["dy"].double(), None, 256)
     plain = _errors(ssd_scan_backward_plain(*args, None, t["dy"], None, 256), want,
                     t["dt"], t["A"])
-    once = _errors(tensor_core_backward(*args, t["dy"], mm=lambda a, b: tf32(a) @ tf32(b)),
-                   want, t["dt"], t["A"])
+    once = _errors(tensor_core_backward(*args, t["dy"], mm=matmul_1xtf32), want,
+                   t["dt"], t["A"])
     assert once["dx"] > 30 * plain["dx"] and once["dB"] > 30 * plain["dB"], (once, plain)
 
 
