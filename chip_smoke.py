@@ -108,6 +108,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -141,6 +142,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 ssd_scan_backward = getattr(ssd_module, "ssd_scan_backward", None)
 ssd_scan_backward_plain = getattr(ssd_module, "ssd_scan_backward_plain", None)
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.launch.train import synthetic_lm_batch, train  # noqa: E402
@@ -160,7 +163,8 @@ from repro_torch.sim.workload import WorkloadSpec, generate  # noqa: E402
 from repro_torch.training import tree  # noqa: E402
 from repro_torch.training.optimizer import adamw_init  # noqa: E402
 
-ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train", "sim")
+ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train", "sim", "launch",
+              "examples")
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -3002,7 +3006,7 @@ def _train_full(smi: str) -> dict:
     del state, res
     return {"flash_prefill": launches["flash_prefill"],
             "flash_prefill_tf32": launches["flash_prefill.tf32_launches"],
-            "flash_prefill_backward": launches["flash_prefill_backward"]}
+            "flash_prefill_backward": launches["flash_prefill_backward"]}, prof["device_ms"]
 
 
 def _train_lr_witness() -> dict:
@@ -3176,7 +3180,7 @@ def _train_ssm_full(smi: str) -> dict:
         _train_ssm_witness(losses)
     return {"ssd_scan": launches["ssd_scan"],
             "ssd_scan_tf32": launches["ssd_scan.tf32_launches"],
-            "ssd_scan_backward": launches["ssd_scan_backward"]}
+            "ssd_scan_backward": launches["ssd_scan_backward"]}, prof["device_ms"]
 
 
 def _train_ssm_witness(kernel_losses) -> dict:
@@ -3264,10 +3268,11 @@ def phase_train(smi: str) -> dict:
                         "zamba2-2.7b full widths, 6 layers, float32, no remat, one chunk",
                         2, 128, {**dict(zip(ssd, (6, 6, 6, 6))),
                                  **dict(zip(flash, (1, 1, 1, 1)))})
-    launches = _train_full(smi)
+    launches, olmo_ms = _train_full(smi)
     _train_lr_witness()
-    launches.update(_train_ssm_full(smi))
-    return launches
+    ssm_launches, ssm_ms = _train_ssm_full(smi)
+    launches.update(ssm_launches)
+    return launches, {"olmo-1b": olmo_ms, "mamba2-1.3b": ssm_ms}
 
 
 
@@ -3592,6 +3597,131 @@ def phase_sim(smi: str, served) -> None:
         perf_model.MBU, perf_model.STEP_OVERHEAD = saved
 
 
+# ------------------------------------------------------------ the launch layer
+# no card runs above its roofline: a planned step longer than the measured
+# one by more than this says the plan's count is wrong
+ROOFLINE_SHARE_MAX = 1.05
+TRAIN_SHAPE = InputShape("train_8x128", 128, 8, "train")
+
+
+def _port_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+
+def _dryrun(smi: str) -> None:
+    """``python -m repro_torch.launch.dryrun --all`` (in four processes):
+    every arch x input shape on the meta device. One line a pair and the
+    run's wall seconds; fails unless every pair traced."""
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "dryrun.jsonl")
+        t0 = time.monotonic()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                              "--out", out],
+                             env=_port_env(), capture_output=True, text=True, timeout=600)
+        wall = time.monotonic() - t0
+        records = []
+        if os.path.exists(out):
+            with open(out) as f:
+                records = [json.loads(line) for line in f]
+    if run.returncode != 0 or len(records) != 40 or \
+            any(r["status"] != "ok" for r in records):
+        fail(f"launch: the dry run exited {run.returncode} with {len(records)} records:\n"
+             f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+    for rec in records:
+        emit("launch_dryrun", gpu=smi, **rec)
+    emit("launch_dryrun_summary", gpu=smi, pairs=len(records), wall_s=wall,
+         last_line=run.stdout.strip().splitlines()[-1],
+         fits=sum(r["fits"] for r in records))
+
+
+def _plan_line(smi: str, path: str, cfg, shape, measured_ms: float, **kw) -> float:
+    """The roofline of ``shape``'s step (``launch/roofline.py``, on the meta
+    device) beside the device time measured for it; returns its share."""
+    terms, mem = roofline.plan(cfg, shape, **kw)
+    measured_s = measured_ms / 1e3
+    share = terms.step_time_s / measured_s
+    emit("launch_plan", gpu=smi, path=path, kind=shape.kind, dtype=terms.dtype,
+         batch=shape.global_batch, seq=shape.seq_len, context=kw.get("context"),
+         remat=kw.get("remat"), flops=terms.flops, hbm_bytes=terms.hbm_bytes,
+         model_flops=terms.model_flops, peak_flops=terms.peak_flops,
+         compute_s=terms.compute_s, memory_s=terms.memory_s,
+         bottleneck=terms.bottleneck, step_time_s=terms.step_time_s,
+         measured_device_s=measured_s, roofline_share=share,
+         mfu=terms.model_flops / (measured_s * terms.peak_flops),
+         arg_bytes=mem["arg_bytes"])
+    return share
+
+
+def phase_launch(smi: str, served, trained) -> None:
+    """The launch layer: the dry run over every arch x input shape, then
+    the planned step (``roofline.plan``) beside each graphed decode step the
+    ``serve`` phase measured (8 slots at its mean context, bf16) and the two
+    train steps the ``train`` phase profiled (8 x 128, float32, remat),
+    with the measured device seconds, ``roofline_share`` = planned /
+    measured and ``mfu`` = model FLOPs / (measured x the dtype's peak).
+    Fails if a share reads above ``ROOFLINE_SHARE_MAX``."""
+    _dryrun(smi)
+    shares = {}
+    for arch, share in (served or {}).get("shares", {}).items():
+        ctx = share["decode_mean_context"]
+        shape = InputShape(f"decode_8x{ctx:g}", int(np.ceil(ctx)), 8, "decode")
+        shares[f"{arch} decode"] = _plan_line(
+            smi, arch, get_config(arch).with_(dtype="bfloat16"), shape,
+            share["decode_device_ms_per_step"], context=ctx)
+    for arch, ms in (trained or {}).items():
+        shares[f"{arch} train"] = _plan_line(
+            smi, arch, get_config(arch).with_(dtype="float32"), TRAIN_SHAPE, ms,
+            remat=True)
+    high = {k: v for k, v in shares.items() if v > ROOFLINE_SHARE_MAX}
+    if high:
+        fail(f"launch: planned steps longer than the measured ones: {high}")
+    emit("launch", gpu=smi, roofline_shares=shares)
+
+
+# ------------------------------------------------------------ the twins
+# each model-running twin of examples/ and scripts/ at its smoke size on the
+# card, and the line that says it worked
+EXAMPLES = (
+    ("examples/quickstart_torch.py", (), "decoded 4 tokens"),
+    ("examples/serve_autoscaled_torch.py", (), "8/8 requests served"),
+    ("examples/serve_autoscaled_torch.py", ("--arch", "mamba2-1.3b"), "8/8 requests served"),
+    ("examples/train_tiny_torch.py", ("--steps", "5"), "over 5 steps"),
+    ("scripts/dev_engine_torch.py", (), "ENGINE OK"),
+    ("scripts/dev_smoke_torch.py", (), "ALL OK"),
+    ("scripts/dev_kernels_torch.py", (), "ALL KERNELS OK"),
+)
+EXAMPLE_LIMIT_S = 300
+
+
+def phase_examples(smi: str) -> None:
+    """Every model-running twin on the card (its default device), all
+    started together (the kernels are already built); fails unless each
+    exits 0 within ``EXAMPLE_LIMIT_S`` and prints its key line."""
+    running = []
+    for script, args, key in EXAMPLES:
+        t0 = time.monotonic()
+        proc = subprocess.Popen([sys.executable, os.path.join(HERE, script), *args],
+                                env=_port_env(), cwd=HERE, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((script, args, key, proc, t0))
+    failed = []
+    for script, args, key, proc, t0 in running:
+        try:
+            out, err = proc.communicate(timeout=EXAMPLE_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        wall = time.monotonic() - t0
+        line = next((ln for ln in out.splitlines() if key in ln), None)
+        emit("examples", gpu=smi, script=script, args=list(args), rc=proc.returncode,
+             wall_s=wall, key_line=line)
+        if proc.returncode != 0 or line is None:
+            failed.append(f"{script} {' '.join(args)} (exit {proc.returncode}):\n"
+                          f"{out[-1500:]}{err[-3000:]}")
+    if failed:
+        fail("examples: " + "\n".join(failed))
+
+
 # ------------------------------------------------- two trees, in turns
 def ab_turn(src: str, turn: int) -> None:
     """One ``--ab`` turn: device and event times of the kernels of the port
@@ -3761,9 +3891,13 @@ def main() -> None:
         phase_graph()
     launches, served = phase_serve(smi) if "serve" in phases else ({}, None)
     cluster_launches = phase_cluster(smi) if "cluster" in phases else {}
-    train_launches = phase_train(smi) if "train" in phases else {}
+    train_launches, trained = phase_train(smi) if "train" in phases else ({}, None)
     if "sim" in phases:
         phase_sim(smi, served)
+    if "launch" in phases:
+        phase_launch(smi, served, trained)
+    if "examples" in phases:
+        phase_examples(smi)
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return

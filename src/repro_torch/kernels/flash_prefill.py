@@ -24,8 +24,8 @@ which keeps float32's precision; K and V staged by ``cp.async``). Their
 designs and what holds them back are described at the top of the ``.cu``
 source.
 
-``flash_prefill`` runs the plain version only for tensors on the CPU. On
-CUDA tensors it launches the kernel for their dtype or raises; a bf16 launch
+``flash_prefill`` runs the plain version only for tensors on the CPU (and
+on the meta device, which computes nothing). On CUDA tensors it launches the kernel for their dtype or raises; a bf16 launch
 that fails is not retried on the other kernel.
 
 Gradients. A call whose inputs require a gradient (with grad mode on) goes
@@ -154,7 +154,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     prefix with cached rows in front (``q_offset > 0``) is refused, as the
     reference refuses a vision prefix after the first chunk.
 
-    Tensors on the CPU go through ``flash_prefill_plain``; tensors on a CUDA
+    Tensors on the CPU (and on the meta device, which computes nothing)
+    go through ``flash_prefill_plain``; tensors on a CUDA
     device launch the kernel (and count the launch in
     ``flash_prefill.launches``, a bf16 launch of the wgmma kernel also in
     ``flash_prefill.tensor_core_launches``, a float32 launch of the 3xTF32
@@ -179,11 +180,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
              q_offset: int, window: int, prefix_len: int, with_lse: bool = False):
-    """``flash_prefill`` without autograd: the plain version on the CPU, the
-    kernel on a CUDA device. ``with_lse``: returns ``(o, lse)``, lse (B,H,S)
-    float32 as ``flash_prefill_plain(return_lse=True)`` gives it; on the card
+    """``flash_prefill`` without autograd: the plain version on the CPU (and
+    on the meta device), the kernel on a CUDA device. ``with_lse``: returns
+    ``(o, lse)``, lse (B,H,S) float32 as ``flash_prefill_plain(return_lse=True)`` gives it; on the card
     the kernel's LSE instance writes it (``flash_prefill.lse_launches``)."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_prefill_plain(q, k, v, causal=causal, q_offset=q_offset,
                                    window=window, prefix_len=prefix_len,
                                    return_lse=with_lse)
@@ -319,7 +320,8 @@ def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or a prefix; each gradient in its input's dtype and shape. ``lse``: that
     forward's log-sum-exp (B,H,S) float32, as ``FlashPrefill`` saves it.
 
-    Tensors on the CPU go through ``flash_prefill_backward_plain`` without
+    Tensors on the CPU (and on the meta device, which computes nothing)
+    go through ``flash_prefill_backward_plain`` without
     ``lse``: P is the softmax of its own scores, the rounding that the CPU's
     training parity against the reference's jitted AdamW steps holds (an
     update divides a near-zero gradient by its own magnitude, so a one-ulp
@@ -331,7 +333,7 @@ def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise. On the card, a call without ``lse`` first launches the forward
     kernel's LSE instance to get it (counted as a ``flash_prefill`` launch).
     """
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_prefill_backward_plain(q, k, v, o, do, causal=causal,
                                             window=window, prefix_len=prefix_len)
     if q.device.type != "cuda":

@@ -26,8 +26,9 @@ what still holds it back are described at the top of the ``.cu`` source;
 ``paged_attention_split_plain`` computes the same partials and merge in
 plain PyTorch.
 
-``paged_attention`` runs the plain version only for tensors on the CPU. On
-CUDA tensors it launches the kernel or raises.
+``paged_attention`` runs the plain version only for tensors on the CPU
+(and on the meta device, which computes nothing). On CUDA tensors it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -265,13 +266,14 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                        sliding window's lower bound)
     returns      (B, n_kv, group, D)
 
-    Tensors on the CPU go through ``paged_attention_plain``; tensors on a
+    Tensors on the CPU (and on the meta device, which computes nothing)
+    go through ``paged_attention_plain``; tensors on a
     CUDA device launch the kernel (counted in ``paged_attention.launches``)
     or raise. The kernel has no backward (it serves the decode step, which
     no training path runs): on a CUDA device, inputs that require a gradient
     (with grad mode on) raise ``NotImplementedError`` instead of losing it.
     """
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths,
                                      starts)
     if q.device.type != "cuda":

@@ -32,7 +32,8 @@ that C B^T is formed once a tile pair for all of them. Every other float32
 shape runs the FMA kernel. Their designs and what holds them back are
 described at the top of the ``.cu`` source.
 
-``ssd_scan`` runs the plain version only for tensors on the CPU. On CUDA
+``ssd_scan`` runs the plain version only for tensors on the CPU (and on the
+meta device, which computes nothing). On CUDA
 tensors it launches the kernel ``forward_route`` names or raises; a launch
 that fails is not retried on another kernel.
 
@@ -305,7 +306,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (b,h,p,n) f32 -> (y (b,s,h,p) in x's dtype, final state (b,h,p,n) f32).
     Any ``s``: a ragged last chunk is masked, not padded.
 
-    Tensors on the CPU go through ``ssd_scan_plain``; tensors on a CUDA
+    Tensors on the CPU (and on the meta device, which computes nothing)
+    go through ``ssd_scan_plain``; tensors on a CUDA
     device launch the kernel ``forward_route`` names (and count the launch
     in ``ssd_scan.launches``, a bf16 launch of the wgmma kernel also in
     ``ssd_scan.tensor_core_launches``, one of the float32 3xTF32 kernel in
@@ -321,9 +323,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _forward(x, dt, A, B, C, h0, chunk):
-    """``ssd_scan`` without autograd: the plain version on the CPU, the
-    kernel on a CUDA device."""
-    if x.device.type == "cpu":
+    """``ssd_scan`` without autograd: the plain version on the CPU (and on
+    the meta device), the kernel on a CUDA device."""
+    if x.device.type in ("cpu", "meta"):
         return ssd_scan_plain(x, dt, A, B, C, chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: device {x.device} not supported")
@@ -458,7 +460,8 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     of the final state (``None``: zero). dx, dB and dC in their inputs'
     dtypes, ddt, dA and dh0 float32; dh0 is ``None`` without ``h0``.
 
-    Tensors on the CPU go through ``ssd_scan_backward_plain``; tensors on a
+    Tensors on the CPU (and on the meta device, which computes nothing)
+    go through ``ssd_scan_backward_plain``; tensors on a
     CUDA device launch ``csrc/ssd_scan_bwd.cu`` (counted in
     ``ssd_scan_backward.launches``, one a call) or raise. The source holds
     two kernels, chosen by ``backward_route`` on the shape alone: the
@@ -474,7 +477,7 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     sums over the head groups and over the batch here are the second pass of
     that cross-block reduction.
     """
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_scan_backward_plain(x, dt, A, B, C, h0, dy, dstate, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_backward: device {x.device} not supported")

@@ -19,7 +19,9 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples").glob("*_torch.py")) + \
+    sorted((ROOT / "scripts").glob("*_torch.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
@@ -47,7 +49,12 @@ def test_sources_were_found():
             "baselines.py", "perf_model.py", "cluster.py", "controllers.py",
             "simulator.py", "workload.py", "trace_io.py", "ledger.py", "metrics.py",
             "overload.py", "recorder.py", "shadow.py", "fleet.py", "scenarios.py",
-            "checks.py", "findings.py", "export.py", "__main__.py"} <= names
+            "checks.py", "findings.py", "export.py", "__main__.py", "steps.py",
+            "roofline.py", "dryrun.py", "mesh.py", "quickstart_torch.py",
+            "serve_autoscaled_torch.py", "train_tiny_torch.py",
+            "cluster_experiment_torch.py", "scenario_sweep_torch.py",
+            "dev_engine_torch.py", "dev_kernels_torch.py", "dev_smoke_torch.py",
+            "dev_sim_torch.py", "profile_sim_torch.py", "ci_fast_torch.py"} <= names
 
 
 def test_every_module_imports_without_gpu_or_triton():
@@ -92,17 +99,48 @@ def test_ssm_entry_points_raise_without_a_gpu():
         Model(cfg).init_cache(1, 16)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device which is neither the CPU, the meta
+    device nor CUDA, and refuses to compute."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a tensor of another device")
+
+
 def test_cuda_tensor_path_never_falls_back_to_plain():
-    """The wrappers take the plain version for CPU tensors only: a tensor on
-    any other device is launched or refused."""
-    from repro_torch.kernels import ops
-    x = torch.zeros((1, 2, 4, 64), device="meta")
+    """The wrappers take the plain version for CPU tensors, and for meta
+    tensors (which compute nothing: the dry run counts the plain versions'
+    products on them), only: a tensor on any other device is launched or
+    refused. On meta no kernel launch is counted."""
+    from repro_torch.kernels import flash_prefill, ops, paged_attention, ssd_scan
+    before = (flash_prefill.flash_prefill.launches,
+              paged_attention.paged_attention.launches, ssd_scan.ssd_scan.launches)
+    x = torch.zeros((1, 2, 16, 64), device="meta")
+    assert ops.flash_prefill(x, x, x).shape == x.shape
+    q = torch.zeros((1, 2, 1, 64), device="meta")
+    pool = torch.zeros((4, 16, 2, 64), device="meta")
+    table = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    lengths = torch.zeros((1,), dtype=torch.int32, device="meta")
+    assert ops.paged_attention(q, pool, pool, table, lengths).device.type == "meta"
+    y, state = ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[..., 0], x[..., 0])
+    assert y.shape == x.shape and state.device.type == "meta"
+    assert before == (flash_prefill.flash_prefill.launches,
+                      paged_attention.paged_attention.launches,
+                      ssd_scan.ssd_scan.launches)
+    e = _Elsewhere(1, 2, 4, 64)
     with pytest.raises(ValueError, match="not supported"):
-        ops.flash_prefill(x, x, x)
+        ops.flash_prefill(e, e, e)
     with pytest.raises(ValueError, match="not supported"):
-        ops.paged_attention(x, x, x, x, x)
+        ops.paged_attention(e, e, e, e, e)
     with pytest.raises(ValueError, match="not supported"):
-        ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[..., 0], x[..., 0])
+        ops.ssd_scan(e, _Elsewhere(1, 2, 4), _Elsewhere(4), _Elsewhere(1, 2, 64),
+                     _Elsewhere(1, 2, 64))
 
 
 def test_unported_configs_and_families_raise():
