@@ -44,9 +44,11 @@ scenario at its default size, but the two that put clusters on TPU-scaled
 rows. It fails if a request is lost. The simulator is host code: it
 launches no kernel. The attention gradient runs through the hand-written
 ``flash_prefill`` backward kernels (bf16 on ``wgmma`` + TMA, float32 on
-FMAs), given the log-sum-exp that the forward's LSE instance saved, and is
-held against its plain version in the ``kernels`` phase, directly and
-through ``FlashPrefill`` under autograd; the SSD scan's gradient through
+3xTF32 ``mma.sync``), given the log-sum-exp that the forward's LSE instance
+saved, and is held against its plain version in the ``kernels`` phase,
+directly and through ``FlashPrefill`` under autograd (float32 also against
+the plain version in float64, within ``TF32_FACTOR`` of the float32 plain
+version's error); the SSD scan's gradient through
 the hand-written ``ssd_scan`` backward kernels (one chunk without state,
 as in training: 3xTF32 products on the tensor cores; otherwise fp32 FMAs),
 held against ``ssd_scan_backward_plain`` there, directly and through
@@ -90,7 +92,8 @@ checkout's at the serving path's shapes, the float32 forwards that training
 launches (the attention's with the log-sum-exp at olmo-1b's training shape,
 the SSD scan's at mamba2-1.3b's and zamba2-2.7b's, and beside them the
 float32 SSD scan at s 341, which stays on the FMA kernel), the attention's gradient
-at whisper-base's encoder and olmo-1b's training shape, and the SSD scan's at
+at whisper-base's encoder and olmo-1b's training shape (bf16 and float32),
+and the SSD scan's at
 mamba2-1.3b's and zamba2-2.7b's, in turns (other, this, this,
 other), each turn in its own process with the kernels built from that
 tree's sources, and prints one ``ab`` JSON line per (tree, turn, case), so
@@ -252,6 +255,7 @@ def zero_counts() -> None:
     """Every launch counter of every kernel wrapper set to 0."""
     decode_graph.add_counts([-c for c in decode_graph.read_counts()])
     flash_prefill_backward.launches = 0
+    flash_prefill_backward.tf32_launches = 0
     flash_prefill.lse_launches = 0
     flash_prefill.tf32_launches = 0
     ssd_scan.tf32_launches = 0
@@ -481,14 +485,14 @@ SERVING_INSTANCES = ("flash_prefill_kernel_wgmma<128, 0, 0>",
 
 # the instantiations on the training paths, float32, which must not spill
 # (the forwards' 3xTF32 ones are listed in FORWARD_TF32_INSTANCES): olmo-1b's
-# backward kernels (D 128); the SSD backward's tensor-core kernel at
+# backward kernels (D 128, 3xTF32); the SSD backward's tensor-core kernel at
 # mamba2-1.3b's widths (N 128: every SSD launch of its training run) and
 # zamba2-2.7b's (N 64); the FMA kernels of the SSD forward and backward
 # where a call has more than one chunk (the card-against-CPU gradients at 2
 # x 320: P 64, N 128 and 64, row blocks of 64) or the smoke widths (P 32, N
 # 16, chunks of 32); zamba2's shared attention's backward at D 80
-TRAINING_INSTANCES = ("flash_prefill_bwd_dq_fma<128>",
-                      "flash_prefill_bwd_dkdv_fma<128>",
+TRAINING_INSTANCES = ("flash_prefill_bwd_dq_tf32<128>",
+                      "flash_prefill_bwd_dkdv_tf32<128>",
                       "ssd_scan_bwd_tc<float, 128>",
                       "ssd_scan_bwd_tc<float, 64>",
                       "ssd_scan_kernel_fma<128, 64>",
@@ -496,8 +500,8 @@ TRAINING_INSTANCES = ("flash_prefill_bwd_dq_fma<128>",
                       "ssd_scan_kernel_fma<16, 32>",
                       "ssd_scan_bwd_kernel<float, 64, 128, 64>",
                       "ssd_scan_bwd_kernel<float, 64, 64, 64>",
-                      "flash_prefill_bwd_dq_fma<80>",
-                      "flash_prefill_bwd_dkdv_fma<80>",
+                      "flash_prefill_bwd_dq_tf32<80>",
+                      "flash_prefill_bwd_dkdv_tf32<80>",
                       "ssd_scan_bwd_kernel<float, 32, 16, 32>")
 # the float32 forwards' 3xTF32 instantiations, all on the training paths:
 # flash_prefill at every head_dim, with and without the log-sum-exp (olmo-1b
@@ -506,6 +510,9 @@ TRAINING_INSTANCES = ("flash_prefill_bwd_dq_fma<128>",
 FORWARD_TF32_INSTANCES = tuple(
     f"flash_prefill_kernel_tf32<{d}, {lse}>" for d in (64, 80, 96, 128) for lse in (0, 1)) + \
     ("ssd_scan_kernel_tf32<128>", "ssd_scan_kernel_tf32<64>")
+# the backward's float32 3xTF32 instantiations: every head_dim
+BACKWARD_TF32_INSTANCES = tuple(f"flash_prefill_bwd_{k}_tf32<{d}>"
+                                for k in ("dq", "dkdv") for d in (64, 80, 96, 128))
 # the backward's bf16 tensor-core instantiations: every head_dim, with and
 # without the general mask
 BACKWARD_WGMMA_INSTANCES = tuple(
@@ -519,8 +526,9 @@ SSD_BACKWARD_TC_INSTANCES = tuple(f"ssd_scan_bwd_tc<{t}, {n}>"
 
 def phase_build() -> None:
     """Builds every kernel source with ``-Xptxas=-v``; fails if a listed
-    serving, training, forward 3xTF32 or backward instantiation (the SSD
-    backward's tensor-core ones included) is missing or spills, or if any
+    serving, training, forward 3xTF32 or backward instantiation (the
+    attention backward's 3xTF32 and wgmma ones, the SSD backward's
+    tensor-core ones) is missing or spills, or if any
     instantiation of the two ``flash_prefill`` sources or of the two SSD
     sources spills."""
     t0 = time.monotonic()
@@ -536,6 +544,7 @@ def phase_build() -> None:
         found.update({k["kernel"]: k for k in kernels})
     listed = {"serving": SERVING_INSTANCES, "training": TRAINING_INSTANCES,
               "forward_tf32": FORWARD_TF32_INSTANCES,
+              "backward_tf32": BACKWARD_TF32_INSTANCES,
               "backward_wgmma": BACKWARD_WGMMA_INSTANCES,
               "ssd_backward_tc": SSD_BACKWARD_TC_INSTANCES}
     emit("build", seconds=round(time.monotonic() - t0, 2),
@@ -738,19 +747,26 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
     wrote (itself held against the plain version's), and once without it
     (the wrapper then launches that instance itself), and through
     ``FlashPrefill`` under autograd (whose backward runs on the autograd
-    engine's device thread), each bit for bit with the first. ``timed``: also its
-    times; returns its record for the kernels line (without the launch
-    count). Bound: the bytes of q, k, v, o, dO, dQ, dK, dV and the
-    log-sum-exp, and 2.5 times the forward's operations (dV, dP, dQ, dK and
-    S again: five products of the forward's two; the kernels do seven, S
-    and dP twice, for want of atomics). Yardstick: the backward of
-    ``scaled_dot_product_attention`` alone (its forward run once before, K/V
+    engine's device thread), each bit for bit with the first. A float32 case
+    is also held against the plain version in float64: each gradient's error
+    of its largest value within ``TF32_FACTOR`` of the float32 plain
+    version's (the 3xTF32 kernels keep float32's precision), and each of its
+    three calls counted in ``flash_prefill_backward.tf32_launches``.
+    ``timed``: also its times; returns its record for the kernels line
+    (without the launch count). Bound: the bytes of q, k, v, o, dO, dQ, dK,
+    dV and the log-sum-exp, and 2.5 times the forward's operations (dV, dP,
+    dQ, dK and S again: five products of the forward's two; the kernels do
+    seven, S and dP twice, for want of atomics), at the bf16 rate or, for
+    float32, as 3xTF32 (``bound_3xtf32_ms`` the operations' time alone, and
+    ``bound_fp32_fma_ms`` the bound at the FP32 FMA rate). Yardstick: the
+    backward of ``scaled_dot_product_attention`` alone (its forward run once before, K/V
     expanded to the query heads outside the timed graph; a boolean mask for
     a window or a prefix)."""
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     qt, kt, vt = _flash_inputs(gen, dtype, B, S, T, H, Hkv, D)
     do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
     before = flash_prefill.lse_launches
+    tf32_before = flash_prefill_backward.tf32_launches
     o, lse = _flash_forward(qt, kt, vt, q_offset=0, with_lse=True, **kw)
     got = flash_prefill_backward(qt, kt, vt, o, do, lse=lse, **kw)
     again = flash_prefill_backward(qt, kt, vt, o, do, **kw)
@@ -774,6 +790,26 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
         for name, g, w in zip(("dq", "dk", "dv"), grads, got):
             if not torch.equal(g, w):
                 fail(f"{label} {name}: {route} differs from the call given lse")
+    torch.cuda.synchronize()
+    tf32_calls = flash_prefill_backward.tf32_launches - tf32_before
+    if tf32_calls != (3 if dtype == torch.float32 else 0):
+        fail(f"{label}: {tf32_calls} of three calls counted as 3xTF32 launches")
+    precision = {}
+    if dtype == torch.float32:
+        # float32's precision: against the plain version in float64, each
+        # gradient's error at most TF32_FACTOR times the float32 plain
+        # version's (one TF32 rounding a product would be hundreds of times it)
+        exact = flash_prefill_backward_plain(*(t.double() for t in (qt, kt, vt, o, do)), **kw)
+        f64_err = {n: _rel_max(g, x) for n, g, x in zip(("dq", "dk", "dv"), got, exact)}
+        plain_f64_err = {n: _rel_max(w, x) for n, w, x in zip(("dq", "dk", "dv"), want, exact)}
+        del exact
+        for n in f64_err:
+            if not f64_err[n] <= TF32_FACTOR * plain_f64_err[n]:
+                fail(f"{label} {n}: error {f64_err[n]:.3e} of the largest value against "
+                     f"float64, beyond {TF32_FACTOR:g} x the float32 plain version's "
+                     f"{plain_f64_err[n]:.3e}")
+        precision = dict(rel_err_float64=f64_err, plain_rel_err_float64=plain_f64_err,
+                         float64_factor=TF32_FACTOR)
     # the kernels a call given lse launches, by the profiler's names: the
     # dtype's two, the general-mask instances for a window or a prefix
     iters = 20 if timed else 1
@@ -782,18 +818,19 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
     instances = {_instance(e.key): e.count / iters for e in rows}
     if dtype == torch.bfloat16:
         masks = int(causal and (window > 0 or prefix_len > 0))
-        want = {f"flash_prefill_bwd_{k}_wgmma<{D}, {masks}>": 1 for k in ("dq", "dkdv")}
+        launched = {f"flash_prefill_bwd_{k}_wgmma<{D}, {masks}>": 1 for k in ("dq", "dkdv")}
     else:
-        want = {f"flash_prefill_bwd_{k}_fma<{D}>": 1 for k in ("dq", "dkdv")}
-    if instances != want:
-        fail(f"{label}: a call launched {instances}, want {want}")
+        launched = {f"flash_prefill_bwd_{k}_tf32<{D}>": 1 for k in ("dq", "dkdv")}
+    if instances != launched:
+        fail(f"{label}: a call launched {instances}, want {launched}")
     shape = dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=T, causal=causal, window=window,
                  prefix_len=prefix_len)
-    route = "wgmma + TMA" if dtype == torch.bfloat16 else "fp32 FMA"
+    route = "wgmma + TMA" if dtype == torch.bfloat16 else "3xTF32 mma.sync"
     if not timed:
         emit("kernels", kernel="flash_prefill_backward", dtype=str(dtype), case=case,
              route=route, kernel_instances=instances, shape=shape, tolerance=TOL[dtype],
-             tolerance_of_max=of_max, max_abs_err=err, lse_max_abs_err=lse_err)
+             tolerance_of_max=of_max, max_abs_err=err, lse_max_abs_err=lse_err,
+             second_call="bit for bit", **precision)
         return None
     ms = sum(_device_us(e) for e in rows) / iters / 1e3
     call_ms = time_ms(lambda: flash_prefill_backward(qt, kt, vt, o, do, lse=lse, **kw))
@@ -813,16 +850,21 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
                                                        retain_graph=True))
     seen = int(mask.sum()) if causal else S * T
     es = qt.element_size()
-    b_ms, b_by = bound((4 * qt.numel() + 4 * kt.numel()) * es + 4 * B * H * S,
-                       2.5 * 4.0 * B * H * D * seen, dtype)
+    n_bytes = (4 * qt.numel() + 4 * kt.numel()) * es + 4 * B * H * S
+    flops = 2.5 * 4.0 * B * H * D * seen
+    b_ms, b_by = bound(n_bytes, flops, dtype)
+    bounds = {}
+    if dtype == torch.float32:   # the products run 3xTF32 on the tensor cores
+        bounds = dict(bound_3xtf32_ms=3 * flops / PEAK_TF32_FLOPS * 1e3, bound_fp32_fma_ms=b_ms)
+        b_ms, b_by = bound_3xtf32(n_bytes, flops)
     emit("kernels", kernel="flash_prefill_backward", dtype=str(dtype), case=case,
          route=route, kernel_instances=instances, shape=shape, tolerance=TOL[dtype],
          tolerance_of_max=of_max, max_abs_err=err, lse_max_abs_err=lse_err, time_ms=ms,
-         call_ms=call_ms,
-         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms)
+         call_ms=call_ms, bound_ms=b_ms, bound_by=b_by, **bounds, plain_ms=plain_ms,
+         library_ms=library_ms, second_call="bit for bit", **precision)
     return {"name": "flash_prefill_backward", **KERNEL_INFO["flash_prefill_backward"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, **bounds, "library_ms": library_ms}
 
 
 def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> dict:
@@ -2792,6 +2834,8 @@ def _launch_counts(names) -> dict:
             "flash_prefill.lse_launches": lambda: flash_prefill.lse_launches,
             "flash_prefill.tf32_launches": lambda: flash_prefill.tf32_launches,
             "flash_prefill_backward": lambda: flash_prefill_backward.launches,
+            "flash_prefill_backward.tf32_launches":
+                lambda: flash_prefill_backward.tf32_launches,
             "ssd_scan": lambda: ssd_scan.launches,
             "ssd_scan.tf32_launches": lambda: ssd_scan.tf32_launches,
             "ssd_scan_backward": lambda: ssd_scan_backward.launches,
@@ -2914,9 +2958,10 @@ def _train_full(smi: str) -> dict:
     gradient norm is finite, the first loss is within ``FIRST_LOSS_TOL`` of
     ``FMA_FIRST_LOSS``, and every step launches the backward kernel once a
     layer and the forward kernel twice a layer, every forward launch the
-    3xTF32 kernel's and writing the log-sum-exp. Then two more steps are
+    3xTF32 kernel's and writing the log-sum-exp, every backward launch the
+    3xTF32 kernels'. Then two more steps are
     profiled for their device-busy time and timed on the wall clock; the
-    profile must show the backward's two FMA kernels once a layer each and
+    profile must show the backward's two 3xTF32 kernels once a layer each and
     no other backward kernel (no row-statistics pass), and the forward's
     LSE instance ``flash_prefill_kernel_tf32<128, 1>`` twice a layer."""
     gc.collect()
@@ -2938,6 +2983,7 @@ def _train_full(smi: str) -> dict:
                 on_step=on_step)
     total_s = time.monotonic() - t0
     launches = {"flash_prefill_backward": flash_prefill_backward.launches,
+                "flash_prefill_backward.tf32_launches": flash_prefill_backward.tf32_launches,
                 "flash_prefill": flash_prefill.launches,
                 "flash_prefill.lse_launches": flash_prefill.lse_launches,
                 "tensor_core_launches": flash_prefill.tensor_core_launches,
@@ -2960,6 +3006,9 @@ def _train_full(smi: str) -> dict:
              f"{launches['flash_prefill.lse_launches']} wrote the log-sum-exp, "
              f"{launches['flash_prefill.tf32_launches']} ran the 3xTF32 kernel, "
              f"{launches['tensor_core_launches']} the bf16 wgmma kernel")
+    if launches["flash_prefill_backward.tf32_launches"] != launches["flash_prefill_backward"]:
+        fail(f"train olmo-1b: of {launches['flash_prefill_backward']} backward launches "
+             f"{launches['flash_prefill_backward.tf32_launches']} ran the 3xTF32 kernels")
     if abs(losses[0] - FMA_FIRST_LOSS[cfg.name]) > FIRST_LOSS_TOL:
         fail(f"train olmo-1b: the first loss {losses[0]!r} is not within {FIRST_LOSS_TOL:g} "
              f"of {FMA_FIRST_LOSS[cfg.name]}")
@@ -2976,7 +3025,8 @@ def _train_full(smi: str) -> dict:
     prof = _profiled(one, 2)
     backward = {k: n for k, n in prof["own_kernel_launches"].items()
                 if k.startswith("flash_prefill_bwd")}
-    want = {"flash_prefill_bwd_dq_fma": cfg.n_layers, "flash_prefill_bwd_dkdv_fma": cfg.n_layers}
+    want = {"flash_prefill_bwd_dq_tf32": cfg.n_layers,
+            "flash_prefill_bwd_dkdv_tf32": cfg.n_layers}
     if backward != want:
         fail(f"train olmo-1b: a profiled step launched the backward kernels {backward}, "
              f"want {want}")
@@ -3235,12 +3285,13 @@ def phase_train(smi: str) -> dict:
     # every float32 attention forward runs the 3xTF32 kernel; an SSD forward
     # does where the call is one chunk (s <= 256) at P 64 (the full widths),
     # else the FMA kernel
+    # and every float32 backward the 3xTF32 kernels
     flash = ("flash_prefill", "flash_prefill.lse_launches", "flash_prefill.tf32_launches",
-             "flash_prefill_backward")
+             "flash_prefill_backward", "flash_prefill_backward.tf32_launches")
     olmo = get_smoke_config("olmo-1b").with_(head_dim=64)
     _train_parity(olmo, "olmo-1b smoke, head_dim=64, float32, remat", 4, 64,
                   dict(zip(flash, (2 * olmo.n_layers, 2 * olmo.n_layers, 2 * olmo.n_layers,
-                                   olmo.n_layers))))
+                                   olmo.n_layers, olmo.n_layers))))
     mamba = get_smoke_config("mamba2-1.3b")
     ssd = ("ssd_scan", "ssd_scan.tf32_launches", "ssd_scan_backward",
            "ssd_scan_backward.tensor_core_launches")
@@ -3248,17 +3299,17 @@ def phase_train(smi: str) -> dict:
                   dict(zip(ssd, (2 * mamba.n_layers, 0, mamba.n_layers, 0))))
     _train_width_parity(get_config("olmo-1b").with_(n_layers=2),
                         "olmo-1b full widths, 2 layers, float32, no remat", 4, 128,
-                        dict(zip(flash, (2, 2, 2, 2))))
+                        dict(zip(flash, (2, 2, 2, 2, 2))))
     # one full chunk of 256 and a ragged one of 64: the carried-state terms,
     # so the SSD forward's and backward's FMA kernels
     _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
                         "mamba2-1.3b full widths, 2 layers, float32, no remat", 2, 320,
                         dict(zip(ssd, (2, 0, 2, 0))))
     # six Mamba2 layers and one call of the shared attention block (D 80,
-    # window 4096: the 3xTF32 forward's instance and the backward's FMA ones)
+    # window 4096: the 3xTF32 forward's and backward's instances)
     _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
                         "zamba2-2.7b full widths, 6 layers, float32, no remat", 2, 320,
-                        {**dict(zip(ssd, (6, 0, 6, 0))), **dict(zip(flash, (1, 1, 1, 1)))})
+                        {**dict(zip(ssd, (6, 0, 6, 0))), **dict(zip(flash, (1, 1, 1, 1, 1)))})
     # the same gradients in one chunk (2 x 128): the 3xTF32 forward and the
     # backward's tensor-core kernel
     _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
@@ -3267,7 +3318,7 @@ def phase_train(smi: str) -> dict:
     _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
                         "zamba2-2.7b full widths, 6 layers, float32, no remat, one chunk",
                         2, 128, {**dict(zip(ssd, (6, 6, 6, 6))),
-                                 **dict(zip(flash, (1, 1, 1, 1)))})
+                                 **dict(zip(flash, (1, 1, 1, 1, 1)))})
     launches, olmo_ms = _train_full(smi)
     _train_lr_witness()
     ssm_launches, ssm_ms = _train_ssm_full(smi)
@@ -3817,6 +3868,7 @@ def ab_turn(src: str, turn: int) -> None:
     for dtype, case, B, H, D, S, causal in (
             (bf16, "whisper-base encoder, full", 1, 8, 64, 1500, False),
             (bf16, "olmo-1b training", 8, 16, 128, 128, True),
+            (torch.float32, "whisper-base encoder, full", 1, 8, 64, 1500, False),
             (torch.float32, "olmo-1b training", 8, 16, 128, 128, True)):
         gen.manual_seed(4)
         qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, H, D)
@@ -3919,9 +3971,11 @@ def main() -> None:
     kernels = [{**records[name], "launches": total[name]}
                for name in (*KERNELS, *TF32_KERNELS)]
     # bound_fp32_fma_ms: the kernels that run float32 on the tensor cores in
-    # 3xTF32 also carry the bound at the FMA rate beside their own
+    # 3xTF32 also carry the bound at the FMA rate beside their own; the
+    # attention backward's row also its operations' time as 3xTF32
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_fp32_fma_ms")
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_fp32_fma_ms",
+             "bound_3xtf32_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in order if k in rec}
                                   for rec in kernels]}))
     print(smi)

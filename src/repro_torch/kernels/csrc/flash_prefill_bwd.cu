@@ -64,15 +64,58 @@
 //   steps are dependent: each waits for its S and dP before the exponent
 //   and for its gradient products before it frees a stage.
 //
-// * fp32: flash_prefill_bwd_dq_fma<D> and _dkdv_fma<D>, the same two
-//   launches as float32 FMAs from padded shared memory (the tensor cores
-//   would round to TF32, and the training parity holds every leaf's gradient
-//   norm to the CPU's). 256 threads, each 4 x 2 or 2 x 4 elements of a
-//   64 x 32 tile. The tile a block holds is 64 rows; the other side is
-//   staged 32 rows at a time, so a block takes 108 KB at D = 128 and two
-//   share an SM. What bounds it: at olmo-1b's training shape operations,
-//   2.5 x 4 x B H D x the seen pairs = 1.35 GFLOP, 20 us at 67 TFLOP/s;
-//   each of a block's 64 x 32 steps waits for its staging at a barrier.
+// * fp32: flash_prefill_bwd_dq_tf32<D> and _dkdv_tf32<D>, the same two
+//   launches with every product on the tensor cores in 3xTF32 (tf32_mma.cuh:
+//   each operand split into a TF32 hi and lo, three mma.sync.m16n8k8
+//   products, fp32 accumulators), which keeps float32's precision
+//   (tests/test_torch_flash_bwd_tf32.py models the kernels' arithmetic on
+//   the CPU against float64); P stays exp(S scale - lse) in fp32 with expf,
+//   as the fp32 forward's. wgmma is not used: it takes a 32-bit operand
+//   K-major only, and the gradient products read K, dO and Q along their
+//   rows. A block is eight warps (256 threads), which stage and compute
+//   alike: the held pair (dq: Q and dO; dkdv: K and V) once, then the other
+//   side's 64-row tiles (dq: K and V; dkdv: Q, dO and the step's lse and
+//   delta rows) into a ring of two stages by cp.async into rows of D + 4
+//   floats (conflict-free fragment loads), each stage completed on an
+//   mbarrier when every thread's copies have landed; step it + 2's copy is
+//   issued after the block's barrier at the end of step it, so it runs under
+//   step it + 1's products. Warp w holds rows 16 (w % 4) .. + 15 of the held
+//   tile and takes rows 32 (w / 4) .. + 31 of every streamed step: the split
+//   that keeps dkdv's registers in bounds at D = 128, where a warp's dK and
+//   dV accumulators of 16 rows take 128 floats a thread and its S^T and dP^T
+//   of 16 x 32 another 32 (a 16 x 64 step would be 64 more). P and dS never
+//   leave the registers: dq computes S = Q K^T and dP = dO V^T and then
+//   dQ += dS K, dkdv the transposed S^T = K Q^T and dP^T = V dO^T and then
+//   dV += P^T dO and dK += dS^T Q, each gradient product reading the score
+//   accumulator as its A fragment with the k axis in pair order (pair_k).
+//   Warps w and w + 4 hold the same rows over the two halves of every step;
+//   at the end warps 4-7 leave their sums in shared memory and warps 0-3 add
+//   them to their own, one fixed order, and write the rows out. On the
+//   causal diagonal (no prefix) a warp whose 16 x 32 sub-tile lies wholly
+//   above it skips the step's products (two warps of eight there). Every
+//   product sums at most four k-steps on the tensor cores before a rounding
+//   fp32 add (see score_tf32), which keeps the error against float64 within
+//   chip_smoke.py's TF32_FACTOR of the plain float32 version's. dq's
+//   prologue computes delta while the copies run, each warp 8 rows with
+//   every load issued first: a block at olmo-1b's shape runs one or two
+//   steps, so its start-up is much of its time.
+//   Shared memory: six 64-row tiles, 203,840 bytes with the header at
+//   D = 128, so one block an SM, at up to 255 registers a thread (dkdv<128>
+//   takes more than 168: a ninth warp, a producer as in the fp32 forward,
+//   puts three warps on one of the SM's four register files and caps every
+//   thread at 168, where dkdv<128> spilled; two blocks of five warps, as the
+//   fp32 forward runs, would leave 113 KB a block, room for a streamed side
+//   of 32 rows in a single buffer, and dkdv 204 registers for its 160 floats
+//   of accumulators and scores). What bounds it at olmo-1b's training shape
+//   (B 8, H 16, D 128, S 128, causal): bytes, q, k, v, o, dO, dQ, dK, dV and
+//   the lse, 67.2 MB, 20.05 us at 3.35 TB/s, against the five needed
+//   products of 1.353 GFLOP, 8.2 us as 3xTF32 at 495 TFLOP/s (20.19 us at
+//   the FP32 FMA rate); the kernels do seven products over 3 of the 4 tile
+//   pairs, 8.46 GFLOP of TF32, 17.1 us at the peak. What holds it back
+//   there: one block of eight warps an SM, and blocks of one or two steps,
+//   so each block's staging (the held pair and the first stage, 135 KB)
+//   and its dependent chains of load, split and product are exposed
+//   (PERF.md).
 //
 // Plain C interface: flash_prefill_bwd_launch() launches (1) and (2) in
 // order on the caller's stream and returns cudaGetLastError().
@@ -84,6 +127,7 @@
 
 #include "flash_hopper.cuh"   // TMA, mbarriers, wgmma; shared with the forward
 #include "flash_mask.cuh"     // visible() and kv_range(), shared with the forward
+#include "tf32_mma.cuh"       // 3xTF32 products on mma.sync, cp.async staging
 
 namespace {
 
@@ -121,314 +165,437 @@ __device__ __forceinline__ int64_t row_at(const Args& a, int b, int h, int row) 
   return (static_cast<int64_t>(b) * a.H + h) * a.S + row;
 }
 
-// =============================================================== fp32, FMA
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kPad = 4;        // floats of padding per shared-memory row
-constexpr int kHalf = 32;      // rows of the streamed side staged at a time
-// Blocks an SM the register allocation is held to: two at D = 128 (128
-// registers; 108 KB of shared memory each), where ptxas fits both kernels
-// without spilling; one below it, where it spilled at 128.
-constexpr int fma_min_blocks(int D) { return D == 128 ? 2 : 1; }
-
-// Rows [row0, row0 + R) of a (rows, D) matrix with row stride `stride`
-// (elements) into dst[R][D + kPad]; rows >= n_rows are zero.
-template <int D, int R>
-__device__ __forceinline__ void stage(float* dst, const float* src, int64_t stride, int row0,
-                                      int n_rows) {
-  constexpr int VPR = D / 4;
-  for (int idx = threadIdx.x; idx < R * VPR; idx += kThreads) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<float4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// s[i][j] = sum_d A[ty + 16 i][d] B[tx + 16 j][d] over two staged tiles.
-template <int D, int NI, int NJ>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, float (&s)[NI][NJ]) {
-  constexpr int DP = D + kPad;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 x[NI];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-      x[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * DP + d);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 y = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * DP + d);
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-        s[i][j] += x[i].x * y.x + x[i].y * y.y + x[i].z * y.z + x[i].w * y.w;
-    }
-  }
-}
-
-// Columns a thread owns of a D-wide row: NC float4 groups at 64 g + 4 tx and
-// REM single columns at 64 NC + REM tx + r (D = 80: one group and one column;
-// D = 96: one group and two).
+// ====================================================== fp32, 3xTF32 mma.sync
+constexpr int kTcWarps = 8;   // warps a block, each staging and computing
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kHalf = 32;     // streamed rows of a step a warp takes
+// Shared memory of the fp32 kernels: three mbarriers (64 bytes), the lse and
+// delta rows of two query stages (dkdv; dq keeps its tile's delta there),
+// then six 64-row tiles of D + 4 floats: the held pair and two stages of the
+// streamed pair.
+constexpr int kTcHead = 64 + 2 * 2 * kTile * static_cast<int>(sizeof(float));
 template <int D>
-struct Cols {
-  static constexpr int NC = D / 64;
-  static constexpr int REM = (D % 64) / 16;
-  static constexpr int NA = 4 * NC + REM;
-};
+constexpr int tc_smem() {
+  return kTcHead + 6 * kTile * (D + 4) * static_cast<int>(sizeof(float));
+}
+// the mbarriers, each completed when every thread's cp.async into it has
+// landed: the held pair's, and each stage's (+ stage)
+constexpr int kFullHeld = 0, kFullStage = 1;
 
-// acc[i][c] += sum_{r < NR} P(ty + 16 i, r) M[r][column c], where P(row, r)
-// is P[row * rs + r * cs] (cs = 1: P as stored; rs = 1: its transpose) and M
-// a staged NR x D tile.
-template <int D, int NR>
-__device__ __forceinline__ void acc_product(float (&acc)[4][Cols<D>::NA], const float* P,
-                                            int rs, int cs, const float* M) {
-  constexpr int DP = D + kPad, NC = Cols<D>::NC, REM = Cols<D>::REM;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 2
-  for (int r = 0; r < NR; ++r) {
-    float pa[4];
+// a 4-byte cp.async (an lse or delta value; zero-filled where bytes is 0)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Rows [row0, row0 + 64) of a (rows, D) float matrix at src (row stride
+// `stride`) into dst[64][D + 4] by cp.async from the whole block; rows past
+// n_rows are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int64_t stride,
+                                           int row0, int n_rows) {
+  cp_async_rows<kTile, D, D + 4, kTcThreads>(dst, src + row0 * stride, stride, n_rows - row0);
+}
+
+// The tensor cores add a product's terms into its fp32 accumulator with
+// truncation, not rounding to nearest: summed over D (or over a step's rows)
+// in one running accumulator, the error against float64 grew to several
+// times the plain float32 version's on the H100, beyond chip_smoke.py's
+// TF32_FACTOR (the lo terms, 2^-11 of the accumulator, lose their low bits
+// at every step). So every product here sums at most four k-steps (32 of
+// its k) on the tensor cores, into fresh registers, and adds that partial
+// sum to the running one in fp32 with rounding to nearest.
+
+// d (16 x 32) = A B^T over D, one warp, 3xTF32: A's 16 rows and B's 32
+// rows in shared memory, rows LD = D + 4 floats apart (S = Q K^T in dq,
+// S^T = K Q^T in dkdv, and the same for dP), in chunks of 32 columns (16 at
+// D = 80). Fragment of d[nt]: lane l holds rows l/4 and l/4 + 8, columns
+// 8 nt + 2 (l%4) and + 1. With LD = 4 (mod 8) floats the A and B fragment
+// loads are free of bank conflicts.
+template <int D>
+__device__ __forceinline__ void score_tf32(float (&d)[4][4], const float* a, const float* b) {
+  constexpr int LD = D + 4, CH = D % 32 == 0 ? 32 : 16;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pa[i] = P[(ty + 16 * i) * rs + r * cs];
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int g = 0; g < NC; ++g) {
-      const float4 m = *reinterpret_cast<const float4*>(M + r * DP + 64 * g + 4 * tx);
+    for (int r = 0; r < 4; ++r) d[nt][r] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += CH) {
+    float part[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][4 * g + 0] += pa[i] * m.x;
-        acc[i][4 * g + 1] += pa[i] * m.y;
-        acc[i][4 * g + 2] += pa[i] * m.z;
-        acc[i][4 * g + 3] += pa[i] * m.w;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+    warp_mma<4, CH, false, false>(part, [&](int m, int k) { return a[m * LD + c0 + k]; },
+                                  [&](int k, int n) { return b[n * LD + c0 + k]; });
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nt][r] += part[nt][r];
+  }
+}
+
+// acc (16 x D) += A M, one warp, 3xTF32: A (16 x 32) is a score-shaped
+// accumulator in registers (dS in dq; P^T or dS^T in dkdv), read as the A
+// operand with its k axis in pair order (tf32_mma.cuh, pair_k): the
+// accumulator fragment of columns 8 kk .. 8 kk + 7 is the A fragment of
+// k-step kk as it stands (a0 = c0, a1 = c2, a2 = c1, a3 = c3), and M's rows
+// 8 kk + 2t and + 1 (K in dq; dO and Q in dkdv, 32 rows in shared memory)
+// are its B fragment, conflict-free at LD = 4 (mod 8). G 8-column tiles of
+// acc at a time: their four k-steps into fresh registers, then added.
+template <int D>
+__device__ __forceinline__ void grad_tf32(float (&acc)[D / 8][4], const float (&p)[4][4],
+                                          const float* m) {
+  constexpr int LD = D + 4, NO = D / 8;
+  constexpr int G = NO % 4 == 0 ? 4 : 2;   // 8-column tiles of a group of products
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n0 = 0; n0 < NO; n0 += G) {
+    float part[G][4];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[j][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kHalf / 8; ++kk) {
+      const float av[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+      const float* mr = m + (8 * kk + 2 * t) * LD + g + 8 * n0;
+      float bv[G][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        bv[j][0] = mr[8 * j];
+        bv[j][1] = mr[LD + 8 * j];
       }
+      mma3_step<G, false, false>(part, 0, av, bv);
     }
 #pragma unroll
-    for (int c = 0; c < REM; ++c) {
-      const float m = M[r * DP + 64 * NC + REM * tx + c];
+    for (int j = 0; j < G; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][4 * NC + c] += pa[i] * m;
-    }
+      for (int r = 0; r < 4; ++r) acc[n0 + j][r] += part[j][r];
   }
 }
 
-// Rows row0 + ty + 16 i (< n_rows) of acc, times `mul`, into a (rows, D)
-// matrix of row stride `stride`.
-template <int D>
-__device__ __forceinline__ void write_rows(float* dst, int64_t stride, int row0, int n_rows,
-                                           const float (&acc)[4][Cols<D>::NA], float mul) {
-  constexpr int NC = Cols<D>::NC, REM = Cols<D>::REM;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// The partial sums of consumer warps 4-7 (the other half of every step's
+// streamed rows) to those of warps 0-3 (the same 16 rows), in fragment order
+// through `buf` (64 x D floats: lane-consecutive, conflict-free); stash by
+// warps 4-7, then, after a barrier, add_stash by warps 0-3, so each
+// gradient element is summed in one fixed order.
+template <int NO>
+__device__ __forceinline__ void stash(const float (&acc)[NO][4], float* buf) {
+  float* mine = buf + ((threadIdx.x >> 5) & 3) * NO * 128 + (threadIdx.x & 31);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n_rows) continue;
-    float* out = dst + row * stride;
+  for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
-    for (int g = 0; g < NC; ++g)
-      *reinterpret_cast<float4*>(out + 64 * g + 4 * tx) =
-          make_float4(acc[i][4 * g] * mul, acc[i][4 * g + 1] * mul, acc[i][4 * g + 2] * mul,
-                      acc[i][4 * g + 3] * mul);
+    for (int r = 0; r < 4; ++r) mine[(4 * nt + r) * 32] = acc[nt][r];
+}
+
+template <int NO>
+__device__ __forceinline__ void add_stash(float (&acc)[NO][4], const float* buf) {
+  const float* mine = buf + ((threadIdx.x >> 5) & 3) * NO * 128 + (threadIdx.x & 31);
 #pragma unroll
-    for (int c = 0; c < REM; ++c) out[64 * NC + REM * tx + c] = acc[i][4 * NC + c] * mul;
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] += mine[(4 * nt + r) * 32];
+}
+
+// Rows row0 + l/4 and + 8 (those < n_rows) of a warp's 16 x D accumulator,
+// times `mul`, into a (rows, D) float matrix of row stride `stride`.
+template <int NO>
+__device__ __forceinline__ void write_acc(float* dst, int64_t stride, int row0, int n_rows,
+                                          const float (&acc)[NO][4], float mul) {
+  const int lane = threadIdx.x & 31, ra = row0 + (lane >> 2), rb = ra + 8;
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) {
+    const int col = 8 * nt + 2 * (lane & 3);
+    if (ra < n_rows)
+      *reinterpret_cast<float2*>(dst + ra * stride + col) =
+          make_float2(acc[nt][0] * mul, acc[nt][1] * mul);
+    if (rb < n_rows)
+      *reinterpret_cast<float2*>(dst + rb * stride + col) =
+          make_float2(acc[nt][2] * mul, acc[nt][3] * mul);
   }
 }
 
-// P and dS of a thread's NI x NJ elements: element (i, j) is query row
-// ty + 16 i of the staged rows (for lse and delta), at position q0 + that,
-// and key k0 + tx + 16 j. p = exp(s scale - lse) where the query exists and
-// sees the key, else 0; ds = p (dp - delta). s becomes p, dp becomes ds.
-template <int NI, int NJ>
-__device__ __forceinline__ void probs(float (&s)[NI][NJ], float (&dp)[NI][NJ],
-                                      const float* lse, const float* delta, int q0, int k0,
-                                      const Args& a) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int qr = ty + 16 * i;
-      const int key = k0 + tx + 16 * j;
-      const int qpos = q0 + qr;
-      const bool seen =
-          qpos < a.S && visible(key, qpos, a.T, a.causal, a.window, a.prefix_len);
-      const float p = seen ? expf(s[i][j] * a.scale - lse[qr]) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = seen ? p * (dp[i][j] - delta[qr]) : 0.f;
-    }
-}
-
-// (1) grid (ceil(S/64), H, B): delta of one query tile's rows, then its dQ
-// over the KV tiles of its kv_range, 32 KV rows at a time.
+// (1) grid (ceil(S/64), H, B), 256 threads: dQ of one query tile over the
+// KV tiles of its kv_range. Warp w holds query rows 16 (w % 4) .. + 15 of
+// the tile and takes KV rows 32 (w / 4) .. + 31 of every 64-row step. The
+// block stages Q and dO once, then K and V of each step into a ring of two
+// stages: step it + 2's copy is issued once every warp is done with step it
+// and lands while step it + 1 computes. The longest tiles (the last, when
+// causal) launch first.
 template <int D>
-__global__ void __launch_bounds__(kThreads, fma_min_blocks(D))
-flash_prefill_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ o,
-                         const float* __restrict__ dO, const float* __restrict__ lse,
-                         float* __restrict__ delta, float* __restrict__ dq, Args a) {
-  constexpr int DP = D + kPad, NA = Cols<D>::NA, PP = kHalf + kPad;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // [64][DP]
-  float* dOs = Qs + kTile * DP;      // [64][DP]
-  float* Ks = dOs + kTile * DP;      // [32][DP]
-  float* Vs = Ks + kHalf * DP;       // [32][DP]
-  float* Ps = Vs + kHalf * DP;       // [64][PP]: dS
-  float* lse_s = Ps + kTile * PP;    // [64]
-  float* delta_s = lse_s + kTile;    // [64]
-  // the last tiles see the most keys when causal: they launch first
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_prefill_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ o,
+                          const float* __restrict__ dO, const float* __restrict__ lse,
+                          float* __restrict__ delta, float* __restrict__ dq, Args a) {
+  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of 16, at most 128");
+  constexpr int LD = D + 4, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
+  float* Qs = reinterpret_cast<float*>(smem_tc + kTcHead);   // [64][LD]
+  float* dOs = Qs + kTile * LD;                              // [64][LD]
+  float* kv = dOs + kTile * LD;   // stage st: K [64][LD] at + 2 st 64 LD, V after it
+  auto bar = [&](int i) { return smem_u32(bars + i); };
+
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  stage<D, kTile>(Qs, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.S);
-  stage<D, kTile>(dOs, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.S);
-  __syncthreads();
-
-  // delta: the 16 lanes that share ty split each of their rows' D columns
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    float acc = 0.f;
-    if (q0 + r < a.S) {
-      const float* orow = o + b * a.o.b + h * a.o.h + (q0 + r) * a.o.s;
-      for (int c = 4 * tx; c < D; c += 64) {
-        const float4 x = *reinterpret_cast<const float4*>(orow + c);
-        const float4 y = *reinterpret_cast<const float4*>(dOs + r * DP + c);
-        acc += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-      }
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (tx == 0) {
-      const bool real = q0 + r < a.S;
-      delta_s[r] = acc;
-      lse_s[r] = real ? lse[row_at(a, b, h, q0 + r)] : 0.f;
-      if (real) delta[row_at(a, b, h, q0 + r)] = acc;
-    }
-  }
-
-  float dq_acc[4][NA];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NA; ++c) dq_acc[i][c] = 0.f;
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int lo, hi;
   kv_range(q0, a.S, a.T, 0, a.causal, a.window, a.prefix_len, lo, hi);
+  const int t0 = lo / kTile;
+  const int n_it = (hi + kTile - 1) / kTile - t0;
   const float* kb = k + b * a.k.b + hk * a.k.h;
   const float* vb = v + b * a.v.b + hk * a.v.h;
-  for (int k0 = lo; k0 < hi; k0 += kHalf) {
-    __syncthreads();                 // the previous step is done with Ks, Vs, Ps
-    stage<D, kHalf>(Ks, kb, a.k.s, k0, a.T);
-    stage<D, kHalf>(Vs, vb, a.v.s, k0, a.T);
-    __syncthreads();
-    float s[4][2], dp[4][2];
-    tile_dot<D, 4, 2>(Qs, Ks, s);
-    tile_dot<D, 4, 2>(dOs, Vs, dp);
-    probs<4, 2>(s, dp, lse_s, delta_s, q0, k0, a);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) Ps[(ty + 16 * i) * PP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    acc_product<D, kHalf>(dq_acc, Ps, PP, 1, Ks);    // dQ += dS K
+  // K and V of step it into its stage; each thread's arrival once its
+  // copies (and every earlier one) have landed
+  auto load_step = [&](int it) {
+    const int st = it & 1, k0 = (t0 + it) * kTile;
+    float* ks = kv + 2 * st * kTile * LD;
+    stage_tile<D>(ks, kb, a.k.s, k0, a.T);
+    stage_tile<D>(ks + kTile * LD, vb, a.v.s, k0, a.T);
+    cp_async_arrive(bar(kFullStage + st));
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar(i), kTcThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  write_rows<D>(dq + b * a.dq.b + h * a.dq.h, a.dq.s, q0, a.S, dq_acc, a.scale);
-}
+  __syncthreads();
+  stage_tile<D>(Qs, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.S);
+  stage_tile<D>(dOs, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.S);
+  cp_async_arrive(bar(kFullHeld));
+  for (int it = 0; it < min(2, n_it); ++it) load_step(it);
 
-// (2) grid (ceil(T/64), Hkv, B): dK and dV of one KV tile, over the group's
-// heads and the query tiles that see it, 32 query rows at a time.
-template <int D>
-__global__ void __launch_bounds__(kThreads, fma_min_blocks(D))
-flash_prefill_bwd_dkdv_fma(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dO,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv, Args a) {
-  constexpr int DP = D + kPad, NA = Cols<D>::NA, PP = kTile + kPad;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                  // [64][DP]
-  float* Vs = Ks + kTile * DP;       // [64][DP]
-  float* Qs = Vs + kTile * DP;       // [32][DP]
-  float* dOs = Qs + kHalf * DP;      // [32][DP]
-  float* Ps = dOs + kHalf * DP;      // [32][PP]: P, then dS
-  float* lse_s = Ps + kHalf * PP;    // [32]
-  float* delta_s = lse_s + kHalf;    // [32]
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  const int group = a.H / a.Hkv;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  stage<D, kTile>(Ks, k + b * a.k.b + hk * a.k.h, a.k.s, k0, a.T);
-  stage<D, kTile>(Vs, v + b * a.v.b + hk * a.v.h, a.v.s, k0, a.T);
+  // query rows row0 and row1 of the tile in this thread
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3), c0 = kHalf * (warp >> 2);
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
 
-  float dk_acc[4][NA], dv_acc[4][NA];
+  // delta of the tile's rows while the copies run: warp w the 8 rows
+  // 8 w .. 8 w + 7, a row's D columns over the lanes, 4 each, every load
+  // issued before the first sum, each row summed by a butterfly (every lane
+  // ends with the same bits); out for dkdv, and into shared memory for the
+  // warps that hold the rows
+  float* delta_s = reinterpret_cast<float*>(smem_tc + 64);   // [64]
+  {
+    const float* ob = o + b * a.o.b + h * a.o.h;
+    const float* db = dO + b * a.dO.b + h * a.dO.h;
+    float4 x[8], y[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NA; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  int qa, qb;
-  q_tiles(k0, a, qa, qb);
-  const int q_end = min(qb * kTile, a.S);
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    for (int q0 = qa * kTile; q0 < q_end; q0 += kHalf) {
-      __syncthreads();               // the previous step is done with Qs, dOs, Ps
-      stage<D, kHalf>(Qs, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.S);
-      stage<D, kHalf>(dOs, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.S);
-      if (threadIdx.x < kHalf) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < a.S ? lse[row_at(a, b, h, row)] : 0.f;
-        delta_s[threadIdx.x] = row < a.S ? delta[row_at(a, b, h, row)] : 0.f;
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + 8 * warp + r;
+      x[r] = y[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < a.S && 4 * lane < D) {
+        x[r] = *reinterpret_cast<const float4*>(ob + row * a.o.s + 4 * lane);
+        y[r] = *reinterpret_cast<const float4*>(db + row * a.dO.s + 4 * lane);
       }
-      __syncthreads();
-      // element (i, j): query row ty + 16 i of the half, key tx + 16 j
-      float s[2][4], dp[2][4];
-      tile_dot<D, 2, 4>(Qs, Ks, s);
-      tile_dot<D, 2, 4>(dOs, Vs, dp);
-      probs<2, 4>(s, dp, lse_s, delta_s, q0, k0, a);
+    }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + 8 * warp + r;
+      float acc = x[r].x * y[r].x + x[r].y * y[r].y + x[r].z * y[r].z + x[r].w * y[r].w;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * PP + tx + 16 * j] = s[i][j];
-      __syncthreads();
-      acc_product<D, kHalf>(dv_acc, Ps, 1, PP, dOs);   // dV += P^T dO
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * PP + tx + 16 * j] = dp[i][j];
-      __syncthreads();
-      acc_product<D, kHalf>(dk_acc, Ps, 1, PP, Qs);    // dK += dS^T Q
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) {
+        delta_s[8 * warp + r] = acc;
+        if (row < a.S) delta[row_at(a, b, h, row)] = acc;
+      }
     }
   }
-  write_rows<D>(dk + b * a.dk.b + hk * a.dk.h, a.dk.s, k0, a.T, dk_acc, a.scale);
-  write_rows<D>(dv + b * a.dv.b + hk * a.dv.h, a.dv.s, k0, a.T, dv_acc, 1.f);
+  const float* lb = lse + row_at(a, b, h, 0);
+  const float lse0 = row0 < a.S ? lb[row0] : 0.f, lse1 = row1 < a.S ? lb[row1] : 0.f;
+  __syncthreads();   // delta_s written
+  const float dl0 = delta_s[r0 + g], dl1 = delta_s[r0 + g + 8];
+
+  float acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+
+  const float* qs = Qs + r0 * LD;
+  const float* dos = dOs + r0 * LD;
+  mbar_wait(bar(kFullHeld), 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const float* ks = kv + (2 * st * kTile + c0) * LD;   // the warp's 32 rows of K
+    const float* vs = ks + kTile * LD;                   // and of V
+    const int k0 = (t0 + it) * kTile + c0;               // their first key
+    mbar_wait(bar(kFullStage + st), (it >> 1) & 1);
+    // causal without a prefix, keys wholly past the warp's last row: P and
+    // dS are 0 there, and the warp skips the step's products
+    if (!(a.causal && a.prefix_len == 0 && k0 > q0 + r0 + 15)) {
+      float s[4][4], dp[4][4];
+      score_tf32<D>(s, qs, ks);     // S = Q K^T
+      score_tf32<D>(dp, dos, vs);   // dP = dO V^T
+      // P = exp(S scale - lse) where the query sees the key, else 0;
+      // dS = P (dP - delta), left in dp
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool second = e >= 2;
+          const int key = k0 + 8 * nt + 2 * t + (e & 1);
+          const int qpos = second ? row1 : row0;
+          const bool seen =
+              qpos < a.S && visible(key, qpos, a.T, a.causal, a.window, a.prefix_len);
+          const float p = seen ? expf(s[nt][e] * a.scale - (second ? lse1 : lse0)) : 0.f;
+          dp[nt][e] = seen ? p * (dp[nt][e] - (second ? dl1 : dl0)) : 0.f;
+        }
+      grad_tf32<D>(acc, dp, ks);    // dQ += dS K
+    }
+    __syncthreads();   // every warp is done with stage st
+    if (it + 2 < n_it) load_step(it + 2);
+  }
+
+  // warps 4-7's sums into stage 0 (free: the loop ended on a barrier, after
+  // every copy landed), then warps 0-3 add them to theirs and write the rows
+  if (warp >= 4) stash<NO>(acc, kv);
+  __syncthreads();
+  if (warp < 4) {
+    add_stash<NO>(acc, kv);
+    write_acc<NO>(dq + b * a.dq.b + h * a.dq.h, a.dq.s, q0 + r0, a.S, acc, a.scale);
+  }
+}
+
+// (2) grid (ceil(T/64), Hkv, B), 256 threads: dK and dV of one KV tile over
+// the group's heads (outer) and the query tiles that see it (inner). Warp w
+// holds KV rows 16 (w % 4) .. + 15 of the tile and takes query rows
+// 32 (w / 4) .. + 31 of every 64-row step. The block stages K and V once,
+// then Q, dO and the step's lse and delta rows into a ring of two stages, as
+// dq stages K and V.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_prefill_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dO,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, Args a) {
+  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of 16, at most 128");
+  constexpr int LD = D + 4, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
+  float* rows = reinterpret_cast<float*>(smem_tc + 64);     // [stage][lse, delta][64]
+  float* Ks = reinterpret_cast<float*>(smem_tc + kTcHead);   // [64][LD]
+  float* Vs = Ks + kTile * LD;                               // [64][LD]
+  float* qd = Vs + kTile * LD;   // stage st: Q [64][LD] at + 2 st 64 LD, dO after it
+  auto bar = [&](int i) { return smem_u32(bars + i); };
+
+  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  const int group = a.H / a.Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int qa, qb;
+  q_tiles(k0, a, qa, qb);
+  const int nq = max(0, qb - qa);
+  const int n_it = group * nq;   // step it: head hk group + it / nq, query tile qa + it % nq
+  // Q, dO and the lse and delta rows of step it into its stage
+  auto load_step = [&](int it) {
+    const int st = it & 1, h = hk * group + it / nq, q0 = (qa + it % nq) * kTile;
+    float* qs = qd + 2 * st * kTile * LD;
+    stage_tile<D>(qs, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.S);
+    stage_tile<D>(qs + kTile * LD, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.S);
+    if (threadIdx.x < 2 * kTile) {   // lse by threads 0-63, delta by 64-127
+      const int i = threadIdx.x & (kTile - 1);
+      const bool ok = q0 + i < a.S;
+      const float* src = (threadIdx.x < kTile ? lse : delta) + row_at(a, b, h, q0);
+      cp_async4(smem_u32(rows + 2 * st * kTile + threadIdx.x), src + (ok ? i : 0),
+                ok ? 4u : 0u);
+    }
+    cp_async_arrive(bar(kFullStage + st));
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar(i), kTcThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  stage_tile<D>(Ks, k + b * a.k.b + hk * a.k.h, a.k.s, k0, a.T);
+  stage_tile<D>(Vs, v + b * a.v.b + hk * a.v.h, a.v.s, k0, a.T);
+  cp_async_arrive(bar(kFullHeld));
+  for (int it = 0; it < min(2, n_it); ++it) load_step(it);
+
+  // KV rows key0 and key1 of the tile in this thread
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3), c0 = kHalf * (warp >> 2);
+  const int key0 = k0 + r0 + g, key1 = key0 + 8;
+
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dk_acc[nt][r] = dv_acc[nt][r] = 0.f;
+
+  const float* ks = Ks + r0 * LD;
+  const float* vs = Vs + r0 * LD;
+  mbar_wait(bar(kFullHeld), 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const int q0 = (qa + it % nq) * kTile + c0;           // the warp's first query
+    const float* qs = qd + (2 * st * kTile + c0) * LD;    // its 32 rows of Q
+    const float* dos = qs + kTile * LD;                   // and of dO
+    const float* lse_r = rows + 2 * st * kTile + c0;      // their lse
+    const float* delta_r = lse_r + kTile;                 // and delta
+    mbar_wait(bar(kFullStage + st), (it >> 1) & 1);
+    // causal without a prefix, queries wholly before the warp's first key
+    if (!(a.causal && a.prefix_len == 0 && q0 + kHalf - 1 < k0 + r0)) {
+      float s[4][4], dp[4][4];
+      score_tf32<D>(s, ks, qs);     // S^T = K Q^T
+      score_tf32<D>(dp, vs, dos);   // dP^T = V dO^T
+      // P^T = exp(S^T scale - lse) where the query (column) sees the key
+      // (row), else 0, left in s; dS^T = P^T (dP^T - delta), left in dp
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * nt + 2 * t + (e & 1);
+          const int qpos = q0 + c;
+          const bool seen = qpos < a.S && visible(e >= 2 ? key1 : key0, qpos, a.T, a.causal,
+                                                  a.window, a.prefix_len);
+          const float p = seen ? expf(s[nt][e] * a.scale - lse_r[c]) : 0.f;
+          s[nt][e] = p;
+          dp[nt][e] = seen ? p * (dp[nt][e] - delta_r[c]) : 0.f;
+        }
+      grad_tf32<D>(dv_acc, s, dos);   // dV += P^T dO
+      grad_tf32<D>(dk_acc, dp, qs);   // dK += dS^T Q
+    }
+    __syncthreads();   // every warp is done with stage st
+    if (it + 2 < n_it) load_step(it + 2);
+  }
+
+  // warps 4-7's sums into stage 0, then warps 0-3 add them and write the rows
+  if (warp >= 4) {
+    stash<NO>(dk_acc, qd);
+    stash<NO>(dv_acc, qd + kTile * LD);
+  }
+  __syncthreads();
+  if (warp < 4) {
+    add_stash<NO>(dk_acc, qd);
+    add_stash<NO>(dv_acc, qd + kTile * LD);
+    write_acc<NO>(dk + b * a.dk.b + hk * a.dk.h, a.dk.s, k0 + r0, a.T, dk_acc, a.scale);
+    write_acc<NO>(dv + b * a.dv.b + hk * a.dv.h, a.dv.s, k0 + r0, a.T, dv_acc, 1.f);
+  }
 }
 
 template <int D>
-int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* dO,
-               void* dq, void* dk, void* dv, const float* lse, float* delta, int B,
-               const Args& a, cudaStream_t stream) {
-  constexpr int DP = D + kPad;
-  constexpr int smem_dq =
-      static_cast<int>(sizeof(float)) * ((2 * kTile + 2 * kHalf) * DP +
-                                         kTile * (kHalf + kPad) + 2 * kTile);
-  constexpr int smem_dkdv =
-      static_cast<int>(sizeof(float)) * ((2 * kTile + 2 * kHalf) * DP +
-                                         kHalf * (kTile + kPad) + 2 * kHalf);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_bwd_dq_fma<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+int launch_tf32(const void* q, const void* k, const void* v, const void* o, const void* dO,
+                void* dq, void* dk, void* dv, const float* lse, float* delta, int B,
+                const Args& a, cudaStream_t stream) {
+  constexpr int smem = tc_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_bwd_dq_tf32<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_prefill_bwd_dkdv_fma<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
+    err = cudaFuncSetAttribute(flash_prefill_bwd_dkdv_tf32<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (a.S + kTile - 1) / kTile, n_kt = (a.T + kTile - 1) / kTile;
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* dOt = static_cast<const float*>(dO);
-  flash_prefill_bwd_dq_fma<D><<<dim3(n_qt, a.H, B), kThreads, smem_dq, stream>>>(
+  flash_prefill_bwd_dq_tf32<D><<<dim3(n_qt, a.H, B), kTcThreads, smem, stream>>>(
       qt, kt, vt, static_cast<const float*>(o), dOt, lse, delta, static_cast<float*>(dq), a);
-  flash_prefill_bwd_dkdv_fma<D><<<dim3(n_kt, a.Hkv, B), kThreads, smem_dkdv, stream>>>(
+  flash_prefill_bwd_dkdv_tf32<D><<<dim3(n_kt, a.Hkv, B), kTcThreads, smem, stream>>>(
       qt, kt, vt, dOt, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -825,7 +992,7 @@ View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 // dk, dv in turn. lse: the forward's log-sum-exp, float32 (B, H, S),
 // contiguous; delta: float32 scratch of B * H * S. window (0 = none) and
 // prefix_len (0 = none) act only when causal. is_bf16: 1 for bfloat16
-// tensors (the wgmma kernels), 0 for float32 (the FMA kernels). Returns
+// tensors (the wgmma kernels), 0 for float32 (the 3xTF32 kernels). Returns
 // cudaGetLastError() after the launches (0 = launched), minus the CUresult
 // if a tensor map cannot be encoded, or cudaErrorInvalidValue for a head_dim
 // the kernels do not take.
@@ -861,10 +1028,10 @@ extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void
     if (D == 80) return launch_wgmma<80>(REPRO_BWD_ARGS);
     if (D == 64) return launch_wgmma<64>(REPRO_BWD_ARGS);
   } else {
-    if (D == 128) return launch_fma<128>(REPRO_BWD_ARGS);
-    if (D == 96) return launch_fma<96>(REPRO_BWD_ARGS);
-    if (D == 80) return launch_fma<80>(REPRO_BWD_ARGS);
-    if (D == 64) return launch_fma<64>(REPRO_BWD_ARGS);
+    if (D == 128) return launch_tf32<128>(REPRO_BWD_ARGS);
+    if (D == 96) return launch_tf32<96>(REPRO_BWD_ARGS);
+    if (D == 80) return launch_tf32<80>(REPRO_BWD_ARGS);
+    if (D == 64) return launch_tf32<64>(REPRO_BWD_ARGS);
   }
 #undef REPRO_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);

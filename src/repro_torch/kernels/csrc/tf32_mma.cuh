@@ -1,17 +1,21 @@
 // 3xTF32 products on the tensor cores and cp.async staging, shared by the
 // kernels that keep float32's precision on mma.sync: the SSD backward's
 // tensor-core kernel (ssd_scan_bwd.cu), the SSD forward's one-chunk kernel
-// (ssd_scan.cu) and flash_prefill's float32 forward (flash_prefill.cu).
+// (ssd_scan.cu), flash_prefill's float32 forward (flash_prefill.cu) and its
+// float32 backward's two kernels (flash_prefill_bwd.cu).
 //
 // 3xTF32. A TF32 rounding keeps about three decimal digits, which is not a
 // float32 trainer's arithmetic. Each operand value v is split as it is read
 // into hi, v rounded to TF32 (to nearest, in two integer operations), and
 // lo = v - hi (exact in fp32, read by the tensor cores truncated to TF32);
 // a product is a_lo b_hi + a_hi b_lo + a_hi b_hi with fp32 accumulators,
-// float32-accurate (tests/test_torch_ssd_tf32.py and
-// tests/test_torch_flash_tf32.py model it on the CPU against float64, with
-// kernels/tf32.py). A value that is exact in TF32 (a bf16 input) has lo = 0:
-// its lo products are left out.
+// float32-accurate (tests/test_torch_ssd_tf32.py,
+// tests/test_torch_flash_tf32.py and tests/test_torch_flash_bwd_tf32.py
+// model it on the CPU against float64, with kernels/tf32.py). The tensor
+// cores add into the accumulator with truncation: a long sum in one
+// accumulator loses more than float32 (flash_prefill_bwd.cu sums at most
+// four k-steps there before a rounding fp32 add). A value that is exact in
+// TF32 (a bf16 input) has lo = 0: its lo products are left out.
 //
 // Fragments of mma.sync.m16n8k8.tf32, lane l of a warp, g = l / 4, t = l % 4:
 // A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
@@ -125,13 +129,13 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 // Rows [0, ROWS) of a (rows, W) float matrix whose row r starts at src + r *
 // stride (floats, W contiguous) into dst[ROWS][LD] by cp.async from the
-// calling warp; rows >= n_valid are filled with zeros (nothing is read for
-// them).
-template <int ROWS, int W, int LD>
+// calling warp (THREADS = 32) or from threads 0 .. THREADS - 1 together;
+// rows >= n_valid are filled with zeros (nothing is read for them).
+template <int ROWS, int W, int LD, int THREADS = 32>
 __device__ __forceinline__ void cp_async_rows(float* dst, const float* src, int64_t stride,
                                               int n_valid) {
   constexpr int CPR = W / 4;   // 16-byte pieces a row
-  for (int idx = threadIdx.x & 31; idx < ROWS * CPR; idx += 32) {
+  for (int idx = threadIdx.x % THREADS; idx < ROWS * CPR; idx += THREADS) {
     const int r = idx / CPR, c = idx % CPR;
     const bool ok = r < n_valid;
     cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * LD + c * 4)),

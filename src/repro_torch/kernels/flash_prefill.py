@@ -267,9 +267,11 @@ def flash_prefill_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                                  causal: bool = True, window: int = 0,
                                  prefix_len: int = 0, lse: torch.Tensor | None = None):
     """The gradients of ``flash_prefill_plain`` (no cached rows) by the
-    explicit formulas, in float32, without autograd: P = softmax(Q K^T scale
-    + mask), dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO O)), dQ = dS K
-    scale, dK = dS^T Q scale, dK and dV summed over each KV head's group.
+    explicit formulas, in float32 (in float64 for float64 inputs, the
+    yardstick of the kernels' precision), without autograd: P = softmax(Q
+    K^T scale + mask), dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO
+    O)), dQ = dS K scale, dK = dS^T Q scale, dK and dV summed over each KV
+    head's group.
     Given the forward's log-sum-exp ``lse`` (B,H,S), P = exp(Q K^T scale -
     lse) where the mask lets a key through, as the kernels form it.
     q, o, do (B,H,S,D); k, v (B,Hkv,T,D). Returns (dq, dk, dv) in the
@@ -278,10 +280,11 @@ def flash_prefill_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     Hkv, T = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Hkv, group, S, D).float()
-    dog = do.reshape(B, Hkv, group, S, D).float()
-    og = o.reshape(B, Hkv, group, S, D).float()
-    kf, vf = k.float(), v.float()
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(B, Hkv, group, S, D).to(ct)
+    dog = do.reshape(B, Hkv, group, S, D).to(ct)
+    og = o.reshape(B, Hkv, group, S, D).to(ct)
+    kf, vf = k.to(ct), v.to(ct)
     s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
     if causal:
         mask = attention_mask(S, T, window=window, prefix_len=prefix_len,
@@ -290,7 +293,7 @@ def flash_prefill_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     if lse is None:
         p = torch.softmax(s, dim=-1)
     else:   # a masked score's exp(-1e30 - lse) is 0
-        p = torch.exp(s - lse.float().reshape(B, Hkv, group, S, 1))
+        p = torch.exp(s - lse.to(ct).reshape(B, Hkv, group, S, 1))
     dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
     dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
     delta = (dog * og).sum(-1, keepdim=True)
@@ -329,8 +332,9 @@ def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device launch
     ``csrc/flash_prefill_bwd.cu`` (counted in
     ``flash_prefill_backward.launches``: one a call, whose two kernels run
-    in turn, dQ then dK/dV; bf16 on the tensor cores, float32 on FMAs) or
-    raise. On the card, a call without ``lse`` first launches the forward
+    in turn, dQ then dK/dV; bf16 on ``wgmma``, float32 on 3xTF32
+    ``mma.sync``, counted in ``flash_prefill_backward.tf32_launches`` too)
+    or raise. On the card, a call without ``lse`` first launches the forward
     kernel's LSE instance to get it (counted as a ``flash_prefill`` launch).
     """
     if q.device.type in ("cpu", "meta"):
@@ -378,7 +382,9 @@ def flash_prefill_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_prefill_backward kernel launch failed: CUDA "
                            f"error {err}")
     flash_prefill_backward.launches += 1
+    flash_prefill_backward.tf32_launches += int(q.dtype == torch.float32)
     return dq, dk, dv
 
 
 flash_prefill_backward.launches = 0   # calls that launched the CUDA kernels
+flash_prefill_backward.tf32_launches = 0   # of those, the float32 3xTF32 kernels'

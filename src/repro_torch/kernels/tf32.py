@@ -1,15 +1,16 @@
 """The rounding of the 3xTF32 products, in plain PyTorch.
 
 The float32 kernels that run on the tensor cores (``csrc/tf32_mma.cuh``: the
-SSD forward's one-chunk kernel, the SSD backward's tensor-core kernel and
-``flash_prefill``'s float32 forward) keep float32's precision by splitting
-each operand value v into hi, v rounded to TF32 (to nearest, ties away from
-zero, at 13 bits below a float32's mantissa, as ``cvt.rna.tf32.f32``
-rounds), and lo = v - hi, which the tensor cores read truncated to TF32
-(they take a TF32 operand's top 19 bits); a product is a_lo b_hi + a_hi b_lo
-+ a_hi b_hi, accumulated in float32. A product of two TF32 values is exact
-in float32, so ``torch.matmul`` in float32 on the split operands models what
-the tensor cores compute, up to the order of the float32 sums. The tests
+SSD forward's one-chunk kernel, the SSD backward's tensor-core kernel,
+``flash_prefill``'s float32 forward and its float32 backward's two kernels)
+keep float32's precision by splitting each operand value v into hi, v
+rounded to TF32 (to nearest, ties away from zero, at 13 bits below a
+float32's mantissa, as ``cvt.rna.tf32.f32`` rounds), and lo = v - hi,
+which the tensor cores read truncated to TF32 (they take a TF32 operand's
+top 19 bits); a product is a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated
+in float32. A product of two TF32 values is exact in float32, so
+``torch.matmul`` in float32 on the split operands models what the tensor
+cores compute, up to the order of the float32 sums. The tests
 use these functions to hold the kernels' formulas against float64 on the
 CPU; no kernel calls them.
 """
