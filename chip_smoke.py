@@ -81,6 +81,17 @@ around calls back to back, which the host's launch rate bounds from below. The l
 (``{"kernels": [...]}``) and the card's name and power limit come just
 before it.
 
+The ``mesh`` phase runs llama-70b at full width, its depth cut, through
+``launch.steps.sharded_step`` on meshes of 1 x 2, 1 x 4 and 2 x 2 ranks,
+each rank a process of its own (``--mesh-rank``) sharing the card over gloo
+(one card a rank over NCCL where there are as many): float32 at 2 layers
+and bf16 at 8 layers (four prompts prefilled one at a time into the pool's
+slots, 16 decode steps fed world 1's greedy tokens), each rank's logits held
+against the same model at world 1 on the card (``MESH_TOL``), its
+``flash_prefill`` and ``paged_attention`` launches against layers x calls,
+its peak memory beside the dry run's per-device bytes. A rank that fails
+fails the phase. The parent builds the kernels before any rank starts.
+
 ``--phases kernels,parity`` runs a subset (env and build always run); the
 final ``ok`` line is printed only when every phase ran. ``--phases sim``
 runs the simulator alone, ``--phases serve,sim`` with the prefill report
@@ -103,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import gc
 import inspect
 import json
@@ -116,6 +128,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -167,7 +180,7 @@ from repro_torch.training import tree  # noqa: E402
 from repro_torch.training.optimizer import adamw_init  # noqa: E402
 
 ALL_PHASES = ("kernels", "parity", "graph", "serve", "cluster", "train", "sim", "launch",
-              "examples")
+              "examples", "mesh")
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -922,7 +935,9 @@ def _flash_tf32_cases(gen) -> float:
     in every case of ``FLASH_TF32_CASES``, (B, S, H, D) tensors as strided
     views: the instance without the log-sum-exp and the LSE instance
     (its log-sum-exp within ``LSE_TOL`` of the plain version's), each output
-    within ``TOL``, each called twice and bit for bit, each launch counted
+    within ``TOL`` and, against the plain version in float64, within
+    ``TF32_FACTOR`` of the float32 plain version's error, each called twice
+    and bit for bit, each launch counted
     in ``flash_prefill.tf32_launches`` (none in ``tensor_core_launches``,
     the bf16 kernel's) and seen by the profiler as the
     instance ``flash_prefill_kernel_tf32<D, LSE>``. Returns the largest
@@ -952,6 +967,17 @@ def _flash_tf32_cases(gen) -> float:
         lse_err = (lse - lse_want).abs().max().item()
         if not lse_err <= LSE_TOL:
             fail(f"{label}: the log-sum-exp is off by {lse_err:.3e}")
+        # float32's precision: against the plain version in float64, each
+        # instance's error at most TF32_FACTOR times the float32 plain version's
+        exact = flash_prefill_plain(qt.double(), kt.double(), vt.double(), **kw)
+        plain_f64_err = _rel_max(want, exact)
+        f64_err = {"LSE 0": _rel_max(o, exact), "LSE 1": _rel_max(o_lse, exact)}
+        del exact
+        for what, e in f64_err.items():
+            if not e <= TF32_FACTOR * plain_f64_err:
+                fail(f"{label}, {what}: error {e:.3e} of the largest value against float64, "
+                     f"beyond {TF32_FACTOR:g} x the float32 plain version's "
+                     f"{plain_f64_err:.3e}")
         for what, a, b in (("o", o, o_again), ("o, LSE 1", o_lse, o_lse_again),
                            ("lse", lse, lse_again)):
             if not torch.equal(a, b):
@@ -968,7 +994,9 @@ def _flash_tf32_cases(gen) -> float:
              shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=T, q_offset=q_offset, causal=causal,
                         window=window, prefix_len=prefix_len),
              tolerance=TOL[dtype], max_abs_err=err, lse_tolerance=LSE_TOL,
-             lse_max_abs_err=lse_err, second_call="bit for bit")
+             lse_max_abs_err=lse_err, rel_err_float64=f64_err,
+             plain_rel_err_float64=plain_f64_err, float64_factor=TF32_FACTOR,
+             second_call="bit for bit")
         if main_err is None:
             main_err = err
     return main_err
@@ -1111,6 +1139,11 @@ def phase_kernels(gen) -> dict:
                 ("zamba2-2.7b, D=80", 32, 1, 80, serve_lengths, None),
                 ("D=80, window", 32, 1, 80, window_lengths, window_starts)):
             _paged_timed(gen, F, dtype, B, kv, g, d, pps, case, lengths, starts)
+        # a rank of the mesh phase's llama-70b (64 heads over 8 KV heads):
+        # its 4 rows at the bf16 prompts 8 steps into decoding, 23 pages a
+        # row, the KV heads of a model axis of 4 and of 2 (group 8)
+        for case, kv in (("llama-70b, a rank of 1 x 4", 2), ("llama-70b, a rank of 1 x 2", 4)):
+            _paged_timed(gen, F, dtype, 4, kv, 8, 128, 23, case, [72, 158, 251, 345])
         # whisper-base's cross-attention: every slot over its 1500 encoder
         # rows (94 pages of 16, 6 splits), n_kv 8, group 1, D 64
         _paged_timed(gen, F, dtype, B, 8, 1, 64, 94, "whisper-base cross, D=64",
@@ -1175,6 +1208,10 @@ def phase_kernels(gen) -> dict:
         ("zamba2-2.7b, D=80", 32, 32, 80, 341, 0, 0, 0),
         ("D=80, window 100", 32, 32, 80, 341, 0, 100, 0),
         ("zamba2-2.7b, D=80, window 4096", 32, 32, 80, 341, 0, 4096, 0),
+        # a rank of the mesh phase's llama-70b at its longest prompt: the
+        # heads of a model axis of 4 and of 2 (group 8)
+        ("llama-70b, a rank of 1 x 4", 16, 2, 128, 337, 0, 0, 0),
+        ("llama-70b, a rank of 1 x 2", 32, 4, 128, 337, 0, 0, 0),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for case, h, hkv, d, S, q_offset, window, prefix_len in new_cases:
@@ -1340,8 +1377,10 @@ def _ssd_bwd_dA_scale(dt, A, ddt) -> torch.Tensor:
 def _ssd_scan_backward_cases(gen) -> dict:
     """``ssd_scan_backward`` against ``ssd_scan_backward_plain`` on the card
     (each gradient within ``SSD_TOL`` of its largest magnitude, dA of
-    ``_ssd_bwd_dA_scale``), a second call bit for bit with the first (no
-    atomics), in float32 and bf16: mamba2-1.3b's and zamba2-2.7b's training
+    ``_ssd_bwd_dA_scale``; on the float32 tensor-core kernel each
+    gradient's error against the plain version in float64 is recorded over
+    the float32 plain version's, as ``float64_reading``), a second call bit
+    for bit with the first (no atomics), in float32 and bf16: mamba2-1.3b's and zamba2-2.7b's training
     shapes (x, B and C strided views, as the model slices them; timed), one
     full chunk of 256 (ten tile pairs), s = 1, on the tensor-core kernel;
     s 341, eight chunks of carried state (G and h both non-zero), h0 with a
@@ -1406,6 +1445,22 @@ def _ssd_scan_backward_cases(gen) -> dict:
                     fail(f"{label} {nm}: error {err.max().item():.3e} beyond {SSD_TOL[dtype]:g} "
                          f"of {scale.max().item():.3e}")
                 errs[nm] = float((err / scale).max())
+            precision = {}
+            if dtype == torch.float32 and tensor_cores:
+                # a reading, not a gate: each gradient's error of its largest
+                # value against the plain version in float64, over the float32
+                # plain version's. The tensor-core kernel sums C B^T over all
+                # of N in one truncating accumulator, and dx's ratio passes
+                # TF32_FACTOR (20x at s = 1); a rounded partial sum there
+                # spills at its 168 registers (ROADMAP.md, Queue C)
+                exact = ssd_scan_backward_plain(
+                    *(None if t is None else t.double()
+                      for t in (x, dt, A, B, C, h0, dy, dstate)), chunk)
+                precision["float64_reading"] = {
+                    nm: _rel_max(g, e) / _rel_max(w, e)
+                    for nm, g, w, e in zip(names, got, want, exact)
+                    if e is not None and bool(e.abs().max() > 0)}   # dA is 0 at s = 1
+                del exact
             rec = dict(kernel="ssd_scan_backward", dtype=str(dtype), case=name,
                        route="3xTF32 mma.sync" if tensor_cores else "fp32 FMA",
                        heads_per_block=heads,
@@ -1413,7 +1468,8 @@ def _ssd_scan_backward_cases(gen) -> dict:
                                   h0=with_h0, dstate=with_dstate, strided=p == 64),
                        tolerance=SSD_TOL[dtype], rel_err=errs,
                        max_abs_err=max(float((g.float() - w.float()).abs().max())
-                                       for g, w in zip(got, want) if w is not None))
+                                       for g, w in zip(got, want) if w is not None),
+                       **precision)
             if dtype == torch.float32 and name == "mamba2-1.3b training":
                 # the autograd route: SSDScan's backward is the direct call
                 leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, B, C)]
@@ -3729,6 +3785,268 @@ def phase_launch(smi: str, served, trained) -> None:
     emit("launch", gpu=smi, roofline_shares=shares)
 
 
+# ------------------------------------------------------------ the mesh
+# the paper's large model at full width, its depth cut, on meshes of 2 and 4
+# ranks (data x model), each held against the same model at world 1 on the
+# same card. The mesh's modules are imported here, not with the others: an
+# ``--ab`` turn imports this script against an older tree, which has none.
+MESH_ARCH = "llama-70b"
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+MESH_SEED = 0
+# by dtype: layers, the prompts' lengths, decode steps, and whether the
+# prompts are prefilled as one batch (float32) or one at a time into the
+# pool's slots, as an engine admits them (bfloat16)
+MESH_RUNS = {torch.float32: (2, (128, 128, 128, 128), 8, True),
+             torch.bfloat16: (8, (64, 150, 243, 337), 16, False)}
+
+
+def _name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+MESH_RUNS_NAMES = tuple(map(_name, MESH_RUNS))
+# the sharded logits against world 1's (atol and rtol): float32 within the
+# parity phase's TOL; bfloat16 within twice its TOL, since both runs are
+# bfloat16 runs that err from the exact logits by up to TOL each (a rank
+# rounds its partial sums to bfloat16 before their float32 all_reduce, where
+# world 1 rounds each product once; at the smoke widths on the CPU either
+# run is 0.04-0.056 off a float32 run of the same weights)
+MESH_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: 2 * TOL[torch.bfloat16]}
+MESH_RANK_LIMIT_S = 300
+
+
+def _mesh_config(dtype):
+    layers = MESH_RUNS[dtype][0]
+    return get_config(MESH_ARCH).with_(n_layers=layers,
+                                       dtype=_name(dtype))
+
+
+def _mesh_prompts(dtype) -> list:
+    rng = np.random.default_rng(7)
+    vocab = get_config(MESH_ARCH).vocab_size
+    return [torch.from_numpy(rng.integers(0, vocab, (1, n))).long()
+            for n in MESH_RUNS[dtype][1]]
+
+
+def _mesh_generate(cfg, dtype, params, prefill_for, decode, pool_for, rows: slice,
+                   feed=None):
+    """Prefill the prompts of ``rows`` and decode ``MESH_RUNS[dtype]``
+    steps: ``prefill_for(shape)`` gives a prefill step, ``decode(params,
+    tokens, pool)`` a decode step over the global batch's tokens (B, 1),
+    ``pool_for(n_rows, cap)`` an empty pool. Each decode step is fed
+    ``feed[i]`` (B,), or, without ``feed``, the greedy tokens of the step
+    before. Returns the logits of each step (rows, V) and the tokens fed."""
+    from repro_torch.models.transformer import cache_rows
+    _, lengths, n_steps, batched = MESH_RUNS[dtype]
+    prompts = [p.cuda() for p in _mesh_prompts(dtype)]
+    B, cap = len(prompts), max(lengths) + n_steps
+    if batched:
+        shape = InputShape("mesh_prefill", cap, B, "prefill")
+        logits, pool = prefill_for(shape)(params, {"tokens": torch.cat(prompts)})
+    else:
+        pool, logits = pool_for(rows.stop - rows.start, cap), []
+        for i in range(rows.start, rows.stop):
+            n = lengths[i]
+            shape = InputShape(f"mesh_prompt{i}", n, 1, "prefill")
+            lg, one = prefill_for(shape)(params, {"tokens": prompts[i]})
+            Model(cfg).write_slot(pool, i - rows.start, {
+                key: cache_rows(one, key, 0)[:, None, :n] for key in ("k", "v")})
+            pool["pos"][i - rows.start] = n
+            logits.append(lg)
+        logits = torch.cat(logits)
+    out, fed = [logits.float().cpu()], []
+    for i in range(n_steps):
+        if feed is None:
+            full = torch.zeros((B,), dtype=torch.long)
+            full[rows] = out[-1].argmax(-1)
+            tok = full
+        else:
+            tok = feed[i]
+        fed.append(tok)
+        logits, pool = decode(params, tok[:, None].cuda(), pool)
+        out.append(logits.float().cpu())
+    return out, torch.stack(fed)
+
+
+def _mesh_world1(dtype) -> dict:
+    """The reference: the cut model at world 1 on the card, greedy."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg = _mesh_config(dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    params = Model(cfg).init(gen, dtype=dtype, device="cuda")
+    B = len(MESH_RUNS[dtype][1])
+    with torch.no_grad():
+        logits, feed = _mesh_generate(
+            cfg, dtype, params, lambda shape: make_prefill_step(cfg, shape),
+            make_serve_step(cfg),
+            lambda n, cap: Model(cfg).init_cache(n, cap, dtype=dtype, device="cuda"),
+            slice(0, B))
+    torch.cuda.synchronize()
+    del params
+    return {"logits": logits, "feed": feed}
+
+
+def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -> None:
+    """One rank of a mesh phase run (``--mesh-rank``): the cut model's shards
+    from the same seed as world 1 (``params.init_shard``), the sharded
+    prefill and decode steps fed world 1's tokens, each step's logits held
+    against world 1's rows, and one JSON line: its launches against layers x
+    calls, its peak memory and its seconds. Any failure exits non-zero."""
+    from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+    from repro_torch.launch.steps import batch_rows, local_config, sharded_step
+    from repro_torch.params import init_shard
+    dist.init_process_group(backend, init_method=f"file://{work}/store_{world}_{model_axis}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_LIMIT_S))
+    mesh = make_local_mesh(model_axis, backend="cuda")
+    coords, sizes = mesh_coords(mesh), mesh_axis_sizes(mesh)
+    label = f"mesh {sizes['data']}x{sizes['model']} rank {rank}"
+    reference = torch.load(os.path.join(work, "world1.pt"))
+    out = {"rank": rank, "coords": coords, "backend": backend,
+           "device": torch.cuda.current_device()}
+    for dtype, (layers, lengths, n_steps, batched) in MESH_RUNS.items():
+        name = _name(dtype)
+        cfg = _mesh_config(dtype)
+        rows = batch_rows(mesh, len(lengths))
+        lcfg = local_config(cfg, sizes)
+        ref = reference[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.monotonic()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(MESH_SEED)
+        params = init_shard(cfg, gen, mesh, coords, dtype=dtype, device="cuda")
+        decode_shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths),
+                                  "decode")
+        with torch.no_grad():
+            logits, _ = _mesh_generate(
+                cfg, dtype, params, lambda shape: sharded_step(cfg, shape, mesh)[0],
+                sharded_step(cfg, decode_shape, mesh)[0],
+                lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype, device="cuda"),
+                rows, feed=ref["feed"])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = {"flash_prefill": flash_prefill.launches,
+                    "paged_attention": paged_attention.launches,
+                    "flash_prefill_tf32": flash_prefill.tf32_launches,
+                    "flash_prefill_wgmma": flash_prefill.tensor_core_launches}
+        prefills = 1 if batched else rows.stop - rows.start
+        want = {"flash_prefill": layers * prefills, "paged_attention": layers * n_steps}
+        # every float32 prefill on the 3xTF32 kernel, every bf16 one on wgmma
+        want["flash_prefill_tf32" if dtype == torch.float32 else "flash_prefill_wgmma"] = \
+            layers * prefills
+        if any(launches[k] != v for k, v in want.items()):
+            fail(f"{label} {name}: launches {launches}, want {want}")
+        err, agree = 0.0, 0
+        for i, (got, exp) in enumerate(zip(logits, ref["logits"])):
+            err = max(err, check_close(f"{label} {name} step {i}", got, exp[rows], dtype,
+                                       MESH_TOL))
+            if i < n_steps:
+                agree += int((got.argmax(-1) == ref["feed"][i][rows]).sum())
+        out[name] = {"layers": layers, "rows": [rows.start, rows.stop],
+                     "local_heads": lcfg.n_heads, "local_kv_heads": lcfg.n_kv_heads,
+                     "max_abs_err": err, "tolerance": MESH_TOL[dtype],
+                     "max_abs_logit": max(float(x.abs().max()) for x in ref["logits"]),
+                     "greedy_agree": agree,
+                     "greedy_of": n_steps * (rows.stop - rows.start),
+                     "launches": launches, "launches_want": want,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "seconds": seconds}
+        del params
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def _mesh_ranks(smi: str, work: str, data: int, model: int) -> dict:
+    """One mesh's ranks, started together; their lines, each beside the dry
+    run's per-device bytes for the same tree. Fails unless every rank exits
+    0 within ``MESH_RANK_LIMIT_S``."""
+    from repro_torch.launch.mesh import mesh_shape
+    world = data * model
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               str(r), "--mesh-world", str(world), "--mesh-model",
+                               str(model), "--mesh-dir", work, "--mesh-backend", backend],
+                              env=_port_env(), cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    results = []
+    try:
+        for proc in procs:
+            try:
+                results.append((proc, *proc.communicate(timeout=MESH_RANK_LIMIT_S)))
+            except subprocess.TimeoutExpired:
+                fail(f"mesh {data}x{model}: a rank ran past {MESH_RANK_LIMIT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.monotonic() - t0
+    bad = [f"rank {r} exit {p.returncode}:\n{err[-3000:]}"
+           for r, (p, _, err) in enumerate(results) if p.returncode != 0]
+    if bad:
+        fail(f"mesh {data}x{model} ({backend}): " + "\n".join(bad))
+    planned = {}
+    for dtype, (layers, lengths, n_steps, _) in MESH_RUNS.items():
+        shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths), "decode")
+        planned[_name(dtype)] = roofline.plan(
+            _mesh_config(dtype), shape, mesh=mesh_shape((data, model)))[1]["arg_bytes"]
+    ranks = []
+    for _, out, _ in results:
+        rec = json.loads(out.strip().splitlines()[-1])
+        for name, arg_bytes in planned.items():
+            rec[name]["dryrun_arg_bytes"] = arg_bytes
+        emit("mesh_rank", gpu=smi, mesh=f"{data}x{model}", **rec)
+        ranks.append(rec)
+    return {"backend": backend, "wall_s": wall, "ranks": ranks}
+
+
+def phase_mesh(smi: str) -> dict:
+    """llama-70b at full width, its depth cut, through ``sharded_step`` on
+    the meshes of ``MESH_SHAPES``: world 1 on the card first (the reference,
+    greedy), then each mesh's ranks (``mesh_rank``), sharing the card over
+    gloo or one card a rank over NCCL where there are enough. Returns the
+    ranks' launches, summed."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as work:
+        reference, world1_s = {}, {}
+        for dtype in MESH_RUNS:
+            t1 = time.monotonic()
+            reference[_name(dtype)] = _mesh_world1(dtype)
+            world1_s[_name(dtype)] = time.monotonic() - t1
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(reference, os.path.join(work, "world1.pt"))
+        meshes = {f"{d}x{m}": _mesh_ranks(smi, work, d, m) for d, m in MESH_SHAPES}
+    launches = {}
+    for res in meshes.values():
+        for rec in res["ranks"]:
+            for name in MESH_RUNS_NAMES:
+                for k, v in rec[name]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    emit("mesh", gpu=smi, arch=MESH_ARCH, reduced="layers", wall_s=time.monotonic() - t0,
+         runs={_name(dt): {"layers": r[0], "prompts": list(r[1]),
+                                                "decode_steps": r[2]}
+               for dt, r in MESH_RUNS.items()},
+         world1_s=world1_s,
+         meshes={k: {"backend": v["backend"], "wall_s": v["wall_s"],
+                     "max_abs_err": {n: max(r[n]["max_abs_err"] for r in v["ranks"])
+                                     for n in MESH_RUNS_NAMES},
+                     "greedy_agree": {n: [sum(r[n]["greedy_agree"] for r in v["ranks"]
+                                              if r["coords"]["model"] == 0),
+                                          sum(r[n]["greedy_of"] for r in v["ranks"]
+                                              if r["coords"]["model"] == 0)]
+                                      for n in MESH_RUNS_NAMES}}
+                 for k, v in meshes.items()},
+         launches=launches)
+    return launches
+
+
 # ------------------------------------------------------------ the twins
 # each model-running twin of examples/ and scripts/ at its smoke size on the
 # card, and the line that says it worked
@@ -3918,6 +4236,10 @@ def main() -> None:
                     help="time another tree's kernels and this one's in turns instead")
     ap.add_argument("--time-src", help=argparse.SUPPRESS)
     ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
+    for flag in ("--mesh-rank", "--mesh-world", "--mesh-model"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-backend", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in ALL_PHASES for p in phases):
@@ -3930,6 +4252,10 @@ def main() -> None:
         return
     if args.time_src:
         ab_turn(args.time_src, args.turn)
+        return
+    if args.mesh_rank is not None:
+        mesh_rank(args.mesh_rank, args.mesh_world, args.mesh_model, args.mesh_dir,
+                  args.mesh_backend)
         return
 
     smi = phase_env()
@@ -3950,24 +4276,26 @@ def main() -> None:
         phase_launch(smi, served, trained)
     if "examples" in phases:
         phase_examples(smi)
+    mesh_launches = phase_mesh(smi) if "mesh" in phases else {}
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return
     # each kernel's launches over the main paths it serves: its serve path's,
     # for the attention kernels the cluster's, and the training run's
     total = {name: launches[name] + cluster_launches.get(name, 0) +
-             train_launches.get(name, 0) for name in KERNELS}
-    # the float32 forwards' 3xTF32 kernels run on the training path only
-    # (serving is bf16): their rows count them, and their wrappers' rows
-    # only the wrappers' other kernels, so that no launch is counted twice
+             train_launches.get(name, 0) + mesh_launches.get(name, 0) for name in KERNELS}
+    # the float32 forwards' 3xTF32 kernels run on the training path and the
+    # mesh's float32 run (serving is bf16): their rows count them, and their
+    # wrappers' rows only the wrappers' other kernels, so that no launch is
+    # counted twice
     for name, wrapper in zip(TF32_KERNELS, TENSOR_CORE_KERNELS):
-        total[name] = train_launches[name]
-        total[wrapper] -= train_launches[name]
+        total[name] = train_launches[name] + mesh_launches.get(name, 0)
+        total[wrapper] -= total[name]
     idle = [name for name, n in total.items() if n <= 0]
     if idle:
         fail(f"no launch on the main paths of {idle}: {total}")
     emit("launches", serve=launches, cluster=cluster_launches, train=train_launches,
-         total=total)
+         mesh=mesh_launches, total=total)
     kernels = [{**records[name], "launches": total[name]}
                for name in (*KERNELS, *TF32_KERNELS)]
     # bound_fp32_fma_ms: the kernels that run float32 on the tensor cores in

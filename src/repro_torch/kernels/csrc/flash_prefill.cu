@@ -69,7 +69,11 @@
 //   cores in 3xTF32 (tf32_mma.cuh: each operand split into a TF32 hi and
 //   lo, three mma.sync.m16n8k8 products, fp32 accumulators), which keeps
 //   float32's precision (tests/test_torch_flash_tf32.py models it on the CPU
-//   against float64); the fp32 trainer's forward, with LSE = 1. wgmma is not
+//   against float64); the fp32 trainer's forward, with LSE = 1. Every
+//   product sums at most four k-steps on the tensor cores before a rounding
+//   fp32 add (the output over all KV steps too): with whole sums in one
+//   accumulator the card's truncating adds put the output's error against
+//   float64 at 4.7x the plain float32 version's (D 96, prefix 130). wgmma is not
 //   used: it takes a 32-bit operand K-major only, and V is read along its
 //   rows. A block is four consumer warps (16 query rows each) and one
 //   producer warp; the producer's lanes stage Q once, then K and V of each
@@ -223,14 +227,25 @@ flash_prefill_kernel_tf32(const float* __restrict__ q, const float* __restrict__
   for (int it = 0; it < n_tiles; ++it) {
     const uint32_t ph = it & 1;
     mbar_wait(bar(kFullK), ph);
-    // S = Q K^T over D: 16 rows x 64 KV columns a warp, 8 tiles of 8
+    // S = Q K^T over D: 16 rows x 64 KV columns a warp, 8 tiles of 8, each
+    // half of them summed four k-steps at a time with rounding fp32 adds
+    // between (warp_mma_rounded)
     float s[8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int half = 0; half < 2; ++half) {
+      float sh[4][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
-    warp_mma<8, D, false, false>(s, [&](int m, int kk) { return qs[m * LD + kk]; },
-                                 [&](int kk, int n) { return Ks[n * LD + kk]; });
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sh[nt][r] = 0.f;
+      const float* kh = Ks + 32 * half * LD;
+      warp_mma_rounded<4, D, false, false>(sh, [&](int m, int kk) { return qs[m * LD + kk]; },
+                                           [&](int kk, int n) { return kh[n * LD + kk]; });
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[4 * half + nt][r] = sh[nt][r];
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(bar(kEmptyK));   // K may be loaded again
 
@@ -284,21 +299,37 @@ flash_prefill_kernel_tf32(const float* __restrict__ q, const float* __restrict__
 
     // O += P V with k in pair order (tf32_mma.cuh, pair_k): the accumulator
     // fragment of P's columns 8 kk .. 8 kk + 7 is the A fragment of k-step
-    // kk as it stands, and V's rows 8 kk + 2t, + 1 are its B fragment
+    // kk as it stands, and V's rows 8 kk + 2t, + 1 are its B fragment. Each
+    // group of G output tiles sums four k-steps at a time in fresh
+    // accumulators, added to acc by rounding fp32 adds: acc itself carries
+    // the sum over every KV step, which the tensor cores' truncating adds
+    // would lose float32's precision over
     mbar_wait(bar(kFullV), ph);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {
-      const float av[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
-      const float* vr = Vs + (8 * kk + 2 * t) * LD + g;
+    for (int n0 = 0; n0 < NO; n0 += G) {
 #pragma unroll
-      for (int n0 = 0; n0 < NO; n0 += G) {
-        float bv[G][2];
+      for (int k4 = 0; k4 < kBK / 8; k4 += 4) {
+        float part[G][4];
 #pragma unroll
-        for (int j = 0; j < G; ++j) {
-          bv[j][0] = vr[8 * (n0 + j)];
-          bv[j][1] = vr[LD + 8 * (n0 + j)];
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) part[j][r] = 0.f;
+#pragma unroll
+        for (int kk = k4; kk < k4 + 4; ++kk) {
+          const float av[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+          const float* vr = Vs + (8 * kk + 2 * t) * LD + g;
+          float bv[G][2];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            bv[j][0] = vr[8 * (n0 + j)];
+            bv[j][1] = vr[LD + 8 * (n0 + j)];
+          }
+          mma3_step<G, false, false>(part, 0, av, bv);
         }
-        mma3_step<G, false, false>(acc, n0, av, bv);
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[n0 + j][r] += part[j][r];
       }
     }
     __syncwarp();

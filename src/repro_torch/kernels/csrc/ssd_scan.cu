@@ -83,8 +83,11 @@
 // * fp32, one chunk (S <= chunk) from a zero state, P 64, N 64 or 128:
 //   ssd_scan_kernel_tf32<N>, every product on the tensor cores in 3xTF32
 //   (tf32_mma.cuh: each operand split into a TF32 hi and lo, three
-//   mma.sync.m16n8k8 products, fp32 accumulators), which keeps float32's
-//   precision (tests/test_torch_ssd_forward_tf32.py models it, its warp
+//   mma.sync.m16n8k8 products, fp32 accumulators; every product summed four
+//   k-steps at a time on the tensor cores, each partial sum added by a
+//   rounding fp32 add, since the tensor cores' truncating adds over C B^T's
+//   128 columns erred 5.9x the plain float32 version's error against
+//   float64 at s = 1), which keeps float32's precision (tests/test_torch_ssd_forward_tf32.py models it, its warp
 //   scan of dt * A included, against float64). dA_total is the scan's value
 //   at the last step itself, so that fin_{S-1} = dt_{S-1} exactly: the sum
 //   of the lanes' sums differs from it by a rounding, which cost the final
@@ -1195,8 +1198,8 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
       {
         const float* Ca = Cs + 16 * rg * LN;
         const float* Bb = Bs + 32 * half * LN;
-        warp_mma<4, N, false, false>(sc, [&](int m, int k) { return Ca[m * LN + k]; },
-                                     [&](int k, int n) { return Bb[n * LN + k]; });
+        warp_mma_rounded<4, N, false, false>(sc, [&](int m, int k) { return Ca[m * LN + k]; },
+                                             [&](int k, int n) { return Bb[n * LN + k]; });
       }
       __syncwarp();
       if (lane == 0) {
@@ -1232,20 +1235,34 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
           mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
           // y_I += W x_J, k (= j) in pair order: W's columns 2t, 2t + 1 of a
           // k-step are one float2, x_J's rows 2t, 2t + 1 conflict-free
+          // (four k-steps at a time, each partial sum added by a rounding
+          // fp32 add, as warp_mma_rounded)
           const float* xs = Xs + slot * kRows * LX + 32 * half + g;
           const float* Wr = W + il * kWP + 2 * t;
-#pragma unroll 2
-          for (int k0 = 0; k0 < kRows; k0 += 8) {
-            const float2 w0 = *reinterpret_cast<const float2*>(Wr + k0);
-            const float2 w8 = *reinterpret_cast<const float2*>(Wr + 8 * kWP + k0);
-            const float a4[4] = {w0.x, w8.x, w0.y, w8.y};
-            float bv[4][2];
+#pragma unroll 1
+          for (int kc = 0; kc < kRows; kc += 32) {
+            float part[4][4];
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              bv[nt][0] = xs[(k0 + 2 * t) * LX + 8 * nt];
-              bv[nt][1] = xs[(k0 + 2 * t + 1) * LX + 8 * nt];
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+#pragma unroll 2
+            for (int k0 = kc; k0 < kc + 32; k0 += 8) {
+              const float2 w0 = *reinterpret_cast<const float2*>(Wr + k0);
+              const float2 w8 = *reinterpret_cast<const float2*>(Wr + 8 * kWP + k0);
+              const float a4[4] = {w0.x, w8.x, w0.y, w8.y};
+              float bv[4][2];
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                bv[nt][0] = xs[(k0 + 2 * t) * LX + 8 * nt];
+                bv[nt][1] = xs[(k0 + 2 * t + 1) * LX + 8 * nt];
+              }
+              mma3_step<4, false, false>(part, 0, a4, bv);
             }
-            mma3_step<4, false, false>(ya[hh], 0, a4, bv);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) ya[hh][nt][r] += part[nt][r];
           }
           __syncwarp();
           if (lane == 0) mbar_arrive(bar(kEmptyX + slot));   // x slot free
@@ -1286,7 +1303,7 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
       mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
       const float* xs = Xs + slot * kRows * LX + 16 * rg;
       const float* Bb = Bs + NH * half;
-      warp_mma<NH / 8, kRows, false, false>(
+      warp_mma_rounded<NH / 8, kRows, false, false>(
           hs,
           [&](int m, int k) {
             const int j = pair_k(k);

@@ -13,8 +13,10 @@
 // tests/test_torch_flash_tf32.py and tests/test_torch_flash_bwd_tf32.py
 // model it on the CPU against float64, with kernels/tf32.py). The tensor
 // cores add into the accumulator with truncation: a long sum in one
-// accumulator loses more than float32 (flash_prefill_bwd.cu sums at most
-// four k-steps there before a rounding fp32 add). A value that is exact in
+// accumulator loses more than float32 (flash_prefill.cu's and
+// flash_prefill_bwd.cu's float32 kernels and the SSD forward's one-chunk
+// kernel sum at most four k-steps there before a rounding fp32 add;
+// warp_mma_rounded). A value that is exact in
 // TF32 (a bf16 input) has lo = 0: its lo products are left out.
 //
 // Fragments of mma.sync.m16n8k8.tf32, lane l of a warp, g = l / 4, t = l % 4:
@@ -102,6 +104,32 @@ __device__ __forceinline__ void warp_mma(float (&d)[NT][4], LA la, LB lb) {
       bv[nt][1] = lb(k0 + t + 4, 8 * nt + g);
     }
     mma3_step<NT, A_EXACT, B_EXACT>(d, 0, av, bv);
+  }
+}
+
+// d[nt] += A (16 x K) B (K x 8 NT) as warp_mma, but summed four k-steps at a
+// time (two, or one, where four do not divide K) in fresh accumulators, each
+// partial sum added to d by a rounding fp32 add: over a long K the tensor
+// cores' truncating adds into one accumulator lose float32's precision (the
+// SSD forward's C B^T over N = 128 erred 5.9x the plain float32 version's
+// error against float64 at s = 1 on the card).
+template <int NT, int K, bool A_EXACT, bool B_EXACT, typename LA, typename LB>
+__device__ __forceinline__ void warp_mma_rounded(float (&d)[NT][4], LA la, LB lb) {
+  constexpr int KC = K % 32 == 0 ? 32 : (K % 16 == 0 ? 16 : 8);
+  static_assert(K % 8 == 0, "K must be a multiple of a k-step");
+#pragma unroll 1
+  for (int kc = 0; kc < K; kc += KC) {
+    float part[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+    warp_mma<NT, KC, A_EXACT, B_EXACT>(part, [&](int m, int k) { return la(m, kc + k); },
+                                       [&](int k, int n) { return lb(kc + k, n); });
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nt][r] += part[nt][r];
   }
 }
 

@@ -74,23 +74,25 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         prefix_len: int = 0, return_lse: bool = False):
     """Plain PyTorch version, any device: materialises the (S, T) scores.
 
-    q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D). Softmax in float32.
+    q (B,H,S,D); k/v (B,Hkv,T,D); returns (B,H,S,D). Softmax in float32
+    (float64 for float64 inputs).
     ``window`` and ``prefix_len`` act only when causal (``attention_mask``).
-    With ``return_lse``, returns ``(o, lse)``: lse (B,H,S) float32, each
+    With ``return_lse``, returns ``(o, lse)``: lse (B,H,S) in that dtype, each
     row's log-sum-exp of its scaled, masked scores, as the kernel writes it
     for the backward.
     """
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     group = H // Hkv
-    qg = q.reshape(B, Hkv, group, S, D).float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(B, Hkv, group, S, D).to(wide)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(wide)) / math.sqrt(D)
     if causal:
         mask = attention_mask(S, T, q_offset=q_offset, window=window,
                               prefix_len=prefix_len, device=q.device)
         s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bkgsd", w, v.float()).reshape(B, H, S, D).to(q.dtype)
+    o = torch.einsum("bkgst,bktd->bkgsd", w, v.to(wide)).reshape(B, H, S, D).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1).reshape(B, H, S)
     return o

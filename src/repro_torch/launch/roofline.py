@@ -35,10 +35,24 @@ once and each output byte written once, activations left out:
         each microbatch again) + the batch + gradients written
       + AdamW's moments and step read and written + parameters written
 
+On a mesh (``plan(..., mesh=)``) the terms are one device's, as the
+reference's compiled module reports them per chip: the bytes are the same
+formulas over the device's shards of each tree (``launch/shardings.py``),
+the logits a rank returns over the whole vocabulary (as ``sharded_step``
+returns them); the FLOPs the step's split over the model axis and over the
+batch shards (a data rank whose batch does not divide computes every row);
+and ``coll_bytes`` the all_reduces of the port's tensor-parallel plan
+(``mesh_coll_bytes``) at a ring's ``2 (m - 1) / m`` of each buffer a
+device, over ``link_bw``: NVLink's ``LINK_BW`` (450 GB/s a direction, half
+of the 900 GB/s that NVIDIA's H100 SXM data sheet gives a card) where the
+model axis lies within one node of ``NODE_CARDS`` cards, else
+``INTER_NODE_BW``. ``coll_bytes`` is None where ``sharded_step`` does not
+run the pair (a train step, a family or a width it refuses): the port has
+no plan there to count. One card moves no collective bytes.
+
 Not ported: ``extract_terms`` (XLA's HLO cost analysis) and
 ``collective_bytes`` / ``_shape_bytes`` (collectives parsed from HLO text),
-which have no torch counterpart (ROADMAP.md Queue A item 8b-i); one card
-moves no collective bytes.
+which have no torch counterpart (ROADMAP.md Queue A item 8b-i).
 """
 from __future__ import annotations
 
@@ -49,12 +63,19 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.sim.perf_model import HBM_BW, LINK_BW, PEAK_FLOPS
 from repro_torch.training import tree
 
 FP32_FLOPS = 67e12          # float32 FLOP/s without the tensor cores (H100 SXM)
 CARD_BYTES = 85.02e9        # the card's memory as torch reports it (H100 80GB HBM3)
+# an NVLink domain: the eight cards of one HGX H100 node; past it, a ring
+# crosses nodes at a card's InfiniBand rate (NVIDIA's DGX H100 data sheet:
+# one 400 Gb/s ConnectX-7 port a card, 50 GB/s a direction)
+NODE_CARDS = 8
+INTER_NODE_BW = 50e9
 
 
 def peak_flops(dtype: str) -> float:
@@ -65,10 +86,11 @@ def peak_flops(dtype: str) -> float:
 class RooflineTerms:
     flops: float                 # FLOPs of the step (FlopCounterMode)
     hbm_bytes: float             # bytes the step must move (step_bytes)
-    coll_bytes: float            # collective bytes (0 on one card)
+    coll_bytes: Optional[float]  # collective bytes (0 on one card; None: no plan)
     coll_breakdown: Dict[str, int] = field(default_factory=dict)
     model_flops: float = 0.0     # 6*N*D (or 6*N_active*D) useful FLOPs
     dtype: str = "bfloat16"      # the step's dtype: picks the peak
+    link_bw: float = LINK_BW     # the rate its collectives run at
 
     @property
     def peak_flops(self) -> float:
@@ -83,18 +105,23 @@ class RooflineTerms:
         return self.hbm_bytes / HBM_BW
 
     @property
-    def collective_s(self) -> float:
-        return self.coll_bytes / LINK_BW
+    def collective_s(self) -> Optional[float]:
+        return None if self.coll_bytes is None else self.coll_bytes / self.link_bw
+
+    def _known(self) -> Dict[str, float]:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return {k: v for k, v in terms.items() if v is not None}
 
     @property
     def bottleneck(self) -> str:
-        terms = {"compute": self.compute_s, "memory": self.memory_s,
-                 "collective": self.collective_s}
+        terms = self._known()
         return max(terms, key=terms.get)
 
     @property
     def step_time_s(self) -> float:
-        return max(self.compute_s, self.memory_s, self.collective_s)
+        """The largest known term (a lower bound where ``coll_bytes`` is None)."""
+        return max(self._known().values())
 
     @property
     def useful_flops_ratio(self) -> float:
@@ -182,15 +209,107 @@ def count_flops(fn, *args) -> Tuple[float, Any]:
     return float(counter.get_total_flops()), out
 
 
+# ------------------------------------------------------------ a mesh
+
+_REDUCE_BYTES = 4            # the port reduces its partial sums in float32
+
+
+def _ring(n: int) -> float:
+    return 2.0 * (n - 1) / n
+
+
+def _batch_shards(mesh, batch: int) -> int:
+    """How many blocks the batch axes cut a global batch of ``batch`` into."""
+    return sh.shard_index(sh._batch_spec_axis(mesh, batch), mesh_axis_sizes(mesh), {})[1]
+
+
+def link_bw(model_axis: int) -> float:
+    """The rate a ring over a model axis of ``model_axis`` cards runs at: NVLink
+    where the axis (the mesh's innermost, so consecutive cards) tiles one
+    node, else a card's inter-node rate."""
+    return LINK_BW if NODE_CARDS % model_axis == 0 else INTER_NODE_BW
+
+
+def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh
+                    ) -> Optional[Dict[str, float]]:
+    """One device's collective bytes in one prefill or decode step of
+    ``shape`` on ``mesh``, by the plan ``sharded_step`` runs
+    (``models/layers.py``): an all_reduce of the attention's and the FFN's
+    row-parallel outputs in every layer, of the embeddings and of the
+    full-vocabulary logits where the vocabulary is sharded. Each buffer in
+    float32, each all_reduce at a ring's ``2 (m - 1) / m`` of it. None where
+    ``sharded_step`` does not run the pair; zero on one card."""
+    sizes = mesh_axis_sizes(mesh)
+    m = sizes["model"]
+    if shape.kind == "train":
+        return None
+    try:
+        steps.check_mesh_runs(cfg, sizes)
+    except NotImplementedError:
+        return None
+    rows = shape.global_batch // _batch_shards(mesh, shape.global_batch)
+    seq = 1 if shape.kind == "decode" else shape.seq_len
+    n_vis = cfg.n_vision_tokens if cfg.arch_type == "vlm" and shape.kind != "decode" else 0
+    tokens = rows * (seq + n_vis)
+    buffers = 2 * cfg.n_layers * tokens * cfg.d_model      # wo and w_down
+    if cfg.vocab_size % m == 0:                            # embed and unembed
+        buffers += rows * seq * cfg.d_model + rows * cfg.vocab_size
+    return {"all-reduce model": buffers * _REDUCE_BYTES * _ring(m)}
+
+
+def local_meta(t: Any, specs: Any, sizes: Dict[str, int]) -> Any:
+    """A tree of meta tensors of one device's shard shapes."""
+    if isinstance(t, dict):
+        return {k: local_meta(v, specs[k], sizes) for k, v in t.items()}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(local_meta(v, s, sizes) for v, s in zip(t, specs)))
+    return torch.empty(sh.local_shape(specs, tuple(t.shape), sizes), dtype=t.dtype,
+                       device=steps.META)
+
+
+def _local_specs(cfg: ModelConfig, shape: InputShape, mesh, specs: Dict, out,
+                 zero_opt: bool) -> Tuple[Dict, Any]:
+    """One device's shards of the step's inputs and outputs, as meta trees."""
+    sizes = mesh_axis_sizes(mesh)
+    B = shape.global_batch
+    p_sh = sh.param_shardings(mesh, specs["params"])
+    ins = {"params": local_meta(specs["params"], p_sh, sizes)}
+    if shape.kind == "train":
+        o_sh = sh.opt_shardings(mesh, specs["opt_state"], p_sh, zero=zero_opt)
+        ins["opt_state"] = local_meta(specs["opt_state"], o_sh, sizes)
+        ins["batch"] = local_meta(specs["batch"], sh.batch_shardings(mesh, specs["batch"]),
+                                  sizes)
+        outs = (ins["params"], ins["opt_state"])
+    else:
+        # a rank's rows over the whole vocabulary, as sharded_step returns them
+        logits = local_meta(out[0], (sh._batch_spec_axis(mesh, B), None), sizes)
+        if shape.kind == "prefill":
+            ins["batch"] = local_meta(specs["batch"],
+                                      sh.batch_shardings(mesh, specs["batch"]), sizes)
+            cache = out[1]
+        else:
+            ins["tokens"] = local_meta(specs["tokens"],
+                                       sh.batch_shardings(mesh, specs["tokens"]), sizes)
+            cache = specs["cache"]
+        cross = {"cross_k": cfg.enc_seq, "cross_v": cfg.enc_seq}
+        cache = local_meta(cache, sh.cache_shardings(mesh, cache, B, cross), sizes)
+        if shape.kind == "decode":
+            ins["cache"] = cache
+        outs = (logits, cache)
+    return ins, outs
+
+
 def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
-         microbatch: int = 0, context: Optional[float] = None
-         ) -> Tuple[RooflineTerms, Dict[str, int]]:
+         microbatch: int = 0, context: Optional[float] = None, mesh=None,
+         zero_opt: bool = False) -> Tuple[RooflineTerms, Dict[str, int]]:
     """The roofline terms of ``shape``'s step on the meta device, and its
     memory: ``arg_bytes`` (parameters, plus the cache for decode, plus
     AdamW's state and the batch for train; the prefill's prompt too) and
     ``out_bytes`` (what the step returns). Activations are not counted.
     ``context``: the positions a decode step reads a sequence (default: the
-    cache's length)."""
+    cache's length). With ``mesh`` (a ``MeshShape``; ``zero_opt``: ZeRO-1
+    moments) every term and byte count is one device's (module
+    docstring)."""
     cfg = steps.resolve_config(cfg, shape)
     specs = steps.input_specs(cfg, shape)
     mflops = model_flops_for(cfg, shape)
@@ -198,21 +317,33 @@ def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
         fn = steps.make_train_step(cfg, remat=remat, microbatch=microbatch)
         flops, out = count_flops(fn, specs["params"], specs["opt_state"],
                                  specs["batch"])
-        hbm = train_bytes(specs["params"], specs["opt_state"], specs["batch"],
-                          remat=remat, microbatch=microbatch)
     elif shape.kind == "prefill":
         fn = steps.make_prefill_step(cfg, shape)
         flops, out = count_flops(fn, specs["params"], specs["batch"])
-        hbm = float(nbytes(specs["params"]) + nbytes(specs["batch"]) + nbytes(out))
     else:
         fn = steps.make_serve_step(cfg)
         flops, out = count_flops(fn, specs["params"], specs["tokens"], specs["cache"])
+    coll, bw = {}, LINK_BW
+    ins, outs = specs, out
+    if mesh is not None:
+        split = mesh_axis_sizes(mesh)["model"] * _batch_shards(mesh, shape.global_batch)
+        flops, mflops = flops / split, mflops / split
+        coll = mesh_coll_bytes(cfg, shape, mesh)
+        bw = link_bw(mesh_axis_sizes(mesh)["model"])
+        ins, outs = _local_specs(cfg, shape, mesh, specs, out, zero_opt)
+    if shape.kind == "train":
+        hbm = train_bytes(ins["params"], ins["opt_state"], ins["batch"],
+                          remat=remat, microbatch=microbatch)
+    elif shape.kind == "prefill":
+        hbm = float(nbytes(ins["params"]) + nbytes(ins["batch"]) + nbytes(outs))
+    else:
         ctx = steps.cache_len_for(cfg, shape) if context is None else context
-        hbm = decode_bytes(cfg, specs["params"], specs["tokens"], specs["cache"],
-                           out[0], ctx)
-    mem = {"arg_bytes": nbytes(specs),
+        hbm = decode_bytes(cfg, ins["params"], ins["tokens"], ins["cache"], outs[0], ctx)
+    mem = {"arg_bytes": nbytes(ins),
            # a decode step writes its pools in place: only the logits are new
-           "out_bytes": nbytes(out[0]) if shape.kind == "decode" else nbytes(out)}
-    terms = RooflineTerms(flops=flops, hbm_bytes=hbm, coll_bytes=0.0,
-                          model_flops=mflops, dtype=cfg.dtype)
+           "out_bytes": nbytes(outs[0]) if shape.kind == "decode" else nbytes(outs)}
+    terms = RooflineTerms(flops=flops, hbm_bytes=hbm,
+                          coll_bytes=None if coll is None else float(sum(coll.values())),
+                          coll_breakdown=coll or {}, model_flops=mflops, dtype=cfg.dtype,
+                          link_bw=bw)
     return terms, mem

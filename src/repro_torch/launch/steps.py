@@ -1,20 +1,26 @@
-"""The port's steps: the train, prefill and serve step functions, and the
-input specs of each step on the meta device.
+"""The port's steps: the train, prefill and serve step functions, the input
+specs of each step on the meta device, and the prefill and serve steps
+sharded over a device mesh.
 
-The counterpart of ``repro.launch.steps`` for one card. ``input_specs``
-gives every input of a step kind as tensors on ``torch.device("meta")``:
-shapes and dtypes with no storage, as ``jax.eval_shape`` gives them to the
-reference, so the dry run (``launch/dryrun.py``) can trace the full
-production configs without allocating a byte. The step functions are eager
-closures over ``Model``; each runs on the device of the tensors it is given
-(the kernels on a CUDA device, their plain versions on the CPU and on the
-meta device, where nothing is computed). The train step takes its gradient
-with autograd (through the ``flash_prefill`` and ``ssd_scan`` backward
-kernels on a CUDA device) and applies AdamW.
+The counterpart of ``repro.launch.steps``. ``input_specs`` gives every input
+of a step kind as tensors on ``torch.device("meta")``: shapes and dtypes
+with no storage, as ``jax.eval_shape`` gives them to the reference, so the
+dry run (``launch/dryrun.py``) can trace the full production configs
+without allocating a byte. The step functions are eager closures over
+``Model``; each runs on the device of the tensors it is given (the kernels
+on a CUDA device, their plain versions on the CPU and on the meta device,
+where nothing is computed). The train step takes its gradient with autograd
+(through the ``flash_prefill`` and ``ssd_scan`` backward kernels on a CUDA
+device) and applies AdamW.
 
-Not ported: ``jit_step`` and ``launch/shardings.py``, which place a step on
-a device mesh (ROADMAP.md Queue A item 8b-ii); the port runs on one card,
-and ``launch/mesh.py`` raises where a mesh is asked for.
+``sharded_step`` is the counterpart of the reference's ``jit_step``: the
+prefill and the serve step over a live mesh (``launch/mesh.py``), each rank
+running ``Model(local_config(cfg, sizes))`` on its shards
+(``launch/shardings.py``, ``params.shard_params``) with the layers'
+collectives on the model axis (``models/runtime_flags.py``), and each data
+rank taking its rows of the batch. It runs the dense and VLM families; the
+sharded train step and the other families on a mesh are not ported
+(ROADMAP.md).
 
 One departure: the port's page pool keeps every position of a sequence,
 and a sliding window is a lower bound on what a query reads (ROADMAP.md,
@@ -26,12 +32,16 @@ length, where the reference keeps the last ``cache_len_for`` positions
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import Model
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import mesh_axis_sizes, mesh_coords
+from repro_torch.models import Model, runtime_flags
 from repro_torch.training import tree
 from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update
 
@@ -181,3 +191,107 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, tokens, cache):
         return model.decode_step(params, tokens, cache)
     return serve_step
+
+
+# ------------------------------------------------------------ on a mesh
+
+# the families whose layers carry the collectives (models/layers.py)
+MESH_ARCHS = ("dense", "vlm")
+
+
+def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
+    """Raise ``NotImplementedError`` unless ``sharded_step`` can run ``cfg``
+    on a mesh of axis ``sizes``: a dense or VLM model whose heads, KV heads
+    and ``d_ff`` the model axis divides (so that every rank holds whole heads
+    and the reference's sequence-sharded KV fallback never arises). The
+    placement functions of ``launch/shardings.py`` answer every case."""
+    m = sizes["model"]
+    if cfg.arch_type not in MESH_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.arch_type} family on a mesh is not ported "
+            "(ROADMAP.md, Queue A item 8b-ii)")
+    bad = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff")
+           if getattr(cfg, k) % m}
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {m} does not divide {bad}; the "
+            "sequence-sharded KV cache and split heads are not ported "
+            "(ROADMAP.md, Queue A item 8b-ii)")
+
+
+def local_config(cfg: ModelConfig, sizes: Dict[str, int]) -> ModelConfig:
+    """The config of one rank's model on a mesh of axis ``sizes``: its shares
+    of the heads, the KV heads and ``d_ff``, and of the vocabulary where the
+    model axis divides it (``shardings.param_spec``'s rule)."""
+    check_mesh_runs(cfg, sizes)
+    m = sizes["model"]
+    vocab = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
+    return cfg.with_(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
+                     head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
+                     vocab_size=vocab)
+
+
+def batch_rows(mesh, batch: int) -> slice:
+    """The rows of a global batch of ``batch`` that this rank of a live mesh
+    takes: its block on the batch axes (``shardings.batch_shardings``), or
+    every row where they do not divide it."""
+    index, count = sh.shard_index(sh._batch_spec_axis(mesh, batch),
+                                  mesh_axis_sizes(mesh), mesh_coords(mesh))
+    n = batch // count
+    return slice(index * n, (index + 1) * n)
+
+
+@contextlib.contextmanager
+def on_model_axis(axis: Optional[runtime_flags.ModelAxis]):
+    """``axis`` as the ambient model axis for the body, the previous one
+    after it."""
+    before = runtime_flags.get_mesh()
+    runtime_flags.set_mesh(axis)
+    try:
+        yield
+    finally:
+        runtime_flags.set_mesh(before)
+
+
+def sharded_step(cfg: ModelConfig, shape: InputShape, mesh):
+    """The prefill or serve step of ``shape`` on this rank of the live
+    ``mesh``, and its inputs' specs: the counterpart of the reference's
+    ``jit_step`` (``repro.launch.steps.jit_step``).
+
+    Returns ``(fn, args)``: for a prefill, ``fn(params, batch) -> (logits,
+    cache)`` and ``args = (params, batch)``; for a decode, ``fn(params,
+    tokens, cache) -> (logits, cache)`` and ``args = (params, tokens,
+    cache)``, as meta tensors. ``params`` and ``cache`` are this rank's
+    shards (``params.shard_params`` / ``init_shard``; the cache the prefill
+    step returned); ``batch`` and ``tokens`` are the global
+    batch, of which ``fn`` takes this rank's rows (``batch_rows``). The
+    logits are those rows' over the whole vocabulary. The decode step runs
+    eagerly: a gloo collective cannot be captured in a CUDA graph. A train
+    shape raises ``NotImplementedError``, as does a model that
+    ``check_mesh_runs`` refuses."""
+    cfg = resolve_config(cfg, shape)
+    if shape.kind == "train":
+        raise NotImplementedError(
+            "the sharded train step is not ported (ROADMAP.md, Queue A item 8b-ii)")
+    sizes = mesh_axis_sizes(mesh)
+    lcfg = local_config(cfg, sizes)
+    axis = runtime_flags.ModelAxis.of(mesh, cfg.vocab_size)
+    rows = batch_rows(mesh, shape.global_batch)
+    local = dataclasses.replace(shape, global_batch=rows.stop - rows.start)
+    specs = input_specs(lcfg, local)
+    if shape.kind == "prefill":
+        prefill = make_prefill_step(lcfg, local)
+
+        def prefill_step(params, batch):
+            with on_model_axis(axis):
+                return prefill(params, {k: t[rows] for k, t in batch.items()})
+        global_batch = batch_specs(cfg, shape.global_batch, shape.seq_len)
+        return prefill_step, (specs["params"], global_batch)
+
+    serve = make_serve_step(lcfg)
+
+    def serve_step(params, tokens, cache):
+        with on_model_axis(axis):
+            return serve(params, tokens[rows], cache)
+    return serve_step, (specs["params"], _token_spec(shape.global_batch, 1),
+                        specs["cache"])

@@ -17,6 +17,13 @@ Conventions:
   pool keeps every position of a sequence: decode applies the window as a
   lower bound on the positions attended to, where the reference keeps a ring
   of ``window`` slots; both see the same positions.
+- under a mesh (``runtime_flags.get_mesh()``, set by
+  ``launch.steps.sharded_step``) a rank holds its shards of the heads, the
+  KV heads, ``d_ff`` and the vocabulary; the row-parallel products (the
+  attention's ``wo``, the FFN's ``w_down``) and the vocabulary-sharded
+  ``embed`` and ``unembed`` sum over the model axis with one
+  ``all_reduce`` each (``reduce_model_axis``). With no mesh nothing is
+  reduced.
 - cross-attention (``kv_x``, the audio family's decoder over its encoder
   states) goes through ``ops.flash_prefill`` without a causal mask, and in
   the decode step through ``ops.paged_attention`` over a fixed pool of the
@@ -28,10 +35,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import runtime_flags
 
 Params = Dict[str, Any]
 
@@ -113,6 +122,18 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layer_norm(x, p["w"], p["b"])
     return layer_norm(x, None, None)  # nonparametric LN
+
+
+def reduce_model_axis(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ambient model axis (one ``all_reduce``),
+    reduced in float32 and cast back, as an unsharded product accumulates;
+    ``x`` itself with no mesh."""
+    axis = runtime_flags.get_mesh()
+    if axis is None:
+        return x
+    total = x.float()
+    dist.all_reduce(total, group=axis.group)
+    return total.to(x.dtype)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -203,7 +224,7 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                           v.transpose(1, 2), causal=causal and kv_x is None,
                           q_offset=past_len,
                           window=cfg.sliding_window, prefix_len=prefix_len)
-    out = o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    out = reduce_model_axis(o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"])
     if return_kv:
         return out, new_k, new_v   # new tokens only (past excluded)
     return out
@@ -312,7 +333,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     o = ops.paged_attention(q.reshape(B, Hkv, H // Hkv, hd), k_pool, v_pool,
                             block_tables, plan["lengths"], page_size=page,
                             starts=plan["starts"])
-    return o.reshape(B, 1, H * hd) @ p["wo"]
+    return reduce_model_axis(o.reshape(B, 1, H * hd) @ p["wo"])
 
 
 def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -359,11 +380,11 @@ def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype, device,
 
 def ffn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.ffn == "swiglu":
-        return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])) \
-            @ p["w_down"]
-    # the reference's jax.nn.gelu defaults to the tanh approximation
-    return torch.nn.functional.gelu(x @ p["w_up"], approximate="tanh") \
-        @ p["w_down"]
+        h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        # the reference's jax.nn.gelu defaults to the tanh approximation
+        h = torch.nn.functional.gelu(x @ p["w_up"], approximate="tanh")
+    return reduce_model_axis(h @ p["w_down"])
 
 
 # ---------------------------------------------------------------- embeddings
@@ -378,10 +399,29 @@ def init_embeddings(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Pa
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """Token embeddings; under a mesh whose model axis shards the
+    vocabulary, each rank looks up the ids in its rows (zeros for the rest)
+    and the ranks' rows are summed."""
+    axis = runtime_flags.get_mesh()
+    if axis is None or not axis.shard_vocab:
+        return p["tok"][tokens]
+    rows = p["tok"].shape[0]
+    local = tokens - axis.rank * rows
+    inside = ((local >= 0) & (local < rows))[..., None]
+    x = torch.where(inside, p["tok"][local.clamp(0, rows - 1)], 0)
+    return reduce_model_axis(x)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    if "head" in p:
-        return x @ p["head"]
-    return x @ p["tok"].T
+    """Logits over the vocabulary; under a mesh whose model axis shards it,
+    each rank writes its columns into a zero-filled full-vocabulary buffer
+    and the buffers are summed."""
+    out = x @ p["head"] if "head" in p else x @ p["tok"].T
+    axis = runtime_flags.get_mesh()
+    if axis is None or not axis.shard_vocab:
+        return out
+    cols = out.shape[-1]
+    full = torch.zeros(out.shape[:-1] + (cols * axis.size,), dtype=out.dtype,
+                       device=out.device)
+    full[..., axis.rank * cols:(axis.rank + 1) * cols] = out
+    return reduce_model_axis(full)

@@ -64,19 +64,24 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
-                device="cuda") -> Params:
+                device="cuda", cut=None) -> Params:
     """Random parameters from ``gen`` (a generator on ``device``). Each layer
     is drawn in float32 and written into the stacked tensors in ``dtype``
     straight away, so a full-width model never holds more than one layer in
-    float32 (an MoE router stays float32, as in the reference)."""
+    float32 (an MoE router stays float32, as in the reference). ``cut(key,
+    tree)``, where given, maps each subtree as soon as it is drawn (``key``
+    is ``"emb"``, ``"layers"`` for one layer, or ``"final_norm"``):
+    ``params.init_shard`` keeps a mesh rank's shards with it."""
     _require_transformer(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
-    emb = L.init_embeddings(cfg, gen, dtype, device)
+    cut = cut or (lambda _key, tree: tree)
+    emb = cut("emb", L.init_embeddings(cfg, gen, dtype, device))
     stacked: Params = {}
     for i in range(cfg.n_layers):
-        stack_into(stacked, init_layer(cfg, gen, dtype, device), i, cfg.n_layers)
+        stack_into(stacked, cut("layers", init_layer(cfg, gen, dtype, device)), i,
+                   cfg.n_layers)
     return {"emb": emb, "layers": stacked,
-            "final_norm": L.init_norm(cfg, dtype, device)}
+            "final_norm": cut("final_norm", L.init_norm(cfg, dtype, device))}
 
 
 def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor

@@ -10,6 +10,14 @@ the reference's ``(L, B, S, Hkv, D)`` slots (a ring of them with a sliding
 window) to the port's page pools, which hold every position in order, an
 ssm cache keeps its own, a hybrid cache does both, and an audio cache also
 carries its encoder K/V over into a cross pool.
+
+On a device mesh a rank holds its shards: ``shard_params`` takes a rank's
+slices of a global parameter tree (from ``from_reference`` or
+``Model.init``) by the specs of ``launch/shardings.py``; ``init_shard``
+draws the same parameters as ``Model.init`` from the same generator but
+keeps only the rank's slices, one layer at a time, so that a rank on a card
+never holds the whole tree. A rank's cache is the one its sharded prefill
+writes (``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import mesh_axis_sizes
+from repro_torch.models import layers, transformer
 from repro_torch.models.api import resolve_device
 from repro_torch.models.transformer import cache_rows
 
@@ -125,3 +135,40 @@ def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
                 cache_rows(cache, key, b, table="cross_block_tables")[:, :t.shape[2]] = \
                     t[:, b]
     return cache
+
+
+# ------------------------------------------------------------ on a mesh
+
+
+def _slice(t: torch.Tensor, spec, sizes, coords) -> torch.Tensor:
+    """The shard of ``t`` at ``coords``, in storage of its own."""
+    return t[sh.shard_slices(spec, tuple(t.shape), sizes, coords)].clone()
+
+
+def shard_params(params: Dict[str, Any], mesh, coords: Dict[str, int]) -> Dict[str, Any]:
+    """The shards of a global parameter tree that the device at ``coords``
+    (an index on each axis of ``mesh``) holds, by ``shardings.param_spec``."""
+    sizes = mesh_axis_sizes(mesh)
+    msize = sizes["model"]
+    return sh.map_with_path(
+        lambda path, t: _slice(t, sh.param_spec(path, tuple(t.shape), msize), sizes,
+                               coords), params)
+
+
+def init_shard(cfg: ModelConfig, gen: torch.Generator, mesh, coords: Dict[str, int],
+               dtype=None, device="cuda") -> Dict[str, Any]:
+    """``shard_params(Model(cfg).init(gen, dtype, device), mesh, coords)``
+    without the whole tree: ``transformer.init_params``'s draws, each
+    subtree cut to its shards as soon as it is drawn (a layer by the spec of
+    its stacked ``(L, ...)`` tensor). The transformer family's arms."""
+    sizes = mesh_axis_sizes(mesh)
+
+    def cut(key, tree):
+        lead = (cfg.n_layers,) if key == "layers" else ()
+
+        def leaf(path, t):
+            spec = sh.param_spec((key,) + path, lead + tuple(t.shape), sizes["model"])
+            return _slice(t, spec[len(lead):], sizes, coords)
+        return sh.map_with_path(leaf, tree)
+
+    return transformer.init_params(cfg, gen, dtype, resolve_device(device), cut=cut)

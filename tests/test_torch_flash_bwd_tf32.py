@@ -210,3 +210,16 @@ def test_plain_backward_runs_in_float64_for_float64_inputs():
     for g, w in zip(got, exact):
         assert g.dtype == torch.float64
         assert _rel(g, w) < 1e-12
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_plain_forward_runs_in_float64_for_float64_inputs(case):
+    """``flash_prefill_plain`` keeps float64 inputs in float64 (the yardstick
+    ``chip_smoke.py`` holds the float32 forward kernel to on the card): its
+    output equals softmax attention in float64 to float64's precision, and
+    its log-sum-exp is float64."""
+    _, (qt, kt, vt, _, _, _), kw = _case(case, seed=5)
+    q64, k64, v64 = qt.double(), kt.double(), vt.double()
+    o, lse = flash_prefill_plain(q64, k64, v64, return_lse=True, **kw)
+    assert o.dtype == torch.float64 and lse.dtype == torch.float64
+    assert _rel(o, _float64_attention(q64, k64, v64, **kw)) < 1e-12

@@ -50,7 +50,8 @@ def test_sources_were_found():
             "simulator.py", "workload.py", "trace_io.py", "ledger.py", "metrics.py",
             "overload.py", "recorder.py", "shadow.py", "fleet.py", "scenarios.py",
             "checks.py", "findings.py", "export.py", "__main__.py", "steps.py",
-            "roofline.py", "dryrun.py", "mesh.py", "quickstart_torch.py",
+            "roofline.py", "dryrun.py", "mesh.py", "shardings.py", "runtime_flags.py",
+            "quickstart_torch.py",
             "serve_autoscaled_torch.py", "train_tiny_torch.py",
             "cluster_experiment_torch.py", "scenario_sweep_torch.py",
             "dev_engine_torch.py", "dev_kernels_torch.py", "dev_smoke_torch.py",

@@ -3,9 +3,10 @@
 (against ``jax.eval_shape``) for every arch x input shape; the prefill and
 serve steps in float32 on carried-over parameters; the FLOP count of a
 step against a hand count; the byte formulas; the roofline terms; the
-one-card dry run; and the mesh, which raises. The specs and the dry run's
-steps live on the meta device: nothing is allocated."""
+dry run, on one card and on a mesh; and the mesh's entry points. The specs
+and the dry run's steps live on the meta device: nothing is allocated."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ from repro_torch import params as port_params
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config, get_smoke_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import dryrun, mesh, roofline, steps
+from repro_torch.launch import shardings as sh
 from repro_torch.launch.roofline import RooflineTerms
 from repro_torch.models import Model
 
@@ -240,18 +242,45 @@ def test_roofline_terms_take_the_peak_of_their_dtype():
     assert RooflineTerms(0.0, 0.0, 0.0).useful_flops_ratio == 0.0
 
 
-@pytest.mark.parametrize("fn", [lambda: mesh.make_production_mesh(),
-                                lambda: mesh.make_production_mesh(multi_pod=True),
-                                lambda: mesh.make_local_mesh(),
-                                lambda: mesh.mesh_axis_sizes(None),
-                                lambda: dryrun.main(["--all", "--multi-pod"]),
-                                lambda: dryrun.main(["--all", "--mesh-shape", "32x8"]),
-                                lambda: dryrun.main(["--all", "--zero-opt"])],
-                         ids=["production", "multi_pod", "local", "axis_sizes",
-                              "dryrun_multi_pod", "dryrun_mesh_shape", "dryrun_zero_opt"])
-def test_asking_for_a_mesh_raises(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fn()
+def _local_mesh_of_one_rank(tmp_path):
+    """``make_local_mesh`` over a gloo group of one process."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        return mesh.mesh_axis_sizes(mesh.make_local_mesh(1, backend="cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_mesh(tmp_path, *flags):
+    """One pair through the dry run's CLI with mesh ``flags``: its record."""
+    out = tmp_path / "rec.jsonl"
+    assert dryrun.main(["--arch", "whisper-base", "--shape", "decode_32k",
+                        "--out", str(out), *flags]) == 0
+    return json.loads(out.read_text().splitlines()[-1])
+
+
+@pytest.mark.parametrize("fn,want", [
+    (lambda _: mesh.mesh_axis_sizes(mesh.make_production_mesh()), {"data": 16, "model": 16}),
+    (lambda _: mesh.mesh_axis_sizes(mesh.make_production_mesh(multi_pod=True)),
+     {"pod": 2, "data": 16, "model": 16}),
+    (_local_mesh_of_one_rank, {"data": 1, "model": 1}),
+    (lambda _: mesh.mesh_axis_sizes(mesh.mesh_shape((32, 8))), {"data": 32, "model": 8}),
+    (lambda t: _dryrun_mesh(t, "--multi-pod")["mesh"], "2x16x16"),
+    (lambda t: _dryrun_mesh(t, "--mesh-shape", "32x8")["mesh"], "32x8"),
+    (lambda t: _dryrun_mesh(t, "--zero-opt")["mesh"], "16x16")],
+    ids=["production", "multi_pod", "local", "axis_sizes", "dryrun_multi_pod",
+         "dryrun_mesh_shape", "dryrun_zero_opt"])
+def test_the_mesh_entry_points_answer(tmp_path, fn, want):
+    assert fn(tmp_path) == want
+
+
+def test_a_local_mesh_needs_a_process_group_and_a_named_backend():
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        mesh.make_local_mesh(1, backend="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        mesh.make_local_mesh(1, backend="gloo")
 
 
 def test_dryrun_record():
@@ -275,3 +304,79 @@ def test_dryrun_cli_smoke():
     assert out.returncode == 0, out.stderr[-2000:]
     assert "1/1 pairs traced on the meta device" in out.stdout
     assert "fits=False" in out.stdout and "bottleneck=memory" in out.stdout
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_mesh_coll_bytes_count_the_plans_all_reduces(kind):
+    """llama-70b on 1 x 4: per layer the attention's and the FFN's outputs,
+    plus the embeddings and the full-vocabulary logits (its vocabulary
+    divides 4), each in float32 at a ring's 2 (m - 1) / m over NVLink; none
+    on one card."""
+    cfg = get_config("llama-70b")
+    shape = InputShape("s", 64, 8, kind)
+    tokens = 8 * (1 if kind == "decode" else 64)
+    buffers = 2 * cfg.n_layers * tokens * cfg.d_model + tokens * cfg.d_model + \
+        8 * cfg.vocab_size
+    got = roofline.mesh_coll_bytes(cfg, shape, mesh.mesh_shape((1, 4)))
+    assert got == {"all-reduce model": buffers * 4 * 1.5}
+    one = roofline.mesh_coll_bytes(cfg, shape, mesh.mesh_shape((1, 1)))
+    assert one == {"all-reduce model": 0.0}
+    terms, _ = roofline.plan(cfg.with_(n_layers=2), shape, mesh=mesh.mesh_shape((1, 4)))
+    assert terms.coll_bytes > 0 and terms.coll_breakdown
+    assert terms.link_bw == roofline.LINK_BW
+    assert terms.collective_s == terms.coll_bytes / roofline.LINK_BW
+    terms, _ = roofline.plan(cfg.with_(n_layers=2), shape)
+    assert terms.coll_bytes == 0.0 and terms.coll_breakdown == {}
+
+
+@pytest.mark.parametrize("arch,shape,mesh_shape", [
+    ("llama-70b", InputShape("s", 64, 8, "train"), (1, 4)),
+    ("llama-70b", InputShape("s", 64, 8, "decode"), (1, 16)),
+    ("mamba2-1.3b", InputShape("s", 64, 8, "decode"), (1, 4)),
+    ("qwen2-moe-a2.7b", InputShape("s", 64, 8, "prefill"), (1, 4))],
+    ids=["train", "kv_heads_8_on_16", "ssm", "moe"])
+def test_mesh_coll_bytes_are_none_where_the_sharded_step_does_not_run(
+        arch, shape, mesh_shape):
+    """No plan, no count: a train step, a model axis that does not divide
+    the KV heads, and the families sharded_step refuses; the dry run's terms
+    then leave the collective out of the bottleneck and the step time."""
+    cfg = get_config(arch)
+    assert roofline.mesh_coll_bytes(cfg, shape, mesh.mesh_shape(mesh_shape)) is None
+    t = RooflineTerms(flops=989e12, hbm_bytes=3.35e12 * 2, coll_bytes=None)
+    assert t.collective_s is None and t.bottleneck == "memory" and t.step_time_s == 2.0
+
+
+def test_mesh_collectives_cross_nodes_past_an_nvlink_domain():
+    """A model axis that tiles an eight-card node rings over NVLink; one of
+    16 (the production mesh's) crosses nodes at the inter-node rate."""
+    assert [roofline.link_bw(m) for m in (1, 2, 4, 8)] == [roofline.LINK_BW] * 4
+    assert roofline.link_bw(16) == roofline.INTER_NODE_BW < roofline.LINK_BW
+    cfg = get_smoke_config("llama-70b").with_(n_heads=16, n_kv_heads=16, d_ff=512)
+    terms, _ = roofline.plan(cfg, InputShape("s", 16, 16, "decode"),
+                             mesh=mesh.mesh_shape((1, 16)))
+    assert terms.link_bw == roofline.INTER_NODE_BW
+    assert terms.collective_s == terms.coll_bytes / roofline.INTER_NODE_BW
+
+
+@pytest.mark.parametrize("batch,split", [(2, 4), (1, 2)])
+def test_mesh_flops_split_over_the_ranks_that_split_the_work(batch, split):
+    """On 2 x 2 a batch of 2 splits over both axes; a batch of 1 does not
+    divide the data axis, so each data rank computes the whole batch and the
+    FLOPs split over the model axis alone. The logits a rank returns are its
+    rows over the whole vocabulary, as sharded_step returns them."""
+    cfg = get_smoke_config("llama-70b").with_(n_heads=8, n_kv_heads=4)
+    shape = InputShape("s", 16, batch, "prefill")
+    whole, one = roofline.plan(cfg, shape)
+    terms, mem = roofline.plan(cfg, shape, mesh=mesh.mesh_shape((2, 2)))
+    assert terms.flops == whole.flops / split
+    assert terms.model_flops == whole.model_flops / split
+    specs = steps.input_specs(cfg, shape)
+    _, out = roofline.count_flops(steps.make_prefill_step(cfg, shape), specs["params"],
+                                  specs["batch"])
+    sizes = {"data": 2, "model": 2}
+    cache = roofline.local_meta(out[1], sh.cache_shardings(mesh.mesh_shape((2, 2)), out[1],
+                                                           batch), sizes)
+    rows = batch * 2 // split
+    logits = rows * cfg.vocab_size * out[0].element_size()
+    assert mem["out_bytes"] == logits + roofline.nbytes(cache)
+    assert one["out_bytes"] == roofline.nbytes(out)

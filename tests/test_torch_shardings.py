@@ -1,0 +1,314 @@
+"""The port's sharding rules (``launch/shardings.py``) against the
+reference's (``repro.launch.shardings``), leaf by leaf: the parameters on
+the reference's ``jax.eval_shape`` tree and the port's meta tree, the cache
+by meaning (the port's page pool against the reference's dense slots), the
+batch, ZeRO's moments and the logits, for every assigned arch plus
+llama-8b and llama-70b, on model axes of 1, 4, 8 and 16 and the production
+meshes 16 x 16 and 2 x 16 x 16; the reference's own cases; and the dry
+run's per-device bytes on a 16 x 16 mesh against the local shards of the
+reference's specs.
+
+The reference's rules read a mesh's ``axis_names`` and ``devices.shape``
+only, and wrap each spec in a ``NamedSharding``: a stand-in mesh with no
+devices and a ``NamedSharding`` that keeps the spec let them run on a host
+with one device. Nothing of ``repro`` is edited."""
+import functools
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import INPUT_SHAPES as REF_SHAPES
+from repro.configs import get_config as ref_get_config
+from repro.launch import shardings as ref_sh
+from repro.launch import steps as ref_steps
+from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch import shardings as sh
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_production_mesh, mesh_shape
+from repro_torch.training.optimizer import adamw_init
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
+ARCHS = ASSIGNED_ARCHS + ["llama-8b", "llama-70b"]
+MODEL_SIZES = [1, 4, 8, 16]
+# a model axis of each size, and the two production meshes
+MESHES = [(16, 1), (4, 4), (2, 8), (16, 16), (2, 16, 16)]
+
+
+class _Spec:
+    """What the patched ``NamedSharding`` gives: the spec, as a pytree leaf."""
+
+    def __init__(self, mesh, spec):
+        self.spec = tuple(spec)
+
+
+@pytest.fixture(autouse=True)
+def _named_sharding_keeps_the_spec(monkeypatch):
+    monkeypatch.setattr(ref_sh, "NamedSharding", _Spec)
+
+
+def _ref_mesh(shape):
+    names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return types.SimpleNamespace(axis_names=names, devices=np.empty(shape))
+
+
+def _ref_leaves(ref_tree):
+    """{path: leaf} of a reference pytree, under the reference's key names."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        ref_tree, is_leaf=lambda x: isinstance(x, _Spec))[0]
+    return {ref_sh._key_names(path): leaf for path, leaf in flat}
+
+
+def _port_leaves(port_tree):
+    out = {}
+    sh.map_with_path(lambda path, leaf: out.setdefault(path, leaf), port_tree)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_inputs(arch, shape):
+    rcfg = ref_steps.resolve_config(ref_get_config(arch), REF_SHAPES[shape])
+    return ref_steps.input_specs(rcfg, REF_SHAPES[shape])
+
+
+@functools.lru_cache(maxsize=None)
+def _port_inputs(arch, shape):
+    cfg = steps.resolve_config(get_config(arch), INPUT_SHAPES[shape])
+    return steps.input_specs(cfg, INPUT_SHAPES[shape])
+
+
+def _ref_specs(leaves):
+    return {k: v.spec for k, v in leaves.items()}
+
+
+# ------------------------------------------------------------ the reference's own
+
+
+def test_param_spec_divisibility_fallback():
+    # vocab 50280 (mamba2) is not divisible by 16 -> replicated
+    spec = sh.param_spec(("emb", "tok"), (50280, 2048), 16)
+    assert all(s is None for s in spec)
+    spec = sh.param_spec(("emb", "tok"), (50304, 2048), 16)
+    assert spec[0] == "model"
+
+
+def test_param_spec_moe_f_sharded():
+    spec = sh.param_spec(("layers", "moe", "w_gate"), (24, 60, 2048, 1408), 16)
+    assert spec[1] is None and spec[3] == "model"
+    spec = sh.param_spec(("layers", "moe", "w_down"), (28, 64, 1408, 2048), 16)
+    assert spec[2] == "model"
+    # f not divisible -> expert parallel fallback
+    spec = sh.param_spec(("layers", "moe", "w_gate"), (24, 64, 2048, 1000), 16)
+    assert spec[1] == "model"
+
+
+# ------------------------------------------------------------ leaf by leaf
+
+
+@pytest.mark.parametrize("msize", MODEL_SIZES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_specs_match_the_reference(arch, msize):
+    ref = _ref_leaves(_ref_inputs(arch, "prefill_32k")["params"])
+    ours = _port_leaves(_port_inputs(arch, "prefill_32k")["params"])
+    assert set(ours) == set(ref)
+    for path, leaf in ours.items():
+        assert tuple(leaf.shape) == tuple(ref[path].shape), path
+        want = tuple(ref_sh.param_spec(path, tuple(ref[path].shape), msize))
+        assert sh.param_spec(path, tuple(leaf.shape), msize) == want, path
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_shardings_on_a_mesh_match_the_reference(arch, mesh):
+    ref = _ref_specs(_ref_leaves(ref_sh.param_shardings(
+        _ref_mesh(mesh), _ref_inputs(arch, "prefill_32k")["params"])))
+    ours = _port_leaves(sh.param_shardings(mesh_shape(mesh),
+                                           _port_inputs(arch, "prefill_32k")["params"]))
+    assert ours == ref
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_specs_match_the_reference_by_meaning(arch, shape, mesh):
+    """Every leaf the two caches share (K/V, cross K/V, SSM and conv states,
+    pos) has the reference's spec: the pool's pages stand where the batch
+    stands, and the pool's sequence positions where the slots' do. The
+    reference's ``slot_pos`` has no counterpart; the port's block tables are
+    sharded with their rows as the batch is."""
+    batch = INPUT_SHAPES[shape].global_batch
+    ref_cache = _ref_inputs(arch, shape)["cache"]
+    cache = _port_inputs(arch, shape)["cache"]
+    ref = _ref_specs(_ref_leaves(ref_sh.cache_shardings(_ref_mesh(mesh), ref_cache, batch)))
+    enc = get_config(arch).enc_seq
+    ours = _port_leaves(sh.cache_shardings(mesh_shape(mesh), cache, batch,
+                                           {"cross_k": enc, "cross_v": enc}))
+    shared = set(ours) & set(ref)
+    assert shared >= {("pos",)}
+    assert set(ours) - shared <= {("block_tables",), ("cross_block_tables",)}
+    assert set(ref) - shared <= {("slot_pos",)}
+    for path in shared:
+        assert ours[path] == ref[path], path
+        ref_shape = tuple(_ref_leaves(ref_cache)[path].shape)
+        if path[-1] in ("k", "v", "cross_k", "cross_v"):
+            # the same positions: a slot axis of S, or the pages that hold S
+            L, pages, page, hkv, hd = cache[path[-1]].shape
+            assert (L, hkv, hd) == (ref_shape[0], ref_shape[3], ref_shape[4])
+            assert pages == ref_shape[1] * -(-ref_shape[2] // page)
+    baxis = sh._batch_spec_axis(mesh_shape(mesh), batch)
+    for table in set(ours) - shared:
+        assert ours[table] == (baxis, None)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("shape", list(INPUT_SHAPES))
+def test_batch_and_logits_specs_match_the_reference(shape, mesh):
+    for arch in ARCHS:
+        specs = _port_inputs(arch, shape)
+        ref_specs = _ref_inputs(arch, shape)
+        key = "tokens" if INPUT_SHAPES[shape].kind == "decode" else "batch"
+        ours = _port_leaves(sh.batch_shardings(mesh_shape(mesh), {key: specs[key]}))
+        ref = _ref_specs(_ref_leaves(ref_sh.batch_shardings(_ref_mesh(mesh),
+                                                            {key: ref_specs[key]})))
+        assert ours == ref, arch
+        batch, vocab = INPUT_SHAPES[shape].global_batch, get_config(arch).vocab_size
+        assert sh.logits_sharding(mesh_shape(mesh), batch, vocab) == \
+            ref_sh.logits_sharding(_ref_mesh(mesh), batch, vocab).spec
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["moments", "zero1"])
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
+def test_optimizer_specs_match_the_reference(mesh, zero):
+    for arch in ARCHS:
+        params = _port_inputs(arch, "prefill_32k")["params"]
+        ref_params = _ref_inputs(arch, "prefill_32k")["params"]
+        ours = sh.opt_shardings(mesh_shape(mesh), adamw_init(params),
+                                sh.param_shardings(mesh_shape(mesh), params), zero=zero)
+        ref_opt = jax.eval_shape(lambda p: ref_steps.adamw_init(p), ref_params)
+        theirs = ref_sh.opt_shardings(_ref_mesh(mesh), ref_opt,
+                                      ref_sh.param_shardings(_ref_mesh(mesh), ref_params),
+                                      zero=zero)
+        assert ours.step == theirs.step.spec == ()
+        assert _port_leaves(ours.mu) == _ref_specs(_ref_leaves(theirs.mu)), arch
+        assert _port_leaves(ours.nu) == _ref_specs(_ref_leaves(theirs.nu)), arch
+
+
+# ------------------------------------------------------------ shards
+
+
+def test_local_shape_and_shard_slices():
+    sizes = {"pod": 2, "data": 4, "model": 8}
+    spec = (("pod", "data"), None, "model")
+    assert sh.local_shape(spec, (16, 3, 64), sizes) == (2, 3, 8)
+    assert sh.local_shape((), (5, 7), sizes) == (5, 7)
+    # row-major over (pod, data): pod 1, data 2 holds block 6 of 8
+    assert sh.shard_slices(spec, (16, 3, 64), sizes, {"pod": 1, "data": 2, "model": 5}) == \
+        (slice(12, 14), slice(0, 3), slice(40, 48))
+    with pytest.raises(ValueError):
+        sh.local_shape(("model",), (12,), sizes)
+
+
+def test_production_meshes():
+    assert make_production_mesh().shape == (16, 16)
+    assert make_production_mesh().mesh_dim_names == ("data", "model")
+    assert make_production_mesh(multi_pod=True).shape == (2, 16, 16)
+    assert make_production_mesh(multi_pod=True).mesh_dim_names == ("pod", "data", "model")
+
+
+def _ref_local_bytes(ref_tree, ref_specs, sizes):
+    total = 0
+    specs = _ref_leaves(ref_specs)
+    for path, leaf in _ref_leaves(ref_tree).items():
+        n = int(np.prod(sh.local_shape(specs[path].spec, tuple(leaf.shape), sizes)))
+        total += n * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_dryrun_on_a_mesh_reports_the_local_bytes_of_the_references_specs(arch, shape):
+    """``dryrun --mesh-shape 16x16``'s ``arg_bytes`` = the bytes of one
+    device's shards of the reference's inputs under the reference's specs;
+    for a decode, with the reference's ``slot_pos`` exchanged for the port's
+    block tables (each sharded on its rows)."""
+    rec, line = dryrun.run_one(arch, shape, mesh=(16, 16))
+    assert rec["status"] == "ok", line
+    assert rec["mesh"] == "16x16" and rec["multi_pod"] is False
+    mesh, sizes = _ref_mesh((16, 16)), {"data": 16, "model": 16}
+    ref = _ref_inputs(arch, shape)
+    B = REF_SHAPES[shape].global_batch
+    want = _ref_local_bytes(ref["params"], ref_sh.param_shardings(mesh, ref["params"]), sizes)
+    if REF_SHAPES[shape].kind == "prefill":
+        want += _ref_local_bytes(ref["batch"], ref_sh.batch_shardings(mesh, ref["batch"]),
+                                 sizes)
+    else:
+        want += _ref_local_bytes({"tokens": ref["tokens"]},
+                                 ref_sh.batch_shardings(mesh, {"tokens": ref["tokens"]}),
+                                 sizes)
+        # the port's cache leaves under the reference's specs of the same
+        # keys (by meaning); the block tables under their own
+        ref_specs = _ref_leaves(ref_sh.cache_shardings(mesh, ref["cache"], B))
+        cache = _port_inputs(arch, shape)["cache"]
+        ours = sh.cache_shardings(mesh_shape((16, 16)), cache, B)
+        specs = {k: ref_specs[(k,)].spec if (k,) in ref_specs else ours[k] for k in cache}
+        want += roofline.nbytes(roofline.local_meta(cache, specs, sizes))
+    assert rec["arg_bytes"] == want
+    assert rec["fits"] == (want <= roofline.CARD_BYTES)
+
+
+def test_the_dry_runs_train_bytes_on_a_mesh_with_zero():
+    """A train pair on 16 x 16: parameters, the batch and AdamW's state, with
+    ZeRO-1's moments sharded over ``data`` as well."""
+    arch, shape = "olmo-1b", "train_4k"
+    mesh, sizes = _ref_mesh((16, 16)), {"data": 16, "model": 16}
+    ref = _ref_inputs(arch, shape)
+    p_sh = ref_sh.param_shardings(mesh, ref["params"])
+    base = _ref_local_bytes(ref["params"], p_sh, sizes) + \
+        _ref_local_bytes(ref["batch"], ref_sh.batch_shardings(mesh, ref["batch"]), sizes)
+    for zero in (False, True):
+        rec, line = dryrun.run_one(arch, shape, mesh=(16, 16), zero_opt=zero)
+        assert rec["status"] == "ok", line
+        o_sh = ref_sh.opt_shardings(mesh, ref["opt_state"], p_sh, zero=zero)
+        want = base + _ref_local_bytes(ref["opt_state"], o_sh, sizes)
+        assert rec["arg_bytes"] == want, zero
+        # the port has no sharded train step: no plan, so no collective count
+        assert rec["coll_bytes"] is None and rec["mesh"] == "16x16"
+
+
+# ------------------------------------------------------------ a rank's shards
+
+
+def _meshes_and_coords():
+    for shape in ((1, 2), (2, 2), (1, 4)):
+        for d in range(shape[0]):
+            for m in range(shape[1]):
+                yield shape, {"data": d, "model": m}
+
+
+@pytest.mark.parametrize("shape,coords", list(_meshes_and_coords()),
+                         ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple)
+                         else f"d{x['data']}m{x['model']}")
+def test_init_shard_draws_shard_params_of_the_whole_tree(shape, coords):
+    """``params.init_shard`` keeps, layer by layer, exactly the shards
+    ``shard_params`` cuts from ``Model.init``'s whole tree, from the same
+    generator; each shard has ``local_shape``'s shape."""
+    from repro_torch import params as P
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = get_smoke_config("llama-70b").with_(n_heads=8, n_kv_heads=4)
+    mesh = mesh_shape(shape)
+    whole = Model(cfg).init(torch.Generator().manual_seed(3), device="cpu")
+    want = P.shard_params(whole, mesh, coords)
+    got = P.init_shard(cfg, torch.Generator().manual_seed(3), mesh, coords, device="cpu")
+    specs = sh.param_shardings(mesh, whole)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for path, leaf in _port_leaves(got).items():
+        assert torch.equal(leaf, _port_leaves(want)[path]), path
+        assert tuple(leaf.shape) == sh.local_shape(_port_leaves(specs)[path],
+                                                   tuple(_port_leaves(whole)[path].shape),
+                                                   sizes), path
