@@ -49,16 +49,20 @@ saved, and is held against its plain version in the ``kernels`` phase,
 directly and through ``FlashPrefill`` under autograd (float32 also against
 the plain version in float64, within ``TF32_FACTOR`` of the float32 plain
 version's error); the SSD scan's gradient through
-the hand-written ``ssd_scan`` backward kernels (one chunk without state,
-as in training: 3xTF32 products on the tensor cores; otherwise fp32 FMAs),
-held against ``ssd_scan_backward_plain`` there, directly and through
-``SSDScan``. The float32 forwards that training launches run on their own
-3xTF32 kernels (``flash_prefill_kernel_tf32``; ``ssd_scan_kernel_tf32`` for
-one chunk from a zero state), held against their plain versions there in
-every case a second time bit for bit (the SSD one also against its plain
-version in float64, within ``TF32_FACTOR`` of the float32 plain version's
-error), and each has a row of its own in the kernels line, whose bound is
-that of 3xTF32 on the tensor cores (the FMA rate's beside it, in
+the hand-written ``ssd_scan`` backward kernels (one chunk of 16 steps or
+more without state, as in training: 6xTF32 products on the tensor cores in
+float32; otherwise fp32 FMAs), held against ``ssd_scan_backward_plain``
+there, directly and through ``SSDScan`` (on the tensor cores also against
+the plain version in float64 on four draws a case, within ``TF32_FACTOR``
+of the float32 plain version's error). The float32 forwards that training
+launches run on their own kernels on the tensor cores
+(``flash_prefill_kernel_tf32``, 3xTF32; ``ssd_scan_kernel_tf32``, 6xTF32,
+for one chunk of 16 steps or more from a zero state), held against their
+plain versions there in every case a second time bit for bit (the SSD one
+also against its plain version in float64 on four draws a case, within
+``TF32_FACTOR`` of the float32 plain version's error), and each has a row
+of its own in the kernels line, whose bound is that of its products on the
+tensor cores (the FMA rate's beside it, in
 ``bound_fp32_fma_ms``, as for the SSD backward's row); the wrappers' rows
 count the wrappers' other kernels. The ``kernels`` phase first runs the bf16 SSD forward under
 remat on PyTorch's autograd thread and from a new host thread (its tensor
@@ -125,6 +129,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -198,6 +203,9 @@ SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 # (their sums run in other orders; tests/test_torch_ssd_forward_tf32.py's
 # FACTOR)
 TF32_FACTOR = 4.0
+# the float32 SSD kernels on the tensor cores are held to TF32_FACTOR on
+# this many draws a case, each from a generator of its own (``_draw_gen``)
+PRECISION_DRAWS = 4
 # whisper-base's attention averages over 1500 keys, so its outputs and
 # gradients are far below 1 (an output's std is about sqrt(e / 1500) = 0.043)
 # and TOL's bfloat16 atol exceeds a typical value: there the error is held to
@@ -401,11 +409,12 @@ def bound(n_bytes: float, n_flops: float, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_3xtf32(n_bytes: float, n_flops: float):
+def bound_3xtf32(n_bytes: float, n_flops: float, products: int = 3):
     """``bound`` for a float32 function whose products run on the tensor
-    cores in 3xTF32: three TF32 products a pair, at the TF32 rate."""
+    cores in 3xTF32: three TF32 products a pair (``products``: six for
+    6xTF32), at the TF32 rate."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 3 * n_flops / PEAK_TF32_FLOPS * 1e3
+    t_ops = products * n_flops / PEAK_TF32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -516,7 +525,8 @@ TRAINING_INSTANCES = ("flash_prefill_bwd_dq_tf32<128>",
                       "flash_prefill_bwd_dq_tf32<80>",
                       "flash_prefill_bwd_dkdv_tf32<80>",
                       "ssd_scan_bwd_kernel<float, 32, 16, 32>")
-# the float32 forwards' 3xTF32 instantiations, all on the training paths:
+# the float32 forwards' tensor-core instantiations (flash_prefill's 3xTF32,
+# ssd_scan's 6xTF32), all on the training paths:
 # flash_prefill at every head_dim, with and without the log-sum-exp (olmo-1b
 # launches <128, 1>, zamba2-2.7b's shared attention <80, 1>); ssd_scan at N
 # 128 (mamba2-1.3b) and 64 (zamba2-2.7b)
@@ -531,8 +541,8 @@ BACKWARD_TF32_INSTANCES = tuple(f"flash_prefill_bwd_{k}_tf32<{d}>"
 BACKWARD_WGMMA_INSTANCES = tuple(
     f"flash_prefill_bwd_{k}_wgmma<{d}, {m}>"
     for k in ("dq", "dkdv") for d in (64, 80, 96, 128) for m in (0, 1))
-# the SSD backward's tensor-core (3xTF32 mma.sync) instantiations: both input
-# types at N 128 and 64
+# the SSD backward's tensor-core (mma.sync: 6xTF32 for float, 3xTF32 for
+# bf16) instantiations: both input types at N 128 and 64
 SSD_BACKWARD_TC_INSTANCES = tuple(f"ssd_scan_bwd_tc<{t}, {n}>"
                                   for t in ("float", "__nv_bfloat16") for n in (128, 64))
 
@@ -880,23 +890,26 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
             "bound_ms": b_ms, "bound_by": b_by, **bounds, "library_ms": library_ms}
 
 
-def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> dict:
+def _flash_lse_timed(gen, F, dtype, B, H, D, S, Hkv=None, case=None) -> dict:
     """The forward's LSE instance (the one ``FlashPrefill`` launches) at a
-    training shape (causal, no GQA), beside the instance without the
+    training shape (causal, ``Hkv`` KV heads: default ``H``), beside the instance without the
     log-sum-exp, the plain version asked for it, and SDPA's forward. Bound:
     the bytes of q, k, v, o and the log-sum-exp, and the forward's
     operations at the dtype's rate; for float32 also as 3xTF32 on the
     tensor cores (three products a pair at the 495 TFLOP/s TF32 rate).
     Returns the numbers of the line."""
-    qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, H, D)
+    Hkv = Hkv or H
+    qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, Hkv, D)
     ms = device_ms(lambda: _flash_forward(qt, kt, vt, causal=True, q_offset=0, window=0,
                                           prefix_len=0, with_lse=True))
     without = device_ms(lambda: flash_prefill(qt, kt, vt))
     plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, return_lse=True),
                          iters=5, warmup=1)
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    # SDPA on K/V expanded to the query heads outside the timed call
+    lk, lv = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, lk, lv, is_causal=True))
     seen = int(attention_mask(S, S, device="cuda").sum())
-    n_bytes = 4 * qt.numel() * qt.element_size() + 4 * B * H * S
+    n_bytes = (2 * qt.numel() + 2 * kt.numel()) * qt.element_size() + 4 * B * H * S
     flops = 4.0 * B * H * D * seen
     b_ms, b_by = bound(n_bytes, flops, dtype)
     tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops) if dtype == torch.float32 \
@@ -905,9 +918,9 @@ def _flash_lse_timed(gen, F, dtype, B, H, D, S) -> dict:
                bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by, plain_ms=plain_ms,
                library_ms=library_ms)
     emit("kernels", kernel="flash_prefill", dtype=str(dtype),
-         case="training shape, with the log-sum-exp (LSE instance)",
+         case=case or "training shape, with the log-sum-exp (LSE instance)",
          route="wgmma + TMA" if dtype == torch.bfloat16 else "3xTF32 mma.sync",
-         shape=dict(B=B, H=H, Hkv=H, D=D, S=S, T=S, causal=True), **rec)
+         shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=S, causal=True), **rec)
     return rec
 
 
@@ -1289,8 +1302,19 @@ def phase_kernels(gen) -> dict:
              max_abs_err=err)
 
     records["ssd_scan"] = _ssd_scan_cases(gen)
-    records["ssd_scan_tf32"] = _ssd_tf32_cases(gen)
-    records["ssd_scan_backward"] = _ssd_scan_backward_cases(gen)
+    records["ssd_scan_tf32"] = _ssd_tf32_cases()
+    records["ssd_scan_backward"] = _ssd_scan_backward_cases()
+
+    # a rank of the mesh phase's llama-8b train step (32 heads over 8 KV
+    # heads, D 128, a batch of 4 x 128): H 16 / Hkv 4 on a model axis of 2, H
+    # 8 / Hkv 2 on one of 4; the float32 forward with the log-sum-exp and the
+    # backward, each beside SDPA's, each from a generator of its own
+    for H, Hkv in ((16, 4), (8, 2)):
+        case = f"llama-8b mesh rank, H {H}, Hkv {Hkv}"
+        _flash_bwd_case(_draw_gen("flash_prefill_backward", case, 0), F, torch.float32, case,
+                        4, H, Hkv, 128, 128, 128, True, timed=True)
+        _flash_lse_timed(_draw_gen("flash_prefill", case, 0), F, torch.float32, 4, H, 128,
+                         128, Hkv=Hkv, case=case + ", with the log-sum-exp (LSE instance)")
     return records
 
 
@@ -1374,19 +1398,40 @@ def _ssd_bwd_dA_scale(dt, A, ddt) -> torch.Tensor:
     return (dt * ddt.float()).abs().sum(dim=(0, 1)) / A.abs()
 
 
-def _ssd_scan_backward_cases(gen) -> dict:
+def _draw_gen(kernel: str, case: str, draw: int) -> torch.Generator:
+    """The generator of one draw of one case: seeded from their names, so
+    that no case's draws move with the order of the cases or their number."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(zlib.crc32(f"{kernel} | {case} | {draw}".encode()))
+    return gen
+
+
+def _ssd_bwd_inputs(gen, dtype, b, s, h, p, n, with_h0, with_dstate, steep):
+    """One draw of a backward case: x, dt, A, B, C, h0, dy and dstate."""
+    sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0, steep=steep,
+                            strided=p == 64)
+    x, dt, B, C = sets[0]
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") \
+        if with_dstate else None
+    return x, dt, A, B, C, h0, dy, dstate
+
+
+def _ssd_scan_backward_cases() -> dict:
     """``ssd_scan_backward`` against ``ssd_scan_backward_plain`` on the card
     (each gradient within ``SSD_TOL`` of its largest magnitude, dA of
-    ``_ssd_bwd_dA_scale``; on the float32 tensor-core kernel each
-    gradient's error against the plain version in float64 is recorded over
-    the float32 plain version's, as ``float64_reading``), a second call bit
+    ``_ssd_bwd_dA_scale``; on the float32 tensor-core kernel, on each of
+    ``PRECISION_DRAWS`` draws, each gradient's error against the plain
+    version in float64 also within ``TF32_FACTOR`` of the float32 plain
+    version's), a second call bit
     for bit with the first (no atomics), in float32 and bf16: mamba2-1.3b's and zamba2-2.7b's training
     shapes (x, B and C strided views, as the model slices them; timed), one
-    full chunk of 256 (ten tile pairs), s = 1, on the tensor-core kernel;
-    s 341, eight chunks of carried state (G and h both non-zero), h0 with a
+    full chunk of 256 (ten tile pairs) and ``TC_MIN_STEPS`` steps on the
+    tensor-core kernel; s = 1, s 341, eight chunks of carried state (G and h both non-zero), h0 with a
     final-state cotangent, s = 257, the smoke widths and A = -16 with dt ~ 1
     on the FMA kernel (each call's kernel as ``backward_route`` names it,
-    counted in ``tensor_core_launches`` or not). The float32 mamba2 case
+    counted in ``tensor_core_launches`` or not). Every case draws from
+    generators of its own (``_draw_gen``). The float32 mamba2 case
     also goes through ``SSDScan`` under autograd (bit for bit with the
     direct call) and is held against ``torch.autograd.grad`` of
     ``ssd_scan_plain``. Returns the float32 mamba2 record (the main path's)
@@ -1399,6 +1444,7 @@ def _ssd_scan_backward_cases(gen) -> dict:
         ("s341", 1, 341, 64, 64, 128, 256, False, False, False),
         ("s2048", 1, 2048, 64, 64, 128, 256, False, False, False),
         ("h0, dstate", 1, 341, 64, 64, 128, 256, True, True, False),
+        ("s=16", 1, 16, 64, 64, 128, 256, False, False, False),
         ("s=1", 1, 1, 64, 64, 128, 256, False, False, False),
         ("s=257", 1, 257, 64, 64, 128, 256, False, False, False),
         ("smoke widths, h0, dstate", 2, 100, 8, 32, 16, 32, True, True, False),
@@ -1408,12 +1454,10 @@ def _ssd_scan_backward_cases(gen) -> dict:
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, s, h, p, n, chunk, with_h0, with_dstate, steep in cases:
-            sets, A, h0 = _ssd_case(gen, dtype, b, s, h, p, n, h0=with_h0, steep=steep,
-                                    strided=p == 64)
-            x, dt, B, C = sets[0]
-            dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
-            dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") \
-                if with_dstate else None
+            label = f"ssd_scan_backward {dtype} {name}"
+            shape = (b, s, h, p, n, with_h0, with_dstate, steep)
+            x, dt, A, B, C, h0, dy, dstate = _ssd_bwd_inputs(
+                _draw_gen("ssd_scan_backward", label, 0), dtype, *shape)
             tensor_cores, heads = ssd_module.backward_route(b, s, h, p, n, chunk, with_h0,
                                                             with_dstate, n_sms)
             before = (ssd_scan_backward.launches, ssd_scan_backward.tensor_core_launches)
@@ -1426,7 +1470,6 @@ def _ssd_scan_backward_cases(gen) -> dict:
                 fail(f"ssd_scan_backward {name}: two calls counted (launches, tensor-core "
                      f"launches) {counted}, the route implies (2, {2 * int(tensor_cores)})")
             want = ssd_scan_backward_plain(x, dt, A, B, C, h0, dy, dstate, chunk)
-            label = f"ssd_scan_backward {dtype} {name}"
             errs = {}
             for nm, g, w, g2 in zip(names, got, want, again):
                 if (g is None) != (w is None) or (g is not None and g.shape != w.shape):
@@ -1447,22 +1490,39 @@ def _ssd_scan_backward_cases(gen) -> dict:
                 errs[nm] = float((err / scale).max())
             precision = {}
             if dtype == torch.float32 and tensor_cores:
-                # a reading, not a gate: each gradient's error of its largest
-                # value against the plain version in float64, over the float32
-                # plain version's. The tensor-core kernel sums C B^T over all
-                # of N in one truncating accumulator, and dx's ratio passes
-                # TF32_FACTOR (20x at s = 1); a rounded partial sum there
-                # spills at its 168 registers (ROADMAP.md, Queue C)
-                exact = ssd_scan_backward_plain(
-                    *(None if t is None else t.double()
-                      for t in (x, dt, A, B, C, h0, dy, dstate)), chunk)
-                precision["float64_reading"] = {
-                    nm: _rel_max(g, e) / _rel_max(w, e)
-                    for nm, g, w, e in zip(names, got, want, exact)
-                    if e is not None and bool(e.abs().max() > 0)}   # dA is 0 at s = 1
-                del exact
+                # the tensor-core kernel keeps float32's precision: on each
+                # draw, each gradient's error of its largest value against the
+                # plain version run in float64 at most TF32_FACTOR times the
+                # float32 plain version's
+                ratios = []
+                for draw in range(PRECISION_DRAWS):
+                    inputs = (x, dt, A, B, C, h0, dy, dstate) if draw == 0 else \
+                        _ssd_bwd_inputs(_draw_gen("ssd_scan_backward", label, draw), dtype,
+                                        *shape)
+                    mine = got if draw == 0 else ssd_scan_backward(*inputs, chunk=chunk)
+                    plain = want if draw == 0 else ssd_scan_backward_plain(*inputs, chunk)
+                    exact = ssd_scan_backward_plain(
+                        *(None if t is None else t.double() for t in inputs), chunk)
+                    ratio = {}
+                    for nm, g, w, e in zip(names, mine, plain, exact):
+                        if e is None or not bool(e.abs().max() > 0):   # dA is 0 at s = 1
+                            continue
+                        f64_err, plain_f64_err = _rel_max(g, e), _rel_max(w, e)
+                        ratio[nm] = f64_err / plain_f64_err if plain_f64_err else \
+                            float("inf") if f64_err else 1.0
+                        if not f64_err <= TF32_FACTOR * plain_f64_err:
+                            fail(f"{label} {nm}, draw {draw}: error {f64_err:.3e} of its "
+                                 f"largest value against float64, beyond {TF32_FACTOR:g} x "
+                                 f"the float32 plain version's {plain_f64_err:.3e}")
+                    ratios.append(ratio)
+                    del exact
+                precision = dict(float64_ratio_by_draw=ratios,
+                                 float64_ratio_max={nm: max(r[nm] for r in ratios)
+                                                    for nm in ratios[0]},
+                                 float64_factor=TF32_FACTOR, draws=PRECISION_DRAWS)
             rec = dict(kernel="ssd_scan_backward", dtype=str(dtype), case=name,
-                       route="3xTF32 mma.sync" if tensor_cores else "fp32 FMA",
+                       route="6xTF32 mma.sync" if tensor_cores and dtype == torch.float32
+                       else "3xTF32 mma.sync" if tensor_cores else "fp32 FMA",
                        heads_per_block=heads,
                        shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk,
                                   h0=with_h0, dstate=with_dstate, strided=p == 64),
@@ -1507,18 +1567,20 @@ def _ssd_scan_backward_cases(gen) -> dict:
                     (2 * dt.numel() + 2 * A.numel()) * 4
                 flops = _ssd_bwd_flops(b, s, h, p, n, chunk, with_h0, with_dstate)
                 b_ms, b_by = bound(n_bytes, flops, dtype)
-                # the same work as 3xTF32 products on the tensor cores (495 TFLOP/s
-                # TF32, three products each), and the FMA kernel's per-head count
-                tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops)
+                # the same work as the products the kernel runs on the tensor
+                # cores (495 TFLOP/s TF32; six a product in float32, 6xTF32,
+                # three in bf16), and the FMA kernel's per-head count
+                tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops,
+                                                6 if dtype == torch.float32 else 3)
                 per_head_ms, _ = bound(n_bytes, _ssd_bwd_flops(
                     b, s, h, p, n, chunk, with_h0, with_dstate, heads_summed=False), dtype)
                 # no single PyTorch call computes this gradient: no library time
                 rec.update(time_ms=ms, kernel_ms=kernel_ms, call_ms=call_ms, bound_ms=b_ms,
-                           bound_by=b_by, bound_3xtf32_ms=tf32_ms,
+                           bound_by=b_by, bound_tensor_core_ms=tf32_ms,
                            bound_per_head_products_ms=per_head_ms, flops=flops,
                            plain_ms=plain_ms, library_ms=None, kernel_instances=own)
                 if dtype == torch.float32 and name == "mamba2-1.3b training":
-                    # its kernel runs 3xTF32 on the tensor cores: that is its bound
+                    # its kernel runs 6xTF32 on the tensor cores: that is its bound
                     record = {"name": "ssd_scan_backward", **KERNEL_INFO["ssd_scan_backward"],
                               "max_abs_err": rec["max_abs_err"], "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": tf32_ms, "bound_by": tf32_by,
@@ -1549,7 +1611,7 @@ def _ssd_scan_cases(gen) -> dict:
         # zamba2-2.7b's Mamba2 blocks: 80 heads, N = 64 (the NPAD-64 instance)
         ("zamba2", 1, 341, 80, 64, 64, 256, False, False),
         ("zamba2 h0", 1, 341, 80, 64, 64, 256, True, False),
-        # mamba2-1.3b's training step (float32: the 3xTF32 kernel, two
+        # mamba2-1.3b's training step (float32: the 6xTF32 kernel, two
         # launches a layer with remat; ``_ssd_tf32_cases`` holds it further)
         ("mamba2-1.3b training", 8, 128, 64, 64, 128, 256, False, False),
     ]
@@ -1572,7 +1634,7 @@ def _ssd_scan_cases(gen) -> dict:
             route, _ = ssd_module.forward_route(b, s, h, p, n, chunk, with_h0,
                                                 dtype == torch.bfloat16, n_sms)
             rec = dict(kernel="ssd_scan", dtype=str(dtype), case=name,
-                       route={"wgmma": "wgmma + TMA", "tf32": "3xTF32 mma.sync",
+                       route={"wgmma": "wgmma + TMA", "tf32": "6xTF32 mma.sync",
                               "fma": "fp32 FMA"}[route],
                        shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, h0=with_h0,
                                   strided=p == 64),
@@ -1608,9 +1670,10 @@ def _ssd_scan_cases(gen) -> dict:
     return record
 
 
-# the float32 forward's one-chunk cases on its 3xTF32 kernel (case, b, s, h,
+# the float32 forward's one-chunk cases on its 6xTF32 kernel (case, b, s, h,
 # n, steep): mamba2-1.3b's and zamba2-2.7b's training shapes (timed), a full
-# chunk of 256, a ragged 200, batches that do not fill a wave, one step, and
+# chunk of 256, a ragged 200, batches that do not fill a wave, the fewest
+# steps it takes (``ssd_scan.TC_MIN_STEPS``; fewer go to the FMA kernel), and
 # A = -16 with dt ~ 1; x, B and C strided views, as the model passes them
 SSD_TF32_CASES = [
     ("mamba2-1.3b training", 8, 128, 64, 128, False),
@@ -1621,7 +1684,7 @@ SSD_TF32_CASES = [
     ("zamba2, ragged s=200", 3, 200, 80, 64, False),
     ("mamba2, batch 1", 1, 128, 64, 128, False),
     ("zamba2, batch 3", 3, 128, 80, 64, False),
-    ("s=1", 2, 1, 64, 128, False),
+    ("s=16", 2, 16, 64, 128, False),
     ("A=-16, dt~1", 8, 128, 64, 128, True),
 ]
 
@@ -1632,16 +1695,18 @@ def _rel_max(got, want) -> float:
     return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
 
-def _ssd_tf32_cases(gen) -> dict:
-    """The float32 SSD forward's 3xTF32 kernel against ``ssd_scan_plain``
-    (y and the final state within ``SSD_TOL``, and against its float64 run
-    within ``TF32_FACTOR`` of the float32 plain version's error) in every case of
+def _ssd_tf32_cases() -> dict:
+    """The float32 SSD forward's 6xTF32 kernel against ``ssd_scan_plain``
+    (y and the final state within ``SSD_TOL``, and, on each of
+    ``PRECISION_DRAWS`` draws, against its float64 run within
+    ``TF32_FACTOR`` of the float32 plain version's error; every case draws
+    from generators of its own, ``_draw_gen``) in every case of
     ``SSD_TF32_CASES``, each call's kernel as ``ssd_scan.forward_route``
     names it (counted in ``ssd_scan.tf32_launches``, seen by the profiler as
     ``ssd_scan_kernel_tf32<N>``), a second call bit for bit. The training
     shapes are timed over four rotated input sets; their bound counts the
     function's operations (``_ssd_flops``) at the fp32 rate and, beside it,
-    as 3xTF32 on the tensor cores. Returns mamba2-1.3b's record for the
+    as 6xTF32 on the tensor cores. Returns mamba2-1.3b's record for the
     kernels line."""
     record = None
     dtype = torch.float32
@@ -1649,13 +1714,13 @@ def _ssd_tf32_cases(gen) -> dict:
     for case, b, s, h, n, steep in SSD_TF32_CASES:
         p, chunk = 64, 256
         timed = "training" in case
-        sets, A, _ = _ssd_case(gen, dtype, b, s, h, p, n, steep=steep,
-                               copies=4 if timed else 1, strided=True)
+        label = f"ssd_scan 6xTF32 {case}"
+        sets, A, _ = _ssd_case(_draw_gen("ssd_scan", label, 0), dtype, b, s, h, p, n,
+                               steep=steep, copies=4 if timed else 1, strided=True)
         x, dt, B, C = sets[0]
         route, heads = ssd_module.forward_route(b, s, h, p, n, chunk, False, False, n_sms)
         if route != "tf32":
-            fail(f"ssd_scan 3xTF32 {case}: forward_route names {route}")
-        label = f"ssd_scan 3xTF32 {case}"
+            fail(f"{label}: forward_route names {route}")
         before = (ssd_scan.launches, ssd_scan.tf32_launches, ssd_scan.tensor_core_launches)
         y, state = ssd_scan(x, dt, A, B, C, chunk=chunk)
         y2, state2 = ssd_scan(x, dt, A, B, C, chunk=chunk)
@@ -1663,7 +1728,7 @@ def _ssd_tf32_cases(gen) -> dict:
         counted = (ssd_scan.launches - before[0], ssd_scan.tf32_launches - before[1],
                    ssd_scan.tensor_core_launches - before[2])
         if counted != (2, 2, 0):
-            fail(f"{label}: two calls counted (launches, 3xTF32 launches, wgmma launches) "
+            fail(f"{label}: two calls counted (launches, 6xTF32 launches, wgmma launches) "
                  f"{counted}")
         if not (torch.equal(y, y2) and torch.equal(state, state2)):
             fail(f"{label}: a second call gave other bits")
@@ -1672,31 +1737,44 @@ def _ssd_tf32_cases(gen) -> dict:
             fail(f"{label}: the plain version is not finite")
         err = max(check_close(f"{label} y", y, want_y, dtype, SSD_TOL),
                   check_close(f"{label} state", state, want_state, dtype, SSD_TOL))
-        # float32's precision: against the plain version in float64, the
-        # kernel's error at most TF32_FACTOR times the float32 plain version's
-        # (one TF32 rounding a product is 20 to 1000 times it)
-        exact = ssd_scan_plain(*(t.double() for t in (x, dt, A, B, C)), chunk)
-        f64_err, plain_f64_err = {}, {}
-        for what, got, plain, want in (("y", y, want_y, exact[0]),
-                                       ("state", state, want_state, exact[1])):
-            f64_err[what] = _rel_max(got, want)
-            plain_f64_err[what] = _rel_max(plain, want)
-            if not f64_err[what] <= TF32_FACTOR * plain_f64_err[what]:
-                fail(f"{label} {what}: error {f64_err[what]:.3e} of the largest value "
-                     f"against float64, beyond {TF32_FACTOR:g} x the float32 plain "
-                     f"version's {plain_f64_err[what]:.3e}")
-        del exact
+        # float32's precision: on each draw, against the plain version in
+        # float64, the kernel's error at most TF32_FACTOR times the float32
+        # plain version's (one TF32 rounding a product is 20 to 1000 times it)
+        ratios = []
+        for draw in range(PRECISION_DRAWS):
+            if draw == 0:
+                inputs, mine, plain = (x, dt, A, B, C), (y, state), (want_y, want_state)
+            else:
+                more, _, _ = _ssd_case(_draw_gen("ssd_scan", label, draw), dtype, b, s, h, p,
+                                       n, steep=steep, strided=True)
+                inputs = (more[0][0], more[0][1], A, more[0][2], more[0][3])
+                mine = ssd_scan(*inputs, chunk=chunk)
+                plain = ssd_scan_plain(*inputs, chunk)
+            exact = ssd_scan_plain(*(t.double() for t in inputs), chunk)
+            ratio = {}
+            for what, got, pl, want in zip(("y", "state"), mine, plain, exact):
+                f64_err, plain_f64_err = _rel_max(got, want), _rel_max(pl, want)
+                ratio[what] = f64_err / plain_f64_err if plain_f64_err else \
+                    float("inf") if f64_err else 1.0
+                if not f64_err <= TF32_FACTOR * plain_f64_err:
+                    fail(f"{label} {what}, draw {draw}: error {f64_err:.3e} of the largest "
+                         f"value against float64, beyond {TF32_FACTOR:g} x the float32 "
+                         f"plain version's {plain_f64_err:.3e}")
+            ratios.append(ratio)
+            del exact
         own = {_instance(e.key): e.count for e in
                _kernel_rows(lambda: ssd_scan(x, dt, A, B, C, chunk=chunk), 1)}
         if own != {f"ssd_scan_kernel_tf32<{n}>": 1}:
             fail(f"{label}: a call launched {own}")
-        rec = dict(kernel="ssd_scan", dtype=str(dtype), case=case, route="3xTF32 mma.sync",
+        rec = dict(kernel="ssd_scan", dtype=str(dtype), case=case, route="6xTF32 mma.sync",
                    heads_per_block=heads, kernel_instances=own,
                    shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=chunk, strided=True),
                    tolerance=SSD_TOL[dtype], max_abs_err=err,
                    rel_err={"y": _rel_max(y, want_y), "state": _rel_max(state, want_state)},
-                   rel_err_float64=f64_err, plain_rel_err_float64=plain_f64_err,
-                   float64_factor=TF32_FACTOR, second_call="bit for bit")
+                   float64_ratio_by_draw=ratios,
+                   float64_ratio_max={k: max(r[k] for r in ratios) for k in ratios[0]},
+                   float64_factor=TF32_FACTOR, draws=PRECISION_DRAWS,
+                   second_call="bit for bit")
         if timed:
             turn = [0]
 
@@ -1715,13 +1793,13 @@ def _ssd_tf32_cases(gen) -> dict:
                 dt.numel() * 4 + state.numel() * 4
             flops = _ssd_flops(b, s, h, p, n, chunk)
             b_ms, b_by = bound(n_bytes, flops, dtype)
-            tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops)
+            tf32_ms, tf32_by = bound_3xtf32(n_bytes, flops, products=6)
             # no single PyTorch call computes an SSD scan: no library time
             rec.update(time_ms=ms, call_ms=call_ms, bound_ms=b_ms, bound_by=b_by,
-                       bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by, flops=flops,
+                       bound_6xtf32_ms=tf32_ms, bound_6xtf32_by=tf32_by, flops=flops,
                        plain_ms=plain_ms, library_ms=None)
             if record is None:
-                # the kernel runs 3xTF32 on the tensor cores: that is its bound
+                # the kernel runs 6xTF32 on the tensor cores: that is its bound
                 record = {"name": "ssd_scan_tf32", **KERNEL_INFO["ssd_scan_tf32"],
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": tf32_ms, "bound_by": tf32_by,
@@ -3194,10 +3272,10 @@ def _train_ssm_full(smi: str) -> dict:
     and gradient norm is finite, the first loss is within ``FIRST_LOSS_TOL``
     of ``FMA_FIRST_LOSS``, and every step launches the ``ssd_scan`` forward
     twice a layer and its backward once a layer, every forward launch the
-    3xTF32 kernel's and every backward launch the tensor-core kernel's. Then
+    6xTF32 kernel's and every backward launch the tensor-core kernel's. Then
     a step is profiled for its device-busy time and timed on the wall clock;
     the profile must show the backward's tensor-core kernel once a layer,
-    the 3xTF32 forward twice, and no other SSD kernel. Where the loss does not fall,
+    the 6xTF32 forward twice, and no other SSD kernel. Where the loss does not fall,
     ``_train_ssm_witness`` runs the same steps with plain PyTorch SSD and
     fails unless that run does not fall either: whether the loss falls at
     this rate is then the optimisation's and not the kernels'."""
@@ -3242,7 +3320,7 @@ def _train_ssm_full(smi: str) -> dict:
             launches["ssd_scan_backward"]:
         fail(f"train mamba2-1.3b: launches a step (backward, forward) {per_step}, want "
              f"[{cfg.n_layers}, {2 * cfg.n_layers}] each, every forward launch on the "
-             f"3xTF32 kernel (none on the bf16 wgmma kernel) and every backward launch "
+             f"6xTF32 kernel (none on the bf16 wgmma kernel) and every backward launch "
              f"on the tensor cores; in all {launches}")
     if abs(losses[0] - FMA_FIRST_LOSS[cfg.name]) > FIRST_LOSS_TOL:
         fail(f"train mamba2-1.3b: the first loss {losses[0]!r} is not within "
@@ -3786,18 +3864,42 @@ def phase_launch(smi: str, served, trained) -> None:
 
 
 # ------------------------------------------------------------ the mesh
-# the paper's large model at full width, its depth cut, on meshes of 2 and 4
-# ranks (data x model), each held against the same model at world 1 on the
-# same card. The mesh's modules are imported here, not with the others: an
-# ``--ab`` turn imports this script against an older tree, which has none.
+# the paper's large model and an MoE model at full width, their depth cut,
+# served on meshes of 2 and 4 ranks (data x model), and llama-8b (the
+# paper's evaluation model) and the MoE model trained there, each held
+# against the same model at world 1 on the same card. The mesh's modules
+# are imported here, not with the others: an ``--ab`` turn imports this
+# script against an older tree, which has none.
 MESH_ARCH = "llama-70b"
+MESH_MOE_ARCH = "qwen2-moe-a2.7b"
+MESH_SERVE_ARCHS = (MESH_ARCH, MESH_MOE_ARCH)
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
 MESH_SEED = 0
-# by dtype: layers, the prompts' lengths, decode steps, and whether the
-# prompts are prefilled as one batch (float32) or one at a time into the
-# pool's slots, as an engine admits them (bfloat16)
+# by dtype: llama-70b's layers, the prompts' lengths, decode steps, and
+# whether the prompts are prefilled as one batch (float32) or one at a time
+# into the pool's slots, as an engine admits them (bfloat16)
 MESH_RUNS = {torch.float32: (2, (128, 128, 128, 128), 8, True),
              torch.bfloat16: (8, (64, 150, 243, 337), 16, False)}
+# the MoE model's layers in both runs
+MESH_MOE_LAYERS = 2
+# the sharded train step: by arch, its layers, the meshes it trains on
+# ((data, model, zero_opt)) and its steps; each step a global batch of
+# MESH_TRAIN_BATCH sequences of MESH_TRAIN_SEQ tokens of synthetic_lm_batch
+# (seed MESH_SEED + step), float32, remat, TRAIN_LR
+MESH_TRAIN = {"llama-8b": (2, ((1, 2, False), (1, 4, False), (2, 2, True)), 3),
+              MESH_MOE_ARCH: (1, ((2, 2, True),), 2)}
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 128
+# a train step on the mesh against world 1's, float32: the loss and the
+# gradient norm within the training phase's TRAIN_TOL (atol and rtol: the
+# same sums in another order, through a float32 all_reduce); the gathered
+# parameters after the last step within MESH_TRAIN_REL of the distance they
+# moved from their initial values (the trajectory's relative error), and
+# beyond TRAIN_TOL at most MESH_TRAIN_OUTLIERS of their elements: Adam
+# divides a gradient by its running magnitude, so an element whose clipped
+# gradient is near eps (1e-8) turns float32 noise into an update of up to
+# lr (tests/test_torch_mesh_train.py), which no reduction order avoids
+MESH_TRAIN_REL = 1e-3
+MESH_TRAIN_OUTLIERS = 1e-4
 
 
 def _name(dtype) -> str:
@@ -3812,105 +3914,254 @@ MESH_RUNS_NAMES = tuple(map(_name, MESH_RUNS))
 # world 1 rounds each product once; at the smoke widths on the CPU either
 # run is 0.04-0.056 off a float32 run of the same weights)
 MESH_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: 2 * TOL[torch.bfloat16]}
-MESH_RANK_LIMIT_S = 300
+# a bf16 MoE model's routing is discontinuous: its router's top-k over 60
+# experts flips on a near-tie, and a flip moves later tokens past an
+# expert's capacity, under any change of summation order (a rank's partial
+# sums give its activations other bf16 roundings than world 1's one sum).
+# So its sharded run is held to MESH_TOL with world 1's routing replayed
+# (every layer's top-k experts of every token, the gates from the rank's own
+# router), which isolates the sharded arithmetic; its run on its own routing
+# must agree on at least MESH_GREEDY_MIN of its greedy tokens and send at
+# most MESH_MOE_REROUTE_MAX of its (token, layer) pairs to other experts
+# than world 1 did; its logit error on its own routing is reported. The
+# runs are deterministic: two sound runs each rerouted 99, 68 and 99 of
+# 1716 (5.8 %, 4.0 %, 5.8 % on 1 x 2, 1 x 4, 2 x 2; NVIDIA H100 80GB HBM3,
+# 700.00 W), so the limit is the worst of them and a third more
+MESH_GREEDY_MIN = {torch.float32: 1.0, torch.bfloat16: 60 / 64}
+MESH_MOE_REROUTE_MAX = 0.077
+MESH_RANK_LIMIT_S = 400
 
 
-def _mesh_config(dtype):
-    layers = MESH_RUNS[dtype][0]
-    return get_config(MESH_ARCH).with_(n_layers=layers,
-                                       dtype=_name(dtype))
+class _Routing:
+    """While entered, records each MoE layer's routing (``moe._route``'s
+    top-k experts, raw, and as sent: the assignments ``moe._dispatch`` drops
+    for capacity set to -1, sorted), or with ``force`` (raw top-k tensors in
+    call order) replays them: the gates are then the rank's own router
+    probabilities at the forced experts, normalized as ``_route`` does.
+    ``take()`` returns the records since the last call, one (raw, sent) a
+    layer call."""
+
+    def __init__(self, force=None):
+        from repro_torch.models import moe
+        self._moe, self._fns, self.calls = moe, (moe._route, moe._dispatch), []
+        self._force = None if force is None else list(force)
+
+    def __enter__(self):
+        route_fn, dispatch_fn = self._fns
+
+        def route(cfg, logits):
+            if self._force is None:
+                probs, gate, idx = route_fn(cfg, logits)
+            else:
+                probs = torch.softmax(logits, dim=-1)
+                idx = self._force.pop(0).to(logits.device)
+                gate = torch.gather(probs, -1, idx)
+                gate = gate / gate.sum(-1, keepdim=True)
+            self.calls.append([idx, None])
+            return probs, gate, idx
+
+        def dispatch(flat_e, E, C, counted=None):
+            dest, keep = dispatch_fn(flat_e, E, C, counted)
+            idx = self.calls[-1][0]
+            sent = torch.where(keep.reshape(idx.shape), idx, -1)
+            self.calls[-1] = (idx.cpu(), torch.sort(sent, dim=-1).values.cpu())
+            return dest, keep
+        self._moe._route, self._moe._dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route, self._moe._dispatch = self._fns
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
 
 
-def _mesh_prompts(dtype) -> list:
+def _mesh_config(arch, dtype):
+    layers = MESH_RUNS[dtype][0] if arch == MESH_ARCH else MESH_MOE_LAYERS
+    return get_config(arch).with_(n_layers=layers, dtype=_name(dtype))
+
+
+def _mesh_prompts(arch, dtype) -> list:
     rng = np.random.default_rng(7)
-    vocab = get_config(MESH_ARCH).vocab_size
+    vocab = get_config(arch).vocab_size
     return [torch.from_numpy(rng.integers(0, vocab, (1, n))).long()
             for n in MESH_RUNS[dtype][1]]
 
 
 def _mesh_generate(cfg, dtype, params, prefill_for, decode, pool_for, rows: slice,
-                   feed=None):
+                   feed=None, force=None):
     """Prefill the prompts of ``rows`` and decode ``MESH_RUNS[dtype]``
     steps: ``prefill_for(shape)`` gives a prefill step, ``decode(params,
     tokens, pool)`` a decode step over the global batch's tokens (B, 1),
     ``pool_for(n_rows, cap)`` an empty pool. Each decode step is fed
     ``feed[i]`` (B,), or, without ``feed``, the greedy tokens of the step
-    before. Returns the logits of each step (rows, V) and the tokens fed."""
+    before. ``force``: an MoE model's routing to replay (``_Routing``).
+    Returns the logits of each step (rows, V), the tokens fed, and an MoE
+    model's routing: ``{"prefill": [per prefill call], "decode": [per
+    step]}``, each a list of (raw, sent) a layer."""
     from repro_torch.models.transformer import cache_rows
     _, lengths, n_steps, batched = MESH_RUNS[dtype]
-    prompts = [p.cuda() for p in _mesh_prompts(dtype)]
+    prompts = [p.cuda() for p in _mesh_prompts(cfg.name, dtype)]
     B, cap = len(prompts), max(lengths) + n_steps
-    if batched:
-        shape = InputShape("mesh_prefill", cap, B, "prefill")
-        logits, pool = prefill_for(shape)(params, {"tokens": torch.cat(prompts)})
-    else:
-        pool, logits = pool_for(rows.stop - rows.start, cap), []
-        for i in range(rows.start, rows.stop):
-            n = lengths[i]
-            shape = InputShape(f"mesh_prompt{i}", n, 1, "prefill")
-            lg, one = prefill_for(shape)(params, {"tokens": prompts[i]})
-            Model(cfg).write_slot(pool, i - rows.start, {
-                key: cache_rows(one, key, 0)[:, None, :n] for key in ("k", "v")})
-            pool["pos"][i - rows.start] = n
-            logits.append(lg)
-        logits = torch.cat(logits)
-    out, fed = [logits.float().cpu()], []
-    for i in range(n_steps):
-        if feed is None:
-            full = torch.zeros((B,), dtype=torch.long)
-            full[rows] = out[-1].argmax(-1)
-            tok = full
+    routes = {"prefill": [], "decode": []}
+    with _Routing(force) as routing:
+        if batched:
+            shape = InputShape("mesh_prefill", cap, B, "prefill")
+            logits, pool = prefill_for(shape)(params, {"tokens": torch.cat(prompts)})
+            routes["prefill"].append(routing.take())
         else:
-            tok = feed[i]
-        fed.append(tok)
-        logits, pool = decode(params, tok[:, None].cuda(), pool)
-        out.append(logits.float().cpu())
-    return out, torch.stack(fed)
+            pool, logits = pool_for(rows.stop - rows.start, cap), []
+            for i in range(rows.start, rows.stop):
+                n = lengths[i]
+                shape = InputShape(f"mesh_prompt{i}", n, 1, "prefill")
+                lg, one = prefill_for(shape)(params, {"tokens": prompts[i]})
+                Model(cfg).write_slot(pool, i - rows.start, {
+                    key: cache_rows(one, key, 0)[:, None, :n] for key in ("k", "v")})
+                pool["pos"][i - rows.start] = n
+                logits.append(lg)
+                routes["prefill"].append(routing.take())
+            logits = torch.cat(logits)
+        out, fed = [logits.float().cpu()], []
+        for i in range(n_steps):
+            if feed is None:
+                full = torch.zeros((B,), dtype=torch.long)
+                full[rows] = out[-1].argmax(-1)
+                tok = full
+            else:
+                tok = feed[i]
+            fed.append(tok)
+            logits, pool = decode(params, tok[:, None].cuda(), pool)
+            out.append(logits.float().cpu())
+            routes["decode"].append(routing.take())
+    return out, torch.stack(fed), routes
 
 
-def _mesh_world1(dtype) -> dict:
+def _replayed(routes, rows: slice) -> list:
+    """World 1's raw routing of one prompt at a time (bf16's prefills) for
+    the rows of a rank, in the order its layers call ``_route``."""
+    calls = [raw for prompt in routes["prefill"][rows] for raw, _ in prompt]
+    return calls + [raw[rows] for step in routes["decode"] for raw, _ in step]
+
+
+def _routed_otherwise(routes, ref, rows: slice, batched: bool) -> int:
+    """(token, layer) pairs of ``rows`` that ``routes`` sent to other experts
+    than world 1's ``ref`` did (drops for capacity included)."""
+    if batched:   # one prefill of every row
+        prefills = [(routes["prefill"][0], [(r, w[rows]) for r, w in ref["prefill"][0]])]
+    else:         # one prefill a row
+        prefills = list(zip(routes["prefill"], ref["prefill"][rows]))
+    decodes = [(mine, [(r, w[rows]) for r, w in theirs])
+               for mine, theirs in zip(routes["decode"], ref["decode"])]
+    return sum(int((sent != want).any(-1).sum())
+               for mine, theirs in prefills + decodes
+               for (_, sent), (_, want) in zip(mine, theirs))
+
+
+def _mesh_world1(arch, dtype) -> dict:
     """The reference: the cut model at world 1 on the card, greedy."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    cfg = _mesh_config(dtype)
+    cfg = _mesh_config(arch, dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(MESH_SEED)
     params = Model(cfg).init(gen, dtype=dtype, device="cuda")
     B = len(MESH_RUNS[dtype][1])
     with torch.no_grad():
-        logits, feed = _mesh_generate(
+        logits, feed, routes = _mesh_generate(
             cfg, dtype, params, lambda shape: make_prefill_step(cfg, shape),
             make_serve_step(cfg),
             lambda n, cap: Model(cfg).init_cache(n, cap, dtype=dtype, device="cuda"),
             slice(0, B))
     torch.cuda.synchronize()
     del params
-    return {"logits": logits, "feed": feed}
+    return {"logits": logits, "feed": feed, "routes": routes}
 
 
-def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -> None:
-    """One rank of a mesh phase run (``--mesh-rank``): the cut model's shards
-    from the same seed as world 1 (``params.init_shard``), the sharded
-    prefill and decode steps fed world 1's tokens, each step's logits held
-    against world 1's rows, and one JSON line: its launches against layers x
-    calls, its peak memory and its seconds. Any failure exits non-zero."""
-    from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+def _train_config(arch):
+    return get_config(arch).with_(n_layers=MESH_TRAIN[arch][0], dtype="float32")
+
+
+def _train_batches(cfg) -> list:
+    return [synthetic_lm_batch(np.random.default_rng(MESH_SEED + i), Model(cfg),
+                               MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+            for i in range(MESH_TRAIN[cfg.name][2])]
+
+
+def _train_launches() -> dict:
+    return {"flash_prefill": flash_prefill.launches,
+            "flash_prefill.lse_launches": flash_prefill.lse_launches,
+            "flash_prefill.tf32_launches": flash_prefill.tf32_launches,
+            "flash_prefill.tensor_core_launches": flash_prefill.tensor_core_launches,
+            "flash_prefill_backward": flash_prefill_backward.launches,
+            "flash_prefill_backward.tf32_launches": flash_prefill_backward.tf32_launches}
+
+
+def _check_train_launches(label: str, cfg, launches: dict) -> dict:
+    """Every attention launch of ``MESH_TRAIN[arch][2]`` remat steps on the
+    3xTF32 kernels: two forwards a layer a step, each writing the
+    log-sum-exp, one backward."""
+    n = cfg.n_layers * MESH_TRAIN[cfg.name][2]
+    want = {"flash_prefill": 2 * n, "flash_prefill.lse_launches": 2 * n,
+            "flash_prefill.tf32_launches": 2 * n, "flash_prefill.tensor_core_launches": 0,
+            "flash_prefill_backward": n, "flash_prefill_backward.tf32_launches": n}
+    if launches != want:
+        fail(f"{label}: attention launches {launches}, want {want}")
+    return want
+
+
+def _train_world1(arch, work: str) -> dict:
+    """The reference of the sharded train step: ``make_train_step`` at world
+    1 on the card over the same batches from the same seed; each step's
+    loss and gradient norm, and the parameters after the last step saved
+    under ``work`` for the ranks (CPU tensors, ``tree.flatten`` order)."""
+    cfg = _train_config(arch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = Model(cfg).init(gen, dtype=torch.float32, device="cuda")
+    opt = adamw_init(params)
+    step = make_train_step(cfg, remat=True, lr=TRAIN_LR)
+    losses, norms = [], []
+    zero_counts()
+    t0 = time.monotonic()
+    for batch in _train_batches(cfg):
+        params, opt, info = step(params, opt, batch)
+        losses.append(float(info["loss"]))
+        norms.append(float(info["grad_norm"]))
+    seconds = time.monotonic() - t0
+    launches = _check_train_launches(f"mesh train {arch} world 1", cfg, _train_launches())
+    if not all(np.isfinite(losses + norms)):
+        fail(f"mesh train {arch} world 1: {losses}, {norms}")
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    # how far the parameters moved: the scale of the ranks' relative error
+    gen.manual_seed(MESH_SEED)
+    initial = Model(cfg).init(gen, dtype=torch.float32, device="cuda")
+    moved2 = sum(float(torch.sum((p.double() - p0.double()) ** 2))
+                 for p, p0 in zip(tree.leaves(params), tree.leaves(initial)))
+    del initial
+    torch.save([t.cpu() for t in tree.leaves(params)], os.path.join(work, f"{arch}.pt"))
+    del params
+    return {"losses": losses, "grad_norms": norms, "moved2": moved2, "seconds": seconds,
+            "peak_bytes": peak, "launches": launches}
+
+
+def _rank_serve(arch, mesh, coords, sizes, label, reference) -> dict:
+    """One rank's sharded prefill and decode steps of ``arch`` in both
+    dtypes, fed world 1's tokens, each step's logits held against world 1's
+    rows (a bf16 MoE model's with world 1's routing replayed, after a run on
+    its own routing that counts its greedy tokens); its launches against
+    layers x calls."""
     from repro_torch.launch.steps import batch_rows, local_config, sharded_step
     from repro_torch.params import init_shard
-    dist.init_process_group(backend, init_method=f"file://{work}/store_{world}_{model_axis}",
-                            world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=MESH_RANK_LIMIT_S))
-    mesh = make_local_mesh(model_axis, backend="cuda")
-    coords, sizes = mesh_coords(mesh), mesh_axis_sizes(mesh)
-    label = f"mesh {sizes['data']}x{sizes['model']} rank {rank}"
-    reference = torch.load(os.path.join(work, "world1.pt"))
-    out = {"rank": rank, "coords": coords, "backend": backend,
-           "device": torch.cuda.current_device()}
-    for dtype, (layers, lengths, n_steps, batched) in MESH_RUNS.items():
+    out = {}
+    for dtype, (_, lengths, n_steps, batched) in MESH_RUNS.items():
         name = _name(dtype)
-        cfg = _mesh_config(dtype)
+        cfg = _mesh_config(arch, dtype)
+        layers = cfg.n_layers
         rows = batch_rows(mesh, len(lengths))
         lcfg = local_config(cfg, sizes)
-        ref = reference[name]
+        ref = reference[f"{arch} {name}"]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3922,7 +4173,7 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
         decode_shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths),
                                   "decode")
         with torch.no_grad():
-            logits, _ = _mesh_generate(
+            logits, _, routes = _mesh_generate(
                 cfg, dtype, params, lambda shape: sharded_step(cfg, shape, mesh)[0],
                 sharded_step(cfg, decode_shape, mesh)[0],
                 lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype, device="cuda"),
@@ -3939,16 +4190,42 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
         want["flash_prefill_tf32" if dtype == torch.float32 else "flash_prefill_wgmma"] = \
             layers * prefills
         if any(launches[k] != v for k, v in want.items()):
-            fail(f"{label} {name}: launches {launches}, want {want}")
+            fail(f"{label} {arch} {name}: launches {launches}, want {want}")
+        replay = cfg.is_moe and dtype == torch.bfloat16
         err, agree = 0.0, 0
         for i, (got, exp) in enumerate(zip(logits, ref["logits"])):
-            err = max(err, check_close(f"{label} {name} step {i}", got, exp[rows], dtype,
-                                       MESH_TOL))
+            if replay:   # its own routing: the greedy tokens, the error reported
+                err = max(err, float((got - exp[rows]).abs().max()))
+            else:
+                err = max(err, check_close(f"{label} {arch} {name} step {i}", got, exp[rows],
+                                           dtype, MESH_TOL))
             if i < n_steps:
                 agree += int((got.argmax(-1) == ref["feed"][i][rows]).sum())
+        extra = {}
+        if cfg.is_moe:
+            extra["routed_otherwise"] = _routed_otherwise(routes, ref["routes"], rows, batched)
+            extra["routed_of"] = sum(int(sent[..., 0].numel()) for call in
+                                     routes["prefill"] + routes["decode"] for _, sent in call)
+        if replay:   # world 1's routing replayed: the sharded arithmetic
+            with torch.no_grad():
+                logits, _, _ = _mesh_generate(
+                    cfg, dtype, params, lambda shape: sharded_step(cfg, shape, mesh)[0],
+                    sharded_step(cfg, decode_shape, mesh)[0],
+                    lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype,
+                                                          device="cuda"),
+                    rows, feed=ref["feed"], force=_replayed(ref["routes"], rows))
+            extra["max_abs_err_own_routing"] = err
+            err = 0.0
+            for i, (got, exp) in enumerate(zip(logits, ref["logits"])):
+                err = max(err, check_close(f"{label} {arch} {name} replayed step {i}", got,
+                                           exp[rows], dtype, MESH_TOL))
+        # the logits held to MESH_TOL: a bf16 MoE run's are its replay of
+        # world 1's routing, which no served request takes
+        err_key = "max_abs_err_routing_replayed" if replay else "max_abs_err"
         out[name] = {"layers": layers, "rows": [rows.start, rows.stop],
                      "local_heads": lcfg.n_heads, "local_kv_heads": lcfg.n_kv_heads,
-                     "max_abs_err": err, "tolerance": MESH_TOL[dtype],
+                     err_key: err, "tolerance": MESH_TOL[dtype],
+                     "routing": "world 1's, replayed" if replay else "its own", **extra,
                      "max_abs_logit": max(float(x.abs().max()) for x in ref["logits"]),
                      "greedy_agree": agree,
                      "greedy_of": n_steps * (rows.stop - rows.start),
@@ -3956,6 +4233,106 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
                      "peak_bytes": torch.cuda.max_memory_allocated(),
                      "seconds": seconds}
         del params
+    return out
+
+
+def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> dict:
+    """One rank's ``MESH_TRAIN[arch][2]`` sharded train steps from world 1's
+    seed: each step's loss and gradient norm against world 1's (the same on
+    every rank), every attention launch on the 3xTF32 kernels, then the
+    parameters gathered leaf by leaf (``params.gather_leaf``) and held by
+    rank 0 against world 1's (``MESH_TRAIN_REL``, ``MESH_TRAIN_OUTLIERS``)."""
+    from repro_torch.launch.steps import sharded_step
+    from repro_torch.params import gather_leaf, global_specs, init_opt_shard, init_shard
+    cfg = _train_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    params = init_shard(cfg, gen, mesh, coords, dtype=torch.float32, device="cuda")
+    opt = init_opt_shard(cfg, mesh, zero=zero, device="cuda")
+    shape = InputShape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+    fn, _ = sharded_step(cfg, shape, mesh, remat=True, zero_opt=zero)
+    init_s = time.monotonic() - t0
+    losses, norms = [], []
+    zero_counts()
+    t0 = time.monotonic()
+    for batch in _train_batches(cfg):
+        params, opt, info = fn(params, opt, batch)
+        losses.append(float(info["loss"]))
+        norms.append(float(info["grad_norm"]))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _check_train_launches(f"{label} train {arch}", cfg, _train_launches())
+    for key, got, want in (("loss", losses, reference["losses"]),
+                           ("grad_norm", norms, reference["grad_norms"])):
+        if not np.allclose(got, want, atol=TRAIN_TOL, rtol=TRAIN_TOL):
+            fail(f"{label} train {arch}: {key} {got}, world 1 {want} (tolerance {TRAIN_TOL:g})")
+    # the parameters, gathered a leaf at a time, against world 1's
+    _, p_sh, _ = global_specs(cfg, mesh)
+    want = torch.load(os.path.join(work, f"{arch}.pt"), mmap=True) if coords == \
+        {"data": 0, "model": 0} else None
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff2, outliers, count, max_err = 0.0, 0, 0, 0.0
+    for j, (leaf, spec) in enumerate(zip(tree.leaves(params), tree.leaves(p_sh))):
+        got = gather_leaf(leaf, spec, mesh)
+        if want is not None:   # a leaf at a time, in pieces of 2^26 elements
+            for g, w in zip(got.flatten().split(1 << 26), want[j].flatten().split(1 << 26)):
+                w = w.cuda()
+                d = (g - w).abs()
+                diff2 += float(d.square().sum(dtype=torch.float64))
+                outliers += int((d > TRAIN_TOL + TRAIN_TOL * w.abs()).sum())
+                count += d.numel()
+                max_err = max(max_err, float(d.max()))
+                del w, d
+        del got
+    rec = {"zero_opt": zero, "losses": losses, "grad_norms": norms,
+           "world1_losses": reference["losses"], "world1_grad_norms": reference["grad_norms"],
+           "launches": launches, "peak_bytes": peak, "init_s": init_s, "seconds": seconds,
+           "step_s": seconds / len(losses)}
+    if want is not None:
+        rel = (diff2 / reference["moved2"]) ** 0.5
+        share = outliers / count
+        rec.update(params_rel_err=rel, params_max_abs_err=max_err,
+                   params_outlier_share=share, params_tolerance=TRAIN_TOL,
+                   params_rel_tolerance=MESH_TRAIN_REL,
+                   params_outlier_tolerance=MESH_TRAIN_OUTLIERS)
+        if not (rel <= MESH_TRAIN_REL and share <= MESH_TRAIN_OUTLIERS):
+            fail(f"{label} train {arch}: parameters {rel:.3e} of their move off world 1's "
+                 f"(limit {MESH_TRAIN_REL:g}), {share:.3e} of elements beyond {TRAIN_TOL:g} "
+                 f"(limit {MESH_TRAIN_OUTLIERS:g}), max {max_err:.3e}")
+    del params, want
+    return rec
+
+
+def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -> None:
+    """One rank of a mesh phase run (``--mesh-rank``): each serving arch's
+    shards from the same seed as world 1 (``params.init_shard``) through the
+    sharded prefill and decode steps (``_rank_serve``), then each training
+    run of this mesh (``_rank_train``), and one JSON line: launches, peak
+    memory and seconds of each part. Any failure exits non-zero."""
+    from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+    dist.init_process_group(backend, init_method=f"file://{work}/store_{world}_{model_axis}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_LIMIT_S))
+    mesh = make_local_mesh(model_axis, backend="cuda")
+    coords, sizes = mesh_coords(mesh), mesh_axis_sizes(mesh)
+    label = f"mesh {sizes['data']}x{sizes['model']} rank {rank}"
+    reference = torch.load(os.path.join(work, "world1.pt"))
+    out = {"rank": rank, "coords": coords, "backend": backend,
+           "device": torch.cuda.current_device(), "serve": {}, "train": {}}
+    for arch in MESH_SERVE_ARCHS:
+        out["serve"][arch] = _rank_serve(arch, mesh, coords, sizes, label, reference)
+    for arch, (_, meshes, _) in MESH_TRAIN.items():
+        for data, model, zero in meshes:
+            if (data, model) == (sizes["data"], sizes["model"]):
+                out["train"][arch] = _rank_train(arch, zero, mesh, coords, label, work,
+                                                 reference[f"train {arch}"])
     print(json.dumps(out), flush=True)
     dist.destroy_process_group()
 
@@ -3968,10 +4345,13 @@ def _mesh_ranks(smi: str, work: str, data: int, model: int) -> dict:
     world = data * model
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     t0 = time.monotonic()
+    # ranks sharing one card free and take memory in turn: growable segments
+    # keep one rank's freed blocks from fragmenting what the others may take
+    env = dict(_port_env(), PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
                                str(r), "--mesh-world", str(world), "--mesh-model",
                                str(model), "--mesh-dir", work, "--mesh-backend", backend],
-                              env=_port_env(), cwd=HERE, stdout=subprocess.PIPE,
+                              env=env, cwd=HERE, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for r in range(world)]
     results = []
@@ -3991,34 +4371,52 @@ def _mesh_ranks(smi: str, work: str, data: int, model: int) -> dict:
            for r, (p, _, err) in enumerate(results) if p.returncode != 0]
     if bad:
         fail(f"mesh {data}x{model} ({backend}): " + "\n".join(bad))
+    mesh = mesh_shape((data, model))
     planned = {}
-    for dtype, (layers, lengths, n_steps, _) in MESH_RUNS.items():
-        shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths), "decode")
-        planned[_name(dtype)] = roofline.plan(
-            _mesh_config(dtype), shape, mesh=mesh_shape((data, model)))[1]["arg_bytes"]
+    for arch in MESH_SERVE_ARCHS:
+        for dtype, (_, lengths, n_steps, _) in MESH_RUNS.items():
+            shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths), "decode")
+            planned[arch, _name(dtype)] = roofline.plan(
+                _mesh_config(arch, dtype), shape, mesh=mesh)[1]["arg_bytes"]
+    for arch, (_, meshes, _) in MESH_TRAIN.items():
+        for d, m, zero in meshes:
+            if (d, m) == (data, model):
+                shape = InputShape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
+                planned[arch, "train"] = roofline.plan(
+                    _train_config(arch), shape, mesh=mesh, zero_opt=zero)[1]["arg_bytes"]
     ranks = []
     for _, out, _ in results:
         rec = json.loads(out.strip().splitlines()[-1])
-        for name, arg_bytes in planned.items():
-            rec[name]["dryrun_arg_bytes"] = arg_bytes
+        for (arch, part), arg_bytes in planned.items():
+            where = rec["train"][arch] if part == "train" else rec["serve"][arch][part]
+            where["dryrun_arg_bytes"] = arg_bytes
         emit("mesh_rank", gpu=smi, mesh=f"{data}x{model}", **rec)
         ranks.append(rec)
     return {"backend": backend, "wall_s": wall, "ranks": ranks}
 
 
 def phase_mesh(smi: str) -> dict:
-    """llama-70b at full width, its depth cut, through ``sharded_step`` on
-    the meshes of ``MESH_SHAPES``: world 1 on the card first (the reference,
-    greedy), then each mesh's ranks (``mesh_rank``), sharing the card over
-    gloo or one card a rank over NCCL where there are enough. Returns the
-    ranks' launches, summed."""
+    """llama-70b and qwen2-moe-a2.7b at full width, their depth cut, through
+    ``sharded_step``'s prefill and decode steps on the meshes of
+    ``MESH_SHAPES``, and the train runs of ``MESH_TRAIN``: world 1 on the
+    card first (the references), then each mesh's ranks (``mesh_rank``),
+    sharing the card over gloo or one card a rank over NCCL where there are
+    enough. Returns the ranks' launches, summed."""
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory() as work:
         reference, world1_s = {}, {}
-        for dtype in MESH_RUNS:
+        for arch in MESH_SERVE_ARCHS:
+            for dtype in MESH_RUNS:
+                t1 = time.monotonic()
+                reference[f"{arch} {_name(dtype)}"] = _mesh_world1(arch, dtype)
+                world1_s[f"{arch} {_name(dtype)}"] = time.monotonic() - t1
+                gc.collect()
+                torch.cuda.empty_cache()
+        for arch in MESH_TRAIN:
             t1 = time.monotonic()
-            reference[_name(dtype)] = _mesh_world1(dtype)
-            world1_s[_name(dtype)] = time.monotonic() - t1
+            reference[f"train {arch}"] = _train_world1(arch, work)
+            world1_s[f"train {arch}"] = time.monotonic() - t1
+            emit("mesh_train_world1", gpu=smi, arch=arch, **reference[f"train {arch}"])
             gc.collect()
             torch.cuda.empty_cache()
         torch.save(reference, os.path.join(work, "world1.pt"))
@@ -4026,24 +4424,65 @@ def phase_mesh(smi: str) -> dict:
     launches = {}
     for res in meshes.values():
         for rec in res["ranks"]:
-            for name in MESH_RUNS_NAMES:
-                for k, v in rec[name]["launches"].items():
+            parts = [rec["serve"][a][n]["launches"] for a in MESH_SERVE_ARCHS
+                     for n in MESH_RUNS_NAMES] + \
+                [{"flash_prefill": t["launches"]["flash_prefill"],
+                  "flash_prefill_tf32": t["launches"]["flash_prefill.tf32_launches"],
+                  "flash_prefill_backward": t["launches"]["flash_prefill_backward"]}
+                 for t in rec["train"].values()]
+            for part in parts:
+                for k, v in part.items():
                     launches[k] = launches.get(k, 0) + v
-    emit("mesh", gpu=smi, arch=MESH_ARCH, reduced="layers", wall_s=time.monotonic() - t0,
-         runs={_name(dt): {"layers": r[0], "prompts": list(r[1]),
-                                                "decode_steps": r[2]}
+    summary = {}
+    for k, v in meshes.items():
+        serve = {f"{a} {n}": {
+            key: max(r["serve"][a][n][key] for r in v["ranks"])
+            for key in ("max_abs_err", "max_abs_err_routing_replayed")
+            if key in v["ranks"][0]["serve"][a][n]} | {
+            "greedy_agree": [sum(r["serve"][a][n]["greedy_agree"] for r in v["ranks"]
+                                 if r["coords"]["model"] == 0),
+                             sum(r["serve"][a][n]["greedy_of"] for r in v["ranks"]
+                                 if r["coords"]["model"] == 0)],
+            **({"routed_otherwise": [sum(r["serve"][a][n]["routed_otherwise"]
+                                         for r in v["ranks"] if r["coords"]["model"] == 0),
+                                     sum(r["serve"][a][n]["routed_of"]
+                                         for r in v["ranks"] if r["coords"]["model"] == 0)]}
+               if a == MESH_MOE_ARCH else {}),
+            **({"max_abs_err_own_routing": max(
+                r["serve"][a][n]["max_abs_err_own_routing"] for r in v["ranks"])}
+               if "max_abs_err_own_routing" in v["ranks"][0]["serve"][a][n] else {}),
+            "seconds_max": max(r["serve"][a][n]["seconds"] for r in v["ranks"]),
+            "peak_bytes_max": max(r["serve"][a][n]["peak_bytes"] for r in v["ranks"])}
+            for a in MESH_SERVE_ARCHS for n in MESH_RUNS_NAMES}
+        train = {a: {key: v["ranks"][0]["train"][a].get(key) for key in
+                     ("zero_opt", "losses", "grad_norms", "params_rel_err",
+                      "params_max_abs_err", "params_outlier_share")} |
+                 {"seconds_max": max(r["train"][a]["seconds"] for r in v["ranks"]),
+                  "peak_bytes_max": max(r["train"][a]["peak_bytes"] for r in v["ranks"])}
+                 for a in v["ranks"][0]["train"]}
+        for key, rec in serve.items():
+            agree, of = rec["greedy_agree"]
+            want = MESH_GREEDY_MIN[getattr(torch, key.split()[-1])]
+            if agree < want * of:
+                fail(f"mesh {k} {key}: {agree} of {of} greedy tokens agree with world 1's, "
+                     f"want at least {want * of:g}")
+            if "max_abs_err_own_routing" in rec:
+                moved, pairs = rec["routed_otherwise"]
+                if moved > MESH_MOE_REROUTE_MAX * pairs:
+                    fail(f"mesh {k} {key}: on its own routing {moved} of {pairs} (token, "
+                         f"layer) pairs went to other experts than world 1's, beyond "
+                         f"{MESH_MOE_REROUTE_MAX:g}")
+        summary[k] = {"backend": v["backend"], "wall_s": v["wall_s"], "serve": serve,
+                      "train": train}
+    emit("mesh", gpu=smi, archs=list(MESH_SERVE_ARCHS), reduced="layers",
+         wall_s=time.monotonic() - t0,
+         runs={_name(dt): {"layers": {MESH_ARCH: r[0], MESH_MOE_ARCH: MESH_MOE_LAYERS},
+                           "prompts": list(r[1]), "decode_steps": r[2]}
                for dt, r in MESH_RUNS.items()},
-         world1_s=world1_s,
-         meshes={k: {"backend": v["backend"], "wall_s": v["wall_s"],
-                     "max_abs_err": {n: max(r[n]["max_abs_err"] for r in v["ranks"])
-                                     for n in MESH_RUNS_NAMES},
-                     "greedy_agree": {n: [sum(r[n]["greedy_agree"] for r in v["ranks"]
-                                              if r["coords"]["model"] == 0),
-                                          sum(r[n]["greedy_of"] for r in v["ranks"]
-                                              if r["coords"]["model"] == 0)]
-                                      for n in MESH_RUNS_NAMES}}
-                 for k, v in meshes.items()},
-         launches=launches)
+         train={a: {"layers": t[0], "meshes": [list(m) for m in t[1]], "steps": t[2],
+                    "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ, "lr": TRAIN_LR}
+                for a, t in MESH_TRAIN.items()},
+         world1_s=world1_s, meshes=summary, launches=launches)
     return launches
 
 

@@ -80,18 +80,24 @@
 //   the chunk, latency-bound. Overlapping W's math with the next S made
 //   ptxas serialize the products and was slower.
 //
-// * fp32, one chunk (S <= chunk) from a zero state, P 64, N 64 or 128:
-//   ssd_scan_kernel_tf32<N>, every product on the tensor cores in 3xTF32
-//   (tf32_mma.cuh: each operand split into a TF32 hi and lo, three
-//   mma.sync.m16n8k8 products, fp32 accumulators; every product summed four
-//   k-steps at a time on the tensor cores, each partial sum added by a
-//   rounding fp32 add, since the tensor cores' truncating adds over C B^T's
-//   128 columns erred 5.9x the plain float32 version's error against
-//   float64 at s = 1), which keeps float32's precision (tests/test_torch_ssd_forward_tf32.py models it, its warp
-//   scan of dt * A included, against float64). dA_total is the scan's value
-//   at the last step itself, so that fin_{S-1} = dt_{S-1} exactly: the sum
-//   of the lanes' sums differs from it by a rounding, which cost the final
-//   state 1e-4 of relative error where its last term dominates (A = -16).
+// * fp32, one chunk (16 <= S <= chunk; fewer steps: the FMA kernel,
+//   ssd_scan.TC_MIN_STEPS) from a zero state, P 64, N 64 or 128:
+//   ssd_scan_kernel_tf32<N>, every product on the tensor cores in 6xTF32
+//   (tf32_mma.cuh, mma6_step: each operand split into three TF32 pieces
+//   that sum to it, six mma.sync.m16n8k8 products, each k-step in a fresh
+//   accumulator added by a rounding fp32 add, since the tensor cores' adds
+//   truncate: over C B^T's 128 columns in one accumulator they erred 5.9x
+//   the plain float32 version's error against float64 at s = 1; and one
+//   3xTF32 product errs up to 2^-21, which a final state whose last term
+//   dominates (A = -16) showed at 3.5x). The running sum of dt * A is
+//   taken in float64: an exponent a_i - a_j is the difference of two sums
+//   of up to a few thousand, whose float32 roundings are most of the plain
+//   float32 version's own error against float64 (tests/test_torch_ssd_forward_tf32.py
+//   models the formulas, the scan included, against float64). dA_total is the scan's value
+//   at the last step itself, so that fin_{S-1} = dt_{S-1} exactly: in a
+//   float32 scan the sum of the lanes' sums differs from it by a rounding,
+//   which cost the final state 1e-4 of relative error where its last term
+//   dominates (A = -16).
 //   Every training call of mamba2-1.3b and zamba2-2.7b at s <= 256 is such
 //   a call. The design is the SSD backward's tensor-core kernel's
 //   (ssd_scan_bwd.cu): C B^T does not depend on the head, so a block owns hg
@@ -108,11 +114,12 @@
 //   h[p][n] = sum_j fin_j x_j[p] B_j[n] over every J, written from the
 //   accumulators. The two products over j read their k axis in pair order
 //   (tf32_mma.cuh, pair_k), so x_J and B_J, read down their columns, are
-//   conflict-free with 16 bytes of padding a row. Shared memory 154.7 KB at
+//   conflict-free with 16 bytes of padding a row. Shared memory 159.8 KB at
 //   N 128: one block an SM. What bounds it at mamba2-1.3b's training shape
 //   (b 8, s 128, h 64): bytes, 51 MB (x, dt, B, C and y, the state), 0.0153
-//   ms at 3.35 TB/s, against 1.63 GFLOP, 0.0099 ms as 3xTF32 at 495 TFLOP/s.
-// * fp32, every other shape (more than one chunk, h0, P 32, N 16):
+//   ms at 3.35 TB/s, against 1.63 GFLOP, 0.0198 ms as 6xTF32 at 495 TFLOP/s.
+// * fp32, every other shape (more than one chunk, h0, P 32, N 16, fewer
+//   than 16 steps):
 //   ssd_scan_kernel_fma<N, R>, the products as fp32 FMAs out of padded
 //   shared memory. One block per (batch, head, 32 columns of P), the state
 //   in registers and a copy in shared memory; row blocks of R (64, or 32 for
@@ -262,7 +269,12 @@ ssd_scan_kernel_fma(const float* __restrict__ x, const float* __restrict__ dt,
       cum[tid] = v;
     }
     __syncthreads();
-    const float total = cum[chunk - 1];
+    // dA_total is dA_cum at the chunk's last step, bit for bit, so that its
+    // fin is dt exactly: the scan reaches step chunk - 1 by another order of
+    // the same sums (the steps past S add zeros), and exp of that rounding
+    // put up to 67x the plain float32 version's error against float64 on a
+    // final state of three steps (H100, scripts/ssd_float64_survey_torch.py)
+    const float total = cum[valid - 1];
     if (tid < chunk) fin[tid] = expf(total - v) * d;   // total - v <= 0
     // fin is read only after the next barrier (the first staging's)
 
@@ -1046,14 +1058,15 @@ __device__ __forceinline__ void pair_sync(int rg) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(2 + rg) : "memory");
 }
 
-// Shared memory of the fp32 one-chunk kernel: eight mbarriers; a, dt and fin
-// of each head; W (two buffers); the C_I and B_J tiles (rows of N + 4
-// floats); two x_J slots (rows of P + 4 floats). 154,688 bytes at N 128: one
-// block an SM.
+// Shared memory of the fp32 one-chunk kernel: eight mbarriers; a (double),
+// dt and fin of each head; W (two buffers); the C_I and B_J tiles (rows of N
+// + 4 floats); two x_J slots (rows of P + 4 floats). 159,808 bytes at N 128:
+// one block an SM.
 template <int N>
 constexpr size_t tf32_smem() {
-  return 64 + sizeof(float) * (3 * kTfMaxHeads * kMaxChunk + 2 * kRows * kWP +
-                               2 * kRows * (N + 4) + 2 * kRows * (kTfP + 4));
+  return 64 + sizeof(double) * kTfMaxHeads * kMaxChunk +
+         sizeof(float) * (2 * kTfMaxHeads * kMaxChunk + 2 * kRows * kWP +
+                          2 * kRows * (N + 4) + 2 * kRows * (kTfP + 4));
 }
 
 // grid (ceil(H / hg), batch), 288 threads: a block owns heads hg b .. of
@@ -1071,8 +1084,8 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
   constexpr int NH = N / 2;       // state columns a warp
   extern __shared__ __align__(16) unsigned char smem_tf[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tf);     // 8 mbarriers
-  float* av = reinterpret_cast<float*>(smem_tf + 64);        // [kTfMaxHeads][kMaxChunk] dA_cum
-  float* dtv = av + kTfMaxHeads * kMaxChunk;                 // dt
+  double* av = reinterpret_cast<double*>(smem_tf + 64);      // [kTfMaxHeads][kMaxChunk] dA_cum
+  float* dtv = reinterpret_cast<float*>(av + kTfMaxHeads * kMaxChunk);   // dt
   float* finv = dtv + kTfMaxHeads * kMaxChunk;               // exp(dA_total - dA_cum) dt
   float* Wb = finv + kTfMaxHeads * kMaxChunk;                // [2][kRows][kWP]
   float* Cs = Wb + 2 * kRows * kWP;                          // [kRows][LN]
@@ -1137,34 +1150,38 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
   // ---- the consumer warps
   const int rg = warp & 3, half = warp >> 2, g = lane >> 2, t = lane & 3;
   if (warp < nh) {   // dA_cum, the running sum of dt * A over the chunk, head hb + warp
+    // in float64: an exponent is a difference a_i - a_j of two running sums
+    // of up to a few thousand, and in float32 their roundings (a unit of
+    // 7.6e-6 at 100) cost exp(a_i - a_j) more than every product of the
+    // kernel together (the plain float32 version's error against float64 is
+    // mostly that); each product dt * A is exact in float64
     const int h = hb + warp;
-    const float ah = A[h];
-    float d[8], v[8], run = 0.f;
+    const double ah = A[h];
+    float d[8];
+    double v[8], run = 0.0;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int kq = 8 * lane + q;   // steps at or past S: dt = 0
       d[q] = kq < S ? dt[b * st.dt_b + kq * st.dt_s + h * st.dt_h] : 0.f;
-      run += d[q] * ah;
+      run += static_cast<double>(d[q]) * ah;
       v[q] = run;
     }
-    float incl = run;
+    double incl = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, incl, off);
+      const double u = __shfl_up_sync(0xffffffffu, incl, off);
       if (lane >= off) incl += u;
     }
     // dA_total is dA_cum at the last step, bit for bit: fin_{S-1} = dt_{S-1}
-    // exactly, as in the plain version. The sum of the lanes' sums (incl at
-    // lane 31) rounds otherwise, and exp of that difference would put about
-    // 1e-4 of relative error on the final state's last, largest term.
-    const float total = __shfl_sync(0xffffffffu, v[7] + incl - run, (S - 1) >> 3);
+    // exactly, as in the plain version
+    const double total = __shfl_sync(0xffffffffu, v[7] + incl - run, (S - 1) >> 3);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int kq = warp * kMaxChunk + 8 * lane + q;
-      const float cum = v[q] + incl - run;
+      const double cum = v[q] + incl - run;
       av[kq] = cum;
       dtv[kq] = d[q];
-      finv[kq] = expf(total - cum) * d[q];   // total - cum <= 0
+      finv[kq] = expf(static_cast<float>(total - cum)) * d[q];   // total - cum <= 0
     }
   }
   consumers_sync();
@@ -1198,8 +1215,8 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
       {
         const float* Ca = Cs + 16 * rg * LN;
         const float* Bb = Bs + 32 * half * LN;
-        warp_mma_rounded<4, N, false, false>(sc, [&](int m, int k) { return Ca[m * LN + k]; },
-                                             [&](int k, int n) { return Bb[n * LN + k]; });
+        warp_mma6<4, N, false, false>(sc, [&](int m, int k) { return Ca[m * LN + k]; },
+                                      [&](int k, int n) { return Bb[n * LN + k]; });
       }
       __syncwarp();
       if (lane == 0) {
@@ -1211,10 +1228,10 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
       for (int hh = 0; hh < kTfMaxHeads; ++hh) {
         if (hh < nh) {
           const int slot = ux & 1;
-          const float* a = av + hh * kMaxChunk;
+          const double* a = av + hh * kMaxChunk;
           const float* dtp = dtv + hh * kMaxChunk;
           float* W = Wb + slot * kRows * kWP;
-          const float ai[2] = {a[i0 + il], a[i0 + il + 8]};
+          const double ai[2] = {a[i0 + il], a[i0 + il + 8]};
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int jl = 32 * half + 8 * nt + 2 * t;   // the thread's columns jl, jl + 1
@@ -1225,8 +1242,9 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
               for (int e = 0; e < 2; ++e) {
                 const int gj = j0 + jl + e;
                 // the exponent is formed for i >= j only: for i < j it is positive
-                w[e] = i0 + il + 8 * ir >= gj ? sc[nt][2 * ir + e] * expf(ai[ir] - a[gj]) * dtp[gj]
-                                              : 0.f;
+                w[e] = i0 + il + 8 * ir >= gj
+                           ? sc[nt][2 * ir + e] * expf(static_cast<float>(ai[ir] - a[gj])) * dtp[gj]
+                           : 0.f;
               }
               *reinterpret_cast<float2*>(W + (il + 8 * ir) * kWP + jl) = make_float2(w[0], w[1]);
             }
@@ -1235,30 +1253,27 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
           mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
           // y_I += W x_J, k (= j) in pair order: W's columns 2t, 2t + 1 of a
           // k-step are one float2, x_J's rows 2t, 2t + 1 conflict-free
-          // (four k-steps at a time, each partial sum added by a rounding
-          // fp32 add, as warp_mma_rounded)
+          // (6xTF32, each k-step in a fresh accumulator added by a rounding
+          // fp32 add, as warp_mma6)
           const float* xs = Xs + slot * kRows * LX + 32 * half + g;
           const float* Wr = W + il * kWP + 2 * t;
 #pragma unroll 1
-          for (int kc = 0; kc < kRows; kc += 32) {
+          for (int k0 = 0; k0 < kRows; k0 += 8) {
+            const float2 w0 = *reinterpret_cast<const float2*>(Wr + k0);
+            const float2 w8 = *reinterpret_cast<const float2*>(Wr + 8 * kWP + k0);
+            const float a4[4] = {w0.x, w8.x, w0.y, w8.y};
+            float bv[4][2];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              bv[nt][0] = xs[(k0 + 2 * t) * LX + 8 * nt];
+              bv[nt][1] = xs[(k0 + 2 * t + 1) * LX + 8 * nt];
+            }
             float part[4][4];
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
               for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
-#pragma unroll 2
-            for (int k0 = kc; k0 < kc + 32; k0 += 8) {
-              const float2 w0 = *reinterpret_cast<const float2*>(Wr + k0);
-              const float2 w8 = *reinterpret_cast<const float2*>(Wr + 8 * kWP + k0);
-              const float a4[4] = {w0.x, w8.x, w0.y, w8.y};
-              float bv[4][2];
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) {
-                bv[nt][0] = xs[(k0 + 2 * t) * LX + 8 * nt];
-                bv[nt][1] = xs[(k0 + 2 * t + 1) * LX + 8 * nt];
-              }
-              mma3_step<4, false, false>(part, 0, a4, bv);
-            }
+            mma6_step<4, false, false>(part, a4, bv);
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -1303,7 +1318,7 @@ ssd_scan_kernel_tf32(const float* __restrict__ x, const float* __restrict__ dt,
       mbar_wait(bar(kFullX + slot), (ux >> 1) & 1);
       const float* xs = Xs + slot * kRows * LX + 16 * rg;
       const float* Bb = Bs + NH * half;
-      warp_mma_rounded<NH / 8, kRows, false, false>(
+      warp_mma6<NH / 8, kRows, false, false>(
           hs,
           [&](int m, int k) {
             const int j = pair_k(k);
@@ -1379,7 +1394,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
     if (N == 64 || N == 16) return launch_wgmma<64>(REPRO_SSD_ARGS, N, chunk, st, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (tensor_cores) {   // fp32, one chunk from a zero state: the 3xTF32 kernel
+  if (tensor_cores) {   // fp32, one chunk from a zero state: the 6xTF32 kernel
     if (P != kTfP || (N != 64 && N != 128) || S > chunk || h0 != nullptr ||
         heads_per_block < 1 || heads_per_block > kTfMaxHeads)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -27,24 +27,27 @@
 // launcher's tensor_cores argument; a launch of one is never retried on the
 // other):
 //
-// * ssd_scan_bwd_tc<T, N>, for P 64, N 64 or 128, one chunk (S <= chunk), no
-//   h0 and no final-state cotangent: every training call of mamba2-1.3b and
-//   zamba2-2.7b at s <= 256 (the intra-chunk terms above are then the whole
-//   gradient). All five products run on the tensor cores in 3xTF32, below.
+// * ssd_scan_bwd_tc<T, N>, for P 64, N 64 or 128, one chunk (16 <= S <=
+//   chunk), no h0 and no final-state cotangent: every training call of
+//   mamba2-1.3b and zamba2-2.7b at 16 <= s <= 256 (the intra-chunk terms above are then the whole
+//   gradient). All five products run on the tensor cores: 6xTF32 for float32
+//   inputs, 3xTF32 for bf16 ones, below.
 // * ssd_scan_bwd_kernel<T, P, N, R>, fp32 FMAs, for every other shape (P 32,
-//   N 16, more than one chunk, h0, dstate): the carried-state terms.
+//   N 16, more than one chunk, h0, dstate, fewer than 16 steps): the
+//   carried-state terms.
 //
 // ---- The tensor-core kernel.
 //
-// * 3xTF32. A TF32 rounding keeps about three digits, which is not the
-//   float32 trainer's arithmetic. Each operand value v is split as it is
-//   read into hi, v rounded to TF32 (to nearest, in two integer operations),
-//   and lo = v - hi (exact in fp32, read by the tensor cores truncated to
-//   TF32), and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi with fp32
-//   accumulators: float32-accurate (tests/test_torch_ssd_tf32.py models it
-//   on the CPU against float64). A bf16 input is exact in TF32 (lo = 0): its
-//   lo terms are left out, so C B^T and dy x^T are one product in a bf16
-//   call and the others two.
+// * Split products. A TF32 rounding keeps about three digits, which is not
+//   the float32 trainer's arithmetic. 3xTF32 splits each operand value v as
+//   it is read into hi, v rounded to TF32 (to nearest, in two integer
+//   operations), and lo = v - hi (exact in fp32, read by the tensor cores
+//   truncated to TF32), and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi
+//   with fp32 accumulators (tests/test_torch_ssd_tf32.py models it on the
+//   CPU against float64). A float32 call splits v in three exact TF32 pieces
+//   and keeps six products (6xTF32, below: "Float32's precision"). A bf16
+//   input is exact in TF32 (lo = 0): its lo terms are left out, so in a
+//   bf16 call C B^T and dy x^T are one product and the others two.
 // * The products are mma.sync.m16n8k8.tf32, not wgmma. wgmma takes a 32-bit
 //   operand from shared memory K-major only (no transpose bit), and three of
 //   the five products read an input transposed (dx += W^T dy reads dy^T, dB
@@ -63,7 +66,7 @@
 //   blocks on 132 SMs; zamba2's 8 x 80: 5). The block computes S^T = B_J C_I^T
 //   once a tile pair and keeps it in registers over its heads; per head it
 //   computes M^T = x_J dy_I^T, forms W^T, Z^T and Q on the accumulators, and
-//   adds W^T dy_I into dx_J (registers over I); Zsum^T sums Z^T over the
+//   adds W^T dy_I into dx_J (below); Zsum^T sums Z^T over the
 //   heads in registers. The dB and dC partials are per block, (ceil(H /
 //   hg), b, s, N), summed by the wrapper over their leading axis: 4-5x fewer
 //   than one a head.
@@ -74,12 +77,40 @@
 // * Layout of a block: 8 consumer warps and 1 producer warp (288 threads).
 //   Tiles are 64 x 64 tile pairs (I >= J, row blocks of 64); consumer warp w
 //   owns rows 16 (w % 4) .. + 15 of a pair and columns 32 (w / 4) .. + 31,
-//   so S^T, M^T, Zsum^T are 16 registers each and dx_J of each head 16 (80
-//   for 5 heads). W^T goes through shared memory between the two warps that
+//   so S^T, M^T, Zsum^T are 16 registers each. W^T goes through shared
+//   memory between the two warps that
 //   share its rows (a 64-thread named barrier); dx_J reads it whole. Zsum^T
 //   goes through shared memory once a pair, between two barriers of the
 //   consumers (bar 1), read by dB, then (C_I released, so that the next
 //   pair's C loads meanwhile) by dC, transposed.
+// * Float32's precision. Two faults of 3xTF32 on the tensor cores showed
+//   against float64 on the card (PERF.md): the tensor cores add into an
+//   accumulator with truncation, so a long sum in one accumulator errs
+//   beyond float32 (C B^T over N 128 in one accumulator gave dx 20.4x the
+//   plain float32 version's error at s = 1; four k-steps a partial still
+//   4.6x), and a 3xTF32 product of one term is up to 2^-21 off (at s = 1
+//   dC erred up to 31x, dx 22x, even one k-step a partial). So for float32
+//   inputs every product is 6xTF32 (tf32_mma.cuh, mma6_step), each k-step
+//   summed into a fresh accumulator and added to the running sum by a
+//   rounding fp32 add (tc_mma -> warp_mma6). The running sums are taken in
+//   float64: a, whose differences a_i - a_j are the exponents (in float32
+//   their roundings were most of either the kernel's or the plain float32
+//   version's error against float64, so the two were like noises and their
+//   ratio had a long tail), and r, the reverse sum of da, with d(dt) and
+//   dA from it (the da of a chunk cancel). The kernel's float32 error
+//   against float64 is then a few hundredths of the plain version's at the
+//   training shape. What is left is the truncation inside one k-step's sum
+//   of eight products, a few roundings; in a chunk of fewer than 16 steps
+//   the plain version's error is a few roundings too, and such calls go to
+//   the FMA kernel (ssd_scan.TC_MIN_STEPS; PERF.md).
+//   The partials take registers that dx_J's accumulators over the heads
+//   (16 a head) had held, and the ninth warp caps a thread at 168: so a
+//   float32 call adds each tile pair's rounded W^T dy_I straight into dx
+//   (the row block's first pair stores, later ones add; the thread's own
+//   elements, in pair order; L2 holds them between pairs), and no head's dx
+//   lives in registers. A bf16 call keeps dx_J in registers over the pairs
+//   and its products in one accumulator each (its inputs are exact in TF32
+//   and its dx is rounded to bf16).
 // * Staging: the producer warp issues cp.async for each tile in the order
 //   the consumers use them (B_J; C_I; x_J and dy_I per head, two slots) and
 //   completes them on "full" mbarriers (cp.async.mbarrier.arrive.noinc); the
@@ -89,8 +120,9 @@
 //   free. TMA was not used: its boxes are dense (no padding), and the
 //   128-byte swizzle leaves the transposed fragment loads 2-way conflicted.
 // * Shared memory at N 128, fp32: B_J and C_I 33.8 KB each, two x/dy slots
-//   69.6 KB, W^T (two) and Zsum^T 52.2 KB, the per-head vectors (a, dt, da,
-//   d(dt)'s direct part) and Q's partial sums 28.2 KB: 217.7 KB, one block
+//   69.6 KB, W^T (two) and Zsum^T 52.2 KB, the per-head vectors (a in
+//   float64, dt, da, d(dt)'s direct part) and Q's partial sums 33.3 KB:
+//   222.8 KB, one block
 //   an SM (the FMA kernel's 215 KB; R 32 would not buy a second block: the
 //   x/dy slots and the per-head state dominate).
 // * Deterministic: Q's row and column sums go through per-warp partials
@@ -100,8 +132,9 @@
 // * Bound at mamba2-1.3b's training shape (b 8, s 128, h 64, fp32): the
 //   function needs C B^T, dB's and dC's products once a sequence and dy x^T
 //   and W^T dy once a head over the 8256 causal pairs: 1.13 GFLOP, 0.0169 ms
-//   at the 67 TFLOP/s fp32 rate, 0.0069 ms as 3xTF32 on the 495 TFLOP/s
-//   tensor cores, under the 0.0158 ms the 53 MB of inputs and outputs take.
+//   at the 67 TFLOP/s fp32 rate, 0.0069 ms as 3xTF32 (0.0137 ms as 6xTF32)
+//   on the 495 TFLOP/s tensor cores, under the 0.0158 ms the 53 MB of inputs
+//   and outputs take.
 //   What holds it back (PERF.md, H100): not the products. Rounding hi with
 //   integer operations instead of cvt.rna (and lo not at all) took 17 % off;
 //   issuing a k-step's products accumulator by accumulator, 3 %; skipping
@@ -164,7 +197,7 @@
 #include <stdint.h>
 
 #include "flash_hopper.cuh"   // mbarriers; bind_context() (cuda_context.cuh)
-#include "tf32_mma.cuh"       // the 3xTF32 products (warp_mma) and cp.async staging
+#include "tf32_mma.cuh"       // the split products (warp_mma, warp_mma6), cp.async staging
 
 namespace {
 
@@ -828,7 +861,7 @@ cudaError_t launch_p(int P, int N, const void* x, const void* dt, const void* A,
   return cudaErrorInvalidValue;
 }
 
-// ==================================================== 3xTF32 on the tensor cores
+// ==================================================== split products on the tensor cores
 
 constexpr int kTcWarps = 8;                       // consumer warps
 constexpr int kTcThreads = (kTcWarps + 1) * 32;   // and one producer warp
@@ -849,6 +882,19 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// d += A B on the tensor cores. For float32 inputs, whose gradients keep
+// float32's precision: 6xTF32, each k-step's products in a fresh
+// accumulator added to d by a rounding fp32 add (warp_mma6). For bf16
+// inputs, exact in TF32 and held to bf16's tolerance: 3xTF32 in one
+// accumulator (warp_mma).
+template <bool FP32, int NT, int K, bool A_EXACT, bool B_EXACT, typename LA, typename LB>
+__device__ __forceinline__ void tc_mma(float (&d)[NT][4], LA la, LB lb) {
+  if constexpr (FP32)
+    warp_mma6<NT, K, A_EXACT, B_EXACT>(d, la, lb);
+  else
+    warp_mma<NT, K, A_EXACT, B_EXACT>(d, la, lb);
 }
 
 // the consumer warps, and the two warps that share rows 16 rg .. of a tile
@@ -876,8 +922,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, 
 
 template <typename T, int N>
 constexpr size_t tc_smem() {
-  return 64 + sizeof(float) * (3 * kRows * kWP + 4 * kMaxHeads * kMaxChunk +
-                               kMaxHeads * kTcWarps * 48) +
+  return 64 + sizeof(double) * kMaxHeads * kMaxChunk +
+         sizeof(float) * (3 * kRows * kWP + 3 * kMaxHeads * kMaxChunk + kMaxHeads * kTcWarps * 48) +
          sizeof(T) * (2 * kRows * (N + kPadT<T>) + 4 * kRows * (kTcP + kPadT<T>));
 }
 
@@ -900,8 +946,8 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);   // 8 mbarriers
   float* Wb = reinterpret_cast<float*>(smem_tc + 64);      // [2][kRows][kWP] W^T
   float* Zb = Wb + 2 * kRows * kWP;                        // [kRows][kWP] Zsum^T
-  float* av = Zb + kRows * kWP;                            // [kMaxHeads][kMaxChunk] a
-  float* dtv = av + kMaxHeads * kMaxChunk;                 // dt
+  double* av = reinterpret_cast<double*>(Zb + kRows * kWP);   // [kMaxHeads][kMaxChunk] a
+  float* dtv = reinterpret_cast<float*>(av + kMaxHeads * kMaxChunk);   // dt
   float* dav = dtv + kMaxHeads * kMaxChunk;                // the gradient of a
   float* ddd = dav + kMaxHeads * kMaxChunk;                // d(dt)'s direct part
   float* rowpart = ddd + kMaxHeads * kMaxChunk;            // [kMaxHeads][8][32]
@@ -960,21 +1006,23 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
   const int rg = warp & 3, half = warp >> 2, g = lane >> 2, t = lane & 3;
   for (int i = tid; i < kMaxHeads * kMaxChunk; i += kTcWarps * 32) dav[i] = ddd[i] = 0.f;
   if (warp < nh) {   // a = the running sum of dt * A over the chunk, head hb + warp
+    // in float64, as the forward's (ssd_scan.cu): the exponents a_i - a_j
+    // are differences of two sums of up to a few thousand
     const int h = hb + warp;
-    const float ah = A[h];
-    float v[8], run = 0.f;
+    const double ah = A[h];
+    double v[8], run = 0.0;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int k = 8 * lane + q;   // steps at or past S: dt = 0
       const float d = k < S ? dt[b * st.dt_b + k * st.dt_s + h * st.dt_h] : 0.f;
       dtv[warp * kMaxChunk + k] = d;
-      run += d * ah;
+      run += static_cast<double>(d) * ah;
       v[q] = run;
     }
-    float incl = run;
+    double incl = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, incl, off);
+      const double u = __shfl_up_sync(0xffffffffu, incl, off);
       if (lane >= off) incl += u;
     }
 #pragma unroll
@@ -982,17 +1030,23 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
   }
   consumers_sync();
 
-  float dxa[kMaxHeads][4][4];   // dx_J of each head: rows 16 rg .., columns 32 half ..
+  // dx_J of each head, rows 16 rg .., columns 32 half ..: in registers
+  // across the row block's tile pairs for bf16 inputs; for float32 inputs
+  // each pair's rounded product is added into dx itself (the thread's own
+  // elements, in pair order), which frees the registers the rounded sums take
+  float dxa[kExact ? kMaxHeads : 1][4][4];
   int ub = 0, uc = 0, ux = 0;
   for (int J = 0; J < nb; ++J) {
     const int j0 = J * kRows;
     mbar_wait(bar(kFullB), ub & 1);
+    if constexpr (kExact) {
 #pragma unroll
-    for (int hh = 0; hh < kMaxHeads; ++hh)
+      for (int hh = 0; hh < kMaxHeads; ++hh)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) dxa[hh][nt][r] = 0.f;
+          for (int r = 0; r < 4; ++r) dxa[hh][nt][r] = 0.f;
+    }
 
     for (int I = J; I < nb; ++I) {
       const int i0 = I * kRows;
@@ -1002,7 +1056,7 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
       {
         const T* Ba = Bs + 16 * rg * LN;
         const T* Cb = Cs + 32 * half * LN;
-        warp_mma<4, N, kExact, kExact>(
+        tc_mma<!kExact, 4, N, kExact, kExact>(
             sT, [&](int m, int k) { return to_f(Ba[m * LN + k]); },
             [&](int k, int n) { return to_f(Cb[n * LN + k]); });
       }
@@ -1016,16 +1070,16 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
           const T* ds = Ds + slot * kRows * LX;
           // M^T = x_J dy_I^T, the same tile
           float mT[4][4] = {};
-          warp_mma<4, kTcP, kExact, kExact>(
+          tc_mma<!kExact, 4, kTcP, kExact, kExact>(
               mT, [&](int m, int k) { return to_f(xs[(16 * rg + m) * LX + k]); },
               [&](int k, int n) { return to_f(ds[(32 * half + n) * LX + k]); });
           // W^T = S^T o L^T dt_j into W, Z^T = M^T o L^T dt_j into Zsum^T, and
           // Q = S o L o M's row sums and its column sums weighted by dt_j
-          const float* a = av + hh * kMaxChunk;
+          const double* a = av + hh * kMaxChunk;
           const float* dtp = dtv + hh * kMaxChunk;
           float* W = Wb + slot * kRows * kWP;
           const int jl = 16 * rg + g;   // the thread's rows jl and jl + 8
-          const float aj[2] = {a[j0 + jl], a[j0 + jl + 8]};
+          const double aj[2] = {a[j0 + jl], a[j0 + jl + 8]};
           const float dj[2] = {dtp[j0 + jl], dtp[j0 + jl + 8]};
           float colp[2] = {0.f, 0.f}, rowp[4][2] = {};
 #pragma unroll
@@ -1042,7 +1096,7 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
                 w[e] = 0.f;
                 // the exponent is formed for i >= j only: for i < j it is positive
                 if (gi >= gj && gi < S) {
-                  const float L = expf(a[gi] - aj[jr]);
+                  const float L = expf(static_cast<float>(a[gi] - aj[jr]));
                   const float sl = sT[nt][2 * jr + e] * L;
                   const float m = mT[nt][2 * jr + e];
                   w[e] = sl * dj[jr];
@@ -1083,9 +1137,32 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
           }
           pair_sync(rg);   // both halves of W^T's rows 16 rg .. are written
           // dx_J += W^T dy_I: rows j 16 rg .., columns p 32 half ..; K = i
-          warp_mma<4, kRows, false, kExact>(
-              dxa[hh], [&](int m, int k) { return W[(16 * rg + m) * kWP + k]; },
-              [&](int k, int n) { return to_f(ds[k * LX + 32 * half + n]); });
+          const auto w_t = [&](int m, int k) { return W[(16 * rg + m) * kWP + k]; };
+          const auto dy_i = [&](int k, int n) { return to_f(ds[k * LX + 32 * half + n]); };
+          if constexpr (kExact) {
+            warp_mma<4, kRows, false, kExact>(dxa[hh], w_t, dy_i);
+          } else {
+            float acc[4][4] = {};
+            tc_mma<true, 4, kRows, false, kExact>(acc, w_t, dy_i);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int jr = 0; jr < 2; ++jr) {
+                const int j = j0 + 16 * rg + g + 8 * jr;
+                if (j < S) {
+                  float2* p = reinterpret_cast<float2*>(
+                      dx + (static_cast<int64_t>(b * S + j) * H + hb + hh) * kTcP +
+                      32 * half + 8 * nt + 2 * t);
+                  float2 v = make_float2(acc[nt][2 * jr], acc[nt][2 * jr + 1]);
+                  if (I != J) {   // the row block's first pair stores
+                    const float2 o = *p;
+                    v.x = o.x + v.x;
+                    v.y = o.y + v.y;
+                  }
+                  *p = v;
+                }
+              }
+          }
           __syncwarp();
           if (lane == 0) mbar_arrive(bar(kEmptyX + slot));   // x and dy slot free
           ++ux;
@@ -1145,7 +1222,7 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
       };
       {
         float acc[NH / 8][4] = {};
-        warp_mma<NH / 8, kRows, false, kExact>(
+        tc_mma<!kExact, NH / 8, kRows, false, kExact>(
             acc, [&](int m, int k) { return Zb[(16 * rg + m) * kWP + k]; },
             [&](int k, int n) { return to_f(Cs[k * LN + NH * half + n]); });
         to_partial(dB_part, j0, I == J, acc);
@@ -1155,25 +1232,27 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
       ++uc;
       {
         float acc[NH / 8][4] = {};
-        warp_mma<NH / 8, kRows, false, kExact>(
+        tc_mma<!kExact, NH / 8, kRows, false, kExact>(
             acc, [&](int m, int k) { return Zb[k * kWP + 16 * rg + m]; },
             [&](int k, int n) { return to_f(Bs[k * LN + NH * half + n]); });
         to_partial(dC_part, i0, J == 0, acc);
       }
     }
+    if constexpr (kExact) {
 #pragma unroll
-    for (int hh = 0; hh < kMaxHeads; ++hh) {
-      if (hh < nh) {
+      for (int hh = 0; hh < kMaxHeads; ++hh) {
+        if (hh < nh) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-          for (int jr = 0; jr < 2; ++jr) {
-            const int j = j0 + 16 * rg + g + 8 * jr;
-            if (j < S)
-              store2(dx + (static_cast<int64_t>(b * S + j) * H + hb + hh) * kTcP + 32 * half +
-                         8 * nt + 2 * t,
-                     dxa[hh][nt][2 * jr], dxa[hh][nt][2 * jr + 1]);
-          }
+            for (int jr = 0; jr < 2; ++jr) {
+              const int j = j0 + 16 * rg + g + 8 * jr;
+              if (j < S)
+                store2(dx + (static_cast<int64_t>(b * S + j) * H + hb + hh) * kTcP +
+                           32 * half + 8 * nt + 2 * t,
+                       dxa[hh][nt][2 * jr], dxa[hh][nt][2 * jr + 1]);
+            }
+        }
       }
     }
     __syncwarp();
@@ -1181,37 +1260,41 @@ ssd_scan_bwd_tc(const T* __restrict__ x, const float* __restrict__ dt,
     ++ub;
   }
 
-  // r = the reverse running sum of da over the chunk; d(dt) and the dA part
+  // r = the reverse running sum of da over the chunk; d(dt) and the dA part.
+  // In float64: r sums terms that cancel (the da of a chunk sum to about
+  // 0), and dA = sum dt r cancels again, so in float32 its error was a few
+  // roundings of terms far larger than itself, as the plain version's is
   consumers_sync();
   if (warp < nh) {
     const int h = hb + warp;
     const float* da = dav + warp * kMaxChunk;
-    float v[8], run = 0.f;
+    double v[8], run = 0.0;
 #pragma unroll
     for (int q = 7; q >= 0; --q) {
       run += da[8 * lane + q];
       v[q] = run;
     }
-    float incl = run;   // over this lane's and the later lanes' steps
+    double incl = run;   // over this lane's and the later lanes' steps
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_down_sync(0xffffffffu, incl, off);
+      const double u = __shfl_down_sync(0xffffffffu, incl, off);
       if (lane + off < 32) incl += u;
     }
-    const float ah = A[h];
-    float part = 0.f;
+    const double ah = A[h];
+    double part = 0.0;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int k = 8 * lane + q;
       if (k < S) {
-        const float r = v[q] + incl - run;
-        ddt[static_cast<int64_t>(b * S + k) * H + h] = ddd[warp * kMaxChunk + k] + ah * r;
+        const double r = v[q] + incl - run;
+        ddt[static_cast<int64_t>(b * S + k) * H + h] =
+            static_cast<float>(ddd[warp * kMaxChunk + k] + ah * r);
         part += dtv[warp * kMaxChunk + k] * r;
       }
     }
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) dA_part[b * H + h] = part;
+    if (lane == 0) dA_part[b * H + h] = static_cast<float>(part);
   }
 }
 

@@ -1,7 +1,8 @@
-// 3xTF32 products on the tensor cores and cp.async staging, shared by the
-// kernels that keep float32's precision on mma.sync: the SSD backward's
-// tensor-core kernel (ssd_scan_bwd.cu), the SSD forward's one-chunk kernel
-// (ssd_scan.cu), flash_prefill's float32 forward (flash_prefill.cu) and its
+// 3xTF32 (and 6xTF32) products on the tensor cores and cp.async staging,
+// shared by the kernels that keep float32's precision on mma.sync: the SSD
+// backward's tensor-core kernel (ssd_scan_bwd.cu; 6xTF32 for float32
+// inputs), the SSD forward's one-chunk kernel
+// (ssd_scan.cu; 6xTF32), flash_prefill's float32 forward (flash_prefill.cu) and its
 // float32 backward's two kernels (flash_prefill_bwd.cu).
 //
 // 3xTF32. A TF32 rounding keeps about three decimal digits, which is not a
@@ -104,6 +105,87 @@ __device__ __forceinline__ void warp_mma(float (&d)[NT][4], LA la, LB lb) {
       bv[nt][1] = lb(k0 + t + 4, 8 * nt + g);
     }
     mma3_step<NT, A_EXACT, B_EXACT>(d, 0, av, bv);
+  }
+}
+
+// 6xTF32: each operand value v split into three TF32 values that sum to it
+// exactly, hi = tf32(v), mid = tf32(v - hi) and lo = v - hi - mid (two or
+// three bits, exact in TF32, as hi and mid are); a product keeps the six
+// terms of more than 2^-24 of it, issued smallest first (lo hi, hi lo, mid
+// mid, mid hi, hi mid, hi hi). 3xTF32's lo, read truncated to TF32, leaves
+// a product up to 2^-21 off, eight times a float32 rounding: a sum of many
+// products averages that out, a sum of one does not (the SSD backward at
+// s = 1 erred up to 31x the plain float32 version's error against float64
+// on the card). A value exact in TF32 (a bf16 input) has mid = lo = 0: its
+// terms in them are left out.
+template <int NB, bool A_EXACT, bool B_EXACT, int NT>
+__device__ __forceinline__ void mma6_step(float (&d)[NT][4], const float (&av)[4],
+                                          const float (&bv)[NB][2]) {
+  uint32_t ah[4], am[4], al[4], bh[NB][2], bm[NB][2], bl[NB][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    ah[q] = tf32_hi(av[q]);
+    const float r = av[q] - __uint_as_float(ah[q]);
+    am[q] = A_EXACT ? 0u : tf32_hi(r);
+    al[q] = A_EXACT ? 0u : __float_as_uint(r - __uint_as_float(am[q]));
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      bh[nb][q] = tf32_hi(bv[nb][q]);
+      const float r = bv[nb][q] - __uint_as_float(bh[nb][q]);
+      bm[nb][q] = B_EXACT ? 0u : tf32_hi(r);
+      bl[nb][q] = B_EXACT ? 0u : __float_as_uint(r - __uint_as_float(bm[nb][q]));
+    }
+  if (!A_EXACT)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(d[nb], al, bh[nb][0], bh[nb][1]);
+  if (!B_EXACT)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(d[nb], ah, bl[nb][0], bl[nb][1]);
+  if (!A_EXACT && !B_EXACT)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(d[nb], am, bm[nb][0], bm[nb][1]);
+  if (!A_EXACT)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(d[nb], am, bh[nb][0], bh[nb][1]);
+  if (!B_EXACT)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(d[nb], ah, bm[nb][0], bm[nb][1]);
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) mma_tf32(d[nb], ah, bh[nb][0], bh[nb][1]);
+}
+
+// d[nt] += A (16 x K) B (K x 8 NT) in 6xTF32 (mma6_step), one warp, each
+// k-step's products in a fresh accumulator that a rounding fp32 add joins to
+// d: a long K is never summed in a truncating accumulator (the tensor cores'
+// adds truncate; see warp_mma_rounded). One k-step is in flight: in both SSD
+// kernels two spilled at their 168-register cap.
+template <int NT, int K, bool A_EXACT, bool B_EXACT, typename LA, typename LB>
+__device__ __forceinline__ void warp_mma6(float (&d)[NT][4], LA la, LB lb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  static_assert(K % 8 == 0, "K must be a multiple of a k-step");
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const float av[4] = {la(g, k0 + t), la(g + 8, k0 + t), la(g, k0 + t + 4),
+                         la(g + 8, k0 + t + 4)};
+    float bv[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bv[nt][0] = lb(k0 + t, 8 * nt + g);
+      bv[nt][1] = lb(k0 + t + 4, 8 * nt + g);
+    }
+    float part[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[nt][r] = 0.f;
+    mma6_step<NT, A_EXACT, B_EXACT>(part, av, bv);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nt][r] += part[nt][r];
   }
 }
 

@@ -24,10 +24,11 @@ call over the strided views) and scans ``dt * A``, and two consumer
 warpgroups run the products. The operands it forms itself (the weights
 ``W``, ``fin o B`` of the state update and the copy of the state that
 ``C h^T`` reads) go to the tensor cores as a bf16 head and tail, which keeps
-them to 16 bits. float32 in one chunk from a zero state (P 64, N 64 or 128:
-every training call) runs the 3xTF32 kernel: every product on ``mma.sync``
-with each operand split into a TF32 head and tail (three products, which
-keeps float32's precision), a block owning a few heads of one sequence so
+them to 16 bits. float32 in one chunk of at least ``TC_MIN_STEPS`` steps
+from a zero state (P 64, N 64 or 128: every training call) runs the 6xTF32
+kernel: every product on ``mma.sync`` with each operand split into three
+TF32 pieces (six products, which keeps float32's precision), the running sum
+of dt * A in float64, a block owning a few heads of one sequence so
 that C B^T is formed once a tile pair for all of them. Every other float32
 shape runs the FMA kernel. Their designs and what holds them back are
 described at the top of the ``.cu`` source.
@@ -40,8 +41,9 @@ that fails is not retried on another kernel.
 Gradients. A call whose inputs require a gradient (with grad mode on) goes
 through ``SSDScan``, an autograd function whose forward is the call above
 and whose backward is ``ssd_scan_backward``: on CUDA tensors it launches
-``csrc/ssd_scan_bwd.cu`` (for one chunk without state, as in training, the
-tensor-core kernel: every product in 3xTF32 on ``mma.sync``, float32-
+``csrc/ssd_scan_bwd.cu`` (for one chunk of at least ``TC_MIN_STEPS`` steps
+without state, as in training, the tensor-core kernel: every product in
+6xTF32 on ``mma.sync`` for float32 inputs, 3xTF32 for bf16, float32-
 accurate; else the fp32 FMA kernel; both for float32 and bf16 inputs), on
 CPU tensors it runs ``ssd_scan_backward_plain`` (the explicit formulas, no
 autograd), so that training takes the same route on both. The TPU package
@@ -310,7 +312,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     go through ``ssd_scan_plain``; tensors on a CUDA
     device launch the kernel ``forward_route`` names (and count the launch
     in ``ssd_scan.launches``, a bf16 launch of the wgmma kernel also in
-    ``ssd_scan.tensor_core_launches``, one of the float32 3xTF32 kernel in
+    ``ssd_scan.tensor_core_launches``, one of the float32 6xTF32 kernel in
     ``ssd_scan.tf32_launches``) or raise. A call whose inputs require
     a gradient (with grad mode on) goes through ``SSDScan`` on both devices:
     the same forward, and ``ssd_scan_backward`` for its gradient (the
@@ -359,31 +361,46 @@ def _forward(x, dt, A, B, C, h0, chunk):
 
 ssd_scan.launches = 0   # launches of any CUDA kernel by this wrapper
 ssd_scan.tensor_core_launches = 0   # of those, the bf16 wgmma kernel's
-ssd_scan.tf32_launches = 0   # of those, the float32 3xTF32 kernel's
+ssd_scan.tf32_launches = 0   # of those, the float32 6xTF32 kernel's
 
 
-# The shapes the forward's 3xTF32 kernel takes (``csrc/ssd_scan.cu``,
-# ``ssd_scan_kernel_tf32``): float32, P 64, N 64 or 128, one chunk (s <=
-# chunk) from a zero state, which is every training call of mamba2-1.3b and
-# zamba2-2.7b at s <= 256. Every other float32 shape goes to the FMA kernel.
+# The shapes the forward's 6xTF32 kernel takes (``csrc/ssd_scan.cu``,
+# ``ssd_scan_kernel_tf32``): float32, P 64, N 64 or 128, one chunk of
+# TC_MIN_STEPS to chunk steps from a zero state, which is every training call
+# of mamba2-1.3b and zamba2-2.7b at 16 <= s <= 256. Every other float32 shape
+# goes to the FMA kernel.
 _TF32_HEAD_DIM = 64
 _TF32_STATE_DIMS = (64, 128)
-_TF32_MAX_HEADS = 5   # kTfMaxHeads: the heads one block of the 3xTF32 kernel owns
+_TF32_MAX_HEADS = 5   # kTfMaxHeads: the heads one block of the 6xTF32 kernel owns
+# the fewest steps the tensor-core kernels (forward and backward) take. In a
+# short chunk every output is a sum of a few products: the kernel's error and
+# the plain float32 version's against float64 are each a few roundings, and
+# their ratio has a long tail whatever order either sums in (at s = 1 the
+# backward's dC read 5.35x the plain version's on the tensor cores and 4.9x
+# on the FMA kernel, each on one of eight or nine draws; 4-5x at s = 4 and
+# 8 on the FMA kernel; H100, scripts/ssd_float64_survey_torch.py). From 16
+# steps on, the plain version's exponents a_i - a_j carry the roundings of
+# its float32 running sums, which the tensor-core kernels' float64 sums do
+# not, and the tensor-core kernels stay within chip_smoke.py's factor of 4
+# on every draw (at most 1.45x at 16 steps). Shorter calls go to the FMA
+# kernels, plain float32 arithmetic like the plain version's
+TC_MIN_STEPS = 16
 
 
 def forward_route(b: int, s: int, h: int, p: int, n: int, chunk: int, has_h0: bool,
                   is_bf16: bool, n_sms: int) -> Tuple[str, int]:
     """``(kernel, heads_per_block)`` of a forward launch, decided on the dtype
     and the shape alone: ``"wgmma"`` for bf16; for float32 ``"tf32"``, the
-    3xTF32 kernel, where P is 64, N 64 or 128, ``s <= chunk`` and there is
-    no ``h0``, with the heads of a sequence one of its blocks owns (C B^T is
+    6xTF32 kernel, where P is 64, N 64 or 128, ``TC_MIN_STEPS <= s <= chunk``
+    and there is no ``h0``, with the heads of a sequence one of its blocks owns (C B^T is
     shared by them): the fewest that fit the b x ceil(h / heads) blocks into
     one wave of ``n_sms`` blocks, at most ``_TF32_MAX_HEADS`` (mamba2-1.3b's
     training shape, 8 x 64 heads on 132 SMs: 4; zamba2's, 8 x 80: 5); else
     ``"fma"``. The other kernels own one head (a part of it) a block."""
     if is_bf16:
         return "wgmma", 1
-    if p == _TF32_HEAD_DIM and n in _TF32_STATE_DIMS and s <= chunk and not has_h0:
+    if p == _TF32_HEAD_DIM and n in _TF32_STATE_DIMS and TC_MIN_STEPS <= s <= chunk \
+            and not has_h0:
         return "tf32", min(_TF32_MAX_HEADS, max(1, -(-b * h // n_sms)))
     return "fma", 1
 
@@ -445,8 +462,8 @@ def backward_route(b: int, s: int, h: int, p: int, n: int, chunk: int, has_h0: b
     into one wave of ``n_sms`` blocks, at most ``_TC_MAX_HEADS``
     (mamba2-1.3b's training shape, 8 x 64 heads on 132 SMs: 4; zamba2's, 8 x
     80: 5). The FMA kernel owns one head a block."""
-    if p == _TC_HEAD_DIM and n in _TC_STATE_DIMS and s <= chunk and not has_h0 \
-            and not has_dstate:
+    if p == _TC_HEAD_DIM and n in _TC_STATE_DIMS and TC_MIN_STEPS <= s <= chunk \
+            and not has_h0 and not has_dstate:
         return True, min(_TC_MAX_HEADS, max(1, -(-b * h // n_sms)))
     return False, 1
 
@@ -465,10 +482,10 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA device launch ``csrc/ssd_scan_bwd.cu`` (counted in
     ``ssd_scan_backward.launches``, one a call) or raise. The source holds
     two kernels, chosen by ``backward_route`` on the shape alone: the
-    tensor-core kernel (3xTF32 ``mma.sync`` products, a block owning a few
-    heads of one sequence; counted in
-    ``ssd_scan_backward.tensor_core_launches`` too) for one chunk without
-    state, the FMA kernel (one head a block) for the rest; float32 and bf16
+    tensor-core kernel (6xTF32 ``mma.sync`` products for float32, 3xTF32
+    for bf16, a block owning a few heads of one sequence; counted in
+    ``ssd_scan_backward.tensor_core_launches`` too) for one chunk of at least
+    ``TC_MIN_STEPS`` steps without state, the FMA kernel (one head a block) for the rest; float32 and bf16
     inputs both. x, B, C and dt are read through their strides; dy too where
     its last axis is contiguous and its rows 16-byte aligned (else it is
     made contiguous), dstate is made contiguous. The kernels write partials

@@ -10,9 +10,12 @@ which the tensor cores read truncated to TF32 (they take a TF32 operand's
 top 19 bits); a product is a_lo b_hi + a_hi b_lo + a_hi b_hi, accumulated
 in float32. A product of two TF32 values is exact in float32, so
 ``torch.matmul`` in float32 on the split operands models what the tensor
-cores compute, up to the order of the float32 sums. The tests
-use these functions to hold the kernels' formulas against float64 on the
-CPU; no kernel calls them.
+cores compute, up to the order of the float32 sums. The SSD backward's
+float32 kernel and the SSD forward's one-chunk kernel run 6xTF32 instead
+(``split3``, ``matmul_6xtf32``): three TF32 pieces a value that sum to it
+exactly, six products. The tests use
+these functions to hold the kernels' formulas against float64 on the CPU;
+no kernel calls them.
 """
 from __future__ import annotations
 
@@ -63,3 +66,22 @@ def matmul_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with each operand rounded once to TF32 (plain TF32), which
     does not keep float32's precision: the case for three products."""
     return tf32(a) @ tf32(b)
+
+
+def split3(a: torch.Tensor):
+    """(hi, mid, lo) of float32 ``a`` for 6xTF32: hi = tf32(a), mid =
+    tf32(a - hi), lo = a - hi - mid; each exact in TF32 (lo keeps two or
+    three bits) and hi + mid + lo == a exactly."""
+    hi = tf32(a)
+    rest = a - hi
+    mid = tf32(rest)
+    return hi, mid, rest - mid
+
+
+
+def matmul_6xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in 6xTF32 with float32 sums: the six products of the
+    ``split3`` pieces of more than 2^-24 of the whole, smallest first (lo hi,
+    hi lo, mid mid, mid hi, hi mid, hi hi), as ``mma6_step`` issues them."""
+    (ah, am, al), (bh, bm, bl) = split3(a), split3(b)
+    return al @ bh + ah @ bl + am @ bm + am @ bh + ah @ bm + ah @ bh

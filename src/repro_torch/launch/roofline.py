@@ -41,14 +41,16 @@ formulas over the device's shards of each tree (``launch/shardings.py``),
 the logits a rank returns over the whole vocabulary (as ``sharded_step``
 returns them); the FLOPs the step's split over the model axis and over the
 batch shards (a data rank whose batch does not divide computes every row);
-and ``coll_bytes`` the all_reduces of the port's tensor-parallel plan
-(``mesh_coll_bytes``) at a ring's ``2 (m - 1) / m`` of each buffer a
-device, over ``link_bw``: NVLink's ``LINK_BW`` (450 GB/s a direction, half
-of the 900 GB/s that NVIDIA's H100 SXM data sheet gives a card) where the
-model axis lies within one node of ``NODE_CARDS`` cards, else
-``INTER_NODE_BW``. ``coll_bytes`` is None where ``sharded_step`` does not
-run the pair (a train step, a family or a width it refuses): the port has
-no plan there to count. One card moves no collective bytes.
+and ``coll_bytes`` the collectives of the port's plan (``mesh_coll_bytes``:
+the tensor-parallel all_reduces on the model axis, and for a train step
+the gradient's average over the batch axes and ZeRO-1's all-gather) at a
+ring's ``2 (n - 1) / n`` of each buffer a device (``(n - 1) / n`` for an
+all-gather), each over its axis's rate (``coll_rates``): NVLink's
+``LINK_BW`` (450 GB/s a direction, half of the 900 GB/s that NVIDIA's H100
+SXM data sheet gives a card) where the axis's ring lies within one node of
+``NODE_CARDS`` cards, else ``INTER_NODE_BW``. ``coll_bytes`` is None where
+``sharded_step`` does not run the pair (a family or a width it refuses):
+the port has no plan there to count. One card moves no collective bytes.
 
 Not ported: ``extract_terms`` (XLA's HLO cost analysis) and
 ``collective_bytes`` / ``_shape_bytes`` (collectives parsed from HLO text),
@@ -56,6 +58,7 @@ which have no torch counterpart (ROADMAP.md Queue A item 8b-i).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -66,6 +69,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import mesh_axis_sizes
+from repro_torch.params import global_specs
 from repro_torch.sim.perf_model import HBM_BW, LINK_BW, PEAK_FLOPS
 from repro_torch.training import tree
 
@@ -90,7 +94,8 @@ class RooflineTerms:
     coll_breakdown: Dict[str, int] = field(default_factory=dict)
     model_flops: float = 0.0     # 6*N*D (or 6*N_active*D) useful FLOPs
     dtype: str = "bfloat16"      # the step's dtype: picks the peak
-    link_bw: float = LINK_BW     # the rate its collectives run at
+    link_bw: float = LINK_BW     # the rate its model-axis collectives run at
+    coll_rates: Dict[str, float] = field(default_factory=dict)   # by breakdown key
 
     @property
     def peak_flops(self) -> float:
@@ -106,7 +111,14 @@ class RooflineTerms:
 
     @property
     def collective_s(self) -> Optional[float]:
-        return None if self.coll_bytes is None else self.coll_bytes / self.link_bw
+        """Each collective's bytes over its axis's rate (``link_bw`` where
+        ``coll_rates`` names none)."""
+        if self.coll_bytes is None:
+            return None
+        if not self.coll_breakdown:
+            return self.coll_bytes / self.link_bw
+        return sum(b / self.coll_rates.get(k, self.link_bw)
+                   for k, b in self.coll_breakdown.items())
 
     def _known(self) -> Dict[str, float]:
         terms = {"compute": self.compute_s, "memory": self.memory_s,
@@ -230,19 +242,43 @@ def link_bw(model_axis: int) -> float:
     return LINK_BW if NODE_CARDS % model_axis == 0 else INTER_NODE_BW
 
 
-def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh
-                    ) -> Optional[Dict[str, float]]:
-    """One device's collective bytes in one prefill or decode step of
-    ``shape`` on ``mesh``, by the plan ``sharded_step`` runs
-    (``models/layers.py``): an all_reduce of the attention's and the FFN's
-    row-parallel outputs in every layer, of the embeddings and of the
-    full-vocabulary logits where the vocabulary is sharded. Each buffer in
-    float32, each all_reduce at a ring's ``2 (m - 1) / m`` of it. None where
-    ``sharded_step`` does not run the pair; zero on one card."""
+def data_link_bw(mesh) -> float:
+    """The rate a ring over the batch axes runs at: NVLink where the whole
+    mesh fits one node (the model axis innermost, so a batch axis strides
+    over it), else a card's inter-node rate."""
+    world = 1
+    for n in mesh_axis_sizes(mesh).values():
+        world *= n
+    return LINK_BW if world <= NODE_CARDS else INTER_NODE_BW
+
+
+def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = True,
+                    zero_opt: bool = False) -> Optional[Dict[str, float]]:
+    """One device's collective bytes in one step of ``shape`` on ``mesh``,
+    by the plan ``sharded_step`` runs (``models/layers.py``,
+    ``models/moe.py``, ``launch/steps.py``), each buffer in float32:
+
+    - forward, on ``model``: an all_reduce of the attention's and the FFN's
+      (an MoE layer's combined experts') row-parallel outputs in every
+      layer, of an MoE router's logits where the axis shards its columns, of
+      the embeddings and of the full-vocabulary logits where the vocabulary
+      is sharded (a prefill's of its last position, a train step's of every
+      text position);
+    - a train step's backward, on ``model``: the layers' forward again under
+      ``remat`` (recomputed inside the backward), and an all_reduce of the
+      gradient at every ``copy_to_model_axis`` (the attention's and the
+      FFN's inputs, an MoE layer's gates, the sharded head's input);
+    - a train step, on the batch axes: the average of the rank's gradient
+      (every leaf of its shards); with ``zero_opt``, the all-gather of each
+      data rank's block of the leaves ZeRO-1 cuts.
+
+    An all_reduce moves ``2 (n - 1) / n`` of its buffer, an all-gather
+    ``(n - 1) / n`` of what it gathers; what a step reduces by the handful
+    (the loss's two sums, the norm's four, an MoE layer's 2 E load-balance
+    means) is not counted. None where ``sharded_step`` does not run the
+    pair; zero on one card."""
     sizes = mesh_axis_sizes(mesh)
     m = sizes["model"]
-    if shape.kind == "train":
-        return None
     try:
         steps.check_mesh_runs(cfg, sizes)
     except NotImplementedError:
@@ -251,10 +287,38 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh
     seq = 1 if shape.kind == "decode" else shape.seq_len
     n_vis = cfg.n_vision_tokens if cfg.arch_type == "vlm" and shape.kind != "decode" else 0
     tokens = rows * (seq + n_vis)
-    buffers = 2 * cfg.n_layers * tokens * cfg.d_model      # wo and w_down
-    if cfg.vocab_size % m == 0:                            # embed and unembed
-        buffers += rows * seq * cfg.d_model + rows * cfg.vocab_size
-    return {"all-reduce model": buffers * _REDUCE_BYTES * _ring(m)}
+    d, L = cfg.d_model, cfg.n_layers
+    E = cfg.moe.n_experts if cfg.is_moe else 0
+    # a layer's forward: wo and w_down (an MoE layer's combine), the router
+    layer = 2 * tokens * d + (tokens * E if E and E % m == 0 else 0)
+    vocab = cfg.vocab_size % m == 0
+    logit_rows = rows * seq if shape.kind == "train" else rows
+    edges = rows * seq * d + logit_rows * cfg.vocab_size if vocab else 0
+    model = L * layer + edges
+    out = {}
+    if shape.kind == "train":
+        if remat:
+            model += L * layer
+        # the copies' backward: the attention's and the FFN's inputs, the
+        # gates of an MoE layer, the sharded head's input
+        gates = tokens * cfg.moe.experts_per_token if E else 0
+        model += L * (2 * tokens * d + gates) + (rows * seq * d if vocab else 0)
+        n_batch = 1
+        for a in ("pod", "data"):
+            n_batch *= sizes.get(a, 1)
+        if n_batch > 1:
+            params, p_sh, o_sh = global_specs(cfg, mesh, zero=zero_opt)
+            local = [math.prod(sh.local_shape(spec, tuple(t.shape), sizes))
+                     for spec, t in zip(tree.leaves(p_sh), tree.leaves(params))]
+            grads = sum(local)
+            out["all-reduce data"] = sum(grads * _REDUCE_BYTES * _ring(sizes[a])
+                                         for a in ("pod", "data") if sizes.get(a, 1) > 1)
+            if zero_opt:
+                cut = sum(n * t.element_size()
+                          for n, t, spec in zip(local, tree.leaves(params),
+                                                tree.leaves(o_sh.mu)) if "data" in spec)
+                out["all-gather data"] = cut * (sizes["data"] - 1) / sizes["data"]
+    return {"all-reduce model": model * _REDUCE_BYTES * _ring(m), **out}
 
 
 def local_meta(t: Any, specs: Any, sizes: Dict[str, int]) -> Any:
@@ -323,13 +387,14 @@ def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
     else:
         fn = steps.make_serve_step(cfg)
         flops, out = count_flops(fn, specs["params"], specs["tokens"], specs["cache"])
-    coll, bw = {}, LINK_BW
+    coll, bw, rates = {}, LINK_BW, {}
     ins, outs = specs, out
     if mesh is not None:
         split = mesh_axis_sizes(mesh)["model"] * _batch_shards(mesh, shape.global_batch)
         flops, mflops = flops / split, mflops / split
-        coll = mesh_coll_bytes(cfg, shape, mesh)
+        coll = mesh_coll_bytes(cfg, shape, mesh, remat=remat, zero_opt=zero_opt)
         bw = link_bw(mesh_axis_sizes(mesh)["model"])
+        rates = {"all-reduce data": data_link_bw(mesh), "all-gather data": data_link_bw(mesh)}
         ins, outs = _local_specs(cfg, shape, mesh, specs, out, zero_opt)
     if shape.kind == "train":
         hbm = train_bytes(ins["params"], ins["opt_state"], ins["batch"],
@@ -345,5 +410,5 @@ def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
     terms = RooflineTerms(flops=flops, hbm_bytes=hbm,
                           coll_bytes=None if coll is None else float(sum(coll.values())),
                           coll_breakdown=coll or {}, model_flops=mflops, dtype=cfg.dtype,
-                          link_bw=bw)
+                          link_bw=bw, coll_rates=rates)
     return terms, mem

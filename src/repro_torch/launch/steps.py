@@ -14,13 +14,15 @@ where nothing is computed). The train step takes its gradient with autograd
 device) and applies AdamW.
 
 ``sharded_step`` is the counterpart of the reference's ``jit_step``: the
-prefill and the serve step over a live mesh (``launch/mesh.py``), each rank
-running ``Model(local_config(cfg, sizes))`` on its shards
+train, prefill and serve steps over a live mesh (``launch/mesh.py``), each
+rank running ``Model(local_config(cfg, sizes))`` on its shards
 (``launch/shardings.py``, ``params.shard_params``) with the layers'
 collectives on the model axis (``models/runtime_flags.py``), and each data
-rank taking its rows of the batch. It runs the dense and VLM families; the
-sharded train step and the other families on a mesh are not ported
-(ROADMAP.md).
+rank taking its rows of the batch. The train step averages the gradients
+over the batch axes, clips by the norm of the global tree and, with ZeRO-1,
+updates each data rank's block of every moment and all-gathers the
+parameters. It runs the dense, VLM and MoE families; the others on a mesh
+are not ported (ROADMAP.md).
 
 One departure: the port's page pool keeps every position of a sequence,
 and a sliding window is a lower bound on what a query reads (ROADMAP.md,
@@ -37,11 +39,14 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_axis_sizes, mesh_coords
 from repro_torch.models import Model, runtime_flags
+from repro_torch.models.layers import all_reduce_sum
+from repro_torch.params import gather_leaf, global_specs, init_opt_shard
 from repro_torch.training import tree
 from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update
 
@@ -195,16 +200,19 @@ def make_serve_step(cfg: ModelConfig):
 
 # ------------------------------------------------------------ on a mesh
 
-# the families whose layers carry the collectives (models/layers.py)
-MESH_ARCHS = ("dense", "vlm")
+# the families whose layers carry the collectives (models/layers.py,
+# models/moe.py)
+MESH_ARCHS = ("dense", "vlm", "moe")
 
 
 def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
     """Raise ``NotImplementedError`` unless ``sharded_step`` can run ``cfg``
-    on a mesh of axis ``sizes``: a dense or VLM model whose heads, KV heads
-    and ``d_ff`` the model axis divides (so that every rank holds whole heads
-    and the reference's sequence-sharded KV fallback never arises). The
-    placement functions of ``launch/shardings.py`` answer every case."""
+    on a mesh of axis ``sizes``: a dense, VLM or MoE model whose heads, KV
+    heads and ``d_ff`` the model axis divides (so that every rank holds
+    whole heads and the reference's sequence-sharded KV fallback never
+    arises), and, for MoE, its experts' ``d_ff`` (f-sharded experts: the
+    reference's expert-parallel fallback is not ported). The placement
+    functions of ``launch/shardings.py`` answer every case."""
     m = sizes["model"]
     if cfg.arch_type not in MESH_ARCHS:
         raise NotImplementedError(
@@ -217,18 +225,25 @@ def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
             f"{cfg.name}: a model axis of {m} does not divide {bad}; the "
             "sequence-sharded KV cache and split heads are not ported "
             "(ROADMAP.md, Queue A item 8b-ii)")
+    if cfg.is_moe and cfg.moe.d_ff % m:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {m} does not divide the experts' d_ff "
+            f"{cfg.moe.d_ff}; the expert-parallel fallback is not ported "
+            "(ROADMAP.md, Queue A item 8b-ii)")
 
 
 def local_config(cfg: ModelConfig, sizes: Dict[str, int]) -> ModelConfig:
     """The config of one rank's model on a mesh of axis ``sizes``: its shares
-    of the heads, the KV heads and ``d_ff``, and of the vocabulary where the
-    model axis divides it (``shardings.param_spec``'s rule)."""
+    of the heads, the KV heads, ``d_ff`` and the experts' ``d_ff`` (the
+    shared experts' width with it), and of the vocabulary where the model
+    axis divides it (``shardings.param_spec``'s rule)."""
     check_mesh_runs(cfg, sizes)
     m = sizes["model"]
     vocab = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
+    moe = dataclasses.replace(cfg.moe, d_ff=cfg.moe.d_ff // m) if cfg.is_moe else cfg.moe
     return cfg.with_(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
                      head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
-                     vocab_size=vocab)
+                     vocab_size=vocab, moe=moe)
 
 
 def batch_rows(mesh, batch: int) -> slice:
@@ -242,40 +257,160 @@ def batch_rows(mesh, batch: int) -> slice:
 
 
 @contextlib.contextmanager
-def on_model_axis(axis: Optional[runtime_flags.ModelAxis]):
-    """``axis`` as the ambient model axis for the body, the previous one
-    after it."""
-    before = runtime_flags.get_mesh()
+def on_model_axis(axis: Optional[runtime_flags.ModelAxis],
+                  batch_axes: Optional[runtime_flags.BatchAxes] = None):
+    """``axis`` as the ambient model axis (and ``batch_axes`` as the batch
+    axes) for the body, the previous ones after it."""
+    before = runtime_flags.get_mesh(), runtime_flags.get_batch_axes()
     runtime_flags.set_mesh(axis)
+    runtime_flags.set_batch_axes(batch_axes)
     try:
         yield
     finally:
-        runtime_flags.set_mesh(before)
+        runtime_flags.set_mesh(before[0])
+        runtime_flags.set_batch_axes(before[1])
 
 
-def sharded_step(cfg: ModelConfig, shape: InputShape, mesh):
-    """The prefill or serve step of ``shape`` on this rank of the live
+def _mesh_loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor],
+                         batch_axes: Optional[runtime_flags.BatchAxes], remat: bool
+                         ) -> Tuple[torch.Tensor, list]:
+    """The global batch's loss and this rank's gradient of it, one tensor
+    per leaf in ``tree.flatten`` order, from this rank's rows: the summed
+    cross-entropy and the positions counted are summed over the batch axes
+    apart (a mean of the ranks' means is another number where a
+    ``loss_mask`` counts them unevenly), and each rank differentiates its
+    share scaled by the ranks' count, so that the average of the ranks'
+    gradients is the global loss's."""
+    flat, treedef = tree.flatten(params)
+    flat = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        total, count, aux = model.loss_terms(tree.unflatten(treedef, flat), batch,
+                                             remat=remat)
+        sums = torch.stack([total.detach(), count])
+        n = 1
+        if batch_axes is not None:
+            n = batch_axes.size
+            for group in batch_axes.groups:
+                dist.all_reduce(sums, group=group)
+        denominator = sums[1].clamp_min(1.0)
+        grads = torch.autograd.grad(n * total / denominator + aux, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return sums[0] / denominator + aux.detach(), grads
+
+
+def _sharded_train_step(cfg: ModelConfig, lcfg: ModelConfig, shape: InputShape, mesh, *,
+                        remat: bool, zero_opt: bool, microbatch: int):
+    """``make_train_step``'s body on this rank of ``mesh`` (see
+    ``sharded_step``)."""
+    model = Model(lcfg)
+    sizes, coords = mesh_axis_sizes(mesh), mesh_coords(mesh)
+    axis = runtime_flags.ModelAxis.of(mesh, cfg.vocab_size)
+    batch_axes = runtime_flags.BatchAxes.of(mesh)
+    _, p_sh, o_sh = global_specs(cfg, mesh, zero=zero_opt)
+    p_specs = tree.leaves(p_sh)
+    # the dimension on which ZeRO-1 cuts each moment over ``data`` (None:
+    # every data rank keeps and updates the whole leaf)
+    zero_dims = [next((i for i, e in enumerate(spec) if e == "data"), None)
+                 for spec in tree.leaves(o_sh.mu)]
+    groups = {a: mesh.get_group(a) for a in ("model", "data") if sizes[a] > 1}
+    m = microbatch if microbatch and microbatch > 1 else 1
+    rows = shape.global_batch // m
+    mine = batch_rows(mesh, rows)
+
+    def sum_squares(flat_g):
+        # each element counted once: a model-sharded leaf's sum over
+        # ``model``, a ZeRO block's over ``data``, a replicated one's as it is
+        parts = [torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
+                 for _ in range(4)]
+        for g, spec, zd in zip(flat_g, p_specs, zero_dims):
+            k = int("model" in spec) + 2 * int(zd is not None)
+            parts[k] = parts[k] + torch.sum(torch.square(g.float()))
+        parts = torch.stack(parts)
+        for a, mask in (("model", (0., 1., 0., 1.)), ("data", (0., 0., 1., 1.))):
+            if a in groups:
+                w = torch.tensor(mask, device=parts.device)
+                part = parts * w
+                dist.all_reduce(part, group=groups[a])
+                parts = parts * (1 - w) + part
+        return parts.sum()
+
+    def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+        flat_p, treedef = tree.flatten(params)
+        acc, losses = None, []
+        with on_model_axis(axis, batch_axes):
+            for i in range(m):
+                part = {k: t[i * rows:(i + 1) * rows][mine] for k, t in batch.items()}
+                loss, grads = _mesh_loss_and_grads(model, params, part, batch_axes, remat)
+                if m > 1:
+                    grads = [g.float() for g in grads]
+                acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+                losses.append(loss)
+        grads = [a / m for a in acc] if m > 1 else acc
+        loss = torch.stack(losses).mean() if m > 1 else losses[0]
+        if batch_axes is not None:   # the average over the batch axes, a leaf at a time
+            for i, g in enumerate(grads):
+                grads[i] = all_reduce_sum(g, batch_axes.groups, 1.0 / batch_axes.size)
+        if zero_opt:   # this data rank's block of each cut leaf
+            grads, flat_p = ([_block(t, zd, coords, sizes) for t, zd in zip(ts, zero_dims)]
+                             for ts in (grads, flat_p))
+        new_p, new_opt, info = adamw_update(tree.unflatten(treedef, grads), opt_state,
+                                            tree.unflatten(treedef, flat_p),
+                                            sum_squares=sum_squares)
+        if zero_opt:   # every data rank's blocks, all-gathered over ``data``
+            new_p = tree.unflatten(treedef, [
+                t if zd is None else gather_leaf(
+                    t, tuple("data" if i == zd else None for i in range(t.dim())), mesh)
+                for t, zd in zip(tree.leaves(new_p), zero_dims)])
+        return new_p, new_opt, {"loss": loss, **info}
+
+    return train_step
+
+
+def _block(t: torch.Tensor, dim: Optional[int], coords: Dict[str, int],
+           sizes: Dict[str, int]) -> torch.Tensor:
+    """This data rank's block of ``t`` on ``dim`` (``t`` where None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // sizes["data"]
+    return t.narrow(dim, coords["data"] * n, n)
+
+
+def sharded_step(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = True,
+                 zero_opt: bool = False, microbatch: int = 0):
+    """The train, prefill or serve step of ``shape`` on this rank of the live
     ``mesh``, and its inputs' specs: the counterpart of the reference's
-    ``jit_step`` (``repro.launch.steps.jit_step``).
+    ``jit_step`` (``repro.launch.steps.jit_step``), with its knobs ``remat``,
+    ``zero_opt`` and ``microbatch`` for a train step.
 
-    Returns ``(fn, args)``: for a prefill, ``fn(params, batch) -> (logits,
-    cache)`` and ``args = (params, batch)``; for a decode, ``fn(params,
-    tokens, cache) -> (logits, cache)`` and ``args = (params, tokens,
-    cache)``, as meta tensors. ``params`` and ``cache`` are this rank's
-    shards (``params.shard_params`` / ``init_shard``; the cache the prefill
-    step returned); ``batch`` and ``tokens`` are the global
-    batch, of which ``fn`` takes this rank's rows (``batch_rows``). The
-    logits are those rows' over the whole vocabulary. The decode step runs
-    eagerly: a gloo collective cannot be captured in a CUDA graph. A train
-    shape raises ``NotImplementedError``, as does a model that
-    ``check_mesh_runs`` refuses."""
+    Returns ``(fn, args)``: for a train step, ``fn(params, opt_state,
+    batch) -> (params, opt_state, {"loss", "grad_norm"})`` and ``args =
+    (params, opt_state, batch)``; for a prefill, ``fn(params, batch) ->
+    (logits, cache)`` and ``args = (params, batch)``; for a decode,
+    ``fn(params, tokens, cache) -> (logits, cache)`` and ``args = (params,
+    tokens, cache)``, as meta tensors. ``params`` and ``cache`` are this
+    rank's shards (``params.shard_params`` / ``init_shard``; the cache the
+    prefill step returned), ``opt_state`` its blocks of the AdamW state
+    (``params.init_opt_shard``, ``zero_opt`` alike);
+    ``batch`` and ``tokens`` are the global batch, of which ``fn`` takes this
+    rank's rows (``batch_rows``; with ``microbatch=M``, its rows of each of
+    the M consecutive microbatches). The logits are those rows' over the
+    whole vocabulary; a train step's metrics are the global batch's, the
+    same on every rank. ``zero_opt`` is ZeRO-1: each data rank updates its
+    block of each leaf that ``shardings.opt_shardings(zero=True)`` cuts and
+    the parameters are all-gathered over ``data`` after the update. The
+    decode step runs eagerly: a gloo collective cannot be captured in a
+    CUDA graph. A model that ``check_mesh_runs`` refuses raises
+    ``NotImplementedError``."""
     cfg = resolve_config(cfg, shape)
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "the sharded train step is not ported (ROADMAP.md, Queue A item 8b-ii)")
     sizes = mesh_axis_sizes(mesh)
     lcfg = local_config(cfg, sizes)
     axis = runtime_flags.ModelAxis.of(mesh, cfg.vocab_size)
+    if shape.kind == "train":
+        fn = _sharded_train_step(cfg, lcfg, shape, mesh, remat=remat, zero_opt=zero_opt,
+                                 microbatch=microbatch)
+        return fn, (params_specs(lcfg), init_opt_shard(cfg, mesh, zero=zero_opt, device=META),
+                    batch_specs(cfg, shape.global_batch, shape.seq_len))
     rows = batch_rows(mesh, shape.global_batch)
     local = dataclasses.replace(shape, global_batch=rows.stop - rows.start)
     specs = input_specs(lcfg, local)

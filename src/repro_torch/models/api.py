@@ -4,6 +4,7 @@
   init(gen, dtype, device)           -> params
   forward(params, batch, remat)      -> (logits, aux_loss)
   loss(params, batch, remat)         -> scalar causal-LM loss (+ aux)
+  loss_terms(params, batch, remat)   -> (summed loss, positions counted, aux)
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, tokens, cache) -> (logits, cache)
   init_cache(batch, cache_len)       -> zeroed paged cache
@@ -84,21 +85,37 @@ class Model:
         return self._m.forward(self.cfg, params, batch["tokens"], remat=remat,
                                **self._modalities(batch))
 
-    def loss(self, params: Params, batch: Batch, *,
-             remat: bool = False) -> torch.Tensor:
-        """Mean next-token cross-entropy over the text positions (masked by
-        ``batch["loss_mask"]`` where given), in float32, plus the auxiliary
-        loss."""
+    def _nll(self, params: Params, batch: Batch, remat: bool):
+        """Each text position's next-token negative log-likelihood (B, S-1)
+        in float32, and the auxiliary loss."""
         logits, aux = self.forward(params, batch, remat=remat)
         tokens = batch["tokens"]
         lg = logits[:, :-1].float()
         nll = torch.logsumexp(lg, dim=-1) - \
             torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+        return nll, aux
+
+    def loss(self, params: Params, batch: Batch, *,
+             remat: bool = False) -> torch.Tensor:
+        """Mean next-token cross-entropy over the text positions (masked by
+        ``batch["loss_mask"]`` where given), in float32, plus the auxiliary
+        loss."""
+        nll, aux = self._nll(params, batch, remat)
         mask = batch.get("loss_mask")
         if mask is not None:
             m = mask[:, 1:].float()
             return (nll * m).sum() / m.sum().clamp_min(1.0) + aux
         return nll.mean() + aux
+
+    def loss_terms(self, params: Params, batch: Batch, *, remat: bool = False):
+        """``loss``'s parts over this batch: the summed cross-entropy of the
+        positions counted (by ``batch["loss_mask"]`` where given), their
+        count, and the auxiliary loss. A data rank of a sharded train step
+        sums the first two over the batch axes before it divides."""
+        nll, aux = self._nll(params, batch, remat)
+        mask = batch.get("loss_mask")
+        m = torch.ones_like(nll) if mask is None else mask[:, 1:].float()
+        return (nll * m).sum(), m.sum(), aux
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int, dtype=None, device="cuda"):

@@ -22,8 +22,14 @@ Conventions:
   KV heads, ``d_ff`` and the vocabulary; the row-parallel products (the
   attention's ``wo``, the FFN's ``w_down``) and the vocabulary-sharded
   ``embed`` and ``unembed`` sum over the model axis with one
-  ``all_reduce`` each (``reduce_model_axis``). With no mesh nothing is
-  reduced.
+  ``all_reduce`` each (``reduce_model_axis``), and a replicated activation
+  enters each column-parallel product (``wq``/``wk``/``wv``,
+  ``w_gate``/``w_up``, the sharded head) through ``copy_to_model_axis``.
+  The two are Megatron's conjugate pair of autograd functions: the
+  reduction's backward is the identity, the copy's an ``all_reduce`` of
+  the rank's partial gradient, so that every rank's gradient of the
+  residual stream is the whole one. With no mesh nothing is reduced and
+  nothing is added to the graph.
 - cross-attention (``kv_x``, the audio family's decoder over its encoder
   states) goes through ``ops.flash_prefill`` without a causal mask, and in
   the decode step through ``ops.paged_attention`` over a fixed pool of the
@@ -124,16 +130,77 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, None, None)  # nonparametric LN
 
 
+def all_reduce_sum(x: torch.Tensor, groups, scale: float = 1.0) -> torch.Tensor:
+    """The sum of ``x`` over ``groups`` one after the other, times
+    ``scale``, in float32 (float64 for float64 ``x``) and cast back, as an
+    unsharded product accumulates; out of place: ``x`` is never written."""
+    total = x.to(torch.promote_types(x.dtype, torch.float32), copy=True)
+    for group in groups:
+        dist.all_reduce(total, group=group)
+    if scale != 1.0:
+        total = total * scale
+    return total.to(x.dtype)
+
+
+class _ReduceForward(torch.autograd.Function):
+    """``all_reduce_sum`` forward, the identity backward: each rank's partial
+    sum feeds a result every rank holds whole, so the gradient of each
+    partial is the result's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, groups, scale):
+        return all_reduce_sum(x, groups, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _ReduceBackward(torch.autograd.Function):
+    """The identity forward, ``all_reduce_sum`` backward: a replicated input
+    that each rank feeds into its shard of a product gets the sum of the
+    ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.groups), None
+
+
 def reduce_model_axis(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the ambient model axis (one ``all_reduce``),
     reduced in float32 and cast back, as an unsharded product accumulates;
-    ``x`` itself with no mesh."""
+    its backward passes the gradient through. ``x`` itself with no mesh."""
     axis = runtime_flags.get_mesh()
     if axis is None:
         return x
-    total = x.float()
-    dist.all_reduce(total, group=axis.group)
-    return total.to(x.dtype)
+    return _ReduceForward.apply(x, (axis.group,), 1.0)
+
+
+def copy_to_model_axis(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (replicated over the ambient model axis) as the input of a
+    column-parallel product: the identity forward, and a sum of the ranks'
+    gradients over the axis backward. ``x`` itself with no mesh."""
+    axis = runtime_flags.get_mesh()
+    if axis is None:
+        return x
+    return _ReduceBackward.apply(x, (axis.group,))
+
+
+def mean_over_batch_axes(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the batch axes of a sharded train step
+    (``runtime_flags.get_batch_axes()``): each rank's statistic of its rows
+    made the global batch's. Its backward passes the gradient through, so
+    that averaging the ranks' gradients gives the global statistic's.
+    ``x`` itself outside a sharded train step."""
+    axes = runtime_flags.get_batch_axes()
+    if axes is None:
+        return x
+    return _ReduceForward.apply(x, axes.groups, 1.0 / axes.size)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -202,7 +269,8 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    src = x if kv_x is None else kv_x
+    x = copy_to_model_axis(x)
+    src = x if kv_x is None else copy_to_model_axis(kv_x)
     past_len = past_kv[0].shape[1] if past_kv is not None else 0
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (src @ p["wk"]).reshape(B, src.shape[1], Hkv, hd)
@@ -379,6 +447,7 @@ def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype, device,
 
 
 def ffn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    x = copy_to_model_axis(x)
     if cfg.ffn == "swiglu":
         h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
@@ -416,12 +485,20 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits over the vocabulary; under a mesh whose model axis shards it,
     each rank writes its columns into a zero-filled full-vocabulary buffer
     and the buffers are summed."""
-    out = x @ p["head"] if "head" in p else x @ p["tok"].T
     axis = runtime_flags.get_mesh()
     if axis is None or not axis.shard_vocab:
-        return out
-    cols = out.shape[-1]
-    full = torch.zeros(out.shape[:-1] + (cols * axis.size,), dtype=out.dtype,
-                       device=out.device)
-    full[..., axis.rank * cols:(axis.rank + 1) * cols] = out
+        return x @ p["head"] if "head" in p else x @ p["tok"].T
+    x = copy_to_model_axis(x)
+    return gather_model_axis(x @ p["head"] if "head" in p else x @ p["tok"].T)
+
+
+def gather_model_axis(part: torch.Tensor) -> torch.Tensor:
+    """The whole last axis of a tensor whose columns the ambient model axis
+    shards in rank order: each rank writes its columns into a zero-filled
+    buffer and the buffers are summed (exact: one term a column). Its
+    backward hands each rank its columns' gradient."""
+    axis = runtime_flags.get_mesh()
+    cols = part.shape[-1]
+    full = part.new_zeros(part.shape[:-1] + (cols * axis.size,))
+    full[..., axis.rank * cols:(axis.rank + 1) * cols] = part
     return reduce_model_axis(full)

@@ -1,12 +1,11 @@
 """Mixture-of-Experts FFN with capacity-based token dispatch (PyTorch).
 
-The port of ``repro.models.moe`` on one card: tokens are routed top-k,
+The port of ``repro.models.moe``: tokens are routed top-k,
 assigned a position inside their expert by a cumulative-sum rank over the
 token-major ``(T * K)`` assignments, dropped beyond the capacity ``C``
 (to the drop slot ``E * C``), gathered into an ``(E, C, d)`` buffer, run
 through the experts' SwiGLU FFNs as batched products, and scattered back
-weighted by their gates. The reference's ``shard_map`` branch (experts
-sharded over a ``model`` mesh axis) has no counterpart: there is one card.
+weighted by their gates (on a mesh: below).
 
 What decides parity with the reference, mirrored here:
 
@@ -24,6 +23,23 @@ shapes (``C`` follows from the pool's ``max_slots``), no host sync, no
 data-dependent indexing. Its ``active`` mask keeps a free slot's token
 from taking capacity, where the reference routes every slot (a departure:
 ROADMAP.md, Queue C).
+
+On a device mesh (``runtime_flags.get_mesh()``, set by
+``launch.steps.sharded_step``) a rank holds the router's columns of its
+share of the experts (where the model axis divides E; else the whole
+router, which then reads x before the copy: ``_router_logits``) and every expert's
+share of ``d_ff`` (``w_gate``/``w_up`` on their f columns, ``w_down`` on
+its f rows), as the reference's rules place them, and the shared experts
+column- then row-parallel. The router's logits are gathered whole before
+the top-k (``layers.gather_model_axis``), so every rank routes every token
+alike; each rank runs the dispatch -> FFN -> combine block over all E
+experts at its share of f (the gates enter it through
+``layers.copy_to_model_axis``: they weight partial outputs, so their
+gradient is a sum over the ranks), adds its shared experts' partial output, and
+one ``all_reduce`` sums the combined output: combine-then-reduce, as the
+reference's ``psum`` inside its ``shard_map`` does. In a sharded train
+step the load-balance loss takes its two means over the global batch
+(``layers.mean_over_batch_axes``).
 """
 from __future__ import annotations
 
@@ -34,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models.layers import _dense_init
 
 Params = Dict[str, Any]
@@ -69,6 +86,20 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     broken towards the lower index."""
     values, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return values[..., :k], idx[..., :k]
+
+
+def _router_logits(cfg: ModelConfig, x: torch.Tensor, xc: torch.Tensor,
+                   router: torch.Tensor) -> torch.Tensor:
+    """``x @ router`` over all E experts. Where a rank holds only its
+    experts' columns, from ``xc`` (``x`` through ``layers.copy_to_model_axis``:
+    a rank's x-gradient is then its columns' part, summed over the ranks)
+    and gathered over the model axis. Where every rank holds the whole
+    router (the model axis does not divide E, or there is no mesh), from
+    ``x`` itself: each rank's x-gradient is then the whole one already, and
+    the copy's sum would count it once a rank."""
+    if router.shape[-1] == cfg.moe.n_experts:
+        return x @ router
+    return L.gather_model_axis(xc @ router)
 
 
 def _route(cfg: ModelConfig, logits: torch.Tensor):
@@ -119,8 +150,8 @@ def _aux(cfg: ModelConfig, probs: torch.Tensor, idx: torch.Tensor) -> torch.Tens
     mean router probability) per expert, times its weight."""
     E = cfg.moe.n_experts
     oh = (idx[..., None] == torch.arange(E, device=idx.device)).float()
-    frac_tokens = oh.reshape(-1, E).mean(0)
-    frac_prob = probs.reshape(-1, E).mean(0)
+    frac_tokens = L.mean_over_batch_axes(oh.reshape(-1, E).mean(0))
+    frac_prob = L.mean_over_batch_axes(probs.reshape(-1, E).mean(0))
     return E * torch.sum(frac_tokens * frac_prob) * cfg.moe.router_aux_loss
 
 
@@ -134,7 +165,9 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     T, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.experts_per_token
     C = expert_capacity(cfg, T)
-    probs, gate, idx = _route(cfg, x.float() @ p["router"])
+    xc = L.copy_to_model_axis(x)
+    probs, gate, idx = _route(cfg, _router_logits(cfg, x.float(), xc.float(), p["router"]))
+    x = xc
     flat_e = idx.reshape(-1)                                  # (T*K,)
     counted = None if active is None else \
         active[:, None].expand(T, K).reshape(-1)
@@ -147,11 +180,11 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xe = (x[buf_tok[:-1]] * buf_fill[:-1, None].to(x.dtype)).reshape(E, C, d)
     out_flat = torch.cat([_experts(p, xe).reshape(E * C, d),
                           x.new_zeros((1, d))], dim=0)
-    gate_w = (gate.reshape(-1) * keep).to(x.dtype)
+    gate_w = L.copy_to_model_axis((gate.reshape(-1) * keep).to(x.dtype))
     y = (out_flat[dest] * gate_w[:, None]).reshape(T, K, d).sum(1)
     if "shared" in p:
         y = y + _shared(p, x)
-    return y, _aux(cfg, probs, idx)
+    return L.reduce_model_axis(y), _aux(cfg, probs, idx)
 
 
 def moe_forward_batched(cfg: ModelConfig, p: Params, x: torch.Tensor
@@ -162,7 +195,9 @@ def moe_forward_batched(cfg: ModelConfig, p: Params, x: torch.Tensor
     B, S, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.experts_per_token
     C = expert_capacity(cfg, S)
-    probs, gate, idx = _route(cfg, (x @ p["router"].to(x.dtype)).float())
+    xc = L.copy_to_model_axis(x)
+    probs, gate, idx = _route(cfg, _router_logits(cfg, x, xc, p["router"].to(x.dtype)).float())
+    x = xc
     flat_e = idx.reshape(B, S * K)
     dest, keep = _dispatch(flat_e, E, C)
     tok_id = torch.arange(S, device=x.device)[:, None].expand(S, K).reshape(1, -1) \
@@ -178,8 +213,8 @@ def moe_forward_batched(cfg: ModelConfig, p: Params, x: torch.Tensor
     out_e = _experts(p, xe).reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
     out_flat = torch.cat([out_e, x.new_zeros((B, 1, d))], dim=1)
     y_assign = torch.gather(out_flat, 1, dest[:, :, None].expand(B, S * K, d))
-    gate_w = (gate.reshape(B, S * K) * keep).to(x.dtype)
+    gate_w = L.copy_to_model_axis((gate.reshape(B, S * K) * keep).to(x.dtype))
     y = (y_assign * gate_w[:, :, None]).reshape(B, S, K, d).sum(2)
     if "shared" in p:
         y = y + _shared(p, x)
-    return y, _aux(cfg, probs, idx)
+    return L.reduce_model_axis(y), _aux(cfg, probs, idx)

@@ -17,7 +17,11 @@ slices of a global parameter tree (from ``from_reference`` or
 draws the same parameters as ``Model.init`` from the same generator but
 keeps only the rank's slices, one layer at a time, so that a rank on a card
 never holds the whole tree. A rank's cache is the one its sharded prefill
-writes (``launch/steps.py``).
+writes (``launch/steps.py``). A rank's AdamW state holds its blocks of the
+moments by ``shardings.opt_shardings`` (``init_opt_shard``), and
+``gather_params`` / ``gather_opt_state`` take the ranks' shards back to the
+global trees (the tests' and the smoke run's comparisons; no step needs
+them).
 """
 from __future__ import annotations
 
@@ -25,13 +29,15 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import layers, transformer
-from repro_torch.models.api import resolve_device
+from repro_torch.models.api import Model, resolve_device
 from repro_torch.models.transformer import cache_rows
+from repro_torch.training.optimizer import AdamWState, adamw_init
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -172,3 +178,70 @@ def init_shard(cfg: ModelConfig, gen: torch.Generator, mesh, coords: Dict[str, i
         return sh.map_with_path(leaf, tree)
 
     return transformer.init_params(cfg, gen, dtype, resolve_device(device), cut=cut)
+
+
+def global_specs(cfg: ModelConfig, mesh, *, zero: bool = False):
+    """``(params, param_specs, opt_specs)``: ``cfg``'s global parameter tree
+    on the meta device, each leaf's spec (``shardings.param_shardings``) and
+    the AdamW state's (``shardings.opt_shardings``; ``zero``: ZeRO-1, each
+    moment also cut over ``data``)."""
+    params = Model(cfg).init(torch.Generator(), device="meta")
+    p_sh = sh.param_shardings(mesh, params)
+    return params, p_sh, sh.opt_shardings(mesh, adamw_init(params), p_sh, zero=zero)
+
+
+def _zip_tree(fn, specs, tree):
+    if isinstance(tree, dict):
+        return {k: _zip_tree(fn, specs[k], v) for k, v in tree.items()}
+    return fn(specs, tree)
+
+
+def init_opt_shard(cfg: ModelConfig, mesh, *, zero: bool = False,
+                   device="cuda") -> AdamWState:
+    """A rank's blocks of ``adamw_init`` of ``cfg``'s parameters by
+    ``shardings.opt_shardings`` (``zero``: ZeRO-1), without the global
+    tree: zero float32 moments of the shape of a rank's blocks (every rank's
+    blocks have one shape)."""
+    device = resolve_device(device)
+    params, _, o_sh = global_specs(cfg, mesh, zero=zero)
+    sizes = mesh_axis_sizes(mesh)
+
+    def zeros(spec, t):
+        return torch.zeros(sh.local_shape(spec, tuple(t.shape), sizes), dtype=torch.float32,
+                           device=device)
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
+                      _zip_tree(zeros, o_sh.mu, params), _zip_tree(zeros, o_sh.nu, params))
+
+
+def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global tensor whose shard under ``spec`` each rank of the live
+    ``mesh`` holds as ``t``: an ``all_gather`` over each sharded axis, on
+    every rank."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for axis in reversed((entry,) if isinstance(entry, str) else tuple(entry)):
+            group = mesh.get_group(axis)
+            parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            t = torch.cat(parts, dim=dim)
+    return t
+
+
+def gather_params(params: Dict[str, Any], cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The global parameter tree from each rank's shards (``shard_params``'s
+    inverse), on every rank of the live ``mesh``."""
+    _, p_sh, _ = global_specs(cfg, mesh)
+    return _zip_tree(lambda spec, t: gather_leaf(t, spec, mesh), p_sh, params)
+
+
+def gather_opt_state(state: AdamWState, cfg: ModelConfig, mesh, *,
+                     zero: bool = False) -> AdamWState:
+    """The global AdamW state from each rank's blocks (``init_opt_shard``'s
+    layout), on every rank of the live ``mesh``."""
+    _, _, o_sh = global_specs(cfg, mesh, zero=zero)
+
+    def gather(spec, t):
+        return gather_leaf(t, spec, mesh)
+    return AdamWState(state.step.clone(), _zip_tree(gather, o_sh.mu, state.mu),
+                      _zip_tree(gather, o_sh.nu, state.nu))

@@ -5,11 +5,13 @@ eps 1e-8, weight decay 0.1 on every leaf, global-norm clip 1.0) and the same
 order of operations, the global norm summed in float32 over the leaves in
 ``jax.tree.flatten``'s order (``training/tree.py``). Functional, as the
 reference: ``adamw_update`` returns new parameters and a new state and
-changes neither argument.
+changes neither argument. On a device mesh a rank updates its shards and
+passes ``sum_squares``, which counts every element of the global tree once
+(``launch/steps.py``'s sharded train step).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,12 +36,18 @@ def adamw_init(params) -> AdamWState:
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr: float = 3e-4,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 sum_squares: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step. Returns (new params, new state, {"grad_norm"}): the
-    gradients are scaled by ``min(1, grad_clip / (norm + 1e-9))`` first."""
+    gradients are scaled by ``min(1, grad_clip / (norm + 1e-9))`` first.
+    ``sum_squares(flat_grads)`` gives the squared global norm from the
+    leaves given (default: their own sum of squares, in float32)."""
     flat_g, treedef = tree.flatten(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
+    if sum_squares is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
+    else:
+        gnorm = torch.sqrt(sum_squares(flat_g))
     scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     t = step.float()

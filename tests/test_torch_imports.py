@@ -51,11 +51,13 @@ def test_sources_were_found():
             "overload.py", "recorder.py", "shadow.py", "fleet.py", "scenarios.py",
             "checks.py", "findings.py", "export.py", "__main__.py", "steps.py",
             "roofline.py", "dryrun.py", "mesh.py", "shardings.py", "runtime_flags.py",
+            "moe.py", "params.py", "optimizer.py", "api.py", "tf32.py",
             "quickstart_torch.py",
             "serve_autoscaled_torch.py", "train_tiny_torch.py",
             "cluster_experiment_torch.py", "scenario_sweep_torch.py",
             "dev_engine_torch.py", "dev_kernels_torch.py", "dev_smoke_torch.py",
-            "dev_sim_torch.py", "profile_sim_torch.py", "ci_fast_torch.py"} <= names
+            "dev_sim_torch.py", "profile_sim_torch.py", "ci_fast_torch.py",
+            "ssd_float64_survey_torch.py"} <= names
 
 
 def test_every_module_imports_without_gpu_or_triton():

@@ -10,7 +10,9 @@ store under the test's ``tmp_path`` (no port to clash between the test
 workers), and every wait has a timeout. llama-70b's smoke config runs on
 1 x 2 and 2 x 2; on 1 x 4 with 8 heads and 4 KV heads, so that the model
 axis divides them; internvl2-2b's (16 vision embeddings in front of the
-prompt) on 2 x 2."""
+prompt) on 2 x 2. The MoE family's runs are
+``tests/test_torch_mesh_moe.py``'s."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -50,7 +52,7 @@ RANK = r"""
 import datetime, json, sys
 import numpy as np, torch, torch.distributed as dist
 from repro_torch import params as P
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_local_mesh, mesh_coords
 
@@ -59,6 +61,8 @@ torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=world,
                         rank=rank, timeout=datetime.timedelta(seconds=120))
 spec = json.load(open(f"{work}/spec.json"))
+if spec["cfg"].get("moe"):
+    spec["cfg"]["moe"] = MoEConfig(**spec["cfg"]["moe"])
 cfg = ModelConfig(**spec["cfg"])
 data = np.load(f"{work}/inputs.npz")
 tree = {}
@@ -125,6 +129,13 @@ def _run_ranks(work, world, model_axis):
                          ids=["1x2", "2x2", "1x4", "vlm-2x2"])
 def test_sharded_prefill_and_decode_match_the_reference(tmp_path, arch, data_axis,
                                                         model_axis):
+    check_sharded_serving(tmp_path, arch, data_axis, model_axis)
+
+
+def check_sharded_serving(tmp_path, arch, data_axis, model_axis):
+    """``arch``'s smoke config on a ``data_axis`` x ``model_axis`` mesh of
+    gloo ranks against the reference and the port unsharded (also
+    ``tests/test_torch_mesh_moe.py``'s)."""
     heads = {"n_heads": 8, "n_kv_heads": 4} if model_axis == 4 else {}
     rcfg = ref_smoke_config(arch).with_(dtype="float32", **heads)
     cfg = get_smoke_config(arch).with_(dtype="float32", **heads)
@@ -162,9 +173,11 @@ def test_sharded_prefill_and_decode_match_the_reference(tmp_path, arch, data_axi
 
     np.savez(tmp_path / "inputs.npz", feed=np.stack(feed), **inputs,
              **dict(_flat(as_numpy)))
+    config = {k: v for k, v in cfg.__dict__.items() if k not in ("moe", "ssm")}
+    if cfg.is_moe:
+        config["moe"] = cfg.moe.__dict__
     (tmp_path / "spec.json").write_text(json.dumps(
-        {"cfg": {k: v for k, v in cfg.__dict__.items() if k not in ("moe", "ssm")},
-         "B": B, "S": S, "cap": cap}))
+        {"cfg": config, "B": B, "S": S, "cap": cap}))
     world = data_axis * model_axis
     ranks = _run_ranks(tmp_path, world, model_axis)
 
@@ -191,13 +204,34 @@ def test_a_model_axis_that_does_not_divide_the_kv_heads_raises(kind):
 
 
 def test_the_sharded_train_step_raises():
-    cfg = get_smoke_config("llama-70b")
+    """The train step runs the dense, VLM and MoE families on a mesh
+    (tests/test_torch_mesh_train.py); the SSM family's raises."""
+    cfg = get_smoke_config("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         steps.sharded_step(cfg, InputShape("t", 32, 4, "train"), MeshShape((1, 2), ("data", "model")))
+
+
+def _moe_with_expert_d_ff(arch, d_ff):
+    cfg = get_smoke_config(arch)
+    return cfg.with_(moe=dataclasses.replace(cfg.moe, d_ff=d_ff))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b", "zamba2-2.7b",
                                   "whisper-base"])
 def test_families_without_a_mesh_plan_raise(arch):
+    """The ssm, hybrid and audio families; an MoE model runs on a mesh whose
+    model axis divides its experts' d_ff, and raises where it does not (the
+    reference's expert-parallel fallback)."""
+    cfg, sizes = get_smoke_config(arch), {"data": 1, "model": 1}
+    if cfg.is_moe:
+        cfg, sizes = _moe_with_expert_d_ff(arch, 66), {"data": 1, "model": 4}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.local_config(get_smoke_config(arch), {"data": 1, "model": 1})
+        steps.local_config(cfg, sizes)
+
+
+def test_an_moe_local_config_cuts_the_experts_d_ff():
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    local = steps.local_config(cfg, {"data": 2, "model": 2})
+    assert local.moe.d_ff == cfg.moe.d_ff // 2
+    assert local.moe.n_experts == cfg.moe.n_experts
+    assert (local.n_heads, local.n_kv_heads) == (cfg.n_heads // 2, cfg.n_kv_heads // 2)

@@ -1,0 +1,123 @@
+"""The model axis's pair of autograd collectives (``models/layers.py``:
+``reduce_model_axis``, ``copy_to_model_axis``) on two gloo ranks on the CPU:
+a column- then row-parallel SwiGLU FFN's input and weight gradients against
+the unsharded FFN's ``torch.autograd``, float64, and the reduction leaving
+its argument as it was. Each rank is a ``python -c`` process meeting the
+other at a ``file://`` store under ``tmp_path``; every wait has a timeout."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+RANK_TIMEOUT_S = 90
+T, D, F = 6, 8, 12
+
+RANK = r"""
+import datetime, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import on_model_axis
+from repro_torch.models import layers, runtime_flags
+
+rank, work, copy = int(sys.argv[1]), sys.argv[2], sys.argv[3] == "1"
+dtype = getattr(torch, sys.argv[4])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_local_mesh(2, backend="cpu")
+data = np.load(f"{work}/inputs.npz")
+f = data["w_gate"].shape[1] // 2
+cols = slice(rank * f, (rank + 1) * f)
+x = torch.from_numpy(data["x"]).to(dtype).requires_grad_(True)
+w_gate = torch.from_numpy(data["w_gate"][:, cols]).to(dtype).requires_grad_(True)
+w_up = torch.from_numpy(data["w_up"][:, cols]).to(dtype).requires_grad_(True)
+w_down = torch.from_numpy(data["w_down"][cols]).to(dtype).requires_grad_(True)
+with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
+    h = layers.copy_to_model_axis(x) if copy else x
+    part = (torch.nn.functional.silu(h @ w_gate) * (h @ w_up)) @ w_down
+    before = part.detach().clone()
+    y = layers.reduce_model_axis(part)
+    aliased = not torch.equal(part.detach(), before)
+    (y * torch.from_numpy(data["dy"]).to(dtype)).sum().backward()
+np.savez(f"{work}/rank{rank}.npz", y=y.detach().numpy(), dx=x.grad.numpy(),
+         dw_gate=w_gate.grad.numpy(), dw_up=w_up.grad.numpy(), dw_down=w_down.grad.numpy(),
+         aliased=np.array(aliased))
+dist.destroy_process_group()
+"""
+
+
+def _run(work, copy: bool, dtype: str = "float64"):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", RANK, str(r), str(work), str(int(copy)),
+                               dtype],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            results.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rc, err in results:
+        assert rc == 0, err[-3000:]
+    return [np.load(work / f"rank{r}.npz") for r in range(2)]
+
+
+def _inputs(work):
+    rng = np.random.default_rng(0)
+    arrays = {"x": rng.standard_normal((T, D)), "w_gate": rng.standard_normal((D, F)),
+              "w_up": rng.standard_normal((D, F)), "w_down": rng.standard_normal((F, D)),
+              "dy": rng.standard_normal((T, D))}
+    np.savez(work / "inputs.npz", **arrays)
+    leaves = {k: torch.from_numpy(v).requires_grad_(k != "dy") for k, v in arrays.items()}
+    y = (torch.nn.functional.silu(leaves["x"] @ leaves["w_gate"]) *
+         (leaves["x"] @ leaves["w_up"])) @ leaves["w_down"]
+    (y * leaves["dy"]).sum().backward()
+    return y.detach().numpy(), {k: t.grad.numpy() for k, t in leaves.items() if k != "dy"}
+
+
+@pytest.mark.parametrize("copy", [True, False], ids=["with the copy", "without"])
+def test_the_conjugate_pair_gives_the_unsharded_gradients(tmp_path, copy):
+    """With the copy at the column-parallel products' input every rank's
+    input gradient is the unsharded one; without it each rank holds only its
+    partial sum (what the layers' in-place all_reduce gave before the pair:
+    a replicated leaf upstream then gets a wrong gradient, another on each
+    rank). The weight gradients are each rank's shard of the unsharded ones
+    either way, and the output every rank's whole sum."""
+    y, grads = _inputs(tmp_path)
+    ranks = _run(tmp_path, copy)
+    f = F // 2
+    for r, out in enumerate(ranks):
+        cols = slice(r * f, (r + 1) * f)
+        np.testing.assert_allclose(out["y"], y, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(out["dw_gate"], grads["w_gate"][:, cols], rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(out["dw_up"], grads["w_up"][:, cols], rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(out["dw_down"], grads["w_down"][cols], rtol=1e-12,
+                                   atol=1e-12)
+        if copy:
+            np.testing.assert_allclose(out["dx"], grads["x"], rtol=1e-12, atol=1e-12)
+    if not copy:
+        partial = ranks[0]["dx"] + ranks[1]["dx"]
+        np.testing.assert_allclose(partial, grads["x"], rtol=1e-12, atol=1e-12)
+        assert not np.allclose(ranks[0]["dx"], grads["x"])
+
+
+def test_reduce_model_axis_leaves_its_argument_as_it_was(tmp_path):
+    """A float32 reduction that ran ``all_reduce`` on ``x.float()``, which
+    is ``x`` itself for a float32 ``x``, overwrote the caller's partial sum
+    with the total; the reduction works on a copy."""
+    _inputs(tmp_path)
+    for out in _run(tmp_path, True, "float32"):
+        assert not bool(out["aliased"])

@@ -261,9 +261,50 @@ def test_dryrun_on_a_mesh_reports_the_local_bytes_of_the_references_specs(arch, 
     assert rec["fits"] == (want <= roofline.CARD_BYTES)
 
 
+def _train_coll_want(arch, shape, mesh_dims, *, remat, zero):
+    """The collective bytes of the sharded train step's plan, one device,
+    from the config and the reference's specs (launch/roofline.py's
+    ``mesh_coll_bytes`` states the plan): on ``model`` the forward's
+    all_reduces of every layer's two row-parallel outputs, the embeddings
+    and the logits of every position (the vocabulary divides the axis
+    here), the layers' again under remat, and the backward's at the
+    attention's, the FFN's and the head's inputs; on ``data`` the rank's
+    gradient; under ZeRO-1 the all-gather of the blocks of the leaves whose
+    moments ``data`` cuts. float32 buffers; rings."""
+    cfg = get_config(arch)
+    data, m = mesh_dims
+    mesh, sizes = _ref_mesh(mesh_dims), {"data": data, "model": m}
+    shp = REF_SHAPES[shape]
+    assert cfg.vocab_size % m == 0 and not cfg.is_moe and cfg.arch_type == "dense"
+    tokens = shp.global_batch // data * shp.seq_len
+    layer = 2 * tokens * cfg.d_model
+    model = cfg.n_layers * layer + tokens * cfg.d_model + tokens * cfg.vocab_size
+    model += cfg.n_layers * layer if remat else 0
+    model += cfg.n_layers * layer + tokens * cfg.d_model
+    ref = _ref_inputs(arch, shape)
+    p_sh = ref_sh.param_shardings(mesh, ref["params"])
+    want = {"all-reduce model": model * 4 * 2 * (m - 1) / m}
+    if data > 1:
+        p_specs = _ref_leaves(p_sh)
+        local = {path: int(np.prod(sh.local_shape(p_specs[path].spec, tuple(leaf.shape),
+                                                  sizes)))
+                 for path, leaf in _ref_leaves(ref["params"]).items()}
+        # the gradient reduced in float32, the parameters gathered in their dtype
+        want["all-reduce data"] = sum(local.values()) * 4 * 2 * (data - 1) / data
+        if zero:
+            o_sh = _ref_leaves(ref_sh.opt_shardings(mesh, ref["opt_state"], p_sh,
+                                                    zero=True).mu)
+            cut = sum(local[path] * np.dtype(leaf.dtype).itemsize
+                      for path, leaf in _ref_leaves(ref["params"]).items()
+                      if "data" in o_sh[path].spec)
+            want["all-gather data"] = cut * (data - 1) / data
+    return want
+
+
 def test_the_dry_runs_train_bytes_on_a_mesh_with_zero():
     """A train pair on 16 x 16: parameters, the batch and AdamW's state, with
-    ZeRO-1's moments sharded over ``data`` as well."""
+    ZeRO-1's moments sharded over ``data`` as well; and its collective
+    bytes, the sharded train step's plan (``_train_coll_want``)."""
     arch, shape = "olmo-1b", "train_4k"
     mesh, sizes = _ref_mesh((16, 16)), {"data": 16, "model": 16}
     ref = _ref_inputs(arch, shape)
@@ -276,8 +317,41 @@ def test_the_dry_runs_train_bytes_on_a_mesh_with_zero():
         o_sh = ref_sh.opt_shardings(mesh, ref["opt_state"], p_sh, zero=zero)
         want = base + _ref_local_bytes(ref["opt_state"], o_sh, sizes)
         assert rec["arg_bytes"] == want, zero
-        # the port has no sharded train step: no plan, so no collective count
-        assert rec["coll_bytes"] is None and rec["mesh"] == "16x16"
+        coll = _train_coll_want(arch, shape, (16, 16), remat=True, zero=zero)
+        assert rec["mesh"] == "16x16" and set(rec["coll_breakdown"]) == set(coll)
+        for key, value in coll.items():
+            assert rec["coll_breakdown"][key] == pytest.approx(value, rel=1e-12), key
+        assert rec["coll_bytes"] == pytest.approx(sum(coll.values()), rel=1e-12)
+        # 16 x 16 spans nodes: both axes' rings at the inter-node rate
+        assert rec["collective_s"] == pytest.approx(sum(coll.values()) /
+                                                    roofline.INTER_NODE_BW, rel=1e-12)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
+@pytest.mark.parametrize("zero", [False, True], ids=["", "zero"])
+@pytest.mark.parametrize("mesh_dims", [(2, 2), (1, 4), (4, 1)], ids=lambda m: "x".join(map(str, m)))
+def test_mesh_coll_bytes_of_a_train_step(mesh_dims, zero, remat):
+    """``mesh_coll_bytes`` for a train step counts the forward's all_reduces,
+    the backward's (remat's recomputed forward and the copies'), the
+    gradient's average over ``data`` and ZeRO-1's all-gather; one node's
+    mesh runs every ring over NVLink."""
+    arch, shape = "olmo-1b", "train_4k"
+    cfg, mesh = get_config(arch), mesh_shape(mesh_dims)
+    got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh, remat=remat,
+                                   zero_opt=zero)
+    want = _train_coll_want(arch, shape, mesh_dims, remat=remat, zero=zero)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-12), key
+    terms, _ = roofline.plan(cfg, INPUT_SHAPES[shape], remat=remat, mesh=mesh,
+                             zero_opt=zero)
+    assert terms.collective_s == pytest.approx(sum(want.values()) / roofline.LINK_BW,
+                                               rel=1e-12)
+    # the forward's model-axis bytes are a prefill's of every position, plus
+    # the backward's, which remat makes larger
+    if mesh_dims[1] > 1:
+        fwd_only = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh, remat=False)
+        assert got["all-reduce model"] >= fwd_only["all-reduce model"]
 
 
 # ------------------------------------------------------------ a rank's shards

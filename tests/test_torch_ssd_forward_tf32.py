@@ -31,7 +31,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels.ssd_scan import forward_route, ssd_scan_plain
-from repro_torch.kernels.tf32 import matmul_1xtf32, matmul_3xtf32
+from repro_torch.kernels.tf32 import matmul_1xtf32, matmul_3xtf32, matmul_6xtf32
 
 # the test workers share the host's cores: cap each one's intra-op threads
 torch.set_num_threads(2)
@@ -82,10 +82,18 @@ def warp_scan(dt, A, total_from_lanes=False):
     return a[:, :s], incl[:, 31:] if total_from_lanes else a[:, s - 1:s]
 
 
+def float64_scan(dt, A):
+    """The running sum of dt * A as the kernel now forms it: in float64 (each
+    product dt * A exact), dA_total its value at the last step."""
+    a = torch.cumsum(dt.double() * A.double(), dim=1)
+    return a, a[:, -1:]
+
+
 def tensor_core_forward(x, dt, A, B, C, mm=matmul_3xtf32, scan=cumsum_scan):
     """The kernel's formulas for one chunk (s <= chunk) from a zero state,
     every product through ``mm`` (3xTF32), the rest in float32: a the
-    running sum of dt * A (by ``scan``), S = C B^T once a sequence, per head
+    running sum of dt * A (by ``scan``; a float64 one's exponents a_i - a_j
+    are rounded to float32 once, as the kernel takes them), S = C B^T once a sequence, per head
     W = S o exp(a_i - a_j) dt_j for i >= j (the exponent masked before exp)
     and y = W x; fin_j = exp(a_last - a_j) dt_j and the final state h = (fin
     o x)^T B. x (b,s,h,p), dt (b,s,h), A (h,), B and C (b,s,n); returns (y,
@@ -94,11 +102,11 @@ def tensor_core_forward(x, dt, A, B, C, mm=matmul_3xtf32, scan=cumsum_scan):
     a, a_last = scan(dt, A)                                       # (b, s, h)
     i = torch.arange(s)
     causal = (i[:, None] >= i[None, :])[None, :, :, None]         # (1, i, j, 1)
-    L = torch.exp(torch.where(causal, a[:, :, None] - a[:, None], -torch.inf))
+    L = torch.exp(torch.where(causal, (a[:, :, None] - a[:, None]).float(), -torch.inf))
     S = mm(C, B.transpose(1, 2))                                  # (b, i, j)
     W = S[..., None] * L * dt[:, None]                            # (b, i, j, h)
     y = mm(W.permute(0, 3, 1, 2), x.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
-    fin = torch.exp(a_last - a) * dt                              # (b, s, h)
+    fin = torch.exp((a_last - a).float()) * dt                    # (b, s, h)
     state = mm((x * fin[..., None]).permute(0, 2, 3, 1), B[:, None])
     return y, state
 
@@ -224,6 +232,9 @@ def test_total_from_the_lanes_would_not_keep_float32_precision():
     (8, 128, 80, 64, 64, 256, False, False, ("tf32", 5)),    # zamba2-2.7b's
     (8, 256, 64, 64, 128, 256, False, False, ("tf32", 4)),   # a full chunk
     (2, 200, 64, 64, 128, 256, False, False, ("tf32", 1)),   # ragged, fewer blocks than a wave
+    (2, 16, 64, 64, 128, 256, False, False, ("tf32", 1)),    # TC_MIN_STEPS
+    (2, 15, 64, 64, 128, 256, False, False, ("fma", 1)),     # fewer steps
+    (2, 1, 64, 64, 128, 256, False, False, ("fma", 1)),
     (64, 128, 64, 64, 128, 256, False, False, ("tf32", 5)),  # more blocks than a wave at most
     (2, 320, 64, 64, 128, 256, False, False, ("fma", 1)),    # two chunks: the carried state
     (1, 128, 64, 64, 128, 256, True, False, ("fma", 1)),     # h0
@@ -233,3 +244,36 @@ def test_total_from_the_lanes_would_not_keep_float32_precision():
 ])
 def test_forward_route(b, s, h, p, n, chunk, h0, is_bf16, want):
     assert forward_route(b, s, h, p, n, chunk, h0, is_bf16, n_sms=132) == want
+
+
+@pytest.mark.parametrize("case", CARD_CASES[:4] + CARD_CASES[5:],
+                         ids=[c[0] for c in CARD_CASES[:4] + CARD_CASES[5:]])
+def test_6xtf32_forward_with_a_float64_scan_keeps_float32_precision(case):
+    """The kernel's formulas as it now runs them (6xTF32 products, the running
+    sum of dt * A in float64) on four draws a case: y and the final state
+    within ``FACTOR`` of plain float32's error (s = 1 goes to the FMA kernel:
+    ``forward_route``)."""
+    _, s, h, n, steep = case
+    for seed in range(4):
+        args = _card_inputs(20 + seed, s, h, n, steep)
+        y, state = tensor_core_forward(*args, mm=matmul_6xtf32, scan=float64_scan)
+        want_y, want_state = ssd_scan_plain(*(v.double() for v in args), CHUNK)
+        plain_y, plain_state = ssd_scan_plain(*args, CHUNK)
+        for name, got, plain, want in (("y", y, plain_y, want_y),
+                                       ("state", state, plain_state, want_state)):
+            e, e_plain = _rel(got, want), _rel(plain, want)
+            assert e <= SSD_TOL and e <= FACTOR * e_plain, (seed, name, e, e_plain)
+
+
+def test_a_float64_scan_takes_out_most_of_the_error():
+    """Why the kernel sums dt * A in float64: at the training length the
+    exponents a_i - a_j are differences of two sums of up to a few hundred,
+    whose float32 roundings are most of the plain float32 version's error
+    on y. With the sum in float64, y errs less than a quarter of it."""
+    for n, h in ((128, 4), (64, 5)):
+        args = _torch(_inputs(0, n, h, False))
+        y, _ = tensor_core_forward(*args, mm=matmul_6xtf32, scan=float64_scan)
+        want_y, _ = ssd_scan_plain(*(v.double() for v in args), CHUNK)
+        plain_y, _ = ssd_scan_plain(*args, CHUNK)
+        assert _rel(y, want_y) < _rel(plain_y, want_y) / 4, (_rel(y, want_y),
+                                                              _rel(plain_y, want_y))
