@@ -146,6 +146,20 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One rank's share of a model on a device mesh
+    (``launch.steps.local_config``): a ``ModelConfig`` whose SSM inner width
+    is given (``inner``), not derived from ``d_model``, since a rank holds
+    ``d_inner / m`` of the SSM channels and heads while ``d_model`` stays
+    whole. ``inner`` 0 derives it as ``ModelConfig`` does."""
+    inner: int = 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.inner or self.ssm.expand * self.d_model
+
+
+@dataclass(frozen=True)
 class InputShape:
     name: str
     seq_len: int

@@ -22,8 +22,10 @@ state and the batch for train (the prompt for prefill). ``fits`` compares
 moments; on the 16 x 16 production mesh unless a mesh is named) place each
 pair on a mesh of that shape by ``launch/shardings.py``, with no process and
 no device (``launch/mesh.py``'s ``MeshShape``): ``arg_bytes`` and
-``out_bytes`` are then one device's shards, ``fits`` compares them with the
-card, ``mesh`` names the shape, and the roofline terms are one device's
+``out_bytes`` are then one device's shards under the reference's specs,
+``layout_extra_bytes`` what the rank layout of the Mamba2 leaves adds to
+them (``params.ssm_layout``: B and C whole on every rank), ``fits``
+compares their sum with the card, ``mesh`` names the shape, and the roofline terms are one device's
 (``roofline.plan``); ``coll_bytes`` and ``collective_s`` are None
 ("unplanned" on the printed line) for a pair the port's sharded step does
 not run. Not ported: ``--unroll`` (``_layer_trips``) exists
@@ -74,13 +76,18 @@ def run_one(arch: str, shape_name: str, *, remat: bool = True,
                           mesh=mesh_shape(mesh) if mesh else None, zero_opt=zero_opt)
         # repro-lint: ok(DET202, real trace timing)
         total = time.time() - t0
+        held = mem["arg_bytes"] + mem["layout_extra_bytes"]
         rec.update(total_s=round(total, 2), arg_bytes=mem["arg_bytes"],
+                   layout_extra_bytes=mem["layout_extra_bytes"],
                    out_bytes=mem["out_bytes"], temp_bytes=None,
-                   fits=mem["arg_bytes"] <= CARD_BYTES, card_bytes=CARD_BYTES,
+                   fits=held <= CARD_BYTES, card_bytes=CARD_BYTES,
                    model_flops=terms.model_flops, step_time_s=terms.step_time_s,
                    **terms.as_dict())
         line = (f"[{arch} x {shape_name} @ {where}] OK trace={rec['total_s']}s "
-                f"args={mem['arg_bytes'] / 2**30:.2f}GiB fits={rec['fits']} "
+                f"args={mem['arg_bytes'] / 2**30:.2f}GiB"
+                + (f"+{mem['layout_extra_bytes'] / 2**30:.3f}GiB(rank layout)"
+                   if mem["layout_extra_bytes"] else "")
+                + f" fits={rec['fits']} "
                 f"compute={terms.compute_s * 1e3:.2f}ms "
                 f"memory={terms.memory_s * 1e3:.2f}ms "
                 f"collective={_ms(terms.collective_s)} "

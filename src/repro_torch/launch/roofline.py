@@ -69,7 +69,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import mesh_axis_sizes
-from repro_torch.params import global_specs
+from repro_torch.params import rank_cache_shape, rank_leaves
 from repro_torch.sim.perf_model import HBM_BW, LINK_BW, PEAK_FLOPS
 from repro_torch.training import tree
 
@@ -287,38 +287,74 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     seq = 1 if shape.kind == "decode" else shape.seq_len
     n_vis = cfg.n_vision_tokens if cfg.arch_type == "vlm" and shape.kind != "decode" else 0
     tokens = rows * (seq + n_vis)
-    d, L = cfg.d_model, cfg.n_layers
-    E = cfg.moe.n_experts if cfg.is_moe else 0
-    # a layer's forward: wo and w_down (an MoE layer's combine), the router
-    layer = 2 * tokens * d + (tokens * E if E and E % m == 0 else 0)
     vocab = cfg.vocab_size % m == 0
     logit_rows = rows * seq if shape.kind == "train" else rows
-    edges = rows * seq * d + logit_rows * cfg.vocab_size if vocab else 0
-    model = L * layer + edges
+    edges = rows * seq * cfg.d_model + logit_rows * cfg.vocab_size if vocab else 0
+    forward, backward = _layers_coll(cfg, shape, tokens, rows, m)
+    model = forward + edges
     out = {}
     if shape.kind == "train":
-        if remat:
-            model += L * layer
-        # the copies' backward: the attention's and the FFN's inputs, the
-        # gates of an MoE layer, the sharded head's input
-        gates = tokens * cfg.moe.experts_per_token if E else 0
-        model += L * (2 * tokens * d + gates) + (rows * seq * d if vocab else 0)
+        if remat:   # the layers' forward again inside the backward (not the encoder's)
+            model += forward - (_encoder_coll(cfg, rows) if cfg.arch_type == "audio" else 0)
+        # the copies' backward, and the sharded head's input
+        model += backward + (rows * seq * cfg.d_model if vocab else 0)
         n_batch = 1
         for a in ("pod", "data"):
             n_batch *= sizes.get(a, 1)
         if n_batch > 1:
-            params, p_sh, o_sh = global_specs(cfg, mesh, zero=zero_opt)
-            local = [math.prod(sh.local_shape(spec, tuple(t.shape), sizes))
-                     for spec, t in zip(tree.leaves(p_sh), tree.leaves(params))]
-            grads = sum(local)
+            leaves, _ = rank_leaves(cfg, mesh, zero=zero_opt)
+            grads = sum(math.prod(rl.shape) for rl in leaves)
             out["all-reduce data"] = sum(grads * _REDUCE_BYTES * _ring(sizes[a])
                                          for a in ("pod", "data") if sizes.get(a, 1) > 1)
             if zero_opt:
-                cut = sum(n * t.element_size()
-                          for n, t, spec in zip(local, tree.leaves(params),
-                                                tree.leaves(o_sh.mu)) if "data" in spec)
+                cut = sum(math.prod(rl.shape) * rl.dtype.itemsize
+                          for rl in leaves if rl.zero_dim is not None)
                 out["all-gather data"] = cut * (sizes["data"] - 1) / sizes["data"]
     return {"all-reduce model": model * _REDUCE_BYTES * _ring(m), **out}
+
+
+def _encoder_coll(cfg: ModelConfig, rows: int) -> float:
+    """The audio encoder's forward all_reduces (``wo``, ``w_down``) over
+    ``rows`` sequences of ``enc_seq`` frames: elements, one device."""
+    return cfg.n_enc_layers * 2 * rows * cfg.enc_seq * cfg.d_model
+
+
+def _layers_coll(cfg: ModelConfig, shape: InputShape, tokens: int, rows: int, m: int
+                 ) -> Tuple[float, float]:
+    """(forward, backward): the elements the layers all_reduce over the model
+    axis in a forward over ``tokens`` (of ``rows`` sequences), and in a
+    train step's backward at the copies (``copy_to_model_axis``,
+    ``sum_model_axis``), by family:
+
+    - a transformer layer: ``wo`` and ``w_down`` (an MoE layer's combine),
+      an MoE router's logits where the axis cuts its columns; backward the
+      attention's and the FFN's inputs and an MoE layer's gates;
+    - a Mamba2 layer: ``w_out`` and the gated norm's statistic (one a
+      token); backward the z/x/dt product's input, B and C after the conv
+      (2 N a token) and the statistic;
+    - the hybrid's shared block, once a call: a dense layer's;
+    - the audio family: each encoder layer's two over the frames (a decode
+      step runs no encoder) and each decoder layer's three (the self- and
+      cross-attention's ``wo``, ``w_down``); backward each one's inputs,
+      the cross-attention's K/V input (the encoder's output) among them."""
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.arch_type in ("ssm", "hybrid"):
+        N = cfg.ssm.state_dim
+        forward = L * tokens * (d + 1)
+        backward = L * tokens * (d + 2 * N + 1)
+        if cfg.arch_type == "hybrid":
+            calls = L // cfg.attn_every
+            forward += calls * 2 * tokens * d
+            backward += calls * 2 * tokens * d
+        return forward, backward
+    if cfg.arch_type == "audio":
+        enc = 0 if shape.kind == "decode" else _encoder_coll(cfg, rows)
+        frames = rows * cfg.enc_seq
+        return enc + L * 3 * tokens * d, enc + L * (3 * tokens + frames) * d
+    E = cfg.moe.n_experts if cfg.is_moe else 0
+    layer = 2 * tokens * d + (tokens * E if E and E % m == 0 else 0)
+    gates = tokens * cfg.moe.experts_per_token if E else 0
+    return L * layer, L * (2 * tokens * d + gates)
 
 
 def local_meta(t: Any, specs: Any, sizes: Dict[str, int]) -> Any:
@@ -363,13 +399,42 @@ def _local_specs(cfg: ModelConfig, shape: InputShape, mesh, specs: Dict, out,
     return ins, outs
 
 
+def _layout_extra_bytes(cfg: ModelConfig, shape: InputShape, mesh, ins: Dict,
+                        zero_opt: bool) -> int:
+    """The bytes that the rank layout of the Mamba2 leaves
+    (``params.ssm_layout``) adds to one device's inputs ``ins``, which hold
+    each leaf under the reference's specs (``arg_bytes``): B and C whole on
+    every rank, 2 N (m - 1) / m columns of ``w_in`` a layer more than its
+    spec's contiguous block, their channels of ``conv_w`` and ``conv_b``
+    (which the spec replicates, as it does ``norm_w``: those then count
+    less), in AdamW's moments as well, and in a decode step's ``conv``
+    cache. Zero for a family with no Mamba2 layer."""
+    if cfg.arch_type not in ("ssm", "hybrid"):
+        return 0
+    sizes = mesh_axis_sizes(mesh)
+    leaves, _ = rank_leaves(cfg, mesh, zero=zero_opt)
+    extra = sum((math.prod(rl.shape) - t.numel()) * t.element_size()
+                for rl, t in zip(leaves, tree.leaves(ins["params"])))
+    if shape.kind == "train":
+        for rl, t in zip(leaves, tree.leaves(ins["opt_state"].mu)):
+            n = math.prod(rl.shape) // (sizes["data"] if rl.zero_dim is not None else 1)
+            extra += 2 * (n - t.numel()) * t.element_size()
+    if shape.kind == "decode":
+        conv = ins["cache"]["conv"]
+        mine = rank_cache_shape(cfg, "conv", tuple(conv.shape), sizes["model"])
+        extra += (math.prod(mine) - conv.numel()) * conv.element_size()
+    return int(extra)
+
+
 def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
          microbatch: int = 0, context: Optional[float] = None, mesh=None,
          zero_opt: bool = False) -> Tuple[RooflineTerms, Dict[str, int]]:
     """The roofline terms of ``shape``'s step on the meta device, and its
     memory: ``arg_bytes`` (parameters, plus the cache for decode, plus
-    AdamW's state and the batch for train; the prefill's prompt too) and
-    ``out_bytes`` (what the step returns). Activations are not counted.
+    AdamW's state and the batch for train; the prefill's prompt too),
+    ``out_bytes`` (what the step returns) and, on a mesh,
+    ``layout_extra_bytes`` (``_layout_extra_bytes``). Activations are not
+    counted.
     ``context``: the positions a decode step reads a sequence (default: the
     cache's length). With ``mesh`` (a ``MeshShape``; ``zero_opt``: ZeRO-1
     moments) every term and byte count is one device's (module
@@ -388,7 +453,7 @@ def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
         fn = steps.make_serve_step(cfg)
         flops, out = count_flops(fn, specs["params"], specs["tokens"], specs["cache"])
     coll, bw, rates = {}, LINK_BW, {}
-    ins, outs = specs, out
+    ins, outs, layout_extra = specs, out, 0
     if mesh is not None:
         split = mesh_axis_sizes(mesh)["model"] * _batch_shards(mesh, shape.global_batch)
         flops, mflops = flops / split, mflops / split
@@ -396,6 +461,7 @@ def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
         bw = link_bw(mesh_axis_sizes(mesh)["model"])
         rates = {"all-reduce data": data_link_bw(mesh), "all-gather data": data_link_bw(mesh)}
         ins, outs = _local_specs(cfg, shape, mesh, specs, out, zero_opt)
+        layout_extra = _layout_extra_bytes(cfg, shape, mesh, ins, zero_opt)
     if shape.kind == "train":
         hbm = train_bytes(ins["params"], ins["opt_state"], ins["batch"],
                           remat=remat, microbatch=microbatch)
@@ -404,7 +470,7 @@ def plan(cfg: ModelConfig, shape: InputShape, *, remat: bool = True,
     else:
         ctx = steps.cache_len_for(cfg, shape) if context is None else context
         hbm = decode_bytes(cfg, ins["params"], ins["tokens"], ins["cache"], outs[0], ctx)
-    mem = {"arg_bytes": nbytes(ins),
+    mem = {"arg_bytes": nbytes(ins), "layout_extra_bytes": layout_extra,
            # a decode step writes its pools in place: only the logits are new
            "out_bytes": nbytes(outs[0]) if shape.kind == "decode" else nbytes(outs)}
     terms = RooflineTerms(flops=flops, hbm_bytes=hbm,

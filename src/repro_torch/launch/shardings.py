@@ -27,6 +27,12 @@ the block tables go with their rows. The reference's sequence-sharded
 fallback (KV heads that do not divide the axis) keeps its spec, on the
 positions within a page (where the page, too, divides the axis); the
 sharded step refuses to run it (ROADMAP.md).
+
+The rules here stay the reference's. The sharded step holds the Mamba2
+leaves (``w_in``, the conv's ``conv_w`` / ``conv_b``, ``norm_w``) and the
+``conv`` cache by the port's rank layout instead (``params.ssm_layout``:
+whole heads a rank, B and C whole), where these rules cut contiguous
+blocks that are not one rank's heads (ROADMAP.md, Departures).
 """
 from __future__ import annotations
 

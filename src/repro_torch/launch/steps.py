@@ -21,8 +21,8 @@ collectives on the model axis (``models/runtime_flags.py``), and each data
 rank taking its rows of the batch. The train step averages the gradients
 over the batch axes, clips by the norm of the global tree and, with ZeRO-1,
 updates each data rank's block of every moment and all-gathers the
-parameters. It runs the dense, VLM and MoE families; the others on a mesh
-are not ported (ROADMAP.md).
+parameters. It runs every family: a Mamba2 layer's rank holds whole heads
+(``params.ssm_layout``), B and C whole on every rank.
 
 One departure: the port's page pool keeps every position of a sequence,
 and a sliding window is a lower bound on what a query reads (ROADMAP.md,
@@ -41,12 +41,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig, RankConfig
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_axis_sizes, mesh_coords
 from repro_torch.models import Model, runtime_flags
 from repro_torch.models.layers import all_reduce_sum
-from repro_torch.params import gather_leaf, global_specs, init_opt_shard
+from repro_torch.params import gather_leaf, init_opt_shard, layout_split, rank_leaves
 from repro_torch.training import tree
 from repro_torch.training.optimizer import AdamWState, adamw_init, adamw_update
 
@@ -201,30 +201,30 @@ def make_serve_step(cfg: ModelConfig):
 # ------------------------------------------------------------ on a mesh
 
 # the families whose layers carry the collectives (models/layers.py,
-# models/moe.py)
-MESH_ARCHS = ("dense", "vlm", "moe")
+# models/moe.py, models/ssm.py)
+MESH_ARCHS = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
     """Raise ``NotImplementedError`` unless ``sharded_step`` can run ``cfg``
-    on a mesh of axis ``sizes``: a dense, VLM or MoE model whose heads, KV
-    heads and ``d_ff`` the model axis divides (so that every rank holds
-    whole heads and the reference's sequence-sharded KV fallback never
-    arises), and, for MoE, its experts' ``d_ff`` (f-sharded experts: the
-    reference's expert-parallel fallback is not ported). The placement
-    functions of ``launch/shardings.py`` answer every case."""
+    on a mesh of axis ``sizes``: a model whose heads, KV heads, ``d_ff``
+    and SSM heads the model axis divides (so that every rank holds whole
+    heads and the reference's sequence-sharded KV fallback never arises),
+    and, for MoE, its experts' ``d_ff`` (f-sharded experts: the reference's
+    expert-parallel fallback is not ported). The placement functions of
+    ``launch/shardings.py`` answer every case."""
     m = sizes["model"]
     if cfg.arch_type not in MESH_ARCHS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type} family on a mesh is not ported "
             "(ROADMAP.md, Queue A item 8b-ii)")
-    bad = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff")
+    bad = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff", "n_ssm_heads")
            if getattr(cfg, k) % m}
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {m} does not divide {bad}; the "
             "sequence-sharded KV cache and split heads are not ported "
-            "(ROADMAP.md, Queue A item 8b-ii)")
+            "(ROADMAP.md, Queue A item 8b-ii, 4)")
     if cfg.is_moe and cfg.moe.d_ff % m:
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {m} does not divide the experts' d_ff "
@@ -235,15 +235,20 @@ def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
 def local_config(cfg: ModelConfig, sizes: Dict[str, int]) -> ModelConfig:
     """The config of one rank's model on a mesh of axis ``sizes``: its shares
     of the heads, the KV heads, ``d_ff`` and the experts' ``d_ff`` (the
-    shared experts' width with it), and of the vocabulary where the model
-    axis divides it (``shardings.param_spec``'s rule)."""
+    shared experts' width with it), of the vocabulary where the model axis
+    divides it (``shardings.param_spec``'s rule), and of the SSM width and
+    heads (a ``RankConfig``: ``params.ssm_layout``)."""
     check_mesh_runs(cfg, sizes)
     m = sizes["model"]
     vocab = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
     moe = dataclasses.replace(cfg.moe, d_ff=cfg.moe.d_ff // m) if cfg.is_moe else cfg.moe
-    return cfg.with_(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-                     head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
-                     vocab_size=vocab, moe=moe)
+    local = cfg.with_(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
+                      head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
+                      vocab_size=vocab, moe=moe)
+    if not cfg.n_ssm_heads:
+        return local
+    return RankConfig(**{f.name: getattr(local, f.name) for f in dataclasses.fields(local)},
+                      inner=cfg.d_inner // m)
 
 
 def batch_rows(mesh, batch: int) -> slice:
@@ -306,12 +311,10 @@ def _sharded_train_step(cfg: ModelConfig, lcfg: ModelConfig, shape: InputShape, 
     sizes, coords = mesh_axis_sizes(mesh), mesh_coords(mesh)
     axis = runtime_flags.ModelAxis.of(mesh, cfg.vocab_size)
     batch_axes = runtime_flags.BatchAxes.of(mesh)
-    _, p_sh, o_sh = global_specs(cfg, mesh, zero=zero_opt)
-    p_specs = tree.leaves(p_sh)
+    leaves, _ = rank_leaves(cfg, mesh, zero=zero_opt)
     # the dimension on which ZeRO-1 cuts each moment over ``data`` (None:
     # every data rank keeps and updates the whole leaf)
-    zero_dims = [next((i for i, e in enumerate(spec) if e == "data"), None)
-                 for spec in tree.leaves(o_sh.mu)]
+    zero_dims = [rl.zero_dim for rl in leaves]
     groups = {a: mesh.get_group(a) for a in ("model", "data") if sizes[a] > 1}
     m = microbatch if microbatch and microbatch > 1 else 1
     rows = shape.global_batch // m
@@ -319,12 +322,19 @@ def _sharded_train_step(cfg: ModelConfig, lcfg: ModelConfig, shape: InputShape, 
 
     def sum_squares(flat_g):
         # each element counted once: a model-sharded leaf's sum over
-        # ``model``, a ZeRO block's over ``data``, a replicated one's as it is
+        # ``model``, a ZeRO block's over ``data``, a replicated one's as it
+        # is; a Mamba2 leaf's replicated B/C part (params.ssm_layout) as a
+        # replicated leaf's, the rest of it as a model-sharded one's
         parts = [torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
                  for _ in range(4)]
-        for g, spec, zd in zip(flat_g, p_specs, zero_dims):
-            k = int("model" in spec) + 2 * int(zd is not None)
-            parts[k] = parts[k] + torch.sum(torch.square(g.float()))
+        for g, rl in zip(flat_g, leaves):
+            zk = 2 * int(rl.zero_dim is not None)
+            if rl.layout is None:
+                pieces = ((int(rl.on_model), g),)
+            else:
+                pieces = tuple(zip((1, 0), layout_split(g, rl.layout, sizes["model"])))
+            for k, piece in pieces:
+                parts[k + zk] = parts[k + zk] + torch.sum(torch.square(piece.float()))
         parts = torch.stack(parts)
         for a, mask in (("model", (0., 1., 0., 1.)), ("data", (0., 0., 1., 1.))):
             if a in groups:
@@ -424,9 +434,13 @@ def sharded_step(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = Tru
         return prefill_step, (specs["params"], global_batch)
 
     serve = make_serve_step(lcfg)
+    # the axes that cut the batch: an MoE layer dispatches the global batch
+    # over them (models/moe.py)
+    batch_axes = runtime_flags.BatchAxes.of(
+        mesh, sh._entry_axes(sh._batch_spec_axis(mesh, shape.global_batch)))
 
     def serve_step(params, tokens, cache):
-        with on_model_axis(axis):
+        with on_model_axis(axis, batch_axes):
             return serve(params, tokens[rows], cache)
     return serve_step, (specs["params"], _token_spec(shape.global_batch, 1),
                         specs["cache"])

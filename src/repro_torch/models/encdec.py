@@ -58,22 +58,28 @@ def _init_dec_layer(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Pa
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
-                device="cuda") -> Params:
+                device="cuda", cut=None) -> Params:
     """Random parameters from ``gen`` (a generator on ``device``), each layer
-    written into the stacked tensors in ``dtype`` as it is drawn."""
+    written into the stacked tensors in ``dtype`` as it is drawn. ``cut(key,
+    tree)``: as ``transformer.init_params``'s, ``key`` each top-level name
+    (``"enc_layers"`` / ``"dec_layers"`` for one layer) but ``enc_pos``,
+    which every rule keeps whole."""
     dtype = dtype or getattr(torch, cfg.dtype)
-    emb = L.init_embeddings(cfg, gen, dtype, device)
+    cut = cut or (lambda _key, tree: tree)
+    emb = cut("emb", L.init_embeddings(cfg, gen, dtype, device))
     enc_pos = (torch.randn((cfg.enc_seq, cfg.d_model), generator=gen, device=device)
                * 0.02).to(dtype)
     enc: Params = {}
     for i in range(cfg.n_enc_layers):
-        stack_into(enc, _init_enc_layer(cfg, gen, dtype, device), i, cfg.n_enc_layers)
+        stack_into(enc, cut("enc_layers", _init_enc_layer(cfg, gen, dtype, device)), i,
+                   cfg.n_enc_layers)
     dec: Params = {}
     for i in range(cfg.n_layers):
-        stack_into(dec, _init_dec_layer(cfg, gen, dtype, device), i, cfg.n_layers)
-    return {"emb": emb, "enc_pos": enc_pos, "enc_layers": enc, "dec_layers": dec,
-            "enc_norm": L.init_norm(cfg, dtype, device),
-            "final_norm": L.init_norm(cfg, dtype, device)}
+        stack_into(dec, cut("dec_layers", _init_dec_layer(cfg, gen, dtype, device)), i,
+                   cfg.n_layers)
+    return {"emb": emb, "enc_pos": enc_pos, "enc_layers": enc,
+            "dec_layers": dec, "enc_norm": cut("enc_norm", L.init_norm(cfg, dtype, device)),
+            "final_norm": cut("final_norm", L.init_norm(cfg, dtype, device))}
 
 
 def _enc_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:

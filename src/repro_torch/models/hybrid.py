@@ -42,24 +42,26 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
-                device="cuda") -> Params:
+                device="cuda", cut=None) -> Params:
     """Random parameters from ``gen`` (a generator on ``device``), each
     Mamba2 layer written into the stacked tensors in ``dtype`` as it is
-    drawn (``A_log``, ``D`` and ``dt_bias`` stay float32)."""
+    drawn (``A_log``, ``D`` and ``dt_bias`` stay float32). ``cut(key,
+    tree)``: as ``transformer.init_params``'s (``key`` also ``"shared"``)."""
     _n_groups(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
-    emb = L.init_embeddings(cfg, gen, dtype, device)
+    cut = cut or (lambda _key, tree: tree)
+    emb = cut("emb", L.init_embeddings(cfg, gen, dtype, device))
     stacked: Params = {}
     for i in range(cfg.n_layers):
-        L.stack_into(stacked, init_mamba_layer(cfg, gen, dtype, device), i,
+        L.stack_into(stacked, cut("layers", init_mamba_layer(cfg, gen, dtype, device)), i,
                      cfg.n_layers)
-    shared = {"attn": L.init_attention(cfg, gen, dtype, device),
-              "ffn": L.init_ffn(cfg, gen, dtype, device),
-              "norm1": L.init_norm(cfg, dtype, device),
-              "norm2": L.init_norm(cfg, dtype, device)}
+    shared = cut("shared", {"attn": L.init_attention(cfg, gen, dtype, device),
+                            "ffn": L.init_ffn(cfg, gen, dtype, device),
+                            "norm1": L.init_norm(cfg, dtype, device),
+                            "norm2": L.init_norm(cfg, dtype, device)})
     return {"emb": emb, "layers": stacked, "shared": shared,
-            "final_norm": {"w": torch.ones((cfg.d_model,), dtype=dtype,
-                                           device=device)}}
+            "final_norm": cut("final_norm", {"w": torch.ones((cfg.d_model,), dtype=dtype,
+                                                             device=device)})}
 
 
 def _shared_ffn(cfg: ModelConfig, sp: Params, x: torch.Tensor) -> torch.Tensor:

@@ -20,9 +20,10 @@ Conventions:
 - under a mesh (``runtime_flags.get_mesh()``, set by
   ``launch.steps.sharded_step``) a rank holds its shards of the heads, the
   KV heads, ``d_ff`` and the vocabulary; the row-parallel products (the
-  attention's ``wo``, the FFN's ``w_down``) and the vocabulary-sharded
-  ``embed`` and ``unembed`` sum over the model axis with one
-  ``all_reduce`` each (``reduce_model_axis``), and a replicated activation
+  attention's ``wo``, the FFN's ``w_down``: ``row_parallel``, whose
+  half-precision partials stay in float32 until the sum) and the
+  vocabulary-sharded ``embed`` and ``unembed`` sum over the model axis with
+  one ``all_reduce`` each (``reduce_model_axis``), and a replicated activation
   enters each column-parallel product (``wq``/``wk``/``wv``,
   ``w_gate``/``w_up``, the sharded head) through ``copy_to_model_axis``.
   The two are Megatron's conjugate pair of autograd functions: the
@@ -33,7 +34,9 @@ Conventions:
 - cross-attention (``kv_x``, the audio family's decoder over its encoder
   states) goes through ``ops.flash_prefill`` without a causal mask, and in
   the decode step through ``ops.paged_attention`` over a fixed pool of the
-  encoder's K/V (``cross_attention_decode``).
+  encoder's K/V (``cross_attention_decode``); under a mesh each rank's pool
+  holds its KV heads' rows, which its share of ``wk``/``wv`` projected from
+  the whole encoder output, and ``wo`` sums over the model axis.
 """
 from __future__ import annotations
 
@@ -181,6 +184,30 @@ def reduce_model_axis(x: torch.Tensor) -> torch.Tensor:
     return _ReduceForward.apply(x, (axis.group,), 1.0)
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a weight whose rows the model axis cuts (``wo``,
+    ``w_down``, ``w_out``), summed over the axis (``reduce_model_axis``). A
+    half-precision rank keeps its partial product in float32 through the
+    ``all_reduce`` and rounds the sum to ``x``'s dtype once, as an unsharded
+    product rounds its one float32 sum once. ``x @ w`` itself with no mesh."""
+    if runtime_flags.get_mesh() is None:
+        return x @ w
+    if x.dtype in (torch.float32, torch.float64):
+        return reduce_model_axis(x @ w)
+    return reduce_model_axis(_matmul_float32(x, w)).to(x.dtype)
+
+
+def _matmul_float32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (w 2-D) of half-precision operands with its float32 sums
+    unrounded: one cuBLAS product with a float32 output on the card, which
+    has no gradient; the operands cast up where a gradient is wanted and off
+    the card."""
+    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
 def copy_to_model_axis(x: torch.Tensor) -> torch.Tensor:
     """``x`` (replicated over the ambient model axis) as the input of a
     column-parallel product: the identity forward, and a sum of the ranks'
@@ -189,6 +216,17 @@ def copy_to_model_axis(x: torch.Tensor) -> torch.Tensor:
     if axis is None:
         return x
     return _ReduceBackward.apply(x, (axis.group,))
+
+
+def sum_model_axis(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ambient model axis, for a statistic that
+    each rank sums from its shard and then applies to its shard (the Mamba2
+    block's gated norm over its ``d_inner``): an ``all_reduce`` forward and
+    backward, since each rank's loss reaches the statistic through its own
+    shard only, so that its gradient too is a sum of the ranks' partials
+    (``copy_to_model_axis`` of ``reduce_model_axis``). ``x`` itself with no
+    mesh."""
+    return copy_to_model_axis(reduce_model_axis(x))
 
 
 def mean_over_batch_axes(x: torch.Tensor) -> torch.Tensor:
@@ -292,7 +330,7 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                           v.transpose(1, 2), causal=causal and kv_x is None,
                           q_offset=past_len,
                           window=cfg.sliding_window, prefix_len=prefix_len)
-    out = reduce_model_axis(o.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"])
+    out = row_parallel(o.transpose(1, 2).reshape(B, S, H * hd), p["wo"])
     if return_kv:
         return out, new_k, new_v   # new tokens only (past excluded)
     return out
@@ -401,7 +439,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     o = ops.paged_attention(q.reshape(B, Hkv, H // Hkv, hd), k_pool, v_pool,
                             block_tables, plan["lengths"], page_size=page,
                             starts=plan["starts"])
-    return reduce_model_axis(o.reshape(B, 1, H * hd) @ p["wo"])
+    return row_parallel(o.reshape(B, 1, H * hd), p["wo"])
 
 
 def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -428,7 +466,7 @@ def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = (x @ p["wq"]).reshape(B, Hkv, H // Hkv, hd)
     o = ops.paged_attention(q, k_pool, v_pool, block_tables, lengths,
                             page_size=k_pool.shape[1])
-    return o.reshape(B, 1, H * hd) @ p["wo"]
+    return row_parallel(o.reshape(B, 1, H * hd), p["wo"])
 
 
 # ---------------------------------------------------------------- FFN
@@ -453,7 +491,7 @@ def ffn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         # the reference's jax.nn.gelu defaults to the tanh approximation
         h = torch.nn.functional.gelu(x @ p["w_up"], approximate="tanh")
-    return reduce_model_axis(h @ p["w_down"])
+    return row_parallel(h, p["w_down"])
 
 
 # ---------------------------------------------------------------- embeddings

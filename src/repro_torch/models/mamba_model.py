@@ -22,20 +22,21 @@ Cache = Dict[str, torch.Tensor]
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=None,
-                device="cuda") -> Params:
+                device="cuda", cut=None) -> Params:
     """Random parameters from ``gen`` (a generator on ``device``). Each layer
     is drawn in float32 and written into the stacked tensors in ``dtype``
     straight away (``A_log``, ``D`` and ``dt_bias`` stay float32, as in the
-    reference)."""
+    reference). ``cut(key, tree)``: as ``transformer.init_params``'s."""
     dtype = dtype or getattr(torch, cfg.dtype)
-    emb = L.init_embeddings(cfg, gen, dtype, device)
+    cut = cut or (lambda _key, tree: tree)
+    emb = cut("emb", L.init_embeddings(cfg, gen, dtype, device))
     stacked: Params = {}
     for i in range(cfg.n_layers):
-        L.stack_into(stacked, init_mamba_layer(cfg, gen, dtype, device), i,
+        L.stack_into(stacked, cut("layers", init_mamba_layer(cfg, gen, dtype, device)), i,
                      cfg.n_layers)
     return {"emb": emb, "layers": stacked,
-            "final_norm": {"w": torch.ones((cfg.d_model,), dtype=dtype,
-                                           device=device)}}
+            "final_norm": cut("final_norm", {"w": torch.ones((cfg.d_model,), dtype=dtype,
+                                                             device=device)})}
 
 
 def _layer(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:

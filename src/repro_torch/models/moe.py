@@ -22,7 +22,7 @@ The decode step's ``moe_forward`` is capturable in a CUDA graph: static
 shapes (``C`` follows from the pool's ``max_slots``), no host sync, no
 data-dependent indexing. Its ``active`` mask keeps a free slot's token
 from taking capacity, where the reference routes every slot (a departure:
-ROADMAP.md, Queue C).
+ROADMAP.md, Departures).
 
 On a device mesh (``runtime_flags.get_mesh()``, set by
 ``launch.steps.sharded_step``) a rank holds the router's columns of its
@@ -39,7 +39,8 @@ gradient is a sum over the ranks), adds its shared experts' partial output, and
 one ``all_reduce`` sums the combined output: combine-then-reduce, as the
 reference's ``psum`` inside its ``shard_map`` does. In a sharded train
 step the load-balance loss takes its two means over the global batch
-(``layers.mean_over_batch_axes``).
+(``layers.mean_over_batch_axes``); a sharded decode step's data ranks
+dispatch their tokens as one global batch (``moe_forward``).
 """
 from __future__ import annotations
 
@@ -47,10 +48,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import runtime_flags
 from repro_torch.models.layers import _dense_init
 
 Params = Dict[str, Any]
@@ -110,14 +113,33 @@ def _route(cfg: ModelConfig, logits: torch.Tensor):
     return probs, gate / gate.sum(-1, keepdim=True), idx
 
 
+def _lower_ranks_counts(counts: torch.Tensor) -> torch.Tensor:
+    """The sum of ``counts`` (E,) over the batch ranks below this one
+    (``runtime_flags.get_batch_axes()``, row-major over its axes, the order
+    in which ``launch.steps.batch_rows`` hands out the rows): one
+    ``all_gather`` a batch axis, innermost first."""
+    axes = runtime_flags.get_batch_axes()
+    every, index = counts, 0
+    for group in reversed(axes.groups):
+        parts = [torch.empty_like(every) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, every.contiguous(), group=group)
+        every = torch.stack(parts)
+    for group in axes.groups:
+        index = index * dist.get_world_size(group) + dist.get_rank(group)
+    return every.reshape(-1, counts.shape[-1])[:index].sum(0)
+
+
 def _dispatch(flat_e: torch.Tensor, E: int, C: int,
-              counted: Optional[torch.Tensor] = None):
+              counted: Optional[torch.Tensor] = None, over_batch: bool = False):
     """Each assignment's destination in the ``(E * C + 1)`` buffer and
     whether it is kept. flat_e (..., N) in token-major order; its rank
     inside its expert is a cumulative sum along N (the reference's
     ``cumsum(one_hot) * one_hot``); rank ``C`` or beyond goes to the drop
     slot ``E * C``. ``counted`` (..., N) bool or None: assignments that take
-    no capacity (and are not kept) where False."""
+    no capacity (and are not kept) where False. ``over_batch`` (flat_e (N,),
+    under batch axes): the ranks count one token-major sequence, this rank's
+    tokens after those of the batch ranks below it, so each of its ranks
+    starts at the counts they gave its expert."""
     # one-hot (..., E, N): the running count runs along the inner axis,
     # where a scan is one pass per expert (along the outer one it took a
     # quarter of an MoE prefill's device time on the H100)
@@ -126,6 +148,8 @@ def _dispatch(flat_e: torch.Tensor, E: int, C: int,
     if counted is not None:
         oh = oh * counted[..., None, :].to(torch.int32)
     pos_in_e = (torch.cumsum(oh, dim=-1) * oh).sum(-2) - 1
+    if over_batch:
+        pos_in_e = pos_in_e + _lower_ranks_counts(oh.sum(-1))[flat_e]
     keep = pos_in_e < C
     if counted is not None:
         keep = keep & counted
@@ -161,17 +185,21 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """x (T, d) -> (y (T, d), aux_load_balance_loss): the decode step's
     dispatch over flat tokens, router logits in float32. ``active`` (T,)
     bool or None: a False row takes no expert capacity and gets only the
-    shared experts' output."""
+    shared experts' output. Under batch axes (a sharded decode step's data
+    ranks, each with T tokens) the capacity is the global batch's and each
+    rank's tokens take their places after the lower ranks' (``_dispatch``'s
+    ``over_batch``), as the reference's one dispatch over the whole batch."""
     T, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.experts_per_token
-    C = expert_capacity(cfg, T)
+    batch_axes = runtime_flags.get_batch_axes()
+    C = expert_capacity(cfg, T * (1 if batch_axes is None else batch_axes.size))
     xc = L.copy_to_model_axis(x)
     probs, gate, idx = _route(cfg, _router_logits(cfg, x.float(), xc.float(), p["router"]))
     x = xc
     flat_e = idx.reshape(-1)                                  # (T*K,)
     counted = None if active is None else \
         active[:, None].expand(T, K).reshape(-1)
-    dest, keep = _dispatch(flat_e, E, C, counted)
+    dest, keep = _dispatch(flat_e, E, C, counted, batch_axes is not None)
     tok_id = torch.arange(T, device=x.device)[:, None].expand(T, K).reshape(-1)
     buf_tok = torch.zeros((E * C + 1,), dtype=torch.long, device=x.device) \
         .scatter_(0, dest, tok_id)

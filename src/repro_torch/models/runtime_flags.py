@@ -8,9 +8,11 @@ layers read it for their collectives (``layers.reduce_model_axis`` and
 ``unembed``, the MoE router's gather). ``launch.steps.sharded_step`` sets
 it around each step it runs and clears it after. With no mesh it is
 ``None``, and every one-card path runs the code it runs without one. The
-batch axes (``BatchAxes``) are set only inside a sharded train step: the
-MoE load-balance loss takes its means over the global batch through them
-(``layers.mean_over_batch_axes``).
+batch axes (``BatchAxes``) are set only inside a sharded train step, where
+the MoE load-balance loss takes its means over the global batch through
+them (``layers.mean_over_batch_axes``), and a sharded decode step, where
+an MoE layer dispatches the global batch's tokens through them
+(``moe.moe_forward``).
 
 The reference's ``scan_unroll`` has no counterpart: eager PyTorch runs each
 layer, so nothing is undercounted.
@@ -50,10 +52,10 @@ class BatchAxes:
     size: int
 
     @classmethod
-    def of(cls, mesh) -> Optional["BatchAxes"]:
-        """The batch axes of a live ``DeviceMesh``; None where they hold one
-        rank (nothing to reduce)."""
-        names = [a for a in ("pod", "data") if a in mesh.mesh_dim_names]
+    def of(cls, mesh, axes: Tuple[str, ...] = ("pod", "data")) -> Optional["BatchAxes"]:
+        """The batch axes of a live ``DeviceMesh`` (those of ``axes`` it
+        has); None where they hold one rank (nothing to reduce)."""
+        names = [a for a in axes if a in mesh.mesh_dim_names]
         sizes = [mesh.size(mesh.mesh_dim_names.index(a)) for a in names]
         size = 1
         for n in sizes:

@@ -6,6 +6,22 @@ recurrent one-token decode step, and the full block (in_proj -> causal conv
 -> SSD -> gated norm -> out_proj) of the ``ssm`` family. A full-sequence
 block routes its scan through ``ops.ssd_scan``: the hand-written kernel on
 CUDA tensors, the plain version on CPU tensors.
+
+Under a mesh (``runtime_flags.get_mesh()``, set by
+``launch.steps.sharded_step``) a rank holds whole heads: its z, x and dt
+columns of ``w_in``, B and C whole (one group), its conv channels [x | B |
+C], its heads' ``A_log``, ``D``, ``dt_bias``, its slice of ``norm_w`` and
+its rows of ``w_out`` (``params.ssm_layout``; ``cfg`` is the rank's, so
+``d_inner`` and ``n_ssm_heads`` are its shares). Every rank computes B and
+C; each uses them for its heads only. So the z/x/dt product reads the
+normed input through ``copy_to_model_axis`` and the B/C product reads it
+itself (its gradient there is whole on every rank), while B and C after the
+conv pass through ``copy_to_model_axis`` (their gradient is the sum of the
+ranks' heads'), as the MoE router does (``moe._router_logits``). The gated
+norm sums its squares over the model axis forward and backward
+(``layers.sum_model_axis``) and divides by the whole width; ``w_out``'s
+product sums over the axis (``layers.row_parallel``). With no mesh nothing
+changes.
 """
 from __future__ import annotations
 
@@ -18,7 +34,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_chunked
-from repro_torch.models.layers import _dense_init, rms_norm
+from repro_torch.models import runtime_flags
+from repro_torch.models.layers import (_dense_init, copy_to_model_axis, rms_norm,
+                                       row_parallel, sum_model_axis)
 
 Params = Dict[str, Any]
 
@@ -79,6 +97,32 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     return z, xBC, dt
 
 
+def _project(cfg: ModelConfig, hid: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
+    """``hid @ w_in``; under a mesh the z/x and dt columns from ``hid``
+    through ``copy_to_model_axis``, the B/C columns from ``hid`` itself
+    (module docstring)."""
+    if runtime_flags.get_mesh() is None:
+        return hid @ w_in
+    di, N = cfg.d_inner, cfg.ssm.state_dim
+    hc = copy_to_model_axis(hid)
+    return torch.cat([hc @ w_in[:, :2 * di], hid @ w_in[:, 2 * di:2 * di + 2 * N],
+                      hc @ w_in[:, 2 * di + 2 * N:]], dim=-1)
+
+
+def _gated_norm(cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)`` over the whole ``d_inner``: under a mesh
+    each rank's squares summed over the model axis (``sum_model_axis``) and
+    divided by the ranks' width together."""
+    g = y * F.silu(z)
+    axis = runtime_flags.get_mesh()
+    if axis is None:
+        return rms_norm(g, w)
+    gf = g.float()
+    ss = sum_model_axis(torch.sum(gf * gf, dim=-1, keepdim=True))
+    return (gf * torch.rsqrt(ss / (cfg.d_inner * axis.size) + 1e-5) * w.float()).to(g.dtype)
+
+
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d. xBC (b,s,ch), w (width,ch)."""
     width = w.shape[0]
@@ -98,7 +142,7 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     di, N, H = cfg.d_inner, cfg.ssm.state_dim, cfg.n_ssm_heads
     P = cfg.ssm.head_dim
     hid = rms_norm(x, p["rms_w"])
-    proj = hid @ p["w_in"]
+    proj = _project(cfg, hid, p["w_in"])
     z, xBC, dt_raw = _split_proj(cfg, proj)
     if conv0 is not None:
         xBC_ext = torch.cat([conv0.to(xBC.dtype), xBC], dim=1)
@@ -107,15 +151,15 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         conv_out = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     # strided views of conv_out: the kernel reads them in place
     xs = conv_out[..., :di].reshape(b, s, H, P)
-    B = conv_out[..., di:di + N]
-    C = conv_out[..., di + N:]
+    B = copy_to_model_axis(conv_out[..., di:di + N])
+    C = copy_to_model_axis(conv_out[..., di + N:])
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_final = ops.ssd_scan(xs, dt, A, B, C, h0, chunk=cfg.ssm.chunk_size)
     y = y + p["D"][None, None, :, None].to(y.dtype) * xs
     y = y.reshape(b, s, di)
-    y = rms_norm(y * F.silu(z), p["norm_w"])
-    out = y @ p["w_out"]
+    y = _gated_norm(cfg, y, z, p["norm_w"])
+    out = row_parallel(y, p["w_out"])
     conv_state = xBC[:, -(cfg.ssm.conv_width - 1):, :]
     return x + out, h_final, conv_state
 
@@ -128,7 +172,7 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     di, N, H = cfg.d_inner, cfg.ssm.state_dim, cfg.n_ssm_heads
     P = cfg.ssm.head_dim
     hid = rms_norm(x, p["rms_w"])
-    proj = hid @ p["w_in"]
+    proj = _project(cfg, hid, p["w_in"])
     z, xBC, dt_raw = _split_proj(cfg, proj)
     window = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
     conv_out = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"])
@@ -141,6 +185,6 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y, h = ssd_decode_step(xs, dt, A, B, C, h)
     y = y + p["D"][None, :, None].to(y.dtype) * xs
     y = y.reshape(b, 1, di)
-    y = rms_norm(y * F.silu(z), p["norm_w"])
-    out = y @ p["w_out"]
+    y = _gated_norm(cfg, y, z, p["norm_w"])
+    out = row_parallel(y, p["w_out"])
     return x + out, h, window[:, 1:, :]

@@ -330,20 +330,21 @@ def test_mesh_coll_bytes_count_the_plans_all_reduces(kind):
 
 
 @pytest.mark.parametrize("arch,shape,mesh_shape", [
-    ("mamba2-1.3b", InputShape("s", 64, 8, "train"), (1, 4)),
+    ("mamba2-1.3b", InputShape("s", 64, 8, "train"), (1, 128)),
     ("llama-70b", InputShape("s", 64, 8, "decode"), (1, 16)),
-    ("mamba2-1.3b", InputShape("s", 64, 8, "decode"), (1, 4)),
+    ("mamba2-1.3b", InputShape("s", 64, 8, "decode"), (1, 128)),
     ("qwen2-moe-a2.7b", InputShape("s", 64, 8, "prefill"), (1, 16))],
     ids=["train", "kv_heads_8_on_16", "ssm", "moe"])
 def test_mesh_coll_bytes_are_none_where_the_sharded_step_does_not_run(
         arch, shape, mesh_shape):
-    """No plan, no count: a family's train step that sharded_step refuses,
-    a model axis that does not divide the KV heads, the families it refuses,
-    and an MoE model whose experts' d_ff the axis does not divide (the
-    expert-parallel fallback; its experts here at 1400, where 16 divides
-    the rest); the dry run's terms then leave the collective out of the
-    bottleneck and the step time. (A dense, VLM or MoE train step runs on a
-    mesh: tests/test_torch_shardings.py counts its bytes.)"""
+    """No plan, no count: a train step that sharded_step refuses, a model
+    axis that does not divide the KV heads, one that does not divide the
+    SSM heads (mamba2-1.3b's 64 on 128), and an MoE model whose experts'
+    d_ff the axis does not divide (the expert-parallel fallback; its
+    experts here at 1400, where 16 divides the rest); the dry run's terms
+    then leave the collective out of the bottleneck and the step time.
+    (Every family's train step runs on a mesh that divides its heads:
+    tests/test_torch_shardings.py counts its bytes.)"""
     cfg = get_config(arch)
     if cfg.is_moe:
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, d_ff=1400))

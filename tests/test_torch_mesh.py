@@ -11,7 +11,8 @@ workers), and every wait has a timeout. llama-70b's smoke config runs on
 1 x 2 and 2 x 2; on 1 x 4 with 8 heads and 4 KV heads, so that the model
 axis divides them; internvl2-2b's (16 vision embeddings in front of the
 prompt) on 2 x 2. The MoE family's runs are
-``tests/test_torch_mesh_moe.py``'s."""
+``tests/test_torch_mesh_moe.py``'s, the ssm, hybrid and audio families'
+``tests/test_torch_mesh_ssm.py``'s."""
 import dataclasses
 import json
 import os
@@ -52,7 +53,7 @@ RANK = r"""
 import datetime, json, sys
 import numpy as np, torch, torch.distributed as dist
 from repro_torch import params as P
-from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig
+from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_local_mesh, mesh_coords
 
@@ -63,6 +64,7 @@ dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=w
 spec = json.load(open(f"{work}/spec.json"))
 if spec["cfg"].get("moe"):
     spec["cfg"]["moe"] = MoEConfig(**spec["cfg"]["moe"])
+spec["cfg"]["ssm"] = SSMConfig(**spec["cfg"]["ssm"])
 cfg = ModelConfig(**spec["cfg"])
 data = np.load(f"{work}/inputs.npz")
 tree = {}
@@ -80,8 +82,9 @@ B, S, cap = spec["B"], spec["S"], spec["cap"]
 prefill, _ = steps.sharded_step(cfg, InputShape("p", cap, B, "prefill"), mesh)
 decode, _ = steps.sharded_step(cfg, InputShape("d", cap, B, "decode"), mesh)
 batch = {"tokens": torch.from_numpy(data["tokens"]).long()}
-if "vision" in data.files:
-    batch["vision"] = torch.from_numpy(data["vision"])
+for key in ("vision", "frames"):
+    if key in data.files:
+        batch[key] = torch.from_numpy(data[key])
 logits, cache = prefill(params, batch)
 out = {"prefill": logits.numpy()}
 for i, tok in enumerate(data["feed"]):
@@ -132,13 +135,20 @@ def test_sharded_prefill_and_decode_match_the_reference(tmp_path, arch, data_axi
     check_sharded_serving(tmp_path, arch, data_axis, model_axis)
 
 
-def check_sharded_serving(tmp_path, arch, data_axis, model_axis):
+def check_sharded_serving(tmp_path, arch, data_axis, model_axis, *, batch=B,
+                          configure=None):
     """``arch``'s smoke config on a ``data_axis`` x ``model_axis`` mesh of
-    gloo ranks against the reference and the port unsharded (also
-    ``tests/test_torch_mesh_moe.py``'s)."""
-    heads = {"n_heads": 8, "n_kv_heads": 4} if model_axis == 4 else {}
-    rcfg = ref_smoke_config(arch).with_(dtype="float32", **heads)
-    cfg = get_smoke_config(arch).with_(dtype="float32", **heads)
+    gloo ranks against the reference and the port unsharded, over ``batch``
+    sequences (also ``tests/test_torch_mesh_moe.py``'s and
+    ``tests/test_torch_mesh_ssm.py``'s). ``configure(cfg)`` changes both
+    packages' configs alike; a dense model on a model axis of 4 gets 8 heads
+    over 4 KV heads."""
+    heads = {"n_heads": 8, "n_kv_heads": 4} \
+        if model_axis == 4 and arch in ("llama-70b", "internvl2-2b") else {}
+    configure = configure or (lambda c: c)
+    rcfg = configure(ref_smoke_config(arch).with_(dtype="float32", **heads))
+    cfg = configure(get_smoke_config(arch).with_(dtype="float32", **heads))
+    B = batch
     ref_model = RefModel(rcfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0), dtype=jnp.float32)
     as_numpy = jax.tree.map(np.asarray, ref_params)
@@ -147,6 +157,9 @@ def check_sharded_serving(tmp_path, arch, data_axis, model_axis):
     inputs = {"tokens": toks}
     if cfg.arch_type == "vlm":
         inputs["vision"] = rng.standard_normal((B, cfg.n_vision_tokens, cfg.d_model),
+                                               dtype=np.float32)
+    if cfg.arch_type == "audio":
+        inputs["frames"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model),
                                                dtype=np.float32)
     cap = S + cfg.n_vision_tokens + 16
 
@@ -176,6 +189,7 @@ def check_sharded_serving(tmp_path, arch, data_axis, model_axis):
     config = {k: v for k, v in cfg.__dict__.items() if k not in ("moe", "ssm")}
     if cfg.is_moe:
         config["moe"] = cfg.moe.__dict__
+    config["ssm"] = cfg.ssm.__dict__
     (tmp_path / "spec.json").write_text(json.dumps(
         {"cfg": config, "B": B, "S": S, "cap": cap}))
     world = data_axis * model_axis
@@ -204,11 +218,14 @@ def test_a_model_axis_that_does_not_divide_the_kv_heads_raises(kind):
 
 
 def test_the_sharded_train_step_raises():
-    """The train step runs the dense, VLM and MoE families on a mesh
-    (tests/test_torch_mesh_train.py); the SSM family's raises."""
+    """The train step runs every family on a mesh whose model axis divides
+    its heads (tests/test_torch_mesh_train.py, tests/test_torch_mesh_train_ssm.py);
+    mamba2-1.3b's smoke config has 8 SSM heads, which a model axis of 16
+    would split."""
     cfg = get_smoke_config("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.sharded_step(cfg, InputShape("t", 32, 4, "train"), MeshShape((1, 2), ("data", "model")))
+        steps.sharded_step(cfg, InputShape("t", 32, 4, "train"),
+                           MeshShape((1, 16), ("data", "model")))
 
 
 def _moe_with_expert_d_ff(arch, d_ff):
@@ -219,10 +236,12 @@ def _moe_with_expert_d_ff(arch, d_ff):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b", "zamba2-2.7b",
                                   "whisper-base"])
 def test_families_without_a_mesh_plan_raise(arch):
-    """The ssm, hybrid and audio families; an MoE model runs on a mesh whose
-    model axis divides its experts' d_ff, and raises where it does not (the
-    reference's expert-parallel fallback)."""
-    cfg, sizes = get_smoke_config(arch), {"data": 1, "model": 1}
+    """The ssm, hybrid and audio families run on a mesh whose model axis
+    divides their SSM heads and attention heads, and raise on one of 16,
+    which splits their smoke configs' 8 SSM or 4 attention heads; an MoE
+    model runs on a mesh whose model axis divides its experts' d_ff, and
+    raises where it does not (the reference's expert-parallel fallback)."""
+    cfg, sizes = get_smoke_config(arch), {"data": 1, "model": 16}
     if cfg.is_moe:
         cfg, sizes = _moe_with_expert_d_ff(arch, 66), {"data": 1, "model": 4}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

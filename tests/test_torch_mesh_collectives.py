@@ -2,7 +2,11 @@
 ``reduce_model_axis``, ``copy_to_model_axis``) on two gloo ranks on the CPU:
 a column- then row-parallel SwiGLU FFN's input and weight gradients against
 the unsharded FFN's ``torch.autograd``, float64, and the reduction leaving
-its argument as it was. Each rank is a ``python -c`` process meeting the
+its argument as it was; and ``sum_model_axis`` (an ``all_reduce`` both
+ways), the Mamba2 block's gated norm over a width the ranks split, against
+the unsharded norm's gradient, where a one-way reduction gives each rank a
+wrong one; and ``row_parallel`` in bfloat16, whose sum is rounded once.
+Each rank is a ``python -c`` process meeting the
 other at a ``file://`` store under ``tmp_path``; every wait has a timeout."""
 import os
 import subprocess
@@ -121,3 +125,129 @@ def test_reduce_model_axis_leaves_its_argument_as_it_was(tmp_path):
     _inputs(tmp_path)
     for out in _run(tmp_path, True, "float32"):
         assert not bool(out["aliased"])
+
+
+NORM_RANK = r"""
+import datetime, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import on_model_axis
+from repro_torch.models import layers, runtime_flags
+
+rank, work, both = int(sys.argv[1]), sys.argv[2], sys.argv[3] == "1"
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_local_mesh(2, backend="cpu")
+data = np.load(f"{work}/norm.npz")
+f = data["g"].shape[1] // 2
+cols = slice(rank * f, (rank + 1) * f)
+g = torch.from_numpy(data["g"][:, cols]).requires_grad_(True)
+w = torch.from_numpy(data["w"][cols]).requires_grad_(True)
+with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
+    part = torch.sum(g * g, dim=-1, keepdim=True)
+    ss = layers.sum_model_axis(part) if both else layers.reduce_model_axis(part)
+    y = g * torch.rsqrt(ss / (2 * f) + 1e-5) * w
+    (y * torch.from_numpy(data["dy"][:, cols])).sum().backward()
+np.savez(f"{work}/norm{rank}.npz", y=y.detach().numpy(), dg=g.grad.numpy(), dw=w.grad.numpy())
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("both", [True, False], ids=["both ways", "forward only"])
+def test_the_gated_norms_statistic_sums_both_ways(tmp_path, both):
+    """An RMS norm over a width two ranks split: each rank sums its squares,
+    the sum is reduced, and each rank normalises its half. Each rank's loss
+    reaches the statistic through its own half only, so the statistic's
+    gradient is a sum over the ranks: with ``sum_model_axis`` every rank's
+    input gradient is its half of the unsharded one; with the one-way
+    ``reduce_model_axis`` (identity backward) it is not. The output and the
+    weight's gradient, which do not pass the statistic's backward, are the
+    unsharded ones either way."""
+    rng = np.random.default_rng(1)
+    arrays = {"g": rng.standard_normal((T, 2 * D)), "w": rng.standard_normal(2 * D),
+              "dy": rng.standard_normal((T, 2 * D))}
+    np.savez(tmp_path / "norm.npz", **arrays)
+    g = torch.from_numpy(arrays["g"]).requires_grad_(True)
+    w = torch.from_numpy(arrays["w"]).requires_grad_(True)
+    y = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + 1e-5) * w
+    (y * torch.from_numpy(arrays["dy"])).sum().backward()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", NORM_RANK, str(r), str(tmp_path),
+                               str(int(both))], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=RANK_TIMEOUT_S)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, err in zip(procs, results):
+        assert p.returncode == 0, err[-3000:]
+    for r in range(2):
+        out = np.load(tmp_path / f"norm{r}.npz")
+        cols = slice(r * D, (r + 1) * D)
+        np.testing.assert_allclose(out["y"], y.detach().numpy()[:, cols], rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(out["dw"], w.grad.numpy()[cols], rtol=1e-12, atol=1e-12)
+        if both:
+            np.testing.assert_allclose(out["dg"], g.grad.numpy()[:, cols], rtol=1e-12,
+                                       atol=1e-12)
+        else:
+            assert not np.allclose(out["dg"], g.grad.numpy()[:, cols], rtol=1e-6, atol=1e-6)
+
+
+ROW_RANK = r"""
+import datetime, sys
+import torch, torch.distributed as dist
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import on_model_axis
+from repro_torch.models import layers, runtime_flags
+
+rank, work = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_local_mesh(2, backend="cpu")
+x = torch.tensor([[1 + 2 ** -7, 2 ** -7]], dtype=torch.bfloat16)[:, rank:rank + 1]
+w = torch.tensor([[1 - 2 ** -8], [2 ** -7]], dtype=torch.bfloat16)[rank:rank + 1]
+with torch.no_grad(), on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
+    y = layers.row_parallel(x, w)
+print(repr((str(y.dtype), float(y))))
+dist.barrier()   # neither rank closes its connection while the other still reads
+dist.destroy_process_group()
+"""
+
+
+def test_a_bf16_row_parallel_product_rounds_its_sum_once(tmp_path):
+    """Two ranks each hold one term of a bfloat16 product's sum: rank 0's
+    (1 + 2^-7)(1 - 2^-8) = 1 + 2^-8 - 2^-15 lies just under half a bf16 unit
+    above 1, rank 1's 2^-14 lifts the sum over it. The unsharded product
+    rounds the float32 sum once, to 1 + 2^-7; partials rounded to bfloat16
+    before the reduction would give 1. ``row_parallel`` keeps them in
+    float32 and gives the unsharded product's value."""
+    x = torch.tensor([[1 + 2 ** -7, 2 ** -7]], dtype=torch.bfloat16)
+    w = torch.tensor([[1 - 2 ** -8], [2 ** -7]], dtype=torch.bfloat16)
+    want = float((x.float() @ w.float()).to(torch.bfloat16))
+    assert want == 1 + 2 ** -7
+    assert float(x[0, 0].float() * w[0, 0].float()) == 1 + 2 ** -8 - 2 ** -15
+    rounded = (x[:, :1] @ w[:1]).float() + (x[:, 1:] @ w[1:]).float()
+    assert float(rounded.to(torch.bfloat16)) == 1.0
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", ROW_RANK, str(r), str(tmp_path)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=RANK_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err[-3000:]
+        assert out.strip().splitlines()[-1] == repr(("torch.bfloat16", want))

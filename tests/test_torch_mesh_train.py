@@ -74,7 +74,7 @@ RANK = r"""
 import datetime, json, sys
 import numpy as np, torch, torch.distributed as dist
 from repro_torch import params as P
-from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig
+from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_local_mesh, mesh_coords
 from repro_torch.training import tree
@@ -89,6 +89,7 @@ for case, spec in json.load(open(f"{work}/spec.json")).items():
     cfg = spec["cfg"]
     if cfg.get("moe"):
         cfg["moe"] = MoEConfig(**cfg["moe"])
+    cfg["ssm"] = SSMConfig(**cfg["ssm"])
     cfg = ModelConfig(**cfg)
     data = np.load(f"{work}/{case}.npz")
     params = {}
@@ -118,9 +119,8 @@ for case, spec in json.load(open(f"{work}/spec.json")).items():
             for j, leaf in enumerate(tree.leaves(t)):
                 if rank == 0:
                     out[f"{name}{i}/{j}"] = leaf.numpy()
-    _, p_sh, _ = P.global_specs(cfg, mesh)
-    for j, (leaf, spec_) in enumerate(zip(tree.leaves(params), tree.leaves(p_sh))):
-        if "model" not in spec_:
+    for j, (leaf, rl) in enumerate(zip(tree.leaves(params), P.rank_leaves(cfg, mesh)[0])):
+        if not rl.on_model:
             out[f"replicated/{j}"] = leaf.numpy()
     np.savez(f"{work}/{case}_rank{rank}.npz",
              coords=np.array([coords["data"], coords["model"]]), **out)
@@ -141,6 +141,7 @@ def _config_json(cfg):
     out = {k: v for k, v in cfg.__dict__.items() if k not in ("moe", "ssm")}
     if cfg.is_moe:
         out["moe"] = cfg.moe.__dict__
+    out["ssm"] = cfg.ssm.__dict__
     return out
 
 
@@ -152,6 +153,9 @@ def _batches(cfg, masked):
         if cfg.arch_type == "vlm":
             b["vision"] = rng.standard_normal((B, cfg.n_vision_tokens, cfg.d_model),
                                               dtype=np.float32)
+        if cfg.arch_type == "audio":
+            b["frames"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model),
+                                              dtype=np.float32)
         if masked:
             b["loss_mask"] = (rng.random((B, S)) < 0.6).astype(np.float32)
         out.append(b)
@@ -160,13 +164,19 @@ def _batches(cfg, masked):
 
 def _configs(arch):
     """The reference's and the port's float32 smoke configs of ``arch``;
-    ``"<arch>/E<n>"`` gives its MoE ``n`` routed experts."""
-    arch, _, experts = arch.partition("/E")
+    ``"<arch>/E<n>"`` gives its MoE ``n`` routed experts, ``/L<n>`` ``n``
+    layers, ``/V<n>`` a vocabulary of ``n``."""
+    arch, *mods = arch.split("/")
     rcfg = ref_smoke_config(arch).with_(dtype="float32")
     cfg = get_smoke_config(arch).with_(dtype="float32")
-    if experts:
-        rcfg = rcfg.with_(moe=dataclasses.replace(rcfg.moe, n_experts=int(experts)))
-        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_experts=int(experts)))
+    for mod in mods:
+        n = int(mod[1:])
+        if mod[0] == "E":
+            rcfg = rcfg.with_(moe=dataclasses.replace(rcfg.moe, n_experts=n))
+            cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_experts=n))
+        else:
+            key = {"L": "n_layers", "V": "vocab_size"}[mod[0]]
+            rcfg, cfg = rcfg.with_(**{key: n}), cfg.with_(**{key: n})
     return rcfg, cfg
 
 
@@ -233,18 +243,18 @@ CASES = {  # id: (arch, data, model, zero_opt, remat, microbatch, loss_mask)
 }
 
 
-@pytest.fixture(scope="module")
-def mesh_ranks(tmp_path_factory):
-    """``run(case)``: the ranks' records of ``case``. The first case of a mesh
-    shape runs every case of that shape in one set of rank processes."""
+def mesh_ranks_of(cases, tmp_path_factory):
+    """``run(case)``: the ranks' records of ``case`` of ``cases`` (a dict as
+    ``CASES``). The first case of a mesh shape runs every case of that
+    shape in one set of rank processes."""
     done = {}
 
     def run(case):
-        shape = CASES[case][1:3]
+        shape = cases[case][1:3]
         if shape not in done:
             work = tmp_path_factory.mktemp("x".join(map(str, shape)))
             specs = {}
-            for name, (arch, data, model, zero, remat, microbatch, masked) in CASES.items():
+            for name, (arch, data, model, zero, remat, microbatch, masked) in cases.items():
                 if (data, model) != shape:
                     continue
                 cfg, as_numpy, batches, _, _ = _runs(arch, remat, microbatch, masked)
@@ -261,9 +271,20 @@ def mesh_ranks(tmp_path_factory):
     return run
 
 
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    return mesh_ranks_of(CASES, tmp_path_factory)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_sharded_train_steps_match_the_reference(mesh_ranks, case):
-    arch, _, _, _, remat, microbatch, masked = CASES[case]
+    check_train_case(CASES, mesh_ranks, case)
+
+
+def check_train_case(cases, mesh_ranks, case):
+    """``case`` of ``cases`` (a dict as ``CASES``) against the reference and
+    the port unsharded (also ``tests/test_torch_mesh_train_ssm.py``'s)."""
+    arch, _, _, _, remat, microbatch, masked = cases[case]
     _, as_numpy, _, ref, port = _runs(arch, remat, microbatch, masked)
     ranks = mesh_ranks(case)
 
@@ -303,9 +324,13 @@ def test_sharded_train_steps_match_the_reference(mesh_ranks, case):
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "whisper-base"])
 def test_the_sharded_train_step_refuses_the_other_families(arch):
+    """The ssm, hybrid and audio families train on a mesh whose model axis
+    divides their heads (tests/test_torch_mesh_train_ssm.py); their smoke
+    configs' 8 SSM heads or 4 attention heads on a model axis of 16 would
+    split a head, which the step refuses."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         steps.sharded_step(get_smoke_config(arch), InputShape("t", 32, 4, "train"),
-                           MeshShape((2, 2), ("data", "model")))
+                           MeshShape((2, 16), ("data", "model")))
 
 
 def test_a_model_axis_that_does_not_divide_the_experts_d_ff_raises():

@@ -386,3 +386,123 @@ def test_init_shard_draws_shard_params_of_the_whole_tree(shape, coords):
         assert tuple(leaf.shape) == sh.local_shape(_port_leaves(specs)[path],
                                                    tuple(_port_leaves(whole)[path].shape),
                                                    sizes), path
+
+
+# ------------------------------------------------------------ the ssm, hybrid and audio families
+
+
+def _rank_width(cfg, name, m):
+    """A rank's width of a Mamba2 leaf's cut dimension (its z, x and dt
+    columns and B and C whole; its heads; its slice of d_inner), or None
+    for a leaf the reference's specs place."""
+    di, N, H = cfg.d_inner, cfg.ssm.state_dim, cfg.n_ssm_heads
+    return {"w_in": 2 * di // m + 2 * N + H // m, "conv_w": di // m + 2 * N,
+            "conv_b": di // m + 2 * N, "A_log": H // m, "D": H // m, "dt_bias": H // m,
+            "norm_w": di // m, "w_out": di // m}.get(name)
+
+
+def _rank_elements(arch, shape, mesh_dims):
+    """{path: (elements of a rank's piece, of its shard under the reference's
+    spec, item size)} of the reference's parameter tree."""
+    cfg = get_config(arch)
+    m = mesh_dims[-1]
+    mesh, sizes = _ref_mesh(mesh_dims), dict(zip(_ref_mesh(mesh_dims).axis_names, mesh_dims))
+    ref = _ref_inputs(arch, shape)
+    specs = _ref_leaves(ref_sh.param_shardings(mesh, ref["params"]))
+    out = {}
+    for path, leaf in _ref_leaves(ref["params"]).items():
+        spec_n = int(np.prod(sh.local_shape(specs[path].spec, tuple(leaf.shape), sizes)))
+        width = _rank_width(cfg, path[-1], m) if path[0] == "layers" and \
+            cfg.arch_type in ("ssm", "hybrid") else None
+        if width is None:
+            n = spec_n
+        else:
+            dim = -2 if path[-1] == "w_out" else -1
+            n = int(np.prod(leaf.shape)) // leaf.shape[dim] * width
+        out[path] = (n, spec_n, np.dtype(leaf.dtype).itemsize)
+    return out
+
+
+def _family_coll_want(arch, shape, mesh_dims, *, remat=True):
+    """The collective bytes of the ssm, hybrid or audio family's sharded step
+    on one device, from the config (launch/roofline.py's ``mesh_coll_bytes``
+    states the plan): on ``model`` a Mamba2 layer's ``w_out`` and gated-norm
+    statistic (one a token), the shared block's or a decoder layer's
+    row-parallel outputs (the audio decoder's three, its encoder's two over
+    the frames), the embeddings and logits where the vocabulary divides the
+    axis; a train step adds the forward again under remat (the decoder's
+    only), and at the copies the z/x/dt input, B and C (2 N a token), the
+    statistic, the attention's, FFN's and cross K/V's inputs and the head's;
+    on ``data`` the rank's pieces (``_rank_elements``)."""
+    cfg = get_config(arch)
+    data, m = mesh_dims
+    shp = REF_SHAPES[shape]
+    d, L, N = cfg.d_model, cfg.n_layers, cfg.ssm.state_dim
+    rows = shp.global_batch // data if shp.global_batch % data == 0 else shp.global_batch
+    seq = 1 if shp.kind == "decode" else shp.seq_len
+    tokens = rows * seq
+    vocab = cfg.vocab_size % m == 0
+    edges = (tokens * d + (tokens if shp.kind == "train" else rows) * cfg.vocab_size) \
+        if vocab else 0
+    if cfg.arch_type == "audio":
+        enc = 0 if shp.kind == "decode" else cfg.n_enc_layers * 2 * rows * cfg.enc_seq * d
+        fwd, again = enc + L * 3 * tokens * d, L * 3 * tokens * d
+        back = enc + L * (3 * tokens + rows * cfg.enc_seq) * d
+    else:
+        calls = L // cfg.attn_every if cfg.arch_type == "hybrid" else 0
+        fwd = again = L * tokens * (d + 1) + calls * 2 * tokens * d
+        back = L * tokens * (d + 2 * N + 1) + calls * 2 * tokens * d
+    model = fwd + edges
+    if shp.kind == "train":
+        model += (again if remat else 0) + back + (tokens * d if vocab else 0)
+    want = {"all-reduce model": model * 4 * 2 * (m - 1) / m}
+    if shp.kind == "train" and data > 1:
+        pieces = _rank_elements(arch, shape, mesh_dims)
+        want["all-reduce data"] = sum(n for n, _, _ in pieces.values()) * 4 * 2 * \
+            (data - 1) / data
+    return want
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+@pytest.mark.parametrize("mesh_dims", [(1, 2), (2, 2), (16, 16)],
+                         ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "whisper-base"])
+def test_mesh_coll_bytes_of_the_ssm_hybrid_and_audio_families(arch, mesh_dims, shape):
+    """``mesh_coll_bytes`` of each family's prefill, decode and train steps
+    on 1 x 2 and 2 x 2 (one node: NVLink), and on 16 x 16 for mamba2-1.3b and
+    zamba2-2.7b, whose heads 16 divides; whisper-base's 8 heads it does not
+    (the sequence-sharded KV fallback, ROADMAP.md Queue A 8b-ii item 4), so
+    there its step is unplanned."""
+    cfg, mesh = get_config(arch), mesh_shape(mesh_dims)
+    got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh)
+    if arch == "whisper-base" and mesh_dims == (16, 16):
+        assert got is None
+        with pytest.raises(NotImplementedError, match="8b-ii"):
+            steps.check_mesh_runs(cfg, {"data": 16, "model": 16})
+        return
+    want = _family_coll_want(arch, shape, mesh_dims)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-12), key
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_the_dry_run_states_the_rank_layouts_extra_bytes(arch):
+    """``dryrun --mesh-shape 16x16``'s ``layout_extra_bytes`` for a decode:
+    each Mamba2 leaf's rank piece (B and C whole) less its shard under the
+    reference's spec, and the ``conv`` cache's B/C channels, which its
+    spec's contiguous block of channels does not hold; ``arg_bytes`` stays
+    the reference's specs' (tested above)."""
+    shape = "decode_32k"
+    rec, line = dryrun.run_one(arch, shape, mesh=(16, 16))
+    assert rec["status"] == "ok", line
+    cfg = get_config(arch)
+    want = sum((n - spec_n) * size for n, spec_n, size in
+               _rank_elements(arch, shape, (16, 16)).values())
+    conv = _port_inputs(arch, shape)["cache"]["conv"]      # (L, B, w - 1, ch)
+    L, B, w, ch = conv.shape
+    di, N = cfg.d_inner, cfg.ssm.state_dim
+    want += L * (B // 16) * w * (di // 16 + 2 * N - ch // 16) * conv.element_size()
+    assert want > 0
+    assert rec["layout_extra_bytes"] == want
+    assert rec["fits"] == (rec["arg_bytes"] + want <= roofline.CARD_BYTES)
