@@ -97,7 +97,13 @@ at world 1 on the card (``MESH_TOL``; a bf16 Mamba2 model's against a
 float32 run of the same weights, ``MESH_EXACT_FACTOR``), its ``flash_prefill``,
 ``paged_attention`` and ``ssd_scan`` launches against layers x calls, its
 peak memory beside the dry run's per-device bytes; then the train runs of
-``MESH_TRAIN`` against world 1's steps. A rank that fails fails the phase.
+``MESH_TRAIN`` against world 1's steps. First of the groups, llama-70b
+(float32 and bf16) and yi-34b (float32) on 1 x 16 (``MESH_SPLIT_CASES``):
+the model axis splits their heads (yi-34b's mid-head), the KV pool is
+sharded over the sequence in round-robin pages, and every decode attention
+runs ``paged_attention``'s partial + LSE instance (counted in its
+``lse_launches``), merged over the 16 ranks. A group's ranks start before
+its turn and wait for it (``_go``). A rank that fails fails the phase.
 The parent builds the kernels before any rank starts.
 
 ``--phases kernels,parity`` runs a subset (env and build always run); the
@@ -226,6 +232,10 @@ TENSOR_CORE_KERNELS = ("flash_prefill", "ssd_scan")
 # (3xTF32 on the tensor cores, counted in their ``tf32_launches``), each with
 # a row of its own in the kernels line
 TF32_KERNELS = ("flash_prefill_tf32", "ssd_scan_tf32")
+# the decode kernel's instance that writes a rank's float32 partial and its
+# log-sum-exp (``paged_attention(return_lse=True)``, counted in its
+# ``lse_launches``), with a row of its own
+LSE_KERNEL = "paged_attention_lse"
 # the kernels of a llama-8b instance, and so of the cluster phase
 ATTENTION_KERNELS = ("paged_attention", "flash_prefill")
 # the longest the cluster phase's full-width run may take
@@ -246,6 +256,13 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:90",
+    },
+    # the instance of the decode kernel that writes a sequence-sharded rank's
+    # float32 partial and its log-sum-exp (split heads on a mesh)
+    "paged_attention_lse": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:107",
     },
     # the float32 forwards of the two, their own kernels in the same sources
     # and wrappers (3xTF32 on the tensor cores), launched by training
@@ -279,6 +296,7 @@ KERNEL_INFO = {
 def zero_counts() -> None:
     """Every launch counter of every kernel wrapper set to 0."""
     decode_graph.add_counts([-c for c in decode_graph.read_counts()])
+    paged_attention.lse_launches = 0
     flash_prefill_backward.launches = 0
     flash_prefill_backward.tf32_launches = 0
     flash_prefill.lse_launches = 0
@@ -663,6 +681,75 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
     return {"name": "paged_attention", **KERNEL_INFO["paged_attention"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
+
+
+def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
+                     timed: bool) -> dict:
+    """``paged_attention(return_lse=True)``, the instance that writes a
+    sequence-sharded rank's float32 partial and each query row's
+    log-sum-exp, against ``paged_attention_plain(return_lse=True)``: the
+    output within ``TOL``, the log-sum-exp within ``LSE_TOL``, a row with no
+    position -inf and zeros, a second call bit for bit; with ``timed``, its
+    times beside its bound, the plain version's and SDPA's over the same
+    rows (gathered K/V and a mask). Returns its record for the kernels line
+    (without the launch count)."""
+    q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths, pps, copies=4)
+    out, lse = paged_attention(q, *pools[0], bt, ln, return_lse=True)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or lse.dtype != torch.float32:
+        fail(f"paged_attention {dtype} {case}: the LSE instance wrote {out.dtype} / "
+             f"{lse.dtype}, want float32")
+    want, want_lse = paged_attention_plain(q, *pools[0], bt, ln, return_lse=True)
+    err = check_close(f"paged_attention LSE {dtype} {case}", out, want, dtype)
+    empty = torch.tensor(lengths, device="cuda") == 0
+    if not (torch.isneginf(lse[empty]).all() and (out[empty] == 0).all()):
+        fail(f"paged_attention LSE {dtype} {case}: a row with nothing to attend to must "
+             "give -inf and zeros")
+    held = ~empty
+    lse_err = check_close(f"paged_attention LSE {dtype} {case}, log-sum-exp", lse[held],
+                          want_lse[held], torch.float32, {torch.float32: LSE_TOL})
+    again = paged_attention(q, *pools[0], bt, ln, return_lse=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        fail(f"paged_attention LSE {dtype} {case}: a second call differs")
+    rec = {"kernel": "paged_attention", "instance": "partial + LSE", "dtype": str(dtype),
+           "case": case, "shape": dict(B=B, n_kv=n_kv, group=group, D=D, page=16,
+                                       lengths=lengths, max_pages=pps),
+           "tolerance": TOL[dtype], "lse_tolerance": LSE_TOL, "max_abs_err": err,
+           "lse_max_abs_err": lse_err}
+    if not timed:
+        emit("kernels", **rec)
+        return rec
+    turn = [0]
+
+    def rotate(fn, **kw):
+        turn[0] = (turn[0] + 1) % len(pools)
+        fn(q, *pools[turn[0]], bt, ln, return_lse=True, **kw)
+
+    ms = device_ms(lambda: rotate(paged_attention))
+    call_ms = time_ms(lambda: rotate(paged_attention))
+    plain_ms = device_ms(lambda: rotate(paged_attention_plain), iters=5, warmup=1)
+    idx = bt.long()
+    kd = pools[0][0][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
+    vd = pools[0][1][idx].reshape(B, pps * 16, n_kv, D).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(group, dim=1).contiguous()
+    vd = vd.repeat_interleave(group, dim=1).contiguous()
+    qd = q.reshape(B, n_kv * group, 1, D)
+    mask = (torch.arange(pps * 16, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                                  attn_mask=mask))
+    tokens, pages = sum(lengths), sum(-(-n // 16) for n in lengths)
+    # K/V read once, q read, the float32 output and log-sum-exp written, the
+    # table entries and lengths read
+    n_bytes = (2 * tokens * n_kv * D + q.numel()) * q.element_size() + \
+        4 * (q.numel() + B * n_kv * group) + 4 * (pages + B)
+    b_ms, b_by = bound(n_bytes, 4.0 * tokens * n_kv * group * D, dtype)
+    rec.update(time_ms=ms, call_ms=call_ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+               library_ms=library_ms)
+    emit("kernels", **rec)
+    return {"name": LSE_KERNEL, **KERNEL_INFO[LSE_KERNEL], "max_abs_err": max(err, lse_err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def _paged_garbage(gen, dtype, B, n_kv, group, D, lengths, pps, starts=None) -> None:
@@ -1171,6 +1258,22 @@ def phase_kernels(gen) -> dict:
                          ("whisper-base cross, a rank of 1 x 4", 2)):
             _paged_timed(gen, F, dtype, 4, kv, 1, 64, 94, case, [1500] * 4,
                          of_max=OF_MAX_TOL)
+    # the partial + LSE instance at a rank of the mesh phase's llama-70b on
+    # 1 x 16 (every head: 8 KV heads of group 8, D 128), its local lengths
+    # the round-robin map's at the bf16 run's last decode step; then a long
+    # context over several splits (the merge's log-sum-exp) and empty rows
+    from repro_torch.launch.shardings import seq_local_length, seq_pages
+    m = MESH_SPLIT_SHAPE[1]
+    ends = [n + MESH_RUNS[torch.bfloat16][2] for n in MESH_RUNS[torch.bfloat16][1]]
+    local = [seq_local_length(n, 0, m, 16) for n in ends]
+    local_pps = seq_pages(-(-max(ends) // 16), m)
+    for dtype in (torch.bfloat16, torch.float32):
+        rec = _paged_lse_timed(gen, F, dtype, 4, 8, 8, 128, local_pps,
+                               f"llama-70b, rank 0 of 1 x {m}", local, timed=True)
+        if dtype == torch.bfloat16:
+            records[LSE_KERNEL] = rec
+        _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, "long context, empty rows",
+                         paged_cases[0][1], timed=False)
     # lower bounds with garbage below them, group 7, D = 96 and D = 80 (at
     # 16 lanes a row for group 8: 5 elements a lane, loaded one by one) in
     # both types
@@ -3910,6 +4013,21 @@ MESH_SSM_ARCH, MESH_HYBRID_ARCH, MESH_AUDIO_ARCH = "mamba2-1.3b", "zamba2-2.7b",
 MESH_SERVE_ARCHS = (MESH_ARCH, MESH_MOE_ARCH, MESH_SSM_ARCH, MESH_HYBRID_ARCH,
                     MESH_AUDIO_ARCH)
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+# where the model axis splits the heads (the reference's production axis of
+# 16 over 8 KV heads): llama-70b (4 of its 64 heads a rank, half a KV head)
+# in both dtypes and yi-34b (56 heads: 3.5 a rank, cut mid-head), float32,
+# served on 1 x 16 (16 ranks sharing the card over gloo), the KV pool
+# sharded over the sequence in round-robin pages; a group of its own that
+# runs these cases only, first of the groups
+MESH_SPLIT_ARCH = "yi-34b"
+MESH_SPLIT_SHAPE = (1, 16)
+MESH_SPLIT_CASES = ((MESH_ARCH, torch.float32), (MESH_ARCH, torch.bfloat16),
+                    (MESH_SPLIT_ARCH, torch.float32))
+# ranks that draw their shards at one time (``_in_turns``): a rank draws
+# each layer and llama-70b's 4.2 GB float32 embedding whole before it cuts
+# its shard, which 16 ranks at once would not fit on one card (4 at a time
+# leaves 8.4 GB a rank of llama-70b's float32 embedding draws on the card)
+MESH_INIT_WIDTH = 4
 MESH_SEED = 0
 # by dtype: llama-70b's layers, the prompts' lengths, decode steps, and
 # whether the prompts are prefilled as one batch (float32) or one at a time
@@ -3922,7 +4040,8 @@ MESH_RUNS = {torch.float32: (2, (128, 128, 128, 128), 8, True),
 MESH_LAYERS = {MESH_MOE_ARCH: {torch.float32: 2, torch.bfloat16: 2},
                MESH_SSM_ARCH: {torch.float32: 2, torch.bfloat16: 8},
                MESH_HYBRID_ARCH: {torch.float32: 12, torch.bfloat16: 12},
-               MESH_AUDIO_ARCH: {torch.float32: None, torch.bfloat16: None}}
+               MESH_AUDIO_ARCH: {torch.float32: None, torch.bfloat16: None},
+               MESH_SPLIT_ARCH: {torch.float32: 2}}
 # the sharded train step: by arch, its layers (None: the whole model), the
 # meshes it trains on ((data, model, zero_opt)), its steps, and whether its
 # steps after the first are held against world 1's reordered run
@@ -3974,7 +4093,6 @@ def _name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-MESH_RUNS_NAMES = tuple(map(_name, MESH_RUNS))
 # the sharded logits against world 1's (atol and rtol): float32 within the
 # parity phase's TOL; bfloat16 within twice its TOL, since both runs are
 # bfloat16 runs that err from the exact logits by up to TOL each (a rank
@@ -4016,6 +4134,16 @@ MESH_EXACT_FACTOR = 1.5
 MESH_EXACT_RMS_FACTOR = 1.25
 MESH_MOE_REROUTE_MAX = 0.077
 MESH_RANK_LIMIT_S = 400
+# a group's ranks start early (the first group's with the phase, while world
+# 1 computes the references; the others' while the first group runs) and
+# reach the card, each holding its context and nothing else, then wait for
+# their turn (``_go``) at most this long: the groups run one after another,
+# since two groups' shards and draws, or one group's and world 1's training
+# state (up to 30 GB), need not fit the card together
+MESH_WAIT_LIMIT_S = 900
+# a waiting rank's warm-up collectives (``_warm_up``): float32 elements, the
+# size of llama-70b's float32 prefill activations (4 x 128 x 8192)
+MESH_WARM_ELEMENTS = 4 * 128 * 8192
 
 
 class _Routing:
@@ -4409,131 +4537,138 @@ def _train_limit(fixed, drift, reordered: bool):
                       np.maximum(fixed, MESH_REORDER_FACTOR * np.asarray(drift)))
 
 
-def _rank_serve(arch, mesh, coords, sizes, label, reference) -> dict:
-    """One rank's sharded prefill and decode steps of ``arch`` in both
-    dtypes, fed world 1's tokens, each step's logits held against world 1's
+def _rank_serve(arch, dtype, mesh, coords, sizes, label, reference) -> dict:
+    """One rank's sharded prefill and decode steps of ``arch`` in ``dtype``,
+    fed world 1's tokens, each step's logits held against world 1's
     rows (a bf16 MoE model's with world 1's routing replayed, after a run on
     its own routing that counts its greedy tokens); its launches against
     layers x calls."""
     from repro_torch.launch.steps import batch_rows, local_config, sharded_step
     from repro_torch.params import init_shard
-    out = {}
-    for dtype, (_, lengths, n_steps, batched) in MESH_RUNS.items():
-        name = _name(dtype)
-        cfg = _mesh_config(arch, dtype)
-        layers = cfg.n_layers
-        attn, ssd = _serve_calls(cfg)
-        rows = batch_rows(mesh, len(lengths))
-        lcfg = local_config(cfg, sizes)
-        ref = reference[f"{arch} {name}"]
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.monotonic()
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(MESH_SEED)
-        params = init_shard(cfg, gen, mesh, coords, dtype=dtype, device="cuda")
-        decode_shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths),
-                                  "decode")
+    _, lengths, n_steps, batched = MESH_RUNS[dtype]
+    name = _name(dtype)
+    cfg = _mesh_config(arch, dtype)
+    layers = cfg.n_layers
+    attn, ssd = _serve_calls(cfg)
+    rows = batch_rows(mesh, len(lengths))
+    lcfg = local_config(cfg, sizes, "decode")
+    split = bool(getattr(lcfg, "q_cols", 0))
+    ref = reference[f"{arch} {name}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    params = _in_turns(lambda: init_shard(cfg, gen, mesh, coords, dtype=dtype,
+                                          device="cuda"))
+    init_s = time.monotonic() - t0
+    decode_shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths),
+                              "decode")
+    with torch.no_grad():
+        logits, _, routes, decode_s = _mesh_generate(
+            cfg, dtype, params, lambda shape: sharded_step(cfg, shape, mesh)[0],
+            sharded_step(cfg, decode_shape, mesh)[0],
+            lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype, device="cuda"),
+            rows, feed=ref["feed"])
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = {"flash_prefill": flash_prefill.launches,
+                "paged_attention": paged_attention.launches,
+                "paged_attention_lse": paged_attention.lse_launches,
+                "flash_prefill_tf32": flash_prefill.tf32_launches,
+                "flash_prefill_wgmma": flash_prefill.tensor_core_launches,
+                "ssd_scan": ssd_scan.launches, "ssd_scan_tf32": ssd_scan.tf32_launches,
+                "ssd_scan_wgmma": ssd_scan.tensor_core_launches}
+    prefills = 1 if batched else rows.stop - rows.start
+    want = {"flash_prefill": attn["prefill"] * prefills,
+            "paged_attention": attn["decode"] * n_steps,
+            "ssd_scan": ssd * prefills}
+    # split heads: every decode attention on the partial + LSE instance
+    want["paged_attention_lse"] = want["paged_attention"] if split else 0
+    # every float32 prefill on the float32 tensor-core kernels (one chunk
+    # of 128 steps: the SSD scan's 6xTF32 route), every bf16 one on wgmma
+    kind = "tf32" if dtype == torch.float32 else "wgmma"
+    want[f"flash_prefill_{kind}"] = want["flash_prefill"]
+    want[f"ssd_scan_{kind}"] = want["ssd_scan"]
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"{label} {arch} {name}: launches {launches}, want {want}")
+    replay = cfg.is_moe and dtype == torch.bfloat16
+    err, agree, vs_exact, agree_exact, world1_agree_exact = 0.0, 0, 0.0, 0, 0
+    sq, world1_sq, count = 0.0, 0.0, 0
+    for i, (got, exp) in enumerate(zip(logits, ref["logits"])):
+        if replay:   # its own routing: the greedy tokens, the error reported
+            err = max(err, float((got - exp[rows]).abs().max()))
+        elif "exact" in ref:   # held to the float32 run, the error reported
+            err = max(err, float((got - exp[rows]).abs().max()))
+            exact = ref["exact"][i][rows]
+            vs_exact = max(vs_exact, float((got - exact).abs().max()))
+            sq += float((got - exact).double().square().sum())
+            world1_sq += float((exp[rows] - exact).double().square().sum())
+            count += got.numel()
+            if i < n_steps:
+                agree_exact += int((got.argmax(-1) == exact.argmax(-1)).sum())
+                world1_agree_exact += int((exp[rows].argmax(-1) == exact.argmax(-1)).sum())
+        else:
+            err = max(err, check_close(f"{label} {arch} {name} step {i}", got, exp[rows],
+                                       dtype, MESH_TOL))
+        if i < n_steps:
+            agree += int((got.argmax(-1) == ref["feed"][i][rows]).sum())
+    extra = {}
+    if "exact" in ref:
+        rms, world1_rms = (sq / count) ** 0.5, (world1_sq / count) ** 0.5
+        extra.update(max_abs_err_vs_float32=vs_exact,
+                     world1_max_abs_err_vs_float32=ref["world1_vs_exact"],
+                     exact_factor=MESH_EXACT_FACTOR, rms_err_vs_float32=rms,
+                     world1_rms_err_vs_float32=world1_rms,
+                     exact_rms_factor=MESH_EXACT_RMS_FACTOR,
+                     greedy_agree_vs_float32=agree_exact,
+                     world1_greedy_agree_vs_float32=world1_agree_exact)
+        if rms > MESH_EXACT_RMS_FACTOR * world1_rms:
+            fail(f"{label} {arch} {name}: root mean square {rms:.4e} off a float32 run of "
+                 f"the same weights, beyond {MESH_EXACT_RMS_FACTOR:g} x world 1's bf16 "
+                 f"{world1_rms:.4e} over the same rows")
+        if vs_exact > MESH_EXACT_FACTOR * ref["world1_vs_exact"]:
+            fail(f"{label} {arch} {name}: {vs_exact:.3e} off a float32 run of the same "
+                 f"weights, beyond {MESH_EXACT_FACTOR:g} x world 1's bf16 "
+                 f"{ref['world1_vs_exact']:.3e}")
+    if cfg.is_moe:
+        extra["routed_otherwise"] = _routed_otherwise(routes, ref["routes"], rows, batched)
+        extra["routed_of"] = sum(int(sent[..., 0].numel()) for call in
+                                 routes["prefill"] + routes["decode"] for _, sent in call)
+    if replay:   # world 1's routing replayed: the sharded arithmetic
         with torch.no_grad():
-            logits, _, routes, decode_s = _mesh_generate(
+            logits, _, _, _ = _mesh_generate(
                 cfg, dtype, params, lambda shape: sharded_step(cfg, shape, mesh)[0],
                 sharded_step(cfg, decode_shape, mesh)[0],
-                lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype, device="cuda"),
-                rows, feed=ref["feed"])
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches = {"flash_prefill": flash_prefill.launches,
-                    "paged_attention": paged_attention.launches,
-                    "flash_prefill_tf32": flash_prefill.tf32_launches,
-                    "flash_prefill_wgmma": flash_prefill.tensor_core_launches,
-                    "ssd_scan": ssd_scan.launches, "ssd_scan_tf32": ssd_scan.tf32_launches,
-                    "ssd_scan_wgmma": ssd_scan.tensor_core_launches}
-        prefills = 1 if batched else rows.stop - rows.start
-        want = {"flash_prefill": attn["prefill"] * prefills,
-                "paged_attention": attn["decode"] * n_steps,
-                "ssd_scan": ssd * prefills}
-        # every float32 prefill on the float32 tensor-core kernels (one chunk
-        # of 128 steps: the SSD scan's 6xTF32 route), every bf16 one on wgmma
-        kind = "tf32" if dtype == torch.float32 else "wgmma"
-        want[f"flash_prefill_{kind}"] = want["flash_prefill"]
-        want[f"ssd_scan_{kind}"] = want["ssd_scan"]
-        if any(launches[k] != v for k, v in want.items()):
-            fail(f"{label} {arch} {name}: launches {launches}, want {want}")
-        replay = cfg.is_moe and dtype == torch.bfloat16
-        err, agree, vs_exact, agree_exact, world1_agree_exact = 0.0, 0, 0.0, 0, 0
-        sq, world1_sq, count = 0.0, 0.0, 0
+                lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype,
+                                                      device="cuda"),
+                rows, feed=ref["feed"], force=_replayed(ref["routes"], rows))
+        extra["max_abs_err_own_routing"] = err
+        err = 0.0
         for i, (got, exp) in enumerate(zip(logits, ref["logits"])):
-            if replay:   # its own routing: the greedy tokens, the error reported
-                err = max(err, float((got - exp[rows]).abs().max()))
-            elif "exact" in ref:   # held to the float32 run, the error reported
-                err = max(err, float((got - exp[rows]).abs().max()))
-                exact = ref["exact"][i][rows]
-                vs_exact = max(vs_exact, float((got - exact).abs().max()))
-                sq += float((got - exact).double().square().sum())
-                world1_sq += float((exp[rows] - exact).double().square().sum())
-                count += got.numel()
-                if i < n_steps:
-                    agree_exact += int((got.argmax(-1) == exact.argmax(-1)).sum())
-                    world1_agree_exact += int((exp[rows].argmax(-1) == exact.argmax(-1)).sum())
-            else:
-                err = max(err, check_close(f"{label} {arch} {name} step {i}", got, exp[rows],
-                                           dtype, MESH_TOL))
-            if i < n_steps:
-                agree += int((got.argmax(-1) == ref["feed"][i][rows]).sum())
-        extra = {}
-        if "exact" in ref:
-            rms, world1_rms = (sq / count) ** 0.5, (world1_sq / count) ** 0.5
-            extra.update(max_abs_err_vs_float32=vs_exact,
-                         world1_max_abs_err_vs_float32=ref["world1_vs_exact"],
-                         exact_factor=MESH_EXACT_FACTOR, rms_err_vs_float32=rms,
-                         world1_rms_err_vs_float32=world1_rms,
-                         exact_rms_factor=MESH_EXACT_RMS_FACTOR,
-                         greedy_agree_vs_float32=agree_exact,
-                         world1_greedy_agree_vs_float32=world1_agree_exact)
-            if rms > MESH_EXACT_RMS_FACTOR * world1_rms:
-                fail(f"{label} {arch} {name}: root mean square {rms:.4e} off a float32 run of "
-                     f"the same weights, beyond {MESH_EXACT_RMS_FACTOR:g} x world 1's bf16 "
-                     f"{world1_rms:.4e} over the same rows")
-            if vs_exact > MESH_EXACT_FACTOR * ref["world1_vs_exact"]:
-                fail(f"{label} {arch} {name}: {vs_exact:.3e} off a float32 run of the same "
-                     f"weights, beyond {MESH_EXACT_FACTOR:g} x world 1's bf16 "
-                     f"{ref['world1_vs_exact']:.3e}")
-        if cfg.is_moe:
-            extra["routed_otherwise"] = _routed_otherwise(routes, ref["routes"], rows, batched)
-            extra["routed_of"] = sum(int(sent[..., 0].numel()) for call in
-                                     routes["prefill"] + routes["decode"] for _, sent in call)
-        if replay:   # world 1's routing replayed: the sharded arithmetic
-            with torch.no_grad():
-                logits, _, _, _ = _mesh_generate(
-                    cfg, dtype, params, lambda shape: sharded_step(cfg, shape, mesh)[0],
-                    sharded_step(cfg, decode_shape, mesh)[0],
-                    lambda n, cap: Model(lcfg).init_cache(n, cap, dtype=dtype,
-                                                          device="cuda"),
-                    rows, feed=ref["feed"], force=_replayed(ref["routes"], rows))
-            extra["max_abs_err_own_routing"] = err
-            err = 0.0
-            for i, (got, exp) in enumerate(zip(logits, ref["logits"])):
-                err = max(err, check_close(f"{label} {arch} {name} replayed step {i}", got,
-                                           exp[rows], dtype, MESH_TOL))
-        # the logits held to MESH_TOL: a bf16 MoE run's are its replay of
-        # world 1's routing, which no served request takes; a bf16 Mamba2
-        # model's are held to the float32 run instead (MESH_EXACT_FACTOR)
-        err_key = "max_abs_err_routing_replayed" if replay else "max_abs_err"
-        out[name] = {"layers": layers, "rows": [rows.start, rows.stop],
-                     "local_heads": lcfg.n_heads, "local_kv_heads": lcfg.n_kv_heads,
-                     "local_ssm_heads": lcfg.n_ssm_heads, err_key: err,
-                     "tolerance": None if "exact" in ref else MESH_TOL[dtype],
-                     "routing": "world 1's, replayed" if replay else "its own", **extra,
-                     "max_abs_logit": max(float(x.abs().max()) for x in ref["logits"]),
-                     "greedy_agree": agree,
-                     "greedy_of": n_steps * (rows.stop - rows.start),
-                     "launches": launches, "launches_want": want,
-                     "peak_bytes": torch.cuda.max_memory_allocated(),
-                     "seconds": seconds, "decode_step_s": decode_s / n_steps}
-        del params
-    return out
+            err = max(err, check_close(f"{label} {arch} {name} replayed step {i}", got,
+                                       exp[rows], dtype, MESH_TOL))
+    # the logits held to MESH_TOL: a bf16 MoE run's are its replay of
+    # world 1's routing, which no served request takes; a bf16 Mamba2
+    # model's are held to the float32 run instead (MESH_EXACT_FACTOR)
+    err_key = "max_abs_err_routing_replayed" if replay else "max_abs_err"
+    rec = {"layers": layers, "rows": [rows.start, rows.stop],
+             "local_heads": lcfg.n_heads, "local_kv_heads": lcfg.n_kv_heads,
+             "q_cols": getattr(lcfg, "q_cols", 0), "kv_cols": getattr(lcfg, "kv_cols", 0),
+             "kv_shards": getattr(lcfg, "kv_shards", 0),
+             "local_ssm_heads": lcfg.n_ssm_heads, err_key: err,
+             "tolerance": None if "exact" in ref else MESH_TOL[dtype],
+             "routing": "world 1's, replayed" if replay else "its own", **extra,
+             "max_abs_logit": max(float(x.abs().max()) for x in ref["logits"]),
+             "greedy_agree": agree,
+             "greedy_of": n_steps * (rows.stop - rows.start),
+             "launches": launches, "launches_want": want,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "init_s": init_s, "seconds": seconds, "decode_step_s": decode_s / n_steps}
+    del params
+    return rec
 
 
 def _serve_calls(cfg) -> tuple:
@@ -4556,11 +4691,13 @@ def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> 
     """One rank's ``MESH_TRAIN[arch][2]`` sharded train steps from world 1's
     seed: each step's loss and gradient norm against world 1's (the same on
     every rank), every attention and SSD launch on the float32 tensor-core
-    kernels, then the parameters gathered leaf by leaf
-    (``params.gather_rank_leaf``) and held by rank 0 against world 1's
-    (``MESH_TRAIN_REL``, ``MESH_TRAIN_OUTLIERS``)."""
+    kernels, then the parameters held against world 1's (``MESH_TRAIN_REL``,
+    ``MESH_TRAIN_OUTLIERS``): each rank compares its own piece of each leaf
+    with world 1's piece (``_rank_piece``), every element of the global tree
+    counted on one rank only, and the sums are added over the ranks (no
+    parameter crosses the host)."""
     from repro_torch.launch.steps import sharded_step
-    from repro_torch.params import gather_rank_leaf, init_opt_shard, init_shard, rank_leaves
+    from repro_torch.params import init_opt_shard, init_shard, layout_split, rank_leaves
     cfg = _train_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4600,32 +4737,53 @@ def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> 
                  + (f", or {MESH_REORDER_FACTOR:g} x world 1's in halves "
                     f"{reference[f'halves_{key}']} up to {MESH_REORDER_CAP:g} x TRAIN_TOL's"
                     if reordered else "") + ")")
-    # the parameters, gathered a leaf at a time, against world 1's
+    # the parameters against world 1's, each rank its own pieces: the data
+    # ranks hold the same parameters, so data rank 0's count; of a leaf the
+    # model ranks hold whole, and of the whole (B/C) part of a Mamba2 leaf,
+    # model rank 0's
+    from repro_torch.launch.mesh import mesh_axis_sizes
     leaves, _ = rank_leaves(cfg, mesh)
-    want = torch.load(os.path.join(work, f"{arch}.pt"), mmap=True) if coords == \
-        {"data": 0, "model": 0} else None
+    sizes = mesh_axis_sizes(mesh)
+    want = torch.load(os.path.join(work, f"{arch}.pt"), mmap=True)
     del opt
     gc.collect()
     torch.cuda.empty_cache()
-    diff2, outliers, count, max_err = 0.0, 0, 0, 0.0
+    t1 = time.monotonic()
+    sums = torch.zeros(3, dtype=torch.float64, device="cuda")   # diff2, outliers, count
+    top = torch.zeros(1, dtype=torch.float64, device="cuda")
     for j, (leaf, rl) in enumerate(zip(tree.leaves(params), leaves)):
-        got = gather_rank_leaf(leaf, rl, mesh)
-        if want is not None:   # a leaf at a time, in pieces of 2^26 elements
-            for g, w in zip(got.flatten().split(1 << 26), want[j].flatten().split(1 << 26)):
+        if coords["data"]:
+            break
+        piece = _rank_piece(want[j], rl, sizes, coords)
+        if rl.layout is None:
+            pairs = [(leaf, piece)] if rl.on_model or coords["model"] == 0 else []
+        else:
+            (cut_g, whole_g), (cut_w, whole_w) = (layout_split(t, rl.layout, sizes["model"])
+                                                  for t in (leaf, piece))
+            pairs = [(cut_g, cut_w)] + ([(whole_g, whole_w)] if coords["model"] == 0 else [])
+        for got, exp in pairs:   # in pieces of 2^26 elements
+            if got.numel() == 0:
+                continue
+            for g, w in zip(got.flatten().split(1 << 26), exp.flatten().split(1 << 26)):
                 w = w.cuda()
                 d = (g - w).abs()
-                diff2 += float(d.square().sum(dtype=torch.float64))
-                outliers += int((d > TRAIN_TOL + TRAIN_TOL * w.abs()).sum())
-                count += d.numel()
-                max_err = max(max_err, float(d.max()))
+                sums += torch.stack([d.square().sum(dtype=torch.float64),
+                                     (d > TRAIN_TOL + TRAIN_TOL * w.abs()).sum().double(),
+                                     torch.tensor(float(d.numel()), device="cuda",
+                                                  dtype=torch.float64)])
+                top = torch.maximum(top, d.max().double())
                 del w, d
-        del got
+    dist.all_reduce(sums)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    diff2, outliers, count = float(sums[0]), int(sums[1]), int(sums[2])
+    max_err = float(top[0])
+    want = None if coords != {"data": 0, "model": 0} else want   # rank 0 reports
     rec = {"zero_opt": zero, "losses": losses, "grad_norms": norms,
            "world1_losses": reference["losses"], "world1_grad_norms": reference["grad_norms"],
            "halves_losses": reference.get("halves_losses"),
            "halves_grad_norms": reference.get("halves_grad_norms"), "limits": limits,
            "launches": launches, "peak_bytes": peak, "init_s": init_s, "seconds": seconds,
-           "step_s": seconds / len(losses)}
+           "step_s": seconds / len(losses), "compare_s": time.monotonic() - t1}
     if want is not None:
         rel = (diff2 / reference["moved2"]) ** 0.5
         share = outliers / count
@@ -4647,81 +4805,189 @@ def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> 
     return rec
 
 
+def _serve_cases(data: int, model: int) -> tuple:
+    """The (arch, dtype) pairs a mesh of ``data`` x ``model`` serves: the
+    split-heads cases on ``MESH_SPLIT_SHAPE``, every serving arch in both
+    dtypes on the others."""
+    if (data, model) == MESH_SPLIT_SHAPE:
+        return MESH_SPLIT_CASES
+    return tuple((a, dt) for a in MESH_SERVE_ARCHS for dt in MESH_RUNS)
+
+
+def _in_turns(fn, width: int = MESH_INIT_WIDTH):
+    """``fn()`` on this rank, ``width`` ranks of the world at a time in rank
+    order (a barrier between turns), each freeing its cached blocks before
+    the next turn starts: what a rank draws and drops while it cuts its
+    shards then never sits on the card for more than ``width`` ranks."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = None
+    for turn in range(-(-world // width)):
+        if rank // width == turn:
+            out = fn()
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _warm_up(mesh) -> float:
+    """A rank's first collectives on each axis of ``mesh``, first product
+    and first draws on the meta device (the sharded step's input specs,
+    whose first use imports PyTorch's decompositions: 15-34 s of a rank's
+    first case on a host shared by 16 ranks, NVIDIA H100 80GB HBM3, 700.00
+    W), while it waits for its go, so that what they cost once is not paid
+    inside a timed case. Returns its seconds."""
+    t0 = time.monotonic()
+    torch.randn((1,), generator=torch.Generator(), device="meta")
+    torch.arange(1, device="meta")
+    x = torch.zeros(MESH_WARM_ELEMENTS, device="cuda")
+    for name in mesh.mesh_dim_names:
+        group = mesh.get_group(name)
+        n = dist.get_world_size(group)
+        if n > 1:
+            dist.all_reduce(x, group=group)
+            parts = [torch.empty_like(x[:MESH_WARM_ELEMENTS // n]) for _ in range(n)]
+            dist.all_gather(parts, x[:MESH_WARM_ELEMENTS // n].contiguous(), group=group)
+    torch.ones((64, 64), device="cuda") @ torch.ones((64, 64), device="cuda")
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def _rank_piece(t: torch.Tensor, rl, sizes: dict, coords: dict) -> torch.Tensor:
+    """The piece of the global leaf ``t`` that the rank at ``coords`` holds
+    as ``rl`` (``params.RankLeaf``) says: its block under the reference's
+    spec, or its cut under a Mamba2 leaf's rank layout."""
+    from repro_torch.launch.shardings import shard_slices
+    from repro_torch.params import layout_cut
+    if rl.layout is None:
+        return t[shard_slices(rl.spec, tuple(t.shape), sizes, coords)]
+    return layout_cut(t, rl.layout, sizes["model"], coords["model"])
+
+
 def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -> None:
-    """One rank of a mesh phase run (``--mesh-rank``): each serving arch's
-    shards from the same seed as world 1 (``params.init_shard``) through the
-    sharded prefill and decode steps (``_rank_serve``), then each training
-    run of this mesh (``_rank_train``), and one JSON line: launches, peak
-    memory and seconds of each part. Any failure exits non-zero."""
+    """One rank of a mesh phase run (``--mesh-rank``): each serving case's
+    shards (``_serve_cases``) from the same seed as world 1
+    (``params.init_shard``) through the sharded prefill and decode steps
+    (``_rank_serve``), then each training run of this mesh (``_rank_train``),
+    and one JSON line: launches, peak memory and seconds of each part. Any
+    failure exits non-zero."""
     from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+    # the ranks share the host's cores: each takes its share for its own
+    # operations on the host (the collectives' copies and sums)
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world))
     dist.init_process_group(backend, init_method=f"file://{work}/store_{world}_{model_axis}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=MESH_RANK_LIMIT_S))
     mesh = make_local_mesh(model_axis, backend="cuda")
     coords, sizes = mesh_coords(mesh), mesh_axis_sizes(mesh)
     label = f"mesh {sizes['data']}x{sizes['model']} rank {rank}"
-    reference = torch.load(os.path.join(work, "world1.pt"))
+    split = (sizes["data"], sizes["model"]) == MESH_SPLIT_SHAPE
+    warm_s = _warm_up(mesh)
+    go = os.path.join(work, f"go_{sizes['data']}x{sizes['model']}")
+    waited = time.monotonic()
+    while not os.path.exists(go):   # started with the phase: wait for the parent's go
+        if time.monotonic() - waited > MESH_WAIT_LIMIT_S:
+            fail(f"{label}: no go at {go} within {MESH_WAIT_LIMIT_S} s")
+        time.sleep(0.2)
+    t0 = time.monotonic()
+    reference = torch.load(os.path.join(work, "world1_split.pt" if split else "world1.pt"))
     out = {"rank": rank, "coords": coords, "backend": backend,
-           "device": torch.cuda.current_device(), "serve": {}, "train": {}}
-    for arch in MESH_SERVE_ARCHS:
-        out["serve"][arch] = _rank_serve(arch, mesh, coords, sizes, label, reference)
+           "device": torch.cuda.current_device(), "serve": {}, "train": {},
+           "warm_up_s": warm_s, "load_s": time.monotonic() - t0}
+    for arch, dtype in _serve_cases(sizes["data"], sizes["model"]):
+        out["serve"].setdefault(arch, {})[_name(dtype)] = _rank_serve(
+            arch, dtype, mesh, coords, sizes, label, reference)
     for arch, (_, meshes, *_) in MESH_TRAIN.items():
         for data, model, zero in meshes:
             if (data, model) == (sizes["data"], sizes["model"]):
                 out["train"][arch] = _rank_train(arch, zero, mesh, coords, label, work,
                                                  reference[f"train {arch}"])
+    out["end_unix"] = time.time()   # the group's wall: the parent's start to the last end
     print(json.dumps(out), flush=True)
     dist.destroy_process_group()
 
 
-def _mesh_ranks(smi: str, work: str, data: int, model: int) -> dict:
-    """One mesh's ranks, started together; their lines, each beside the dry
-    run's per-device bytes for the same tree (``arg_bytes`` with the rank
-    layout's ``layout_extra_bytes``). Fails unless every rank exits 0 within
-    ``MESH_RANK_LIMIT_S``."""
-    from repro_torch.launch.mesh import mesh_shape
+def _start_ranks(work: str, data: int, model: int) -> tuple:
+    """One mesh's ranks started together. Each reaches the card and its
+    process group, then waits for the parent's go (``_go``) before it reads
+    its world 1 references from ``world1.pt`` under ``work`` (the
+    split-heads group, ``world1_split.pt``); it writes its output and
+    errors into files there (no pipe to fill while the parent works on).
+    ``_collect_ranks`` waits for them."""
     world = data * model
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    t0 = time.monotonic()
     # ranks sharing one card free and take memory in turn: growable segments
     # keep one rank's freed blocks from fragmenting what the others may take
     env = dict(_port_env(), PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
-                               str(r), "--mesh-world", str(world), "--mesh-model",
-                               str(model), "--mesh-dir", work, "--mesh-backend", backend],
-                              env=env, cwd=HERE, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for r in range(world)]
-    results = []
-    try:
-        for proc in procs:
-            try:
-                results.append((proc, *proc.communicate(timeout=MESH_RANK_LIMIT_S)))
-            except subprocess.TimeoutExpired:
-                fail(f"mesh {data}x{model}: a rank ran past {MESH_RANK_LIMIT_S} s")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    wall = time.monotonic() - t0
-    bad = [f"rank {r} exit {p.returncode}:\n{err[-3000:]}"
-           for r, (p, _, err) in enumerate(results) if p.returncode != 0]
-    if bad:
-        fail(f"mesh {data}x{model} ({backend}): " + "\n".join(bad))
+    procs = []
+    for r in range(world):
+        base = os.path.join(work, f"rank{r}_{data}x{model}")
+        with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                 "--mesh-world", str(world), "--mesh-model", str(model), "--mesh-dir", work,
+                 "--mesh-backend", backend], env=env, cwd=HERE, stdout=out, stderr=err),
+                base))
+    return data, model, backend, procs
+
+
+def _go(work: str, data: int, model: int) -> float:
+    """Let the ranks of the ``data`` x ``model`` group run: a file under
+    ``work`` that holds the time of the go, which their wall counts from."""
+    t0 = time.time()
+    tmp = os.path.join(work, f"go_{data}x{model}.tmp")
+    with open(tmp, "w") as f:
+        f.write(repr(t0))
+    os.replace(tmp, os.path.join(work, f"go_{data}x{model}"))
+    return t0
+
+
+def _planned(data: int, model: int) -> dict:
+    """The dry run's per-device bytes of each case of the ``data`` x
+    ``model`` group (``arg_bytes`` with the rank layout's
+    ``layout_extra_bytes``), by (arch, dtype name or "train")."""
+    from repro_torch.launch.mesh import mesh_shape
     mesh = mesh_shape((data, model))
     planned = {}
-    for arch in MESH_SERVE_ARCHS:
-        for dtype, (_, lengths, n_steps, _) in MESH_RUNS.items():
-            shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths), "decode")
-            mem = roofline.plan(_mesh_config(arch, dtype), shape, mesh=mesh)[1]
-            planned[arch, _name(dtype)] = mem["arg_bytes"] + mem["layout_extra_bytes"]
+    for arch, dtype in _serve_cases(data, model):
+        _, lengths, n_steps, _ = MESH_RUNS[dtype]
+        shape = InputShape("mesh_decode", max(lengths) + n_steps, len(lengths), "decode")
+        mem = roofline.plan(_mesh_config(arch, dtype), shape, mesh=mesh)[1]
+        planned[arch, _name(dtype)] = mem["arg_bytes"] + mem["layout_extra_bytes"]
     for arch, (_, meshes, *_) in MESH_TRAIN.items():
         for d, m, zero in meshes:
             if (d, m) == (data, model):
                 shape = InputShape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
                 mem = roofline.plan(_train_config(arch), shape, mesh=mesh, zero_opt=zero)[1]
                 planned[arch, "train"] = mem["arg_bytes"] + mem["layout_extra_bytes"]
+    return planned
+
+
+def _collect_ranks(smi: str, started: tuple, t0: float, planned: dict) -> dict:
+    """The lines of the ranks ``_start_ranks`` started and ``_go`` let run at
+    ``t0``, each beside the dry run's per-device bytes for the same tree
+    (``_planned``). Fails unless every rank exits 0 within
+    ``MESH_RANK_LIMIT_S`` of being waited for."""
+    data, model, backend, procs = started
+    results = []
+    try:
+        for proc, base in procs:
+            try:
+                proc.wait(timeout=MESH_RANK_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"mesh {data}x{model}: a rank ran past {MESH_RANK_LIMIT_S} s")
+            with open(base + ".out") as out, open(base + ".err") as err:
+                results.append((proc, out.read(), err.read()))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = [f"rank {r} exit {p.returncode}:\n{err[-3000:]}"
+           for r, (p, _, err) in enumerate(results) if p.returncode != 0]
+    if bad:
+        fail(f"mesh {data}x{model} ({backend}): " + "\n".join(bad))
     ranks = []
     for _, out, _ in results:
         rec = json.loads(out.strip().splitlines()[-1])
@@ -4730,41 +4996,75 @@ def _mesh_ranks(smi: str, work: str, data: int, model: int) -> dict:
             where["dryrun_arg_bytes"] = arg_bytes
         emit("mesh_rank", gpu=smi, mesh=f"{data}x{model}", **rec)
         ranks.append(rec)
-    return {"backend": backend, "wall_s": wall, "ranks": ranks}
+    return {"backend": backend, "wall_s": max(r["end_unix"] for r in ranks) - t0,
+            "ranks": ranks}
 
 
 def phase_mesh(smi: str) -> dict:
     """llama-70b, qwen2-moe-a2.7b, mamba2-1.3b and zamba2-2.7b at full width,
     their depth cut, and whisper-base whole, through ``sharded_step``'s
     prefill and decode steps on the meshes of ``MESH_SHAPES``, and the
-    train runs of ``MESH_TRAIN``: world 1 on the
-    card first (the references), then each mesh's ranks (``mesh_rank``),
-    sharing the card over gloo or one card a rank over NCCL where there are
-    enough. Returns the ranks' launches, summed."""
+    train runs of ``MESH_TRAIN``; llama-70b and yi-34b on
+    ``MESH_SPLIT_SHAPE``, where the model axis splits their heads
+    (``MESH_SPLIT_CASES``): world 1 on the card first (the references; the
+    ranks of every group start beside them and wait), then each group's
+    ranks (``mesh_rank``) in turn, the split-heads group first, sharing the
+    card over gloo or one card a rank over NCCL where there are enough.
+    Returns the ranks' launches, summed."""
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory() as work:
         reference, world1_s = {}, {}
-        for arch in MESH_SERVE_ARCHS:
-            for dtype in MESH_RUNS:
+
+        def world1(arch, dtype):
+            key = f"{arch} {_name(dtype)}"
+            if key not in reference:
                 t1 = time.monotonic()
-                reference[f"{arch} {_name(dtype)}"] = _mesh_world1(arch, dtype)
-                world1_s[f"{arch} {_name(dtype)}"] = time.monotonic() - t1
+                reference[key] = _mesh_world1(arch, dtype)
+                world1_s[key] = time.monotonic() - t1
                 gc.collect()
                 torch.cuda.empty_cache()
-        for arch in MESH_TRAIN:
-            t1 = time.monotonic()
-            reference[f"train {arch}"] = _train_world1(arch, work)
-            world1_s[f"train {arch}"] = time.monotonic() - t1
-            emit("mesh_train_world1", gpu=smi, arch=arch, **reference[f"train {arch}"])
-            gc.collect()
-            torch.cuda.empty_cache()
-        torch.save(reference, os.path.join(work, "world1.pt"))
-        meshes = {f"{d}x{m}": _mesh_ranks(smi, work, d, m) for d, m in MESH_SHAPES}
+            return reference[key]
+
+        # the first group's ranks start now and reach the card while world 1
+        # computes the references, the others' while the first group runs;
+        # each waits for its go (``_go``)
+        groups = [MESH_SPLIT_SHAPE, *MESH_SHAPES]
+        started = {"x".join(map(str, groups[0])): _start_ranks(work, *groups[0])}
+        try:
+            for arch, dtype in MESH_SPLIT_CASES:
+                world1(arch, dtype)
+            for arch in MESH_SERVE_ARCHS:
+                for dtype in MESH_RUNS:
+                    world1(arch, dtype)
+            for arch in MESH_TRAIN:
+                t1 = time.monotonic()
+                reference[f"train {arch}"] = _train_world1(arch, work)
+                world1_s[f"train {arch}"] = time.monotonic() - t1
+                emit("mesh_train_world1", gpu=smi, arch=arch, **reference[f"train {arch}"])
+                gc.collect()
+                torch.cuda.empty_cache()
+            torch.save(reference, os.path.join(work, "world1.pt"))
+            torch.save({f"{a} {_name(dt)}": reference[f"{a} {_name(dt)}"]
+                        for a, dt in MESH_SPLIT_CASES}, os.path.join(work, "world1_split.pt"))
+            world1_done_s = time.monotonic() - t0
+            meshes = {}
+            for i, (d, m) in enumerate(groups):
+                go = _go(work, d, m)
+                if i == 0:
+                    started.update({f"{d2}x{m2}": _start_ranks(work, d2, m2)
+                                    for d2, m2 in groups[1:]})
+                planned = _planned(d, m)   # on the host, while the ranks run
+                meshes[f"{d}x{m}"] = _collect_ranks(smi, started[f"{d}x{m}"], go, planned)
+        finally:   # a failure leaves no rank of any group running
+            for group in started.values():
+                for proc, _ in group[-1]:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
     launches = {}
     for res in meshes.values():
         for rec in res["ranks"]:
-            parts = [rec["serve"][a][n]["launches"] for a in MESH_SERVE_ARCHS
-                     for n in MESH_RUNS_NAMES] + \
+            parts = [by[n]["launches"] for by in rec["serve"].values() for n in by] + \
                 [{"flash_prefill": t["launches"]["flash_prefill"],
                   "flash_prefill_tf32": t["launches"]["flash_prefill.tf32_launches"],
                   "flash_prefill_backward": t["launches"]["flash_prefill_backward"],
@@ -4801,11 +5101,12 @@ def phase_mesh(smi: str) -> dict:
             **({"max_abs_err_own_routing": max(
                 r["serve"][a][n]["max_abs_err_own_routing"] for r in v["ranks"])}
                if "max_abs_err_own_routing" in v["ranks"][0]["serve"][a][n] else {}),
+            "init_s_max": max(r["serve"][a][n].get("init_s", 0.0) for r in v["ranks"]),
             "seconds_max": max(r["serve"][a][n]["seconds"] for r in v["ranks"]),
             "decode_step_s_max": max(r["serve"][a][n]["decode_step_s"] for r in v["ranks"]),
             "peak_bytes_max": max(r["serve"][a][n]["peak_bytes"] for r in v["ranks"]),
             "dryrun_arg_bytes": v["ranks"][0]["serve"][a][n]["dryrun_arg_bytes"]}
-            for a in MESH_SERVE_ARCHS for n in MESH_RUNS_NAMES}
+            for a, by in v["ranks"][0]["serve"].items() for n in by}
         train = {a: {key: v["ranks"][0]["train"][a].get(key) for key in
                      ("zero_opt", "losses", "grad_norms", "limits", "params_rel_err",
                       "params_rel_tolerance", "params_max_abs_err", "params_outlier_share",
@@ -4843,6 +5144,8 @@ def phase_mesh(smi: str) -> dict:
                     "meshes": [list(m) for m in t[1]], "steps": t[2], "reordered": t[3],
                     "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ, "lr": TRAIN_LR}
                 for a, t in MESH_TRAIN.items()},
+         split_cases=[f"{a} {_name(dt)}" for a, dt in MESH_SPLIT_CASES],
+         split_shape="x".join(map(str, MESH_SPLIT_SHAPE)), world1_done_s=world1_done_s,
          world1_s=world1_s, meshes=summary, launches=launches)
     return launches
 
@@ -5091,13 +5394,17 @@ def main() -> None:
     for name, wrapper in zip(TF32_KERNELS, TENSOR_CORE_KERNELS):
         total[name] = train_launches[name] + mesh_launches.get(name, 0)
         total[wrapper] -= total[name]
+    # so does the decode kernel's partial + LSE instance, on the mesh's split
+    # heads
+    total[LSE_KERNEL] = mesh_launches.get(LSE_KERNEL, 0)
+    total["paged_attention"] -= total[LSE_KERNEL]
     idle = [name for name, n in total.items() if n <= 0]
     if idle:
         fail(f"no launch on the main paths of {idle}: {total}")
     emit("launches", serve=launches, cluster=cluster_launches, train=train_launches,
          mesh=mesh_launches, total=total)
     kernels = [{**records[name], "launches": total[name]}
-               for name in (*KERNELS, *TF32_KERNELS)]
+               for name in (*KERNELS, *TF32_KERNELS, LSE_KERNEL)]
     # bound_fp32_fma_ms: the kernels that run float32 on the tensor cores in
     # 3xTF32 also carry the bound at the FMA rate beside their own; the
     # attention backward's row also its operations' time as 3xTF32

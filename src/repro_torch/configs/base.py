@@ -151,8 +151,19 @@ class RankConfig(ModelConfig):
     (``launch.steps.local_config``): a ``ModelConfig`` whose SSM inner width
     is given (``inner``), not derived from ``d_model``, since a rank holds
     ``d_inner / m`` of the SSM channels and heads while ``d_model`` stays
-    whole. ``inner`` 0 derives it as ``ModelConfig`` does."""
+    whole. ``inner`` 0 derives it as ``ModelConfig`` does.
+
+    Where the model axis does not divide the KV heads, a rank keeps
+    ``n_heads`` and ``n_kv_heads`` whole and holds the reference's column
+    blocks of the attention's projections: ``q_cols`` of ``wq`` (and rows of
+    ``wo``), ``kv_cols`` of ``wk`` and ``wv``, cut mid-head where the axis
+    does not divide the heads; its KV pool holds every KV head at its share
+    of each row's pages (``kv_shards``, the model axis's size: round-robin
+    pages, ``launch.shardings.seq_place``). 0 everywhere else."""
     inner: int = 0
+    q_cols: int = 0
+    kv_cols: int = 0
+    kv_shards: int = 0
 
     @property
     def d_inner(self) -> int:

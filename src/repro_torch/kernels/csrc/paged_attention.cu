@@ -56,6 +56,14 @@
 //   derives that range (first split, count) from start and length alike, so
 //   the count of tickets and the partials merged are the same in each.
 //
+// * With `lse` given (a sequence-sharded rank's partial),
+//   the output is written in float32, unrounded, with each query row's
+//   log-sum-exp m + log(l) in the scaled-score units the softmax keeps, and
+//   -inf for a row with no position in range: the partial that a merge over
+//   ranks weighs by exp(lse - max lse). The same grid, splits and tickets;
+//   only the two stores of the output (the single split's and the merge's)
+//   and the empty row's change.
+//
 // What still holds it back: a split's pages are walked by 4 warps with one
 // page in flight each, so a split is latency-bound; the split size is fixed,
 // not fitted to the batch; times are in PERF.md.
@@ -142,6 +150,14 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// element i of the output: float32 where a log-sum-exp is written beside it
+// (`out_f32` non-null), else in the kernel's dtype
+template <typename T>
+__device__ __forceinline__ void store_row(T* out, float* out_f32, int64_t i, float x) {
+  if (out_f32 != nullptr) out_f32[i] = x;
+  else store_out(out + i, x);
+}
+
 // 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
 // reads nothing
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -163,7 +179,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // One block per (sequence b, KV head h, split). GP = `group` rounded up to
 // 1/2/4/8; LPR lanes cover one token row, so a warp scores 32 / LPR tokens per
 // step. Partials are indexed ((b * n_kv + h) * n_splits + split) * group + g,
-// tickets b * n_kv + h. `starts` may be null (every sequence from 0).
+// tickets b * n_kv + h. `starts` may be null (every sequence from 0). With
+// `lse` non-null the output goes to `out_f32` (float32) and each query row's
+// log-sum-exp to lse[(b * n_kv + h) * group + g].
 template <typename T, int D, int GP, int LPR>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
@@ -171,6 +189,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ lengths,
                        const int* __restrict__ starts, T* __restrict__ out,
+                       float* __restrict__ out_f32, float* __restrict__ lse,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int* __restrict__ tickets, int n_kv,
                        int group, int max_pages, float scale) {
@@ -226,7 +245,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   if (pb >= p1) {   // nothing of the sequence in this split
     if (split == 0 && n_used == 0) {      // nothing to attend to gives zeros
       for (int idx = threadIdx.x; idx < group * D; idx += kWarps * 32)
-        store_out(out + row0 * D + idx, 0.f);
+        store_row(out, out_f32, row0 * D + idx, 0.f);
+      if (lse != nullptr && threadIdx.x < group)
+        lse[row0 + threadIdx.x] = __int_as_float(0xff800000);   // -inf
     }
     return;
   }
@@ -381,7 +402,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       den += wgt * sm_l[w][g];
     }
     if (n_used == 1) {
-      store_out(out + (row0 + g) * D + d, num / fmaxf(den, 1e-30f));
+      store_row(out, out_f32, (row0 + g) * D + d, num / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0) lse[row0 + g] = m_all + logf(den);
     } else {
       part_acc[(part0 + g) * D + d] = num;
       if (d == 0) {
@@ -431,6 +453,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     }
     const float inv = 1.f / fmaxf(den, 1e-30f);
     for (int sp = 0; sp < n_used; ++sp) sm_w[sp * group + g] *= inv;
+    if (lse != nullptr) lse[row0 + g] = m_seq + logf(den);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < group * D; idx += kWarps * 32) {
@@ -440,7 +463,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll 4
     for (int sp = 0; sp < n_used; ++sp)
       o += sm_w[sp * group + g] * __ldcg(part_acc + (first + sp * group + g) * D + d);
-    store_out(out + (row0 + g) * D + d, o);
+    store_row(out, out_f32, (row0 + g) * D + d, o);
   }
 }
 
@@ -448,7 +471,7 @@ struct Args {
   const void *q, *k_pool, *v_pool;
   const int *block_tables, *lengths, *starts;
   void* out;
-  float *part_m, *part_l, *part_acc;
+  float *lse, *part_m, *part_l, *part_acc;
   int* tickets;
   int B, n_kv, group, max_pages, n_splits;
   float scale;
@@ -467,7 +490,9 @@ cudaError_t launch(const Args& a) {
       <<<dim3(a.B, a.n_kv, a.n_splits), kWarps * 32, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
           static_cast<const T*>(a.v_pool), a.block_tables, a.lengths, a.starts,
-          static_cast<T*>(a.out), a.part_m, a.part_l, a.part_acc, a.tickets, a.n_kv,
+          a.lse == nullptr ? static_cast<T*>(a.out) : nullptr,
+          a.lse == nullptr ? nullptr : static_cast<float*>(a.out), a.lse, a.part_m,
+          a.part_l, a.part_acc, a.tickets, a.n_kv,
           a.group, a.max_pages, a.scale);
   return cudaGetLastError();
 }
@@ -494,20 +519,22 @@ cudaError_t launch_group(const Args& a) {
 // / 16); starts (B,) int32 is each sequence's first position (null: 0);
 // part_m / part_l (B, n_kv, n_splits, group) and part_acc (..., D) are
 // float32 scratch and tickets (B, n_kv) int32 counters that are 0 on entry and
-// left 0 (all three unused when n_splits == 1). Returns cudaGetLastError()
+// left 0 (all three unused when n_splits == 1); lse (B, n_kv, group) float32
+// or null: given, `out` is float32 and takes the unrounded output, and lse
+// each query row's log-sum-exp (-inf for a row with nothing in range). Returns cudaGetLastError()
 // after the launch (0 = launched), or cudaErrorInvalidValue for a shape the
 // kernel does not take.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const void* block_tables,
                                       const void* lengths, const void* starts, void* out,
-                                      void* part_m,
+                                      void* lse, void* part_m,
                                       void* part_l, void* part_acc, void* tickets,
                                       int B, int n_kv, int group, int D, int max_pages,
                                       int n_splits, int is_bf16, float scale,
                                       void* stream) {
   const Args a{q, k_pool, v_pool, static_cast<const int*>(block_tables),
                static_cast<const int*>(lengths), static_cast<const int*>(starts), out,
-               static_cast<float*>(part_m),
+               static_cast<float*>(lse), static_cast<float*>(part_m),
                static_cast<float*>(part_l), static_cast<float*>(part_acc),
                static_cast<int*>(tickets), B, n_kv, group, max_pages, n_splits, scale,
                static_cast<cudaStream_t>(stream)};

@@ -26,6 +26,13 @@ what still holds it back are described at the top of the ``.cu`` source;
 ``paged_attention_split_plain`` computes the same partials and merge in
 plain PyTorch.
 
+With ``return_lse`` the kernel writes a sequence-sharded rank's partial
+instead: the output unrounded in float32 and each query row's log-sum-exp
+(``-inf`` for a row with no position in range), which a merge over the
+ranks weighs by ``exp(lse - max lse)`` (``models/layers.py``,
+``merge_lse_partials``). The grid, the splits and the tickets are the same;
+``paged_attention.lse_launches`` counts these launches apart.
+
 ``paged_attention`` runs the plain version only for tensors on the CPU
 (and on the meta device, which computes nothing). On CUDA tensors it
 launches the kernel or raises.
@@ -116,45 +123,62 @@ def paged_attention_partials_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return m, l, acc
 
 
+def _lse(m: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """The log-sum-exp ``m + log(den)`` of rows whose scores' maximum is
+    ``m`` and whose weights relative to it sum to ``den``; ``-inf`` where
+    ``den`` is 0 (no position attended to)."""
+    return torch.where(den > 0, m + torch.log(den.clamp_min(1e-30)),
+                       torch.full_like(m, float("-inf")))
+
+
 def paged_attention_merge_plain(m: torch.Tensor, l: torch.Tensor,
-                                acc: torch.Tensor, dtype: torch.dtype
-                                ) -> torch.Tensor:
+                                acc: torch.Tensor, dtype: torch.dtype,
+                                return_lse: bool = False):
     """Plain PyTorch version of the kernel's merge: the splits' partials
     (B, n_kv, n_splits, group[, D]) -> (B, n_kv, group, D) in ``dtype``.
     Splits with ``l == 0`` contribute nothing; with none left the row is 0.
     (The kernel merges only the splits that hold pages of the sequence, and
-    those have ``l >= 1``.)"""
+    those have ``l >= 1``.) With ``return_lse``, ``(out float32, lse
+    (B, n_kv, group))``, as the kernel's instance with the log-sum-exp."""
     full = l > 0
     m_all = torch.where(full, m, torch.full_like(m, _NEG_INF)).amax(2, keepdim=True)
     w = torch.where(full, torch.exp(m - m_all), torch.zeros_like(m))
     # an empty split's acc is never read: the kernel does not write it
     num = (w[..., None] * torch.where(full[..., None], acc, 0.0)).sum(2)
     den = (w * l).sum(2)
-    return (num / den.clamp_min(1e-30)[..., None]).to(dtype)
+    out = num / den.clamp_min(1e-30)[..., None]
+    if return_lse:
+        return out, _lse(m_all[:, :, 0], den)
+    return out.to(dtype)
 
 
 def paged_attention_split_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, block_tables: torch.Tensor,
                                 lengths: torch.Tensor,
-                                starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                starts: Optional[torch.Tensor] = None,
+                                return_lse: bool = False):
     """The kernel's algorithm in plain PyTorch: partials per split, then
     the merge. Same function as ``paged_attention_plain``."""
     m, l, acc = paged_attention_partials_plain(q, k_pool, v_pool, block_tables,
                                                lengths, starts)
-    return paged_attention_merge_plain(m, l, acc, q.dtype)
+    return paged_attention_merge_plain(m, l, acc, q.dtype, return_lse)
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_tables: torch.Tensor,
                           lengths: torch.Tensor,
-                          starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          starts: Optional[torch.Tensor] = None,
+                          return_lse: bool = False):
     """Plain PyTorch version, any device, any page size.
 
     q (B, n_kv, group, D); pools (P, page, n_kv, D); block_tables
     (B, max_pages); lengths (B,); starts (B,) or None: positions
     ``[starts[b], lengths[b])`` are attended to. Returns (B, n_kv, group, D).
     Softmax in float32; a row with every position masked gives zeros, as the
-    kernel's ``acc / max(l, 1e-30)`` does.
+    kernel's ``acc / max(l, 1e-30)`` does. With ``return_lse``, ``(out,
+    lse)``: the output in float32, unrounded, and each query row's
+    log-sum-exp of its scaled scores (B, n_kv, group), ``-inf`` for a row
+    with no position in range.
     """
     B, n_kv, group, D = q.shape
     page = k_pool.shape[1]
@@ -169,6 +193,9 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
     w = torch.softmax(s, dim=-1) * valid      # length 0: uniform -> zeros
     o = torch.einsum("bkgs,bskd->bkgd", w, v)
+    if return_lse:
+        mx = s.amax(-1)
+        return o, _lse(mx, (torch.exp(s - mx[..., None]) * valid).sum(-1))
     return o.to(q.dtype)
 
 
@@ -222,7 +249,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -255,7 +282,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *,
                     page_size: int = DEFAULT_PAGE_SIZE,
-                    starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    starts: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """Decode attention over paged KV.
 
     q            (B, n_kv, group, D)   one query token per sequence
@@ -265,6 +293,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     starts       (B,) int32 or None    first position attended to (a
                                        sliding window's lower bound)
     returns      (B, n_kv, group, D)
+    return_lse   return ``(out, lse)`` instead: out in float32, unrounded,
+                 and lse (B, n_kv, group) float32, each query row's
+                 log-sum-exp (``-inf`` with nothing in range): a
+                 sequence-sharded rank's partial
 
     Tensors on the CPU (and on the meta device, which computes nothing)
     go through ``paged_attention_plain``; tensors on a
@@ -275,15 +307,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """
     if q.device.type in ("cpu", "meta"):
         return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths,
-                                     starts)
+                                     starts, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: device {q.device} not supported")
     refuse_grad("paged_attention", q, k_pool, v_pool)
     _check(q, k_pool, v_pool, block_tables, lengths, starts, page_size)
     B, n_kv, group, D = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
+    lse = torch.empty((B, n_kv, group), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     plan = split_plan(B, n_kv, group, D, block_tables.shape[1])
     scratch = [0, 0, 0, 0]    # no partials and no tickets with a single split
     if plan.n_splits > 1:
@@ -298,13 +333,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(),
             None if starts is None else starts.data_ptr(), out.data_ptr(),
-            *scratch, B, n_kv, group, D, block_tables.shape[1], plan.n_splits,
+            None if lse is None else lse.data_ptr(), *scratch,
+            B, n_kv, group, D, block_tables.shape[1], plan.n_splits,
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     paged_attention.launches += 1
+    if return_lse:
+        paged_attention.lse_launches += 1
+        return out, lse
     return out
 
 
-paged_attention.launches = 0   # launches of the CUDA kernel
+paged_attention.launches = 0       # launches of the CUDA kernel
+paged_attention.lse_launches = 0   # of them, with the log-sum-exp (``return_lse``)

@@ -24,7 +24,8 @@ pair on a mesh of that shape by ``launch/shardings.py``, with no process and
 no device (``launch/mesh.py``'s ``MeshShape``): ``arg_bytes`` and
 ``out_bytes`` are then one device's shards under the reference's specs,
 ``layout_extra_bytes`` what the rank layout of the Mamba2 leaves adds to
-them (``params.ssm_layout``: B and C whole on every rank), ``fits``
+them (``params.ssm_layout``: B and C whole on every rank; on split heads,
+a decode step's KV pool rounded up to whole pages a rank), ``fits``
 compares their sum with the card, ``mesh`` names the shape, and the roofline terms are one device's
 (``roofline.plan``); ``coll_bytes`` and ``collective_s`` are None
 ("unplanned" on the printed line) for a pair the port's sharded step does

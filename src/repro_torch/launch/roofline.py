@@ -66,6 +66,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.kernels.ops import DEFAULT_PAGE_SIZE
 from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import mesh_axis_sizes
@@ -270,7 +271,14 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
       FFN's inputs, an MoE layer's gates, the sharded head's input);
     - a train step, on the batch axes: the average of the rank's gradient
       (every leaf of its shards); with ``zero_opt``, the all-gather of each
-      data rank's block of the leaves ZeRO-1 cuts.
+      data rank's block of the leaves ZeRO-1 cuts;
+    - where the model axis splits the heads (``steps.splits_heads``: a
+      prefill or decode step of a dense or VLM model), on ``model``: the
+      all-gather of q, k and v in every layer (``layers.gather_columns``),
+      and a decode step's merge of the ranks' partial attention
+      (``layers.merge_model_axis``): an all-gather of every rank's partial
+      output and log-sum-exp, ``H (D + 1)`` elements a sequence a layer
+      from each rank.
 
     An all_reduce moves ``2 (n - 1) / n`` of its buffer, an all-gather
     ``(n - 1) / n`` of what it gathers; what a step reduces by the handful
@@ -280,7 +288,7 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     sizes = mesh_axis_sizes(mesh)
     m = sizes["model"]
     try:
-        steps.check_mesh_runs(cfg, sizes)
+        steps.check_mesh_runs(cfg, sizes, shape.kind)
     except NotImplementedError:
         return None
     rows = shape.global_batch // _batch_shards(mesh, shape.global_batch)
@@ -293,6 +301,12 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     forward, backward = _layers_coll(cfg, shape, tokens, rows, m)
     model = forward + edges
     out = {}
+    if steps.splits_heads(cfg, m):
+        D, L = cfg.resolved_head_dim, cfg.n_layers
+        gathered = L * tokens * (cfg.n_heads + 2 * cfg.n_kv_heads) * D
+        if shape.kind == "decode":   # the merge: m partials gathered whole
+            gathered += L * m * rows * cfg.n_heads * (D + 1)
+        out["all-gather model"] = gathered * _REDUCE_BYTES * (m - 1) / m
     if shape.kind == "train":
         if remat:   # the layers' forward again inside the backward (not the encoder's)
             model += forward - (_encoder_coll(cfg, rows) if cfg.arch_type == "audio" else 0)
@@ -311,6 +325,20 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
                           for rl in leaves if rl.zero_dim is not None)
                 out["all-gather data"] = cut * (sizes["data"] - 1) / sizes["data"]
     return {"all-reduce model": model * _REDUCE_BYTES * _ring(m), **out}
+
+
+def _split_pool_extra_bytes(cfg: ModelConfig, mesh, cache: Dict) -> int:
+    """What a rank of split heads holds of a decode step's KV pools beyond
+    their shards under the reference's specs (``cache``, one device's
+    shards): each row rounded up to whole pages a rank
+    (``shardings.seq_pages``); zero where the model axis divides the row's
+    pages."""
+    m = mesh_axis_sizes(mesh)["model"]
+    rows, pages = cache["block_tables"].shape
+    held = sh.seq_pages(pages, m) * rows * DEFAULT_PAGE_SIZE * cfg.n_kv_heads * \
+        cfg.resolved_head_dim
+    return int(sum((cache[key].shape[0] * held - cache[key].numel()) *
+                   cache[key].element_size() for key in ("k", "v")))
 
 
 def _encoder_coll(cfg: ModelConfig, rows: int) -> float:
@@ -408,10 +436,18 @@ def _layout_extra_bytes(cfg: ModelConfig, shape: InputShape, mesh, ins: Dict,
     spec's contiguous block, their channels of ``conv_w`` and ``conv_b``
     (which the spec replicates, as it does ``norm_w``: those then count
     less), in AdamW's moments as well, and in a decode step's ``conv``
-    cache. Zero for a family with no Mamba2 layer."""
+    cache. Zero for a family with no Mamba2 layer. Where the model axis
+    splits the heads, a decode step's KV pools rounded up to whole pages a
+    rank (``_split_pool_extra_bytes``)."""
+    sizes = mesh_axis_sizes(mesh)
+    if shape.kind == "decode" and steps.splits_heads(cfg, sizes["model"]):
+        try:
+            steps.check_mesh_runs(cfg, sizes, shape.kind)
+        except NotImplementedError:   # no rank layout to count
+            return 0
+        return _split_pool_extra_bytes(cfg, mesh, ins["cache"])
     if cfg.arch_type not in ("ssm", "hybrid"):
         return 0
-    sizes = mesh_axis_sizes(mesh)
     leaves, _ = rank_leaves(cfg, mesh, zero=zero_opt)
     extra = sum((math.prod(rl.shape) - t.numel()) * t.element_size()
                 for rl, t in zip(leaves, tree.leaves(ins["params"])))

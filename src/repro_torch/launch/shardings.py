@@ -24,9 +24,18 @@ reference keeps ``(L, B, S, Hkv, D)``, so ``cache_spec`` maps by meaning:
 the KV heads go on ``model``; the batch axis becomes the pool's pages, which
 a data rank's slots own (row ``i`` owns pages ``[i * pps, (i + 1) * pps)``);
 the block tables go with their rows. The reference's sequence-sharded
-fallback (KV heads that do not divide the axis) keeps its spec, on the
-positions within a page (where the page, too, divides the axis); the
-sharded step refuses to run it (ROADMAP.md).
+fallback (KV heads that do not divide the axis) keeps its spec, and so its
+bytes, on the positions within a page (where the page, too, divides the
+axis); by meaning the sharded step holds it as round-robin pages: a row's
+page ``p`` lives on model rank ``p mod m`` at the rank's local page ``p div
+m``, every KV head whole (``seq_pages``, ``seq_place``,
+``seq_local_length``, ``seq_positions``: the one map that the cache, the
+prefill's and the decode's writes and the lengths read). A rank's valid
+positions are then a prefix of its local pages, a page stays 16 positions
+(the kernel's), and the map does not depend on the pool's length, so a row
+copies between pools page for page. A row of ``pages`` pages takes
+``ceil(pages / m)`` pages on every rank: where ``m`` does not divide
+``pages`` that rounds it up (ROADMAP.md, Departures).
 
 The rules here stay the reference's. The sharded step holds the Mamba2
 leaves (``w_in``, the conv's ``conv_w`` / ``conv_b``, ``norm_w``) and the
@@ -37,6 +46,8 @@ blocks that are not one rank's heads (ROADMAP.md, Departures).
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import torch
 
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.training.optimizer import AdamWState
@@ -121,7 +132,7 @@ def cache_spec(key: str, shape: Tuple[int, ...], mesh, batch: int,
             out[3] = "model"                          # kv heads
         elif _div(shape, 2, msize) and \
                 (positions or shape[1] // batch * shape[2]) % msize == 0:
-            out[2] = "model"                          # sequence (refused to run)
+            out[2] = "model"                          # sequence (round-robin pages)
         elif _div(shape, 4, msize):
             out[4] = "model"                          # head_dim fallback
     elif key == "ssm":
@@ -133,6 +144,40 @@ def cache_spec(key: str, shape: Tuple[int, ...], mesh, batch: int,
         if _div(shape, 3, msize):
             out[3] = "model"                          # conv channels
     return tuple(out)
+
+
+# ------------------------------------------------- the sequence-sharded KV pool
+# (the module docstring): page p of a row on model rank p mod m, local page
+# p div m. Each function takes ints or integer tensors alike.
+
+
+def seq_pages(pages: int, m: int) -> int:
+    """The pages a row of ``pages`` holds on each of ``m`` model ranks."""
+    return -(-pages // m)
+
+
+def seq_place(pos, m: int, page: int):
+    """``(owner, local_page, offset)`` of position ``pos`` of a row: the
+    model rank that holds it, its page in that rank's pages of the row, and
+    its place within the page."""
+    p = pos // page
+    return p % m, p // m, pos % page
+
+
+def seq_local_length(length, r: int, m: int, page: int):
+    """How many of a row's first ``length`` positions model rank ``r`` of
+    ``m`` holds: a prefix of its local pages, so this is also the length to
+    attend over in them."""
+    full = length // page
+    whole = (full - r + m - 1) // m            # full pages p < full with p % m == r
+    return page * whole + (full % m == r) * (length % page)
+
+
+def seq_positions(r: int, m: int, local_pages: int, page: int, device=None):
+    """The positions of model rank ``r``'s ``local_pages`` pages of a row,
+    in local order (a tensor of ``local_pages * page``)."""
+    j = torch.arange(local_pages * page, device=device)
+    return ((j // page) * m + r) * page + j % page
 
 
 # ------------------------------------------------------------------ trees

@@ -22,7 +22,13 @@ rank taking its rows of the batch. The train step averages the gradients
 over the batch axes, clips by the norm of the global tree and, with ZeRO-1,
 updates each data rank's block of every moment and all-gathers the
 parameters. It runs every family: a Mamba2 layer's rank holds whole heads
-(``params.ssm_layout``), B and C whole on every rank.
+(``params.ssm_layout``), B and C whole on every rank. Where the model axis
+splits the attention heads (``splits_heads``: the reference's production
+axis of 16 over 8 KV heads), the dense and VLM families' prefill and decode
+steps run the reference's placement: the projections cut mid-head, the KV
+pool sharded over the sequence in round-robin pages
+(``shardings.seq_place``), the decode's attention merged over the ranks by
+log-sum-exp (``models/layers.py``).
 
 One departure: the port's page pool keeps every position of a sequence,
 and a sliding window is a lower bound on what a query reads (ROADMAP.md,
@@ -205,19 +211,36 @@ def make_serve_step(cfg: ModelConfig):
 MESH_ARCHS = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
-def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
+def splits_heads(cfg: ModelConfig, m: int) -> bool:
+    """Whether a model axis of ``m`` splits ``cfg``'s attention heads: it
+    does not divide the KV heads (or the query heads), so that the
+    reference's placement cuts ``wq``/``wk``/``wv`` mid-head and shards the
+    KV cache over the sequence."""
+    return bool(cfg.n_heads) and bool(cfg.n_kv_heads % m or cfg.n_heads % m)
+
+
+def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int],
+                    kind: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` unless ``sharded_step`` can run ``cfg``
-    on a mesh of axis ``sizes``: a model whose heads, KV heads, ``d_ff``
-    and SSM heads the model axis divides (so that every rank holds whole
-    heads and the reference's sequence-sharded KV fallback never arises),
-    and, for MoE, its experts' ``d_ff`` (f-sharded experts: the reference's
-    expert-parallel fallback is not ported). The placement functions of
-    ``launch/shardings.py`` answer every case."""
+    on a mesh of axis ``sizes`` (for a step of ``kind``, where given): a
+    model whose heads, KV heads, ``d_ff`` and SSM heads the model axis
+    divides, so that every rank holds whole heads, and, for MoE, its
+    experts' ``d_ff`` (f-sharded experts: the reference's expert-parallel
+    fallback is not ported); or a dense or VLM model served (a prefill or
+    decode step) where the axis divides ``d_ff`` and the projections' widths
+    ``n_heads * head_dim`` and ``n_kv_heads * head_dim`` but not the KV
+    heads: the split-heads placement (``splits_heads``: ``wq``/``wk``/``wv``
+    cut on their columns mid-head as the reference cuts them, the KV pool
+    sharded over the sequence in round-robin pages). The placement
+    functions of ``launch/shardings.py`` answer every case."""
     m = sizes["model"]
     if cfg.arch_type not in MESH_ARCHS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type} family on a mesh is not ported "
             "(ROADMAP.md, Queue A item 8b-ii)")
+    if splits_heads(cfg, m):
+        _check_split_heads(cfg, m, kind)
+        return
     bad = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff", "n_ssm_heads")
            if getattr(cfg, k) % m}
     if bad:
@@ -232,15 +255,62 @@ def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
             "(ROADMAP.md, Queue A item 8b-ii)")
 
 
-def local_config(cfg: ModelConfig, sizes: Dict[str, int]) -> ModelConfig:
-    """The config of one rank's model on a mesh of axis ``sizes``: its shares
-    of the heads, the KV heads, ``d_ff`` and the experts' ``d_ff`` (the
-    shared experts' width with it), of the vocabulary where the model axis
-    divides it (``shardings.param_spec``'s rule), and of the SSM width and
-    heads (a ``RankConfig``: ``params.ssm_layout``)."""
-    check_mesh_runs(cfg, sizes)
+def _check_split_heads(cfg: ModelConfig, m: int, kind: Optional[str]) -> None:
+    """``check_mesh_runs`` where a model axis of ``m`` splits the heads."""
+    where = (f"{cfg.name}: a model axis of {m} splits its {cfg.n_heads} heads over "
+             f"{cfg.n_kv_heads} KV heads")
+    if cfg.arch_type == "audio":
+        raise NotImplementedError(
+            f"{where}; the audio family's cross pool of {cfg.enc_seq} encoder "
+            "positions takes the head_dim placement there, which is not ported "
+            "(ROADMAP.md, Queue A item 8b-ii, 4c)")
+    if cfg.arch_type not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"{where}; only the dense and VLM families run on split heads "
+            "(ROADMAP.md, Queue A item 8b-ii, 4c)")
+    if kind == "train":
+        raise NotImplementedError(
+            f"{where}; the train step on split heads is not ported "
+            "(ROADMAP.md, Queue A item 8b-ii, 4d)")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{where}; a sliding window on split heads is not ported "
+            "(ROADMAP.md, Queue A item 8b-ii, 4e)")
+    if cfg.n_kv_heads % m == 0:
+        raise NotImplementedError(
+            f"{where}; it divides the KV heads but not the heads, a placement "
+            "that is not ported (ROADMAP.md, Queue A item 8b-ii, 4a)")
+    D = cfg.resolved_head_dim
+    bad = {k: v for k, v in (("n_heads * head_dim", cfg.n_heads * D),
+                             ("n_kv_heads * head_dim", cfg.n_kv_heads * D),
+                             ("d_ff", cfg.d_ff)) if v % m}
+    if bad:
+        raise NotImplementedError(
+            f"{where} and does not divide {bad}, where the reference replicates "
+            "the projection; not ported (ROADMAP.md, Queue A item 8b-ii, 4a)")
+
+
+def local_config(cfg: ModelConfig, sizes: Dict[str, int],
+                 kind: Optional[str] = None) -> ModelConfig:
+    """The config of one rank's model on a mesh of axis ``sizes`` (for a
+    step of ``kind``, where given): its shares of the heads, the KV heads,
+    ``d_ff`` and the experts' ``d_ff`` (the shared experts' width with it),
+    of the vocabulary where the model axis divides it
+    (``shardings.param_spec``'s rule), and of the SSM width and heads (a
+    ``RankConfig``: ``params.ssm_layout``). Where the axis splits the heads
+    (``splits_heads``), a ``RankConfig`` that keeps the heads whole and
+    carries the rank's column counts of the projections and the KV pool's
+    sequence shards."""
+    check_mesh_runs(cfg, sizes, kind)
     m = sizes["model"]
     vocab = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
+    if splits_heads(cfg, m):
+        D = cfg.resolved_head_dim
+        local = cfg.with_(head_dim=D, d_ff=cfg.d_ff // m, vocab_size=vocab)
+        return RankConfig(**{f.name: getattr(local, f.name)
+                             for f in dataclasses.fields(local)},
+                          q_cols=cfg.n_heads * D // m, kv_cols=cfg.n_kv_heads * D // m,
+                          kv_shards=m)
     moe = dataclasses.replace(cfg.moe, d_ff=cfg.moe.d_ff // m) if cfg.is_moe else cfg.moe
     local = cfg.with_(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
                       head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
@@ -411,10 +481,18 @@ def sharded_step(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = Tru
     the parameters are all-gathered over ``data`` after the update. The
     decode step runs eagerly: a gloo collective cannot be captured in a
     CUDA graph. A model that ``check_mesh_runs`` refuses raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``.
+
+    Where the model axis splits the heads (``splits_heads``; a prefill or
+    decode step of a dense or VLM model), a rank holds the reference's
+    column blocks of ``wq``/``wk``/``wv`` and row block of ``wo``, gathers
+    q, k and v whole, and runs the prefill's attention over the heads its
+    ``wo`` rows overlap; its KV pool holds every KV head at its round-robin
+    pages of each row (``shardings.seq_place``), and a decode step merges
+    the ranks' partial attention by their log-sum-exp (``models/layers.py``)."""
     cfg = resolve_config(cfg, shape)
     sizes = mesh_axis_sizes(mesh)
-    lcfg = local_config(cfg, sizes)
+    lcfg = local_config(cfg, sizes, shape.kind)
     axis = runtime_flags.ModelAxis.of(mesh, cfg.vocab_size)
     if shape.kind == "train":
         fn = _sharded_train_step(cfg, lcfg, shape, mesh, remat=remat, zero_opt=zero_opt,

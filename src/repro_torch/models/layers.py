@@ -37,6 +37,21 @@ Conventions:
   encoder's K/V (``cross_attention_decode``); under a mesh each rank's pool
   holds its KV heads' rows, which its share of ``wk``/``wv`` projected from
   the whole encoder output, and ``wo`` sums over the model axis.
+- where the model axis splits the heads (a ``RankConfig`` with ``q_cols``:
+  ``launch.steps.splits_heads``), a rank holds the reference's column
+  blocks of ``wq``/``wk``/``wv``, cut mid-head where the axis does not
+  divide the heads, and the matching rows of ``wo``. It gathers q, k and v
+  whole (``gather_columns``: one ``all_gather`` of the three, float32 for
+  half precision, rounded once). A prefill runs ``ops.flash_prefill`` over the
+  query heads its ``wo`` rows overlap (``split_head_block``) and keeps its
+  own columns of their output. Its KV pool holds every KV head at its
+  round-robin pages of each row (``launch.shardings.seq_place``): a decode
+  step writes the new token's K/V on the rank that owns the position only,
+  runs ``ops.paged_attention`` over every head and the rank's positions
+  into a float32 partial with its log-sum-exp, and the ranks merge the
+  partials (``merge_model_axis``: one ``all_gather`` of each rank's
+  partial and log-sum-exp, weighed by ``exp(lse - max lse)`` on every
+  rank), rounded once.
 """
 from __future__ import annotations
 
@@ -49,6 +64,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import shardings as sh
 from repro_torch.models import runtime_flags
 
 Params = Dict[str, Any]
@@ -58,11 +74,12 @@ Params = Dict[str, Any]
 
 def _dense_init(gen: torch.Generator, shape, dtype, device,
                 scale: Optional[float] = None) -> torch.Tensor:
-    """Normal(0, scale) drawn in float32 on ``device`` and cast to ``dtype``."""
+    """Normal(0, scale) drawn in float32 on ``device`` and cast to ``dtype``;
+    scaled in place, so a draw holds one float32 copy at a time."""
     fan_in = shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def stack_into(stacked: Params, layer: Params, index: int, n_layers: int) -> None:
@@ -241,6 +258,92 @@ def mean_over_batch_axes(x: torch.Tensor) -> torch.Tensor:
     return _ReduceForward.apply(x, axes.groups, 1.0 / axes.size)
 
 
+# ---------------------------------------------------------------- split heads
+
+
+def split_heads(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` is a rank's config whose model axis splits the heads
+    (``launch.steps.local_config``; the module docstring)."""
+    return bool(getattr(cfg, "q_cols", 0))
+
+
+def seq_rank(cfg: ModelConfig) -> Tuple[int, int]:
+    """``(r, m)``: this rank's coordinate on the ambient model axis and the
+    number of ranks a split-heads config's KV pool is sharded over."""
+    axis = runtime_flags.get_mesh()
+    if axis is None or axis.size != cfg.kv_shards:
+        raise RuntimeError(f"{cfg.name}: a rank's config of split heads runs only "
+                           f"inside a sharded step on a model axis of {cfg.kv_shards}")
+    return axis.rank, axis.size
+
+
+def gather_columns(x: torch.Tensor, *ws: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``x @ W`` whole for each ``W`` of which each rank of the ambient model
+    axis holds its block ``w`` of columns in rank order: the rank's
+    products, packed side by side and gathered over the axis in one
+    ``all_gather``. A half-precision product is gathered in float32 and
+    rounded once, as the unsharded product rounds its float32 sum once.
+    Serving only: no gradient flows through the gather."""
+    axis = runtime_flags.get_mesh()
+    wide = x.dtype in (torch.float32, torch.float64)
+    part = torch.cat([x @ w if wide else _matmul_float32(x, w) for w in ws], -1)
+    parts = [torch.empty_like(part) for _ in range(axis.size)]
+    dist.all_gather(parts, part.contiguous(), group=axis.group)
+    widths = [w.shape[-1] for w in ws]
+    return tuple(torch.cat(cols, -1).to(x.dtype) for cols in
+                 zip(*(p.split(widths, -1) for p in parts)))
+
+
+def split_head_block(cfg: ModelConfig, r: int) -> Tuple[int, int, int]:
+    """``(h0, h1, offset)``: the query heads ``[h0, h1)`` whose columns rank
+    ``r``'s block of ``wo`` rows (``q_cols`` of them) overlaps, and where that
+    block starts in their flattened output."""
+    D = cfg.resolved_head_dim
+    c0 = r * cfg.q_cols
+    h0 = c0 // D
+    return h0, -(-(c0 + cfg.q_cols) // D), c0 - h0 * D
+
+
+def kv_heads_of(cfg: ModelConfig, h0: int, h1: int):
+    """The KV heads that query heads ``[h0, h1)`` read, as the kernels' GQA
+    takes them: ``slice(kv0, kv1)`` where the block's heads keep a grouping
+    of their own (each run of ``(h1 - h0) / (kv1 - kv0)`` consecutive heads on
+    one KV head), else each head's KV head, one a head (group 1)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv = [h // group for h in range(h0, h1)]
+    kv0, kv1 = kv[0], kv[-1] + 1
+    n, nkv = h1 - h0, kv1 - kv0
+    if n % nkv == 0 and all(k - kv0 == j // (n // nkv) for j, k in enumerate(kv)):
+        return slice(kv0, kv1)
+    return kv
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over every rank's positions from the ranks' partials
+    stacked on the first axis: each ``o`` normalized over its rank's own
+    positions, ``lse`` its log-sum-exp (``o``'s shape without its last
+    axis; ``-inf`` where the rank holds none): ``sum_r w_r o_r / sum_r w_r``
+    with ``w_r = exp(lse_r - max_r lse_r)``, summed in rank order. A row
+    that no rank holds a position of gives zeros."""
+    top = lse.amax(0)
+    w = torch.exp(lse - torch.where(torch.isfinite(top), top, torch.zeros_like(top)))
+    return (o * w[..., None]).sum(0) / w.sum(0).clamp_min(1e-30)[..., None]
+
+
+def merge_model_axis(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """``merge_partials`` over the ranks of the ambient model axis: each
+    rank's partial ``o`` (float32) and its log-sum-exp ``lse``, packed and
+    gathered in one ``all_gather``, merged alike on every rank. Float32,
+    unrounded."""
+    axis = runtime_flags.get_mesh()
+    part = torch.cat([o.reshape(-1), lse.reshape(-1)])
+    parts = [torch.empty_like(part) for _ in range(axis.size)]
+    dist.all_gather(parts, part, group=axis.group)
+    every = torch.stack(parts)
+    return merge_partials(every[:, :o.numel()].view(-1, *o.shape),
+                          every[:, o.numel():].view(-1, *lse.shape))
+
+
 # ---------------------------------------------------------------- RoPE
 
 
@@ -273,11 +376,14 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device,
                    d_model: Optional[int] = None) -> Params:
     d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
+    # a rank of split heads: its column blocks (the module docstring)
+    cq = cfg.q_cols if split_heads(cfg) else cfg.n_heads * hd
+    ckv = cfg.kv_cols if split_heads(cfg) else cfg.n_kv_heads * hd
     return {
-        "wq": _dense_init(gen, (d, cfg.n_heads * hd), dtype, device),
-        "wk": _dense_init(gen, (d, cfg.n_kv_heads * hd), dtype, device),
-        "wv": _dense_init(gen, (d, cfg.n_kv_heads * hd), dtype, device),
-        "wo": _dense_init(gen, (cfg.n_heads * hd, d), dtype, device),
+        "wq": _dense_init(gen, (d, cq), dtype, device),
+        "wk": _dense_init(gen, (d, ckv), dtype, device),
+        "wv": _dense_init(gen, (d, ckv), dtype, device),
+        "wo": _dense_init(gen, (cq, d), dtype, device),
     }
 
 
@@ -310,9 +416,14 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     x = copy_to_model_axis(x)
     src = x if kv_x is None else copy_to_model_axis(kv_x)
     past_len = past_kv[0].shape[1] if past_kv is not None else 0
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (src @ p["wk"]).reshape(B, src.shape[1], Hkv, hd)
-    v = (src @ p["wv"]).reshape(B, src.shape[1], Hkv, hd)
+    split = split_heads(cfg)
+    if split:    # a self-attention's q, k and v in one gather
+        q, k, v = gather_columns(x, p["wq"], p["wk"], p["wv"])
+    else:
+        q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, src.shape[1], Hkv, hd)
+    v = v.reshape(B, src.shape[1], Hkv, hd)
     if use_rope and kv_x is None:
         if positions is None:
             positions = (past_len + torch.arange(S, device=x.device))[None, :] \
@@ -324,13 +435,21 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     if past_kv is not None:
         k = torch.cat([past_kv[0].to(k.dtype), k], dim=1)
         v = torch.cat([past_kv[1].to(v.dtype), v], dim=1)
+    offset = 0
+    if split:   # the heads this rank's rows of wo overlap, and their KV heads
+        h0, h1, offset = split_head_block(cfg, seq_rank(cfg)[0])
+        kv = kv_heads_of(cfg, h0, h1)
+        q, k, v = q[:, :, h0:h1], k[:, :, kv], v[:, :, kv]
     # (B,S,H,D) -> the kernel's (B,H,S,D) as strided views, no copy; as in
     # the reference, a cross-attention is never masked
     o = ops.flash_prefill(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal and kv_x is None,
                           q_offset=past_len,
                           window=cfg.sliding_window, prefix_len=prefix_len)
-    out = row_parallel(o.transpose(1, 2).reshape(B, S, H * hd), p["wo"])
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    if split:
+        o = o[..., offset:offset + cfg.q_cols]
+    out = row_parallel(o, p["wo"])
     if return_kv:
         return out, new_k, new_v   # new tokens only (past excluded)
     return out
@@ -343,11 +462,15 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, n_layers: int,
     ``k``/``v`` are (n_layers, num_pages, page, Hkv, D) with
     ``num_pages = batch * ceil(cache_len / page)``. Row ``i`` of
     ``block_tables`` (batch, pages_per_seq) int32 owns the fixed page range
-    ``[i * pages_per_seq, (i + 1) * pages_per_seq)``.
+    ``[i * pages_per_seq, (i + 1) * pages_per_seq)``. A rank of split heads
+    holds every KV head at its share of each row's pages
+    (``shardings.seq_pages``: round-robin pages).
     """
     hd = cfg.resolved_head_dim
     page_size = ops.DEFAULT_PAGE_SIZE
     pages_per_seq = -(-cache_len // page_size)
+    if split_heads(cfg):
+        pages_per_seq = sh.seq_pages(pages_per_seq, cfg.kv_shards)
     shape = (n_layers, batch * pages_per_seq, page_size, cfg.n_kv_heads, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -371,24 +494,36 @@ def decode_plan(cfg: ModelConfig, block_tables: torch.Tensor, pos: torch.Tensor,
     new token; active (B,) bool or None (all rows hold a sequence). An
     inactive row gets length 0 and position 0, so its indices stay in range
     whatever its stale ``pos`` is.
+
+    A rank of split heads holds its round-robin pages of each row
+    (``shardings.seq_place``): the page and offset are the new token's place
+    in them, ``keep`` lets only the rank that owns the position write it,
+    and the lengths are the rank's positions up to the new token's
+    (``shardings.seq_local_length``).
     """
     pos = pos.long()
     if active is not None:
         pos = pos * active
     cos, sin = rope_angles(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     lengths = pos + 1
+    page_ids, offsets = pos // page, pos % page
+    keep = active
+    if split_heads(cfg):
+        r, m = seq_rank(cfg)
+        owner, page_ids, offsets = sh.seq_place(pos, m, page)
+        lengths = sh.seq_local_length(lengths, r, m, page)
+        keep = owner == r if keep is None else keep & (owner == r)
     if active is not None:
         lengths = lengths * active
     window = cfg.sliding_window
     return {
-        "page_ids": torch.gather(block_tables.long(), 1,
-                                 (pos // page)[:, None])[:, 0],
-        "offsets": pos % page,
+        "page_ids": torch.gather(block_tables.long(), 1, page_ids[:, None])[:, 0],
+        "offsets": offsets,
         "lengths": lengths.to(torch.int32),
         "starts": (pos + 1 - window).clamp_min(0).to(torch.int32) if window > 0
         else None,
         "cos": cos, "sin": sin,
-        "keep": None if active is None else active[:, None, None],
+        "keep": None if keep is None else keep[:, None, None],
     }
 
 
@@ -421,9 +556,14 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     page = k_pool.shape[1]
     if plan is None:
         plan = decode_plan(cfg, block_tables, pos, active, page)
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
-    k = (x @ p["wk"]).reshape(B, 1, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, 1, Hkv, hd)
+    split = split_heads(cfg)
+    if split:
+        q, k, v = gather_columns(x, p["wq"], p["wk"], p["wv"])
+    else:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = q.reshape(B, 1, H, hd)
+    k = k.reshape(B, 1, Hkv, hd)
+    v = v.reshape(B, 1, Hkv, hd)
     if use_rope:
         q = apply_rope(q, plan["cos"], plan["sin"])
         k = apply_rope(k, plan["cos"], plan["sin"])
@@ -436,9 +576,15 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
         v_new = torch.where(plan["keep"], v_new, v_pool[where])
     k_pool[where] = k_new
     v_pool[where] = v_new
-    o = ops.paged_attention(q.reshape(B, Hkv, H // Hkv, hd), k_pool, v_pool,
-                            block_tables, plan["lengths"], page_size=page,
-                            starts=plan["starts"])
+    q = q.reshape(B, Hkv, H // Hkv, hd)
+    if split:   # every head over this rank's positions, merged over the ranks
+        o, lse = ops.paged_attention(q, k_pool, v_pool, block_tables, plan["lengths"],
+                                     page_size=page, return_lse=True)
+        o = merge_model_axis(o, lse).to(x.dtype).reshape(B, 1, H * hd)
+        r = seq_rank(cfg)[0]
+        return row_parallel(o[..., r * cfg.q_cols:(r + 1) * cfg.q_cols], p["wo"])
+    o = ops.paged_attention(q, k_pool, v_pool, block_tables, plan["lengths"],
+                            page_size=page, starts=plan["starts"])
     return row_parallel(o.reshape(B, 1, H * hd), p["wo"])
 
 

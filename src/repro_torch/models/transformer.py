@@ -26,6 +26,10 @@ Two cache formats:
   (B, pages_per_seq)`` int32 in which row ``i`` owns the fixed page range
   ``[i * pages_per_seq, (i + 1) * pages_per_seq)``, and ``"pos": (B,)``.
   ``prefill(cache_len=n)`` returns this format, ready for ``decode_step``.
+  A mesh rank of split heads (``layers.split_heads``) holds its round-robin
+  pages of each row (``launch.shardings.seq_place``), every KV head whole:
+  its valid positions are a prefix of its pages, so ``write_slot`` and
+  ``read_slot`` copy a row's pages in order between two such pools.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models.layers import layer_params, stack_into
 from repro_torch.models.moe import init_moe, moe_forward, moe_forward_batched
@@ -246,9 +251,16 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if cache_len is None:
         return logits, {"k": ks, "v": vs, "pos": pos}
     cache = init_cache(cfg, B, cache_len, dtype, x.device)
+    held = slice(None)            # the positions this rank's pool holds, in order
+    if L.split_heads(cfg):        # its round-robin pages (shardings.seq_place)
+        r, m = L.seq_rank(cfg)
+        page = cache["k"].shape[2]
+        where = sh.seq_positions(r, m, cache["block_tables"].shape[1], page, x.device)
+        held = where[:sh.seq_local_length(full_len, r, m, page)]
     for b in range(B):
-        cache_rows(cache, "k", b)[:, :full_len] = ks[:, b]
-        cache_rows(cache, "v", b)[:, :full_len] = vs[:, b]
+        for key, t in (("k", ks), ("v", vs)):
+            rows = t[:, b, held]
+            cache_rows(cache, key, b)[:, :rows.shape[1]] = rows
     cache["pos"] = pos
     return logits, cache
 

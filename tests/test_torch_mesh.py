@@ -10,7 +10,8 @@ store under the test's ``tmp_path`` (no port to clash between the test
 workers), and every wait has a timeout. llama-70b's smoke config runs on
 1 x 2 and 2 x 2; on 1 x 4 with 8 heads and 4 KV heads, so that the model
 axis divides them; internvl2-2b's (16 vision embeddings in front of the
-prompt) on 2 x 2. The MoE family's runs are
+prompt) on 2 x 2. A model axis that splits the heads is
+``tests/test_torch_mesh_split_heads.py``'s. The MoE family's runs are
 ``tests/test_torch_mesh_moe.py``'s, the ssm, hybrid and audio families'
 ``tests/test_torch_mesh_ssm.py``'s."""
 import dataclasses
@@ -209,12 +210,21 @@ def check_sharded_serving(tmp_path, arch, data_axis, model_axis, *, batch=B,
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_a_model_axis_that_does_not_divide_the_kv_heads_raises(kind):
-    """llama-70b's smoke config has 2 KV heads: a model axis of 4 would split
-    them (the reference's sequence-sharded fallback), which no rank runs."""
+def test_a_model_axis_that_does_not_divide_the_kv_heads_runs(kind):
+    """llama-70b's smoke config has 2 KV heads: a model axis of 4 splits
+    them, the reference's sequence-sharded placement, which the sharded
+    prefill and decode steps now run (tests/test_torch_mesh_split_heads.py
+    holds them to the reference): a rank keeps the heads whole, holds 32
+    columns of ``wq`` (one head of 32) and 16 of ``wk`` / ``wv`` (half a KV
+    head), and every KV head at a quarter of each row's pages."""
     cfg = get_smoke_config("llama-70b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.sharded_step(cfg, InputShape("s", 32, 4, kind), MeshShape((1, 4), ("data", "model")))
+    sizes = {"data": 1, "model": 4}
+    steps.check_mesh_runs(cfg, sizes, kind)
+    lcfg = steps.local_config(cfg, sizes, kind)
+    assert (lcfg.n_heads, lcfg.n_kv_heads) == (4, 2)
+    assert (lcfg.q_cols, lcfg.kv_cols, lcfg.kv_shards) == (32, 16, 4)
+    cache = Model(lcfg).init_cache(4, 32 * 16, dtype=torch.float32, device="meta")
+    assert tuple(cache["k"].shape) == (2, 4 * 8, 16, 2, 32)
 
 
 def test_the_sharded_train_step_raises():

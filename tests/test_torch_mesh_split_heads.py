@@ -1,0 +1,504 @@
+"""The sharded prefill and decode steps where the model axis splits the
+attention heads (``launch.steps.splits_heads``): the reference's placement,
+``wq``/``wk``/``wv`` cut on their columns mid-head and ``wo`` on its rows,
+with the KV pool sharded over the sequence in round-robin pages
+(``launch.shardings.seq_place``), in gloo processes on the CPU against the
+reference's unsharded ``Model.prefill`` / ``decode_step`` and the port's
+unsharded steps on the same parameters, float32.
+
+The prompts are ragged and each is prefilled alone and written into its
+slot of the decode pool (``Model.write_slot``), as an engine admits them,
+so a rank's pages of a row are copied from one pool into another; one
+prompt is shorter than a page, so that every rank but the first holds none
+of it and gives the merge an empty partial. llama-70b's smoke config (4
+heads over 2 KV heads of 32) on 1 x 4 splits the KV heads and keeps the
+query heads whole; yi-34b's (7 heads over 1 KV head) on 1 x 2, 1 x 4 and
+2 x 2 cuts the query heads mid-head (3.5 and 1.75 a rank); internvl2-2b's
+on 1 x 4 carries its 16 vision positions, a bidirectional prefix, in
+front of each prompt; 9 heads over 3 KV heads on 1 x 2 give rank 0 4.5
+heads that straddle two KV heads' groups. Without processes: the round-robin map against a
+brute-force count, the kernel's plain partial with its log-sum-exp over a
+rank's pages merged over the ranks against the whole pool's attention, the
+query heads a rank's ``wo`` rows overlap, and the refusals. Each rank is a
+``python -c`` process meeting the others at a ``file://`` store under
+``tmp_path``; every wait has a timeout."""
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models import Model as RefModel
+from repro_torch import params as port_params
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import InputShape
+from repro_torch.kernels.paged_attention import (paged_attention_plain,
+                                                 paged_attention_split_plain)
+from repro_torch.launch import shardings as sh
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models import Model, layers
+from repro_torch.models.transformer import cache_rows
+
+# the test workers share the host's cores: cap each one's intra-op threads
+torch.set_num_threads(2)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+# each prompt's tokens; the second is shorter than one page of 16
+LENGTHS = (24, 5, 40, 17)
+DECODE_STEPS = 4
+# against the reference: tests/test_torch_model.py's float32 tolerance;
+# against the port's unsharded steps, tighter: the same plain versions, the
+# partial sums and the softmax's pieces added in another order
+REF_TOL = 2e-4
+PORT_TOL = 2e-5
+RANK_TIMEOUT_S = 180
+
+# one rank: the carried-over parameters cut to its shards, each of its rows'
+# prompts prefilled alone and written into its slot, then DECODE_STEPS
+# decode steps over the global batch fed the reference's greedy tokens;
+# writes its rows' logits
+RANK = r"""
+import datetime, json, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch import params as P
+from repro_torch.configs.base import InputShape, ModelConfig, SSMConfig
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+from repro_torch.models import Model
+from repro_torch.models.transformer import cache_rows
+
+rank, world, model_axis, work = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=world,
+                        rank=rank, timeout=datetime.timedelta(seconds=120))
+spec = json.load(open(f"{work}/spec.json"))
+spec["cfg"]["ssm"] = SSMConfig(**spec["cfg"]["ssm"])
+cfg = ModelConfig(**spec["cfg"])
+data = np.load(f"{work}/inputs.npz")
+tree = {}
+for key in data.files:
+    if key.startswith("param/"):
+        node = tree
+        *path, leaf = key.split("/")[1:]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = data[key]
+mesh = make_local_mesh(model_axis, backend="cpu")
+params = P.shard_params(P.from_reference(tree, cfg, device="cpu"), mesh, mesh_coords(mesh))
+lengths, cap, n_vis = spec["lengths"], spec["cap"], spec["n_vis"]
+B = len(lengths)
+rows = steps.batch_rows(mesh, B)
+lcfg = steps.local_config(cfg, mesh_axis_sizes(mesh), "decode")
+pool = Model(lcfg).init_cache(rows.stop - rows.start, cap, dtype=torch.float32, device="cpu")
+out = {}
+logits = []
+for i in range(rows.start, rows.stop):
+    n = lengths[i]
+    prefill, _ = steps.sharded_step(cfg, InputShape(f"p{i}", n, 1, "prefill"), mesh)
+    batch = {"tokens": torch.from_numpy(data[f"tokens{i}"]).long()}
+    if f"vision{i}" in data.files:
+        batch["vision"] = torch.from_numpy(data[f"vision{i}"])
+    lg, one = prefill(params, batch)
+    Model(lcfg).write_slot(pool, i - rows.start,
+                           {k: cache_rows(one, k, 0)[:, None, :n + n_vis] for k in ("k", "v")})
+    pool["pos"][i - rows.start] = n + n_vis
+    logits.append(lg)
+out["prefill"] = torch.cat(logits).numpy()
+decode, _ = steps.sharded_step(cfg, InputShape("d", cap, B, "decode"), mesh)
+for j, tok in enumerate(data["feed"]):
+    lg, pool = decode(params, torch.from_numpy(tok).long()[:, None], pool)
+    out[f"decode{j}"] = lg.numpy()
+np.savez(f"{work}/rank{rank}.npz", rows=np.array([rows.start, rows.stop]), **out)
+dist.destroy_process_group()
+"""
+
+
+def _flat(tree, prefix="param"):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", np.asarray(v)
+
+
+def _prompts(cfg):
+    rng = np.random.default_rng(0)
+    out = []
+    for n in LENGTHS:
+        p = {"tokens": rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)}
+        if cfg.arch_type == "vlm":
+            p["vision"] = rng.standard_normal((1, cfg.n_vision_tokens, cfg.d_model),
+                                              dtype=np.float32)
+        out.append(p)
+    return out
+
+
+def _cap(cfg) -> int:
+    return max(LENGTHS) + cfg.n_vision_tokens + DECODE_STEPS + 8
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded(arch, overrides=()):
+    """The reference, each prompt alone and greedy (its tokens are what
+    every run is fed), and the port unsharded through the same slots as the
+    ranks: ``(ref_params as numpy, prompts, feed, ref logits, port logits)``,
+    each logits a list of (B, V) by step."""
+    rcfg = ref_smoke_config(arch).with_(dtype="float32", **dict(overrides))
+    cfg = get_smoke_config(arch).with_(dtype="float32", **dict(overrides))
+    ref_model = RefModel(rcfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0), dtype=jnp.float32)
+    as_numpy = jax.tree.map(np.asarray, ref_params)
+    prompts, cap = _prompts(cfg), _cap(cfg)
+    ref_rows, feed_rows = [], []
+    for p in prompts:
+        want, rcache = ref_model.prefill(ref_params, jax.tree.map(jnp.asarray, p),
+                                         cache_len=cap, dtype=jnp.float32)
+        steps_, toks = [np.asarray(want)[0]], []
+        for _ in range(DECODE_STEPS):
+            tok = np.array(jnp.argmax(want, -1), np.int32)
+            toks.append(tok[0])
+            want, rcache = ref_model.decode_step(ref_params, jnp.asarray(tok)[:, None], rcache)
+            steps_.append(np.asarray(want)[0])
+        ref_rows.append(steps_)
+        feed_rows.append(toks)
+    ref_logits = [np.stack([r[i] for r in ref_rows]) for i in range(DECODE_STEPS + 1)]
+    feed = np.array(feed_rows, np.int32).T          # (steps, B)
+
+    params = port_params.from_reference(as_numpy, cfg, device="cpu")
+    model = Model(cfg)
+    pool = model.init_cache(len(LENGTHS), cap, dtype=torch.float32, device="cpu")
+    n_vis = cfg.n_vision_tokens
+    logits = []
+    for i, (n, p) in enumerate(zip(LENGTHS, prompts)):
+        batch = {k: torch.from_numpy(v) for k, v in p.items()}
+        batch["tokens"] = batch["tokens"].long()
+        lg, one = model.prefill(params, batch, cache_len=n + n_vis, dtype=torch.float32)
+        model.write_slot(pool, i, {k: cache_rows(one, k, 0)[:, None, :n + n_vis]
+                                   for k in ("k", "v")})
+        pool["pos"][i] = n + n_vis
+        logits.append(lg)
+    port_logits = [torch.cat(logits).numpy()]
+    for tok in feed:
+        lg, pool = model.decode_step(params, torch.from_numpy(tok).long()[:, None], pool)
+        port_logits.append(lg.numpy())
+    return as_numpy, prompts, feed, ref_logits, port_logits
+
+
+def _run_ranks(work, world, model_axis):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", RANK, str(r), str(world),
+                               str(model_axis), str(work)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            results.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rc, err in results:
+        assert rc == 0, err[-3000:]
+    return [np.load(work / f"rank{r}.npz") for r in range(world)]
+
+
+# 9 heads over 3 KV heads (group 3) of 32 on 1 x 2: rank 0's 4.5 heads of
+# columns straddle KV heads 0 and 1, which the prefill reads one a head
+STRADDLE = (("n_heads", 9), ("n_kv_heads", 3), ("d_model", 288))
+
+
+@pytest.mark.parametrize("arch,data_axis,model_axis,overrides",
+                         [("llama-70b", 1, 4, ()), ("yi-34b", 1, 2, ()), ("yi-34b", 1, 4, ()),
+                          ("yi-34b", 2, 2, ()), ("internvl2-2b", 1, 4, ()),
+                          ("llama-70b", 1, 2, STRADDLE)],
+                         ids=["llama-70b-1x4", "yi-34b-1x2", "yi-34b-1x4", "yi-34b-2x2",
+                              "internvl2-2b-1x4", "straddle-1x2"])
+def test_split_heads_prefill_and_decode_match_the_reference(tmp_path, arch, data_axis,
+                                                            model_axis, overrides):
+    cfg = get_smoke_config(arch).with_(dtype="float32", **dict(overrides))
+    assert steps.splits_heads(cfg, model_axis)
+    as_numpy, prompts, feed, ref_logits, port_logits = _unsharded(arch, overrides)
+    inputs = {"feed": feed, **dict(_flat(as_numpy))}
+    for i, p in enumerate(prompts):
+        inputs.update({f"{k}{i}": v for k, v in p.items()})
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    config = {k: v for k, v in cfg.__dict__.items() if k not in ("moe", "ssm")}
+    config["ssm"] = cfg.ssm.__dict__
+    (tmp_path / "spec.json").write_text(json.dumps(
+        {"cfg": config, "lengths": list(LENGTHS), "cap": _cap(cfg),
+         "n_vis": cfg.n_vision_tokens}))
+    ranks = _run_ranks(tmp_path, data_axis * model_axis, model_axis)
+
+    covered = set()
+    for out in ranks:
+        lo, hi = out["rows"]
+        covered.update(range(lo, hi))
+        for i, key in enumerate(["prefill"] + [f"decode{j}" for j in range(DECODE_STEPS)]):
+            np.testing.assert_allclose(out[key], ref_logits[i][lo:hi], atol=REF_TOL,
+                                       rtol=REF_TOL, err_msg=f"{key} vs the reference")
+            np.testing.assert_allclose(out[key], port_logits[i][lo:hi], atol=PORT_TOL,
+                                       rtol=PORT_TOL, err_msg=f"{key} vs the port")
+    assert covered == set(range(len(LENGTHS)))
+
+
+# ------------------------------------------------------------ no processes
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 16])
+def test_the_round_robin_map_counts_each_ranks_positions(m):
+    """``seq_local_length`` against a count of the positions below the
+    length among ``seq_positions``; they form a prefix of the rank's pages,
+    ``seq_place`` puts each position where ``seq_positions`` lists it, and
+    each position lies on exactly one rank."""
+    page = 16
+    for length in range(0, 16 * 3 * m + 20):
+        pages = sh.seq_pages(max(-(-length // page), 1), m)
+        owners = []
+        for r in range(m):
+            pos = sh.seq_positions(r, m, pages, page)
+            held = (pos < length).tolist()
+            n = sum(held)
+            assert sh.seq_local_length(length, r, m, page) == n
+            assert all(held[:n]) and not any(held[n:])
+            owners += pos[:n].tolist()
+            for j, p in enumerate(pos[:n].tolist()):
+                owner, local_page, offset = sh.seq_place(p, m, page)
+                assert (owner, local_page * page + offset) == (r, j)
+        assert sorted(owners) == list(range(length))
+    lengths = torch.arange(0, 200)
+    for r in range(m):
+        assert torch.equal(sh.seq_local_length(lengths, r, m, page),
+                           torch.tensor([sh.seq_local_length(n, r, m, page)
+                                         for n in range(200)]))
+
+
+@pytest.mark.parametrize("m", [2, 4, 5])
+@pytest.mark.parametrize("plain", [paged_attention_plain, paged_attention_split_plain],
+                         ids=["plain", "split_plain"])
+def test_partials_over_the_ranks_pages_merge_to_the_whole_pools_attention(m, plain):
+    """A pool of 4 rows (one of them empty, one shorter than a page), cut
+    into each rank's round-robin pages; each rank's float32 partial and
+    log-sum-exp over its pages (``return_lse``) merged over the ranks
+    (``layers.merge_partials``, what ``merge_model_axis`` runs on the
+    gathered partials) give
+    ``paged_attention_plain`` over the whole pool, within 1e-6. The rows
+    reach 3 pages, so on 4 and 5 ranks a rank holds no position of any row:
+    its log-sum-exp is -inf and its output 0, and the merge takes it
+    without NaN. The log-sum-exp of the
+    whole pool is held to a direct computation."""
+    gen = torch.Generator().manual_seed(3)
+    B, n_kv, group, D, page, pps = 4, 2, 4, 32, 16, 5
+    lengths = torch.tensor([40, 0, 5, 33], dtype=torch.int32)
+    q = torch.randn((B, n_kv, group, D), generator=gen)
+    k = torch.randn((B * pps, page, n_kv, D), generator=gen)
+    v = torch.randn((B * pps, page, n_kv, D), generator=gen)
+    bt = torch.arange(B * pps, dtype=torch.int32).reshape(B, pps)
+    want = paged_attention_plain(q, k, v, bt, lengths)
+    o_all, lse_all = plain(q, k, v, bt, lengths, return_lse=True)
+    assert o_all.dtype == lse_all.dtype == torch.float32
+    torch.testing.assert_close(o_all, want, atol=1e-6, rtol=1e-6)
+    kf = k[bt.long()].reshape(B, pps * page, n_kv, D)
+    s = torch.einsum("bkgd,bskd->bkgs", q, kf) / D ** 0.5
+    s = s.masked_fill(torch.arange(pps * page)[None, None, None] >=
+                      lengths[:, None, None, None], float("-inf"))
+    torch.testing.assert_close(lse_all, torch.logsumexp(s, -1), atol=1e-6, rtol=1e-6)
+    assert torch.isneginf(lse_all[1]).all() and (o_all[1] == 0).all()
+
+    local = sh.seq_pages(pps, m)
+    parts, empty = [], 0
+    for r in range(m):
+        pos = sh.seq_positions(r, m, local, page)
+        held = (pos < pps * page)
+        rk, rv = torch.zeros((B * local * page, n_kv, D)), torch.zeros((B * local * page, n_kv, D))
+        for b in range(B):
+            rows = k.reshape(B, pps * page, n_kv, D)[b]
+            rk[b * local * page:(b + 1) * local * page][held] = rows[pos[held]]
+            rows = v.reshape(B, pps * page, n_kv, D)[b]
+            rv[b * local * page:(b + 1) * local * page][held] = rows[pos[held]]
+        mine = sh.seq_local_length(lengths.long(), r, m, page).to(torch.int32)
+        empty += int((mine == 0).all())
+        rbt = torch.arange(B * local, dtype=torch.int32).reshape(B, local)
+        parts.append(plain(q, rk.reshape(B * local, page, n_kv, D),
+                           rv.reshape(B * local, page, n_kv, D), rbt, mine,
+                           return_lse=True))
+    got = layers.merge_partials(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts]))
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    assert empty == max(0, m - 3)    # the rows reach 3 pages
+
+
+MERGE_RANK = r"""
+import datetime, sys
+import torch, torch.distributed as dist
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import on_model_axis
+from repro_torch.models import layers, runtime_flags
+
+rank, work = int(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_local_mesh(2, backend="cpu")
+# rank r's partial of two query rows (D 1); rank 1 holds nothing of the second
+o = torch.tensor([[[1 + 2 ** -8 - 2 ** -15], [1.0]], [[1 + 2 ** -8 + 2 ** -14], [0.0]]])[rank]
+lse = torch.tensor([[0.0, 0.0], [0.0, float("-inf")]])[rank]
+with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
+    got = layers.merge_model_axis(o, lse)
+print(repr([float(x) for x in got.to(torch.bfloat16).float().reshape(-1)]))
+dist.destroy_process_group()
+"""
+
+
+def test_a_bf16_merge_over_the_ranks_rounds_once(tmp_path):
+    """Two ranks' partials of one query row, of equal weight: rank 0's 1 +
+    2^-8 - 2^-15 lies under half a bf16 unit above 1, rank 1's 1 + 2^-8 +
+    2^-14 over it. Their float32 mean 1 + 2^-8 + 2^-15 rounds once to 1 +
+    2^-7, as the unsharded attention rounds its float32 output once; the
+    partials rounded to bf16 first (1 and 1 + 2^-7) would give a mean of 1 +
+    2^-8, which rounds to 1. ``merge_model_axis`` keeps them in float32. A
+    second row that only rank 0 holds (rank 1's log-sum-exp -inf, its
+    output 0) takes rank 0's value whole."""
+    a, b = 1 + 2 ** -8 - 2 ** -15, 1 + 2 ** -8 + 2 ** -14
+    exact = torch.tensor([(a + b) / 2]).to(torch.bfloat16)
+    rounded = (torch.tensor([a]).to(torch.bfloat16).float() +
+               torch.tensor([b]).to(torch.bfloat16).float()) / 2
+    assert float(exact) == 1 + 2 ** -7 and float(rounded.to(torch.bfloat16)) == 1.0
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", MERGE_RANK, str(r), str(tmp_path)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=RANK_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err[-3000:]
+        assert out.strip().splitlines()[-1] == repr([1 + 2 ** -7, 1.0])
+
+
+@pytest.mark.parametrize("arch,m,want", [
+    ("llama-70b", 16, [(4 * r, 4 * r + 4, 0) for r in range(16)]),
+    ("yi-34b", 16, [(7 * r // 2, -(-(7 * r + 7) // 2), 64 * (r % 2)) for r in range(16)]),
+    ("yi-34b", 32, None)])
+def test_the_heads_a_ranks_rows_of_wo_overlap(arch, m, want):
+    """``split_head_block`` on the full configs: llama-70b's 4 heads a rank on
+    16 (one KV head of group 8, taken as group 4), yi-34b's 3.5 (4 heads
+    that cover them, from the middle of a head on odd ranks) and on 32 its
+    1.75; each block's columns are the rank's ``q_cols`` within its heads,
+    and every head's KV head is the one ``kv_heads_of`` gives it, a slice
+    where the block keeps a grouping, each head's own where it straddles a
+    group's edge."""
+    cfg = get_config(arch)
+    lcfg = steps.local_config(cfg, {"data": 1, "model": m}, "decode")
+    D, group = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    blocks = [layers.split_head_block(lcfg, r) for r in range(m)]
+    if want is not None:
+        assert blocks == want
+    for r, (h0, h1, off) in enumerate(blocks):
+        assert h0 * D + off == r * lcfg.q_cols
+        assert off + lcfg.q_cols <= (h1 - h0) * D
+        kv = layers.kv_heads_of(lcfg, h0, h1)
+        heads = list(range(cfg.n_kv_heads))
+        taken = heads[kv] if isinstance(kv, slice) else kv
+        n = h1 - h0
+        per = n // len(taken) if isinstance(kv, slice) else 1
+        assert [taken[j // per] for j in range(n)] == [h // group for h in range(h0, h1)]
+
+
+def test_a_block_that_straddles_a_group_takes_each_heads_kv_head():
+    """9 heads over 3 KV heads (group 3) on a model axis of 2: rank 0's 4.5
+    heads of columns lie in heads 0-4, three on KV head 0 and two on KV head
+    1, which no grouping of the kernels' takes, so each head reads its own
+    KV head (group 1); rank 1's start in the middle of head 4."""
+    cfg = get_smoke_config("llama-70b").with_(n_heads=9, n_kv_heads=3, d_model=288)
+    lcfg = steps.local_config(cfg, {"data": 1, "model": 2}, "decode")
+    h0, h1, off = layers.split_head_block(lcfg, 0)
+    assert (h0, h1, off) == (0, 5, 0)
+    assert layers.kv_heads_of(lcfg, h0, h1) == [0, 0, 0, 1, 1]
+    h0, h1, off = layers.split_head_block(lcfg, 1)
+    assert (h0, h1, off) == (4, 9, 16)
+    assert layers.kv_heads_of(lcfg, h0, h1) == [1, 1, 2, 2, 2]
+
+
+# ------------------------------------------------------------ what runs, what is refused
+
+ACCEPTED = ["llama-8b", "granite-8b", "llama-70b", "yi-34b", "internvl2-2b"]
+
+
+@pytest.mark.parametrize("arch", ACCEPTED)
+def test_the_production_model_axis_serves_the_dense_and_vlm_configs(arch):
+    """On the reference's 16 x 16 mesh ``check_mesh_runs`` takes the prefill
+    and decode steps of the five configs whose 8 KV heads 16 does not
+    divide; a rank keeps the heads whole and holds ``n_heads * head_dim /
+    16`` columns of ``wq`` and ``n_kv_heads * head_dim / 16`` of ``wk`` and
+    ``wv``, the shapes ``params`` cuts by the reference's specs."""
+    cfg, sizes = get_config(arch), {"data": 16, "model": 16}
+    for kind in ("prefill", "decode"):
+        steps.check_mesh_runs(cfg, sizes, kind)
+    lcfg = steps.local_config(cfg, sizes, "decode")
+    D = cfg.resolved_head_dim
+    assert (lcfg.n_heads, lcfg.n_kv_heads, lcfg.kv_shards) == (cfg.n_heads, cfg.n_kv_heads, 16)
+    assert (lcfg.q_cols, lcfg.kv_cols) == (cfg.n_heads * D // 16, cfg.n_kv_heads * D // 16)
+    assert lcfg.d_ff == cfg.d_ff // 16
+    attn = layers.init_attention(lcfg, torch.Generator(), torch.float32, "meta")
+    leaves = port_params.rank_leaves(cfg.with_(n_layers=1),
+                                     MeshShape((16, 16), ("data", "model")))[0]
+    shapes = {rl.shape[1:] for rl in leaves if len(rl.shape) == 3}
+    for name, t in attn.items():
+        assert tuple(t.shape) in shapes, name
+
+
+@pytest.mark.parametrize("arch", ACCEPTED)
+def test_their_train_step_on_split_heads_raises(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*4d"):
+        steps.check_mesh_runs(get_config(arch), {"data": 16, "model": 16}, "train")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        steps.sharded_step(get_smoke_config(arch), InputShape("t", 32, 4, "train"),
+                           MeshShape((1, 4), ("data", "model")))
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_the_audio_family_on_split_heads_raises(kind):
+    """whisper-base's 8 heads on 16: its cross pool of 1500 encoder
+    positions takes the head_dim placement, not ported."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*4c"):
+        steps.check_mesh_runs(get_config("whisper-base"), {"data": 16, "model": 16}, kind)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_a_window_on_split_heads_raises(kind):
+    cfg = get_config("llama-8b").with_(sliding_window=4096)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*4e"):
+        steps.check_mesh_runs(cfg, {"data": 16, "model": 16}, kind)
+
+
+def test_an_axis_that_divides_the_kv_heads_but_not_the_heads_raises():
+    cfg = get_smoke_config("llama-70b").with_(n_heads=6, n_kv_heads=4, d_model=192)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        steps.check_mesh_runs(cfg, {"data": 1, "model": 4}, "decode")
+
+
+def test_an_axis_that_does_not_divide_the_projections_raises():
+    """yi-34b's smoke config (7 heads of 32 over one KV head) on a model axis
+    of 64: neither ``wq``'s 224 columns nor ``wk``'s 32 divide, where the
+    reference replicates the projection."""
+    cfg = get_smoke_config("yi-34b")
+    with pytest.raises(NotImplementedError, match="replicates"):
+        steps.check_mesh_runs(cfg, {"data": 1, "model": 64}, "decode")

@@ -25,6 +25,7 @@ from repro.configs import get_config as ref_get_config
 from repro.launch import shardings as ref_sh
 from repro.launch import steps as ref_steps
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.configs.base import InputShape
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch import shardings as sh
 from repro_torch.launch import steps
@@ -506,3 +507,72 @@ def test_the_dry_run_states_the_rank_layouts_extra_bytes(arch):
     assert want > 0
     assert rec["layout_extra_bytes"] == want
     assert rec["fits"] == (rec["arg_bytes"] + want <= roofline.CARD_BYTES)
+
+
+SPLIT_HEADS = ["llama-8b", "granite-8b", "llama-70b", "yi-34b", "internvl2-2b"]
+
+
+def _split_heads_coll_want(arch, shape, mesh_dims):
+    """``mesh_coll_bytes`` by formula where the model axis splits the heads:
+    the row-parallel ``wo`` and ``w_down`` all_reduces and the
+    vocabulary-sharded edges as on whole heads, in float32 at a ring's 2 (m -
+    1) / m; and the all-gathers, (m - 1) / m of what each gathers: q, k and v
+    in every layer, and a decode step's merge, every rank's partial output
+    and log-sum-exp (``H (D + 1)`` a sequence a layer from each of m)."""
+    cfg, shp = get_config(arch), INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+    data, m = mesh_dims
+    d, L, H, Hkv = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+    D = cfg.resolved_head_dim
+    rows = shp.global_batch // data if shp.global_batch % data == 0 else shp.global_batch
+    seq = 1 if shp.kind == "decode" else shp.seq_len
+    n_vis = cfg.n_vision_tokens if shp.kind == "prefill" else 0
+    tokens = rows * (seq + n_vis)
+    edges = rows * seq * d + rows * cfg.vocab_size if cfg.vocab_size % m == 0 else 0
+    model = L * 2 * tokens * d + edges
+    gathered = L * tokens * (H + 2 * Hkv) * D
+    if shp.kind == "decode":
+        gathered += L * m * rows * H * (D + 1)
+    return {"all-reduce model": model * 4 * 2 * (m - 1) / m,
+            "all-gather model": gathered * 4 * (m - 1) / m}
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", SPLIT_HEADS)
+def test_mesh_coll_bytes_where_the_model_axis_splits_the_heads(arch, shape):
+    """The five configs whose 8 KV heads the production model axis of 16
+    splits (yi-34b's 56 heads too): their prefill and decode steps on 16 x
+    16 have a plan, counted by formula; ``arg_bytes`` stays the bytes of the
+    reference's specs, and at these lengths each row's pages divide over the
+    16 ranks, so the round-robin pool adds nothing (``layout_extra_bytes``
+    0). Their train step and whisper-base stay unplanned."""
+    cfg, mesh = get_config(arch), mesh_shape((16, 16))
+    got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh)
+    want = _split_heads_coll_want(arch, shape, (16, 16))
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-12), key
+    assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES["train_4k"], mesh) is None
+    assert roofline.mesh_coll_bytes(get_config("whisper-base"), INPUT_SHAPES[shape],
+                                    mesh) is None
+    if arch in ASSIGNED_ARCHS:
+        test_dryrun_on_a_mesh_reports_the_local_bytes_of_the_references_specs(arch, shape)
+    rec, line = dryrun.run_one(arch, shape, mesh=(16, 16))
+    assert rec["status"] == "ok" and rec["layout_extra_bytes"] == 0, line
+
+
+def test_the_planned_split_heads_decode_on_one_node():
+    """llama-70b's decode of 8 sequences on 1 x 16 (the pair the launch
+    tests once held unplanned): counted by the same formula. Its rows of 4
+    pages round up to one page on each of the 16 ranks: a rank holds 16
+    positions a row where the reference's specs give it 4, in the dry run's
+    ``layout_extra_bytes``."""
+    cfg, mesh = get_config("llama-70b"), mesh_shape((1, 16))
+    shape = InputShape("s", 64, 8, "decode")
+    got = roofline.mesh_coll_bytes(cfg, shape, mesh)
+    want = _split_heads_coll_want("llama-70b", shape, (1, 16))
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-12), key
+    _, mem = roofline.plan(cfg.with_(n_layers=2), shape, mesh=mesh)
+    position = cfg.n_kv_heads * cfg.resolved_head_dim * 2          # bf16
+    assert mem["layout_extra_bytes"] == 2 * 2 * 8 * (16 - 4) * position   # k, v; 2 layers
