@@ -102,7 +102,10 @@ peak memory beside the dry run's per-device bytes; then the train runs of
 the model axis splits their heads (yi-34b's mid-head), the KV pool is
 sharded over the sequence in round-robin pages, and every decode attention
 runs ``paged_attention``'s partial + LSE instance (counted in its
-``lse_launches``), merged over the 16 ranks. A group's ranks start before
+``lse_launches``), merged over the 16 ranks; then llama-8b's train step on
+the same 16 ranks (2 heads and half a KV head a rank: the gathered q, k
+and v's gradients summed over the model axis, each rank's attention on the
+float32 ``flash_prefill`` forward and backward kernels). A group's ranks start before
 its turn and wait for it (``_go``). A rank that fails fails the phase.
 The parent builds the kernels before any rank starts.
 
@@ -135,11 +138,13 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1161,7 +1166,6 @@ def _ssd_remat_bf16(gen) -> None:
     (after one on this thread, so that the allocator serves the new thread's
     outputs from its cache and the encoder is the thread's first CUDA call),
     bit for bit with this thread's."""
-    from concurrent.futures import ThreadPoolExecutor
     from torch.utils.checkpoint import checkpoint
 
     sets, A, _ = _ssd_case(gen, torch.bfloat16, 2, 128, 64, 64, 128, strided=True)
@@ -1428,9 +1432,11 @@ def phase_kernels(gen) -> dict:
 
     # a rank of the mesh phase's llama-8b train step (32 heads over 8 KV
     # heads, D 128, a batch of 4 x 128): H 16 / Hkv 4 on a model axis of 2, H
-    # 8 / Hkv 2 on one of 4; the float32 forward with the log-sum-exp and the
-    # backward, each beside SDPA's, each from a generator of its own
-    for H, Hkv in ((16, 4), (8, 2)):
+    # 8 / Hkv 2 on one of 4, H 2 / Hkv 1 (group 2, half a KV head's columns)
+    # on one of 16, which splits the heads; the float32 forward with the
+    # log-sum-exp and the backward, each beside SDPA's, each from a
+    # generator of its own
+    for H, Hkv in ((16, 4), (8, 2), (2, 1)):
         case = f"llama-8b mesh rank, H {H}, Hkv {Hkv}"
         _flash_bwd_case(_draw_gen("flash_prefill_backward", case, 0), F, torch.float32, case,
                         4, H, Hkv, 128, 128, 128, True, timed=True)
@@ -2421,8 +2427,6 @@ def _where_the_time_goes(eng, steps: int = 8, prompt: int = 337) -> dict:
              f"never agreed within 10 % (ms, graphed and eager): {disagreed}")
     out["profiles_disagreeing"] = disagreed
     del scratch
-    while eng.waiting or eng.n_active:
-        eng.step()
     want = attention_layers(eng.cfg)
     for name, p in (("graphed", prof), ("eager", eager_prof)):
         n = p["own_kernel_launches"].get("paged_attention_kernel", 0)
@@ -3929,29 +3933,67 @@ def _port_env() -> dict:
     return dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
 
 
-def _dryrun(smi: str) -> None:
-    """``python -m repro_torch.launch.dryrun --all`` (in four processes):
-    every arch x input shape on the meta device. One line a pair and the
-    run's wall seconds; fails unless every pair traced."""
-    with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "dryrun.jsonl")
-        t0 = time.monotonic()
-        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-                              "--out", out],
-                             env=_port_env(), capture_output=True, text=True, timeout=600)
-        wall = time.monotonic() - t0
-        records = []
-        if os.path.exists(out):
-            with open(out) as f:
-                records = [json.loads(line) for line in f]
-    if run.returncode != 0 or len(records) != 40 or \
-            any(r["status"] != "ok" for r in records):
-        fail(f"launch: the dry run exited {run.returncode} with {len(records)} records:\n"
-             f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+def _start(work: str, name: str, cmd: list) -> tuple:
+    """``cmd`` started in a session of its own (``_stop`` ends it and its
+    children), its output and errors into files under ``work``; returns
+    ``(process, its output's base path, its start on the wall clock)``."""
+    base = os.path.join(work, name)
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        proc = subprocess.Popen(cmd, env=_port_env(), cwd=HERE, stdout=out, stderr=err,
+                                start_new_session=True)
+    return proc, base, time.time()
+
+
+def _finish(started: tuple, limit_s: float) -> tuple:
+    """``(exit code, output, errors, seconds)`` of a process ``_start``
+    started, once it has exited, or after ``limit_s`` killed (exit code
+    None); its seconds run from its start to its last write, which a
+    process read after it ended does not outlast."""
+    proc, base, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, limit_s - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        _stop([started])
+        rc = None
+    wall = max(os.path.getmtime(base + ext) for ext in (".out", ".err")) - t0
+    with open(base + ".out") as out, open(base + ".err") as err:
+        return rc, out.read(), err.read(), wall
+
+
+def _stop(started) -> None:
+    """End every process of ``started`` (each ``_start``'s) still running,
+    with its children."""
+    for proc, _, _ in started:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _start_dryrun(work: str) -> tuple:
+    """``python -m repro_torch.launch.dryrun --all`` (in four processes, on
+    the host only: every arch x input shape on the meta device), started
+    when the script starts, so that it runs beside the build and the
+    kernels (whose host is mostly idle) and the ``launch`` phase reads it."""
+    return _start(work, "dryrun", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                                   "--all", "--out", os.path.join(work, "dryrun.jsonl")])
+
+
+def _dryrun(smi: str, started: tuple) -> None:
+    """The dry run ``_start_dryrun`` started: one line a pair and the run's
+    wall seconds; fails unless every pair traced within 600 s."""
+    rc, out, err, wall = _finish(started, 600.0)
+    path = os.path.join(os.path.dirname(started[1]), "dryrun.jsonl")
+    records = []
+    if os.path.exists(path):
+        with open(path) as f:
+            records = [json.loads(line) for line in f]
+    if rc != 0 or len(records) != 40 or any(r["status"] != "ok" for r in records):
+        fail(f"launch: the dry run exited {rc} with {len(records)} records:\n"
+             f"{out[-3000:]}{err[-3000:]}")
     for rec in records:
         emit("launch_dryrun", gpu=smi, **rec)
     emit("launch_dryrun_summary", gpu=smi, pairs=len(records), wall_s=wall,
-         last_line=run.stdout.strip().splitlines()[-1],
+         last_line=out.strip().splitlines()[-1],
          fits=sum(r["fits"] for r in records))
 
 
@@ -3973,15 +4015,16 @@ def _plan_line(smi: str, path: str, cfg, shape, measured_ms: float, **kw) -> flo
     return share
 
 
-def phase_launch(smi: str, served, trained) -> None:
+def phase_launch(smi: str, served, trained, dryrun: tuple) -> None:
     """The launch layer: the dry run over every arch x input shape, then
     the planned step (``roofline.plan``) beside each graphed decode step the
     ``serve`` phase measured (8 slots at its mean context, bf16) and the two
     train steps the ``train`` phase profiled (8 x 128, float32, remat),
     with the measured device seconds, ``roofline_share`` = planned /
     measured and ``mfu`` = model FLOPs / (measured x the dtype's peak).
-    Fails if a share reads above ``ROOFLINE_SHARE_MAX``."""
-    _dryrun(smi)
+    Fails if a share reads above ``ROOFLINE_SHARE_MAX``. ``dryrun``: the
+    dry run's process (``_start_dryrun``)."""
+    _dryrun(smi, dryrun)
     shares = {}
     for arch, share in (served or {}).get("shares", {}).items():
         ctx = share["decode_mean_context"]
@@ -4043,12 +4086,15 @@ MESH_LAYERS = {MESH_MOE_ARCH: {torch.float32: 2, torch.bfloat16: 2},
                MESH_AUDIO_ARCH: {torch.float32: None, torch.bfloat16: None},
                MESH_SPLIT_ARCH: {torch.float32: 2}}
 # the sharded train step: by arch, its layers (None: the whole model), the
-# meshes it trains on ((data, model, zero_opt)), its steps, and whether its
+# meshes it trains on ((data, model, zero_opt); llama-8b's 1 x 16 splits its
+# 32 heads over 8 KV heads, 2 heads and half a KV head a rank, and runs in
+# the MESH_SPLIT_SHAPE group after its serving cases), its steps, and whether its
 # steps after the first are held against world 1's reordered run
 # (MESH_REORDER_FACTOR); each step a global batch of MESH_TRAIN_BATCH
 # sequences of MESH_TRAIN_SEQ tokens of synthetic_lm_batch (seed MESH_SEED +
 # step; whisper-base's with random frames), float32, remat, TRAIN_LR
-MESH_TRAIN = {"llama-8b": (2, ((1, 2, False), (1, 4, False), (2, 2, True)), 3, False),
+MESH_TRAIN = {"llama-8b": (2, ((1, 2, False), (1, 4, False), (2, 2, True), (1, 16, False)),
+                           3, False),
               MESH_MOE_ARCH: (1, ((2, 2, True),), 2, False),
               MESH_SSM_ARCH: (2, ((1, 2, False), (1, 4, False), (2, 2, True)), 3, False),
               MESH_HYBRID_ARCH: (12, ((2, 2, True),), 3, True),
@@ -4460,11 +4506,13 @@ def _step0_spread(cfg) -> dict:
     return out
 
 
-def _train_world1(arch, work: str) -> dict:
+def _train_world1(arch, work: str, saver) -> tuple:
     """The reference of the sharded train step: ``make_train_step`` at world
     1 on the card over the same batches from the same seed; each step's
     loss and gradient norm, and the parameters after the last step saved
-    under ``work`` for the ranks (CPU tensors, ``tree.flatten`` order). For
+    under ``work`` for the ranks (CPU tensors, ``tree.flatten`` order) by
+    ``saver`` (an executor: the file is written while the card computes the
+    next reference). Returns the record and the save's future. For
     a run held against the reordered run (``MESH_TRAIN[arch][3]``), then the
     same steps with each batch in two halves and how far they stand off
     (``MESH_REORDER_FACTOR``), and the witness that this spread is
@@ -4495,12 +4543,13 @@ def _train_world1(arch, work: str) -> dict:
     moved2 = sum(float(torch.sum((p.double() - p0.double()) ** 2))
                  for p, p0 in zip(tree.leaves(params), tree.leaves(initial)))
     del initial
-    torch.save([t.cpu() for t in tree.leaves(params)], os.path.join(work, f"{arch}.pt"))
+    saved = saver.submit(torch.save, [t.cpu() for t in tree.leaves(params)],
+                         os.path.join(work, f"{arch}.pt"))
     out = {"losses": losses, "grad_norms": norms, "moved2": moved2, "seconds": seconds,
            "peak_bytes": peak, "launches": launches}
     if not MESH_TRAIN[arch][3]:   # held to the fixed limits alone
         del params
-        return out
+        return out, saved
     # the same steps in another order of float32 sums: each batch in halves
     gen.manual_seed(MESH_SEED)
     halves = Model(cfg).init(gen, dtype=torch.float32, device="cuda")
@@ -4524,7 +4573,8 @@ def _train_world1(arch, work: str) -> dict:
     torch.cuda.empty_cache()
     return {**out, "halves_losses": halves_losses, "halves_grad_norms": halves_norms,
             "halves_params_rel_err": (diff2 / moved2) ** 0.5,
-            "halves_params_outlier_share": outliers / count, "step0": _step0_spread(cfg)}
+            "halves_params_outlier_share": outliers / count,
+            "step0": _step0_spread(cfg)}, saved
 
 
 def _train_limit(fixed, drift, reordered: bool):
@@ -4705,7 +4755,8 @@ def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> 
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(MESH_SEED)
-    params = init_shard(cfg, gen, mesh, coords, dtype=torch.float32, device="cuda")
+    params = _in_turns(lambda: init_shard(cfg, gen, mesh, coords, dtype=torch.float32,
+                                          device="cuda"))
     opt = init_opt_shard(cfg, mesh, zero=zero, device="cuda")
     shape = InputShape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
     fn, _ = sharded_step(cfg, shape, mesh, remat=True, zero_opt=zero)
@@ -5006,7 +5057,8 @@ def phase_mesh(smi: str) -> dict:
     prefill and decode steps on the meshes of ``MESH_SHAPES``, and the
     train runs of ``MESH_TRAIN``; llama-70b and yi-34b on
     ``MESH_SPLIT_SHAPE``, where the model axis splits their heads
-    (``MESH_SPLIT_CASES``): world 1 on the card first (the references; the
+    (``MESH_SPLIT_CASES``), and there llama-8b's train step too (its
+    ``MESH_TRAIN`` mesh of that shape): world 1 on the card first (the references; the
     ranks of every group start beside them and wait), then each group's
     ranks (``mesh_rank``) in turn, the split-heads group first, sharing the
     card over gloo or one card a rank over NCCL where there are enough.
@@ -5036,16 +5088,25 @@ def phase_mesh(smi: str) -> dict:
             for arch in MESH_SERVE_ARCHS:
                 for dtype in MESH_RUNS:
                     world1(arch, dtype)
-            for arch in MESH_TRAIN:
-                t1 = time.monotonic()
-                reference[f"train {arch}"] = _train_world1(arch, work)
-                world1_s[f"train {arch}"] = time.monotonic() - t1
-                emit("mesh_train_world1", gpu=smi, arch=arch, **reference[f"train {arch}"])
-                gc.collect()
-                torch.cuda.empty_cache()
+            with ThreadPoolExecutor(1) as saver:
+                saves = []
+                for arch in MESH_TRAIN:
+                    t1 = time.monotonic()
+                    reference[f"train {arch}"], saved = _train_world1(arch, work, saver)
+                    saves.append(saved)
+                    world1_s[f"train {arch}"] = time.monotonic() - t1
+                    emit("mesh_train_world1", gpu=smi, arch=arch,
+                         **reference[f"train {arch}"])
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                for saved in saves:   # every file written before a rank reads one
+                    saved.result()
             torch.save(reference, os.path.join(work, "world1.pt"))
             torch.save({f"{a} {_name(dt)}": reference[f"{a} {_name(dt)}"]
-                        for a, dt in MESH_SPLIT_CASES}, os.path.join(work, "world1_split.pt"))
+                        for a, dt in MESH_SPLIT_CASES} |
+                       {f"train {a}": reference[f"train {a}"] for a, t in MESH_TRAIN.items()
+                        if any((d, m) == MESH_SPLIT_SHAPE for d, m, _ in t[1])},
+                       os.path.join(work, "world1_split.pt"))
             world1_done_s = time.monotonic() - t0
             meshes = {}
             for i, (d, m) in enumerate(groups):
@@ -5165,30 +5226,25 @@ EXAMPLES = (
 EXAMPLE_LIMIT_S = 300
 
 
-def phase_examples(smi: str) -> None:
-    """Every model-running twin on the card (its default device), all
-    started together (the kernels are already built); fails unless each
-    exits 0 within ``EXAMPLE_LIMIT_S`` and prints its key line."""
-    running = []
-    for script, args, key in EXAMPLES:
-        t0 = time.monotonic()
-        proc = subprocess.Popen([sys.executable, os.path.join(HERE, script), *args],
-                                env=_port_env(), cwd=HERE, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        running.append((script, args, key, proc, t0))
+def _start_examples(work: str) -> list:
+    """Every model-running twin started on the card (its default device),
+    all together (the kernels are already built), before the ``launch``
+    phase, whose work is on the host."""
+    return [_start(work, f"example{i}", [sys.executable, os.path.join(HERE, script), *args])
+            for i, (script, args, _) in enumerate(EXAMPLES)]
+
+
+def phase_examples(smi: str, started: list) -> None:
+    """The twins ``_start_examples`` started; fails unless each exits 0
+    within ``EXAMPLE_LIMIT_S`` of its start and prints its key line."""
     failed = []
-    for script, args, key, proc, t0 in running:
-        try:
-            out, err = proc.communicate(timeout=EXAMPLE_LIMIT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        wall = time.monotonic() - t0
+    for (script, args, key), one in zip(EXAMPLES, started):
+        rc, out, err, wall = _finish(one, EXAMPLE_LIMIT_S)
         line = next((ln for ln in out.splitlines() if key in ln), None)
-        emit("examples", gpu=smi, script=script, args=list(args), rc=proc.returncode,
+        emit("examples", gpu=smi, script=script, args=list(args), rc=rc,
              wall_s=wall, key_line=line)
-        if proc.returncode != 0 or line is None:
-            failed.append(f"{script} {' '.join(args)} (exit {proc.returncode}):\n"
+        if rc != 0 or line is None:
+            failed.append(f"{script} {' '.join(args)} (exit {rc}):\n"
                           f"{out[-1500:]}{err[-3000:]}")
     if failed:
         fail("examples: " + "\n".join(failed))
@@ -5361,25 +5417,49 @@ def main() -> None:
                   args.mesh_backend)
         return
 
-    smi = phase_env()
-    phase_build()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    records = phase_kernels(gen) if "kernels" in phases else {}
-    if "parity" in phases:
-        phase_parity()
-    if "graph" in phases:
-        phase_graph()
-    launches, served = phase_serve(smi) if "serve" in phases else ({}, None)
-    cluster_launches = phase_cluster(smi) if "cluster" in phases else {}
-    train_launches, trained = phase_train(smi) if "train" in phases else ({}, None)
-    if "sim" in phases:
-        phase_sim(smi, served)
-    if "launch" in phases:
-        phase_launch(smi, served, trained)
-    if "examples" in phases:
-        phase_examples(smi)
-    mesh_launches = phase_mesh(smi) if "mesh" in phases else {}
+    seconds = {}   # each phase's wall, for the script's time budget
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    # processes on the host run beside the phases that leave it idle: the
+    # dry run beside the build and the kernels, the twins beside the launch
+    # layer's planned steps; every one is ended when the script is
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    dryrun = [_start_dryrun(work)] if "launch" in phases else []
+    examples = []
+    try:
+        smi = timed("env", phase_env)
+        timed("build", phase_build)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        records = timed("kernels", phase_kernels, gen) if "kernels" in phases else {}
+        if "parity" in phases:
+            timed("parity", phase_parity)
+        if "graph" in phases:
+            timed("graph", phase_graph)
+        launches, served = timed("serve", phase_serve, smi) if "serve" in phases \
+            else ({}, None)
+        cluster_launches = timed("cluster", phase_cluster, smi) if "cluster" in phases \
+            else {}
+        train_launches, trained = timed("train", phase_train, smi) if "train" in phases \
+            else ({}, None)
+        if "sim" in phases:
+            timed("sim", phase_sim, smi, served)
+        if "examples" in phases:
+            examples = _start_examples(work)
+        if "launch" in phases:
+            timed("launch", phase_launch, smi, served, trained, dryrun[0])
+        if "examples" in phases:
+            timed("examples", phase_examples, smi, examples)
+    finally:
+        _stop(dryrun + examples)
+        shutil.rmtree(work, ignore_errors=True)
+    mesh_launches = timed("mesh", phase_mesh, smi) if "mesh" in phases else {}
+    emit("phase_seconds", gpu=smi, **seconds)
     if set(phases) != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({phases}); no result line")
         return

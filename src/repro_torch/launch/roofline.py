@@ -273,12 +273,13 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
       (every leaf of its shards); with ``zero_opt``, the all-gather of each
       data rank's block of the leaves ZeRO-1 cuts;
     - where the model axis splits the heads (``steps.splits_heads``: a
-      prefill or decode step of a dense or VLM model), on ``model``: the
-      all-gather of q, k and v in every layer (``layers.gather_columns``),
-      and a decode step's merge of the ranks' partial attention
-      (``layers.merge_model_axis``): an all-gather of every rank's partial
-      output and log-sum-exp, ``H (D + 1)`` elements a sequence a layer
-      from each rank.
+      dense or VLM model), on ``model``: the all-gather of q, k and v in
+      every layer (``layers.gather_columns``), again under a train step's
+      ``remat``; a train step's backward all_reduces the gathered q, k and
+      v's gradients, the same elements; and a decode step's merge of the
+      ranks' partial attention (``layers.merge_model_axis``): an all-gather
+      of every rank's partial output and log-sum-exp, ``H (D + 1)``
+      elements a sequence a layer from each rank.
 
     An all_reduce moves ``2 (n - 1) / n`` of its buffer, an all-gather
     ``(n - 1) / n`` of what it gathers; what a step reduces by the handful
@@ -303,9 +304,13 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     out = {}
     if steps.splits_heads(cfg, m):
         D, L = cfg.resolved_head_dim, cfg.n_layers
-        gathered = L * tokens * (cfg.n_heads + 2 * cfg.n_kv_heads) * D
+        qkv = L * tokens * (cfg.n_heads + 2 * cfg.n_kv_heads) * D
+        gathered = qkv
         if shape.kind == "decode":   # the merge: m partials gathered whole
             gathered += L * m * rows * cfg.n_heads * (D + 1)
+        if shape.kind == "train":   # remat's gathers again; the gradients' sum
+            gathered += qkv if remat else 0
+            backward += qkv
         out["all-gather model"] = gathered * _REDUCE_BYTES * (m - 1) / m
     if shape.kind == "train":
         if remat:   # the layers' forward again inside the backward (not the encoder's)

@@ -24,9 +24,9 @@ updates each data rank's block of every moment and all-gathers the
 parameters. It runs every family: a Mamba2 layer's rank holds whole heads
 (``params.ssm_layout``), B and C whole on every rank. Where the model axis
 splits the attention heads (``splits_heads``: the reference's production
-axis of 16 over 8 KV heads), the dense and VLM families' prefill and decode
-steps run the reference's placement: the projections cut mid-head, the KV
-pool sharded over the sequence in round-robin pages
+axis of 16 over 8 KV heads), the dense and VLM families' train, prefill and
+decode steps run the reference's placement: the projections cut mid-head,
+the KV pool sharded over the sequence in round-robin pages
 (``shardings.seq_place``), the decode's attention merged over the ranks by
 log-sum-exp (``models/layers.py``).
 
@@ -222,24 +222,25 @@ def splits_heads(cfg: ModelConfig, m: int) -> bool:
 def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int],
                     kind: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` unless ``sharded_step`` can run ``cfg``
-    on a mesh of axis ``sizes`` (for a step of ``kind``, where given): a
-    model whose heads, KV heads, ``d_ff`` and SSM heads the model axis
-    divides, so that every rank holds whole heads, and, for MoE, its
-    experts' ``d_ff`` (f-sharded experts: the reference's expert-parallel
-    fallback is not ported); or a dense or VLM model served (a prefill or
-    decode step) where the axis divides ``d_ff`` and the projections' widths
-    ``n_heads * head_dim`` and ``n_kv_heads * head_dim`` but not the KV
-    heads: the split-heads placement (``splits_heads``: ``wq``/``wk``/``wv``
+    on a mesh of axis ``sizes``: a model whose heads, KV heads, ``d_ff`` and
+    SSM heads the model axis divides, so that every rank holds whole heads,
+    and, for MoE, its experts' ``d_ff`` (f-sharded experts: the reference's
+    expert-parallel fallback is not ported); or a dense or VLM model without
+    a sliding window where the axis divides ``d_ff`` and the projections'
+    widths ``n_heads * head_dim`` and ``n_kv_heads * head_dim`` but not the
+    KV heads: the split-heads placement (``splits_heads``: ``wq``/``wk``/``wv``
     cut on their columns mid-head as the reference cuts them, the KV pool
-    sharded over the sequence in round-robin pages). The placement
-    functions of ``launch/shardings.py`` answer every case."""
+    sharded over the sequence in round-robin pages). ``kind``, the step's
+    where given, changes nothing: the train, prefill and decode steps run
+    alike. The placement functions of ``launch/shardings.py`` answer every
+    case."""
     m = sizes["model"]
     if cfg.arch_type not in MESH_ARCHS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.arch_type} family on a mesh is not ported "
             "(ROADMAP.md, Queue A item 8b-ii)")
     if splits_heads(cfg, m):
-        _check_split_heads(cfg, m, kind)
+        _check_split_heads(cfg, m)
         return
     bad = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff", "n_ssm_heads")
            if getattr(cfg, k) % m}
@@ -255,7 +256,7 @@ def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int],
             "(ROADMAP.md, Queue A item 8b-ii)")
 
 
-def _check_split_heads(cfg: ModelConfig, m: int, kind: Optional[str]) -> None:
+def _check_split_heads(cfg: ModelConfig, m: int) -> None:
     """``check_mesh_runs`` where a model axis of ``m`` splits the heads."""
     where = (f"{cfg.name}: a model axis of {m} splits its {cfg.n_heads} heads over "
              f"{cfg.n_kv_heads} KV heads")
@@ -268,10 +269,6 @@ def _check_split_heads(cfg: ModelConfig, m: int, kind: Optional[str]) -> None:
         raise NotImplementedError(
             f"{where}; only the dense and VLM families run on split heads "
             "(ROADMAP.md, Queue A item 8b-ii, 4c)")
-    if kind == "train":
-        raise NotImplementedError(
-            f"{where}; the train step on split heads is not ported "
-            "(ROADMAP.md, Queue A item 8b-ii, 4d)")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{where}; a sliding window on split heads is not ported "
@@ -483,13 +480,17 @@ def sharded_step(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = Tru
     CUDA graph. A model that ``check_mesh_runs`` refuses raises
     ``NotImplementedError``.
 
-    Where the model axis splits the heads (``splits_heads``; a prefill or
-    decode step of a dense or VLM model), a rank holds the reference's
-    column blocks of ``wq``/``wk``/``wv`` and row block of ``wo``, gathers
-    q, k and v whole, and runs the prefill's attention over the heads its
-    ``wo`` rows overlap; its KV pool holds every KV head at its round-robin
-    pages of each row (``shardings.seq_place``), and a decode step merges
-    the ranks' partial attention by their log-sum-exp (``models/layers.py``)."""
+    Where the model axis splits the heads (``splits_heads``; a dense or VLM
+    model), a rank holds the reference's column blocks of
+    ``wq``/``wk``/``wv`` and row block of ``wo``, gathers q, k and v whole,
+    and runs a prefill's or a train step's attention over the heads its
+    ``wo`` rows overlap; the train step's backward sums the gathered q, k
+    and v's gradients over the model axis and keeps the rank's columns
+    (``layers.gather_columns``), and its norm, ZeRO-1 and microbatches take
+    those column and row blocks as every other model-sharded leaf. Its KV
+    pool holds every KV head at its round-robin pages of each row
+    (``shardings.seq_place``), and a decode step merges the ranks' partial
+    attention by their log-sum-exp (``models/layers.py``)."""
     cfg = resolve_config(cfg, shape)
     sizes = mesh_axis_sizes(mesh)
     lcfg = local_config(cfg, sizes, shape.kind)

@@ -42,10 +42,12 @@ Conventions:
   blocks of ``wq``/``wk``/``wv``, cut mid-head where the axis does not
   divide the heads, and the matching rows of ``wo``. It gathers q, k and v
   whole (``gather_columns``: one ``all_gather`` of the three, float32 for
-  half precision, rounded once). A prefill runs ``ops.flash_prefill`` over the
-  query heads its ``wo`` rows overlap (``split_head_block``) and keeps its
-  own columns of their output. Its KV pool holds every KV head at its
-  round-robin pages of each row (``launch.shardings.seq_place``): a decode
+  half precision, rounded once; backward, one ``all_reduce`` of their
+  gradients, of which it keeps its own columns). A prefill or a train step
+  runs ``ops.flash_prefill`` over the query heads its ``wo`` rows overlap
+  (``split_head_block``) and keeps its own columns of their output. Its KV
+  pool holds every KV head at its round-robin pages of each row
+  (``launch.shardings.seq_place``): a decode
   step writes the new token's K/V on the rank that owns the position only,
   runs ``ops.paged_attention`` over every head and the rank's positions
   into a float32 partial with its log-sum-exp, and the ranks merge the
@@ -277,21 +279,51 @@ def seq_rank(cfg: ModelConfig) -> Tuple[int, int]:
     return axis.rank, axis.size
 
 
+class _GatherColumns(torch.autograd.Function):
+    """Forward, each rank's products packed side by side (``part``, blocks of
+    ``widths`` columns) gathered over the model ``axis`` in one
+    ``all_gather`` and returned whole, one tensor a block. Backward, the
+    whole tensors' gradients summed over the axis (one ``all_reduce`` in
+    float32), of which the rank keeps its own column blocks: each rank's
+    attention backward gives only the part of a head's gradient that flows
+    through its own rows of ``wo``, so a head (or a KV head) that several
+    ranks read gets the sum of their parts. The sum is the reduce-scatter
+    it could be (ROADMAP.md, Queue B item 7), as the ZeRO-1 step's
+    ``all_reduce`` and slice are."""
+
+    @staticmethod
+    def forward(ctx, part, widths, axis):
+        ctx.widths, ctx.axis = widths, axis
+        parts = [torch.empty_like(part) for _ in range(axis.size)]
+        dist.all_gather(parts, part.contiguous(), group=axis.group)
+        return tuple(torch.cat(cols, -1) for cols in
+                     zip(*(p.split(widths, -1) for p in parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        axis = ctx.axis
+        whole = all_reduce_sum(torch.cat(grads, -1), (axis.group,))
+        own, start = [], 0
+        for width in ctx.widths:
+            own.append(whole[..., start + axis.rank * width:start + (axis.rank + 1) * width])
+            start += width * axis.size
+        return torch.cat(own, -1), None, None
+
+
 def gather_columns(x: torch.Tensor, *ws: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """``x @ W`` whole for each ``W`` of which each rank of the ambient model
     axis holds its block ``w`` of columns in rank order: the rank's
     products, packed side by side and gathered over the axis in one
     ``all_gather``. A half-precision product is gathered in float32 and
     rounded once, as the unsharded product rounds its float32 sum once.
-    Serving only: no gradient flows through the gather."""
+    Its gradient is ``_GatherColumns``': the gathered products' gradients
+    summed over the axis, each rank's own columns of it, so that ``x``'s
+    ``copy_to_model_axis`` then sums the ranks' partial gradients of ``x``."""
     axis = runtime_flags.get_mesh()
     wide = x.dtype in (torch.float32, torch.float64)
     part = torch.cat([x @ w if wide else _matmul_float32(x, w) for w in ws], -1)
-    parts = [torch.empty_like(part) for _ in range(axis.size)]
-    dist.all_gather(parts, part.contiguous(), group=axis.group)
-    widths = [w.shape[-1] for w in ws]
-    return tuple(torch.cat(cols, -1).to(x.dtype) for cols in
-                 zip(*(p.split(widths, -1) for p in parts)))
+    return tuple(t.to(x.dtype) for t in
+                 _GatherColumns.apply(part, tuple(w.shape[-1] for w in ws), axis))
 
 
 def split_head_block(cfg: ModelConfig, r: int) -> Tuple[int, int, int]:
@@ -334,7 +366,8 @@ def merge_model_axis(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     """``merge_partials`` over the ranks of the ambient model axis: each
     rank's partial ``o`` (float32) and its log-sum-exp ``lse``, packed and
     gathered in one ``all_gather``, merged alike on every rank. Float32,
-    unrounded."""
+    unrounded. Serving only: the train step never decodes, so no gradient
+    flows through the gather."""
     axis = runtime_flags.get_mesh()
     part = torch.cat([o.reshape(-1), lse.reshape(-1)])
     parts = [torch.empty_like(part) for _ in range(axis.size)]

@@ -465,24 +465,57 @@ def test_the_production_model_axis_serves_the_dense_and_vlm_configs(arch):
         assert tuple(t.shape) in shapes, name
 
 
+class _RankZero(MeshShape):
+    """Rank 0 of a live mesh of ``shape`` as far as ``sharded_step`` reads it
+    while it builds a step: the axes' sizes and this rank's coordinates; no
+    process group (building the step runs no collective)."""
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_group(self, name: str):
+        return None
+
+    def get_local_rank(self, name: str) -> int:
+        return 0
+
+
 @pytest.mark.parametrize("arch", ACCEPTED)
-def test_their_train_step_on_split_heads_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*4d"):
-        steps.check_mesh_runs(get_config(arch), {"data": 16, "model": 16}, "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.sharded_step(get_smoke_config(arch), InputShape("t", 32, 4, "train"),
-                           MeshShape((1, 4), ("data", "model")))
+def test_their_train_step_on_split_heads_runs(arch):
+    """The five configs' train step on 16 x 16 passes ``check_mesh_runs``,
+    and ``sharded_step`` builds their smoke configs' train step on 1 x 4
+    (which splits their heads) with the rank's blocks as its meta specs:
+    ``q_cols`` columns of ``wq`` and ``wo``'s rows, ``kv_cols`` of ``wk``
+    and ``wv``, and AdamW moments of the same shapes
+    (tests/test_torch_mesh_train_split_heads.py runs such steps)."""
+    steps.check_mesh_runs(get_config(arch), {"data": 16, "model": 16}, "train")
+    cfg = get_smoke_config(arch)
+    mesh = _RankZero((1, 4), ("data", "model"))
+    assert steps.splits_heads(cfg, 4)
+    fn, (params, opt, batch) = steps.sharded_step(cfg, InputShape("t", 32, 4, "train"), mesh)
+    assert callable(fn) and batch["tokens"].shape == (4, 32)
+    D = cfg.resolved_head_dim
+    q_cols, kv_cols = cfg.n_heads * D // 4, cfg.n_kv_heads * D // 4
+    attn = params["layers"]["attn"]
+    want = {"wq": (cfg.d_model, q_cols), "wk": (cfg.d_model, kv_cols),
+            "wv": (cfg.d_model, kv_cols), "wo": (q_cols, cfg.d_model)}
+    for name, shape in want.items():
+        assert tuple(attn[name].shape) == (cfg.n_layers, *shape), name
+        assert attn[name].device.type == "meta"
+        for moments in (opt.mu, opt.nu):
+            assert tuple(moments["layers"]["attn"][name].shape) == (cfg.n_layers, *shape)
 
 
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_the_audio_family_on_split_heads_raises(kind):
     """whisper-base's 8 heads on 16: its cross pool of 1500 encoder
-    positions takes the head_dim placement, not ported."""
+    positions takes the head_dim placement, not ported; nor is its train
+    step there."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*4c"):
         steps.check_mesh_runs(get_config("whisper-base"), {"data": 16, "model": 16}, kind)
 
 
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_a_window_on_split_heads_raises(kind):
     cfg = get_config("llama-8b").with_(sliding_window=4096)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*4e"):

@@ -274,7 +274,6 @@ def _train_coll_want(arch, shape, mesh_dims, *, remat, zero):
     moments ``data`` cuts. float32 buffers; rings."""
     cfg = get_config(arch)
     data, m = mesh_dims
-    mesh, sizes = _ref_mesh(mesh_dims), {"data": data, "model": m}
     shp = REF_SHAPES[shape]
     assert cfg.vocab_size % m == 0 and not cfg.is_moe and cfg.arch_type == "dense"
     tokens = shp.global_batch // data * shp.seq_len
@@ -282,9 +281,21 @@ def _train_coll_want(arch, shape, mesh_dims, *, remat, zero):
     model = cfg.n_layers * layer + tokens * cfg.d_model + tokens * cfg.vocab_size
     model += cfg.n_layers * layer if remat else 0
     model += cfg.n_layers * layer + tokens * cfg.d_model
+    return {"all-reduce model": model * 4 * 2 * (m - 1) / m,
+            **_data_coll_want(arch, shape, mesh_dims, zero=zero)}
+
+
+def _data_coll_want(arch, shape, mesh_dims, *, zero):
+    """A train step's collective bytes on ``data``, one device: the average
+    of its gradient (every leaf's shard under the reference's specs, in
+    float32) and, under ZeRO-1, the all-gather of the blocks of the leaves
+    whose moments ``data`` cuts, in their dtype; rings. Empty for one data
+    rank."""
+    data, m = mesh_dims
+    mesh, sizes = _ref_mesh(mesh_dims), {"data": data, "model": m}
     ref = _ref_inputs(arch, shape)
     p_sh = ref_sh.param_shardings(mesh, ref["params"])
-    want = {"all-reduce model": model * 4 * 2 * (m - 1) / m}
+    want = {}
     if data > 1:
         p_specs = _ref_leaves(p_sh)
         local = {path: int(np.prod(sh.local_shape(p_specs[path].spec, tuple(leaf.shape),
@@ -512,28 +523,43 @@ def test_the_dry_run_states_the_rank_layouts_extra_bytes(arch):
 SPLIT_HEADS = ["llama-8b", "granite-8b", "llama-70b", "yi-34b", "internvl2-2b"]
 
 
-def _split_heads_coll_want(arch, shape, mesh_dims):
+def _split_heads_coll_want(arch, shape, mesh_dims, *, remat=True, zero=False):
     """``mesh_coll_bytes`` by formula where the model axis splits the heads:
     the row-parallel ``wo`` and ``w_down`` all_reduces and the
     vocabulary-sharded edges as on whole heads, in float32 at a ring's 2 (m -
     1) / m; and the all-gathers, (m - 1) / m of what each gathers: q, k and v
     in every layer, and a decode step's merge, every rank's partial output
-    and log-sum-exp (``H (D + 1)`` a sequence a layer from each of m)."""
+    and log-sum-exp (``H (D + 1)`` a sequence a layer from each of m). A
+    train step adds the layers' forward again under ``remat`` (its
+    all_reduces and its gathers), the backward's all_reduces at the
+    attention's, the FFN's and the head's inputs and of the gathered q, k
+    and v's gradients, and the gradient's average over ``data``
+    (``_data_coll_want``)."""
     cfg, shp = get_config(arch), INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     data, m = mesh_dims
     d, L, H, Hkv = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
     D = cfg.resolved_head_dim
+    train = shp.kind == "train"
     rows = shp.global_batch // data if shp.global_batch % data == 0 else shp.global_batch
     seq = 1 if shp.kind == "decode" else shp.seq_len
-    n_vis = cfg.n_vision_tokens if shp.kind == "prefill" else 0
+    n_vis = cfg.n_vision_tokens if shp.kind != "decode" else 0
     tokens = rows * (seq + n_vis)
-    edges = rows * seq * d + rows * cfg.vocab_size if cfg.vocab_size % m == 0 else 0
-    model = L * 2 * tokens * d + edges
-    gathered = L * tokens * (H + 2 * Hkv) * D
+    vocab = cfg.vocab_size % m == 0
+    logits = rows * seq if train else rows
+    edges = rows * seq * d + logits * cfg.vocab_size if vocab else 0
+    layers = L * 2 * tokens * d
+    model = layers + edges
+    qkv = L * tokens * (H + 2 * Hkv) * D
+    gathered = qkv
     if shp.kind == "decode":
         gathered += L * m * rows * H * (D + 1)
+    want = {}
+    if train:
+        model += (layers if remat else 0) + layers + (rows * seq * d if vocab else 0) + qkv
+        gathered += qkv if remat else 0
+        want = _data_coll_want(arch, shape, mesh_dims, zero=zero)
     return {"all-reduce model": model * 4 * 2 * (m - 1) / m,
-            "all-gather model": gathered * 4 * (m - 1) / m}
+            "all-gather model": gathered * 4 * (m - 1) / m, **want}
 
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
@@ -544,20 +570,61 @@ def test_mesh_coll_bytes_where_the_model_axis_splits_the_heads(arch, shape):
     16 have a plan, counted by formula; ``arg_bytes`` stays the bytes of the
     reference's specs, and at these lengths each row's pages divide over the
     16 ranks, so the round-robin pool adds nothing (``layout_extra_bytes``
-    0). Their train step and whisper-base stay unplanned."""
+    0). Their train step has a plan too (``test_mesh_coll_bytes_of_a_split_heads_train_step``);
+    whisper-base stays unplanned."""
     cfg, mesh = get_config(arch), mesh_shape((16, 16))
     got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh)
     want = _split_heads_coll_want(arch, shape, (16, 16))
     assert set(got) == set(want)
     for key, value in want.items():
         assert got[key] == pytest.approx(value, rel=1e-12), key
-    assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES["train_4k"], mesh) is None
+    assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES["train_4k"], mesh) is not None
     assert roofline.mesh_coll_bytes(get_config("whisper-base"), INPUT_SHAPES[shape],
                                     mesh) is None
     if arch in ASSIGNED_ARCHS:
         test_dryrun_on_a_mesh_reports_the_local_bytes_of_the_references_specs(arch, shape)
     rec, line = dryrun.run_one(arch, shape, mesh=(16, 16))
     assert rec["status"] == "ok" and rec["layout_extra_bytes"] == 0, line
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["", "zero"])
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
+@pytest.mark.parametrize("arch", SPLIT_HEADS)
+def test_mesh_coll_bytes_of_a_split_heads_train_step(arch, remat, zero):
+    """The five configs' ``train_4k`` on 16 x 16, which the model axis's
+    split heads once left unplanned: counted by formula, with and without
+    remat (which gathers q, k and v a second time) and ZeRO-1."""
+    cfg, mesh = get_config(arch), mesh_shape((16, 16))
+    got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES["train_4k"], mesh, remat=remat,
+                                   zero_opt=zero)
+    want = _split_heads_coll_want(arch, "train_4k", (16, 16), remat=remat, zero=zero)
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-12), key
+
+
+def test_the_dry_runs_split_heads_train_bytes():
+    """llama-8b's ``train_4k`` on 16 x 16 through the dry run: ``arg_bytes``
+    the local bytes of the reference's specs of its parameters, batch and
+    AdamW state (a rank's column blocks of ``wq``/``wk``/``wv`` and rows of
+    ``wo`` among them), with and without ZeRO-1, as
+    ``test_the_dry_runs_train_bytes_on_a_mesh_with_zero`` holds olmo-1b's;
+    its collective bytes the split-heads train step's plan."""
+    arch, shape = "llama-8b", "train_4k"
+    mesh, sizes = _ref_mesh((16, 16)), {"data": 16, "model": 16}
+    ref = _ref_inputs(arch, shape)
+    p_sh = ref_sh.param_shardings(mesh, ref["params"])
+    base = _ref_local_bytes(ref["params"], p_sh, sizes) + \
+        _ref_local_bytes(ref["batch"], ref_sh.batch_shardings(mesh, ref["batch"]), sizes)
+    for zero in (False, True):
+        rec, line = dryrun.run_one(arch, shape, mesh=(16, 16), zero_opt=zero)
+        assert rec["status"] == "ok" and rec["layout_extra_bytes"] == 0, line
+        o_sh = ref_sh.opt_shardings(mesh, ref["opt_state"], p_sh, zero=zero)
+        assert rec["arg_bytes"] == base + _ref_local_bytes(ref["opt_state"], o_sh, sizes), zero
+        coll = _split_heads_coll_want(arch, shape, (16, 16), zero=zero)
+        assert set(rec["coll_breakdown"]) == set(coll)
+        for key, value in coll.items():
+            assert rec["coll_breakdown"][key] == pytest.approx(value, rel=1e-12), key
 
 
 def test_the_planned_split_heads_decode_on_one_node():
