@@ -689,11 +689,12 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
 
 
 def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
-                     timed: bool) -> dict:
+                     timed: bool, of_max: float | None = None) -> dict:
     """``paged_attention(return_lse=True)``, the instance that writes a
     sequence-sharded rank's float32 partial and each query row's
     log-sum-exp, against ``paged_attention_plain(return_lse=True)``: the
-    output within ``TOL``, the log-sum-exp within ``LSE_TOL``, a row with no
+    output within ``TOL`` (and ``of_max`` of its largest value, where
+    given), the log-sum-exp within ``LSE_TOL``, a row with no
     position -inf and zeros, a second call bit for bit; with ``timed``, its
     times beside its bound, the plain version's and SDPA's over the same
     rows (gathered K/V and a mask). Returns its record for the kernels line
@@ -705,7 +706,8 @@ def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
         fail(f"paged_attention {dtype} {case}: the LSE instance wrote {out.dtype} / "
              f"{lse.dtype}, want float32")
     want, want_lse = paged_attention_plain(q, *pools[0], bt, ln, return_lse=True)
-    err = check_close(f"paged_attention LSE {dtype} {case}", out, want, dtype)
+    err = check_close(f"paged_attention LSE {dtype} {case}", out, want, dtype,
+                      of_max=of_max)
     empty = torch.tensor(lengths, device="cuda") == 0
     if not (torch.isneginf(lse[empty]).all() and (out[empty] == 0).all()):
         fail(f"paged_attention LSE {dtype} {case}: a row with nothing to attend to must "
@@ -720,8 +722,8 @@ def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
     rec = {"kernel": "paged_attention", "instance": "partial + LSE", "dtype": str(dtype),
            "case": case, "shape": dict(B=B, n_kv=n_kv, group=group, D=D, page=16,
                                        lengths=lengths, max_pages=pps),
-           "tolerance": TOL[dtype], "lse_tolerance": LSE_TOL, "max_abs_err": err,
-           "lse_max_abs_err": lse_err}
+           "tolerance": TOL[dtype], "tolerance_of_max": of_max, "lse_tolerance": LSE_TOL,
+           "max_abs_err": err, "lse_max_abs_err": lse_err}
     if not timed:
         emit("kernels", **rec)
         return rec
@@ -986,25 +988,37 @@ def _flash_bwd_case(gen, F, dtype, case, B, H, Hkv, D, S, T, causal, window=0,
             "bound_ms": b_ms, "bound_by": b_by, **bounds, "library_ms": library_ms}
 
 
-def _flash_lse_timed(gen, F, dtype, B, H, D, S, Hkv=None, case=None) -> dict:
+def _flash_lse_timed(gen, F, dtype, B, H, D, S, Hkv=None, case=None,
+                     causal: bool = True) -> dict:
     """The forward's LSE instance (the one ``FlashPrefill`` launches) at a
-    training shape (causal, ``Hkv`` KV heads: default ``H``), beside the instance without the
-    log-sum-exp, the plain version asked for it, and SDPA's forward. Bound:
-    the bytes of q, k, v, o and the log-sum-exp, and the forward's
-    operations at the dtype's rate; for float32 also as 3xTF32 on the
-    tensor cores (three products a pair at the 495 TFLOP/s TF32 rate).
-    Returns the numbers of the line."""
+    training shape (causal, or full over S = T; ``Hkv`` KV heads: default
+    ``H``), its output within ``TOL`` and its log-sum-exp within ``LSE_TOL``
+    of the plain version's, beside the instance without the log-sum-exp,
+    the plain version asked for it, and SDPA's forward. Bound: the bytes of
+    q, k, v, o and the log-sum-exp, and the forward's operations at the
+    dtype's rate; for float32 also as 3xTF32 on the tensor cores (three
+    products a pair at the 495 TFLOP/s TF32 rate). Returns the numbers of
+    the line."""
     Hkv = Hkv or H
+    label = f"flash_prefill {dtype} {case or 'training shape'}"
     qt, kt, vt = _flash_inputs(gen, dtype, B, S, S, H, Hkv, D)
-    ms = device_ms(lambda: _flash_forward(qt, kt, vt, causal=True, q_offset=0, window=0,
+    out, lse = _flash_forward(qt, kt, vt, causal=causal, q_offset=0, window=0,
+                              prefix_len=0, with_lse=True)
+    torch.cuda.synchronize()
+    want, lse_want = flash_prefill_plain(qt, kt, vt, return_lse=True, causal=causal)
+    err = check_close(label, out, want, dtype)
+    lse_err = check_close(f"{label}, log-sum-exp", lse, lse_want, torch.float32,
+                          {torch.float32: LSE_TOL})
+    ms = device_ms(lambda: _flash_forward(qt, kt, vt, causal=causal, q_offset=0, window=0,
                                           prefix_len=0, with_lse=True))
-    without = device_ms(lambda: flash_prefill(qt, kt, vt))
-    plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, return_lse=True),
-                         iters=5, warmup=1)
+    without = device_ms(lambda: flash_prefill(qt, kt, vt, causal=causal))
+    plain_ms = device_ms(lambda: flash_prefill_plain(qt, kt, vt, return_lse=True,
+                                                     causal=causal), iters=5, warmup=1)
     # SDPA on K/V expanded to the query heads outside the timed call
     lk, lv = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, lk, lv, is_causal=True))
-    seen = int(attention_mask(S, S, device="cuda").sum())
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, lk, lv,
+                                                                  is_causal=causal))
+    seen = int(attention_mask(S, S, device="cuda").sum()) if causal else S * S
     n_bytes = (2 * qt.numel() + 2 * kt.numel()) * qt.element_size() + 4 * B * H * S
     flops = 4.0 * B * H * D * seen
     b_ms, b_by = bound(n_bytes, flops, dtype)
@@ -1012,11 +1026,12 @@ def _flash_lse_timed(gen, F, dtype, B, H, D, S, Hkv=None, case=None) -> dict:
         else (None, None)
     rec = dict(time_ms=ms, time_ms_without_lse=without, bound_ms=b_ms, bound_by=b_by,
                bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by, plain_ms=plain_ms,
-               library_ms=library_ms)
+               library_ms=library_ms, tolerance=TOL[dtype], max_abs_err=err,
+               lse_tolerance=LSE_TOL, lse_max_abs_err=lse_err)
     emit("kernels", kernel="flash_prefill", dtype=str(dtype),
          case=case or "training shape, with the log-sum-exp (LSE instance)",
          route="wgmma + TMA" if dtype == torch.bfloat16 else "3xTF32 mma.sync",
-         shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=S, causal=True), **rec)
+         shape=dict(B=B, H=H, Hkv=Hkv, D=D, S=S, T=S, causal=causal), **rec)
     return rec
 
 
@@ -1271,6 +1286,13 @@ def phase_kernels(gen) -> dict:
     ends = [n + MESH_RUNS[torch.bfloat16][2] for n in MESH_RUNS[torch.bfloat16][1]]
     local = [seq_local_length(n, 0, m, 16) for n in ends]
     local_pps = seq_pages(-(-max(ends) // 16), m)
+    # and at a rank of whisper-base's cross pool on 1 x 16: every KV head of
+    # 64 (group 1) over its round-robin pages of 1500 encoder positions, 6
+    # of the 94 pages a row, rank 0's 96 positions timed, then rows of ranks
+    # 13 and 14 (92 and 80) and an empty one
+    cross_pps = seq_pages(-(-get_config(MESH_AUDIO_ARCH).enc_seq // 16), m)
+    cross = [seq_local_length(get_config(MESH_AUDIO_ARCH).enc_seq, r, m, 16)
+             for r in (0, 13, 14)]
     for dtype in (torch.bfloat16, torch.float32):
         rec = _paged_lse_timed(gen, F, dtype, 4, 8, 8, 128, local_pps,
                                f"llama-70b, rank 0 of 1 x {m}", local, timed=True)
@@ -1278,6 +1300,12 @@ def phase_kernels(gen) -> dict:
             records[LSE_KERNEL] = rec
         _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, "long context, empty rows",
                          paged_cases[0][1], timed=False)
+        _paged_lse_timed(gen, F, dtype, 4, 8, 1, 64, cross_pps,
+                         f"whisper-base cross pool, rank 0 of 1 x {m}", [cross[0]] * 4,
+                         timed=True, of_max=OF_MAX_TOL)
+        _paged_lse_timed(gen, F, dtype, 4, 8, 1, 64, cross_pps,
+                         f"whisper-base cross pool, ranks 0, 13, 14 of 1 x {m}",
+                         [cross[0], cross[1], cross[2], 0], timed=False, of_max=OF_MAX_TOL)
     # lower bounds with garbage below them, group 7, D = 96 and D = 80 (at
     # 16 lanes a row for group 8: 5 elements a lane, loaded one by one) in
     # both types
@@ -1442,6 +1470,16 @@ def phase_kernels(gen) -> dict:
                         4, H, Hkv, 128, 128, 128, True, timed=True)
         _flash_lse_timed(_draw_gen("flash_prefill", case, 0), F, torch.float32, 4, H, 128,
                          128, Hkv=Hkv, case=case + ", with the log-sum-exp (LSE instance)")
+    # a rank of the mesh phase's whisper-base on 1 x 16 (8 heads of 64 split
+    # into halves): its encoder's attention over the one head its wo rows
+    # overlap (H = Hkv 1, D 64, full over S = T = 1500, a batch of 4), the
+    # float32 forward with the log-sum-exp and the backward, as its train
+    # step runs them
+    case = "whisper-base mesh rank of 1 x 16, encoder, H 1, Hkv 1"
+    _flash_bwd_case(_draw_gen("flash_prefill_backward", case, 0), F, torch.float32, case,
+                    4, 1, 1, 64, 1500, 1500, False, of_max=OF_MAX_TOL, timed=True)
+    _flash_lse_timed(_draw_gen("flash_prefill", case, 0), F, torch.float32, 4, 1, 64, 1500,
+                     case=case + ", with the log-sum-exp (LSE instance)", causal=False)
     return records
 
 
@@ -3176,22 +3214,63 @@ def _leaf_grad_norms(names, grads) -> dict:
             .double().norm(dim=1).cpu() for n, g in zip(names, grads)}
 
 
-def _train_width_parity(cfg, label: str, B: int, S: int, want: dict) -> dict:
-    """The gradient of one float32 loss of ``cfg`` (no remat, as the
-    launcher runs) on the card and on the CPU from the same parameters and
-    batch: the loss, the global gradient norm and each leaf's gradient norm
-    (a layer's slice for the stacked leaves) agree within ``TRAIN_TOL`` of
-    the CPU's (of the leaf's largest, for a leaf), and the card launches the
-    kernels ``want`` says: one forward a layer (olmo-1b's writes the
-    log-sum-exp that the layer's backward takes) and one backward a layer."""
-    model = Model(cfg)
-    params_cpu = model.init(torch.Generator().manual_seed(7), dtype=torch.float32,
+# the train phase's gradients at full width, card against CPU: (config,
+# label, batch, sequence, the kernel launches that a loss and its gradient
+# imply: one forward a layer, olmo-1b's writing the log-sum-exp that the
+# layer's backward takes, and one backward a layer)
+FLASH_COUNTERS = ("flash_prefill", "flash_prefill.lse_launches", "flash_prefill.tf32_launches",
+                  "flash_prefill_backward", "flash_prefill_backward.tf32_launches")
+SSD_COUNTERS = ("ssd_scan", "ssd_scan.tf32_launches", "ssd_scan_backward",
+                "ssd_scan_backward.tensor_core_launches")
+WIDTH_CASES = (
+    ("olmo-1b", 2, "olmo-1b full widths, 2 layers, float32, no remat", 4, 128,
+     dict(zip(FLASH_COUNTERS, (2, 2, 2, 2, 2)))),
+    # one full chunk of 256 and a ragged one of 64: the carried-state terms,
+    # so the SSD forward's and backward's FMA kernels
+    ("mamba2-1.3b", 2, "mamba2-1.3b full widths, 2 layers, float32, no remat", 2, 320,
+     dict(zip(SSD_COUNTERS, (2, 0, 2, 0)))),
+    # six Mamba2 layers and one call of the shared attention block (D 80,
+    # window 4096: the 3xTF32 forward's and backward's instances)
+    ("zamba2-2.7b", 6, "zamba2-2.7b full widths, 6 layers, float32, no remat", 2, 320,
+     {**dict(zip(SSD_COUNTERS, (6, 0, 6, 0))), **dict(zip(FLASH_COUNTERS, (1, 1, 1, 1, 1)))}),
+    # the same gradients in one chunk (2 x 128): the 3xTF32 forward and the
+    # backward's tensor-core kernel
+    ("mamba2-1.3b", 2, "mamba2-1.3b full widths, 2 layers, float32, no remat, one chunk",
+     2, 128, dict(zip(SSD_COUNTERS, (2, 2, 2, 2)))),
+    ("zamba2-2.7b", 6, "zamba2-2.7b full widths, 6 layers, float32, no remat, one chunk",
+     2, 128, {**dict(zip(SSD_COUNTERS, (6, 6, 6, 6))),
+              **dict(zip(FLASH_COUNTERS, (1, 1, 1, 1, 1)))}))
+
+
+def _width_cpu() -> list:
+    """The CPU halves of ``WIDTH_CASES``, in order: each case's parameters
+    and batch (on the CPU, from seed 7), its loss and each leaf's gradient
+    norms. Host work only, tens of seconds at these widths, which ``main``
+    runs on a thread of its own beside the ``serve`` phase, whose host is
+    mostly idle."""
+    out = []
+    for arch, layers, _, B, S, _ in WIDTH_CASES:
+        model = Model(get_config(arch).with_(n_layers=layers))
+        params = model.init(torch.Generator().manual_seed(7), dtype=torch.float32,
                             device="cpu")
-    batch_cpu = synthetic_lm_batch(np.random.default_rng(7), model, B, S, device="cpu")
+        batch = synthetic_lm_batch(np.random.default_rng(7), model, B, S, device="cpu")
+        loss, grads = loss_and_grads(model, params, batch)
+        out.append((params, batch, loss, _leaf_grad_norms(_leaf_names(params), grads)))
+        del grads
+    return out
+
+
+def _train_width_parity(cfg, label: str, B: int, S: int, want: dict, cpu: tuple) -> dict:
+    """The gradient of one float32 loss of ``cfg`` (no remat, as the
+    launcher runs) on the card from the parameters and batch of ``cpu``
+    (``_width_cpu``'s record of this case, with the CPU's loss and leaf
+    gradient norms): the loss, the global gradient norm and each leaf's
+    gradient norm (a layer's slice for the stacked leaves) agree within
+    ``TRAIN_TOL`` of the CPU's (of the leaf's largest, for a leaf), and the
+    card launches the kernels ``want`` says."""
+    model = Model(cfg)
+    params_cpu, batch_cpu, loss_cpu, norms_cpu = cpu
     names = _leaf_names(params_cpu)
-    loss_cpu, grads_cpu = loss_and_grads(model, params_cpu, batch_cpu)
-    norms_cpu = _leaf_grad_norms(names, grads_cpu)
-    del grads_cpu
     zero_counts()
     loss_gpu, grads_gpu = loss_and_grads(model, _to_cuda(params_cpu),
                                          {k: v.cuda() for k, v in batch_cpu.items()})
@@ -3547,52 +3626,33 @@ def _train_ssm_witness(kernel_losses) -> dict:
     return out
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str, widths) -> dict:
     """One step card against CPU at the smoke size (olmo-1b, mamba2-1.3b),
-    one gradient card against CPU at full width (olmo-1b and mamba2-1.3b in
-    2 layers, zamba2-2.7b in 6: one call of its shared attention; the SSD
-    models at 2 x 320, two chunks, and at 2 x 128, one), then
+    one gradient card against CPU at full width (``WIDTH_CASES``: olmo-1b
+    and mamba2-1.3b in 2 layers, zamba2-2.7b in 6: one call of its shared
+    attention; the SSD models at 2 x 320, two chunks, and at 2 x 128, one;
+    ``widths``, a future of ``_width_cpu``'s CPU halves), then
     olmo-1b at full width, the launcher's rate with kernels and with plain
     attention, and mamba2-1.3b at full width and depth; returns each
     kernel's launches over the two full-width runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = widths.result()   # before any kernel entry point is swapped below
     # every float32 attention forward runs the 3xTF32 kernel; an SSD forward
     # does where the call is one chunk (s <= 256) at P 64 (the full widths),
     # else the FMA kernel
     # and every float32 backward the 3xTF32 kernels
-    flash = ("flash_prefill", "flash_prefill.lse_launches", "flash_prefill.tf32_launches",
-             "flash_prefill_backward", "flash_prefill_backward.tf32_launches")
+    flash, ssd = FLASH_COUNTERS, SSD_COUNTERS
     olmo = get_smoke_config("olmo-1b").with_(head_dim=64)
     _train_parity(olmo, "olmo-1b smoke, head_dim=64, float32, remat", 4, 64,
                   dict(zip(flash, (2 * olmo.n_layers, 2 * olmo.n_layers, 2 * olmo.n_layers,
                                    olmo.n_layers, olmo.n_layers))))
     mamba = get_smoke_config("mamba2-1.3b")
-    ssd = ("ssd_scan", "ssd_scan.tf32_launches", "ssd_scan_backward",
-           "ssd_scan_backward.tensor_core_launches")
     _train_parity(mamba, "mamba2-1.3b smoke, float32, remat", 4, 64,
                   dict(zip(ssd, (2 * mamba.n_layers, 0, mamba.n_layers, 0))))
-    _train_width_parity(get_config("olmo-1b").with_(n_layers=2),
-                        "olmo-1b full widths, 2 layers, float32, no remat", 4, 128,
-                        dict(zip(flash, (2, 2, 2, 2, 2))))
-    # one full chunk of 256 and a ragged one of 64: the carried-state terms,
-    # so the SSD forward's and backward's FMA kernels
-    _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
-                        "mamba2-1.3b full widths, 2 layers, float32, no remat", 2, 320,
-                        dict(zip(ssd, (2, 0, 2, 0))))
-    # six Mamba2 layers and one call of the shared attention block (D 80,
-    # window 4096: the 3xTF32 forward's and backward's instances)
-    _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
-                        "zamba2-2.7b full widths, 6 layers, float32, no remat", 2, 320,
-                        {**dict(zip(ssd, (6, 0, 6, 0))), **dict(zip(flash, (1, 1, 1, 1, 1)))})
-    # the same gradients in one chunk (2 x 128): the 3xTF32 forward and the
-    # backward's tensor-core kernel
-    _train_width_parity(get_config("mamba2-1.3b").with_(n_layers=2),
-                        "mamba2-1.3b full widths, 2 layers, float32, no remat, one chunk",
-                        2, 128, dict(zip(ssd, (2, 2, 2, 2))))
-    _train_width_parity(get_config("zamba2-2.7b").with_(n_layers=6),
-                        "zamba2-2.7b full widths, 6 layers, float32, no remat, one chunk",
-                        2, 128, {**dict(zip(ssd, (6, 6, 6, 6))),
-                                 **dict(zip(flash, (1, 1, 1, 1, 1)))})
+    for i, (arch, layers, label, B, S, want) in enumerate(WIDTH_CASES):
+        _train_width_parity(get_config(arch).with_(n_layers=layers), label, B, S, want,
+                            cpu[i])
+        cpu[i] = None    # its parameters freed
     launches, olmo_ms = _train_full(smi)
     _train_lr_witness()
     ssm_launches, ssm_ms = _train_ssm_full(smi)
@@ -3896,15 +3956,43 @@ def _scenarios(smi: str) -> None:
          wall_s=sum(r["wall_s"] for r in rows.values()))
 
 
-def phase_sim(smi: str, served) -> None:
+# the longest the simulator's host process may run past its start
+SIM_LIMIT_S = 600.0
+
+
+def _start_sim(work: str, smi: str, served) -> tuple:
+    """``sim_host`` in a process of its own, started before the ``train``
+    phase, whose host is mostly idle: what the serve phase measured (None
+    where it did not run) handed over in a file under ``work``."""
+    path = os.path.join(work, "served.json")
+    with open(path, "w") as f:
+        json.dump({"smi": smi, "served": served}, f)
+    return _start(work, "sim", [sys.executable, os.path.abspath(__file__), "--sim-host", path])
+
+
+def phase_sim(smi: str, started: tuple) -> None:
     """The port's simulator on the card's planning constants: the measured
-    host-to-card load rate beside ``_LOAD_BW``, the planned prefill beside the
-    measured one (when ``serve`` ran in this call), and Fig. 19 under both
-    controllers on the shipped constants and, when ``serve`` ran, on that
-    run's own fitted ``MBU`` and ``STEP_OVERHEAD``. The simulator is host code
-    and launches no kernel."""
-    from repro_torch.sim import perf_model
+    host-to-card load rate beside ``_LOAD_BW``, then the lines of
+    ``sim_host``'s process (``_start_sim``), which fails the phase unless it
+    exited 0 within ``SIM_LIMIT_S``."""
     _load_bandwidth(smi)
+    rc, out, err, wall = _finish(started, SIM_LIMIT_S)
+    print(out, end="", flush=True)
+    if rc != 0:
+        fail(f"sim: the simulator's process exited {rc} after {wall:.1f} s:\n{err[-3000:]}")
+
+
+def sim_host(path: str) -> None:
+    """The simulator's host work (``--sim-host``): Fig. 19 under both
+    controllers on the shipped constants, the auditor, the exporters, the
+    fleet and the other scenarios, and, when the serve phase ran (its
+    measurements in the file at ``path``), the planned prefill beside the
+    measured one and Fig. 19 on that run's own fitted ``MBU`` and
+    ``STEP_OVERHEAD``. Host code only: it launches no kernel."""
+    from repro_torch.sim import perf_model
+    with open(path) as f:
+        given = json.load(f)
+    smi, served = given["smi"], given["served"]
     fig19 = _fig19(smi, "shipped")
     _audit(smi)
     _export(smi, fig19)
@@ -4043,11 +4131,12 @@ def phase_launch(smi: str, served, trained, dryrun: tuple) -> None:
 
 
 # ------------------------------------------------------------ the mesh
-# the paper's large model, an MoE model, mamba2-1.3b and zamba2-2.7b at full
-# width, their depth cut, and whisper-base whole, served on meshes of 2 and
-# 4 ranks (data x model), and llama-8b (the paper's evaluation model), the
-# MoE model, mamba2-1.3b, zamba2-2.7b and whisper-base trained there, each
-# held against the same model at world 1 on the same card. The mesh's
+# the paper's large model, an MoE model, mamba2-1.3b, zamba2-2.7b and
+# whisper-base at full width, their depth cut (whisper-base's only in
+# float32), served on meshes of 2 and 4 ranks (data x model), and llama-8b
+# (the paper's evaluation model), the MoE model, mamba2-1.3b, zamba2-2.7b
+# and whisper-base trained there, each held against the same model at world
+# 1 on the same card. The mesh's
 # modules are imported here, not with the others: an ``--ab`` turn imports
 # this script against an older tree, which has none.
 MESH_ARCH = "llama-70b"
@@ -4058,14 +4147,16 @@ MESH_SERVE_ARCHS = (MESH_ARCH, MESH_MOE_ARCH, MESH_SSM_ARCH, MESH_HYBRID_ARCH,
 MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
 # where the model axis splits the heads (the reference's production axis of
 # 16 over 8 KV heads): llama-70b (4 of its 64 heads a rank, half a KV head)
-# in both dtypes and yi-34b (56 heads: 3.5 a rank, cut mid-head), float32,
-# served on 1 x 16 (16 ranks sharing the card over gloo), the KV pool
-# sharded over the sequence in round-robin pages; a group of its own that
-# runs these cases only, first of the groups
+# in both dtypes, yi-34b (56 heads: 3.5 a rank, cut mid-head) and
+# whisper-base (8 heads of 64: half a head a rank, odd ranks from the middle
+# of one; its cross pool of 1500 encoder positions on round-robin pages
+# too), float32, served on 1 x 16 (16 ranks sharing the card over gloo), the
+# KV pool sharded over the sequence in round-robin pages; a group of its own
+# that runs these cases only, first of the groups
 MESH_SPLIT_ARCH = "yi-34b"
 MESH_SPLIT_SHAPE = (1, 16)
 MESH_SPLIT_CASES = ((MESH_ARCH, torch.float32), (MESH_ARCH, torch.bfloat16),
-                    (MESH_SPLIT_ARCH, torch.float32))
+                    (MESH_SPLIT_ARCH, torch.float32), (MESH_AUDIO_ARCH, torch.float32))
 # ranks that draw their shards at one time (``_in_turns``): a rank draws
 # each layer and llama-70b's 4.2 GB float32 embedding whole before it cuts
 # its shard, which 16 ranks at once would not fit on one card (4 at a time
@@ -4079,17 +4170,20 @@ MESH_RUNS = {torch.float32: (2, (128, 128, 128, 128), 8, True),
              torch.bfloat16: (8, (64, 150, 243, 337), 16, False)}
 # the other serving archs' layers by dtype (llama-70b's: MESH_RUNS); None:
 # the whole model. zamba2-2.7b's 12 are two groups of 6 Mamba2 layers, each
-# followed by the shared attention block
+# followed by the shared attention block; whisper-base's float32 2 are 2
+# encoder and 2 decoder layers
 MESH_LAYERS = {MESH_MOE_ARCH: {torch.float32: 2, torch.bfloat16: 2},
                MESH_SSM_ARCH: {torch.float32: 2, torch.bfloat16: 8},
                MESH_HYBRID_ARCH: {torch.float32: 12, torch.bfloat16: 12},
-               MESH_AUDIO_ARCH: {torch.float32: None, torch.bfloat16: None},
+               MESH_AUDIO_ARCH: {torch.float32: 2, torch.bfloat16: None},
                MESH_SPLIT_ARCH: {torch.float32: 2}}
-# the sharded train step: by arch, its layers (None: the whole model), the
-# meshes it trains on ((data, model, zero_opt); llama-8b's 1 x 16 splits its
-# 32 heads over 8 KV heads, 2 heads and half a KV head a rank, and runs in
-# the MESH_SPLIT_SHAPE group after its serving cases), its steps, and whether its
-# steps after the first are held against world 1's reordered run
+# the sharded train step: by arch, its layers (None: the whole model; the
+# audio family's, encoder and decoder layers each), the meshes it trains on
+# ((data, model, zero_opt); 1 x 16 splits llama-8b's 32 heads over 8 KV
+# heads, 2 heads and half a KV head a rank, and whisper-base's 8, half a
+# head a rank, and runs in the MESH_SPLIT_SHAPE group after its serving
+# cases), its steps, and whether its steps after the first are held against
+# world 1's reordered run
 # (MESH_REORDER_FACTOR); each step a global batch of MESH_TRAIN_BATCH
 # sequences of MESH_TRAIN_SEQ tokens of synthetic_lm_batch (seed MESH_SEED +
 # step; whisper-base's with random frames), float32, remat, TRAIN_LR
@@ -4098,7 +4192,7 @@ MESH_TRAIN = {"llama-8b": (2, ((1, 2, False), (1, 4, False), (2, 2, True), (1, 1
               MESH_MOE_ARCH: (1, ((2, 2, True),), 2, False),
               MESH_SSM_ARCH: (2, ((1, 2, False), (1, 4, False), (2, 2, True)), 3, False),
               MESH_HYBRID_ARCH: (12, ((2, 2, True),), 3, True),
-              MESH_AUDIO_ARCH: (None, ((1, 2, False),), 3, False)}
+              MESH_AUDIO_ARCH: (2, ((1, 2, False), (1, 16, False)), 3, False)}
 MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 128
 # a train step on the mesh against world 1's, float32: the loss and the
 # gradient norm within the training phase's TRAIN_TOL (atol and rtol: the
@@ -4237,10 +4331,18 @@ class _Routing:
         return out
 
 
+def _cut(cfg, layers):
+    """``cfg`` with ``layers`` layers (an audio model's encoder too), or
+    whole where ``layers`` is None."""
+    if layers is None:
+        return cfg
+    enc = {"n_enc_layers": layers} if cfg.arch_type == "audio" else {}
+    return cfg.with_(n_layers=layers, **enc)
+
+
 def _mesh_config(arch, dtype):
     layers = MESH_RUNS[dtype][0] if arch == MESH_ARCH else MESH_LAYERS[arch][dtype]
-    cfg = get_config(arch).with_(dtype=_name(dtype))
-    return cfg if layers is None else cfg.with_(n_layers=layers)
+    return _cut(get_config(arch).with_(dtype=_name(dtype)), layers)
 
 
 def _mesh_prompts(arch, dtype) -> list:
@@ -4386,9 +4488,7 @@ def _mesh_world1(arch, dtype) -> dict:
 
 
 def _train_config(arch):
-    layers = MESH_TRAIN[arch][0]
-    cfg = get_config(arch).with_(dtype="float32")
-    return cfg if layers is None else cfg.with_(n_layers=layers)
+    return _cut(get_config(arch).with_(dtype="float32"), MESH_TRAIN[arch][0])
 
 
 def _train_batches(cfg) -> list:
@@ -4601,7 +4701,7 @@ def _rank_serve(arch, dtype, mesh, coords, sizes, label, reference) -> dict:
     layers = cfg.n_layers
     attn, ssd = _serve_calls(cfg)
     rows = batch_rows(mesh, len(lengths))
-    lcfg = local_config(cfg, sizes, "decode")
+    lcfg = local_config(cfg, sizes)
     split = bool(getattr(lcfg, "q_cols", 0))
     ref = reference[f"{arch} {name}"]
     gc.collect()
@@ -4923,7 +5023,8 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
     (``_rank_serve``), then each training run of this mesh (``_rank_train``),
     and one JSON line: launches, peak memory and seconds of each part. Any
     failure exits non-zero."""
-    from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+    from repro_torch.launch.mesh import (close_mesh, make_local_mesh, mesh_axis_sizes,
+                                         mesh_coords)
     # the ranks share the host's cores: each takes its share for its own
     # operations on the host (the collectives' copies and sums)
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world))
@@ -4956,7 +5057,7 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
                                                  reference[f"train {arch}"])
     out["end_unix"] = time.time()   # the group's wall: the parent's start to the last end
     print(json.dumps(out), flush=True)
-    dist.destroy_process_group()
+    close_mesh()
 
 
 def _start_ranks(work: str, data: int, model: int) -> tuple:
@@ -5194,8 +5295,9 @@ def phase_mesh(smi: str) -> dict:
         summary[k] = {"backend": v["backend"], "wall_s": v["wall_s"], "serve": serve,
                       "train": train}
     emit("mesh", gpu=smi, archs=list(MESH_SERVE_ARCHS),
-         reduced={a: "layers" if _mesh_config(a, torch.bfloat16).n_layers <
-                  get_config(a).n_layers else None for a in MESH_SERVE_ARCHS},
+         reduced={a: "layers" if any(_mesh_config(a, dt).n_layers < get_config(a).n_layers
+                                     for dt in MESH_RUNS) else None
+                  for a in MESH_SERVE_ARCHS},
          wall_s=time.monotonic() - t0,
          runs={_name(dt): {"layers": {a: _mesh_config(a, dt).n_layers
                                       for a in MESH_SERVE_ARCHS},
@@ -5397,6 +5499,7 @@ def main() -> None:
     ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
     for flag in ("--mesh-rank", "--mesh-world", "--mesh-model"):
         ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sim-host", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-backend", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5416,6 +5519,9 @@ def main() -> None:
         mesh_rank(args.mesh_rank, args.mesh_world, args.mesh_model, args.mesh_dir,
                   args.mesh_backend)
         return
+    if args.sim_host:
+        sim_host(args.sim_host)
+        return
 
     seconds = {}   # each phase's wall, for the script's time budget
 
@@ -5425,12 +5531,15 @@ def main() -> None:
         seconds[name] = time.monotonic() - t0
         return out
 
-    # processes on the host run beside the phases that leave it idle: the
-    # dry run beside the build and the kernels, the twins beside the launch
-    # layer's planned steps; every one is ended when the script is
+    # work on the host runs beside the phases that leave it idle: the dry
+    # run beside the build and the kernels, the train phase's CPU gradients
+    # beside the serve phase, the simulator beside the train phase, the
+    # twins beside the launch layer's planned steps; every process started
+    # is ended when the script is
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     dryrun = [_start_dryrun(work)] if "launch" in phases else []
-    examples = []
+    examples, sim = [], []
+    host = ThreadPoolExecutor(1)
     try:
         smi = timed("env", phase_env)
         timed("build", phase_build)
@@ -5441,14 +5550,19 @@ def main() -> None:
             timed("parity", phase_parity)
         if "graph" in phases:
             timed("graph", phase_graph)
+        # the train phase's CPU gradients at full width, on a thread of
+        # their own beside the serve phase, whose host is mostly idle
+        widths = host.submit(_width_cpu) if "train" in phases else None
         launches, served = timed("serve", phase_serve, smi) if "serve" in phases \
             else ({}, None)
         cluster_launches = timed("cluster", phase_cluster, smi) if "cluster" in phases \
             else {}
-        train_launches, trained = timed("train", phase_train, smi) if "train" in phases \
-            else ({}, None)
+        # the simulator's host work in a process beside the train phase
+        sim = [_start_sim(work, smi, served)] if "sim" in phases else []
+        train_launches, trained = timed("train", phase_train, smi, widths) \
+            if "train" in phases else ({}, None)
         if "sim" in phases:
-            timed("sim", phase_sim, smi, served)
+            timed("sim", phase_sim, smi, sim[0])
         if "examples" in phases:
             examples = _start_examples(work)
         if "launch" in phases:
@@ -5456,7 +5570,8 @@ def main() -> None:
         if "examples" in phases:
             timed("examples", phase_examples, smi, examples)
     finally:
-        _stop(dryrun + examples)
+        host.shutdown(wait=False, cancel_futures=True)
+        _stop(dryrun + sim + examples)
         shutil.rmtree(work, ignore_errors=True)
     mesh_launches = timed("mesh", phase_mesh, smi) if "mesh" in phases else {}
     emit("phase_seconds", gpu=smi, **seconds)

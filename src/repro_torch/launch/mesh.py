@@ -13,7 +13,7 @@ host devices). ``make_local_mesh`` builds a live
 already initialised, on the device type the caller names: ``"cuda"`` (one
 card a rank, or ranks sharing a card over gloo) or ``"cpu"`` (gloo ranks on
 the host, as the tests run it). Nothing here picks a backend or a device
-type for the caller.
+type for the caller. ``close_mesh`` ends a rank's part in the process group.
 """
 from __future__ import annotations
 
@@ -72,3 +72,13 @@ def mesh_axis_sizes(mesh) -> Dict[str, int]:
 def mesh_coords(mesh) -> Dict[str, int]:
     """This rank's coordinate on each axis of a live mesh."""
     return {name: mesh.get_local_rank(name) for name in mesh.mesh_dim_names}
+
+
+def close_mesh() -> None:
+    """This rank's end of the default process group: a barrier, then
+    ``destroy_process_group``. Without the barrier a rank that is through
+    its last collective closes its connections while another rank still
+    reads from them, and gloo aborts that rank (``terminate called without
+    an active exception``, exit -6) after its work is done."""
+    dist.barrier()
+    dist.destroy_process_group()

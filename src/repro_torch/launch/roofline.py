@@ -273,13 +273,18 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
       (every leaf of its shards); with ``zero_opt``, the all-gather of each
       data rank's block of the leaves ZeRO-1 cuts;
     - where the model axis splits the heads (``steps.splits_heads``: a
-      dense or VLM model), on ``model``: the all-gather of q, k and v in
-      every layer (``layers.gather_columns``), again under a train step's
-      ``remat``; a train step's backward all_reduces the gathered q, k and
-      v's gradients, the same elements; and a decode step's merge of the
-      ranks' partial attention (``layers.merge_model_axis``): an all-gather
-      of every rank's partial output and log-sum-exp, ``H (D + 1)``
-      elements a sequence a layer from each rank.
+      dense, VLM or audio model), on ``model``: the all-gather of q, k and
+      v in every layer (``layers.gather_columns``; the audio family's
+      encoder layers over the frames, and a decoder layer's self q, k, v
+      over the tokens, its cross q over the tokens and cross k, v over the
+      frames: a decode step runs no encoder and gathers no cross k, v),
+      the decoder's again under a train step's ``remat`` (not the
+      encoder's); a train step's backward all_reduces the gathered
+      gradients, the same elements as the forward's gathers; and a decode
+      step's merge of the ranks' partial attention
+      (``layers.merge_model_axis``), one a layer (the audio family's two:
+      self and cross): an all-gather of every rank's partial output and
+      log-sum-exp, ``H (D + 1)`` elements a sequence from each rank.
 
     An all_reduce moves ``2 (n - 1) / n`` of its buffer, an all-gather
     ``(n - 1) / n`` of what it gathers; what a step reduces by the handful
@@ -289,7 +294,7 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     sizes = mesh_axis_sizes(mesh)
     m = sizes["model"]
     try:
-        steps.check_mesh_runs(cfg, sizes, shape.kind)
+        steps.check_mesh_runs(cfg, sizes)
     except NotImplementedError:
         return None
     rows = shape.global_batch // _batch_shards(mesh, shape.global_batch)
@@ -303,14 +308,11 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     model = forward + edges
     out = {}
     if steps.splits_heads(cfg, m):
-        D, L = cfg.resolved_head_dim, cfg.n_layers
-        qkv = L * tokens * (cfg.n_heads + 2 * cfg.n_kv_heads) * D
-        gathered = qkv
-        if shape.kind == "decode":   # the merge: m partials gathered whole
-            gathered += L * m * rows * cfg.n_heads * (D + 1)
+        encoder, decoder, merges = _split_gathers(cfg, shape, tokens, rows, m)
+        gathered = encoder + decoder + merges
         if shape.kind == "train":   # remat's gathers again; the gradients' sum
-            gathered += qkv if remat else 0
-            backward += qkv
+            gathered += decoder if remat else 0
+            backward += encoder + decoder
         out["all-gather model"] = gathered * _REDUCE_BYTES * (m - 1) / m
     if shape.kind == "train":
         if remat:   # the layers' forward again inside the backward (not the encoder's)
@@ -332,18 +334,52 @@ def mesh_coll_bytes(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = 
     return {"all-reduce model": model * _REDUCE_BYTES * _ring(m), **out}
 
 
+def _split_gathers(cfg: ModelConfig, shape: InputShape, tokens: int, rows: int, m: int
+                   ) -> Tuple[float, float, float]:
+    """(encoder, decoder, merges): the elements a rank of split heads
+    all-gathers on the model axis in one forward over ``tokens`` (of
+    ``rows`` sequences): q, k and v in the audio encoder's layers over its
+    frames; in each decoder (or transformer) layer q, k and v over the
+    tokens and, for the audio family, the cross q over the tokens and the
+    cross k, v over the frames (none in a decode step, which runs no
+    encoder); and a decode step's merges of every rank's partial output and
+    log-sum-exp, one a layer (the audio family's two)."""
+    D, L, H, Hkv = cfg.resolved_head_dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+    decoder = L * tokens * (H + 2 * Hkv) * D
+    encoder, merges = 0, 0
+    audio = cfg.arch_type == "audio"
+    if audio and shape.kind != "decode":
+        frames = rows * cfg.enc_seq
+        encoder = cfg.n_enc_layers * frames * (H + 2 * Hkv) * D
+        decoder += L * frames * 2 * Hkv * D
+    if audio:
+        decoder += L * tokens * H * D
+    if shape.kind == "decode":
+        merges = (2 if audio else 1) * L * m * rows * H * (D + 1)
+    return encoder, decoder, merges
+
+
 def _split_pool_extra_bytes(cfg: ModelConfig, mesh, cache: Dict) -> int:
-    """What a rank of split heads holds of a decode step's KV pools beyond
-    their shards under the reference's specs (``cache``, one device's
-    shards): each row rounded up to whole pages a rank
-    (``shardings.seq_pages``); zero where the model axis divides the row's
-    pages."""
+    """What a rank of split heads holds of a decode step's KV pools (an
+    audio model's cross pools too) beyond their shards under the
+    reference's specs (``cache``, one device's shards): each row rounded up
+    to whole pages a rank (``shardings.seq_pages``), where the reference
+    shards a pool over its positions, or, for a cross pool whose
+    ``enc_seq`` positions the model axis does not divide, cuts its
+    ``head_dim``; zero where the model axis divides the row's pages and the
+    spec cuts the positions."""
     m = mesh_axis_sizes(mesh)["model"]
-    rows, pages = cache["block_tables"].shape
-    held = sh.seq_pages(pages, m) * rows * DEFAULT_PAGE_SIZE * cfg.n_kv_heads * \
-        cfg.resolved_head_dim
-    return int(sum((cache[key].shape[0] * held - cache[key].numel()) *
-                   cache[key].element_size() for key in ("k", "v")))
+    extra = 0
+    for table, keys in (("block_tables", ("k", "v")),
+                        ("cross_block_tables", ("cross_k", "cross_v"))):
+        if table not in cache:
+            continue
+        rows, pages = cache[table].shape
+        held = sh.seq_pages(pages, m) * rows * DEFAULT_PAGE_SIZE * cfg.n_kv_heads * \
+            cfg.resolved_head_dim
+        extra += sum((cache[key].shape[0] * held - cache[key].numel()) *
+                     cache[key].element_size() for key in keys)
+    return int(extra)
 
 
 def _encoder_coll(cfg: ModelConfig, rows: int) -> float:
@@ -447,7 +483,7 @@ def _layout_extra_bytes(cfg: ModelConfig, shape: InputShape, mesh, ins: Dict,
     sizes = mesh_axis_sizes(mesh)
     if shape.kind == "decode" and steps.splits_heads(cfg, sizes["model"]):
         try:
-            steps.check_mesh_runs(cfg, sizes, shape.kind)
+            steps.check_mesh_runs(cfg, sizes)
         except NotImplementedError:   # no rank layout to count
             return 0
         return _split_pool_extra_bytes(cfg, mesh, ins["cache"])

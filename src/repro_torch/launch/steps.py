@@ -24,9 +24,10 @@ updates each data rank's block of every moment and all-gathers the
 parameters. It runs every family: a Mamba2 layer's rank holds whole heads
 (``params.ssm_layout``), B and C whole on every rank. Where the model axis
 splits the attention heads (``splits_heads``: the reference's production
-axis of 16 over 8 KV heads), the dense and VLM families' train, prefill and
-decode steps run the reference's placement: the projections cut mid-head,
-the KV pool sharded over the sequence in round-robin pages
+axis of 16 over 8 KV heads), the dense, VLM and audio families' train,
+prefill and decode steps run the reference's placement: the projections cut
+mid-head, the KV pool (and an audio model's cross pool of encoder
+positions) sharded over the sequence in round-robin pages
 (``shardings.seq_place``), the decode's attention merged over the ranks by
 log-sum-exp (``models/layers.py``).
 
@@ -219,21 +220,20 @@ def splits_heads(cfg: ModelConfig, m: int) -> bool:
     return bool(cfg.n_heads) and bool(cfg.n_kv_heads % m or cfg.n_heads % m)
 
 
-def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int],
-                    kind: Optional[str] = None) -> None:
+def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
     """Raise ``NotImplementedError`` unless ``sharded_step`` can run ``cfg``
     on a mesh of axis ``sizes``: a model whose heads, KV heads, ``d_ff`` and
     SSM heads the model axis divides, so that every rank holds whole heads,
     and, for MoE, its experts' ``d_ff`` (f-sharded experts: the reference's
-    expert-parallel fallback is not ported); or a dense or VLM model without
-    a sliding window where the axis divides ``d_ff`` and the projections'
-    widths ``n_heads * head_dim`` and ``n_kv_heads * head_dim`` but not the
-    KV heads: the split-heads placement (``splits_heads``: ``wq``/``wk``/``wv``
-    cut on their columns mid-head as the reference cuts them, the KV pool
-    sharded over the sequence in round-robin pages). ``kind``, the step's
-    where given, changes nothing: the train, prefill and decode steps run
-    alike. The placement functions of ``launch/shardings.py`` answer every
-    case."""
+    expert-parallel fallback is not ported); or a dense, VLM or audio model
+    without a sliding window where the axis divides ``d_ff`` and the
+    projections' widths ``n_heads * head_dim`` and ``n_kv_heads * head_dim``
+    but not the KV heads: the split-heads placement (``splits_heads``:
+    ``wq``/``wk``/``wv`` cut on their columns mid-head as the reference cuts
+    them, the KV pools, an audio model's cross pool among them, sharded over
+    the sequence in round-robin pages). The train, prefill and decode steps
+    run alike. The placement functions of ``launch/shardings.py`` answer
+    every case."""
     m = sizes["model"]
     if cfg.arch_type not in MESH_ARCHS:
         raise NotImplementedError(
@@ -260,15 +260,10 @@ def _check_split_heads(cfg: ModelConfig, m: int) -> None:
     """``check_mesh_runs`` where a model axis of ``m`` splits the heads."""
     where = (f"{cfg.name}: a model axis of {m} splits its {cfg.n_heads} heads over "
              f"{cfg.n_kv_heads} KV heads")
-    if cfg.arch_type == "audio":
+    if cfg.arch_type not in ("dense", "vlm", "audio"):
         raise NotImplementedError(
-            f"{where}; the audio family's cross pool of {cfg.enc_seq} encoder "
-            "positions takes the head_dim placement there, which is not ported "
-            "(ROADMAP.md, Queue A item 8b-ii, 4c)")
-    if cfg.arch_type not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"{where}; only the dense and VLM families run on split heads "
-            "(ROADMAP.md, Queue A item 8b-ii, 4c)")
+            f"{where}; only the dense, VLM and audio families run on split heads "
+            "(ROADMAP.md, Queue A item 8b-ii)")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{where}; a sliding window on split heads is not ported "
@@ -287,18 +282,16 @@ def _check_split_heads(cfg: ModelConfig, m: int) -> None:
             "the projection; not ported (ROADMAP.md, Queue A item 8b-ii, 4a)")
 
 
-def local_config(cfg: ModelConfig, sizes: Dict[str, int],
-                 kind: Optional[str] = None) -> ModelConfig:
-    """The config of one rank's model on a mesh of axis ``sizes`` (for a
-    step of ``kind``, where given): its shares of the heads, the KV heads,
-    ``d_ff`` and the experts' ``d_ff`` (the shared experts' width with it),
-    of the vocabulary where the model axis divides it
-    (``shardings.param_spec``'s rule), and of the SSM width and heads (a
-    ``RankConfig``: ``params.ssm_layout``). Where the axis splits the heads
-    (``splits_heads``), a ``RankConfig`` that keeps the heads whole and
-    carries the rank's column counts of the projections and the KV pool's
-    sequence shards."""
-    check_mesh_runs(cfg, sizes, kind)
+def local_config(cfg: ModelConfig, sizes: Dict[str, int]) -> ModelConfig:
+    """The config of one rank's model on a mesh of axis ``sizes``: its
+    shares of the heads, the KV heads, ``d_ff`` and the experts' ``d_ff``
+    (the shared experts' width with it), of the vocabulary where the model
+    axis divides it (``shardings.param_spec``'s rule), and of the SSM width
+    and heads (a ``RankConfig``: ``params.ssm_layout``). Where the axis
+    splits the heads (``splits_heads``), a ``RankConfig`` that keeps the
+    heads whole and carries the rank's column counts of the projections and
+    the KV pool's sequence shards."""
+    check_mesh_runs(cfg, sizes)
     m = sizes["model"]
     vocab = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
     if splits_heads(cfg, m):
@@ -480,20 +473,24 @@ def sharded_step(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = Tru
     CUDA graph. A model that ``check_mesh_runs`` refuses raises
     ``NotImplementedError``.
 
-    Where the model axis splits the heads (``splits_heads``; a dense or VLM
-    model), a rank holds the reference's column blocks of
-    ``wq``/``wk``/``wv`` and row block of ``wo``, gathers q, k and v whole,
-    and runs a prefill's or a train step's attention over the heads its
-    ``wo`` rows overlap; the train step's backward sums the gathered q, k
-    and v's gradients over the model axis and keeps the rank's columns
-    (``layers.gather_columns``), and its norm, ZeRO-1 and microbatches take
-    those column and row blocks as every other model-sharded leaf. Its KV
-    pool holds every KV head at its round-robin pages of each row
-    (``shardings.seq_place``), and a decode step merges the ranks' partial
-    attention by their log-sum-exp (``models/layers.py``)."""
+    Where the model axis splits the heads (``splits_heads``; a dense, VLM or
+    audio model), a rank holds the reference's column blocks of
+    ``wq``/``wk``/``wv`` and row block of ``wo`` (an audio model's in every
+    encoder and decoder attention), gathers q, k and v whole (a
+    cross-attention's q from the decoder's rows, k and v from the
+    encoder's), and runs a prefill's or a train step's attention over the
+    heads its ``wo`` rows overlap; the train step's backward sums the
+    gathered q, k and v's gradients over the model axis and keeps the rank's
+    columns (``layers.gather_columns``), and its norm, ZeRO-1 and
+    microbatches take those column and row blocks as every other
+    model-sharded leaf. Its KV
+    pool (an audio model's cross pool too) holds every KV head at its
+    round-robin pages of each row (``shardings.seq_place``), and a decode
+    step merges the ranks' partial attention by their log-sum-exp
+    (``models/layers.py``)."""
     cfg = resolve_config(cfg, shape)
     sizes = mesh_axis_sizes(mesh)
-    lcfg = local_config(cfg, sizes, shape.kind)
+    lcfg = local_config(cfg, sizes)
     axis = runtime_flags.ModelAxis.of(mesh, cfg.vocab_size)
     if shape.kind == "train":
         fn = _sharded_train_step(cfg, lcfg, shape, mesh, remat=remat, zero_opt=zero_opt,

@@ -25,6 +25,15 @@ Against the reference, as in the port's other families: a free row of
 ``decode_step`` (``active`` False) neither advances ``pos`` nor writes K/V,
 and attends over nothing. ``prefill`` refuses a ``past_cache`` (the
 reference's swallows it; its engine never chunks this family).
+
+On a rank of split heads (``launch.steps.splits_heads``: whisper-base's 8
+heads on a model axis of 16) both pools hold the rank's round-robin pages
+of each row (``launch.shardings.seq_place``), the cross pool those of the
+row's ``enc_seq`` encoder positions, where the reference cuts the cross
+K/V's ``head_dim`` (ROADMAP.md, Departures): ``prefill`` writes the
+positions the rank holds, and ``decode_step`` attends over the rank's
+count of them (``shardings.seq_local_length``) and merges the partials
+over the ranks (``layers.cross_attention_decode``).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.layers import layer_params, stack_into
@@ -203,10 +213,31 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if cache_len is None:
         return logits, {**dense, "pos": pos}
     cache = init_cache(cfg, B, cache_len, dtype, x.device)
-    for b in range(B):
-        write_slot(cache, b, {key: t[:, b:b + 1] for key, t in dense.items()})
+    for key, t in dense.items():
+        table = "cross_block_tables" if key.startswith("cross") else "block_tables"
+        # the positions of a row this rank's pool holds, in order
+        held = L.held_positions(cfg, cache[table].shape[1], t.shape[2], cache[key].shape[2],
+                                x.device)
+        for b in range(B):
+            rows = t[:, b, held]
+            transformer.cache_rows(cache, key, b, table=table)[:, :rows.shape[1]] = rows
     cache["pos"] = pos
     return logits, cache
+
+
+def cross_lengths(cfg: ModelConfig, pos: torch.Tensor, active: Optional[torch.Tensor],
+                  page: int) -> torch.Tensor:
+    """Each row's length in the cross pool (pages of ``page``), like
+    ``pos``: ``enc_seq`` for an active row (``active`` (B,) bool, default
+    all), 0 for a free one; on a rank of split heads, the rank's count of
+    the row's ``enc_seq`` positions on its round-robin pages
+    (``shardings.seq_local_length``), 0 where it holds none."""
+    enc = cfg.enc_seq
+    if L.split_heads(cfg):
+        r, m = L.seq_rank(cfg)
+        enc = sh.seq_local_length(enc, r, m, page)
+    lengths = torch.full_like(pos, enc)
+    return lengths if active is None else lengths * active
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -215,15 +246,12 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """One decode step on a paged cache. tokens (B,1) -> logits (B,V) and the
     cache with ``pos`` advanced; the self pools are updated IN PLACE, the
     cross pools only read. Every layer shares one ``decode_plan`` and one
-    cross length per row: ``enc_seq`` for an active row, 0 for a free one
-    (``active`` (B,) bool, default all), computed on the device, so a
+    cross length per row (``cross_lengths``), computed on the device, so a
     captured graph needs nothing from the host."""
     x = L.embed(params["emb"], tokens)
     pos, bt = cache["pos"], cache["block_tables"]
     plan = L.decode_plan(cfg, bt, pos, active, cache["k"].shape[2])
-    cross_len = torch.full_like(pos, cfg.enc_seq)
-    if active is not None:
-        cross_len = cross_len * active
+    cross_len = cross_lengths(cfg, pos, active, cache["cross_k"].shape[2])
     for i in range(cfg.n_layers):
         lp = layer_params(params["dec_layers"], i)
         h = L.apply_norm(cfg, lp["norm1"], x)

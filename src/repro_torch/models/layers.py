@@ -43,17 +43,21 @@ Conventions:
   divide the heads, and the matching rows of ``wo``. It gathers q, k and v
   whole (``gather_columns``: one ``all_gather`` of the three, float32 for
   half precision, rounded once; backward, one ``all_reduce`` of their
-  gradients, of which it keeps its own columns). A prefill or a train step
-  runs ``ops.flash_prefill`` over the query heads its ``wo`` rows overlap
-  (``split_head_block``) and keeps its own columns of their output. Its KV
-  pool holds every KV head at its round-robin pages of each row
-  (``launch.shardings.seq_place``): a decode
-  step writes the new token's K/V on the rank that owns the position only,
+  gradients, of which it keeps its own columns; a cross-attention gathers
+  q from the decoder's rows and k and v from the encoder's, in two). A
+  prefill or a train step runs ``ops.flash_prefill`` over the query heads
+  its ``wo`` rows overlap (``split_head_block``) and keeps its own columns
+  of their output. Its KV pool holds every KV head at its round-robin pages
+  of each row (``launch.shardings.seq_place``): a decode step writes the
+  new token's K/V on the rank that owns the position only,
   runs ``ops.paged_attention`` over every head and the rank's positions
   into a float32 partial with its log-sum-exp, and the ranks merge the
   partials (``merge_model_axis``: one ``all_gather`` of each rank's
   partial and log-sum-exp, weighed by ``exp(lse - max lse)`` on every
-  rank), rounded once.
+  rank), rounded once. An audio model's cross pool of ``enc_seq`` encoder
+  positions takes the same round-robin pages (where the reference cuts
+  ``head_dim``: ROADMAP.md, Departures), and its decode step's
+  cross-attention is merged alike.
 """
 from __future__ import annotations
 
@@ -350,6 +354,18 @@ def kv_heads_of(cfg: ModelConfig, h0: int, h1: int):
     return kv
 
 
+def held_positions(cfg: ModelConfig, pages: int, length: int, page: int, device=None):
+    """The positions ``[0, length)`` of a row that this rank's pool of
+    ``pages`` pages a row holds, in its local order: all of them
+    (``slice(None)``), or on a rank of split heads those of its round-robin
+    pages (``shardings.seq_positions``), ``seq_local_length`` of them."""
+    if not split_heads(cfg):
+        return slice(None)
+    r, m = seq_rank(cfg)
+    where = sh.seq_positions(r, m, pages, page, device)
+    return where[:sh.seq_local_length(length, r, m, page)]
+
+
 def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     """The attention over every rank's positions from the ranks' partials
     stacked on the first axis: each ``o`` normalized over its rank's own
@@ -450,8 +466,11 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     src = x if kv_x is None else copy_to_model_axis(kv_x)
     past_len = past_kv[0].shape[1] if past_kv is not None else 0
     split = split_heads(cfg)
-    if split:    # a self-attention's q, k and v in one gather
+    if split and kv_x is None:    # a self-attention's q, k and v in one gather
         q, k, v = gather_columns(x, p["wq"], p["wk"], p["wv"])
+    elif split:    # a cross-attention's q over x's rows, k and v over the source's
+        q, = gather_columns(x, p["wq"])
+        k, v = gather_columns(src, p["wk"], p["wv"])
     else:
         q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     q = q.reshape(B, S, H, hd)
@@ -610,12 +629,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     k_pool[where] = k_new
     v_pool[where] = v_new
     q = q.reshape(B, Hkv, H // Hkv, hd)
-    if split:   # every head over this rank's positions, merged over the ranks
-        o, lse = ops.paged_attention(q, k_pool, v_pool, block_tables, plan["lengths"],
-                                     page_size=page, return_lse=True)
-        o = merge_model_axis(o, lse).to(x.dtype).reshape(B, 1, H * hd)
-        r = seq_rank(cfg)[0]
-        return row_parallel(o[..., r * cfg.q_cols:(r + 1) * cfg.q_cols], p["wo"])
+    if split:
+        return _merged_decode(cfg, p, q, k_pool, v_pool, block_tables, plan["lengths"],
+                              x.dtype)
     o = ops.paged_attention(q, k_pool, v_pool, block_tables, plan["lengths"],
                             page_size=page, starts=plan["starts"])
     return row_parallel(o.reshape(B, 1, H * hd), p["wo"])
@@ -634,6 +650,13 @@ def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     lengths (B,) int32: ``enc_seq`` for a row that holds a sequence, 0 for a
     free one (which gives zeros). Returns out (B,1,d).
 
+    On a rank of split heads the pools hold the rank's round-robin pages of
+    each row's encoder rows and ``lengths`` counts those
+    (``shardings.seq_local_length``; 0 where the rank holds none of the row,
+    whose partial then has a log-sum-exp of -inf): q is gathered whole, and
+    every head's partial over the rank's positions is merged over the ranks
+    (``merge_model_axis``), as ``attention_decode``'s.
+
     The reference (``repro.models.layers.cross_attention_decode``) casts the
     softmax weights to the cache dtype before the P V product, where the
     kernel keeps them in float32: the same in float32, and inside the
@@ -642,10 +665,29 @@ def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if split_heads(cfg):
+        q = gather_columns(x, p["wq"])[0].reshape(B, Hkv, H // Hkv, hd)
+        return _merged_decode(cfg, p, q, k_pool, v_pool, block_tables, lengths, x.dtype)
     q = (x @ p["wq"]).reshape(B, Hkv, H // Hkv, hd)
     o = ops.paged_attention(q, k_pool, v_pool, block_tables, lengths,
                             page_size=k_pool.shape[1])
     return row_parallel(o.reshape(B, 1, H * hd), p["wo"])
+
+
+def _merged_decode(cfg: ModelConfig, p: Params, q: torch.Tensor, k_pool: torch.Tensor,
+                   v_pool: torch.Tensor, block_tables: torch.Tensor,
+                   lengths: torch.Tensor, dtype) -> torch.Tensor:
+    """A decode attention on a rank of split heads: every head of ``q`` (B,
+    Hkv, group, D) over the rank's ``lengths`` positions of its pages into a
+    float32 partial with its log-sum-exp, merged over the ranks
+    (``merge_model_axis``), rounded to ``dtype`` once, and the rank's
+    ``q_cols`` columns of it through its rows of ``wo``."""
+    B = q.shape[0]
+    o, lse = ops.paged_attention(q, k_pool, v_pool, block_tables, lengths,
+                                 page_size=k_pool.shape[1], return_lse=True)
+    o = merge_model_axis(o, lse).to(dtype).reshape(B, 1, -1)
+    r = seq_rank(cfg)[0]
+    return row_parallel(o[..., r * cfg.q_cols:(r + 1) * cfg.q_cols], p["wo"])
 
 
 # ---------------------------------------------------------------- FFN

@@ -38,7 +38,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models.layers import layer_params, stack_into
 from repro_torch.models.moe import init_moe, moe_forward, moe_forward_batched
@@ -251,12 +250,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if cache_len is None:
         return logits, {"k": ks, "v": vs, "pos": pos}
     cache = init_cache(cfg, B, cache_len, dtype, x.device)
-    held = slice(None)            # the positions this rank's pool holds, in order
-    if L.split_heads(cfg):        # its round-robin pages (shardings.seq_place)
-        r, m = L.seq_rank(cfg)
-        page = cache["k"].shape[2]
-        where = sh.seq_positions(r, m, cache["block_tables"].shape[1], page, x.device)
-        held = where[:sh.seq_local_length(full_len, r, m, page)]
+    # the positions this rank's pool holds, in order
+    held = L.held_positions(cfg, cache["block_tables"].shape[1], full_len,
+                            cache["k"].shape[2], x.device)
     for b in range(B):
         for key, t in (("k", ks), ("v", vs)):
             rows = t[:, b, held]

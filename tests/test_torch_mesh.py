@@ -56,7 +56,7 @@ import numpy as np, torch, torch.distributed as dist
 from repro_torch import params as P
 from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_local_mesh, mesh_coords
+from repro_torch.launch.mesh import close_mesh, make_local_mesh, mesh_coords
 
 rank, world, model_axis, work = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 torch.set_num_threads(1)
@@ -94,8 +94,23 @@ for i, tok in enumerate(data["feed"]):
 rows = steps.batch_rows(mesh, B)
 np.savez(f"{work}/rank{rank}.npz", rows=np.array([rows.start, rows.stop]), **out)
 print(json.dumps({"rank": rank, "coords": coords}))
-dist.destroy_process_group()
+close_mesh()
 """
+
+
+class RankZero(MeshShape):
+    """Rank 0 of a live mesh of ``shape`` as far as ``sharded_step`` reads it
+    while it builds a step: the axes' sizes and this rank's coordinates; no
+    process group (building the step runs no collective)."""
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_group(self, name: str):
+        return None
+
+    def get_local_rank(self, name: str) -> int:
+        return 0
 
 
 def _flat(tree, prefix="param"):
@@ -214,17 +229,24 @@ def test_a_model_axis_that_does_not_divide_the_kv_heads_runs(kind):
     """llama-70b's smoke config has 2 KV heads: a model axis of 4 splits
     them, the reference's sequence-sharded placement, which the sharded
     prefill and decode steps now run (tests/test_torch_mesh_split_heads.py
-    holds them to the reference): a rank keeps the heads whole, holds 32
+    holds them to the reference): ``sharded_step`` builds the step of
+    ``kind`` on rank 0 of 1 x 4, whose parameters keep the heads whole, 32
     columns of ``wq`` (one head of 32) and 16 of ``wk`` / ``wv`` (half a KV
-    head), and every KV head at a quarter of each row's pages."""
+    head), and whose decode pool holds every KV head at a quarter of each
+    row's pages."""
     cfg = get_smoke_config("llama-70b")
     sizes = {"data": 1, "model": 4}
-    steps.check_mesh_runs(cfg, sizes, kind)
-    lcfg = steps.local_config(cfg, sizes, kind)
+    steps.check_mesh_runs(cfg, sizes)
+    lcfg = steps.local_config(cfg, sizes)
     assert (lcfg.n_heads, lcfg.n_kv_heads) == (4, 2)
     assert (lcfg.q_cols, lcfg.kv_cols, lcfg.kv_shards) == (32, 16, 4)
-    cache = Model(lcfg).init_cache(4, 32 * 16, dtype=torch.float32, device="meta")
-    assert tuple(cache["k"].shape) == (2, 4 * 8, 16, 2, 32)
+    fn, args = steps.sharded_step(cfg, InputShape("s", 32 * 16, 4, kind),
+                                  RankZero((1, 4), ("data", "model")))
+    attn = args[0]["layers"]["attn"]
+    assert callable(fn) and tuple(attn["wq"].shape) == (2, cfg.d_model, 32)
+    assert tuple(attn["wk"].shape) == tuple(attn["wv"].shape) == (2, cfg.d_model, 16)
+    if kind == "decode":
+        assert tuple(args[2]["k"].shape) == (2, 4 * 8, 16, 2, 32)
 
 
 def test_the_sharded_train_step_raises():
@@ -246,14 +268,19 @@ def _moe_with_expert_d_ff(arch, d_ff):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b", "zamba2-2.7b",
                                   "whisper-base"])
 def test_families_without_a_mesh_plan_raise(arch):
-    """The ssm, hybrid and audio families run on a mesh whose model axis
-    divides their SSM heads and attention heads, and raise on one of 16,
-    which splits their smoke configs' 8 SSM or 4 attention heads; an MoE
-    model runs on a mesh whose model axis divides its experts' d_ff, and
-    raises where it does not (the reference's expert-parallel fallback)."""
+    """The ssm and hybrid families run on a mesh whose model axis divides
+    their SSM heads and attention heads, and raise on one of 16, which
+    splits their smoke configs' 8 SSM or 4 attention heads; the audio
+    family runs on split heads too, and raises on a model axis of 3, which
+    divides neither its smoke config's 4 heads nor their 128 columns (the
+    reference replicates the projections there); an MoE model runs on a
+    mesh whose model axis divides its experts' d_ff, and raises where it
+    does not (the reference's expert-parallel fallback)."""
     cfg, sizes = get_smoke_config(arch), {"data": 1, "model": 16}
     if cfg.is_moe:
         cfg, sizes = _moe_with_expert_d_ff(arch, 66), {"data": 1, "model": 4}
+    if cfg.arch_type == "audio":
+        sizes = {"data": 1, "model": 3}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         steps.local_config(cfg, sizes)
 

@@ -5,9 +5,10 @@ the unsharded FFN's ``torch.autograd``, float64, and the reduction leaving
 its argument as it was; and ``sum_model_axis`` (an ``all_reduce`` both
 ways), the Mamba2 block's gated norm over a width the ranks split, against
 the unsharded norm's gradient, where a one-way reduction gives each rank a
-wrong one; and ``row_parallel`` in bfloat16, whose sum is rounded once.
-Each rank is a ``python -c`` process meeting the
-other at a ``file://`` store under ``tmp_path``; every wait has a timeout."""
+wrong one; ``row_parallel`` in bfloat16, whose sum is rounded once; and
+``launch.mesh.close_mesh``, with which every rank here ends. Each rank is a
+``python -c`` process meeting the other at a ``file://`` store under
+``tmp_path``; every wait has a timeout."""
 import os
 import subprocess
 import sys
@@ -26,7 +27,7 @@ T, D, F = 6, 8, 12
 RANK = r"""
 import datetime, sys
 import numpy as np, torch, torch.distributed as dist
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
 from repro_torch.launch.steps import on_model_axis
 from repro_torch.models import layers, runtime_flags
 
@@ -53,28 +54,34 @@ with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
 np.savez(f"{work}/rank{rank}.npz", y=y.detach().numpy(), dx=x.grad.numpy(),
          dw_gate=w_gate.grad.numpy(), dw_up=w_up.grad.numpy(), dw_down=w_down.grad.numpy(),
          aliased=np.array(aliased))
-dist.destroy_process_group()
+close_mesh()
 """
 
 
-def _run(work, copy: bool, dtype: str = "float64"):
+def _two_ranks(script, work, *args) -> list:
+    """``script`` run as ranks 0 and 1 (``python -c script rank work
+    *args``): each one's standard output, after asserting that both exited
+    0."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = [subprocess.Popen([sys.executable, "-c", RANK, str(r), str(work), str(int(copy)),
-                               dtype],
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(work), *args],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(2)]
     results = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
-            results.append((p.returncode, err))
+            results.append(p.communicate(timeout=RANK_TIMEOUT_S))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for rc, err in results:
-        assert rc == 0, err[-3000:]
+    for p, (_, err) in zip(procs, results):
+        assert p.returncode == 0, err[-3000:]
+    return [out for out, _ in results]
+
+
+def _run(work, copy: bool, dtype: str = "float64"):
+    _two_ranks(RANK, work, str(int(copy)), dtype)
     return [np.load(work / f"rank{r}.npz") for r in range(2)]
 
 
@@ -130,7 +137,7 @@ def test_reduce_model_axis_leaves_its_argument_as_it_was(tmp_path):
 NORM_RANK = r"""
 import datetime, sys
 import numpy as np, torch, torch.distributed as dist
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
 from repro_torch.launch.steps import on_model_axis
 from repro_torch.models import layers, runtime_flags
 
@@ -150,7 +157,7 @@ with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
     y = g * torch.rsqrt(ss / (2 * f) + 1e-5) * w
     (y * torch.from_numpy(data["dy"][:, cols])).sum().backward()
 np.savez(f"{work}/norm{rank}.npz", y=y.detach().numpy(), dg=g.grad.numpy(), dw=w.grad.numpy())
-dist.destroy_process_group()
+close_mesh()
 """
 
 
@@ -172,21 +179,7 @@ def test_the_gated_norms_statistic_sums_both_ways(tmp_path, both):
     w = torch.from_numpy(arrays["w"]).requires_grad_(True)
     y = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + 1e-5) * w
     (y * torch.from_numpy(arrays["dy"])).sum().backward()
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = [subprocess.Popen([sys.executable, "-c", NORM_RANK, str(r), str(tmp_path),
-                               str(int(both))], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for r in range(2)]
-    results = []
-    try:
-        for p in procs:
-            results.append(p.communicate(timeout=RANK_TIMEOUT_S)[1])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for p, err in zip(procs, results):
-        assert p.returncode == 0, err[-3000:]
+    _two_ranks(NORM_RANK, tmp_path, str(int(both)))
     for r in range(2):
         out = np.load(tmp_path / f"norm{r}.npz")
         cols = slice(r * D, (r + 1) * D)
@@ -203,7 +196,7 @@ def test_the_gated_norms_statistic_sums_both_ways(tmp_path, both):
 ROW_RANK = r"""
 import datetime, sys
 import torch, torch.distributed as dist
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
 from repro_torch.launch.steps import on_model_axis
 from repro_torch.models import layers, runtime_flags
 
@@ -216,8 +209,7 @@ w = torch.tensor([[1 - 2 ** -8], [2 ** -7]], dtype=torch.bfloat16)[rank:rank + 1
 with torch.no_grad(), on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
     y = layers.row_parallel(x, w)
 print(repr((str(y.dtype), float(y))))
-dist.barrier()   # neither rank closes its connection while the other still reads
-dist.destroy_process_group()
+close_mesh()
 """
 
 
@@ -235,19 +227,43 @@ def test_a_bf16_row_parallel_product_rounds_its_sum_once(tmp_path):
     assert float(x[0, 0].float() * w[0, 0].float()) == 1 + 2 ** -8 - 2 ** -15
     rounded = (x[:, :1] @ w[:1]).float() + (x[:, 1:] @ w[1:]).float()
     assert float(rounded.to(torch.bfloat16)) == 1.0
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = [subprocess.Popen([sys.executable, "-c", ROW_RANK, str(r), str(tmp_path)],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(2)]
-    results = []
-    try:
-        for p in procs:
-            results.append(p.communicate(timeout=RANK_TIMEOUT_S))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for p, (out, err) in zip(procs, results):
-        assert p.returncode == 0, err[-3000:]
+    for out in _two_ranks(ROW_RANK, tmp_path):
         assert out.strip().splitlines()[-1] == repr(("torch.bfloat16", want))
+
+
+# one rank: a mesh of 1 x 2 whose last collective is an all_gather; rank 1
+# takes a second over its result before it closes its part of the group;
+# each prints when it closed (rank 1 also when it was through its result)
+CLOSE_RANK = r"""
+import datetime, sys, time
+import torch, torch.distributed as dist
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
+
+rank, work = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+make_local_mesh(2, backend="cpu")
+x = torch.arange(16, dtype=torch.float32) + 16 * rank
+parts = [torch.empty_like(x) for _ in range(2)]
+dist.all_gather(parts, x)
+if rank == 1:
+    time.sleep(1.0)
+    assert torch.equal(torch.cat(parts), torch.arange(32, dtype=torch.float32))
+    print("read", repr(time.time()))
+close_mesh()
+print("closed", repr(time.time()), dist.is_initialized())
+"""
+
+
+def test_a_rank_that_closes_first_waits_for_the_other_to_read(tmp_path):
+    """``launch.mesh.close_mesh`` right after a rank's last collective,
+    while the other rank still reads its result: rank 0 closes only after
+    rank 1 is through (without the barrier it would close at once, and
+    under load gloo can then abort the other rank: exit -6, ``terminate
+    called without an active exception``), both exit 0, and neither holds
+    a process group afterwards."""
+    outs = [dict((line.split(" ", 1)[0], line.split(" ")[1:])
+                 for line in out.strip().splitlines())
+            for out in _two_ranks(CLOSE_RANK, tmp_path)]
+    assert [out["closed"][1] for out in outs] == ["False", "False"]
+    assert float(outs[1]["read"][0]) <= float(outs[0]["closed"][0])

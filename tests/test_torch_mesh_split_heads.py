@@ -37,15 +37,16 @@ import torch
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models import Model as RefModel
 from repro_torch import params as port_params
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import INPUT_SHAPES, get_config, get_smoke_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels.paged_attention import (paged_attention_plain,
                                                  paged_attention_split_plain)
 from repro_torch.launch import shardings as sh
-from repro_torch.launch import steps
-from repro_torch.launch.mesh import MeshShape
+from repro_torch.launch import dryrun, roofline, steps
+from repro_torch.launch.mesh import MeshShape, mesh_shape
 from repro_torch.models import Model, layers
 from repro_torch.models.transformer import cache_rows
+from test_torch_mesh import RankZero
 
 # the test workers share the host's cores: cap each one's intra-op threads
 torch.set_num_threads(2)
@@ -71,7 +72,8 @@ import numpy as np, torch, torch.distributed as dist
 from repro_torch import params as P
 from repro_torch.configs.base import InputShape, ModelConfig, SSMConfig
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes, mesh_coords
+from repro_torch.launch.mesh import (close_mesh, make_local_mesh, mesh_axis_sizes,
+                                     mesh_coords)
 from repro_torch.models import Model
 from repro_torch.models.transformer import cache_rows
 
@@ -96,7 +98,7 @@ params = P.shard_params(P.from_reference(tree, cfg, device="cpu"), mesh, mesh_co
 lengths, cap, n_vis = spec["lengths"], spec["cap"], spec["n_vis"]
 B = len(lengths)
 rows = steps.batch_rows(mesh, B)
-lcfg = steps.local_config(cfg, mesh_axis_sizes(mesh), "decode")
+lcfg = steps.local_config(cfg, mesh_axis_sizes(mesh))
 pool = Model(lcfg).init_cache(rows.stop - rows.start, cap, dtype=torch.float32, device="cpu")
 out = {}
 logits = []
@@ -104,11 +106,15 @@ for i in range(rows.start, rows.stop):
     n = lengths[i]
     prefill, _ = steps.sharded_step(cfg, InputShape(f"p{i}", n, 1, "prefill"), mesh)
     batch = {"tokens": torch.from_numpy(data[f"tokens{i}"]).long()}
-    if f"vision{i}" in data.files:
-        batch["vision"] = torch.from_numpy(data[f"vision{i}"])
+    for key in ("vision", "frames"):
+        if f"{key}{i}" in data.files:
+            batch[key] = torch.from_numpy(data[f"{key}{i}"])
     lg, one = prefill(params, batch)
-    Model(lcfg).write_slot(pool, i - rows.start,
-                           {k: cache_rows(one, k, 0)[:, None, :n + n_vis] for k in ("k", "v")})
+    sub = {k: cache_rows(one, k, 0)[:, None, :n + n_vis] for k in ("k", "v")}
+    for k in ("cross_k", "cross_v"):   # the rank's pages of the encoder's rows, whole
+        if k in one:
+            sub[k] = cache_rows(one, k, 0, table="cross_block_tables")[:, None]
+    Model(lcfg).write_slot(pool, i - rows.start, sub)
     pool["pos"][i - rows.start] = n + n_vis
     logits.append(lg)
 out["prefill"] = torch.cat(logits).numpy()
@@ -117,7 +123,7 @@ for j, tok in enumerate(data["feed"]):
     lg, pool = decode(params, torch.from_numpy(tok).long()[:, None], pool)
     out[f"decode{j}"] = lg.numpy()
 np.savez(f"{work}/rank{rank}.npz", rows=np.array([rows.start, rows.stop]), **out)
-dist.destroy_process_group()
+close_mesh()
 """
 
 
@@ -136,6 +142,9 @@ def _prompts(cfg):
         p = {"tokens": rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)}
         if cfg.arch_type == "vlm":
             p["vision"] = rng.standard_normal((1, cfg.n_vision_tokens, cfg.d_model),
+                                              dtype=np.float32)
+        if cfg.arch_type == "audio":
+            p["frames"] = rng.standard_normal((1, cfg.enc_seq, cfg.d_model),
                                               dtype=np.float32)
         out.append(p)
     return out
@@ -181,8 +190,11 @@ def _unsharded(arch, overrides=()):
         batch = {k: torch.from_numpy(v) for k, v in p.items()}
         batch["tokens"] = batch["tokens"].long()
         lg, one = model.prefill(params, batch, cache_len=n + n_vis, dtype=torch.float32)
-        model.write_slot(pool, i, {k: cache_rows(one, k, 0)[:, None, :n + n_vis]
-                                   for k in ("k", "v")})
+        sub = {k: cache_rows(one, k, 0)[:, None, :n + n_vis] for k in ("k", "v")}
+        for k in ("cross_k", "cross_v"):
+            if k in one:
+                sub[k] = cache_rows(one, k, 0, table="cross_block_tables")[:, None]
+        model.write_slot(pool, i, sub)
         pool["pos"][i] = n + n_vis
         logits.append(lg)
     port_logits = [torch.cat(logits).numpy()]
@@ -226,6 +238,17 @@ STRADDLE = (("n_heads", 9), ("n_kv_heads", 3), ("d_model", 288))
                               "internvl2-2b-1x4", "straddle-1x2"])
 def test_split_heads_prefill_and_decode_match_the_reference(tmp_path, arch, data_axis,
                                                             model_axis, overrides):
+    check_split_heads_serving(tmp_path, arch, data_axis, model_axis, overrides)
+
+
+def check_split_heads_serving(tmp_path, arch, data_axis, model_axis, overrides=()):
+    """``arch``'s smoke config, changed by ``overrides`` (pairs of a field
+    and its value, in both packages) so that a model axis of
+    ``model_axis`` splits its heads, on ``data_axis`` x ``model_axis`` gloo
+    ranks against the reference and the port unsharded: each prompt of
+    ``LENGTHS`` prefilled alone and written into its slot, then
+    ``DECODE_STEPS`` decode steps (also
+    ``tests/test_torch_mesh_audio_split_heads.py``'s)."""
     cfg = get_smoke_config(arch).with_(dtype="float32", **dict(overrides))
     assert steps.splits_heads(cfg, model_axis)
     as_numpy, prompts, feed, ref_logits, port_logits = _unsharded(arch, overrides)
@@ -342,7 +365,7 @@ def test_partials_over_the_ranks_pages_merge_to_the_whole_pools_attention(m, pla
 MERGE_RANK = r"""
 import datetime, sys
 import torch, torch.distributed as dist
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
 from repro_torch.launch.steps import on_model_axis
 from repro_torch.models import layers, runtime_flags
 
@@ -357,7 +380,7 @@ lse = torch.tensor([[0.0, 0.0], [0.0, float("-inf")]])[rank]
 with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
     got = layers.merge_model_axis(o, lse)
 print(repr([float(x) for x in got.to(torch.bfloat16).float().reshape(-1)]))
-dist.destroy_process_group()
+close_mesh()
 """
 
 
@@ -406,7 +429,7 @@ def test_the_heads_a_ranks_rows_of_wo_overlap(arch, m, want):
     where the block keeps a grouping, each head's own where it straddles a
     group's edge."""
     cfg = get_config(arch)
-    lcfg = steps.local_config(cfg, {"data": 1, "model": m}, "decode")
+    lcfg = steps.local_config(cfg, {"data": 1, "model": m})
     D, group = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
     blocks = [layers.split_head_block(lcfg, r) for r in range(m)]
     if want is not None:
@@ -428,7 +451,7 @@ def test_a_block_that_straddles_a_group_takes_each_heads_kv_head():
     1, which no grouping of the kernels' takes, so each head reads its own
     KV head (group 1); rank 1's start in the middle of head 4."""
     cfg = get_smoke_config("llama-70b").with_(n_heads=9, n_kv_heads=3, d_model=288)
-    lcfg = steps.local_config(cfg, {"data": 1, "model": 2}, "decode")
+    lcfg = steps.local_config(cfg, {"data": 1, "model": 2})
     h0, h1, off = layers.split_head_block(lcfg, 0)
     assert (h0, h1, off) == (0, 5, 0)
     assert layers.kv_heads_of(lcfg, h0, h1) == [0, 0, 0, 1, 1]
@@ -444,15 +467,15 @@ ACCEPTED = ["llama-8b", "granite-8b", "llama-70b", "yi-34b", "internvl2-2b"]
 
 @pytest.mark.parametrize("arch", ACCEPTED)
 def test_the_production_model_axis_serves_the_dense_and_vlm_configs(arch):
-    """On the reference's 16 x 16 mesh ``check_mesh_runs`` takes the prefill
-    and decode steps of the five configs whose 8 KV heads 16 does not
-    divide; a rank keeps the heads whole and holds ``n_heads * head_dim /
-    16`` columns of ``wq`` and ``n_kv_heads * head_dim / 16`` of ``wk`` and
-    ``wv``, the shapes ``params`` cuts by the reference's specs."""
+    """On the reference's 16 x 16 mesh the prefill and decode steps of the
+    five configs whose 8 KV heads 16 does not divide have a plan; a rank
+    keeps the heads whole and holds ``n_heads * head_dim / 16`` columns of
+    ``wq`` and ``n_kv_heads * head_dim / 16`` of ``wk`` and ``wv``, the
+    shapes ``params`` cuts by the reference's specs."""
     cfg, sizes = get_config(arch), {"data": 16, "model": 16}
-    for kind in ("prefill", "decode"):
-        steps.check_mesh_runs(cfg, sizes, kind)
-    lcfg = steps.local_config(cfg, sizes, "decode")
+    for shape in ("prefill_32k", "decode_32k"):
+        assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh_shape((16, 16)))
+    lcfg = steps.local_config(cfg, sizes)
     D = cfg.resolved_head_dim
     assert (lcfg.n_heads, lcfg.n_kv_heads, lcfg.kv_shards) == (cfg.n_heads, cfg.n_kv_heads, 16)
     assert (lcfg.q_cols, lcfg.kv_cols) == (cfg.n_heads * D // 16, cfg.n_kv_heads * D // 16)
@@ -465,32 +488,18 @@ def test_the_production_model_axis_serves_the_dense_and_vlm_configs(arch):
         assert tuple(t.shape) in shapes, name
 
 
-class _RankZero(MeshShape):
-    """Rank 0 of a live mesh of ``shape`` as far as ``sharded_step`` reads it
-    while it builds a step: the axes' sizes and this rank's coordinates; no
-    process group (building the step runs no collective)."""
-
-    def size(self, dim: int) -> int:
-        return self.shape[dim]
-
-    def get_group(self, name: str):
-        return None
-
-    def get_local_rank(self, name: str) -> int:
-        return 0
-
-
 @pytest.mark.parametrize("arch", ACCEPTED)
 def test_their_train_step_on_split_heads_runs(arch):
-    """The five configs' train step on 16 x 16 passes ``check_mesh_runs``,
-    and ``sharded_step`` builds their smoke configs' train step on 1 x 4
+    """The five configs' train step on 16 x 16 has a plan, and
+    ``sharded_step`` builds their smoke configs' train step on 1 x 4
     (which splits their heads) with the rank's blocks as its meta specs:
     ``q_cols`` columns of ``wq`` and ``wo``'s rows, ``kv_cols`` of ``wk``
     and ``wv``, and AdamW moments of the same shapes
     (tests/test_torch_mesh_train_split_heads.py runs such steps)."""
-    steps.check_mesh_runs(get_config(arch), {"data": 16, "model": 16}, "train")
+    assert roofline.mesh_coll_bytes(get_config(arch), INPUT_SHAPES["train_4k"],
+                                    mesh_shape((16, 16)))
     cfg = get_smoke_config(arch)
-    mesh = _RankZero((1, 4), ("data", "model"))
+    mesh = RankZero((1, 4), ("data", "model"))
     assert steps.splits_heads(cfg, 4)
     fn, (params, opt, batch) = steps.sharded_step(cfg, InputShape("t", 32, 4, "train"), mesh)
     assert callable(fn) and batch["tokens"].shape == (4, 32)
@@ -507,25 +516,52 @@ def test_their_train_step_on_split_heads_runs(arch):
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
-def test_the_audio_family_on_split_heads_raises(kind):
-    """whisper-base's 8 heads on 16: its cross pool of 1500 encoder
-    positions takes the head_dim placement, not ported; nor is its train
-    step there."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*4c"):
-        steps.check_mesh_runs(get_config("whisper-base"), {"data": 16, "model": 16}, kind)
+def test_the_audio_family_on_split_heads_is_planned(kind):
+    """whisper-base's 8 heads on 16, half a head a rank: its step of
+    ``kind`` has a plan on 16 x 16 (``tests/test_torch_shardings.py``
+    counts it) and the dry run plans it, and ``sharded_step`` builds it on rank 0 of 1 x 16 with the
+    rank's column blocks of ``wq``/``wk``/``wv`` (32 of 512) and rows of
+    ``wo`` in every encoder and decoder attention, its share of ``d_ff``,
+    the vocabulary of 51865 whole (16 does not divide it), and, for a
+    decode, both pools on round-robin pages: the cross pool's 94 pages of
+    1500 encoder positions a row at 6 a rank (``shardings.seq_pages``)."""
+    cfg = get_config("whisper-base")
+    shape = {"prefill": "prefill_32k", "decode": "decode_32k", "train": "train_4k"}[kind]
+    assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh_shape((16, 16)))
+    rec, line = dryrun.run_one("whisper-base", shape, mesh=(16, 16))
+    assert rec["status"] == "ok" and rec["coll_bytes"] > 0, line
+    fn, args = steps.sharded_step(cfg, InputShape("s", 64, 4, kind),
+                                  RankZero((1, 16), ("data", "model")))
+    params = args[0]
+    assert callable(fn)
+    for stack in (params["enc_layers"]["attn"], params["dec_layers"]["self_attn"],
+                  params["dec_layers"]["cross_attn"]):
+        for name in ("wq", "wk", "wv"):
+            assert tuple(stack[name].shape)[1:] == (512, 32), name
+        assert tuple(stack["wo"].shape)[1:] == (32, 512)
+    assert tuple(params["dec_layers"]["ffn"]["w_up"].shape) == (6, 512, 2048 // 16)
+    assert tuple(params["emb"]["tok"].shape) == (51865, 512)
+    if kind == "decode":
+        cache = args[2]
+        assert tuple(cache["cross_k"].shape) == (6, 4 * 6, 16, 8, 64)
+        assert tuple(cache["cross_block_tables"].shape) == (4, 6)
+        assert tuple(cache["k"].shape) == (6, 4 * 1, 16, 8, 64)
+    if kind == "train":
+        assert tuple(args[1].mu["enc_layers"]["attn"]["wq"].shape) == (6, 512, 32)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_a_window_on_split_heads_raises(kind):
     cfg = get_config("llama-8b").with_(sliding_window=4096)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*4e"):
-        steps.check_mesh_runs(cfg, {"data": 16, "model": 16}, kind)
+        steps.sharded_step(cfg, InputShape("w", 4096, 16, kind),
+                           MeshShape((16, 16), ("data", "model")))
 
 
 def test_an_axis_that_divides_the_kv_heads_but_not_the_heads_raises():
     cfg = get_smoke_config("llama-70b").with_(n_heads=6, n_kv_heads=4, d_model=192)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.check_mesh_runs(cfg, {"data": 1, "model": 4}, "decode")
+        steps.check_mesh_runs(cfg, {"data": 1, "model": 4})
 
 
 def test_an_axis_that_does_not_divide_the_projections_raises():
@@ -534,4 +570,4 @@ def test_an_axis_that_does_not_divide_the_projections_raises():
     reference replicates the projection."""
     cfg = get_smoke_config("yi-34b")
     with pytest.raises(NotImplementedError, match="replicates"):
-        steps.check_mesh_runs(cfg, {"data": 1, "model": 64}, "decode")
+        steps.check_mesh_runs(cfg, {"data": 1, "model": 64})

@@ -44,7 +44,7 @@ import datetime, sys
 import torch, torch.distributed as dist
 from repro_torch import params as P
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch.mesh import make_local_mesh, mesh_coords
+from repro_torch.launch.mesh import close_mesh, make_local_mesh, mesh_coords
 from repro_torch.models import Model
 from repro_torch.training import tree
 
@@ -81,7 +81,7 @@ for arch, kw in (("mamba2-1.3b", {}), ("zamba2-2.7b", {"n_layers": 4}),
                           2 * di + 2 * N + torch.arange(r * H // 2, (r + 1) * H // 2)])
         assert torch.equal(lay["w_in"], w[..., cols]), arch
 print("ok", rank)
-dist.destroy_process_group()
+close_mesh()
 """
 
 

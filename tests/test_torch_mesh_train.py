@@ -80,7 +80,7 @@ import numpy as np, torch, torch.distributed as dist
 from repro_torch import params as P
 from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_local_mesh, mesh_coords
+from repro_torch.launch.mesh import close_mesh, make_local_mesh, mesh_coords
 from repro_torch.training import tree
 
 rank, world, model_axis, work = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
@@ -129,7 +129,7 @@ for case, spec in json.load(open(f"{work}/spec.json")).items():
     np.savez(f"{work}/{case}_rank{rank}.npz",
              coords=np.array([coords["data"], coords["model"]]), **out)
 print(json.dumps({"rank": rank, "coords": coords}))
-dist.destroy_process_group()
+close_mesh()
 """
 
 
@@ -170,7 +170,8 @@ def _configs(arch):
     """The reference's and the port's float32 smoke configs of ``arch``;
     ``"<arch>/E<n>"`` gives its MoE ``n`` routed experts, ``/L<n>`` ``n``
     layers, ``/V<n>`` a vocabulary of ``n``, ``/H<n>`` ``n`` heads, ``/K<n>``
-    ``n`` KV heads, ``/D<n>`` a ``d_model`` of ``n``."""
+    ``n`` KV heads, ``/D<n>`` a ``d_model`` of ``n``, ``/T<n>`` ``n`` encoder
+    positions."""
     arch, *mods = arch.split("/")
     rcfg = ref_smoke_config(arch).with_(dtype="float32")
     cfg = get_smoke_config(arch).with_(dtype="float32")
@@ -181,7 +182,7 @@ def _configs(arch):
             cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_experts=n))
         else:
             key = {"L": "n_layers", "V": "vocab_size", "H": "n_heads", "K": "n_kv_heads",
-                   "D": "d_model"}[mod[0]]
+                   "D": "d_model", "T": "enc_seq"}[mod[0]]
             rcfg, cfg = rcfg.with_(**{key: n}), cfg.with_(**{key: n})
     return rcfg, cfg
 
@@ -395,13 +396,17 @@ def check_train_case(cases, mesh_ranks, case, witnessed=()):
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "whisper-base"])
 def test_the_sharded_train_step_refuses_the_other_families(arch):
-    """The ssm, hybrid and audio families train on a mesh whose model axis
-    divides their heads (tests/test_torch_mesh_train_ssm.py); their smoke
-    configs' 8 SSM heads or 4 attention heads on a model axis of 16 would
-    split a head, which the step refuses."""
+    """The ssm and hybrid families train on a mesh whose model axis divides
+    their heads (tests/test_torch_mesh_train_ssm.py); their smoke configs'
+    8 SSM heads on a model axis of 16 would split a head, which the step
+    refuses. The audio family trains on split heads too
+    (tests/test_torch_mesh_audio_split_heads.py), and is refused on a model
+    axis of 3, which divides neither its smoke config's 4 heads nor their
+    128 columns."""
+    model = 3 if arch == "whisper-base" else 16
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         steps.sharded_step(get_smoke_config(arch), InputShape("t", 32, 4, "train"),
-                           MeshShape((2, 16), ("data", "model")))
+                           MeshShape((2, model), ("data", "model")))
 
 
 def test_a_model_axis_that_does_not_divide_the_experts_d_ff_raises():

@@ -78,7 +78,7 @@ WIDTHS = (6, 4, 4)   # each rank's columns of wq, wk and wv
 GATHER_RANK = r"""
 import datetime, sys
 import numpy as np, torch, torch.distributed as dist
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import close_mesh, make_local_mesh
 from repro_torch.launch.steps import on_model_axis
 from repro_torch.models import layers, runtime_flags
 
@@ -103,7 +103,7 @@ with on_model_axis(runtime_flags.ModelAxis.of(mesh, 2)):
 np.savez(f"{work}/gather{rank}.npz", q=q.detach().numpy(), k=k.detach().numpy(),
          v=v.detach().numpy(), dx=x.grad.numpy(), **{f"d{n}": w.grad.numpy()
                                                      for n, w in zip(("wq", "wk", "wv"), ws)})
-dist.destroy_process_group()
+close_mesh()
 """
 
 

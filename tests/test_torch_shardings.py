@@ -475,24 +475,52 @@ def _family_coll_want(arch, shape, mesh_dims, *, remat=True):
     return want
 
 
+def _audio_split_heads_coll_want(shape, mesh_dims):
+    """whisper-base's ``mesh_coll_bytes`` where the model axis splits its 8
+    heads: ``_family_coll_want``'s all_reduces, with a train step's
+    backward all_reduce of the gathered q, k and v's gradients (the
+    forward's gathered elements, the decoder's once); and the all-gathers,
+    (m - 1) / m of what each gathers: q, k and v in each encoder layer over
+    the frames, and in each decoder layer the self-attention's q, k and v
+    and the cross q over the tokens and the cross k and v over the frames
+    (a decode step: the new token's self q, k, v and cross q, and two
+    merges a layer, every rank's partial and log-sum-exp, ``H (D + 1)`` a
+    sequence from each of m), the decoder's again under remat."""
+    cfg, shp = get_config("whisper-base"), INPUT_SHAPES[shape]
+    data, m = mesh_dims
+    H, D, L = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
+    assert cfg.n_kv_heads == H
+    rows = shp.global_batch // data if shp.global_batch % data == 0 else shp.global_batch
+    decode, train = shp.kind == "decode", shp.kind == "train"
+    tokens = rows * (1 if decode else shp.seq_len)
+    frames = 0 if decode else rows * cfg.enc_seq
+    encoder = cfg.n_enc_layers * frames * 3 * H * D
+    decoder = L * (tokens * 4 * H * D + frames * 2 * H * D)
+    merges = 2 * L * m * rows * H * (D + 1) if decode else 0
+    want = _family_coll_want("whisper-base", shape, mesh_dims)
+    if train:
+        want["all-reduce model"] += (encoder + decoder) * 4 * 2 * (m - 1) / m
+    want["all-gather model"] = (encoder + decoder + merges + (decoder if train else 0)) * \
+        4 * (m - 1) / m
+    return want
+
+
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
 @pytest.mark.parametrize("mesh_dims", [(1, 2), (2, 2), (16, 16)],
                          ids=lambda m: "x".join(map(str, m)))
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "whisper-base"])
 def test_mesh_coll_bytes_of_the_ssm_hybrid_and_audio_families(arch, mesh_dims, shape):
     """``mesh_coll_bytes`` of each family's prefill, decode and train steps
-    on 1 x 2 and 2 x 2 (one node: NVLink), and on 16 x 16 for mamba2-1.3b and
-    zamba2-2.7b, whose heads 16 divides; whisper-base's 8 heads it does not
-    (the sequence-sharded KV fallback, ROADMAP.md Queue A 8b-ii item 4), so
-    there its step is unplanned."""
+    on 1 x 2 and 2 x 2 (one node: NVLink), and on 16 x 16: mamba2-1.3b's and
+    zamba2-2.7b's heads 16 divides; whisper-base's 8 heads it splits, so
+    there its step gathers q, k and v and merges its decode attention
+    (``_audio_split_heads_coll_want``)."""
     cfg, mesh = get_config(arch), mesh_shape(mesh_dims)
     got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh)
-    if arch == "whisper-base" and mesh_dims == (16, 16):
-        assert got is None
-        with pytest.raises(NotImplementedError, match="8b-ii"):
-            steps.check_mesh_runs(cfg, {"data": 16, "model": 16})
-        return
     want = _family_coll_want(arch, shape, mesh_dims)
+    if steps.splits_heads(cfg, mesh_dims[-1]):
+        assert arch == "whisper-base" and mesh_dims == (16, 16)
+        want = _audio_split_heads_coll_want(shape, mesh_dims)
     assert set(got) == set(want)
     for key, value in want.items():
         assert got[key] == pytest.approx(value, rel=1e-12), key
@@ -518,6 +546,47 @@ def test_the_dry_run_states_the_rank_layouts_extra_bytes(arch):
     assert want > 0
     assert rec["layout_extra_bytes"] == want
     assert rec["fits"] == (rec["arg_bytes"] + want <= roofline.CARD_BYTES)
+
+
+def test_the_dry_run_counts_whisper_bases_cross_pool_on_round_robin_pages():
+    """whisper-base's ``decode_32k`` on 16 x 16 (8 rows a device): a rank
+    holds its round-robin pages of each row's cross pool, ceil(94 / 16) = 6
+    pages of 16 positions (1500 encoder positions fill 94 pages), where the
+    reference's spec cuts the pool's ``head_dim``, a sixteenth of 94 pages:
+    ``layout_extra_bytes`` is the difference, for ``cross_k`` and
+    ``cross_v`` in every layer, bf16; the self pool's 2048 pages a row
+    divide over the ranks and add nothing. Its collective bytes are the
+    split-heads plan's."""
+    rec, line = dryrun.run_one("whisper-base", "decode_32k", mesh=(16, 16))
+    assert rec["status"] == "ok", line
+    cfg, m = get_config("whisper-base"), 16
+    rows = INPUT_SHAPES["decode_32k"].global_batch // 16
+    pages = -(-cfg.enc_seq // 16)
+    held = -(-pages // m) * 16                # positions a rank holds of a row
+    assert (pages, held) == (94, 96)
+    position = cfg.n_kv_heads * cfg.resolved_head_dim * 2          # bf16
+    want = 2 * cfg.n_layers * rows * (held * position - pages * 16 * position // m)
+    assert rec["layout_extra_bytes"] == want > 0
+    assert rec["fits"] == (rec["arg_bytes"] + want <= roofline.CARD_BYTES)
+    assert rec["coll_breakdown"] == pytest.approx(
+        _audio_split_heads_coll_want("decode_32k", (16, 16)), rel=1e-12)
+
+
+# every config of the registry
+REGISTRY = sorted(set(ASSIGNED_ARCHS) | {"llama-8b", "llama-70b"})
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+@pytest.mark.parametrize("arch", REGISTRY)
+def test_every_registry_config_runs_on_the_production_mesh(arch, shape):
+    """On the reference's 16 x 16 mesh ``check_mesh_runs`` refuses no config
+    of the registry at the prefill, decode or train shape, and each step
+    has a plan."""
+    from repro_torch import configs
+    assert set(REGISTRY) == set(configs._ARCH_MODULES)
+    cfg = steps.resolve_config(get_config(arch), INPUT_SHAPES[shape])
+    steps.check_mesh_runs(cfg, {"data": 16, "model": 16})
+    assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh_shape((16, 16)))
 
 
 SPLIT_HEADS = ["llama-8b", "granite-8b", "llama-70b", "yi-34b", "internvl2-2b"]
@@ -570,8 +639,9 @@ def test_mesh_coll_bytes_where_the_model_axis_splits_the_heads(arch, shape):
     16 have a plan, counted by formula; ``arg_bytes`` stays the bytes of the
     reference's specs, and at these lengths each row's pages divide over the
     16 ranks, so the round-robin pool adds nothing (``layout_extra_bytes``
-    0). Their train step has a plan too (``test_mesh_coll_bytes_of_a_split_heads_train_step``);
-    whisper-base stays unplanned."""
+    0). Their train step has a plan too (``test_mesh_coll_bytes_of_a_split_heads_train_step``),
+    and so has whisper-base's step of this shape, counted by
+    ``_audio_split_heads_coll_want``."""
     cfg, mesh = get_config(arch), mesh_shape((16, 16))
     got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh)
     want = _split_heads_coll_want(arch, shape, (16, 16))
@@ -579,8 +649,8 @@ def test_mesh_coll_bytes_where_the_model_axis_splits_the_heads(arch, shape):
     for key, value in want.items():
         assert got[key] == pytest.approx(value, rel=1e-12), key
     assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES["train_4k"], mesh) is not None
-    assert roofline.mesh_coll_bytes(get_config("whisper-base"), INPUT_SHAPES[shape],
-                                    mesh) is None
+    audio = roofline.mesh_coll_bytes(get_config("whisper-base"), INPUT_SHAPES[shape], mesh)
+    assert audio == pytest.approx(_audio_split_heads_coll_want(shape, (16, 16)), rel=1e-12)
     if arch in ASSIGNED_ARCHS:
         test_dryrun_on_a_mesh_reports_the_local_bytes_of_the_references_specs(arch, shape)
     rec, line = dryrun.run_one(arch, shape, mesh=(16, 16))
