@@ -14,7 +14,8 @@ windowed paths agree, serves llama-8b, phi3-mini-3.8b, olmo-1b,
 internvl2-2b, mamba2-1.3b, qwen2-moe-a2.7b, deepseek-moe-16b, zamba2-2.7b,
 whisper-base and yi-34b at full width (random bf16 weights from a seed;
 yi-34b last, alone on the card) through ``repro_torch.launch.serve``'s
-loop, puts the
+loop, decodes llama-8b at ``long_500k`` on its ring of 4096 positions
+across a page boundary (``_serve_long``), puts the
 planner's step beside each graphed one and fits its ``MBU`` and
 ``STEP_OVERHEAD`` to the dense and VLM models' (the ``perf_model`` line),
 and runs Chiron's whole hierarchy,
@@ -178,10 +179,11 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 ssd_scan_backward = getattr(ssd_module, "ssd_scan_backward", None)
 ssd_scan_backward_plain = getattr(ssd_module, "ssd_scan_backward_plain", None)
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
-from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.base import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.launch.steps import loss_and_grads, make_train_step  # noqa: E402
+from repro_torch.launch.steps import (loss_and_grads, make_train_step,  # noqa: E402
+                                     resolve_config)
 from repro_torch.launch.train import synthetic_lm_batch, train  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving import decode_graph  # noqa: E402
@@ -689,10 +691,11 @@ def _paged_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths,
 
 
 def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
-                     timed: bool, of_max: float | None = None) -> dict:
+                     timed: bool, of_max: float | None = None, starts=None) -> dict:
     """``paged_attention(return_lse=True)``, the instance that writes a
     sequence-sharded rank's float32 partial and each query row's
-    log-sum-exp, against ``paged_attention_plain(return_lse=True)``: the
+    log-sum-exp, each row over ``[starts[b], lengths[b])`` (``starts`` None:
+    from 0), against ``paged_attention_plain(return_lse=True)``: the
     output within ``TOL`` (and ``of_max`` of its largest value, where
     given), the log-sum-exp within ``LSE_TOL``, a row with no
     position -inf and zeros, a second call bit for bit; with ``timed``, its
@@ -700,28 +703,30 @@ def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
     rows (gathered K/V and a mask). Returns its record for the kernels line
     (without the launch count)."""
     q, pools, bt, ln = _paged_case(gen, dtype, B, n_kv, group, D, lengths, pps, copies=4)
-    out, lse = paged_attention(q, *pools[0], bt, ln, return_lse=True)
+    lo = starts or [0] * B
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device="cuda")
+    out, lse = paged_attention(q, *pools[0], bt, ln, starts=st, return_lse=True)
     torch.cuda.synchronize()
     if out.dtype != torch.float32 or lse.dtype != torch.float32:
         fail(f"paged_attention {dtype} {case}: the LSE instance wrote {out.dtype} / "
              f"{lse.dtype}, want float32")
-    want, want_lse = paged_attention_plain(q, *pools[0], bt, ln, return_lse=True)
+    want, want_lse = paged_attention_plain(q, *pools[0], bt, ln, st, return_lse=True)
     err = check_close(f"paged_attention LSE {dtype} {case}", out, want, dtype,
                       of_max=of_max)
-    empty = torch.tensor(lengths, device="cuda") == 0
+    empty = torch.tensor([n <= s0 for n, s0 in zip(lengths, lo)], device="cuda")
     if not (torch.isneginf(lse[empty]).all() and (out[empty] == 0).all()):
         fail(f"paged_attention LSE {dtype} {case}: a row with nothing to attend to must "
              "give -inf and zeros")
     held = ~empty
     lse_err = check_close(f"paged_attention LSE {dtype} {case}, log-sum-exp", lse[held],
                           want_lse[held], torch.float32, {torch.float32: LSE_TOL})
-    again = paged_attention(q, *pools[0], bt, ln, return_lse=True)
+    again = paged_attention(q, *pools[0], bt, ln, starts=st, return_lse=True)
     torch.cuda.synchronize()
     if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
         fail(f"paged_attention LSE {dtype} {case}: a second call differs")
     rec = {"kernel": "paged_attention", "instance": "partial + LSE", "dtype": str(dtype),
            "case": case, "shape": dict(B=B, n_kv=n_kv, group=group, D=D, page=16,
-                                       lengths=lengths, max_pages=pps),
+                                       lengths=lengths, starts=starts, max_pages=pps),
            "tolerance": TOL[dtype], "tolerance_of_max": of_max, "lse_tolerance": LSE_TOL,
            "max_abs_err": err, "lse_max_abs_err": lse_err}
     if not timed:
@@ -731,7 +736,7 @@ def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
 
     def rotate(fn, **kw):
         turn[0] = (turn[0] + 1) % len(pools)
-        fn(q, *pools[turn[0]], bt, ln, return_lse=True, **kw)
+        fn(q, *pools[turn[0]], bt, ln, starts=st, return_lse=True, **kw)
 
     ms = device_ms(lambda: rotate(paged_attention))
     call_ms = time_ms(lambda: rotate(paged_attention))
@@ -742,14 +747,17 @@ def _paged_lse_timed(gen, F, dtype, B, n_kv, group, D, pps, case, lengths, *,
     kd = kd.repeat_interleave(group, dim=1).contiguous()
     vd = vd.repeat_interleave(group, dim=1).contiguous()
     qd = q.reshape(B, n_kv * group, 1, D)
-    mask = (torch.arange(pps * 16, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+    at = torch.arange(pps * 16, device="cuda")[None, :]
+    mask = ((at < ln[:, None]) & (at >= torch.tensor(lo, device="cuda")[:, None]))
+    mask = mask[:, None, None, :]
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
                                                                   attn_mask=mask))
-    tokens, pages = sum(lengths), sum(-(-n // 16) for n in lengths)
+    tokens = sum(max(0, n - s0) for n, s0 in zip(lengths, lo))
+    pages = sum(max(0, -(-n // 16) - s0 // 16) for n, s0 in zip(lengths, lo))
     # K/V read once, q read, the float32 output and log-sum-exp written, the
-    # table entries and lengths read
+    # table entries, lengths and starts read
     n_bytes = (2 * tokens * n_kv * D + q.numel()) * q.element_size() + \
-        4 * (q.numel() + B * n_kv * group) + 4 * (pages + B)
+        4 * (q.numel() + B * n_kv * group) + 4 * (pages + B * (1 if starts is None else 2))
     b_ms, b_by = bound(n_bytes, 4.0 * tokens * n_kv * group * D, dtype)
     rec.update(time_ms=ms, call_ms=call_ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
                library_ms=library_ms)
@@ -794,6 +802,52 @@ def _paged_garbage(gen, dtype, B, n_kv, group, D, lengths, pps, starts=None) -> 
                     block_tables="garbage outside each sequence's pages in range"),
          n_splits=plan.n_splits, used_splits=used, tolerance=TOL[dtype],
          max_abs_err=err, launches_checked=3)
+
+
+def _ring_kernels(gen, F) -> None:
+    """The decode kernel on the two rings of this script's ``long_500k``
+    cases, at the position after the page boundary at 524288, where each
+    ring has wrapped: llama-8b's 256-page ring on one card in bf16 (a view
+    of 257 table entries over the window's 4096 positions), and rank 0's 16
+    pages of it on ``MESH_SPLIT_SHAPE`` in float32 (the partial + LSE
+    instance over its 256 positions of the window, a view of 17 entries);
+    each row's ``starts`` and ``lengths`` in the view as
+    ``layers.decode_plan`` gives them, which must give the view that width.
+    Then the windowed prefill at a rank's heads there (H 2, Hkv 1: the mesh
+    case's prompt under its window)."""
+    from repro_torch.launch.steps import local_config
+    from repro_torch.models import layers, runtime_flags
+    cfg = resolve_config(get_config(MESH_LONG_ARCH), LONG_SHAPE)
+    d, m = MESH_SPLIT_SHAPE
+    pages = -(-cfg.sliding_window // 16)
+    rank_pages = -(-pages // m)
+    pos = torch.tensor([(LONG_POS // 16 + 1) * 16], device="cuda")
+    plan = layers.decode_plan(cfg, torch.arange(pages, device="cuda")[None].int(), pos,
+                              None, 16)
+    before = runtime_flags.get_mesh()
+    runtime_flags.set_mesh(runtime_flags.ModelAxis(None, 0, m, False))
+    try:
+        rank_plan = layers.decode_plan(local_config(_long_config(), {"data": d, "model": m}),
+                                       torch.arange(rank_pages, device="cuda")[None].int(),
+                                       pos, None, 16)
+    finally:
+        runtime_flags.set_mesh(before)
+    views = (tuple(plan["table"].shape), tuple(rank_plan["table"].shape))
+    if views != ((1, pages + 1), (1, rank_pages + 1)):
+        fail(f"long_500k: ring views of {views}, want {pages + 1} and {rank_pages + 1} entries")
+    n_kv, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    group = cfg.n_heads // n_kv
+    _paged_timed(gen, F, torch.bfloat16, 1, n_kv, group, D, pages + 1,
+                 "llama-8b long_500k ring, one card", plan["lengths"].tolist(),
+                 plan["starts"].tolist())
+    _paged_lse_timed(gen, F, torch.float32, 1, n_kv, group, D, rank_pages + 1,
+                     f"llama-8b long_500k ring, rank 0 of {d} x {m}",
+                     rank_plan["lengths"].tolist(), timed=True,
+                     starts=rank_plan["starts"].tolist())
+    H = cfg.n_heads // m
+    _flash_timed(gen, F, torch.float32, H, 1, D, MESH_LONG_PROMPT,
+                 window=MESH_LONG_PREFILL_WINDOW,
+                 case=f"llama-8b windowed prefill, a rank of {d} x {m} (H {H}, Hkv 1)")
 
 
 def _flash_inputs(gen, dtype, B, S, T, H, Hkv, D):
@@ -1480,6 +1534,7 @@ def phase_kernels(gen) -> dict:
                     4, 1, 1, 64, 1500, 1500, False, of_max=OF_MAX_TOL, timed=True)
     _flash_lse_timed(_draw_gen("flash_prefill", case, 0), F, torch.float32, 4, 1, 64, 1500,
                      case=case + ", with the log-sum-exp (LSE instance)", causal=False)
+    _ring_kernels(gen, F)
     return records
 
 
@@ -2720,6 +2775,178 @@ def _serve_prefix(smi: str, params) -> dict:
             "flash_prefill": fp}
 
 
+# llama-8b at ``long_500k`` (524288 positions, one sequence, decode), where
+# ``resolve_config`` gives every attention model a window of 4096, so that
+# its pool is a ring of ``cache_len_for``'s 4096 positions (256 pages,
+# ``models/layers.py``) and not the 68.72 GB of every position: the ring
+# filled from LONG_SEED as if it held positions LONG_POS - 4096 ..
+# LONG_POS - 1, then LONG_STEPS greedy decode steps, across the page
+# boundary at 524288, where the newest page takes the oldest's physical page
+LONG_SHAPE = INPUT_SHAPES["long_500k"]
+LONG_POS = 524280
+LONG_STEPS = 16
+LONG_SEED = 3
+
+
+def _long_ring(cfg, pos: int, dtype, seed: int) -> dict:
+    """One sequence's decode cache of ``cfg`` at ``long_500k``: a ring of
+    ``cache_len_for``'s positions, every slot drawn from ``seed`` (K/V of
+    unit scale), as if it held the ring's last positions before ``pos``;
+    ``pos`` the next position. Every process that draws it with the same
+    ``seed`` gets the same pool."""
+    from repro_torch.launch.steps import cache_len_for
+    cache = Model(cfg).init_cache(1, cache_len_for(cfg, LONG_SHAPE), dtype=dtype,
+                                  device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=gen, device="cuda"))
+    cache["pos"].fill_(pos)
+    return cache
+
+
+def _paged_plain(q, k_pool, v_pool, block_tables, lengths, *, page_size=16, starts=None,
+                 return_lse=False):
+    """``paged_attention_plain`` under ``ops.paged_attention``'s signature."""
+    return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths, starts,
+                                 return_lse)
+
+
+def _serve_long(smi: str, params) -> dict:
+    """llama-8b at ``long_500k`` on one card, on the serve phase's bf16
+    weights (full width and depth): its ring (``_long_ring``), then
+    ``LONG_STEPS`` greedy decode steps through the kernels, eagerly, with
+    the counters set to 0 just before, and an engine's captured decode step
+    (``DecodeGraph``, captured before the page boundary) replayed over the
+    same steps, each replay's logits and the pool after the last bit for bit
+    the eager steps'; the view's shape the same on both sides of the
+    boundary, the peak memory beside the dry run's ``arg_bytes``. Then the
+    same steps, fed the same tokens, for comparison (no launch counted):
+    through the kernels in float32 (the weights and ring cast), within
+    ``TOL`` of the same through plain attention (``paged_attention_plain``
+    in ``ops.paged_attention``); and the bf16 steps through plain attention.
+    Two bf16 runs of 32 layers part by rounding alone beyond ``TOL`` (each
+    lies ~0.2 off the float32 run where the logits' std is 1; NVIDIA H100
+    80GB HBM3, 700.00 W), so the kernels' bf16 logits are held to the
+    float32 plain run as a bf16 Mamba2 mesh run is: the largest error
+    within ``MESH_EXACT_FACTOR`` and the root mean square within
+    ``MESH_EXACT_RMS_FACTOR`` of the plain bf16 run's; their distance from
+    the plain bf16 logits and the greedy agreements stated. Returns the
+    launches."""
+    from repro_torch.launch.steps import input_specs
+    from repro_torch.models import layers
+    cfg = resolve_config(get_config("llama-8b"), LONG_SHAPE)
+    model, bf16, f32 = Model(cfg), torch.bfloat16, torch.float32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ring = _long_ring(cfg, LONG_POS, bf16, LONG_SEED)
+    pages = ring["block_tables"].shape[1]
+    ring_bytes = 2 * ring["k"].numel() * ring["k"].element_size()
+    views = {tuple(layers.decode_plan(cfg, ring["block_tables"],
+                                      torch.tensor([p], device="cuda"), None, 16)["table"].shape)
+             for p in (LONG_POS, LONG_POS + LONG_STEPS - 1)}
+    crossed = LONG_POS // 16 != (LONG_POS + LONG_STEPS - 1) // 16
+    if pages != -(-cfg.sliding_window // 16) or views != {(1, pages + 1)} or not crossed:
+        fail(f"long_500k: a ring of {pages} pages, views {views} across the steps, "
+             f"crossing a page boundary: {crossed}")
+    active = torch.ones((1,), dtype=torch.bool, device="cuda")
+    first = int(np.random.default_rng(LONG_SEED).integers(cfg.vocab_size))
+
+    def steps(pool, fed=None, model=model, params=params):
+        logits, tokens = [], [torch.tensor([[first]], device="cuda")]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with torch.no_grad():
+            for i in range(LONG_STEPS):
+                tok = tokens[-1] if fed is None else fed[i]
+                lg, pool = model.decode_step(params, tok, pool, active)
+                logits.append(lg)
+                tokens.append(lg.argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        return logits, tokens[:LONG_STEPS], pool, (time.monotonic() - t0) / LONG_STEPS
+
+    eager, fed, pool, eager_s = steps({k: t.clone() for k, t in ring.items()})
+    if paged_attention.launches != LONG_STEPS * cfg.n_layers:
+        fail(f"long_500k: {paged_attention.launches} paged_attention launches in "
+             f"{LONG_STEPS} steps of {cfg.n_layers} layers")
+    graph_pool = {k: t.clone() for k, t in ring.items()}
+    g = decode_graph.DecodeGraph(model, params, graph_pool, 1, bf16, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i, tok in enumerate(fed):
+        g.run([int(tok)], [True])
+        if not torch.equal(g.logits, eager[i].to(g.logits.dtype)):
+            fail(f"long_500k: replay {i} (position {LONG_POS + i}) differs from the eager "
+                 f"step by {float((g.logits.float() - eager[i].float()).abs().max()):.3e}")
+    replay_s = (time.monotonic() - t0) / LONG_STEPS
+    if any(not torch.equal(graph_pool[k], pool[k]) for k in ("k", "v", "pos")):
+        fail("long_500k: the replayed steps' pool differs from the eager steps'")
+    want = (2 * LONG_STEPS + decode_graph.WARMUP_STEPS) * cfg.n_layers
+    if paged_attention.launches != want:
+        fail(f"long_500k: {paged_attention.launches} paged_attention launches, the run "
+             f"implies {want}")
+    launches = {"paged_attention": paged_attention.launches, "flash_prefill": 0}
+    peak = torch.cuda.max_memory_allocated()
+    capture_s = g.capture_s
+    g.close()
+    del pool, graph_pool, g
+
+    # the comparisons: float32 through the kernels and through plain
+    # attention, bf16 through plain attention
+    params32 = tree.tree_map(lambda t: t.float(), params)
+    model32 = Model(cfg.with_(dtype="float32"))
+    ring32 = {k: t.float() if t.is_floating_point() else t for k, t in ring.items()}
+    kernel32 = steps({k: t.clone() for k, t in ring32.items()}, fed, model32, params32)[0]
+    ops.paged_attention = _paged_plain
+    try:
+        before = paged_attention.launches
+        exact = steps(ring32, fed, model32, params32)[0]
+        plain, _, _, plain_s = steps({k: t.clone() for k, t in ring.items()}, fed)
+    finally:
+        ops.paged_attention = paged_attention
+    if paged_attention.launches != before:
+        fail("long_500k: the plain attention route launched the kernel")
+    del params32, ring32, ring
+    err32 = max(check_close(f"long_500k float32 step {i}, kernels against plain attention",
+                            a, b, f32) for i, (a, b) in enumerate(zip(kernel32, exact)))
+
+    def off(run):   # (largest error, root mean square) against the float32 run
+        d = torch.stack([a.float() - b for a, b in zip(run, exact)])
+        return float(d.abs().max()), float(d.double().square().mean().sqrt())
+
+    (mx, rms), (plain_mx, plain_rms) = off(eager), off(plain)
+    if mx > MESH_EXACT_FACTOR * plain_mx or rms > MESH_EXACT_RMS_FACTOR * plain_rms:
+        fail(f"long_500k: the kernels' bf16 logits lie {mx:.4e} (rms {rms:.4e}) off the "
+             f"float32 run, beyond {MESH_EXACT_FACTOR:g} x ({MESH_EXACT_RMS_FACTOR:g} x) "
+             f"plain attention's bf16 {plain_mx:.4e} ({plain_rms:.4e})")
+
+    def agree(a_run, b_run):
+        return [sum(int(a.argmax(-1) == b.argmax(-1)) for a, b in zip(a_run, b_run)),
+                LONG_STEPS]
+
+    specs = input_specs(get_config("llama-8b"), LONG_SHAPE)
+    emit("serve", check="long_500k on a ring", gpu=smi, model=cfg.name, dtype="bfloat16",
+         layers=cfg.n_layers, window=cfg.sliding_window, ring_positions=pages * 16,
+         ring_pages=pages, view_entries=pages + 1, ring_bytes=ring_bytes,
+         first_pos=LONG_POS, decode_steps=LONG_STEPS, crosses=(LONG_POS // 16 + 1) * 16,
+         float32_tolerance=TOL[f32], float32_max_abs_err_vs_plain=err32,
+         max_abs_err_vs_float32=mx, plain_max_abs_err_vs_float32=plain_mx,
+         rms_err_vs_float32=rms, plain_rms_err_vs_float32=plain_rms,
+         exact_factor=MESH_EXACT_FACTOR, exact_rms_factor=MESH_EXACT_RMS_FACTOR,
+         max_abs_err_vs_plain=max(float((a.float() - b.float()).abs().max())
+                                  for a, b in zip(eager, plain)),
+         bf16_tolerance=TOL[bf16],
+         max_abs_logit=max(float(x.abs().max()) for x in exact),
+         greedy_agree_vs_plain=agree(eager, plain), greedy_agree_vs_float32=agree(eager, exact),
+         plain_greedy_agree_vs_float32=agree(plain, exact), replay_bit_identical=True,
+         eager_step_ms=eager_s * 1e3, plain_step_ms=plain_s * 1e3,
+         replay_step_ms=replay_s * 1e3, capture_s=capture_s, peak_bytes=peak,
+         dryrun_arg_bytes=roofline.nbytes(specs), kernel_launches=launches)
+    return launches
+
+
 # the serving paths at full width, in order: yi-34b last, alone on the card
 SERVE_ARCHS = ("llama-8b", "phi3-mini-3.8b", "olmo-1b", "internvl2-2b", "mamba2-1.3b",
                "whisper-base",
@@ -2727,7 +2954,8 @@ SERVE_ARCHS = ("llama-8b", "phi3-mini-3.8b", "olmo-1b", "internvl2-2b", "mamba2-
 
 
 def phase_serve(smi: str):
-    """Every serving path and the dense one with the serving knobs; returns
+    """Every serving path, the dense one with the serving knobs and at
+    ``long_500k`` on its ring (``_serve_long``, on the same weights); returns
     each kernel's launches over its paths, and what the ``sim`` phase reads
     of the run: each path's ``_where_the_time_goes`` and the planner's fit. Each engine is closed and dropped
     before the next path builds its own, so that yi-34b's 68.78 GB of
@@ -2746,6 +2974,8 @@ def phase_serve(smi: str):
             launches[name] += n
         if arch == "llama-8b":
             for name, n in _serve_prefix(smi, eng.params).items():
+                launches[name] += n
+            for name, n in _serve_long(smi, eng.params).items():
                 launches[name] += n
         if eng.cfg.arch_type != "ssm":
             planner[arch] = share["planner"]
@@ -4157,6 +4387,28 @@ MESH_SPLIT_ARCH = "yi-34b"
 MESH_SPLIT_SHAPE = (1, 16)
 MESH_SPLIT_CASES = ((MESH_ARCH, torch.float32), (MESH_ARCH, torch.bfloat16),
                     (MESH_SPLIT_ARCH, torch.float32), (MESH_AUDIO_ARCH, torch.float32))
+# the long_500k case of the MESH_SPLIT_SHAPE group: MESH_LONG_ARCH at its
+# train step's layers (MESH_TRAIN), float32, full width, at long_500k, where
+# ``resolve_config`` gives it a window of 4096: world 1's ring of 4096
+# positions (``_long_ring`` from MESH_LONG_SEED, as if it held the positions
+# before MESH_LONG_POS) carried to each rank by ring page (``_rank_ring``),
+# then MESH_LONG_STEPS decode steps across the page boundary at 524288, fed
+# world 1's greedy tokens; and a windowed prefill of MESH_LONG_PROMPT tokens,
+# longer than the ranks' ring of MESH_LONG_PREFILL_WINDOW positions (one
+# page a rank), so that it wraps on every rank, then
+# MESH_LONG_PREFILL_STEPS decode steps. Each logit within MESH_TOL of world
+# 1's, every greedy token world 1's. Reduced: the layers (2 of 32, the
+# train step's), and the prefill's window, 256 of long_500k's 4096: a prompt
+# longer than 4096 positions on 16 ranks gathers every position's q, k and
+# v on every rank at each layer (4100 x 6144 float32, 100.8 MB) through the
+# host's gloo copies, where a collective of a few MB takes 58-200 ms
+MESH_LONG_ARCH = "llama-8b"
+MESH_LONG_POS = 524284
+MESH_LONG_STEPS = 8
+MESH_LONG_SEED = 5
+MESH_LONG_PROMPT = 300
+MESH_LONG_PREFILL_WINDOW = 256
+MESH_LONG_PREFILL_STEPS = 4
 # ranks that draw their shards at one time (``_in_turns``): a rank draws
 # each layer and llama-70b's 4.2 GB float32 embedding whole before it cuts
 # its shard, which 16 ranks at once would not fit on one card (4 at a time
@@ -4491,6 +4743,60 @@ def _train_config(arch):
     return _cut(get_config(arch).with_(dtype="float32"), MESH_TRAIN[arch][0])
 
 
+def _long_config(window: int = 0):
+    """The mesh phase's long_500k config: ``MESH_LONG_ARCH``'s train config
+    under ``resolve_config``'s window of 4096, or a window of ``window``."""
+    cfg = resolve_config(_train_config(MESH_LONG_ARCH), LONG_SHAPE)
+    return cfg.with_(sliding_window=window) if window else cfg
+
+
+def _long_prompt(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(MESH_LONG_SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, MESH_LONG_PROMPT))).long()
+
+
+def _long_steps(decode, params, pool, tok, n: int, feed=None):
+    """``n`` decode steps of one sequence from ``pool``, the first fed
+    ``tok`` (1,), each later one the greedy token of the step before, or
+    ``feed[i]``. Returns the logits on the host, the tokens fed (n, 1) and
+    the pool."""
+    out, fed = [], []
+    for i in range(n):
+        fed.append(tok if feed is None else feed[i])
+        logits, pool = decode(params, fed[-1][:, None].cuda(), pool)
+        out.append(logits.float().cpu())
+        tok = out[-1].argmax(-1)
+    return out, torch.stack(fed), pool
+
+
+def _long_world1() -> dict:
+    """World 1's long_500k case on the card (``MESH_LONG_*``): the ring's
+    greedy decode steps, and the windowed prefill's logits and greedy
+    decode steps."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg, wcfg = _long_config(), _long_config(MESH_LONG_PREFILL_WINDOW)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    params = Model(cfg).init(gen, dtype=torch.float32, device="cuda")
+    first = torch.tensor([int(np.random.default_rng(MESH_LONG_SEED + 1).integers(
+        cfg.vocab_size))])
+    prompt = _long_prompt(cfg)
+    with torch.no_grad():
+        ring = _long_ring(cfg, MESH_LONG_POS, torch.float32, MESH_LONG_SEED)
+        decode, feed, _ = _long_steps(make_serve_step(cfg), params, ring, first,
+                                      MESH_LONG_STEPS)
+        del ring
+        shape = InputShape("mesh_long_prefill", MESH_LONG_PROMPT, 1, "prefill")
+        logits, pool = make_prefill_step(wcfg, shape)(params, {"tokens": prompt.cuda()})
+        logits = logits.float().cpu()
+        after, prefill_feed, _ = _long_steps(make_serve_step(wcfg), params, pool,
+                                             logits.argmax(-1), MESH_LONG_PREFILL_STEPS)
+    torch.cuda.synchronize()
+    del params, pool
+    return {"decode": decode, "feed": feed, "prompt": prompt,
+            "prefill": [logits] + after, "prefill_feed": prefill_feed}
+
+
 def _train_batches(cfg) -> list:
     out = []
     for i in range(MESH_TRAIN[cfg.name][2]):
@@ -4821,6 +5127,90 @@ def _rank_serve(arch, dtype, mesh, coords, sizes, label, reference) -> dict:
     return rec
 
 
+def _rank_ring(lcfg, world1: dict, r: int, m: int) -> dict:
+    """Rank ``r`` of ``m``'s pool of one sequence, carried from world 1's
+    ring ``world1`` (``_long_ring``) by ring page: the rank's local page
+    ``j`` holds ring page ``j m + r`` (``shardings.seq_place`` with
+    ``ring``), where world 1's row holds its ring pages in order."""
+    from repro_torch.launch.steps import cache_len_for
+    pool = Model(lcfg).init_cache(1, cache_len_for(lcfg, LONG_SHAPE),
+                                  dtype=world1["k"].dtype, device="cuda")
+    L, P = pool["block_tables"].shape[1], world1["block_tables"].shape[1]
+    if P != m * L or not torch.equal(world1["block_tables"][0].cpu(), torch.arange(P).int()):
+        fail(f"a ring of {P} pages in its table's order does not go to {m} ranks of {L}")
+    for key in ("k", "v"):
+        pool[key].copy_(world1[key][:, r::m])
+    pool["pos"].copy_(world1["pos"])
+    return pool
+
+
+def _rank_long(params, mesh, coords, sizes, label, reference) -> dict:
+    """One rank's long_500k case (``MESH_LONG_*``) on the parameters of
+    its ``MESH_LONG_ARCH`` train run before it trains them: world 1's ring
+    by ring page and its decode steps, then the windowed prefill and its
+    decode steps, fed world 1's tokens; every logit within ``MESH_TOL`` of
+    world 1's and every greedy token world 1's; every decode attention on
+    the partial + LSE instance and every prefill attention on the float32
+    tensor-core kernel with the window."""
+    from repro_torch.launch.steps import local_config, sharded_step
+    cfg, wcfg = _long_config(), _long_config(MESH_LONG_PREFILL_WINDOW)
+    lcfg = local_config(cfg, sizes)
+    r, m = coords["model"], sizes["model"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        pool = _rank_ring(lcfg, _long_ring(cfg, MESH_LONG_POS, torch.float32,
+                                           MESH_LONG_SEED), r, m)
+        ring_pages = pool["block_tables"].shape[1]
+        t1 = time.monotonic()
+        decode, _, _ = _long_steps(sharded_step(cfg, LONG_SHAPE, mesh)[0], params, pool,
+                                   None, MESH_LONG_STEPS, reference["feed"])
+        decode_s = (time.monotonic() - t1) / MESH_LONG_STEPS
+        del pool
+        shape = InputShape("mesh_long_prefill", MESH_LONG_PROMPT, 1, "prefill")
+        logits, pool = sharded_step(wcfg, shape, mesh)[0](
+            params, {"tokens": reference["prompt"].cuda()})
+        prefill_pages = pool["block_tables"].shape[1]
+        step = sharded_step(wcfg, InputShape("mesh_long_decode", MESH_LONG_PREFILL_WINDOW, 1,
+                                             "decode"), mesh)[0]
+        after, _, pool = _long_steps(step, params, pool, None, MESH_LONG_PREFILL_STEPS,
+                                     reference["prefill_feed"])
+        del pool
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    layers = cfg.n_layers
+    launches = {"flash_prefill": flash_prefill.launches,
+                "flash_prefill_tf32": flash_prefill.tf32_launches,
+                "flash_prefill_window": flash_prefill.window_launches,
+                "paged_attention": paged_attention.launches,
+                "paged_attention_lse": paged_attention.lse_launches}
+    steps = MESH_LONG_STEPS + MESH_LONG_PREFILL_STEPS
+    want = {"flash_prefill": layers, "flash_prefill_tf32": layers,
+            "flash_prefill_window": layers, "paged_attention": layers * steps,
+            "paged_attention_lse": layers * steps}
+    if launches != want:
+        fail(f"{label} long_500k: launches {launches}, want {want}")
+    err, agree = {}, {}
+    for part, got in (("decode", decode), ("prefill", [logits.float().cpu()] + after)):
+        err[part] = max(check_close(f"{label} long_500k {part} step {i}", a, b,
+                                    torch.float32, MESH_TOL)
+                        for i, (a, b) in enumerate(zip(got, reference[part])))
+        agree[part] = [sum(int(a.argmax(-1) == b.argmax(-1))
+                           for a, b in zip(got, reference[part])), len(got)]
+        if agree[part][0] != len(got):
+            fail(f"{label} long_500k {part}: {agree[part][0]} of {len(got)} greedy tokens "
+                 "are world 1's")
+    return {"layers": layers, "window": cfg.sliding_window, "ring_pages": ring_pages,
+            "prefill_window": wcfg.sliding_window, "prefill_ring_pages": prefill_pages,
+            "max_abs_err": max(err.values()), "max_abs_err_by_part": err,
+            "tolerance": MESH_TOL[torch.float32], "greedy_agree": agree,
+            "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": seconds, "decode_step_s": decode_s}
+
+
 def _serve_calls(cfg) -> tuple:
     """({"prefill", "decode"}: attention launches of one prefill call and of
     one decode step, SSD launches of one prefill call) of ``cfg``: a
@@ -4837,9 +5227,20 @@ def _serve_calls(cfg) -> tuple:
     return {"prefill": L, "decode": L}, 0
 
 
-def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> dict:
+def _rank_params(cfg, mesh, coords):
+    """A rank's float32 shards of ``cfg``'s parameters from world 1's seed."""
+    from repro_torch.params import init_shard
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    return _in_turns(lambda: init_shard(cfg, gen, mesh, coords, dtype=torch.float32,
+                                        device="cuda"))
+
+
+def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference,
+                params=None) -> dict:
     """One rank's ``MESH_TRAIN[arch][2]`` sharded train steps from world 1's
-    seed: each step's loss and gradient norm against world 1's (the same on
+    seed (from ``params``, its shards drawn from that seed, where given):
+    each step's loss and gradient norm against world 1's (the same on
     every rank), every attention and SSD launch on the float32 tensor-core
     kernels, then the parameters held against world 1's (``MESH_TRAIN_REL``,
     ``MESH_TRAIN_OUTLIERS``): each rank compares its own piece of each leaf
@@ -4847,16 +5248,14 @@ def _rank_train(arch, zero: bool, mesh, coords, label, work: str, reference) -> 
     counted on one rank only, and the sums are added over the ranks (no
     parameter crosses the host)."""
     from repro_torch.launch.steps import sharded_step
-    from repro_torch.params import init_opt_shard, init_shard, layout_split, rank_leaves
+    from repro_torch.params import init_opt_shard, layout_split, rank_leaves
     cfg = _train_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(MESH_SEED)
-    params = _in_turns(lambda: init_shard(cfg, gen, mesh, coords, dtype=torch.float32,
-                                          device="cuda"))
+    if params is None:
+        params = _rank_params(cfg, mesh, coords)
     opt = init_opt_shard(cfg, mesh, zero=zero, device="cuda")
     shape = InputShape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
     fn, _ = sharded_step(cfg, shape, mesh, remat=True, zero_opt=zero)
@@ -5020,7 +5419,8 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
     """One rank of a mesh phase run (``--mesh-rank``): each serving case's
     shards (``_serve_cases``) from the same seed as world 1
     (``params.init_shard``) through the sharded prefill and decode steps
-    (``_rank_serve``), then each training run of this mesh (``_rank_train``),
+    (``_rank_serve``), on ``MESH_SPLIT_SHAPE`` the ``long_500k`` case
+    (``_rank_long``), then each training run of this mesh (``_rank_train``),
     and one JSON line: launches, peak memory and seconds of each part. Any
     failure exits non-zero."""
     from repro_torch.launch.mesh import (close_mesh, make_local_mesh, mesh_axis_sizes,
@@ -5050,11 +5450,19 @@ def mesh_rank(rank: int, world: int, model_axis: int, work: str, backend: str) -
     for arch, dtype in _serve_cases(sizes["data"], sizes["model"]):
         out["serve"].setdefault(arch, {})[_name(dtype)] = _rank_serve(
             arch, dtype, mesh, coords, sizes, label, reference)
+    params = {}
+    if split:   # the long_500k case on the parameters its arch then trains
+        t1 = time.monotonic()
+        params[MESH_LONG_ARCH] = _rank_params(_train_config(MESH_LONG_ARCH), mesh, coords)
+        init_s = time.monotonic() - t1
+        out["long"] = _rank_long(params[MESH_LONG_ARCH], mesh, coords, sizes, label,
+                                 reference["long"]) | {"init_s": init_s}
     for arch, (_, meshes, *_) in MESH_TRAIN.items():
         for data, model, zero in meshes:
             if (data, model) == (sizes["data"], sizes["model"]):
                 out["train"][arch] = _rank_train(arch, zero, mesh, coords, label, work,
-                                                 reference[f"train {arch}"])
+                                                 reference[f"train {arch}"],
+                                                 params.pop(arch, None))
     out["end_unix"] = time.time()   # the group's wall: the parent's start to the last end
     print(json.dumps(out), flush=True)
     close_mesh()
@@ -5113,6 +5521,9 @@ def _planned(data: int, model: int) -> dict:
                 shape = InputShape("mesh_train", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train")
                 mem = roofline.plan(_train_config(arch), shape, mesh=mesh, zero_opt=zero)[1]
                 planned[arch, "train"] = mem["arg_bytes"] + mem["layout_extra_bytes"]
+    if (data, model) == MESH_SPLIT_SHAPE:
+        mem = roofline.plan(_long_config(), LONG_SHAPE, mesh=mesh)[1]
+        planned[MESH_LONG_ARCH, "long"] = mem["arg_bytes"] + mem["layout_extra_bytes"]
     return planned
 
 
@@ -5144,7 +5555,8 @@ def _collect_ranks(smi: str, started: tuple, t0: float, planned: dict) -> dict:
     for _, out, _ in results:
         rec = json.loads(out.strip().splitlines()[-1])
         for (arch, part), arg_bytes in planned.items():
-            where = rec["train"][arch] if part == "train" else rec["serve"][arch][part]
+            where = rec["long"] if part == "long" else \
+                rec["train"][arch] if part == "train" else rec["serve"][arch][part]
             where["dryrun_arg_bytes"] = arg_bytes
         emit("mesh_rank", gpu=smi, mesh=f"{data}x{model}", **rec)
         ranks.append(rec)
@@ -5158,10 +5570,13 @@ def phase_mesh(smi: str) -> dict:
     prefill and decode steps on the meshes of ``MESH_SHAPES``, and the
     train runs of ``MESH_TRAIN``; llama-70b and yi-34b on
     ``MESH_SPLIT_SHAPE``, where the model axis splits their heads
-    (``MESH_SPLIT_CASES``), and there llama-8b's train step too (its
-    ``MESH_TRAIN`` mesh of that shape): world 1 on the card first (the references; the
-    ranks of every group start beside them and wait), then each group's
-    ranks (``mesh_rank``) in turn, the split-heads group first, sharing the
+    (``MESH_SPLIT_CASES``), and there llama-8b at ``long_500k``
+    (``_rank_long``) and its train step (its ``MESH_TRAIN`` mesh of that
+    shape): world 1 on the card first (the split-heads group's references;
+    its ranks start beside them and wait), then each group's ranks
+    (``mesh_rank``) in turn, the split-heads group first (the other groups'
+    ranks start with it and wait; world 1 takes their serving references
+    while it runs and their training references after it), sharing the
     card over gloo or one card a rank over NCCL where there are enough.
     Returns the ranks' launches, summed."""
     t0 = time.monotonic()
@@ -5178,43 +5593,57 @@ def phase_mesh(smi: str) -> dict:
                 torch.cuda.empty_cache()
             return reference[key]
 
+        def train_world1(archs, saver) -> None:
+            saves = []
+            for arch in archs:
+                t1 = time.monotonic()
+                reference[f"train {arch}"], saved = _train_world1(arch, work, saver)
+                saves.append(saved)
+                world1_s[f"train {arch}"] = time.monotonic() - t1
+                emit("mesh_train_world1", gpu=smi, arch=arch, **reference[f"train {arch}"])
+                gc.collect()
+                torch.cuda.empty_cache()
+            for saved in saves:   # every file written before a rank reads one
+                saved.result()
+
         # the first group's ranks start now and reach the card while world 1
-        # computes the references, the others' while the first group runs;
-        # each waits for its go (``_go``)
+        # computes their references, the others' when it has: each waits for
+        # its go (``_go``). The other groups' serving references are taken
+        # while the first group runs (a few GB at a time), their training
+        # references after it (up to 48 GB, which the first group's shards
+        # and draws need not share the card with)
         groups = [MESH_SPLIT_SHAPE, *MESH_SHAPES]
+        split_train = [a for a, t in MESH_TRAIN.items()
+                       if any((d, m) == MESH_SPLIT_SHAPE for d, m, _ in t[1])]
         started = {"x".join(map(str, groups[0])): _start_ranks(work, *groups[0])}
+        meshes = {}
         try:
-            for arch, dtype in MESH_SPLIT_CASES:
-                world1(arch, dtype)
-            for arch in MESH_SERVE_ARCHS:
-                for dtype in MESH_RUNS:
-                    world1(arch, dtype)
             with ThreadPoolExecutor(1) as saver:
-                saves = []
-                for arch in MESH_TRAIN:
-                    t1 = time.monotonic()
-                    reference[f"train {arch}"], saved = _train_world1(arch, work, saver)
-                    saves.append(saved)
-                    world1_s[f"train {arch}"] = time.monotonic() - t1
-                    emit("mesh_train_world1", gpu=smi, arch=arch,
-                         **reference[f"train {arch}"])
-                    gc.collect()
-                    torch.cuda.empty_cache()
-                for saved in saves:   # every file written before a rank reads one
-                    saved.result()
-            torch.save(reference, os.path.join(work, "world1.pt"))
-            torch.save({f"{a} {_name(dt)}": reference[f"{a} {_name(dt)}"]
-                        for a, dt in MESH_SPLIT_CASES} |
-                       {f"train {a}": reference[f"train {a}"] for a, t in MESH_TRAIN.items()
-                        if any((d, m) == MESH_SPLIT_SHAPE for d, m, _ in t[1])},
-                       os.path.join(work, "world1_split.pt"))
-            world1_done_s = time.monotonic() - t0
-            meshes = {}
-            for i, (d, m) in enumerate(groups):
+                for arch, dtype in MESH_SPLIT_CASES:
+                    world1(arch, dtype)
+                t1 = time.monotonic()
+                reference["long"] = _long_world1()
+                world1_s["long"] = time.monotonic() - t1
+                train_world1(split_train, saver)
+                torch.save({f"{a} {_name(dt)}": reference[f"{a} {_name(dt)}"]
+                            for a, dt in MESH_SPLIT_CASES} |
+                           {f"train {a}": reference[f"train {a}"] for a in split_train} |
+                           {"long": reference["long"]},
+                           os.path.join(work, "world1_split.pt"))
+                world1_done_s = time.monotonic() - t0
+                d, m = groups[0]
                 go = _go(work, d, m)
-                if i == 0:
-                    started.update({f"{d2}x{m2}": _start_ranks(work, d2, m2)
-                                    for d2, m2 in groups[1:]})
+                started.update({f"{d2}x{m2}": _start_ranks(work, d2, m2)
+                                for d2, m2 in groups[1:]})
+                planned = _planned(d, m)   # on the host, while the ranks run
+                for arch in MESH_SERVE_ARCHS:
+                    for dtype in MESH_RUNS:
+                        world1(arch, dtype)
+                meshes[f"{d}x{m}"] = _collect_ranks(smi, started[f"{d}x{m}"], go, planned)
+                train_world1([a for a in MESH_TRAIN if a not in split_train], saver)
+            torch.save(reference, os.path.join(work, "world1.pt"))
+            for d, m in groups[1:]:
+                go = _go(work, d, m)
                 planned = _planned(d, m)   # on the host, while the ranks run
                 meshes[f"{d}x{m}"] = _collect_ranks(smi, started[f"{d}x{m}"], go, planned)
         finally:   # a failure leaves no rank of any group running
@@ -5234,6 +5663,10 @@ def phase_mesh(smi: str) -> dict:
                   "ssd_scan_tf32": t["launches"]["ssd_scan.tf32_launches"],
                   "ssd_scan_backward": t["launches"]["ssd_scan_backward"]}
                  for t in rec["train"].values()]
+            if "long" in rec:
+                parts.append({k: rec["long"]["launches"][k] for k in
+                              ("flash_prefill", "flash_prefill_tf32", "paged_attention",
+                               "paged_attention_lse")})
             for part in parts:
                 for k, v in part.items():
                     launches[k] = launches.get(k, 0) + v
@@ -5294,6 +5727,17 @@ def phase_mesh(smi: str) -> dict:
                          f"{MESH_MOE_REROUTE_MAX:g}")
         summary[k] = {"backend": v["backend"], "wall_s": v["wall_s"], "serve": serve,
                       "train": train}
+        if "long" in v["ranks"][0]:
+            longs = [r["long"] for r in v["ranks"]]
+            summary[k]["long"] = {
+                "max_abs_err": max(x["max_abs_err"] for x in longs),
+                "greedy_agree": longs[0]["greedy_agree"],
+                "launches_a_rank": longs[0]["launches"],
+                "seconds_max": max(x["seconds"] for x in longs),
+                "decode_step_s_max": max(x["decode_step_s"] for x in longs),
+                "init_s_max": max(x["init_s"] for x in longs),
+                "peak_bytes_max": max(x["peak_bytes"] for x in longs),
+                "dryrun_arg_bytes": longs[0]["dryrun_arg_bytes"]}
     emit("mesh", gpu=smi, archs=list(MESH_SERVE_ARCHS),
          reduced={a: "layers" if any(_mesh_config(a, dt).n_layers < get_config(a).n_layers
                                      for dt in MESH_RUNS) else None
@@ -5308,6 +5752,17 @@ def phase_mesh(smi: str) -> dict:
                     "batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ, "lr": TRAIN_LR}
                 for a, t in MESH_TRAIN.items()},
          split_cases=[f"{a} {_name(dt)}" for a, dt in MESH_SPLIT_CASES],
+         long={"arch": MESH_LONG_ARCH, "shape": LONG_SHAPE.name, "dtype": "float32",
+               "layers": _long_config().n_layers, "window": _long_config().sliding_window,
+               "first_pos": MESH_LONG_POS, "decode_steps": MESH_LONG_STEPS,
+               "prompt": MESH_LONG_PROMPT, "prefill_window": MESH_LONG_PREFILL_WINDOW,
+               "prefill_decode_steps": MESH_LONG_PREFILL_STEPS, "tolerance": MESH_TOL[torch.float32],
+               "reduced": {"layers": f"{_long_config().n_layers} of "
+                                     f"{get_config(MESH_LONG_ARCH).n_layers}",
+                           "prefill_window": f"{MESH_LONG_PREFILL_WINDOW} of "
+                                             f"{_long_config().sliding_window}: a longer "
+                                             "prompt gathers every position's q, k, v on "
+                                             "every rank over gloo"}},
          split_shape="x".join(map(str, MESH_SPLIT_SHAPE)), world1_done_s=world1_done_s,
          world1_s=world1_s, meshes=summary, launches=launches)
     return launches

@@ -8,10 +8,11 @@ per-sequence block table, with tokens at or past ``lengths[b]`` masked; a
 sequence of length 0 gives zeros. Beyond the TPU kernel it takes an optional
 per-sequence lower bound ``starts[b]``: tokens below it are masked too. That
 is the reference's sliding window (``layers.attention_decode`` masks
-``slot_pos > pos - window``): the port's pool keeps every position of a
-sequence and applies the window as ``starts = max(0, pos + 1 - window)``,
-where the reference keeps a ring of the last ``window`` slots; both attend
-over the same positions. head_dim is 64, 80, 96 or 128.
+``slot_pos > pos - window``): the port keeps a windowed pool as a ring of
+pages, which a decode step reads through a rotated block table, oldest page
+first, attending over ``[starts, lengths)`` of its positions
+(``models/layers.py::decode_plan``), where the reference keeps a ring of
+slots; both attend over the same positions. head_dim is 64, 80, 96 or 128.
 
 Bound on the H100: bytes. Each K/V element is read once and used for
 ``group`` (1..8) multiply-adds, so the least time is that of streaming

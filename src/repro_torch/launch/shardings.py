@@ -37,6 +37,16 @@ copies between pools page for page. A row of ``pages`` pages takes
 ``ceil(pages / m)`` pages on every rank: where ``m`` does not divide
 ``pages`` that rounds it up (ROADMAP.md, Departures).
 
+A sliding window's pool is a ring (``models/layers.py``): position ``q`` of
+a row lives at ring page ``(q // page) mod P`` of its ``P`` pages, the
+reference's ``slot = pos % S`` at page granularity. On ``m`` ranks the ring
+is the ``m * L`` pages that the rank's ``L = ceil(P / m)`` local pages a
+row make up, each rank's pages round-robin by ring page as above: page
+``p = q // page`` lives on rank ``p mod m`` at local page ``(p div m) mod
+L`` (``seq_place(..., ring=L)``), so a rank's pages form a ring of their
+own, of its ``L`` local pages, and ``seq_local_length`` still counts its
+positions in order, the ring unrolled.
+
 The rules here stay the reference's. The sharded step holds the Mamba2
 leaves (``w_in``, the conv's ``conv_w`` / ``conv_b``, ``norm_w``) and the
 ``conv`` cache by the port's rank layout instead (``params.ssm_layout``:
@@ -156,12 +166,15 @@ def seq_pages(pages: int, m: int) -> int:
     return -(-pages // m)
 
 
-def seq_place(pos, m: int, page: int):
+def seq_place(pos, m: int, page: int, ring: int = 0):
     """``(owner, local_page, offset)`` of position ``pos`` of a row: the
     model rank that holds it, its page in that rank's pages of the row, and
-    its place within the page."""
+    its place within the page. ``ring``: a rank's local pages a row where
+    they form a ring (a sliding window's pool), which the local page then
+    wraps around; 0 for a pool that holds every position."""
     p = pos // page
-    return p % m, p // m, pos % page
+    local = p // m
+    return p % m, local % ring if ring else local, pos % page
 
 
 def seq_local_length(length, r: int, m: int, page: int):

@@ -28,16 +28,18 @@ axis of 16 over 8 KV heads), the dense, VLM and audio families' train,
 prefill and decode steps run the reference's placement: the projections cut
 mid-head, the KV pool (and an audio model's cross pool of encoder
 positions) sharded over the sequence in round-robin pages
-(``shardings.seq_place``), the decode's attention merged over the ranks by
-log-sum-exp (``models/layers.py``).
+(``shardings.seq_place``; a sliding window's ring by ring page), the
+decode's attention merged over the ranks by log-sum-exp
+(``models/layers.py``).
 
-One departure: the port's page pool keeps every position of a sequence,
-and a sliding window is a lower bound on what a query reads (ROADMAP.md,
-Departures). So a prefill whose prompt is longer than ``cache_len_for``
-(zamba2-2.7b's window of 4096 at ``prefill_32k``, internvl2-2b's 256
-vision positions in front of 32768 tokens) gets a pool of the prompt's
+A sliding window's pool is a ring of ``cache_len_for`` positions, as the
+reference's cache is, so a windowed prefill step keeps the prompt's last
+positions (zamba2-2.7b's window of 4096 at ``prefill_32k``) and the decode
+state at ``long_500k`` is O(window). One departure: the port's pool of a
+model without a window keeps every position, so internvl2-2b's prefill of
+256 vision positions in front of 32768 tokens gets a pool of the prompt's
 length, where the reference keeps the last ``cache_len_for`` positions
-(``prefill_cache_len``).
+(``prefill_cache_len``; ROADMAP.md, Departures).
 """
 from __future__ import annotations
 
@@ -79,9 +81,11 @@ def cache_len_for(cfg: ModelConfig, shape: InputShape) -> int:
 
 
 def prefill_cache_len(cfg: ModelConfig, shape: InputShape) -> int:
-    """The pool a prefill of ``shape`` writes: ``cache_len_for``, or the
-    prompt's positions where they are more (a VLM's vision prefix counted;
-    see the module docstring)."""
+    """The pool a prefill of ``shape`` writes: ``cache_len_for``, a ring
+    with a sliding window; without one, the prompt's positions where they
+    are more (a VLM's vision prefix counted; see the module docstring)."""
+    if cfg.sliding_window > 0:
+        return cache_len_for(cfg, shape)
     n_vis = cfg.n_vision_tokens if cfg.arch_type == "vlm" else 0
     return max(cache_len_for(cfg, shape), shape.seq_len + n_vis)
 
@@ -225,15 +229,15 @@ def check_mesh_runs(cfg: ModelConfig, sizes: Dict[str, int]) -> None:
     on a mesh of axis ``sizes``: a model whose heads, KV heads, ``d_ff`` and
     SSM heads the model axis divides, so that every rank holds whole heads,
     and, for MoE, its experts' ``d_ff`` (f-sharded experts: the reference's
-    expert-parallel fallback is not ported); or a dense, VLM or audio model
-    without a sliding window where the axis divides ``d_ff`` and the
+    expert-parallel fallback is not ported); or a dense, VLM or audio model,
+    with or without a sliding window, where the axis divides ``d_ff`` and the
     projections' widths ``n_heads * head_dim`` and ``n_kv_heads * head_dim``
     but not the KV heads: the split-heads placement (``splits_heads``:
     ``wq``/``wk``/``wv`` cut on their columns mid-head as the reference cuts
     them, the KV pools, an audio model's cross pool among them, sharded over
-    the sequence in round-robin pages). The train, prefill and decode steps
-    run alike. The placement functions of ``launch/shardings.py`` answer
-    every case."""
+    the sequence in round-robin pages, a window's ring by ring page). The
+    train, prefill and decode steps run alike. The placement functions of
+    ``launch/shardings.py`` answer every case."""
     m = sizes["model"]
     if cfg.arch_type not in MESH_ARCHS:
         raise NotImplementedError(
@@ -264,10 +268,6 @@ def _check_split_heads(cfg: ModelConfig, m: int) -> None:
         raise NotImplementedError(
             f"{where}; only the dense, VLM and audio families run on split heads "
             "(ROADMAP.md, Queue A item 8b-ii)")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{where}; a sliding window on split heads is not ported "
-            "(ROADMAP.md, Queue A item 8b-ii, 4e)")
     if cfg.n_kv_heads % m == 0:
         raise NotImplementedError(
             f"{where}; it divides the KV heads but not the heads, a placement "
@@ -485,8 +485,10 @@ def sharded_step(cfg: ModelConfig, shape: InputShape, mesh, *, remat: bool = Tru
     microbatches take those column and row blocks as every other
     model-sharded leaf. Its KV
     pool (an audio model's cross pool too) holds every KV head at its
-    round-robin pages of each row (``shardings.seq_place``), and a decode
-    step merges the ranks' partial attention by their log-sum-exp
+    round-robin pages of each row (``shardings.seq_place``; a sliding
+    window's ring by ring page, each rank's pages a ring of their own), and
+    a decode step merges the ranks' partial attention, each over its
+    positions within the window, by their log-sum-exp
     (``models/layers.py``)."""
     cfg = resolve_config(cfg, shape)
     sizes = mesh_axis_sizes(mesh)

@@ -26,6 +26,10 @@ Against the reference, as in the port's other families: a free row of
 and attends over nothing. ``prefill`` refuses a ``past_cache`` (the
 reference's swallows it; its engine never chunks this family).
 
+With a sliding window (``launch.steps.resolve_config`` gives whisper-base
+one at ``long_500k``) the self pool is a ring of pages, as the dense
+family's (``models/layers.py``); the cross pool is never one.
+
 On a rank of split heads (``launch.steps.splits_heads``: whisper-base's 8
 heads on a model axis of 16) both pools hold the rank's round-robin pages
 of each row (``launch.shardings.seq_place``), the cross pool those of the
@@ -175,7 +179,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Cache]:
     """Encode ``frames``, run the prompt; return last-position logits and
     the cache: dense without ``cache_len`` (see the module docstring), paged
-    of that decoder capacity with it. Each layer's cross K/V are the
+    of that decoder capacity with it (with a sliding window the self pool is
+    a ring, which keeps a longer prompt's last positions, as the dense
+    family's). Each layer's cross K/V are the
     projections of the encoder states its cross-attention computed, kept
     once. A ``past_cache`` (chunked prefill) raises ``ValueError``."""
     if past_cache is not None:
@@ -185,9 +191,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     enc = encode(cfg, params, frames)
     x = L.embed(params["emb"], tokens)
     B, S, _ = x.shape
-    if cache_len is not None and cache_len < S:
-        raise ValueError(f"cache_len {cache_len} is shorter than the prompt "
-                         f"({S} tokens)")
+    transformer.check_cache_len(cfg, cache_len, S)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     hd, Hkv, T = cfg.resolved_head_dim, cfg.n_kv_heads, enc.shape[1]
     ks = torch.empty((cfg.n_layers, B, S, Hkv, hd), dtype=dtype, device=x.device)
@@ -213,14 +217,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if cache_len is None:
         return logits, {**dense, "pos": pos}
     cache = init_cache(cfg, B, cache_len, dtype, x.device)
-    for key, t in dense.items():
-        table = "cross_block_tables" if key.startswith("cross") else "block_tables"
-        # the positions of a row this rank's pool holds, in order
-        held = L.held_positions(cfg, cache[table].shape[1], t.shape[2], cache[key].shape[2],
-                                x.device)
-        for b in range(B):
-            rows = t[:, b, held]
-            transformer.cache_rows(cache, key, b, table=table)[:, :rows.shape[1]] = rows
+    transformer.fill_pool(cfg, cache, dense)
     cache["pos"] = pos
     return logits, cache
 

@@ -13,8 +13,8 @@ The decode cache joins the two families' caches: the per-layer
 states of ``mamba_model.py``, and the dense family's page pools per call of
 the shared block, ``"k", "v": (G, num_pages, page, Hkv, D)`` with
 ``G = n_layers / attn_every``, with ``"block_tables"`` and ``"pos"``. As in
-the dense family the pools keep every position and a sliding window is a
-lower bound on what decode attends over (the reference keeps a ring), and
+the dense family a sliding window's pools are rings of pages, as the
+reference's caches are rings of slots (``models/layers.py``), and
 ``prefill`` without ``cache_len`` returns a dense cache ``"k", "v":
 (G, B, S, Hkv, D)`` that ``write_slot`` copies into a pool row. Free rows
 update their SSM state as the reference's do and write no K/V.
@@ -108,7 +108,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             dtype=None) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt; return last-position logits and the decode cache:
     dense K/V without ``cache_len`` (every position, also with a window),
-    page pools of that capacity with it. Continuing from a ``past_cache``
+    page pools of that capacity with it (a window's rings keep a longer
+    prompt's last positions). Continuing from a ``past_cache``
     (chunked prefill) is not ported: the reference engine does not chunk
     this family."""
     if past_cache is not None:
@@ -119,9 +120,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     dtype = dtype or getattr(torch, cfg.dtype)
     G, A = _n_groups(cfg), cfg.attn_every
     B, S = tokens.shape
-    if cache_len is not None and cache_len < S:
-        raise ValueError(f"cache_len {cache_len} is shorter than the prompt "
-                         f"({S} tokens)")
+    transformer.check_cache_len(cfg, cache_len, S)
     x = L.embed(params["emb"], tokens)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     hd = cfg.resolved_head_dim
@@ -146,8 +145,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         return logits, {**states, "k": ks, "v": vs, "pos": pos}
     cache = init_cache(cfg, B, cache_len, dtype, x.device)
     for b in range(B):
-        write_slot(cache, b, {key: t[:, b:b + 1] for key, t in
-                              {**states, "k": ks, "v": vs}.items()})
+        mamba_model.write_slot(cache, b, {key: t[:, b:b + 1] for key, t in states.items()})
+    transformer.fill_pool(cfg, cache, {"k": ks, "v": vs})
     cache["pos"] = pos
     return logits, cache
 

@@ -13,10 +13,18 @@ Conventions:
   ``(num_pages, page, Hkv, D)`` per layer. On CUDA tensors both are the
   hand-written kernels; on CPU tensors their plain PyTorch versions.
 - a sliding window (``cfg.sliding_window``) and a bidirectional prefix
-  (``prefix_len``, the VLM's vision tokens) are masks of both kernels. The
-  pool keeps every position of a sequence: decode applies the window as a
-  lower bound on the positions attended to, where the reference keeps a ring
-  of ``window`` slots; both see the same positions.
+  (``prefix_len``, the VLM's vision tokens) are masks of both kernels. A
+  windowed model's pool is a ring, as the reference's cache is (``slot = pos
+  % S``), at page granularity: a row's ``P`` pages hold position ``q`` at
+  ring page ``(q // page) mod P``, offset ``q mod page``, so that the pool
+  holds a row's last ``P * page`` positions and a decode step's state stays
+  O(window) at any position. A decode step reads them through a rotated
+  view of ``P + 1`` block-table entries (``decode_plan``, ``ring_view``),
+  oldest page first, in which they lie in order, and attends over the last
+  ``min(window, P * page)`` of them: the kernel's ``[starts, lengths)`` in
+  the view's positions. A prefill of a longer prompt keeps its last
+  positions on the ring (``held_positions``), as the reference's
+  ``fit_cache`` keeps its last ``S``.
 - under a mesh (``runtime_flags.get_mesh()``, set by
   ``launch.steps.sharded_step``) a rank holds its shards of the heads, the
   KV heads, ``d_ff`` and the vocabulary; the row-parallel products (the
@@ -46,12 +54,16 @@ Conventions:
   gradients, of which it keeps its own columns; a cross-attention gathers
   q from the decoder's rows and k and v from the encoder's, in two). A
   prefill or a train step runs ``ops.flash_prefill`` over the query heads
-  its ``wo`` rows overlap (``split_head_block``) and keeps its own columns
-  of their output. Its KV pool holds every KV head at its round-robin pages
-  of each row (``launch.shardings.seq_place``): a decode step writes the
-  new token's K/V on the rank that owns the position only,
-  runs ``ops.paged_attention`` over every head and the rank's positions
-  into a float32 partial with its log-sum-exp, and the ranks merge the
+  its ``wo`` rows overlap (``split_head_block``), with the window where
+  there is one, and keeps its own columns of their output. Its KV pool
+  holds every KV head at its round-robin pages of each row
+  (``launch.shardings.seq_place``; a windowed pool's ring too, its ``L``
+  local pages a ring of their own): a decode step writes the new token's
+  K/V on the rank that owns the position only, runs ``ops.paged_attention``
+  over every head and the rank's positions (within the window: the rank's
+  ``starts``, in its own rotated view) into a float32 partial with its
+  log-sum-exp (``-inf`` on a rank that holds no position of the window),
+  and the ranks merge the
   partials (``merge_model_axis``: one ``all_gather`` of each rank's
   partial and log-sum-exp, weighed by ``exp(lse - max lse)`` on every
   rank), rounded once. An audio model's cross pool of ``enc_seq`` encoder
@@ -354,16 +366,31 @@ def kv_heads_of(cfg: ModelConfig, h0: int, h1: int):
     return kv
 
 
-def held_positions(cfg: ModelConfig, pages: int, length: int, page: int, device=None):
-    """The positions ``[0, length)`` of a row that this rank's pool of
-    ``pages`` pages a row holds, in its local order: all of them
-    (``slice(None)``), or on a rank of split heads those of its round-robin
-    pages (``shardings.seq_positions``), ``seq_local_length`` of them."""
-    if not split_heads(cfg):
-        return slice(None)
-    r, m = seq_rank(cfg)
+def held_positions(cfg: ModelConfig, pages: int, length: int, page: int, device=None,
+                   ring: bool = False):
+    """``(positions, slots)``: which of a row's positions ``[0, length)``
+    this rank's pool of ``pages`` pages a row holds, and where each lies in
+    the row's pages (``transformer.cache_rows``' order): every position at
+    its own slot, or on a rank of split heads those of its round-robin
+    pages, in order from its first slot (``shardings.seq_positions``,
+    ``seq_local_length`` of them). With ``ring`` (a sliding window's pool,
+    the module docstring) the ring keeps the last positions it has room for
+    (``m * pages`` pages of them on ``m`` ranks), each at its ring slot
+    (``shardings.seq_place``); before the ring is full the same places as
+    without. Either may be a slice."""
+    r, m = seq_rank(cfg) if split_heads(cfg) else (0, 1)
+    if ring and length > m * pages * page:
+        # the rank's positions of the last m * pages pages, in order: its
+        # ring unrolled, from local position lo (its page u // page is the
+        # row's page (u // page) m + r)
+        lo = sh.seq_local_length(length - m * pages * page, r, m, page)
+        u = torch.arange(lo, sh.seq_local_length(length, r, m, page), device=device)
+        return ((u // page) * m + r) * page + u % page, (u // page) % pages * page + u % page
+    if m == 1:
+        return slice(None), slice(0, length)
     where = sh.seq_positions(r, m, pages, page, device)
-    return where[:sh.seq_local_length(length, r, m, page)]
+    n = sh.seq_local_length(length, r, m, page)
+    return where[:n], slice(0, n)
 
 
 def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
@@ -509,7 +536,9 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, n_layers: int,
                   dtype, device) -> Dict[str, torch.Tensor]:
-    """Zeroed page pools for ``batch`` sequences of up to ``cache_len`` tokens.
+    """Zeroed page pools for ``batch`` sequences of up to ``cache_len`` tokens,
+    or, for a model with a sliding window, a ring of the last ``cache_len``
+    positions of each (the module docstring), rounded up to whole pages.
 
     ``k``/``v`` are (n_layers, num_pages, page, Hkv, D) with
     ``num_pages = batch * ceil(cache_len / page)``. Row ``i`` of
@@ -535,48 +564,88 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, n_layers: int,
 def decode_plan(cfg: ModelConfig, block_tables: torch.Tensor, pos: torch.Tensor,
                 active: Optional[torch.Tensor], page: int) -> Dict[str, Any]:
     """What every layer of one decode step shares: where the new token's K/V
-    go in the pools, the lengths to attend over, with a sliding window the
-    first position attended to (``starts = max(0, pos + 1 - window)``: the
-    reference's ``slot_pos > pos - window``), and the RoPE angles. Computed
-    once per step on the device, so the layers do not repeat these small
-    launches and a captured graph recomputes them from ``pos`` at every
-    replay.
+    go in the pools, the block table, lengths and, with a sliding window,
+    first positions (``starts``) to attend over, and the RoPE angles.
+    Computed once per step on the device, so the layers do not repeat these
+    small launches and a captured graph recomputes them from ``pos`` at
+    every replay.
 
     block_tables (B, pages_per_seq) int32; pos (B,) absolute position of the
     new token; active (B,) bool or None (all rows hold a sequence). An
     inactive row gets length 0 and position 0, so its indices stay in range
     whatever its stale ``pos`` is.
 
+    With a sliding window the pool is a ring of ``pages_per_seq`` pages (the
+    module docstring): the new token goes to ring page ``(pos // page) mod
+    pages_per_seq``, a row attends over its last ``min(window, pages_per_seq
+    * page)`` positions (the reference's ``slot_pos > pos - window`` over a
+    ring of that many slots), and ``table`` is the rotated view of the ring
+    in which they lie in order (``ring_view``): ``pages_per_seq + 1``
+    entries whatever ``pos`` is, so a captured graph replays across the
+    wrap; before it the view is the block table with one entry more, never
+    read, and ``starts`` and ``lengths`` are ``max(0, pos + 1 - window)``
+    and ``pos + 1``. Without a window ``table`` is the block table and
+    ``starts`` None.
+
     A rank of split heads holds its round-robin pages of each row
     (``shardings.seq_place``): the page and offset are the new token's place
     in them, ``keep`` lets only the rank that owns the position write it,
-    and the lengths are the rank's positions up to the new token's
-    (``shardings.seq_local_length``).
+    and the lengths and starts are counts of the rank's positions up to the
+    new token and below the window (``shardings.seq_local_length``), in its
+    own rotated view where its pages are a ring.
     """
     pos = pos.long()
     if active is not None:
         pos = pos * active
     cos, sin = rope_angles(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     lengths = pos + 1
-    page_ids, offsets = pos // page, pos % page
+    ring = block_tables.shape[1] if cfg.sliding_window > 0 else 0
+    r, m = seq_rank(cfg) if split_heads(cfg) else (0, 1)
+    # a ring holds its last m * ring pages' positions, m = 1 off a mesh
+    starts = (lengths - min(cfg.sliding_window, m * ring * page)).clamp_min(0) \
+        if ring else None
+    owner, local, offsets = sh.seq_place(pos, m, page, ring)
     keep = active
-    if split_heads(cfg):
-        r, m = seq_rank(cfg)
-        owner, page_ids, offsets = sh.seq_place(pos, m, page)
+    if m > 1:
         lengths = sh.seq_local_length(lengths, r, m, page)
+        starts = None if starts is None else sh.seq_local_length(starts, r, m, page)
         keep = owner == r if keep is None else keep & (owner == r)
     if active is not None:
         lengths = lengths * active
-    window = cfg.sliding_window
+    table = block_tables
+    if ring:
+        table, starts, lengths = ring_view(block_tables, starts, lengths, page)
     return {
-        "page_ids": torch.gather(block_tables.long(), 1, page_ids[:, None])[:, 0],
+        "page_ids": torch.gather(block_tables.long(), 1, local[:, None])[:, 0],
         "offsets": offsets,
+        "table": table,
         "lengths": lengths.to(torch.int32),
-        "starts": (pos + 1 - window).clamp_min(0).to(torch.int32) if window > 0
-        else None,
+        "starts": None if starts is None else starts.to(torch.int32),
         "cos": cos, "sin": sin,
         "keep": None if keep is None else keep[:, None, None],
     }
+
+
+def ring_view(block_tables: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
+              page: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A ring's rotated view: ``(table, starts, lengths)`` for the kernel,
+    from a row's ``L = block_tables.shape[1]`` ring pages and the positions
+    ``[starts, lengths)`` to attend over, counted along the ring unrolled
+    (the row's own positions, or a rank's own). The view's ``L + 1`` entries
+    are the ring pages of unrolled pages ``base .. base + L``, ``base = max(0,
+    newest - L)``: the oldest page the ring may still hold positions of
+    comes first and shares its physical page with the newest, which comes
+    last; ``starts`` and ``lengths`` move down by ``base`` pages. Since a
+    ring holds its last ``L * page`` positions, ``starts >= lengths - L *
+    page`` keeps every position read out of the newest page's slots that it
+    has already overwritten. ``base`` is 0 until the ring wraps: the view is
+    then the table with its first page once more at the end, past
+    ``lengths``."""
+    L = block_tables.shape[1]
+    base = ((lengths - 1).clamp_min(0) // page - L).clamp_min(0)
+    pages = (base[:, None] + torch.arange(L + 1, device=block_tables.device)) % L
+    table = torch.gather(block_tables, 1, pages)
+    return table.to(torch.int32), starts - base * page, lengths - base * page
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -594,13 +663,14 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     between layers.
 
     The new token's K/V are written into the pools IN PLACE, at page
-    ``block_tables[b, pos // page]``, offset ``pos % page``, before scoring,
-    so the token attends to itself and ``lengths = pos + 1``. (The reference
-    returns updated copies of its dense cache; updating the pool in place
-    avoids copying the whole pool every layer of every step.) Inactive rows
-    leave the pools as they are and attend over length 0, which gives zeros.
-    With ``cfg.sliding_window`` a row attends over its last ``window``
-    positions only (``plan["starts"]``). Returns out (B,1,d).
+    ``block_tables[b, pos // page]`` (its ring page with a window), offset
+    ``pos % page``, before scoring, so the token attends to itself and
+    ``lengths = pos + 1``. (The reference returns updated copies of its
+    dense cache; updating the pool in place avoids copying the whole pool
+    every layer of every step.) Inactive rows leave the pools as they are
+    and attend over length 0, which gives zeros. With ``cfg.sliding_window``
+    a row attends over its last ``window`` positions only, those its ring
+    holds (``plan["table"]``, ``plan["starts"]``). Returns out (B,1,d).
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -630,9 +700,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     v_pool[where] = v_new
     q = q.reshape(B, Hkv, H // Hkv, hd)
     if split:
-        return _merged_decode(cfg, p, q, k_pool, v_pool, block_tables, plan["lengths"],
-                              x.dtype)
-    o = ops.paged_attention(q, k_pool, v_pool, block_tables, plan["lengths"],
+        return _merged_decode(cfg, p, q, k_pool, v_pool, plan["table"], plan["lengths"],
+                              x.dtype, plan["starts"])
+    o = ops.paged_attention(q, k_pool, v_pool, plan["table"], plan["lengths"],
                             page_size=page, starts=plan["starts"])
     return row_parallel(o.reshape(B, 1, H * hd), p["wo"])
 
@@ -676,15 +746,18 @@ def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def _merged_decode(cfg: ModelConfig, p: Params, q: torch.Tensor, k_pool: torch.Tensor,
                    v_pool: torch.Tensor, block_tables: torch.Tensor,
-                   lengths: torch.Tensor, dtype) -> torch.Tensor:
+                   lengths: torch.Tensor, dtype,
+                   starts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A decode attention on a rank of split heads: every head of ``q`` (B,
-    Hkv, group, D) over the rank's ``lengths`` positions of its pages into a
-    float32 partial with its log-sum-exp, merged over the ranks
-    (``merge_model_axis``), rounded to ``dtype`` once, and the rank's
+    Hkv, group, D) over the rank's positions ``[starts, lengths)`` of its
+    pages (``block_tables``: a ring's rotated view) into a float32 partial
+    with its log-sum-exp (``-inf`` where it holds none), merged over the
+    ranks (``merge_model_axis``), rounded to ``dtype`` once, and the rank's
     ``q_cols`` columns of it through its rows of ``wo``."""
     B = q.shape[0]
     o, lse = ops.paged_attention(q, k_pool, v_pool, block_tables, lengths,
-                                 page_size=k_pool.shape[1], return_lse=True)
+                                 page_size=k_pool.shape[1], starts=starts,
+                                 return_lse=True)
     o = merge_model_axis(o, lse).to(dtype).reshape(B, 1, -1)
     r = seq_rank(cfg)[0]
     return row_parallel(o[..., r * cfg.q_cols:(r + 1) * cfg.q_cols], p["wo"])

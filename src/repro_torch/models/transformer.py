@@ -26,10 +26,13 @@ Two cache formats:
   (B, pages_per_seq)`` int32 in which row ``i`` owns the fixed page range
   ``[i * pages_per_seq, (i + 1) * pages_per_seq)``, and ``"pos": (B,)``.
   ``prefill(cache_len=n)`` returns this format, ready for ``decode_step``.
+  With a sliding window its pages are a ring (``models/layers.py``), which
+  a prefill of a longer prompt fills with the prompt's last positions.
   A mesh rank of split heads (``layers.split_heads``) holds its round-robin
   pages of each row (``launch.shardings.seq_place``), every KV head whole:
-  its valid positions are a prefix of its pages, so ``write_slot`` and
-  ``read_slot`` copy a row's pages in order between two such pools.
+  its valid positions are a prefix of its pages until a ring wraps, so
+  ``write_slot`` and ``read_slot`` copy a row's pages in order between two
+  such pools.
 """
 from __future__ import annotations
 
@@ -202,7 +205,11 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     Without ``cache_len`` the cache is dense (see the module docstring) and
     holds every position, also with a sliding window (the reference's keeps
     a ring of the last ``window``); with ``cache_len``, a paged cache of that
-    capacity, ready for ``decode_step``.
+    capacity, ready for ``decode_step``: with a sliding window a ring that
+    keeps the prompt's last positions where the prompt is longer, as the
+    reference's ``fit_cache`` keeps its last ``cache_len``
+    (``fill_pool``); without one a ``cache_len`` shorter than the prompt
+    raises ``ValueError``.
     """
     _require_transformer(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -219,9 +226,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     n_vis = 0 if vision_embeds is None else vision_embeds.shape[1]
     B, S, _ = x.shape            # S counts the vision prefix
     full_len = past_len + S
-    if cache_len is not None and cache_len < full_len:
-        raise ValueError(f"cache_len {cache_len} is shorter than the prompt "
-                         f"({full_len} tokens)")
+    check_cache_len(cfg, cache_len, full_len)
 
     positions = (past_len + torch.arange(S, device=x.device))[None, :].expand(B, S)
     hd = cfg.resolved_head_dim
@@ -250,15 +255,35 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if cache_len is None:
         return logits, {"k": ks, "v": vs, "pos": pos}
     cache = init_cache(cfg, B, cache_len, dtype, x.device)
-    # the positions this rank's pool holds, in order
-    held = L.held_positions(cfg, cache["block_tables"].shape[1], full_len,
-                            cache["k"].shape[2], x.device)
-    for b in range(B):
-        for key, t in (("k", ks), ("v", vs)):
-            rows = t[:, b, held]
-            cache_rows(cache, key, b)[:, :rows.shape[1]] = rows
+    fill_pool(cfg, cache, {"k": ks, "v": vs})
     cache["pos"] = pos
     return logits, cache
+
+
+def check_cache_len(cfg: ModelConfig, cache_len: Optional[int], length: int) -> None:
+    """Refuse a pool of ``cache_len`` that cannot take a prompt of
+    ``length`` positions: one shorter than the prompt, unless the model
+    has a sliding window, whose pool is a ring that keeps the last."""
+    if cache_len is not None and cache_len < length and cfg.sliding_window == 0:
+        raise ValueError(f"cache_len {cache_len} is shorter than the prompt "
+                         f"({length} tokens)")
+
+
+def fill_pool(cfg: ModelConfig, cache: Cache, dense: Cache) -> None:
+    """Write dense K/V (``dense[key]`` (L, B, S, Hkv, D), positions 0 ..
+    S - 1 of each row) into the pools ``cache[key]`` of a paged cache, each
+    row the positions this rank's pool holds at their places
+    (``layers.held_positions``): every position, or on a rank of split
+    heads those of its round-robin pages; the self pools' ring (a sliding
+    window's) its last positions. A ``cross_`` key goes to the cross pool of
+    ``cross_block_tables``, which is no ring."""
+    for key, t in dense.items():
+        table = "cross_block_tables" if key.startswith("cross") else "block_tables"
+        positions, slots = L.held_positions(
+            cfg, cache[table].shape[1], t.shape[2], cache[key].shape[2], t.device,
+            ring=cfg.sliding_window > 0 and table == "block_tables")
+        for b in range(t.shape[1]):
+            cache_rows(cache, key, b, table=table)[:, slots] = t[:, b, positions]
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models import encdec, hybrid, layers, mamba_model, transformer
@@ -105,12 +106,15 @@ def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
                          device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """The reference's decode cache -> the port's. A dense cache (``k``/``v``
     (L, B, S, Hkv, D), ``slot_pos`` (B, S), ``pos`` (B,)) becomes a paged
-    cache for ``decode_step`` of capacity S or, for a sliding window's ring,
-    of the latest position held plus S (room for a ring's worth of decode
-    steps). Each slot's K/V goes to the position its
-    ``slot_pos`` names (-1: empty); a ring's slots are so unrolled into
-    position order, and the positions the ring no longer holds stay zero,
-    below the window that decode attends over. An ssm cache (``ssm``
+    cache for ``decode_step`` of capacity S: for a sliding window a ring of
+    ``ceil(S / page)`` pages a row (``models/layers.py``), as the reference's
+    is a ring of S slots. Each slot's K/V goes to the place of the position
+    its ``slot_pos`` names (-1: empty): that position itself, or its ring
+    page and offset. A ring of S slots shorter than the window where the
+    page does not divide S raises ``ValueError``: the port's ring of whole
+    pages attends over up to ``page - 1`` positions more than the
+    reference's S, which the reference's cache does not hold (ROADMAP.md,
+    Departures). An ssm cache (``ssm``
     float32, ``conv`` in ``dtype``, ``pos``) is carried over unchanged. A
     hybrid cache is both: its ``ssm`` and ``conv`` unchanged, the K/V of
     each of its G shared-block calls (``k``/``v`` (G, B, S, Hkv, D)) into
@@ -127,12 +131,21 @@ def cache_from_reference(cache_numpy: Dict[str, Any], cfg: ModelConfig,
     k = _tensor(cache_numpy["k"], device, dtype)
     v = _tensor(cache_numpy["v"], device, dtype)
     n_pools, B, S, _, _ = k.shape
-    slot_pos = np.asarray(cache_numpy["slot_pos"])
-    cache_len = S if cfg.sliding_window == 0 else int(slot_pos.max()) + 1 + S
-    cache.update(layers.init_kv_cache(cfg, B, cache_len, n_pools, dtype, device))
+    slot_pos = np.asarray(cache_numpy["slot_pos"]).astype(np.int64)
+    page = ops.DEFAULT_PAGE_SIZE
+    if 0 < S < cfg.sliding_window and S % page:
+        raise ValueError(f"a ring of {S} slots, shorter than the window of "
+                         f"{cfg.sliding_window}, is not a whole number of pages of "
+                         f"{page}: the port's ring would attend over positions the "
+                         "reference's does not hold")
+    cache.update(layers.init_kv_cache(cfg, B, S, n_pools, dtype, device))
+    ring = cache["block_tables"].shape[1] if cfg.sliding_window > 0 else 0
     for b in range(B):
         held = np.nonzero(slot_pos[b] >= 0)[0]
-        where = torch.from_numpy(slot_pos[b][held].astype(np.int64)).to(device)
+        q = slot_pos[b][held]
+        if ring:   # the position's ring page and offset
+            q = (q // page) % ring * page + q % page
+        where = torch.from_numpy(q).to(device)
         slots = torch.from_numpy(held).to(device)
         cache_rows(cache, "k", b)[:, where] = k[:, b, slots]
         cache_rows(cache, "v", b)[:, where] = v[:, b, slots]

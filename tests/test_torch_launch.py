@@ -331,16 +331,16 @@ def test_mesh_coll_bytes_count_the_plans_all_reduces(kind):
 
 @pytest.mark.parametrize("arch,shape,mesh_shape", [
     ("mamba2-1.3b", InputShape("s", 64, 8, "train"), (1, 128)),
-    ("llama-8b", InputShape("s", 64, 8, "decode"), (1, 16)),
+    ("zamba2-2.7b", InputShape("s", 64, 8, "decode"), (1, 16)),
     ("mamba2-1.3b", InputShape("s", 64, 8, "decode"), (1, 128)),
     ("qwen2-moe-a2.7b", InputShape("s", 64, 8, "prefill"), (1, 16))],
     ids=["train", "kv_heads_8_on_16", "ssm", "moe"])
 def test_mesh_coll_bytes_are_none_where_the_sharded_step_does_not_run(
         arch, shape, mesh_shape):
     """No plan, no count: a train step that sharded_step refuses, a model
-    axis that splits the 8 KV heads of a model with a sliding window
-    (llama-8b's with one of 4096: a window on split heads is not ported),
-    one that does not divide the
+    axis that splits the 8 KV heads of a hybrid model (zamba2-2.7b's cut to
+    8 KV heads: only the dense, VLM and audio families run on split heads,
+    with a window or without), one that does not divide the
     SSM heads (mamba2-1.3b's 64 on 128), and an MoE model whose experts'
     d_ff the axis does not divide (the expert-parallel fallback; its
     experts here at 1400, where 16 divides the rest); the dry run's terms
@@ -350,8 +350,9 @@ def test_mesh_coll_bytes_are_none_where_the_sharded_step_does_not_run(
     cfg = get_config(arch)
     if cfg.is_moe:
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, d_ff=1400))
-    if arch == "llama-8b":
-        cfg = cfg.with_(sliding_window=4096)
+    if arch == "zamba2-2.7b":
+        cfg = cfg.with_(n_kv_heads=8)
+        assert steps.splits_heads(cfg, 16)
     assert roofline.mesh_coll_bytes(cfg, shape, mesh.mesh_shape(mesh_shape)) is None
     t = RooflineTerms(flops=989e12, hbm_bytes=3.35e12 * 2, coll_bytes=None)
     assert t.collective_s is None and t.bottleneck == "memory" and t.step_time_s == 2.0

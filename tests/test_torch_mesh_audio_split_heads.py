@@ -122,7 +122,8 @@ def test_the_ranks_cross_partials_merge_to_the_whole_cross_pools_attention(cfg, 
     parts, held = [], []
     for r in range(m):
         with _rank_axis(r, m):
-            where = layers.held_positions(lcfg, local, T, page)
+            where, slots = layers.held_positions(lcfg, local, T, page)
+            assert slots == slice(0, len(where))
             lengths = encdec.cross_lengths(lcfg, pos, active, page).to(torch.int32)
         held.append(len(where))
         assert lengths.tolist() == [len(where), len(where), 0, len(where)]

@@ -576,17 +576,38 @@ def test_the_dry_run_counts_whisper_bases_cross_pool_on_round_robin_pages():
 REGISTRY = sorted(set(ASSIGNED_ARCHS) | {"llama-8b", "llama-70b"})
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k", "long_500k"])
 @pytest.mark.parametrize("arch", REGISTRY)
 def test_every_registry_config_runs_on_the_production_mesh(arch, shape):
     """On the reference's 16 x 16 mesh ``check_mesh_runs`` refuses no config
-    of the registry at the prefill, decode or train shape, and each step
-    has a plan."""
+    of the registry at the prefill, decode, train or ``long_500k`` shape
+    (where ``resolve_config`` gives every attention model a window of 4096,
+    on split heads for six of them), and each step has a plan."""
     from repro_torch import configs
     assert set(REGISTRY) == set(configs._ARCH_MODULES)
     cfg = steps.resolve_config(get_config(arch), INPUT_SHAPES[shape])
     steps.check_mesh_runs(cfg, {"data": 16, "model": 16})
     assert roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh_shape((16, 16)))
+
+
+@pytest.mark.parametrize("arch", REGISTRY)
+def test_the_dry_run_plans_every_registry_config_at_long_500k(arch):
+    """The dry run on 16 x 16 plans every config of the registry at
+    ``long_500k``, as the reference's compiles it: a decode of one sequence
+    whose attention layers hold a ring of 4096 positions (256 pages, 16 a
+    rank where the axis splits the heads), so that the round-robin ring
+    adds nothing to the reference's bytes: ``layout_extra_bytes`` is 0 on
+    split heads but for whisper-base's cross pool of 1500 encoder positions
+    (94 pages, 6 a rank: 96 positions where the specs give 94;
+    ``test_the_dry_run_counts_whisper_bases_cross_pool_on_round_robin_pages``)."""
+    rec, line = dryrun.run_one(arch, "long_500k", mesh=(16, 16))
+    assert rec["status"] == "ok" and rec["coll_bytes"] is not None, line
+    cfg = steps.resolve_config(get_config(arch), INPUT_SHAPES["long_500k"])
+    if steps.splits_heads(cfg, 16):
+        assert cfg.sliding_window == 4096, line
+        position = cfg.n_kv_heads * cfg.resolved_head_dim * 2          # bf16
+        cross = 2 * cfg.n_layers * (96 - 94) * position if arch == "whisper-base" else 0
+        assert rec["layout_extra_bytes"] == cross, line
 
 
 SPLIT_HEADS = ["llama-8b", "granite-8b", "llama-70b", "yi-34b", "internvl2-2b"]
@@ -631,18 +652,21 @@ def _split_heads_coll_want(arch, shape, mesh_dims, *, remat=True, zero=False):
             "all-gather model": gathered * 4 * (m - 1) / m, **want}
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
 @pytest.mark.parametrize("arch", SPLIT_HEADS)
 def test_mesh_coll_bytes_where_the_model_axis_splits_the_heads(arch, shape):
     """The five configs whose 8 KV heads the production model axis of 16
     splits (yi-34b's 56 heads too): their prefill and decode steps on 16 x
-    16 have a plan, counted by formula; ``arg_bytes`` stays the bytes of the
-    reference's specs, and at these lengths each row's pages divide over the
-    16 ranks, so the round-robin pool adds nothing (``layout_extra_bytes``
-    0). Their train step has a plan too (``test_mesh_coll_bytes_of_a_split_heads_train_step``),
+    16 have a plan, counted by formula, and so has ``long_500k``'s decode of
+    one sequence on a ring of 4096 positions (the window ``resolve_config``
+    gives them there); ``arg_bytes`` stays the bytes of the reference's
+    specs, and at these lengths each row's pages divide over the 16 ranks,
+    so the round-robin pool adds nothing (``layout_extra_bytes`` 0). Their
+    train step has a plan too (``test_mesh_coll_bytes_of_a_split_heads_train_step``),
     and so has whisper-base's step of this shape, counted by
     ``_audio_split_heads_coll_want``."""
-    cfg, mesh = get_config(arch), mesh_shape((16, 16))
+    cfg = steps.resolve_config(get_config(arch), INPUT_SHAPES[shape])
+    mesh = mesh_shape((16, 16))
     got = roofline.mesh_coll_bytes(cfg, INPUT_SHAPES[shape], mesh)
     want = _split_heads_coll_want(arch, shape, (16, 16))
     assert set(got) == set(want)
